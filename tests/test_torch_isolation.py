@@ -1,0 +1,71 @@
+"""The port stands alone: it imports neither JAX nor the JAX package,
+and its entry points default to the GPU."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from wekws_tpu_torch.models import init_model
+from wekws_tpu_torch.ops.serving import build_fused_forward, build_fused_stream
+from wekws_tpu_torch.runtime import BatchMaxPoolSpotter
+from wekws_tpu_torch.runtime.keyword_spotter import load_serving_model
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import wekws_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(
+    wekws_tpu_torch.__path__, "wekws_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "wekws_tpu"))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+CONF = {
+    "dataset_conf": {"feats_type": "fbank", "fbank_conf": {
+        "num_mel_bins": 23, "frame_shift": 10, "frame_length": 25}},
+    "model": {
+        "input_dim": 23, "output_dim": 1, "hidden_dim": 32,
+        "preprocessing": {"type": "linear"},
+        "backbone": {"type": "mdtc", "num_stack": 1, "stack_size": 2,
+                     "kernel_size": 5, "hidden_dim": 32, "causal": True},
+    },
+}
+
+
+def test_port_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert int(proc.stdout.split()[0]) >= 17  # every module was imported
+
+
+@pytest.mark.parametrize("entry", ["forward", "stream", "load", "engine"])
+def test_entry_points_default_to_cuda(tmp_path, entry):
+    """Called without ``device=`` they run on the GPU, or raise where
+    there is none; they never fall back to the CPU."""
+    model = init_model(CONF["model"])
+    ckpt = tmp_path / "m.pt"
+    torch.save(model.state_dict(), ckpt)
+    calls = {
+        "forward": lambda: build_fused_forward(model),
+        "stream": lambda: build_fused_stream(model),
+        "load": lambda: load_serving_model(CONF, str(ckpt), 23),
+        "engine": lambda: BatchMaxPoolSpotter(str(ckpt), CONF, 0.5,
+                                              num_streams=2),
+    }
+    if torch.cuda.is_available():
+        assert calls[entry]() is not None
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            calls[entry]()
