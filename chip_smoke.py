@@ -8,8 +8,8 @@ CUDA device, in phases; any failure exits non-zero:
 
 1. card name and power limit (nvidia-smi); a GPU is required;
 2. build every CUDA kernel from ``wekws_tpu_torch/csrc``;
-3. each kernel against its plain PyTorch version on the card, at
-   flagship width: whole-utterance forward at B=64 x T=198 and
+3. each serving kernel against its plain PyTorch version on the card,
+   at flagship width: whole-utterance forward at B=64 x T=198 and
    B=4 x T=1024, streaming at B=16 in chunks of 8 over 200 frames
    (chained, against the one-shot forward); bound 1e-4 abs + 1e-4 rel
    (fp32, another summation order);
@@ -19,9 +19,27 @@ CUDA device, in phases; any failure exits non-zero:
    against the module forward; (b) ``BatchMaxPoolSpotter(use_fused=
    True)`` fed 300 ms chunks, stepped and flushed, held against (a).
    Kernel launch counts are zeroed before each path and read after;
-5. kernel and plain times (CUDA events around one call, warm-up,
-   median of 30 calls; the kernel's device time alone from
-   torch.profiler) beside the bound computed from this run's shapes.
+5. serving kernel and plain times (CUDA events around one call,
+   warm-up, median of 30 calls; the kernel's device time alone from
+   torch.profiler) beside the bound computed from this run's shapes;
+6. the eight fused training passes (F1-F4, B1-B4) against their plain
+   versions on identical inputs, at flagship width (C=64, K=5):
+   B=64 x T=198 and a ragged B=5 x T=130, dilations 1 and 8, and C=32
+   once; each pass launched twice must agree bitwise (deterministic
+   reductions).  The whole fused block (forward, six batch statistics,
+   twelve parameter gradients and dx) against the unfused module block
+   by autograd on the card;
+7. the training slice end to end at B=512 x 2 s: device fbank +
+   CMVN from the batch + ``init_model(FLAGSHIP + fused_train)`` +
+   ``Trainer``: step 0 held against the unfused Trainer (loss and
+   every gradient), 5 steps without augmentation (loss finite and
+   decreasing), 2 steps with the flagship dither + spec_aug; every
+   pass launched 17 x steps times; cv step, two checkpoints saved,
+   averaged and loaded, and the trained model served through
+   ``build_fused_forward``, held against the module forward;
+8. training times: each pass per call (CUDA events, median of 30) at
+   B=512 x T=198, its device time per call in a profiled train step,
+   the plain version's time and the bound; the whole train step.
 
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -58,6 +76,19 @@ TOL = 1e-4  # abs and rel: fp32 with another summation order
 # tensor cores, and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+TRAIN_TOL = 1e-3  # sums over 1e4-1e5 frames, relative to the group's max
+TRAIN_B, TRAIN_SECONDS = 512, 2
+TRAIN_DATASET_CONF = {  # __graft_entry__.DATASET_CONF, the flagship recipe
+    "feats_type": "fbank",
+    "fbank_conf": {"num_mel_bins": 40, "frame_shift": 10,
+                   "frame_length": 25, "dither": 1.0,
+                   "dither_mode": "wave", "precision": "default"},
+    "spec_aug": True,
+    "spec_aug_conf": {"num_t_mask": 1, "num_f_mask": 1,
+                      "max_t": 20, "max_f": 10},
+}
+TRAIN_STEPS_PLAIN, TRAIN_STEPS_AUG = 5, 2
+TRAIN_PASSES = ("f1", "f2", "f3", "f4", "b1", "b2", "b3", "b4")
 KEYWORD = "HI"
 N_UTTS, SECONDS, RATE = 16, 2, 16000
 CHUNK_SAMPLES = RATE * 300 // 1000
@@ -170,14 +201,15 @@ def mdtc_bound_ms(b, t, c, n_layers, k, n_stacks, pad_max, stream):
                                  else "bytes")
 
 
-def check_close(name, got, want):
+def check_close(name, got, want, quiet=False):
     import torch
 
     err = float((got - want).abs().max())
     ok = torch.allclose(got, want, atol=TOL, rtol=TOL)
-    print(f"  {name}: max_abs_err {err:.3e} "
-          f"(|ref| max {float(want.abs().max()):.3e}, bound {TOL} abs + "
-          f"{TOL} rel) {'ok' if ok else 'MISMATCH'}", flush=True)
+    if not quiet or not ok:
+        print(f"  {name}: max_abs_err {err:.3e} "
+              f"(|ref| max {float(want.abs().max()):.3e}, bound {TOL} abs + "
+              f"{TOL} rel) {'ok' if ok else 'MISMATCH'}", flush=True)
     if not ok or not torch.isfinite(got).all():
         raise AssertionError(f"{name}: kernel disagrees with reference")
     return err
@@ -190,6 +222,422 @@ def synth_waves(rng):
     waves = rng.standard_normal((N_UTTS, n)) * 300.0
     waves[: N_UTTS // 2] += 4000.0 * np.sin(2 * np.pi * 500.0 * t)
     return np.clip(waves, -32768, 32767).astype(np.int16)
+
+
+def train_pass_bound_ms(name, b, t, c, k):
+    """Least time on an H100 for one training pass: the larger of the
+    compulsory bytes over HBM bandwidth (each (B, T, C) input read once,
+    each output written once, weights once) and its fp32 operations
+    over the fp32 peak (an FMA counts 2).  Per frame and channel: the
+    depthwise conv 2K, each C x C product 2C, the elementwise BN, ReLU
+    and exact-BN backward terms as counted below."""
+    n = b * t
+    act = 4 * n * c  # one (B, T, C) float32 tensor
+    w = 4 * c * c
+    per_frame = {  # operations per frame
+        "f1": c * (2 * k + 3),
+        "f2": c * (2 * k + 2) + 2 * c * c + 4 * c,
+        "f3": c * (2 * k + 2) + 4 * c * c + 11 * c,
+        "f4": 4 * c,
+        "b1": 10 * c,
+        "b2": 4 * c * c + 20 * c,
+        "b3": 8 * c * c + c * (2 * k + 30),
+        "b4": 6 * c * c + c * (6 * k + 30),
+    }[name]
+    nbytes = {
+        "f1": act, "f2": act + w, "f3": 3 * act + 2 * w, "f4": 3 * act,
+        "b1": 3 * act, "b2": 4 * act + 2 * w, "b3": 4 * act + 3 * w,
+        "b4": 5 * act + 2 * w,
+    }[name]
+    t_ops = n * per_frame / PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def block_params(gen, c, k, device):
+    """Seeded TCN block parameters in the JAX package's layouts."""
+    import torch
+
+    def r(*shape, scale=0.3):
+        return (torch.randn(shape, generator=gen) * scale).to(device)
+
+    p = {"dw_kernel": r(k, 1, c), "dw_bias": r(c),
+         "pw1_kernel": r(c, c, scale=c ** -0.5), "pw1_bias": r(c, scale=0.1),
+         "pw2_kernel": r(c, c, scale=c ** -0.5), "pw2_bias": r(c, scale=0.1)}
+    for i in range(3):
+        p[f"bn{i}_scale"] = 1.0 + r(c, scale=0.1)
+        p[f"bn{i}_bias"] = r(c, scale=0.1)
+    return p
+
+
+def check_sums(name, gots, wants):
+    """Sums over frames (BN sums, gradients): each within TRAIN_TOL of
+    the largest |value| among ``wants`` (at least 1).  One scale for
+    the group, because a sum that cancels to about zero (the gradient
+    of a bias that a BatchNorm follows) carries the rounding of terms
+    as large as its group's other sums."""
+    scale = max([float(w.abs().max()) for w in wants] + [1.0])
+    worst = 0.0
+    for i, (got, want) in enumerate(zip(gots, wants)):
+        err = float((got - want).abs().max())
+        if err > TRAIN_TOL * scale or not bool(got.isfinite().all()):
+            raise AssertionError(f"{name}[{i}]: max_abs_err {err:.3e} over "
+                                 f"bound {TRAIN_TOL} x {scale:.3e}")
+        worst = max(worst, err)
+    return worst
+
+
+def check_pass(name, got, want):
+    """(B, T, C) outputs 1e-4 abs + 1e-4 rel; sums as ``check_sums``."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = 0.0
+    sums = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a.dim() == 3:
+            err = max(err, check_close(f"{name}[{i}]", a, b, quiet=True))
+        else:
+            sums.append((a, b))
+    if sums:
+        err = max(err, check_sums(name, *zip(*sums)))
+    return err
+
+
+def phase6_train_kernels(dev, gen):
+    """Every training pass against its plain version, plus the whole
+    fused block against the unfused module block.  Returns the largest
+    error of each pass."""
+    import torch
+
+    from wekws_tpu_torch.models.mdtc import TCNBlock
+    from wekws_tpu_torch.ops.fused_mdtc_train import (
+        PASSES,
+        trace_pass_inputs,
+    )
+
+    errs = {name: 0.0 for name in TRAIN_PASSES}
+    k = 5
+    cases = [(64, 198, 64, 1), (64, 198, 64, 8), (5, 130, 64, 1),
+             (5, 130, 64, 8), (64, 198, 32, 8)]
+    for b, t, c, d in cases:
+        p = block_params(gen, c, k, dev)
+        x = torch.randn((b, t, c), generator=gen).to(dev)
+        dy = torch.randn((b, t, c), generator=gen).to(dev)
+        calls = trace_pass_inputs(x, p, dy, d)
+        for name, args in calls.items():
+            got = PASSES[name](*args)
+            again = PASSES[name](*args)
+            torch.cuda.synchronize()
+            errs[name] = max(errs[name],
+                             check_pass(name, got, PASSES[name].plain(*args)))
+            got = got if isinstance(got, tuple) else (got,)
+            again = again if isinstance(again, tuple) else (again,)
+            if not all(torch.equal(u, v) for u, v in zip(got, again)):
+                raise AssertionError(f"{name}: two launches differ")
+        print(f"  passes B={b} T={t} C={c} d={d}: "
+              + ", ".join(f"{n} {errs[n]:.2e}" for n in TRAIN_PASSES)
+              + " (running max abs err; bitwise reproducible)", flush=True)
+
+    # the whole block: fused Function vs autograd of the unfused modules
+    for b, t, d in ((64, 198, 1), (5, 130, 8)):
+        blocks = [TCNBlock(64, 64, k, d, fused_train=fused).to(dev).train()
+                  for fused in (True, False)]
+        with torch.no_grad():
+            for prm in blocks[0].parameters():
+                prm.copy_(torch.randn(prm.shape, generator=gen).to(dev)
+                          * 0.3)
+        blocks[1].load_state_dict(blocks[0].state_dict())
+        x = torch.randn((b, t, 64), generator=gen).to(dev)
+        dy = torch.randn((b, t, 64), generator=gen).to(dev)
+        outs = []
+        for blk in blocks:
+            xi = x.clone().requires_grad_()
+            y, _ = blk(xi, None)
+            (y * dy).sum().backward()
+            outs.append((y.detach(), xi.grad, blk))
+        (yf, dxf, bf), (yu, dxu, bu) = outs
+        check_close(f"block B={b} T={t} d={d} y", yf, yu)
+        check_close(f"block B={b} T={t} d={d} dx", dxf, dxu)
+        for (name, bufa), bufb in zip(bf.named_buffers(), bu.buffers()):
+            if "running" in name:  # the six batch statistics, folded in
+                check_close(f"block {name}", bufa, bufb)
+        worst = check_sums("block grads",
+                           [prm.grad for prm in bf.parameters()],
+                           [prm.grad for prm in bu.parameters()])
+        print(f"  fused block B={b} T={t} d={d} vs unfused autograd: y, "
+              f"dx and running statistics within {TOL} abs + {TOL} rel; "
+              f"12 parameter gradients max err {worst:.2e} (bound "
+              f"{TRAIN_TOL} x the largest |grad|)", flush=True)
+    return errs
+
+
+def train_batch(rng):
+    """TRAIN_B utterances of TRAIN_SECONDS: keyword rows carry a 500 Hz
+    tone in noise, fillers noise (as __graft_entry__'s dry run)."""
+    n = TRAIN_SECONDS * RATE
+    t = np.arange(n) / RATE
+    waves = (rng.standard_normal((TRAIN_B, n)) * 300).astype(np.float32)
+    waves[::2] += (4000 * np.sin(2 * np.pi * 500 * t)).astype(np.float32)
+    waves = np.clip(waves, -32768, 32767)
+    return {"waves": waves,
+            "wave_lengths": np.full((TRAIN_B,), n, np.int32),
+            "target": (np.arange(TRAIN_B) % 2 - 1).astype(np.int32),
+            "target_lengths": np.ones((TRAIN_B,), np.int32)}
+
+
+def phase7_train_slice(dev, work, launches):
+    """Train -> checkpoint -> serve at B=512 x 2 s; returns what phase
+    8 reuses."""
+    import torch
+
+    from wekws_tpu_torch.data import DeviceFeaturePipeline
+    from wekws_tpu_torch.models import init_model
+    from wekws_tpu_torch.ops.fused_mdtc_train import PASSES, reset_launches
+    from wekws_tpu_torch.ops.serving import build_fused_forward
+    from wekws_tpu_torch.train import (
+        Trainer,
+        average_checkpoints,
+        load_checkpoint,
+        save_checkpoint,
+    )
+
+    plain_conf = dict(TRAIN_DATASET_CONF, spec_aug=False)
+    plain_conf["fbank_conf"] = dict(TRAIN_DATASET_CONF["fbank_conf"],
+                                    dither=0.0)
+    cvp = DeviceFeaturePipeline.from_conf(TRAIN_DATASET_CONF, training=False)
+    batch = train_batch(np.random.default_rng(SEED))
+    waves = torch.as_tensor(batch["waves"], device=dev)
+    lengths = torch.as_tensor(batch["wave_lengths"], device=dev)
+    with torch.no_grad():
+        feats, feat_lengths = cvp(waves, lengths)
+    mean = feats.mean(dim=(0, 1)).cpu().numpy()
+    istd = (1.0 / (feats.std(dim=(0, 1)) + 1e-6)).cpu().numpy()
+    conf = dict(FLAGSHIP_MODEL_CONF,
+                cmvn={"mean": mean.tolist(), "istd": istd.tolist(),
+                      "norm_var": True})
+    conf["backbone"] = dict(conf["backbone"], fused_train=True)
+    unfused_conf = dict(conf, backbone=dict(conf["backbone"],
+                                            fused_train=False))
+
+    def trainer_for(model_conf, dataset_conf, state_dict=None):
+        model = init_model(model_conf, torch.Generator().manual_seed(SEED))
+        if state_dict is not None:
+            model.load_state_dict(state_dict)
+        else:
+            # the four stacks' ReLU outputs are summed (|y| up to ~50 at
+            # init), so a head drawn at N(0, 1/64) saturates the sigmoid,
+            # where the clamped max-pooling loss has no gradient: start
+            # the head small
+            with torch.no_grad():
+                model.classifier.linear.weight.mul_(0.01)
+        return Trainer(model, DeviceFeaturePipeline.from_conf(dataset_conf),
+                       cvp, "max_pooling", grad_clip=5.0, min_duration=5,
+                       device=dev)
+
+    trainer = trainer_for(conf, plain_conf)
+    state = trainer.init_state()
+    twin = trainer_for(unfused_conf, plain_conf,
+                       trainer.model.state_dict())
+    twin_state = twin.init_state()
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    print(f"  flagship + fused_train: {n_params} parameters, batch "
+          f"{TRAIN_B} x {TRAIN_SECONDS} s, features {tuple(feats.shape)}",
+          flush=True)
+
+    reset_launches()
+    losses = []
+    for step in range(TRAIN_STEPS_PLAIN):
+        if step == 0:
+            want_loss, _ = twin.loss_and_grads(twin_state, batch, SEED)
+        state, metrics = trainer.train_step(state, batch, SEED, 1e-3)
+        losses.append(float(metrics["loss"]))
+        if step == 0:
+            # p.grad still holds step 0's gradients after the update
+            err = abs(losses[0] - float(want_loss))
+            if err > 1e-5 * abs(float(want_loss)):
+                raise AssertionError(f"step-0 loss {losses[0]} vs unfused "
+                                     f"{float(want_loss)}")
+            worst = check_sums(
+                "step-0 grads",
+                [p.grad for p in trainer.model.parameters()],
+                [p.grad for p in twin.model.parameters()])
+            print(f"  step 0 vs the unfused Trainer: loss {losses[0]:.6f} "
+                  f"(diff {err:.2e}), worst gradient err {worst:.2e} "
+                  f"(bound {TRAIN_TOL} x the largest |grad|)", flush=True)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"loss not finite and decreasing: {losses}")
+    # the flagship recipe's augmentation from here on
+    trainer.pipeline = DeviceFeaturePipeline.from_conf(TRAIN_DATASET_CONF)
+    aug_losses = []
+    for _ in range(TRAIN_STEPS_AUG):
+        state, metrics = trainer.train_step(state, batch, SEED, 1e-3)
+        aug_losses.append(float(metrics["loss"]))
+    torch.cuda.synchronize()
+    steps = TRAIN_STEPS_PLAIN + TRAIN_STEPS_AUG
+    n_blocks = 1 + 4 * 4
+    for name in TRAIN_PASSES:
+        launches[f"fused_train_{name}"] = PASSES[name].launches
+        if PASSES[name].launches != n_blocks * steps:
+            raise AssertionError(
+                f"pass {name} launched {PASSES[name].launches} times, "
+                f"expected {n_blocks} x {steps}")
+    if not all(np.isfinite(aug_losses)):
+        raise AssertionError(f"augmented steps: {aug_losses}")
+    print(f"  losses, no augmentation: {[round(v, 5) for v in losses]}; "
+          f"with dither + spec_aug: {[round(v, 5) for v in aug_losses]}; "
+          f"each pass launched {n_blocks} x {steps} = {n_blocks * steps} "
+          f"times", flush=True)
+
+    cv = trainer.cv_step(state, batch)
+    cv_loss = float(cv["loss_sum"]) / max(float(cv["count"]), 1.0)
+    if not np.isfinite(cv_loss) or int(cv["count"]) != TRAIN_B:
+        raise AssertionError(f"cv step: {cv}")
+    for epoch in range(2):
+        save_checkpoint(os.path.join(work, f"{epoch}.pt"),
+                        state.model.state_dict(),
+                        {"epoch": epoch, "lr": 1e-3,
+                         "cv_loss": cv_loss + epoch})
+        if epoch == 0:
+            state, _ = trainer.train_step(state, batch, SEED, 1e-3)
+    picked = average_checkpoints(work, os.path.join(work, "avg.pt"), 2)
+    served = init_model(conf)
+    served.load_state_dict(load_checkpoint(os.path.join(work, "avg.pt")))
+    served = served.to(dev).eval()
+    forward = build_fused_forward(served, device=dev)
+    sub = slice(0, N_UTTS)
+    probs = forward(feats[sub], feat_lengths[sub])
+    with torch.inference_mode():
+        module_probs, _ = served(feats[sub], lengths=feat_lengths[sub])
+    check_close("trained + averaged model: fused serving vs module forward",
+                probs, module_probs)
+    print(f"  cv loss {cv_loss:.5f} over {int(cv['count'])} utterances; "
+          f"averaged {len(picked)} checkpoints and served {N_UTTS} "
+          f"utterances through build_fused_forward", flush=True)
+    return trainer, state, batch
+
+
+def phase8_train_times(dev, gen, trainer, state, batch, card, launches,
+                       errs):
+    """Per-pass and whole-step times at B=512 x T=198."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from wekws_tpu_torch.ops.fused_mdtc_train import (
+        PASSES,
+        trace_pass_inputs,
+    )
+
+    # the whole train step (host clock around synchronised steps)
+    for _ in range(2):
+        trainer.train_step(state, batch, SEED, 1e-3)
+    torch.cuda.synchronize()
+    reps = 10
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        trainer.train_step(state, batch, SEED, 1e-3)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / reps * 1e3
+    audio = TRAIN_B * TRAIN_SECONDS
+    print(f"  train step B={TRAIN_B} x {TRAIN_SECONDS} s (fused_train, "
+          f"dither + spec_aug): {step_ms:.3f} ms, "
+          f"{audio / step_ms * 1e3:.1f} audio-s/s [{card}]", flush=True)
+
+    # device time of each pass inside a profiled train step
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(state, batch, SEED, 1e-3)
+        torch.cuda.synchronize()
+    kernels = {}
+    busy = 0.0
+    for evt in prof.key_averages():
+        total = getattr(evt, "device_time_total",
+                        getattr(evt, "cuda_time_total", 0.0))
+        if evt.count and total and str(getattr(evt, "device_type", "")) \
+                .endswith("CUDA"):
+            busy += total
+        kernels[evt.key] = (total, evt.count)
+    pass_kernel = {"f1": "fwd_kernel<64, 1>", "f2": "fwd_kernel<64, 2>",
+                   "f3": "fwd_kernel<64, 3>", "f4": "f4_kernel<64>",
+                   "b1": "bwd_kernel<64, 5>", "b2": "bwd_kernel<64, 6>",
+                   "b3": "bwd_kernel<64, 7>", "b4": "bwd_kernel<64, 8>"}
+
+    def dev_ms(fragment):
+        for key, (total, count) in kernels.items():
+            if fragment in key and count:
+                return total / count / 1e3
+        return None
+
+    reduce_ms = dev_ms("reduce_kernel") or 0.0
+    dx_ms = dev_ms("dx_kernel<64>") or 0.0
+    ours = list(pass_kernel.values()) + ["reduce_kernel", "dx_kernel<64>"]
+    kernel_total = sum(t for key, (t, _) in kernels.items()
+                       if any(f in key for f in ours)) / 1e3
+    print(f"  profiled step: {busy / 1e3:.3f} ms of device time in all, "
+          f"{kernel_total:.3f} ms in the training kernels; the device is "
+          f"idle for {max(0.0, 1 - busy / 1e3 / step_ms):.1%} of the "
+          f"unprofiled {step_ms:.3f} ms step [{card}]", flush=True)
+
+    record = []
+    b, t, c, k, d = TRAIN_B, 198, 64, 5, 8
+    p = block_params(gen, c, k, dev)
+    x = torch.randn((b, t, c), generator=gen).to(dev)
+    dy = torch.randn((b, t, c), generator=gen).to(dev)
+    calls = trace_pass_inputs(x, p, dy, d)
+    for name in TRAIN_PASSES:
+        args = calls[name]
+        kern = lambda: PASSES[name](*args)  # noqa: E731
+        plain = lambda: PASSES[name].plain(*args)  # noqa: E731
+        cuda_time_ms(plain)
+        cuda_time_ms(kern)
+        ms = cuda_time_ms(kern)
+        plain_ms = cuda_time_ms(plain)
+        torch.cuda.synchronize()
+        host = []
+        for _ in range(30):  # the wrapper's host work: enqueue, no sync
+            t0 = time.perf_counter()
+            kern()
+            host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        host_ms = float(np.median(host))
+        bound, bound_by = train_pass_bound_ms(name, b, t, c, k)
+        main = dev_ms(pass_kernel[name])
+        if main is not None and name != "f4":
+            main += reduce_ms
+        if main is not None and name == "b4":
+            main += dx_ms
+        dev_txt = "not measured" if main is None else f"{main:.4f} ms"
+        print(f"  fused_train_{name} B={b} T={t} d={d}: kernel {ms:.4f} ms "
+              f"per call (device time per call in the train step "
+              f"{dev_txt}; host enqueue {host_ms:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, bound {bound:.5f} ms "
+              f"({bound_by}), {launches[f'fused_train_{name}']} launches on "
+              f"the main path (17 per step); library: none (no PyTorch "
+              f"call computes "
+              f"this pass) [{card}]", flush=True)
+        record.append({
+            "name": f"fused_train_{name}", "route": "cuda",
+            "source": "wekws_tpu_torch/csrc/fused_mdtc_train.cu",
+            "replaces": TRAIN_REPLACES[name],
+            "launches": launches[f"fused_train_{name}"],
+            "max_abs_err": errs[name],
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": None,
+        })
+    return record, step_ms
+
+
+TRAIN_REPLACES = {
+    "f1": "wekws_tpu/ops/fused_mdtc_train.py:100",
+    "f2": "wekws_tpu/ops/fused_mdtc_train.py:111",
+    "f3": "wekws_tpu/ops/fused_mdtc_train.py:131",
+    "f4": "wekws_tpu/ops/fused_mdtc_train.py:161",
+    "b1": "wekws_tpu/ops/fused_mdtc_train.py:180",
+    "b2": "wekws_tpu/ops/fused_mdtc_train.py:198",
+    "b3": "wekws_tpu/ops/fused_mdtc_train.py:231",
+    "b4": "wekws_tpu/ops/fused_mdtc_train.py:284",
+}
 
 
 def main() -> int:
@@ -458,6 +906,19 @@ def main() -> int:
                         "bound_ms": bound, "bound_by": bound_by,
                         "library_ms": None,
                     })
+
+    with phase("6 training kernels vs plain (flagship width)"):
+        train_errs = phase6_train_kernels(dev, gen)
+
+    with phase("7 training slice end to end"):
+        train_dir = os.path.join(work, "train")
+        os.makedirs(train_dir, exist_ok=True)
+        trainer, state, batch = phase7_train_slice(dev, train_dir, launches)
+
+    with phase("8 training times"):
+        train_record, _ = phase8_train_times(dev, gen, trainer, state, batch,
+                                             card, launches, train_errs)
+        record += train_record
 
     print(card)
     print(json.dumps({"kernels": record}))

@@ -110,7 +110,7 @@ def test_config_and_cmvn_loaders_equal_jax(tmp_path):
             "fbank_conf": {"num_mel_bins": 40, "frame_shift": 10,
                            "frame_length": 25, "dither": 1.0,
                            "dither_mode": "wave"}}
-    assert frontend_from_dataset_conf(conf) == (
+    assert frontend_from_dataset_conf(conf).cfg == (
         kaldi.FrontendConfig(**vars(jax_frontend_from_dataset_conf(conf)
                                     .cfg)))
     path = tmp_path / "global_cmvn.json"

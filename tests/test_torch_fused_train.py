@@ -1,0 +1,280 @@
+"""The port's fused training block (wekws_tpu_torch.ops.fused_mdtc_train)
+and its training-mode layers against the JAX package on the CPU.
+
+JAX's ``fused_tcn_block_train`` runs its Pallas kernels in interpret
+mode here, as tests/test_fused_train.py runs it; the port runs the
+plain versions of its eight passes (the same decomposition its CUDA
+kernels implement).  Bounds: float32 on both sides with other
+summation orders, so outputs and statistics within 1e-4 and
+gradients within 1e-4 of max(1, max |grad|) -- far inside the 2e-2 /
+5e-2 that tests/test_fused_train.py pins for the JAX kernels."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from test_fused_train import ref_block
+from wekws_tpu.models import init_model as jax_init_model
+from wekws_tpu.models.layers import ExactBatchNorm
+from wekws_tpu.ops.fused_mdtc_train import (
+    fused_tcn_block_train as jax_fused_block,
+)
+from wekws_tpu_torch.models import init_model
+from wekws_tpu_torch.models.layers import BatchNorm
+from wekws_tpu_torch.models.mdtc import TCNBlock
+from wekws_tpu_torch.ops.fused_mdtc_train import (
+    PARAM_KEYS,
+    fused_tcn_block_train,
+)
+from wekws_tpu_torch.tools.from_jax import grads_from_jax, model_from_jax
+
+C, K = 8, 3
+
+
+def _params(rng):
+    def r(*shape, scale=0.3):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    p = {"dw_kernel": r(K, 1, C), "dw_bias": r(C),
+         "pw1_kernel": r(C, C), "pw1_bias": r(C, scale=0.1),
+         "pw2_kernel": r(C, C), "pw2_bias": r(C, scale=0.1)}
+    for i in range(3):
+        p[f"bn{i}_scale"] = 1.0 + r(C, scale=0.1)
+        p[f"bn{i}_bias"] = r(C, scale=0.1)
+    return p
+
+
+def _close_grad(got, want, name):
+    scale = max(float(np.abs(want).max()), 1.0)
+    err = float(np.abs(got - want).max())
+    assert err <= 1e-4 * scale, f"{name}: {err} vs {scale}"
+
+
+def _loss_weights(y_shape, rng):
+    return rng.standard_normal(y_shape).astype(np.float32)
+
+
+def _port_block(p, dilation):
+    """Port TCNBlock (plain modules, training mode) holding ``p``."""
+    blk = TCNBlock(C, C, K, dilation).train()
+    with torch.no_grad():
+        blk.conv1.conv.weight.copy_(torch.from_numpy(p["dw_kernel"])
+                                    .permute(2, 1, 0))
+        blk.conv1.conv.bias.copy_(torch.from_numpy(p["dw_bias"]))
+        blk.conv1.pointwise.weight.copy_(
+            torch.from_numpy(p["pw1_kernel"]).t()[:, :, None])
+        blk.conv1.pointwise.bias.copy_(torch.from_numpy(p["pw1_bias"]))
+        blk.conv2.weight.copy_(torch.from_numpy(p["pw2_kernel"])
+                               .t()[:, :, None])
+        blk.conv2.bias.copy_(torch.from_numpy(p["pw2_bias"]))
+        for i, bn in enumerate((blk.conv1.bn, blk.bn1, blk.bn2)):
+            bn.weight.copy_(torch.from_numpy(p[f"bn{i}_scale"]))
+            bn.bias.copy_(torch.from_numpy(p[f"bn{i}_bias"]))
+    return blk
+
+
+@pytest.mark.parametrize("dilation", [1, 2, 4])
+def test_fused_block_matches_jax(dilation):
+    """Forward, the six batch statistics and every gradient, B=3 (not
+    a multiple of any tile) x T=21, against JAX's fused kernels, JAX's
+    unfused ``ref_block`` and autograd of the port's unfused block."""
+    rng = np.random.default_rng(dilation)
+    p = _params(rng)
+    x = rng.standard_normal((3, 21, C)).astype(np.float32)
+    cot = _loss_weights(x.shape, rng)
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+
+    def jax_loss(fn):
+        def loss(xx, pp):
+            y, _ = fn(xx, pp)
+            return jnp.sum(y * cot)
+        return jax.jit(jax.grad(loss, argnums=(0, 1)))(jnp.asarray(x), jp)
+
+    def fused(xx, pp):
+        return jax_fused_block(xx, pp, K, dilation, 1e-5, 3)
+
+    y_j, stats_j = fused(jnp.asarray(x), jp)
+    y_ref, stats_ref = ref_block(jnp.asarray(x), jp, k=K, dilation=dilation)
+    grads_j = jax_loss(fused)
+    grads_ref = jax_loss(lambda xx, pp: ref_block(xx, pp, k=K,
+                                                  dilation=dilation))
+
+    leaves = {k: torch.from_numpy(v).requires_grad_() for k, v in p.items()}
+    xt = torch.from_numpy(x).requires_grad_()
+    y, stats = fused_tcn_block_train(xt, leaves, K, dilation)
+    (y * torch.from_numpy(cot)).sum().backward()
+    for want in (y_j, y_ref):
+        np.testing.assert_allclose(y.detach().numpy(), np.asarray(want),
+                                   atol=1e-4, rtol=1e-4)
+    for key in stats_j:
+        for want in (stats_j, stats_ref):
+            np.testing.assert_allclose(stats[key].numpy(),
+                                       np.asarray(want[key]), atol=1e-4,
+                                       rtol=1e-4, err_msg=key)
+    for dx_w, dp_w in (grads_j, grads_ref):
+        _close_grad(xt.grad.numpy(), np.asarray(dx_w), "x")
+        for key in PARAM_KEYS:
+            _close_grad(leaves[key].grad.numpy(), np.asarray(dp_w[key]), key)
+
+    # autograd of the port's unfused module block on the same weights
+    blk = _port_block(p, dilation)
+    xu = torch.from_numpy(x).requires_grad_()
+    yu, _ = blk(xu, None)
+    (yu * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(yu.detach().numpy(), y.detach().numpy(),
+                               atol=1e-5, rtol=1e-5)
+    _close_grad(xu.grad.numpy(), xt.grad.numpy(), "x (unfused)")
+    grads_u = {
+        "dw_kernel": blk.conv1.conv.weight.grad.permute(2, 1, 0),
+        "pw1_kernel": blk.conv1.pointwise.weight.grad[:, :, 0].t(),
+        "pw2_kernel": blk.conv2.weight.grad[:, :, 0].t(),
+        "dw_bias": blk.conv1.conv.bias.grad,
+        "pw1_bias": blk.conv1.pointwise.bias.grad,
+        "pw2_bias": blk.conv2.bias.grad,
+    }
+    for i, bn in enumerate((blk.conv1.bn, blk.bn1, blk.bn2)):
+        grads_u[f"bn{i}_scale"] = bn.weight.grad
+        grads_u[f"bn{i}_bias"] = bn.bias.grad
+    for key in PARAM_KEYS:
+        _close_grad(leaves[key].grad.numpy(), grads_u[key].numpy(),
+                    f"{key} (unfused)")
+
+
+def test_fused_block_rejects_bf16_and_wrong_taps():
+    rng = np.random.default_rng(0)
+    p = {k: torch.from_numpy(v) for k, v in _params(rng).items()}
+    x = torch.zeros((2, 5, C))
+    with pytest.raises(NotImplementedError, match="training knobs"):
+        fused_tcn_block_train(x, p, K, 1, precision="bfloat16")
+    with pytest.raises(ValueError, match="taps"):
+        fused_tcn_block_train(x, p, K + 2, 1)
+
+
+def test_training_batchnorm_matches_exact_bn():
+    """Training-mode BatchNorm vs ExactBatchNorm: output, gradients and
+    the running statistics (biased variance, momentum 0.9) 1e-5;
+    ``num_batches_tracked`` counts the update."""
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal((8, 12, 6)) * 2 + 1).astype(np.float32)
+    cot = rng.standard_normal(x.shape).astype(np.float32)
+    scale = (rng.standard_normal(6) + 1).astype(np.float32)
+    bias = rng.standard_normal(6).astype(np.float32)
+    ebn = ExactBatchNorm()
+    stats0 = {"mean": jnp.asarray(rng.standard_normal(6), jnp.float32),
+              "var": jnp.asarray(rng.random(6) + 0.5, jnp.float32)}
+    params = {"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)}
+
+    def f(pp, xx):
+        y, upd = ebn.apply({"params": pp, "batch_stats": stats0}, xx,
+                           use_running_average=False,
+                           mutable=["batch_stats"])
+        return jnp.sum(y * cot), (y, upd["batch_stats"])
+
+    (_, (y_j, st_j)), (gp_j, gx_j) = jax.value_and_grad(
+        f, argnums=(0, 1), has_aux=True)(params, jnp.asarray(x))
+
+    bn = BatchNorm(6).train()
+    with torch.no_grad():
+        bn.weight.copy_(torch.from_numpy(scale))
+        bn.bias.copy_(torch.from_numpy(bias))
+        bn.running_mean.copy_(torch.tensor(np.asarray(stats0["mean"])))
+        bn.running_var.copy_(torch.tensor(np.asarray(stats0["var"])))
+    xt = torch.from_numpy(x).requires_grad_()
+    y = bn(xt)
+    (y * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(y_j),
+                               atol=1e-5)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gx_j), atol=1e-5)
+    np.testing.assert_allclose(bn.weight.grad.numpy(),
+                               np.asarray(gp_j["scale"]), atol=1e-4)
+    np.testing.assert_allclose(bn.bias.grad.numpy(),
+                               np.asarray(gp_j["bias"]), atol=1e-4)
+    np.testing.assert_allclose(bn.running_mean.numpy(),
+                               np.asarray(st_j["mean"]), atol=1e-5)
+    np.testing.assert_allclose(bn.running_var.numpy(),
+                               np.asarray(st_j["var"]), atol=1e-5)
+    biased = x.reshape(-1, 6).var(axis=0)
+    np.testing.assert_allclose(
+        bn.running_var.numpy(),
+        0.9 * np.asarray(stats0["var"]) + 0.1 * biased, atol=1e-5)
+    assert int(bn.num_batches_tracked) == 1
+    bn.eval()
+    with torch.no_grad():
+        bn(xt)
+    assert int(bn.num_batches_tracked) == 1
+
+
+MODEL_CONF = {
+    "input_dim": 40, "output_dim": 1, "hidden_dim": 16,
+    "preprocessing": {"type": "linear"},
+    "backbone": {"type": "mdtc", "num_stack": 2, "stack_size": 2,
+                 "kernel_size": 3, "hidden_dim": 16, "causal": True,
+                 "fused_train": True},
+}
+
+
+def test_model_train_forward_matches_jax():
+    """Whole fused MDTC model in training mode, same weights (bridged):
+    posteriors 1e-4 (tests/test_fused_train.py pins JAX fused vs unfused
+    at 2e-3), every updated BN running statistic 1e-4 (there 1e-3), the
+    loss gradient by port parameter name 1e-4 of max(1, max |grad|), and
+    the unfused port model agrees with the fused one."""
+    rng = np.random.default_rng(3)
+    feats = rng.standard_normal((5, 30, 40)).astype(np.float32)
+    lengths = np.array([30, 30, 22, 30, 9], np.int32)
+    cot = rng.standard_normal((5, 30, 1)).astype(np.float32)
+    jmodel = jax_init_model(MODEL_CONF)
+    variables = jmodel.init(jax.random.PRNGKey(0), jnp.asarray(feats),
+                            lengths=jnp.asarray(lengths))
+    params = variables["params"]
+
+    def loss(pp):
+        (probs, _), upd = jmodel.apply(
+            {"params": pp, "batch_stats": variables["batch_stats"]},
+            jnp.asarray(feats), lengths=jnp.asarray(lengths), train=True,
+            mutable=["batch_stats"])
+        return jnp.sum(probs * cot), (probs, upd["batch_stats"])
+
+    (_, (probs_j, stats_j)), grads_j = jax.jit(jax.value_and_grad(
+        loss, has_aux=True))(params)
+    want_stats = model_from_jax(jax.device_get(params),
+                                jax.device_get(stats_j), MODEL_CONF)
+    want_grads = grads_from_jax(jax.device_get(grads_j), MODEL_CONF)
+
+    for fused in (True, False):
+        conf = dict(MODEL_CONF, backbone=dict(MODEL_CONF["backbone"],
+                                              fused_train=fused))
+        model = model_from_jax(jax.device_get(params),
+                               jax.device_get(variables["batch_stats"]),
+                               conf).train()
+        probs, _ = model(torch.from_numpy(feats),
+                         lengths=torch.from_numpy(lengths))
+        (probs * torch.from_numpy(cot)).sum().backward()
+        np.testing.assert_allclose(probs.detach().numpy(),
+                                   np.asarray(probs_j), atol=1e-4)
+        want = dict(want_stats.named_buffers())
+        for name, buf in model.named_buffers():
+            if name.endswith(("running_mean", "running_var")):
+                np.testing.assert_allclose(buf.numpy(), want[name].numpy(),
+                                           atol=1e-4, err_msg=name)
+            elif name.endswith("num_batches_tracked"):
+                assert int(buf) == 1, name
+        named = dict(model.named_parameters())
+        assert set(want_grads) == set(named)
+        for name, g in want_grads.items():
+            _close_grad(named[name].grad.numpy(), g.numpy(), name)
+
+
+def test_model_training_knobs_raise():
+    for patch in ({"dtype": "bfloat16"},
+                  {"backbone": dict(MODEL_CONF["backbone"],
+                                    bn_dtype="bfloat16")},
+                  {"backbone": dict(MODEL_CONF["backbone"], remat=True)},
+                  {"backbone": dict(MODEL_CONF["backbone"], ghost_bn=4)}):
+        with pytest.raises(NotImplementedError, match="item 15"):
+            init_model(dict(MODEL_CONF, **patch))
+    model = init_model(dict(MODEL_CONF, dtype="float32"))
+    assert all(blk.fused_train for blk in model.backbone.modules()
+               if isinstance(blk, TCNBlock))

@@ -51,3 +51,129 @@ def test_fused_mdtc_kernel_matches_plain(t):
     want_y, want_c = fused_mdtc_stream_plain(x, cache, *w, dil, 5, 3)
     torch.testing.assert_close(got_y, want_y, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(got_c, want_c, atol=1e-4, rtol=1e-4)
+
+
+def _block_inputs(g, b, t, c, k, device):
+    """Seeded block parameters (JAX layouts), input and upstream grad."""
+    def r(*shape, scale=0.3):
+        return (torch.randn(shape, generator=g) * scale).to(device)
+
+    p = {"dw_kernel": r(k, 1, c), "dw_bias": r(c),
+         "pw1_kernel": r(c, c, scale=c ** -0.5), "pw1_bias": r(c, scale=0.1),
+         "pw2_kernel": r(c, c, scale=c ** -0.5), "pw2_bias": r(c, scale=0.1)}
+    for i in range(3):
+        p[f"bn{i}_scale"] = 1.0 + r(c, scale=0.1)
+        p[f"bn{i}_bias"] = r(c, scale=0.1)
+    return p, r(b, t, c, scale=1.0), r(b, t, c, scale=1.0)
+
+
+def _assert_sums_close(name, gots, wants):
+    """Sums over frames (BN sums, gradients) within 1e-3 of the largest
+    |value| of the group (at least 1): a sum that cancels to about zero
+    (the gradient of a bias that a BatchNorm follows) carries the
+    rounding of terms as large as the group's other sums."""
+    scale = max([float(w.abs().max()) for w in wants] + [1.0])
+    for i, (a, b) in enumerate(zip(gots, wants)):
+        err = float((a - b).abs().max())
+        assert err <= 1e-3 * scale, f"{name}[{i}]: {err} vs {scale}"
+
+
+def _assert_pass_close(name, got, want):
+    """(B, T, C) outputs 1e-4 abs + 1e-4 rel of the plain pass (fp32,
+    another summation order); sums as ``_assert_sums_close``."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    sums = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        if b.dim() == 3:
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4,
+                                       msg=lambda m: f"{name}[{i}]: {m}")
+        else:
+            sums.append((a, b))
+    if sums:
+        _assert_sums_close(name, *zip(*sums))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [8, 64, 70, 130])
+@pytest.mark.parametrize("dilation", [1, 8])
+def test_fused_train_passes_match_plain(t, dilation):
+    """Each of the eight training passes on identical inputs: whole
+    64-frame tiles, partial last tiles and causal halos longer than a
+    tile; and bitwise equal when launched twice."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from wekws_tpu_torch.ops.fused_mdtc_train import (
+        PASSES,
+        trace_pass_inputs,
+    )
+
+    g = torch.Generator().manual_seed(100 * t + dilation)
+    for c in (32, 64, 128) if t == 70 else (64,):
+        p, x, dy = _block_inputs(g, 3, t, c, 5, "cuda")
+        calls = trace_pass_inputs(x, p, dy, dilation)
+        for name, args in calls.items():
+            before = PASSES[name].launches
+            got = PASSES[name](*args)
+            again = PASSES[name](*args)
+            assert PASSES[name].launches == before + 2
+            torch.cuda.synchronize()
+            _assert_pass_close(name, got, PASSES[name].plain(*args))
+            got = got if isinstance(got, tuple) else (got,)
+            again = again if isinstance(again, tuple) else (again,)
+            for a, b in zip(got, again):
+                assert torch.equal(a, b), f"{name} is not reproducible"
+
+
+@pytest.mark.cuda
+def test_fused_train_block_gradients_match_autograd():
+    """The autograd Function on the card against autograd of the plain
+    block on the card (fp32): y and dx 1e-4 abs + 1e-4 rel, the twelve
+    parameter gradients as ``_assert_sums_close``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from wekws_tpu_torch.ops.fused_mdtc_train import (
+        PARAM_KEYS,
+        PASSES,
+        fused_tcn_block_train,
+    )
+
+    g = torch.Generator().manual_seed(7)
+    p, x, dy = _block_inputs(g, 5, 130, 64, 5, "cuda")
+    outs = []
+    for fused in (True, False):
+        leaves = {k: v.clone().requires_grad_() for k, v in p.items()}
+        xi = x.clone().requires_grad_()
+        if fused:
+            y, _ = fused_tcn_block_train(xi, leaves, 5, 4)
+        else:
+            y = _plain_block(xi, leaves, 4)
+        (y * dy).sum().backward()
+        outs.append(([y.detach(), xi.grad],
+                     [leaves[k].grad for k in PARAM_KEYS]))
+    assert all(PASSES[n].launches > 0 for n in PASSES)
+    (acts, grads), (want_acts, want_grads) = outs
+    for a, b in zip(acts, want_acts):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    _assert_sums_close("grads", grads, want_grads)
+
+
+def _plain_block(x, p, dilation, eps=1e-5):
+    """Unfused exact-BN block by plain autograd (the unfused module
+    path of models/mdtc.py, written on the JAX layouts)."""
+    k = p["dw_kernel"].shape[0]
+    pad = (k - 1) * dilation
+    t = x.shape[1]
+    xp = torch.nn.functional.pad(x, (0, 0, pad, 0))
+    u = sum(xp[:, pad - (k - 1 - j) * dilation:][:, :t] * p["dw_kernel"][j, 0]
+            for j in range(k)) + p["dw_bias"]
+
+    def bn(z, i):
+        mu = z.mean(dim=(0, 1))
+        var = (z * z).mean(dim=(0, 1)) - mu * mu
+        return (z - mu) * torch.rsqrt(var + eps) * p[f"bn{i}_scale"] \
+            + p[f"bn{i}_bias"]
+
+    v = bn(u, 0) @ p["pw1_kernel"] + p["pw1_bias"]
+    w = torch.relu(bn(v, 1)) @ p["pw2_kernel"] + p["pw2_bias"]
+    return torch.relu(bn(w, 2) + x)

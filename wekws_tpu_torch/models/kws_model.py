@@ -5,9 +5,12 @@ preprocessing -> backbone (+cache) -> classifier -> activation
 (sigmoid for wake word, identity otherwise), with a softmax variant.
 Features past ``lengths`` are zero-masked before and after CMVN.
 
-This slice builds the MDTC backbone with ``linear`` or ``none``
-preprocessing and the linear, element and identity heads; other
-configurations raise ``NotImplementedError`` naming the ROADMAP item
+The port builds the MDTC backbone with ``linear`` or ``none``
+preprocessing and the linear, element and identity heads, in float32,
+with ``backbone.fused_train`` routing whole-utterance training forwards
+through the fused exact-BN kernels; other configurations and the
+training knobs ``dtype: bfloat16``, ``bn_dtype``, ``remat`` and
+``ghost_bn > 1`` raise ``NotImplementedError`` naming the ROADMAP item
 that ports them.
 """
 
@@ -103,8 +106,9 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
 def init_model(configs: dict,
                generator: Optional[torch.Generator] = None) -> KWSModel:
     """Build a KWSModel from a wekws-style resolved ``model`` config,
-    on the CPU, with weights drawn from ``generator`` (seed 0 when
-    omitted).  Move it with ``.to(device)``."""
+    on the CPU and in eval mode, with weights drawn from ``generator``
+    (seed 0 when omitted).  Move it with ``.to(device)``; the Trainer
+    moves it and switches modes itself."""
     cmvn_conf = configs.get("cmvn", {}) or {}
     global_cmvn = None
     if cmvn_conf.get("cmvn_file") is not None:
@@ -137,6 +141,14 @@ def init_model(configs: dict,
 
     bconf = configs["backbone"]
     btype = bconf["type"]
+    dtype = configs.get("dtype")
+    if dtype and dtype != "float32":
+        raise _not_ported(f"model dtype {dtype!r}", "item 15, training knobs")
+    for knob in ("bn_dtype", "remat"):
+        if bconf.get(knob):
+            raise _not_ported(f"backbone.{knob}", "item 15, training knobs")
+    if int(bconf.get("ghost_bn", 0) or 0) > 1:
+        raise _not_ported("backbone.ghost_bn > 1", "item 15, training knobs")
     if btype == "mdtc":
         hidden_dim = bconf["hidden_dim"]
         backbone = MDTC(
@@ -146,6 +158,7 @@ def init_model(configs: dict,
             res_channels=hidden_dim,
             kernel_size=bconf["kernel_size"],
             causal=bconf["causal"],
+            fused_train=bool(bconf.get("fused_train", False)),
         )
     elif btype in ("tcn", "fsmn", "gru"):
         raise _not_ported(f"backbone '{btype}'", "item 7, other backbones")
@@ -162,7 +175,7 @@ def init_model(configs: dict,
             classifier = IdentityClassifier()
         elif ctype in ("global", "last"):
             raise _not_ported(f"classifier '{ctype}'",
-                              "item 5, training (CE heads)")
+                              "item 6, the training slice's close (CE heads)")
         else:
             raise ValueError(f"Unknown classifier type {ctype}")
         activation = "identity"

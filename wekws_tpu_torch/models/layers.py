@@ -1,4 +1,4 @@
-"""Inference layers shared by the backbones, feature-last ``(B, T, C)``.
+"""Layers shared by the backbones, feature-last ``(B, T, C)``.
 
 Parameter names and shapes follow the reference wekws ``nn.Conv1d`` /
 ``nn.BatchNorm1d`` modules, so a reference state_dict loads as is:
@@ -6,11 +6,13 @@ depthwise ``weight (C, 1, K)``, pointwise ``weight (out, in, 1)``,
 BatchNorm ``weight, bias, running_mean, running_var,
 num_batches_tracked``.
 
-Only the inference forward is here: the depthwise conv is K shifted
-multiply-adds (a cross-correlation with taps at ``t + j*d``, the
-reference's ``groups=C`` conv), and BatchNorm uses its running
-statistics.  Training (the custom depthwise backward and exact-batch
-BN of wekws_tpu/models/layers.py) belongs to the training slice.
+The depthwise conv is K shifted multiply-adds (a cross-correlation
+with taps at ``t + j*d``, the reference's ``groups=C`` conv).  Its
+gradient is plain autograd: the JAX package's custom depthwise VJP
+(wekws_tpu/models/layers.py:134-198) only steers XLA's fusion and
+equals autodiff.  ``BatchNorm`` trains with the semantics of the JAX
+package's ``ExactBatchNorm``; its hand-written VJP there is autodiff
+too, so plain autograd gives the same gradients.
 """
 
 import torch
@@ -60,13 +62,32 @@ class PointwiseConv1d(nn.Module):
 
 
 class BatchNorm(nn.BatchNorm1d):
-    """Eval-mode BatchNorm over the last axis (running statistics)."""
+    """BatchNorm over the last axis.
+
+    Eval: running statistics.  Training (``ExactBatchNorm`` of the JAX
+    package): batch mean and variance ``E[x^2] - E[x]^2`` in float32
+    over every axis but the last, and running averages with flax's
+    momentum 0.9 (torch ``momentum=0.1``) that take the BIASED batch
+    variance, unlike ``nn.BatchNorm1d``."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "training-mode BatchNorm is not ported yet "
-                "(ROADMAP queue A, training slice)"
-            )
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean) * inv + self.bias
+        if not self.training:
+            inv = torch.rsqrt(self.running_var + self.eps) * self.weight
+            return (x - self.running_mean) * inv + self.bias
+        x32 = x.to(torch.float32)
+        axes = tuple(range(x.dim() - 1))
+        mean = x32.mean(dim=axes)
+        var = (x32 * x32).mean(dim=axes) - mean * mean
+        y = (x32 - mean) * torch.rsqrt(var + self.eps) * self.weight \
+            + self.bias
+        self.update_running_stats(mean, var)
+        return y
+
+    @torch.no_grad()
+    def update_running_stats(self, mean: torch.Tensor,
+                             var: torch.Tensor) -> None:
+        """ra = (1 - momentum) * ra + momentum * batch statistic."""
+        m = self.momentum
+        self.running_mean.mul_(1.0 - m).add_(m * mean.detach())
+        self.running_var.mul_(1.0 - m).add_(m * var.detach())
+        self.num_batches_tracked.add_(1)

@@ -14,6 +14,13 @@ block ``conv1.{conv,bn,pointwise}``, ``bn1``, ``conv2``, ``bn2``):
 The cache is a tuple over all blocks in network order, each
 ``(B, (K-1)*d, C)``; ``None`` runs the whole utterance with zero left
 context as implicit padding.
+
+Training: with ``fused_train`` set, a whole-utterance training forward
+of a block whose input and output widths match runs through
+``ops/fused_mdtc_train.fused_tcn_block_train`` (the eight fused
+exact-BN passes) and updates the three BatchNorms' running statistics
+from the batch statistics it returns; everything else runs the plain
+modules, whose BatchNorms train with the same exact-BN semantics.
 """
 
 from typing import Optional, Sequence, Tuple
@@ -26,6 +33,7 @@ from wekws_tpu_torch.models.layers import (
     DepthwiseConv1d,
     PointwiseConv1d,
 )
+from wekws_tpu_torch.ops.fused_mdtc_train import fused_tcn_block_train
 
 
 class DSDilatedConv1d(nn.Module):
@@ -44,8 +52,9 @@ class DSDilatedConv1d(nn.Module):
 
 class TCNBlock(nn.Module):
     def __init__(self, in_channels: int, res_channels: int,
-                 kernel_size: int, dilation: int):
+                 kernel_size: int, dilation: int, fused_train: bool = False):
         super().__init__()
+        self.fused_train = fused_train
         self.in_channels = in_channels
         self.res_channels = res_channels
         self.kernel_size = kernel_size
@@ -60,9 +69,37 @@ class TCNBlock(nn.Module):
     def padding(self) -> int:
         return (self.kernel_size - 1) * self.dilation
 
+    def fused_params(self):
+        """This block's parameters in the JAX package's keys and
+        layouts, as views of the module's own tensors (autograd carries
+        the gradients back through the permutes)."""
+        conv1 = self.conv1
+        return {
+            "dw_kernel": conv1.conv.weight.permute(2, 1, 0),  # (K, 1, C)
+            "dw_bias": conv1.conv.bias,
+            "bn0_scale": conv1.bn.weight, "bn0_bias": conv1.bn.bias,
+            "pw1_kernel": conv1.pointwise.weight[:, :, 0].t(),  # (in, out)
+            "pw1_bias": conv1.pointwise.bias,
+            "bn1_scale": self.bn1.weight, "bn1_bias": self.bn1.bias,
+            "pw2_kernel": self.conv2.weight[:, :, 0].t(),
+            "pw2_bias": self.conv2.bias,
+            "bn2_scale": self.bn2.weight, "bn2_bias": self.bn2.bias,
+        }
+
+    def _fused_forward(self, x: torch.Tensor) -> torch.Tensor:
+        y, stats = fused_tcn_block_train(
+            x, self.fused_params(), self.kernel_size, self.dilation,
+            self.bn1.eps)
+        for i, bn in enumerate((self.conv1.bn, self.bn1, self.bn2)):
+            bn.update_running_stats(stats[f"mu{i}"], stats[f"var{i}"])
+        return y
+
     def forward(
         self, x: torch.Tensor, cache: Optional[torch.Tensor]
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        if (self.fused_train and self.training and cache is None
+                and self.in_channels == self.res_channels):
+            return self._fused_forward(x), None
         if cache is None:
             y = self.conv1(x, left_pad=self.padding)
             new_cache = None
@@ -78,17 +115,19 @@ class TCNBlock(nn.Module):
 
 
 class TCNStack(nn.Module):
-    def __init__(self, channels: int, stack_size: int, kernel_size: int):
+    def __init__(self, channels: int, stack_size: int, kernel_size: int,
+                 fused_train: bool = False):
         super().__init__()
         self.res_blocks = nn.ModuleList(
-            TCNBlock(channels, channels, kernel_size, 2 ** i)
+            TCNBlock(channels, channels, kernel_size, 2 ** i, fused_train)
             for i in range(stack_size)
         )
 
 
 class MDTC(nn.Module):
     def __init__(self, stack_num: int, stack_size: int, in_channels: int,
-                 res_channels: int, kernel_size: int, causal: bool = True):
+                 res_channels: int, kernel_size: int, causal: bool = True,
+                 fused_train: bool = False):
         super().__init__()
         if kernel_size % 2 != 1:
             raise ValueError("MDTC kernel_size must be odd")
@@ -100,9 +139,9 @@ class MDTC(nn.Module):
         self.res_channels = res_channels
         self.kernel_size = kernel_size
         self.preprocessor = TCNBlock(in_channels, res_channels, kernel_size,
-                                     1)
+                                     1, fused_train)
         self.blocks = nn.ModuleList(
-            TCNStack(res_channels, stack_size, kernel_size)
+            TCNStack(res_channels, stack_size, kernel_size, fused_train)
             for _ in range(stack_num)
         )
 

@@ -17,7 +17,7 @@ from typing import Dict, Iterable, List
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(PACKAGE_DIR, "build")
-KERNEL_SOURCES = ("fused_mdtc",)
+KERNEL_SOURCES = ("fused_mdtc", "fused_mdtc_train")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -27,7 +27,7 @@ def load_spotter_config(config):
         with open(config, "r") as fin:
             configs = yaml.safe_load(fin)
     dataset_conf = configs["dataset_conf"]
-    cfg = dataclasses.replace(frontend_from_dataset_conf(dataset_conf),
+    cfg = dataclasses.replace(frontend_from_dataset_conf(dataset_conf).cfg,
                               dither=0.0)
     downsampling = int(dataset_conf.get("frame_skip", 1))
     left = right = 0

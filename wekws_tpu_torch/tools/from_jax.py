@@ -41,19 +41,26 @@ def _conv1d(tree, prefix, out):
 def _bn(params, stats, prefix, out):
     out[f"{prefix}.weight"] = _t(params["scale"])
     out[f"{prefix}.bias"] = _t(params["bias"])
+    if stats is None:  # a gradient tree: parameters only
+        return
     out[f"{prefix}.running_mean"] = _t(stats["mean"])
     out[f"{prefix}.running_var"] = _t(stats["var"])
     out[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
 
 
 def _mdtc_block(params, stats, prefix, out):
+    def sub(*keys):
+        tree = stats
+        for key in keys:
+            tree = None if tree is None else tree[key]
+        return tree
+
     _conv1d(params["conv1"]["dw_conv"], f"{prefix}.conv1.conv", out)
-    _bn(params["conv1"]["bn"], stats["conv1"]["bn"], f"{prefix}.conv1.bn",
-        out)
+    _bn(params["conv1"]["bn"], sub("conv1", "bn"), f"{prefix}.conv1.bn", out)
     _conv1d(params["conv1"]["pw_conv"], f"{prefix}.conv1.pointwise", out)
-    _bn(params["bn1"], stats["bn1"], f"{prefix}.bn1", out)
+    _bn(params["bn1"], sub("bn1"), f"{prefix}.bn1", out)
     _conv1d(params["conv2"], f"{prefix}.conv2", out)
-    _bn(params["bn2"], stats["bn2"], f"{prefix}.bn2", out)
+    _bn(params["bn2"], sub("bn2"), f"{prefix}.bn2", out)
 
 
 def state_dict_from_jax(
@@ -63,8 +70,10 @@ def state_dict_from_jax(
     cmvn: Optional[Tuple[np.ndarray, np.ndarray]] = None,
 ) -> Dict[str, torch.Tensor]:
     """(params, batch_stats, model config, (mean, istd)) -> port
-    state_dict.  Pass ``cmvn`` exactly when the model has GlobalCMVN."""
-    stats = batch_stats or {}
+    state_dict.  Pass ``cmvn`` exactly when the model has GlobalCMVN.
+    With ``batch_stats=None`` the BatchNorm buffers are left out, so a
+    gradient tree (same structure as ``params``) maps to the port's
+    parameter names (see ``grads_from_jax``)."""
     out: Dict[str, torch.Tensor] = {}
     if cmvn is not None:
         out["global_cmvn.mean"] = _t(cmvn[0])
@@ -82,14 +91,14 @@ def state_dict_from_jax(
             f"backbone {bconf['type']!r} is not ported yet (ROADMAP queue A, "
             "item 7, other backbones)"
         )
-    bp, bs = params["backbone"], stats["backbone"]
-    _mdtc_block(bp["preprocessor"], bs["preprocessor"],
-                "backbone.preprocessor", out)
-    for si in range(bconf["num_stack"]):
-        for bi in range(bconf["stack_size"]):
-            name = f"stack_{si}_block_{bi}"
-            _mdtc_block(bp[name], bs[name],
-                        f"backbone.blocks.{si}.res_blocks.{bi}", out)
+    bp = params["backbone"]
+    bs = None if batch_stats is None else batch_stats["backbone"]
+    names = [("preprocessor", "backbone.preprocessor")] + [
+        (f"stack_{si}_block_{bi}", f"backbone.blocks.{si}.res_blocks.{bi}")
+        for si in range(bconf["num_stack"])
+        for bi in range(bconf["stack_size"])]
+    for name, prefix in names:
+        _mdtc_block(bp[name], None if bs is None else bs[name], prefix, out)
 
     cls = params.get("classifier", {})
     if "linear" in cls:
@@ -98,6 +107,13 @@ def state_dict_from_jax(
         _linear(cls["mlp"]["fc1"], "classifier.classifier.0", out)
         _linear(cls["mlp"]["fc2"], "classifier.classifier.3", out)
     return out
+
+
+def grads_from_jax(grads: dict, model_conf: dict) -> Dict[str, torch.Tensor]:
+    """A JAX gradient tree (the structure of ``params``) -> {port
+    parameter name: gradient}, comparable with ``p.grad`` of
+    ``named_parameters()``."""
+    return state_dict_from_jax(grads, None, model_conf)
 
 
 def model_from_jax(params: dict, batch_stats: Optional[dict],
