@@ -23,23 +23,28 @@ CUDA device, in phases; any failure exits non-zero:
    warm-up, median of 30 calls; the kernel's device time alone from
    torch.profiler) beside the bound computed from this run's shapes;
 6. the eight fused training passes (F1-F4, B1-B4) against their plain
-   versions on identical inputs, at flagship width (C=64, K=5):
-   B=64 x T=198 and a ragged B=5 x T=130, dilations 1 and 8, and C=32
+   versions on identical inputs, at flagship width (C=64, K=5): the
+   main path's B=512 x T=198 at dilations 1, 2, 4 and 8 (about eight
+   tiles per block of the persistent grid), B=64 x T=198 (one tile
+   per block) and a ragged B=5 x T=130 at dilations 1 and 8, and C=32
    once; each pass launched twice must agree bitwise (deterministic
    reductions).  The whole fused block (forward, six batch statistics,
    twelve parameter gradients and dx) against the unfused module block
    by autograd on the card;
 7. the training slice end to end at B=512 x 2 s: device fbank +
    CMVN from the batch + ``init_model(FLAGSHIP + fused_train)`` +
-   ``Trainer``: step 0 held against the unfused Trainer (loss and
-   every gradient), 5 steps without augmentation (loss finite and
+   ``Trainer``: step 0 held against the unfused Trainer (loss) and,
+   with the unfused Trainer, against the unfused model in float64 (the
+   gradients of each block and of each other tensor, against their own
+   scale), 5 steps without augmentation (loss finite and
    decreasing), 2 steps with the flagship dither + spec_aug; every
    pass launched 17 x steps times; cv step, two checkpoints saved,
    averaged and loaded, and the trained model served through
    ``build_fused_forward``, held against the module forward;
 8. training times: each pass per call (CUDA events, median of 30) at
-   B=512 x T=198, its device time per call in a profiled train step,
-   the plain version's time and the bound; the whole train step.
+   B=512 x T=198, its device time per call in a profiled train step
+   (its kernel and its own block reduction), the plain version's time
+   and the bound; the whole train step.
 
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -76,7 +81,6 @@ TOL = 1e-4  # abs and rel: fp32 with another summation order
 # tensor cores, and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
-TRAIN_TOL = 1e-3  # sums over 1e4-1e5 frames, relative to the group's max
 TRAIN_B, TRAIN_SECONDS = 512, 2
 TRAIN_DATASET_CONF = {  # __graft_entry__.DATASET_CONF, the flagship recipe
     "feats_type": "fbank",
@@ -88,6 +92,12 @@ TRAIN_DATASET_CONF = {  # __graft_entry__.DATASET_CONF, the flagship recipe
                       "max_t": 20, "max_f": 10},
 }
 TRAIN_STEPS_PLAIN, TRAIN_STEPS_AUG = 5, 2
+# step-0 gradients of each block against float64, relative to the
+# block's largest |grad|.  Exact BN's E[x^2] - E[x]^2 cancels in fp32,
+# and the unfused fp32 route itself is off float64 by up to 4.6e-3 of a
+# block's largest |grad| here (1.1e-2 on the CPU at B=8); a wrong
+# kernel is off by the order of the gradient itself
+GRAD64_TOL = 2e-2
 TRAIN_PASSES = ("f1", "f2", "f3", "f4", "b1", "b2", "b3", "b4")
 KEYWORD = "HI"
 N_UTTS, SECONDS, RATE = 16, 2, 16000
@@ -255,86 +265,48 @@ def train_pass_bound_ms(name, b, t, c, k):
                                  else "bytes")
 
 
-def block_params(gen, c, k, device):
-    """Seeded TCN block parameters in the JAX package's layouts."""
-    import torch
-
-    def r(*shape, scale=0.3):
-        return (torch.randn(shape, generator=gen) * scale).to(device)
-
-    p = {"dw_kernel": r(k, 1, c), "dw_bias": r(c),
-         "pw1_kernel": r(c, c, scale=c ** -0.5), "pw1_bias": r(c, scale=0.1),
-         "pw2_kernel": r(c, c, scale=c ** -0.5), "pw2_bias": r(c, scale=0.1)}
-    for i in range(3):
-        p[f"bn{i}_scale"] = 1.0 + r(c, scale=0.1)
-        p[f"bn{i}_bias"] = r(c, scale=0.1)
-    return p
-
-
-def check_sums(name, gots, wants):
-    """Sums over frames (BN sums, gradients): each within TRAIN_TOL of
-    the largest |value| among ``wants`` (at least 1).  One scale for
-    the group, because a sum that cancels to about zero (the gradient
-    of a bias that a BatchNorm follows) carries the rounding of terms
-    as large as its group's other sums."""
-    scale = max([float(w.abs().max()) for w in wants] + [1.0])
-    worst = 0.0
-    for i, (got, want) in enumerate(zip(gots, wants)):
-        err = float((got - want).abs().max())
-        if err > TRAIN_TOL * scale or not bool(got.isfinite().all()):
-            raise AssertionError(f"{name}[{i}]: max_abs_err {err:.3e} over "
-                                 f"bound {TRAIN_TOL} x {scale:.3e}")
-        worst = max(worst, err)
-    return worst
-
-
-def check_pass(name, got, want):
-    """(B, T, C) outputs 1e-4 abs + 1e-4 rel; sums as ``check_sums``."""
-    got = got if isinstance(got, tuple) else (got,)
-    want = want if isinstance(want, tuple) else (want,)
-    err = 0.0
-    sums = []
-    for i, (a, b) in enumerate(zip(got, want)):
-        if a.dim() == 3:
-            err = max(err, check_close(f"{name}[{i}]", a, b, quiet=True))
-        else:
-            sums.append((a, b))
-    if sums:
-        err = max(err, check_sums(name, *zip(*sums)))
-    return err
-
-
 def phase6_train_kernels(dev, gen):
     """Every training pass against its plain version, plus the whole
     fused block against the unfused module block.  Returns the largest
-    error of each pass."""
+    error of each pass, and the passes' inputs at the main shape and
+    dilation 8 for phase 8's times."""
     import torch
 
     from wekws_tpu_torch.models.mdtc import TCNBlock
     from wekws_tpu_torch.ops.fused_mdtc_train import (
         PASSES,
+        SUM_TOL,
+        compare_pass,
+        compare_sums,
+        seeded_block_inputs,
         trace_pass_inputs,
     )
 
     errs = {name: 0.0 for name in TRAIN_PASSES}
     k = 5
-    cases = [(64, 198, 64, 1), (64, 198, 64, 8), (5, 130, 64, 1),
-             (5, 130, 64, 8), (64, 198, 32, 8)]
+    # the main path's shape at each of the flagship's dilations, where
+    # each block of the persistent grid carries its sums across about
+    # eight tiles; one tile per block; a ragged batch; C=32
+    cases = [(TRAIN_B, 198, 64, d) for d in (1, 2, 4, 8)] + [
+        (64, 198, 64, 1), (64, 198, 64, 8), (5, 130, 64, 1),
+        (5, 130, 64, 8), (64, 198, 32, 8)]
+    main_calls = None
     for b, t, c, d in cases:
-        p = block_params(gen, c, k, dev)
-        x = torch.randn((b, t, c), generator=gen).to(dev)
-        dy = torch.randn((b, t, c), generator=gen).to(dev)
+        p, x, dy = seeded_block_inputs(gen, b, t, c, k, dev)
         calls = trace_pass_inputs(x, p, dy, d)
         for name, args in calls.items():
             got = PASSES[name](*args)
             again = PASSES[name](*args)
             torch.cuda.synchronize()
-            errs[name] = max(errs[name],
-                             check_pass(name, got, PASSES[name].plain(*args)))
+            errs[name] = max(errs[name], compare_pass(
+                f"{name} B={b} T={t} C={c} d={d}", got,
+                PASSES[name].plain(*args)))
             got = got if isinstance(got, tuple) else (got,)
             again = again if isinstance(again, tuple) else (again,)
             if not all(torch.equal(u, v) for u, v in zip(got, again)):
                 raise AssertionError(f"{name}: two launches differ")
+        if (b, c, d) == (TRAIN_B, 64, 8):
+            main_calls = calls
         print(f"  passes B={b} T={t} C={c} d={d}: "
               + ", ".join(f"{n} {errs[n]:.2e}" for n in TRAIN_PASSES)
               + " (running max abs err; bitwise reproducible)", flush=True)
@@ -362,14 +334,52 @@ def phase6_train_kernels(dev, gen):
         for (name, bufa), bufb in zip(bf.named_buffers(), bu.buffers()):
             if "running" in name:  # the six batch statistics, folded in
                 check_close(f"block {name}", bufa, bufb)
-        worst = check_sums("block grads",
-                           [prm.grad for prm in bf.parameters()],
-                           [prm.grad for prm in bu.parameters()])
+        worst = compare_sums("block grads",
+                             [prm.grad for prm in bf.parameters()],
+                             [prm.grad for prm in bu.parameters()])
         print(f"  fused block B={b} T={t} d={d} vs unfused autograd: y, "
               f"dx and running statistics within {TOL} abs + {TOL} rel; "
               f"12 parameter gradients max err {worst:.2e} (bound "
-              f"{TRAIN_TOL} x the largest |grad|)", flush=True)
-    return errs
+              f"{SUM_TOL} x the largest |grad|)", flush=True)
+    return errs, main_calls
+
+
+def float64_grads(conf, state_dict, feats, feat_lengths, batch):
+    """Gradients of the unfused model in float64 on the same features
+    and loss as a train step: the reference of both fp32 routes."""
+    import torch
+
+    from wekws_tpu_torch.losses import criterion
+    from wekws_tpu_torch.models import init_model
+
+    model = init_model(conf)
+    model.load_state_dict(state_dict)
+    model = model.to(feats.device, torch.float64).train()
+    logits, _ = model(feats.to(torch.float64), lengths=feat_lengths)
+    loss, _ = criterion(
+        "max_pooling", logits,
+        torch.as_tensor(batch["target"], device=feats.device),
+        feat_lengths,
+        torch.as_tensor(batch["target_lengths"], device=feats.device), 5)
+    loss.backward()
+    return model
+
+
+def grad_groups(model):
+    """{name: parameters}: one group per TCNBlock, whose twelve
+    gradients share one scale as a pass's sums do, and one group for
+    each other parameter tensor."""
+    from wekws_tpu_torch.models.mdtc import TCNBlock
+
+    groups, grouped = {}, set()
+    for name, mod in model.named_modules():
+        if isinstance(mod, TCNBlock):
+            groups[name] = list(mod.parameters())
+            grouped.update(id(p) for p in groups[name])
+    for name, prm in model.named_parameters():
+        if id(prm) not in grouped:
+            groups[name] = [prm]
+    return groups
 
 
 def train_batch(rng):
@@ -393,7 +403,11 @@ def phase7_train_slice(dev, work, launches):
 
     from wekws_tpu_torch.data import DeviceFeaturePipeline
     from wekws_tpu_torch.models import init_model
-    from wekws_tpu_torch.ops.fused_mdtc_train import PASSES, reset_launches
+    from wekws_tpu_torch.ops.fused_mdtc_train import (
+        PASSES,
+        compare_sums,
+        reset_launches,
+    )
     from wekws_tpu_torch.ops.serving import build_fused_forward
     from wekws_tpu_torch.train import (
         Trainer,
@@ -458,13 +472,31 @@ def phase7_train_slice(dev, work, launches):
             if err > 1e-5 * abs(float(want_loss)):
                 raise AssertionError(f"step-0 loss {losses[0]} vs unfused "
                                      f"{float(want_loss)}")
-            worst = check_sums(
-                "step-0 grads",
-                [p.grad for p in trainer.model.parameters()],
-                [p.grad for p in twin.model.parameters()])
+            # both fp32 routes against float64, each block's gradients
+            # against that block's own largest |grad| (a small absolute
+            # floor for a group near zero), so that a wrong block cannot
+            # hide under the head's gradients
+            with torch.no_grad():
+                f0, l0 = twin.pipeline(waves, lengths)
+            ref = grad_groups(float64_grads(
+                unfused_conf, twin.model.state_dict(), f0, l0, batch))
+            share = {}
+            for route, tr in (("fused", trainer), ("unfused", twin)):
+                share[route] = 0.0
+                for gname, got in grad_groups(tr.model).items():
+                    wants = [p.grad.float() for p in ref[gname]]
+                    gerr = compare_sums(
+                        f"step-0 grads {route} {gname} vs float64",
+                        [p.grad for p in got], wants, floor=1e-6,
+                        tol=GRAD64_TOL)
+                    scale = max([float(g.abs().max()) for g in wants]
+                                + [1e-6])
+                    share[route] = max(share[route], gerr / scale)
             print(f"  step 0 vs the unfused Trainer: loss {losses[0]:.6f} "
-                  f"(diff {err:.2e}), worst gradient err {worst:.2e} "
-                  f"(bound {TRAIN_TOL} x the largest |grad|)", flush=True)
+                  f"(diff {err:.2e}); gradients vs float64, 17 blocks and "
+                  f"4 other tensors each within {GRAD64_TOL} x its own "
+                  f"largest |grad|: worst fused {share['fused']:.2e}, "
+                  f"unfused {share['unfused']:.2e} of that", flush=True)
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"loss not finite and decreasing: {losses}")
     # the flagship recipe's augmentation from here on
@@ -517,16 +549,14 @@ def phase7_train_slice(dev, work, launches):
     return trainer, state, batch
 
 
-def phase8_train_times(dev, gen, trainer, state, batch, card, launches,
-                       errs):
-    """Per-pass and whole-step times at B=512 x T=198."""
+def phase8_train_times(trainer, state, batch, card, launches, errs,
+                       calls):
+    """Per-pass and whole-step times at B=512 x T=198; ``calls`` holds
+    each pass's inputs at that shape (dilation 8)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from wekws_tpu_torch.ops.fused_mdtc_train import (
-        PASSES,
-        trace_pass_inputs,
-    )
+    from wekws_tpu_torch.ops.fused_mdtc_train import PASS_IDS, PASSES
 
     # the whole train step (host clock around synchronised steps)
     for _ in range(2):
@@ -568,7 +598,6 @@ def phase8_train_times(dev, gen, trainer, state, batch, card, launches,
                 return total / count / 1e3
         return None
 
-    reduce_ms = dev_ms("reduce_kernel") or 0.0
     dx_ms = dev_ms("dx_kernel<64>") or 0.0
     ours = list(pass_kernel.values()) + ["reduce_kernel", "dx_kernel<64>"]
     kernel_total = sum(t for key, (t, _) in kernels.items()
@@ -580,10 +609,6 @@ def phase8_train_times(dev, gen, trainer, state, batch, card, launches,
 
     record = []
     b, t, c, k, d = TRAIN_B, 198, 64, 5, 8
-    p = block_params(gen, c, k, dev)
-    x = torch.randn((b, t, c), generator=gen).to(dev)
-    dy = torch.randn((b, t, c), generator=gen).to(dev)
-    calls = trace_pass_inputs(x, p, dy, d)
     for name in TRAIN_PASSES:
         args = calls[name]
         kern = lambda: PASSES[name](*args)  # noqa: E731
@@ -602,11 +627,15 @@ def phase8_train_times(dev, gen, trainer, state, batch, card, launches,
         host_ms = float(np.median(host))
         bound, bound_by = train_pass_bound_ms(name, b, t, c, k)
         main = dev_ms(pass_kernel[name])
-        if main is not None and name != "f4":
-            main += reduce_ms
+        reduce_ms = None
+        if main is not None and name != "f4":  # its own block reduction
+            reduce_ms = dev_ms(f"reduce_kernel<{PASS_IDS[name]}>")
+            main = None if reduce_ms is None else main + reduce_ms
         if main is not None and name == "b4":
             main += dx_ms
         dev_txt = "not measured" if main is None else f"{main:.4f} ms"
+        if main is not None and reduce_ms is not None:
+            dev_txt += f", of it {reduce_ms:.4f} ms its reduction"
         print(f"  fused_train_{name} B={b} T={t} d={d}: kernel {ms:.4f} ms "
               f"per call (device time per call in the train step "
               f"{dev_txt}; host enqueue {host_ms:.4f} ms), plain "
@@ -908,7 +937,7 @@ def main() -> int:
                     })
 
     with phase("6 training kernels vs plain (flagship width)"):
-        train_errs = phase6_train_kernels(dev, gen)
+        train_errs, main_calls = phase6_train_kernels(dev, gen)
 
     with phase("7 training slice end to end"):
         train_dir = os.path.join(work, "train")
@@ -916,8 +945,8 @@ def main() -> int:
         trainer, state, batch = phase7_train_slice(dev, train_dir, launches)
 
     with phase("8 training times"):
-        train_record, _ = phase8_train_times(dev, gen, trainer, state, batch,
-                                             card, launches, train_errs)
+        train_record, _ = phase8_train_times(trainer, state, batch, card,
+                                             launches, train_errs, main_calls)
         record += train_record
 
     print(card)

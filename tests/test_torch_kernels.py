@@ -53,47 +53,6 @@ def test_fused_mdtc_kernel_matches_plain(t):
     torch.testing.assert_close(got_c, want_c, atol=1e-4, rtol=1e-4)
 
 
-def _block_inputs(g, b, t, c, k, device):
-    """Seeded block parameters (JAX layouts), input and upstream grad."""
-    def r(*shape, scale=0.3):
-        return (torch.randn(shape, generator=g) * scale).to(device)
-
-    p = {"dw_kernel": r(k, 1, c), "dw_bias": r(c),
-         "pw1_kernel": r(c, c, scale=c ** -0.5), "pw1_bias": r(c, scale=0.1),
-         "pw2_kernel": r(c, c, scale=c ** -0.5), "pw2_bias": r(c, scale=0.1)}
-    for i in range(3):
-        p[f"bn{i}_scale"] = 1.0 + r(c, scale=0.1)
-        p[f"bn{i}_bias"] = r(c, scale=0.1)
-    return p, r(b, t, c, scale=1.0), r(b, t, c, scale=1.0)
-
-
-def _assert_sums_close(name, gots, wants):
-    """Sums over frames (BN sums, gradients) within 1e-3 of the largest
-    |value| of the group (at least 1): a sum that cancels to about zero
-    (the gradient of a bias that a BatchNorm follows) carries the
-    rounding of terms as large as the group's other sums."""
-    scale = max([float(w.abs().max()) for w in wants] + [1.0])
-    for i, (a, b) in enumerate(zip(gots, wants)):
-        err = float((a - b).abs().max())
-        assert err <= 1e-3 * scale, f"{name}[{i}]: {err} vs {scale}"
-
-
-def _assert_pass_close(name, got, want):
-    """(B, T, C) outputs 1e-4 abs + 1e-4 rel of the plain pass (fp32,
-    another summation order); sums as ``_assert_sums_close``."""
-    got = got if isinstance(got, tuple) else (got,)
-    want = want if isinstance(want, tuple) else (want,)
-    sums = []
-    for i, (a, b) in enumerate(zip(got, want)):
-        if b.dim() == 3:
-            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4,
-                                       msg=lambda m: f"{name}[{i}]: {m}")
-        else:
-            sums.append((a, b))
-    if sums:
-        _assert_sums_close(name, *zip(*sums))
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("t", [8, 64, 70, 130])
 @pytest.mark.parametrize("dilation", [1, 8])
@@ -105,12 +64,14 @@ def test_fused_train_passes_match_plain(t, dilation):
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from wekws_tpu_torch.ops.fused_mdtc_train import (
         PASSES,
+        compare_pass,
+        seeded_block_inputs,
         trace_pass_inputs,
     )
 
     g = torch.Generator().manual_seed(100 * t + dilation)
     for c in (32, 64, 128) if t == 70 else (64,):
-        p, x, dy = _block_inputs(g, 3, t, c, 5, "cuda")
+        p, x, dy = seeded_block_inputs(g, 3, t, c, 5, "cuda")
         calls = trace_pass_inputs(x, p, dy, dilation)
         for name, args in calls.items():
             before = PASSES[name].launches
@@ -118,7 +79,9 @@ def test_fused_train_passes_match_plain(t, dilation):
             again = PASSES[name](*args)
             assert PASSES[name].launches == before + 2
             torch.cuda.synchronize()
-            _assert_pass_close(name, got, PASSES[name].plain(*args))
+            # (B, T, C) outputs 1e-4 abs + 1e-4 rel, sums 1e-3 of the
+            # largest of the pass's sums
+            compare_pass(name, got, PASSES[name].plain(*args))
             got = got if isinstance(got, tuple) else (got,)
             again = again if isinstance(again, tuple) else (again,)
             for a, b in zip(got, again):
@@ -127,53 +90,56 @@ def test_fused_train_passes_match_plain(t, dilation):
 
 @pytest.mark.cuda
 def test_fused_train_block_gradients_match_autograd():
-    """The autograd Function on the card against autograd of the plain
-    block on the card (fp32): y and dx 1e-4 abs + 1e-4 rel, the twelve
-    parameter gradients as ``_assert_sums_close``."""
+    """The fused block (the autograd Function over the eight kernels)
+    against autograd of the unfused module block, both on the card
+    (fp32): y and dx 1e-4 abs + 1e-4 rel, the twelve parameter
+    gradients within 1e-3 of the largest |grad| (``compare_sums``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    from wekws_tpu_torch.ops.fused_mdtc_train import (
-        PARAM_KEYS,
-        PASSES,
-        fused_tcn_block_train,
-    )
+    from wekws_tpu_torch.models.mdtc import TCNBlock
+    from wekws_tpu_torch.ops.fused_mdtc_train import PASSES, compare_sums
 
     g = torch.Generator().manual_seed(7)
-    p, x, dy = _block_inputs(g, 5, 130, 64, 5, "cuda")
+    blocks = [TCNBlock(64, 64, 5, 4, fused_train=fused).cuda().train()
+              for fused in (True, False)]
+    with torch.no_grad():
+        for prm in blocks[0].parameters():
+            prm.copy_(torch.randn(prm.shape, generator=g).cuda() * 0.3)
+    blocks[1].load_state_dict(blocks[0].state_dict())
+    x = torch.randn((5, 130, 64), generator=g).cuda()
+    dy = torch.randn((5, 130, 64), generator=g).cuda()
+    before = PASSES["b4"].launches
     outs = []
-    for fused in (True, False):
-        leaves = {k: v.clone().requires_grad_() for k, v in p.items()}
+    for blk in blocks:
         xi = x.clone().requires_grad_()
-        if fused:
-            y, _ = fused_tcn_block_train(xi, leaves, 5, 4)
-        else:
-            y = _plain_block(xi, leaves, 4)
+        y, _ = blk(xi, None)
         (y * dy).sum().backward()
-        outs.append(([y.detach(), xi.grad],
-                     [leaves[k].grad for k in PARAM_KEYS]))
-    assert all(PASSES[n].launches > 0 for n in PASSES)
-    (acts, grads), (want_acts, want_grads) = outs
-    for a, b in zip(acts, want_acts):
+        outs.append((y.detach(), xi.grad))
+    assert PASSES["b4"].launches == before + 1
+    for a, b in zip(*outs):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
-    _assert_sums_close("grads", grads, want_grads)
+    compare_sums("grads", [p.grad for p in blocks[0].parameters()],
+                 [p.grad for p in blocks[1].parameters()])
 
 
-def _plain_block(x, p, dilation, eps=1e-5):
-    """Unfused exact-BN block by plain autograd (the unfused module
-    path of models/mdtc.py, written on the JAX layouts)."""
-    k = p["dw_kernel"].shape[0]
-    pad = (k - 1) * dilation
-    t = x.shape[1]
-    xp = torch.nn.functional.pad(x, (0, 0, pad, 0))
-    u = sum(xp[:, pad - (k - 1 - j) * dilation:][:, :t] * p["dw_kernel"][j, 0]
-            for j in range(k)) + p["dw_bias"]
+def test_compare_pass_holds_each_output_to_its_bound():
+    """The comparator the card checks use: a pass against itself is
+    exact; an output off by more than 1e-4 abs + 1e-4 rel, or a sum
+    off by more than 1e-3 of its group's largest, fails."""
+    from wekws_tpu_torch.ops.fused_mdtc_train import (
+        PASSES,
+        compare_pass,
+        seeded_block_inputs,
+        trace_pass_inputs,
+    )
 
-    def bn(z, i):
-        mu = z.mean(dim=(0, 1))
-        var = (z * z).mean(dim=(0, 1)) - mu * mu
-        return (z - mu) * torch.rsqrt(var + eps) * p[f"bn{i}_scale"] \
-            + p[f"bn{i}_bias"]
-
-    v = bn(u, 0) @ p["pw1_kernel"] + p["pw1_bias"]
-    w = torch.relu(bn(v, 1)) @ p["pw2_kernel"] + p["pw2_bias"]
-    return torch.relu(bn(w, 2) + x)
+    g = torch.Generator().manual_seed(3)
+    p, x, dy = seeded_block_inputs(g, 2, 9, 8, 3, "cpu")
+    calls = trace_pass_inputs(x, p, dy, 2)
+    r, w, s, ss = PASSES["f3"].plain(*calls["f3"])
+    assert compare_pass("f3", (r, w, s, ss), (r, w, s, ss)) == 0.0
+    with pytest.raises(AssertionError, match="f3"):
+        compare_pass("f3", (r, w + 1e-2, s, ss), (r, w, s, ss))
+    scale = max(float(s.abs().max()), float(ss.abs().max()), 1.0)
+    with pytest.raises(AssertionError, match="f3"):
+        compare_pass("f3", (r, w, s + 2e-3 * scale, ss), (r, w, s, ss))

@@ -517,7 +517,10 @@ __global__ void __launch_bounds__(kThreads) dx_kernel(Args a, size_t total) {
   }
 }
 
-// out[j] = Σ_b partials[b][j], blocks in order
+// out[j] = Σ_b partials[b][j], blocks in order.  S, the pass whose
+// partials these are, only names the kernel, so that a profile shows
+// each pass's reduction apart.
+template <int S>
 __global__ void __launch_bounds__(kThreads)
 reduce_kernel(const float* __restrict__ partials, int n_blocks, int width,
               float* __restrict__ out) {
@@ -538,6 +541,14 @@ int launch_tiles(Kern kern, const Args& a, size_t smem, int n_blocks,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   kern<<<n_blocks, kThreads, smem, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int S>
+int launch_reduce(const float* partials, int n_blocks, int width,
+                  float* out, cudaStream_t s) {
+  reduce_kernel<S><<<(width + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      partials, n_blocks, width, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -598,9 +609,15 @@ int run(int pass, const Args& a, int n_blocks, float* reduced,
     }
   }
   if (err != 0) return err;
-  reduce_kernel<<<(width + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      a.partials, n_blocks, width, reduced);
-  err = static_cast<int>(cudaGetLastError());
+  switch (pass) {
+    case kF1: err = launch_reduce<kF1>(a.partials, n_blocks, width, reduced, s); break;
+    case kF2: err = launch_reduce<kF2>(a.partials, n_blocks, width, reduced, s); break;
+    case kF3: err = launch_reduce<kF3>(a.partials, n_blocks, width, reduced, s); break;
+    case kB1: err = launch_reduce<kB1>(a.partials, n_blocks, width, reduced, s); break;
+    case kB2: err = launch_reduce<kB2>(a.partials, n_blocks, width, reduced, s); break;
+    case kB3: err = launch_reduce<kB3>(a.partials, n_blocks, width, reduced, s); break;
+    default: err = launch_reduce<kB4>(a.partials, n_blocks, width, reduced, s); break;
+  }
   if (err != 0 || pass != kB4) return err;
   dx_kernel<C><<<elementwise_blocks(total), kThreads, 0, s>>>(a, total);
   return static_cast<int>(cudaGetLastError());

@@ -66,7 +66,8 @@ class BatchNorm(nn.BatchNorm1d):
 
     Eval: running statistics.  Training (``ExactBatchNorm`` of the JAX
     package): batch mean and variance ``E[x^2] - E[x]^2`` in float32
-    over every axis but the last, and running averages with flax's
+    (float64 input stays float64) over every axis but the last, and
+    running averages with flax's
     momentum 0.9 (torch ``momentum=0.1``) that take the BIASED batch
     variance, unlike ``nn.BatchNorm1d``."""
 
@@ -74,7 +75,7 @@ class BatchNorm(nn.BatchNorm1d):
         if not self.training:
             inv = torch.rsqrt(self.running_var + self.eps) * self.weight
             return (x - self.running_mean) * inv + self.bias
-        x32 = x.to(torch.float32)
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
         axes = tuple(range(x.dim() - 1))
         mean = x32.mean(dim=axes)
         var = (x32 * x32).mean(dim=axes) - mean * mean

@@ -31,7 +31,9 @@ version (``_f1_plain`` ... ``_b4_plain``); a pass takes it only for
 CPU tensors and launches its kernel (or raises) for CUDA tensors.
 ``PASSES`` maps each pass name to its public function, which counts
 its kernel launches in ``.launches`` and carries its plain version as
-``.plain``.
+``.plain``.  ``trace_pass_inputs``, ``compare_pass`` and
+``compare_sums`` hold each kernel against its plain version on the
+same inputs, for the tests and ``chip_smoke.py``.
 
 Gradients are the textbook exact-BN backward per layer composed
 through the block; they equal autograd of the unfused block
@@ -604,3 +606,68 @@ def trace_pass_inputs(x, params, dy, dilation, eps=1e-5):
     _, r, w, v = block_forward(x, p, dilation, eps, run)
     block_backward(dy.contiguous(), x, r, w, p, v, dilation, run)
     return calls
+
+
+# ---------------------------------------------------------------------------
+# holding a kernel against its plain version
+# ---------------------------------------------------------------------------
+
+OUT_TOL = 1e-4  # (B, T, C) outputs, abs and rel: fp32 in another order
+SUM_TOL = 1e-3  # sums over frames, relative to the largest of their group
+
+
+def seeded_block_inputs(gen, b, t, c, k, device):
+    """Block parameters in JAX layouts, an input x and an upstream
+    gradient dy, drawn from the torch.Generator ``gen``."""
+    def r(*shape, scale=0.3):
+        return (torch.randn(shape, generator=gen) * scale).to(device)
+
+    p = {"dw_kernel": r(k, 1, c), "dw_bias": r(c),
+         "pw1_kernel": r(c, c, scale=c ** -0.5), "pw1_bias": r(c, scale=0.1),
+         "pw2_kernel": r(c, c, scale=c ** -0.5), "pw2_bias": r(c, scale=0.1)}
+    for i in range(3):
+        p[f"bn{i}_scale"] = 1.0 + r(c, scale=0.1)
+        p[f"bn{i}_bias"] = r(c, scale=0.1)
+    return p, r(b, t, c, scale=1.0), r(b, t, c, scale=1.0)
+
+
+def compare_sums(name, gots, wants, floor=1.0, tol=SUM_TOL):
+    """Largest abs error of a group of sums over frames (BN sums,
+    gradients).  Raises AssertionError where one is not finite or is
+    off by more than ``tol`` x the largest |value| of ``wants`` (at
+    least ``floor``).  One scale for the group, because a sum that
+    cancels to about zero (the gradient of a bias that a BatchNorm
+    follows) carries the rounding of terms as large as the group's
+    other sums."""
+    scale = max([float(w.abs().max()) for w in wants] + [floor])
+    worst = 0.0
+    for i, (got, want) in enumerate(zip(gots, wants)):
+        err = float((got - want).abs().max())
+        if not err <= tol * scale or not bool(got.isfinite().all()):
+            raise AssertionError(f"{name}[{i}]: max abs err {err:.3e} over "
+                                 f"the bound {tol} x {scale:.3e}")
+        worst = max(worst, err)
+    return worst
+
+
+def compare_pass(name, got, want):
+    """Largest abs error of one pass's outputs against its plain
+    version's: (B, T, C) outputs within OUT_TOL abs + OUT_TOL rel,
+    the pass's sums as one group of ``compare_sums``."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    worst = 0.0
+    sums = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        if b.dim() != 3:
+            sums.append((a, b))
+            continue
+        err = float((a - b).abs().max())
+        if not (torch.allclose(a, b, atol=OUT_TOL, rtol=OUT_TOL)
+                and bool(a.isfinite().all())):
+            raise AssertionError(f"{name}[{i}]: max abs err {err:.3e} over "
+                                 f"{OUT_TOL} abs + {OUT_TOL} rel")
+        worst = max(worst, err)
+    if sums:
+        worst = max(worst, compare_sums(name, *zip(*sums)))
+    return worst
