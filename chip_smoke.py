@@ -3,8 +3,11 @@
 
 Drives the flagship MDTC max-pooling wake word (40-mel fbank, global
 CMVN, linear preprocessing, MDTC 4 stacks x 4 blocks, kernel 5, 64
-channels, linear head + sigmoid; random weights from a seed) on one
-CUDA device, in phases; any failure exits non-zero:
+channels, linear head + sigmoid), the hey_snips DS-TCN wake word
+(linear preprocessing to 64, 4 DS blocks, kernel 8) and the hi_xiaowen
+FSMN-CTC model (80-mel fbank, context +-2, skip 3, 4 layers 250/128,
+2599 tokens), each at full width with random weights from a seed, on
+one CUDA device, in phases; any failure exits non-zero:
 
 1. card name and power limit (nvidia-smi); a GPU is required;
 2. build every CUDA kernel from ``wekws_tpu_torch/csrc``;
@@ -44,10 +47,35 @@ CUDA device, in phases; any failure exits non-zero:
 8. training times: each pass per call (CUDA events, median of 30) at
    B=512 x T=198, its device time per call in a profiled train step
    (its kernel and its own block reduction), the plain version's time
-   and the bound; the whole train step.
+   and the bound; the whole train step;
+9. the three later kernels against their plain versions at full width:
+   ``fused_ds_tcn`` at B=64 x T=198, B=4 x T=1024 and B=16 chained in
+   chunks of 8 over 200 frames; ``fused_fsmn_layers`` at B=16 x T=66,
+   B=4 x T=1024 and B=1 chained in chunks of 10 over 200 frames (each
+   chain against the one-shot call and the plain chain, final cache
+   too; 1e-4 abs + 1e-4 rel); ``fused_fbank`` at (512, 32000) M=40,
+   (64, 32000) M=80, MFCC and magnitude/no-log against the three-matmul
+   plain version; its in-kernel dither by the per-bin mean and standard
+   deviation of the log-mel over 101,376 frames against torch.randn,
+   same seed bitwise equal, another seed different;
+10. path A, as phase 4 for the DS-TCN recipe: offline fused forward ->
+    score file -> DET and ``BatchMaxPoolSpotter(use_fused=True)``,
+    through ``fused_ds_tcn``;
+11. path B: ``KeyWordSpotter`` with and without ``use_fused`` fed the
+    same 2 s waves in 300 ms chunks (softmax posteriors and result
+    dicts agree; one ``fused_fsmn_layers`` launch per chunk that carried
+    frames), ``build_fused_forward(softmax=True)`` at B=16 against the
+    module, and the detector firing on injected keyword posteriors;
+12. path C: the phase-7 trainer with ``fused_frontend: True``: step-0
+    features and loss against the unfused frontend, steps with the
+    flagship's wave-mode dither + spec_aug, two steps with frame-mode
+    (in-kernel) dither, a cv step; one ``fused_fbank`` launch per step;
+13. times of the three kernels at their main shapes, of the path-C
+    train step beside the unfused-frontend step, and of
+    ``KeyWordSpotter.forward`` per 300 ms chunk.
 
-The last two lines are the per-kernel JSON record and
-``{"ok": true, "device": {...}}``.  Run from the repository root:
+The last lines are the card, the per-kernel JSON record (13 kernels)
+and ``{"ok": true, "device": {...}}``.  Run from the repository root:
 ``python3 chip_smoke.py``.
 """
 
@@ -100,6 +128,40 @@ TRAIN_STEPS_PLAIN, TRAIN_STEPS_AUG = 5, 2
 GRAD64_TOL = 2e-2
 TRAIN_PASSES = ("f1", "f2", "f3", "f4", "b1", "b2", "b3", "b4")
 KEYWORD = "HI"
+DS_TCN_MODEL_CONF = {  # examples/hey_snips/conf/ds_tcn.yaml
+    "input_dim": 40, "output_dim": 1, "hidden_dim": CHANNELS,
+    "preprocessing": {"type": "linear"},
+    "backbone": {"type": "tcn", "ds": True, "num_layers": 4,
+                 "kernel_size": 8, "dropout": 0.1},
+}
+FSMN_VOCAB = 2599
+FSMN_MODEL_CONF = {  # examples/hi_xiaowen/conf/fsmn_ctc.yaml
+    "input_dim": 400, "output_dim": FSMN_VOCAB, "hidden_dim": 128,
+    "preprocessing": {"type": "none"},
+    "backbone": {"type": "fsmn", "input_affine_dim": 140, "num_layers": 4,
+                 "linear_dim": 250, "proj_dim": 128, "left_order": 10,
+                 "right_order": 2, "left_stride": 1, "right_stride": 1,
+                 "output_affine_dim": 140},
+    "classifier": {"type": "identity", "dropout": 0.1},
+    "activation": {"type": "identity"},
+}
+FSMN_DATASET_CONF = {
+    "feats_type": "fbank",
+    "fbank_conf": {"num_mel_bins": 80, "frame_shift": 10,
+                   "frame_length": 25, "dither": 1.0},
+    "context_expansion": True,
+    "context_expansion_conf": {"left": 2, "right": 2},
+    "frame_skip": 3,
+}
+CTC_KEYWORD, CTC_KEYWORD_TOKENS = "hixiaowen", (10, 20, 30)
+# log-mel (magnitude ~1e1) and MFCC against the three-matmul plain
+# version: fp32 sums over 400 and 257 terms in another order, then a log
+FBANK_ATOL, FBANK_RTOL = 1e-3, 1e-4
+# in-kernel dither against torch.randn, per mel bin over 101,376 frames
+# of independent noise: the standard error of a bin's mean is about
+# 0.003 and of its standard deviation about 0.3% (more in the low bins,
+# whose few DFT bins give the log a heavy tail)
+DITHER_MEAN_TOL, DITHER_STD_RTOL = 0.02, 0.03
 N_UTTS, SECONDS, RATE = 16, 2, 16000
 CHUNK_SAMPLES = RATE * 300 // 1000
 
@@ -128,14 +190,14 @@ def card_line():
     return out.strip().splitlines()[0]
 
 
-def flagship_model(generator, cmvn=None):
-    """Flagship KWSModel with seeded weights and BN statistics nudged
-    so that folding is not the identity."""
+def seeded_model(base_conf, generator, cmvn=None):
+    """KWSModel of ``base_conf`` with seeded weights and BN statistics
+    nudged so that folding is not the identity."""
     import torch
 
     from wekws_tpu_torch.models import init_model
 
-    conf = dict(FLAGSHIP_MODEL_CONF)
+    conf = dict(base_conf)
     if cmvn is not None:
         conf["cmvn"] = {"mean": cmvn[0].tolist(), "istd": cmvn[1].tolist(),
                         "norm_var": True}
@@ -176,18 +238,24 @@ def profiled_device_ms(fn, kernel_name, reps=20):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(2):  # a trace now and then comes back without it
+        fn()
         torch.cuda.synchronize()
-    for evt in prof.key_averages():
-        if kernel_name in evt.key and evt.count:
-            total = getattr(evt, "device_time_total",
-                            getattr(evt, "cuda_time_total", 0.0))
-            return total / evt.count / 1e3 if total else None
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = count = 0
+        for evt in prof.key_averages():  # every entry of that name
+            if kernel_name in evt.key and evt.count:
+                dev = getattr(evt, "device_time_total",
+                              getattr(evt, "cuda_time_total", 0.0))
+                if dev:
+                    total += dev
+                    count += evt.count
+        if count:
+            return total / count / 1e3
     return None
 
 
@@ -211,15 +279,15 @@ def mdtc_bound_ms(b, t, c, n_layers, k, n_stacks, pad_max, stream):
                                  else "bytes")
 
 
-def check_close(name, got, want, quiet=False):
+def check_close(name, got, want, quiet=False, atol=TOL, rtol=TOL):
     import torch
 
     err = float((got - want).abs().max())
-    ok = torch.allclose(got, want, atol=TOL, rtol=TOL)
+    ok = torch.allclose(got, want, atol=atol, rtol=rtol)
     if not quiet or not ok:
         print(f"  {name}: max_abs_err {err:.3e} "
-              f"(|ref| max {float(want.abs().max()):.3e}, bound {TOL} abs + "
-              f"{TOL} rel) {'ok' if ok else 'MISMATCH'}", flush=True)
+              f"(|ref| max {float(want.abs().max()):.3e}, bound {atol} abs "
+              f"+ {rtol} rel) {'ok' if ok else 'MISMATCH'}", flush=True)
     if not ok or not torch.isfinite(got).all():
         raise AssertionError(f"{name}: kernel disagrees with reference")
     return err
@@ -232,6 +300,144 @@ def synth_waves(rng):
     waves = rng.standard_normal((N_UTTS, n)) * 300.0
     waves[: N_UTTS // 2] += 4000.0 * np.sin(2 * np.pi * 500.0 * t)
     return np.clip(waves, -32768, 32767).astype(np.int16)
+
+
+def serving_slice(tag, base_conf, gen, dev, work, waves, offline_kernel,
+                  stream_kernel, launches):
+    """A max-pooling wake-word model of ``base_conf`` served end to end:
+    16 synthetic 2 s utterances -> fbank -> checkpoint saved and loaded
+    through ``load_serving_model`` -> (a) offline ``build_fused_forward``
+    -> score file -> DET, held against the module forward; (b)
+    ``BatchMaxPoolSpotter(use_fused=True)`` fed 300 ms chunks, stepped
+    and flushed, held against (a).  The launch count of each path's
+    kernel wrapper is zeroed before the path and read after it into
+    ``launches[f"{tag}_offline"]`` / ``launches[f"{tag}_stream"]``.
+    Returns the number of frames per utterance."""
+    import torch
+    import yaml
+
+    from wekws_tpu_torch.eval import (
+        compute_det,
+        frr_at_fa_per_hour,
+        load_label_and_score,
+        write_score_file,
+    )
+    from wekws_tpu_torch.frontend import compute_fbank_np
+    from wekws_tpu_torch.ops.serving import build_fused_forward
+    from wekws_tpu_torch.runtime import BatchMaxPoolSpotter
+    from wekws_tpu_torch.runtime.keyword_spotter import (
+        load_serving_model,
+        load_spotter_config,
+    )
+
+    configs = {"dataset_conf": DATASET_CONF}
+    _, cfg, _, _, _ = load_spotter_config(configs)
+    feats = np.stack([compute_fbank_np(w.astype(np.float32), cfg)
+                      for w in waves])
+    n_frames = feats.shape[1]
+    mean = feats.mean(axis=(0, 1))
+    istd = 1.0 / (feats.std(axis=(0, 1)) + 1e-6)
+    model, model_conf = seeded_model(base_conf, gen, (mean, istd))
+    configs["model"] = model_conf
+    ckpt = os.path.join(work, f"{tag}.pt")
+    config_path = os.path.join(work, f"{tag}.yaml")
+    torch.save(model.state_dict(), ckpt)
+    with open(config_path, "w") as f:
+        yaml.safe_dump(configs, f)
+    served = load_serving_model(configs, ckpt, cfg.feat_dim, device=dev)
+    n_params = sum(p.numel() for p in served.parameters())
+    print(f"  {tag} model: {n_params} parameters, features "
+          f"{feats.shape}", flush=True)
+
+    # (a) offline scoring through the whole-utterance kernel
+    keys = [f"utt{i:02d}" for i in range(N_UTTS)]
+    lengths = np.full((N_UTTS,), n_frames, np.int64)
+    batch = {"keys": keys, "feats": feats, "lengths": lengths}
+    offline_kernel.launches = 0
+    forward = build_fused_forward(served, device=dev)
+    offline = {}
+
+    def forward_fn(b):
+        probs = forward(b["feats"], b["lengths"])
+        offline["probs"] = probs
+        return probs.cpu().numpy(), b["lengths"]
+
+    score_file = os.path.join(work, f"{tag}_score.txt")
+    label_file = os.path.join(work, f"{tag}_labels.jsonl")
+    write_score_file(forward_fn, [batch], [KEYWORD], score_file)
+    torch.cuda.synchronize()
+    launches[f"{tag}_offline"] = offline_kernel.launches
+    with open(label_file, "w") as f:
+        for i, key in enumerate(keys):
+            txt = KEYWORD if i < N_UTTS // 2 else "FILLER"
+            f.write(json.dumps({"key": key, "txt": txt,
+                                "duration": float(SECONDS)}) + "\n")
+    kw_table, filler_table, filler_s = load_label_and_score(
+        KEYWORD, label_file, score_file)
+    det = compute_det(kw_table, filler_table, filler_s)
+    probs_a = offline["probs"]
+    if tuple(probs_a.shape) != (N_UTTS, n_frames, 1):
+        raise AssertionError(f"offline posteriors {tuple(probs_a.shape)}")
+    if len(kw_table) != N_UTTS // 2 or not det:
+        raise AssertionError("score file / DET lost utterances")
+    print(f"  (a) offline: posteriors {tuple(probs_a.shape)}, DET "
+          f"{len(det)} thresholds, FRR at 1 FA/h "
+          f"{frr_at_fa_per_hour(det, 1.0):.3f} (random weights), "
+          f"{offline_kernel.__name__} launches "
+          f"{launches[f'{tag}_offline']}", flush=True)
+    with torch.inference_mode():
+        module_probs, _ = served(
+            torch.as_tensor(feats, device=dev),
+            lengths=torch.as_tensor(lengths, device=dev))
+    check_close("(a) fused forward vs module forward", probs_a,
+                module_probs)
+
+    # (b) batched streaming engine through the streaming kernel
+    flat = probs_a.flatten().cpu().numpy()
+    threshold = float(np.quantile(flat, 0.95))
+    stream_kernel.launches = 0
+    engine = BatchMaxPoolSpotter(
+        ckpt, config_path, threshold, num_streams=N_UTTS,
+        step_frames=8, keyword_names=[KEYWORD], use_fused=True,
+        device=dev,
+    )
+    streamed = [[] for _ in range(N_UTTS)]
+    step_fn = engine._step_fn
+
+    def capture(feats_b, active, reset, cache):
+        probs, new_cache = step_fn(feats_b, active, reset, cache)
+        host = probs.cpu().numpy()
+        for i in np.flatnonzero(active):
+            streamed[i].append(host[i])
+        return probs, new_cache
+
+    engine._step_fn = capture
+    events = []
+    pcm = [w.astype("<i2").tobytes() for w in waves]
+    for off in range(0, len(pcm[0]), 2 * CHUNK_SAMPLES):
+        for i in range(N_UTTS):
+            engine.accept_wave(i, pcm[i][off:off + 2 * CHUNK_SAMPLES])
+        events += [r for r in engine.step().values() if r["state"]]
+    events += [r for r in engine.flush().values() if r["state"]]
+    torch.cuda.synchronize()
+    launches[f"{tag}_stream"] = stream_kernel.launches
+    got = torch.as_tensor(np.stack(
+        [np.concatenate(s, axis=0)[:n_frames] for s in streamed]))
+    check_close("(b) streamed vs offline posteriors", got,
+                probs_a.cpu())
+    stats = engine.stats
+    print(f"  (b) streaming: {stats['dispatches']} steps of 8 frames x "
+          f"{N_UTTS} streams, mean step {stats['dispatch_s'] * 1e3 / stats['dispatches']:.3f} ms "
+          f"(host clock, first run), {len(events)} events at threshold "
+          f"{threshold:.4f}, {stream_kernel.__name__} launches "
+          f"{launches[f'{tag}_stream']}", flush=True)
+    for path in ("offline", "stream"):
+        if launches[f"{tag}_{path}"] < 1:
+            raise AssertionError(f"{tag}: no kernel launch on its {path} "
+                                 f"path")
+    if not events:
+        raise AssertionError("the streaming engine produced no events")
+    return n_frames
 
 
 def train_pass_bound_ms(name, b, t, c, k):
@@ -397,8 +603,8 @@ def train_batch(rng):
 
 
 def phase7_train_slice(dev, work, launches):
-    """Train -> checkpoint -> serve at B=512 x 2 s; returns what phase
-    8 reuses."""
+    """Train -> checkpoint -> serve at B=512 x 2 s; returns what the
+    later phases reuse (trainer, state, batch, model config)."""
     import torch
 
     from wekws_tpu_torch.data import DeviceFeaturePipeline
@@ -546,7 +752,7 @@ def phase7_train_slice(dev, work, launches):
     print(f"  cv loss {cv_loss:.5f} over {int(cv['count'])} utterances; "
           f"averaged {len(picked)} checkpoints and served {N_UTTS} "
           f"utterances through build_fused_forward", flush=True)
-    return trainer, state, batch
+    return trainer, state, batch, conf
 
 
 def phase8_train_times(trainer, state, batch, card, launches, errs,
@@ -657,6 +863,560 @@ def phase8_train_times(trainer, state, batch, card, launches, errs,
     return record, step_ms
 
 
+def tcn_bound_ms(b, t, c, n_layers, k, pad_max):
+    """Least time on an H100 for one fused DS-TCN call.  Per frame and
+    layer: 2KC (depthwise) + 2C^2 (the product) + 5C (two biases, two
+    ReLUs, residual).  Bytes: x read, out written, folded weights once,
+    the (L, B, pad_max, C) cache read and written."""
+    flops = b * t * n_layers * (2 * k * c + 2 * c * c + 5 * c)
+    nbytes = 4 * (2 * b * t * c + n_layers * (k * c + c * c + 2 * c)
+                  + 2 * n_layers * b * pad_max * c)
+    return roofline_ms(flops, nbytes)
+
+
+def fsmn_bound_ms(b, t, ld, pd, n_layers, lorder, rorder, pad):
+    """Least time on an H100 for one fused FSMN layer-chain call.  Per
+    frame and layer: 4 LD PD (two products) + 2 (lorder + rorder) PD + PD
+    (taps, identity) + 2 LD (bias, ReLU).  Bytes: x, out, the weights
+    once, the (L, B, P, PD) cache read and written."""
+    flops = b * t * n_layers * (4 * ld * pd + 2 * (lorder + rorder) * pd
+                                + pd + 2 * ld)
+    nbytes = 4 * (2 * b * t * ld
+                  + n_layers * (2 * ld * pd + (lorder + max(rorder, 1)) * pd
+                                + ld)
+                  + 2 * n_layers * b * pad * pd)
+    return roofline_ms(flops, nbytes)
+
+
+def fbank_bound_ms(b, s, frame_length, frame_shift, nbin, n_mel, n_out):
+    """Least time on an H100 for one fused fbank call: per frame the two
+    DFT products 2 x FL x 2 nbin, power 3 nbin, mel 2 nbin M, log M and
+    for MFCC the DCT 2 M C.  Bytes: the wave read once, the features
+    written once, the operators once (no frames buffer)."""
+    rows = b * (1 + (s - frame_length) // frame_shift)
+    dct = 2 * n_mel * n_out if n_out != n_mel else 0
+    flops = rows * (4 * frame_length * nbin + 3 * nbin + 2 * nbin * n_mel
+                    + n_mel + dct)
+    nbytes = 4 * (b * s + rows * n_out + 2 * frame_length * nbin
+                  + nbin * n_mel + dct // 2)
+    return roofline_ms(flops, nbytes)
+
+
+def roofline_ms(flops, nbytes):
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def chained(step, x, cache, chunk):
+    """``step(x_chunk, cache) -> (y, cache)`` over time chunks."""
+    import torch
+
+    outs = []
+    for s in range(0, x.shape[1], chunk):
+        y, cache = step(x[:, s:s + chunk].contiguous(), cache)
+        outs.append(y)
+    return torch.cat(outs, dim=1), cache
+
+
+def phase9_new_kernels(dev, gen, batch):
+    """The three later kernels against their plain versions at full
+    width.  Returns the largest error per kernel and what phase 13
+    times: weights and the fbank extractors."""
+    import torch
+
+    from wekws_tpu_torch.frontend.features import FeatureExtractor
+    from wekws_tpu_torch.frontend.kaldi import FrontendConfig
+    from wekws_tpu_torch.ops.fused_fsmn import (
+        extract_fsmn_weights,
+        fused_fsmn_layers,
+        fused_fsmn_layers_plain,
+        init_fsmn_cache,
+    )
+    from wekws_tpu_torch.ops.fused_tcn import (
+        extract_ds_tcn_weights,
+        fused_ds_tcn,
+        fused_ds_tcn_plain,
+        init_tcn_cache,
+    )
+
+    errs = {"fused_ds_tcn": 0.0, "fused_fsmn_layers": 0.0,
+            "fused_fbank": 0.0}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(dev)
+
+    def hold(kernel, name, pairs):
+        for what, got, want in pairs:
+            errs[kernel] = max(errs[kernel],
+                               check_close(f"{name} {what}", got, want))
+
+    # ---- fused_ds_tcn at the hey_snips width
+    tcn = seeded_model(DS_TCN_MODEL_CONF, gen)[0].backbone
+    *stacks, dil = extract_ds_tcn_weights(tcn)
+    tw = tuple(w.to(dev) for w in stacks)
+    k, c, n_layers = tcn.kernel_size, tcn.channel, len(dil)
+    pad_max = (k - 1) * max(dil)
+    for b, t in ((64, 198), (4, 1024)):
+        x, cache = randn(b, t, c), randn(n_layers, b, pad_max, c)
+        got = fused_ds_tcn(x, cache, *tw, dil, k)
+        torch.cuda.synchronize()
+        want = fused_ds_tcn_plain(x, cache, *tw, dil, k)
+        hold("fused_ds_tcn", f"fused_ds_tcn B={b} T={t}",
+             (("output", got[0], want[0]), ("new cache", got[1], want[1])))
+    x = randn(16, 200, c)
+    zero = init_tcn_cache(n_layers, 16, pad_max, c, dev)
+    got = chained(lambda xc, cc: fused_ds_tcn(xc, cc, *tw, dil, k), x, zero,
+                  8)
+    want = chained(lambda xc, cc: fused_ds_tcn_plain(xc, cc, *tw, dil, k), x,
+                   zero, 8)
+    once = fused_ds_tcn(x, zero, *tw, dil, k)
+    torch.cuda.synchronize()
+    hold("fused_ds_tcn", "fused_ds_tcn B=16, 25 chunks of 8",
+         (("vs one-shot (kernel)", got[0], once[0]),
+          ("final cache vs one-shot", got[1], once[1]),
+          ("vs plain chain", got[0], want[0]),
+          ("final cache vs plain", got[1], want[1])))
+
+    # ---- fused_fsmn_layers at the hi_xiaowen width
+    fsmn = seeded_model(FSMN_MODEL_CONF, gen)[0].backbone
+    fw = tuple(w.to(dev) for w in extract_fsmn_weights(fsmn)[4:9])
+    orders = (fsmn.lorder, fsmn.rorder, fsmn.lstride, fsmn.rstride)
+    ld, pd, pad = fsmn.linear_dim, fsmn.proj_dim, fsmn.layer_padding
+    n_fsmn = fsmn.fsmn_layers
+    for b, t in ((16, 66), (4, 1024)):
+        # the chain's input is a ReLU output: non-negative
+        x, cache = randn(b, t, ld).relu(), randn(n_fsmn, b, pad, pd)
+        got = fused_fsmn_layers(x, cache, *fw, *orders)
+        torch.cuda.synchronize()
+        want = fused_fsmn_layers_plain(x, cache, *fw, *orders)
+        hold("fused_fsmn_layers", f"fused_fsmn_layers B={b} T={t}",
+             (("output", got[0], want[0]), ("new cache", got[1], want[1])))
+    x = randn(1, 200, ld).relu()
+    zero = init_fsmn_cache(n_fsmn, 1, pad, pd, dev)
+    got = chained(lambda xc, cc: fused_fsmn_layers(xc, cc, *fw, *orders), x,
+                  zero, 10)
+    want = chained(
+        lambda xc, cc: fused_fsmn_layers_plain(xc, cc, *fw, *orders), x,
+        zero, 10)
+    once = fused_fsmn_layers(x, zero, *fw, *orders)
+    torch.cuda.synchronize()
+    hold("fused_fsmn_layers", "fused_fsmn_layers B=1, 20 chunks of 10 < P",
+         (("vs one-shot (kernel)", got[0], once[0]),
+          ("final cache vs one-shot", got[1], once[1]),
+          ("vs plain chain", got[0], want[0]),
+          ("final cache vs plain", got[1], want[1])))
+
+    # ---- fused_fbank against the unfused three-matmul extractor
+    waves = torch.as_tensor(batch["waves"], device=dev)
+    cases = (
+        ("(512, 32000) fbank M=40", {"num_mel_bins": 40}, TRAIN_B),
+        ("(64, 32000) fbank M=80", {"num_mel_bins": 80}, 64),
+        ("(64, 32000) MFCC 13 of 40",
+         {"feature_type": "mfcc", "num_mel_bins": 40, "num_ceps": 13}, 64),
+        ("(64, 32000) magnitude, no log",
+         {"num_mel_bins": 40, "use_power": False, "use_log_fbank": False},
+         64),
+    )
+    extractors = {}
+    for name, kw, b in cases:
+        cfg = FrontendConfig(dither=1.0, dither_mode="frame", **kw)
+        fused = FeatureExtractor(cfg, use_fused=True)
+        plain = FeatureExtractor(cfg)
+        got, _ = fused(waves[:b])
+        torch.cuda.synchronize()
+        want, _ = plain(waves[:b])
+        if cfg.use_log_fbank:
+            atol, rtol = FBANK_ATOL, FBANK_RTOL
+        else:  # energies up to ~1e6: relative to the largest
+            atol, rtol = 1e-4 * float(want.abs().max()), 1e-4
+        err = check_close(f"fused_fbank {name}", got, want, atol=atol,
+                          rtol=rtol)
+        if cfg.use_log_fbank:
+            errs["fused_fbank"] = max(errs["fused_fbank"], err)
+        extractors[name] = (fused, plain)
+
+    # in-kernel dither against torch.randn: distributions, not bits
+    fused, plain = extractors["(512, 32000) fbank M=40"]
+    gd = torch.Generator(device=dev)
+    for what, w in (("zero waves", torch.zeros_like(waves)),
+                    ("synthetic waves", waves)):
+        outs = []
+        for seed in (1, 1, 2):
+            gd.manual_seed(seed)
+            outs.append(fused(w, generator=gd)[0])
+        gd.manual_seed(1)
+        ref = plain(w, generator=gd)[0]
+        torch.cuda.synchronize()
+        if not torch.equal(outs[0], outs[1]) or torch.equal(outs[0], outs[2]):
+            raise AssertionError(f"dither on {what}: the same seed must give "
+                                 f"the same bits, another seed others")
+        if not torch.isfinite(outs[0]).all():
+            raise AssertionError(f"dither on {what}: non-finite features")
+        n = outs[0].shape[0] * outs[0].shape[1]
+        dmean = float((outs[0].mean((0, 1)) - ref.mean((0, 1))).abs().max())
+        dstd = float((outs[0].std((0, 1)) / ref.std((0, 1)) - 1).abs().max())
+        print(f"  fused_fbank frame-mode dither 1.0 on {what}, {n} frames: "
+              f"per-bin mean of the log-mel within {dmean:.4f} of the plain "
+              f"version's (torch.randn; bound {DITHER_MEAN_TOL}), standard "
+              f"deviation within {dstd:.2%} (bound {DITHER_STD_RTOL:.0%}; "
+              f"about {float(ref.std((0, 1)).mean()):.3f}); same seed "
+              f"bitwise equal, another seed differs", flush=True)
+        if dmean > DITHER_MEAN_TOL or dstd > DITHER_STD_RTOL:
+            raise AssertionError(f"dither on {what}: distribution differs")
+    # the noise is keyed by the position in the call: two calls on the
+    # halves of a batch repeat the first half's noise in the second
+    gd.manual_seed(1)
+    seed_half = fused(waves[:TRAIN_B // 2], generator=gd)[0]
+    if not torch.equal(seed_half, outs[0][:TRAIN_B // 2]):
+        raise AssertionError("dither: the first half of a batch must not "
+                             "depend on the batch size")
+    bench = {"tcn": (tw, dil, k, c, n_layers, pad_max),
+             "fsmn": (fw, orders, ld, pd, n_fsmn, pad),
+             "fbank": (fused, plain, waves)}
+    return errs, bench
+
+
+def phase11_fsmn_ctc(dev, gen, work, waves, launches):
+    """Path B: the hi_xiaowen FSMN-CTC model through the single-stream
+    engine.  Returns the mean ``forward()`` time per 300 ms chunk of the
+    fused engine."""
+    import torch
+    import yaml
+
+    from wekws_tpu_torch.data import DeviceFeaturePipeline
+    from wekws_tpu_torch.ops.fused_fsmn import fused_fsmn_layers
+    from wekws_tpu_torch.ops.serving import build_fused_forward
+    from wekws_tpu_torch.runtime import KeyWordSpotter
+
+    model, model_conf = seeded_model(FSMN_MODEL_CONF, gen)
+    configs = {"dataset_conf": FSMN_DATASET_CONF, "model": model_conf}
+    ckpt = os.path.join(work, "fsmn_ctc.pt")
+    config_path = os.path.join(work, "fsmn_ctc.yaml")
+    token_path = os.path.join(work, "tokens.txt")
+    lexicon_path = os.path.join(work, "lexicon.txt")
+    torch.save(model.state_dict(), ckpt)
+    with open(config_path, "w") as f:
+        yaml.safe_dump(configs, f)
+    with open(token_path, "w") as f:
+        f.write("<blk> 0\n<filler> 1\n")
+        f.writelines(f"t{i} {i}\n" for i in range(2, FSMN_VOCAB))
+    with open(lexicon_path, "w") as f:
+        f.write(CTC_KEYWORD + " "
+                + " ".join(f"t{i}" for i in CTC_KEYWORD_TOKENS) + "\n")
+    n_params = sum(p.numel() for p in model.parameters())
+
+    def engine(use_fused):
+        spot = KeyWordSpotter(ckpt, config_path, token_path, lexicon_path,
+                              threshold=0.5, min_frames=1, use_fused=use_fused,
+                              device=dev)
+        spot.set_keywords(CTC_KEYWORD)
+        if spot.keywords_token[CTC_KEYWORD]["token_id"] != CTC_KEYWORD_TOKENS:
+            raise AssertionError(f"keyword tokens {spot.keywords_token}")
+        return spot
+
+    def stream(spot):
+        """Every utterance in 300 ms chunks -> posteriors per utterance,
+        results, chunks that carried frames, seconds inside forward()."""
+        probs, results, carried, spent = [], [], 0, 0.0
+        orig = spot._apply_step
+
+        def capture(feats, cache):
+            out, c = orig(feats, cache)
+            probs[-1].append(out)
+            return out, c
+
+        spot._apply_step = capture
+        for w in waves:
+            spot.reset_all()
+            probs.append([])
+            pcm = w.astype("<i2").tobytes()
+            for off in range(0, len(pcm), 2 * CHUNK_SAMPLES):
+                t0 = time.perf_counter()
+                results.append(spot.forward(pcm[off:off + 2 * CHUNK_SAMPLES]))
+                spent += time.perf_counter() - t0
+            carried += len(probs[-1])
+        spot._apply_step = orig
+        return ([torch.cat(p, dim=1)[0] for p in probs], results, carried,
+                spent)
+
+    fused, plain = engine(True), engine(False)
+    stream(fused)  # warm-up: the library load and first launches
+    fused_fsmn_layers.launches = 0
+    got, got_results, carried, spent = stream(fused)
+    torch.cuda.synchronize()
+    launches["fused_fsmn_layers"] = fused_fsmn_layers.launches
+    want, want_results, _, plain_spent = stream(plain)
+    n_chunks = len(got_results)
+    if launches["fused_fsmn_layers"] != carried or carried < 6 * len(waves):
+        raise AssertionError(
+            f"fused_fsmn_layers launched {launches['fused_fsmn_layers']} "
+            f"times for {carried} chunks that carried frames")
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        # the streaming frontend may hold back the last frames
+        if g.shape[1] != FSMN_VOCAB or not 60 <= g.shape[0] <= 66:
+            raise AssertionError(f"utterance {i}: posteriors {tuple(g.shape)}")
+        worst = max(worst, check_close(
+            f"utterance {i} fused vs module posteriors", g, w, quiet=True))
+    if got_results != want_results:
+        raise AssertionError("fused and module engines' results differ")
+    chunk_ms = spent / n_chunks * 1e3
+    print(f"  FSMN-CTC: {n_params} parameters, {FSMN_VOCAB} tokens; "
+          f"{len(waves)} utterances x {n_chunks // len(waves)} chunks of "
+          f"300 ms: fused vs module softmax posteriors max_abs_err "
+          f"{worst:.3e} (bound {TOL} abs + {TOL} rel), result dicts equal; "
+          f"fused_fsmn_layers launches {carried} = chunks that carried "
+          f"frames; mean forward() {chunk_ms:.3f} ms per chunk fused, "
+          f"{plain_spent / n_chunks * 1e3:.3f} ms module (host clock, host "
+          f"frontend and decoder included)", flush=True)
+
+    # whole utterances through build_fused_forward(softmax=True)
+    cvp = DeviceFeaturePipeline.from_conf(FSMN_DATASET_CONF, training=False)
+    wav = torch.as_tensor(waves.astype(np.float32), device=dev)
+    lens = torch.full((len(waves),), wav.shape[1], device=dev)
+    with torch.no_grad():
+        feats, feat_lengths = cvp(wav, lens)
+    before = fused_fsmn_layers.launches
+    probs = build_fused_forward(fused.model, softmax=True, device=dev)(
+        feats, feat_lengths)
+    with torch.inference_mode():
+        module_probs, _ = fused.model(feats, lengths=feat_lengths,
+                                      softmax=True)
+    check_close(f"build_fused_forward(softmax=True) {tuple(probs.shape)} vs "
+                f"module forward", probs, module_probs)
+    if fused_fsmn_layers.launches != before + 1:
+        raise AssertionError("the offline FSMN forward must launch once")
+    launches["fused_fsmn_layers"] += 1
+    launches["fsmn_offline"] = 1
+    # streamed == offline (device features match the host frontend's)
+    check_close("streamed utterance 0 vs offline posteriors", got[0],
+                probs[0, :got[0].shape[0]], atol=1e-3, rtol=1e-3)
+
+    # the detector fires on injected keyword posteriors (random weights
+    # never do): tokens at pre-skip frames 30, 60 and 90
+    if any(r.get("state") for r in got_results if r):
+        raise AssertionError("random weights fired the detector")
+    frames = dict(zip((30, 60, 90), CTC_KEYWORD_TOKENS))
+
+    def inject(feats, cache):
+        t = feats.shape[1]
+        out = np.full((1, t, FSMN_VOCAB), 1e-5, np.float32)
+        out[:, :, 0] = 0.9
+        for i in range(t):
+            tok = frames.get(int(fused._frame_indices[i]))
+            if tok is not None:
+                out[0, i, 0] = 0.05
+                out[0, i, tok] = 0.9
+        return out, cache
+
+    fused.reset_all()
+    fused._apply = inject
+    pcm = waves[0].astype("<i2").tobytes()
+    hits = []
+    for off in range(0, len(pcm), 2 * CHUNK_SAMPLES):
+        res = fused.forward(pcm[off:off + 2 * CHUNK_SAMPLES])
+        if res and res.get("state") == 1:
+            hits.append(res)
+    if (len(hits) != 1 or hits[0]["keyword"] != CTC_KEYWORD
+            or abs(hits[0]["start"] - 0.30) > 0.02
+            or abs(hits[0]["end"] - 0.90) > 0.02):
+        raise AssertionError(f"detector on injected posteriors: {hits}")
+    print(f"  detector on injected keyword posteriors: {hits[0]}",
+          flush=True)
+    return chunk_ms
+
+
+def phase12_fused_frontend(dev, trainer, conf, batch, launches):
+    """Path C: the phase-7 trainer's configuration with ``fused_frontend:
+    True``.  Returns the fused-frontend trainer and its state."""
+    import torch
+
+    from wekws_tpu_torch.data import DeviceFeaturePipeline
+    from wekws_tpu_torch.models import init_model
+    from wekws_tpu_torch.ops.fused_frontend import fused_fbank
+    from wekws_tpu_torch.train import Trainer
+
+    fused_conf = dict(TRAIN_DATASET_CONF, fused_frontend=True)
+    plain_fused = dict(fused_conf, spec_aug=False)
+    plain_fused["fbank_conf"] = dict(fused_conf["fbank_conf"], dither=0.0)
+    frame_conf = dict(fused_conf)
+    frame_conf["fbank_conf"] = dict(fused_conf["fbank_conf"],
+                                    dither_mode="frame")
+    plain_unfused = dict(plain_fused, fused_frontend=False)
+    cv_fused = DeviceFeaturePipeline.from_conf(fused_conf, training=False)
+
+    def trainer_for(dataset_conf, cvp):
+        model = init_model(conf, torch.Generator().manual_seed(SEED))
+        model.load_state_dict(trainer.model.state_dict())
+        return Trainer(model, DeviceFeaturePipeline.from_conf(dataset_conf),
+                       cvp, "max_pooling", grad_clip=5.0, min_duration=5,
+                       device=dev)
+
+    fused = trainer_for(plain_fused, cv_fused)
+    twin = trainer_for(plain_unfused, trainer.cv_pipeline)
+    state, twin_state = fused.init_state(), twin.init_state()
+    waves = torch.as_tensor(batch["waves"], device=dev)
+    lengths = torch.as_tensor(batch["wave_lengths"], device=dev)
+
+    fused_fbank.launches = 0
+    expected = 0
+    with torch.no_grad():
+        feats, feat_lengths = fused.pipeline(waves, lengths)
+        want_feats, want_lengths = twin.pipeline(waves, lengths)
+    expected += 1
+    check_close("step-0 features, fused vs unfused frontend", feats,
+                want_feats, atol=FBANK_ATOL, rtol=FBANK_RTOL)
+    if not torch.equal(feat_lengths, want_lengths):
+        raise AssertionError("feature lengths differ")
+    loss, _ = fused.loss_and_grads(state, batch, SEED)
+    want_loss, _ = twin.loss_and_grads(twin_state, batch, SEED)
+    expected += 1
+    err = abs(float(loss) - float(want_loss))
+    if err > 1e-5 * abs(float(want_loss)):
+        raise AssertionError(f"step-0 loss {float(loss)} vs unfused "
+                             f"frontend {float(want_loss)}")
+    losses = {}
+    for name, dataset_conf in (("wave-mode dither + spec_aug", fused_conf),
+                               ("frame-mode (in-kernel) dither + spec_aug",
+                                frame_conf)):
+        fused.pipeline = DeviceFeaturePipeline.from_conf(dataset_conf)
+        losses[name] = []
+        for _ in range(2):
+            state, metrics = fused.train_step(state, batch, SEED, 1e-3)
+            losses[name].append(float(metrics["loss"]))
+            expected += 1
+    cv = fused.cv_step(state, batch)
+    expected += 1
+    torch.cuda.synchronize()
+    cv_loss = float(cv["loss_sum"]) / max(float(cv["count"]), 1.0)
+    flat = [v for vs in losses.values() for v in vs] + [cv_loss]
+    if not all(np.isfinite(flat)) or int(cv["count"]) != TRAIN_B:
+        raise AssertionError(f"fused-frontend steps: {losses}, cv {cv}")
+    launches["fused_fbank"] = fused_fbank.launches
+    if fused_fbank.launches != expected:
+        raise AssertionError(f"fused_fbank launched {fused_fbank.launches} "
+                             f"times, expected {expected}")
+    print(f"  step 0 vs the unfused frontend: loss {float(loss):.6f} (diff "
+          f"{err:.2e}); losses "
+          + "; ".join(f"{k}: {[round(v, 5) for v in vs]}"
+                      for k, vs in losses.items())
+          + f"; cv loss {cv_loss:.5f}; fused_fbank launches {expected} "
+          f"(1 feature call, 1 loss, 4 train steps, 1 cv step)", flush=True)
+    fused.pipeline = DeviceFeaturePipeline.from_conf(fused_conf)
+    return fused, state
+
+
+def phase13_times(dev, bench, errs, launches, card, trainer, state,
+                  fused_trainer, fused_state, batch, step_ms, chunk_ms):
+    """Per-call times of the three later kernels at their main shapes
+    (CUDA events, median of 30; device time from the profiler) beside
+    the plain version and the bound; the path-C train step beside the
+    unfused-frontend step.  Returns their records."""
+    import torch
+
+    from wekws_tpu_torch.ops.fused_fsmn import (
+        fused_fsmn_layers,
+        fused_fsmn_layers_plain,
+    )
+    from wekws_tpu_torch.ops.fused_tcn import fused_ds_tcn, fused_ds_tcn_plain
+
+    gen = torch.Generator().manual_seed(SEED + 13)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(dev)
+
+    def timed(name, shape, kern, plain, kernel_name, bound):
+        # plain, kernel, kernel, plain: report the second of each
+        cuda_time_ms(plain)
+        cuda_time_ms(kern)
+        ms = cuda_time_ms(kern)
+        plain_ms = cuda_time_ms(plain)
+        dev_ms = profiled_device_ms(kern, kernel_name)
+        dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+        print(f"  {name} {shape}: kernel {ms:.4f} ms per call (device time "
+              f"{dev_txt}), plain {plain_ms:.4f} ms, bound {bound[0]:.5f} ms "
+              f"({bound[1]}); library: none (no single PyTorch call "
+              f"computes it) [{card}]", flush=True)
+        return {"shape": shape, "ms": ms, "device_ms": dev_ms,
+                "plain_ms": plain_ms, "bound_ms": bound[0],
+                "bound_by": bound[1]}
+
+    def record(name, source, replaces, main, also):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": errs[name], "ms": main["ms"],
+                "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+                "bound_by": main["bound_by"], "library_ms": None,
+                "shape": main["shape"], "device_ms": main["device_ms"],
+                "also": also}
+
+    out = []
+    tw, dil, k, c, n_layers, pad_max = bench["tcn"]
+    rows = []
+    for b, t in ((N_UTTS, 8), (N_UTTS, 198)):  # streaming step, offline
+        x, cache = randn(b, t, c), randn(n_layers, b, pad_max, c)
+        rows.append(timed(
+            "fused_ds_tcn", f"B={b} T={t}",
+            lambda: fused_ds_tcn(x, cache, *tw, dil, k),
+            lambda: fused_ds_tcn_plain(x, cache, *tw, dil, k),
+            "fused_tcn_kernel", tcn_bound_ms(b, t, c, n_layers, k, pad_max)))
+    out.append(record("fused_ds_tcn", "wekws_tpu_torch/csrc/fused_tcn.cu",
+                      "wekws_tpu/ops/fused_tcn.py:29", rows[0], rows[1:]))
+
+    fw, orders, ld, pd, n_fsmn, pad = bench["fsmn"]
+    rows = []
+    for b, t in ((1, 10), (N_UTTS, 66)):  # the engine's chunk, offline
+        x, cache = randn(b, t, ld).relu(), randn(n_fsmn, b, pad, pd)
+        rows.append(timed(
+            "fused_fsmn_layers", f"B={b} T={t}",
+            lambda: fused_fsmn_layers(x, cache, *fw, *orders),
+            lambda: fused_fsmn_layers_plain(x, cache, *fw, *orders),
+            "fused_fsmn_kernel",
+            fsmn_bound_ms(b, t, ld, pd, n_fsmn, orders[0], orders[1], pad)))
+    out.append(record("fused_fsmn_layers",
+                      "wekws_tpu_torch/csrc/fused_fsmn.cu",
+                      "wekws_tpu/ops/fused_fsmn.py:29", rows[0], rows[1:]))
+
+    fused, plain, waves = bench["fbank"]
+    cfg = fused.cfg
+    main = timed(
+        "fused_fbank", f"waves {tuple(waves.shape)} M={cfg.num_mel_bins}",
+        lambda: fused(waves), lambda: plain(waves), "fused_fbank_kernel",
+        fbank_bound_ms(waves.shape[0], waves.shape[1], cfg.frame_length,
+                       cfg.frame_shift, cfg.padded_window_size // 2 + 1,
+                       cfg.num_mel_bins, cfg.feat_dim))
+    out.append(record("fused_fbank", "wekws_tpu_torch/csrc/fused_frontend.cu",
+                      "wekws_tpu/ops/fused_frontend.py:111", main, []))
+
+    # the path-C train step beside the unfused-frontend step: unfused
+    # (phase 8), fused, fused, unfused
+    def step_time(tr, st, reps=10):
+        for _ in range(2):
+            tr.train_step(st, batch, SEED, 1e-3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            tr.train_step(st, batch, SEED, 1e-3)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    step_time(fused_trainer, fused_state)
+    fused_ms = step_time(fused_trainer, fused_state)
+    unfused_ms = step_time(trainer, state)
+    audio = TRAIN_B * TRAIN_SECONDS
+    print(f"  train step B={TRAIN_B} x {TRAIN_SECONDS} s, fused_train, "
+          f"dither + spec_aug: {fused_ms:.3f} ms with fused_frontend "
+          f"({audio / fused_ms * 1e3:.1f} audio-s/s), {unfused_ms:.3f} ms "
+          f"without ({audio / unfused_ms * 1e3:.1f} audio-s/s; phase 8 had "
+          f"{step_ms:.3f} ms) [{card}]", flush=True)
+    print(f"  KeyWordSpotter(use_fused=True).forward: {chunk_ms:.3f} ms per "
+          f"300 ms chunk (FSMN-CTC, host clock, phase 11) [{card}]",
+          flush=True)
+    return out
+
+
 TRAIN_REPLACES = {
     "f1": "wekws_tpu/ops/fused_mdtc_train.py:100",
     "f2": "wekws_tpu/ops/fused_mdtc_train.py:111",
@@ -677,15 +1437,6 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
 
-    import yaml
-
-    from wekws_tpu_torch.eval import (
-        compute_det,
-        frr_at_fa_per_hour,
-        load_label_and_score,
-        write_score_file,
-    )
-    from wekws_tpu_torch.frontend import compute_fbank_np
     from wekws_tpu_torch.ops import cuda_build
     from wekws_tpu_torch.ops.fused_mdtc import (
         extract_mdtc_weights,
@@ -695,12 +1446,7 @@ def main() -> int:
         fused_mdtc_stream_plain,
         init_stream_cache,
     )
-    from wekws_tpu_torch.ops.serving import build_fused_forward
-    from wekws_tpu_torch.runtime import BatchMaxPoolSpotter
-    from wekws_tpu_torch.runtime.keyword_spotter import (
-        load_serving_model,
-        load_spotter_config,
-    )
+    from wekws_tpu_torch.ops.fused_tcn import fused_ds_tcn
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -724,7 +1470,7 @@ def main() -> int:
               f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     gen = torch.Generator().manual_seed(SEED)
-    model, _ = flagship_model(gen)
+    model, _ = seeded_model(FLAGSHIP_MODEL_CONF, gen)
     mdtc = model.backbone
     *stacks, dilations = extract_mdtc_weights(mdtc)
     weights = tuple(w.to(dev) for w in stacks)
@@ -776,112 +1522,9 @@ def main() -> int:
         work = os.path.join(cuda_build.BUILD_DIR, "chip_smoke")
         os.makedirs(work, exist_ok=True)
         waves = synth_waves(np.random.default_rng(SEED))
-        configs = {"dataset_conf": DATASET_CONF}
-        _, cfg, _, _, _ = load_spotter_config(configs)
-        feats = np.stack([compute_fbank_np(w.astype(np.float32), cfg)
-                          for w in waves])
-        n_frames = feats.shape[1]
-        mean = feats.mean(axis=(0, 1))
-        istd = 1.0 / (feats.std(axis=(0, 1)) + 1e-6)
-        model, model_conf = flagship_model(gen, (mean, istd))
-        configs["model"] = model_conf
-        ckpt = os.path.join(work, "flagship.pt")
-        config_path = os.path.join(work, "config.yaml")
-        torch.save(model.state_dict(), ckpt)
-        with open(config_path, "w") as f:
-            yaml.safe_dump(configs, f)
-        served = load_serving_model(configs, ckpt, cfg.feat_dim, device=dev)
-        n_params = sum(p.numel() for p in served.parameters())
-        print(f"  flagship model: {n_params} parameters, features "
-              f"{feats.shape}", flush=True)
-
-        # (a) offline scoring through the whole-utterance kernel
-        keys = [f"utt{i:02d}" for i in range(N_UTTS)]
-        lengths = np.full((N_UTTS,), n_frames, np.int64)
-        batch = {"keys": keys, "feats": feats, "lengths": lengths}
-        fused_mdtc_forward.launches = 0
-        forward = build_fused_forward(served, device=dev)
-        offline = {}
-
-        def forward_fn(b):
-            probs = forward(b["feats"], b["lengths"])
-            offline["probs"] = probs
-            return probs.cpu().numpy(), b["lengths"]
-
-        score_file = os.path.join(work, "score.txt")
-        label_file = os.path.join(work, "labels.jsonl")
-        write_score_file(forward_fn, [batch], [KEYWORD], score_file)
-        torch.cuda.synchronize()
-        launches["fused_mdtc_forward"] = fused_mdtc_forward.launches
-        with open(label_file, "w") as f:
-            for i, key in enumerate(keys):
-                txt = KEYWORD if i < N_UTTS // 2 else "FILLER"
-                f.write(json.dumps({"key": key, "txt": txt,
-                                    "duration": float(SECONDS)}) + "\n")
-        kw_table, filler_table, filler_s = load_label_and_score(
-            KEYWORD, label_file, score_file)
-        det = compute_det(kw_table, filler_table, filler_s)
-        probs_a = offline["probs"]
-        if tuple(probs_a.shape) != (N_UTTS, n_frames, 1):
-            raise AssertionError(f"offline posteriors {tuple(probs_a.shape)}")
-        if len(kw_table) != N_UTTS // 2 or not det:
-            raise AssertionError("score file / DET lost utterances")
-        print(f"  (a) offline: posteriors {tuple(probs_a.shape)}, DET "
-              f"{len(det)} thresholds, FRR at 1 FA/h "
-              f"{frr_at_fa_per_hour(det, 1.0):.3f} (random weights), "
-              f"fused_mdtc_forward launches {launches['fused_mdtc_forward']}",
-              flush=True)
-        with torch.inference_mode():
-            module_probs, _ = served(
-                torch.as_tensor(feats, device=dev),
-                lengths=torch.as_tensor(lengths, device=dev))
-        check_close("(a) fused forward vs module forward", probs_a,
-                    module_probs)
-
-        # (b) batched streaming engine through the streaming kernel
-        flat = probs_a.flatten().cpu().numpy()
-        threshold = float(np.quantile(flat, 0.95))
-        fused_mdtc_stream.launches = 0
-        engine = BatchMaxPoolSpotter(
-            ckpt, config_path, threshold, num_streams=N_UTTS,
-            step_frames=8, keyword_names=[KEYWORD], use_fused=True,
-            device=dev,
-        )
-        streamed = [[] for _ in range(N_UTTS)]
-        step_fn = engine._step_fn
-
-        def capture(feats_b, active, reset, cache):
-            probs, new_cache = step_fn(feats_b, active, reset, cache)
-            host = probs.cpu().numpy()
-            for i in np.flatnonzero(active):
-                streamed[i].append(host[i])
-            return probs, new_cache
-
-        engine._step_fn = capture
-        events = []
-        pcm = [w.astype("<i2").tobytes() for w in waves]
-        for off in range(0, len(pcm[0]), 2 * CHUNK_SAMPLES):
-            for i in range(N_UTTS):
-                engine.accept_wave(i, pcm[i][off:off + 2 * CHUNK_SAMPLES])
-            events += [r for r in engine.step().values() if r["state"]]
-        events += [r for r in engine.flush().values() if r["state"]]
-        torch.cuda.synchronize()
-        launches["fused_mdtc_stream"] = fused_mdtc_stream.launches
-        got = torch.as_tensor(np.stack(
-            [np.concatenate(s, axis=0)[:n_frames] for s in streamed]))
-        check_close("(b) streamed vs offline posteriors", got,
-                    probs_a.cpu())
-        stats = engine.stats
-        print(f"  (b) streaming: {stats['dispatches']} steps of 8 frames x "
-              f"{N_UTTS} streams, mean step {stats['dispatch_s'] * 1e3 / stats['dispatches']:.3f} ms "
-              f"(host clock, first run), {len(events)} events at threshold "
-              f"{threshold:.4f}, fused_mdtc_stream launches "
-              f"{launches['fused_mdtc_stream']}", flush=True)
-        for name, n in launches.items():
-            if n < 1:
-                raise AssertionError(f"{name} never launched on its path")
-        if not events:
-            raise AssertionError("the streaming engine produced no events")
+        n_frames = serving_slice(
+            "flagship", FLAGSHIP_MODEL_CONF, gen, dev, work, waves,
+            fused_mdtc_forward, fused_mdtc_stream, launches)
 
     record = []
     with phase("5 times"):
@@ -891,6 +1534,8 @@ def main() -> int:
         }
         main_shape = {"fused_mdtc_forward": (N_UTTS, n_frames),
                       "fused_mdtc_stream": (N_UTTS, 8)}
+        launch_key = {"fused_mdtc_forward": "flagship_offline",
+                      "fused_mdtc_stream": "flagship_stream"}
         replaces = {"fused_mdtc_forward": "wekws_tpu/ops/fused_mdtc.py:37",
                     "fused_mdtc_stream": "wekws_tpu/ops/fused_mdtc.py:198"}
         for name, shape_list in shapes.items():
@@ -929,7 +1574,7 @@ def main() -> int:
                         "name": name, "route": "cuda",
                         "source": "wekws_tpu_torch/csrc/fused_mdtc.cu",
                         "replaces": replaces[name],
-                        "launches": launches[name],
+                        "launches": launches[launch_key[name]],
                         "max_abs_err": errs[name],
                         "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound, "bound_by": bound_by,
@@ -942,12 +1587,34 @@ def main() -> int:
     with phase("7 training slice end to end"):
         train_dir = os.path.join(work, "train")
         os.makedirs(train_dir, exist_ok=True)
-        trainer, state, batch = phase7_train_slice(dev, train_dir, launches)
+        trainer, state, batch, train_conf = phase7_train_slice(
+            dev, train_dir, launches)
 
     with phase("8 training times"):
-        train_record, _ = phase8_train_times(trainer, state, batch, card,
-                                             launches, train_errs, main_calls)
+        train_record, step_ms = phase8_train_times(
+            trainer, state, batch, card, launches, train_errs, main_calls)
         record += train_record
+
+    with phase("9 DS-TCN, FSMN and fbank kernels vs plain (full width)"):
+        errs3, bench = phase9_new_kernels(dev, gen, batch)
+
+    with phase("10 path A: DS-TCN served end to end"):
+        serving_slice("ds_tcn", DS_TCN_MODEL_CONF, gen, dev, work, waves,
+                      fused_ds_tcn, fused_ds_tcn, launches)
+        launches["fused_ds_tcn"] = (launches["ds_tcn_offline"]
+                                    + launches["ds_tcn_stream"])
+
+    with phase("11 path B: FSMN-CTC served by KeyWordSpotter"):
+        chunk_ms = phase11_fsmn_ctc(dev, gen, work, waves, launches)
+
+    with phase("12 path C: training with the fused frontend"):
+        fused_trainer, fused_state = phase12_fused_frontend(
+            dev, trainer, train_conf, batch, launches)
+
+    with phase("13 times of the later kernels and paths"):
+        record += phase13_times(dev, bench, errs3, launches, card, trainer,
+                                state, fused_trainer, fused_state, batch,
+                                step_ms, chunk_ms)
 
     print(card)
     print(json.dumps({"kernels": record}))

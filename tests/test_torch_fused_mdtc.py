@@ -128,7 +128,8 @@ def test_unsupported_shapes_return_none_or_raise():
     assert build_fused_forward(init_model(conf), device="cpu") is None
     model = init_model(CONF)
     model.backbone = torch.nn.Identity()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue B"):
+    with pytest.raises(NotImplementedError,
+                       match="no fused serving kernel for Identity"):
         build_fused_stream(model, device="cpu")
 
 

@@ -10,7 +10,7 @@ import torch
 
 from wekws_tpu_torch.models import init_model
 from wekws_tpu_torch.ops.serving import build_fused_forward, build_fused_stream
-from wekws_tpu_torch.runtime import BatchMaxPoolSpotter
+from wekws_tpu_torch.runtime import BatchMaxPoolSpotter, KeyWordSpotter
 from wekws_tpu_torch.runtime.keyword_spotter import load_serving_model
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -47,22 +47,27 @@ def test_port_imports_no_jax():
                           env=env, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 17  # every module was imported
+    assert int(proc.stdout.split()[0]) >= 47  # every module was imported
 
 
-@pytest.mark.parametrize("entry", ["forward", "stream", "load", "engine"])
+@pytest.mark.parametrize("entry", ["forward", "stream", "load", "engine",
+                                   "spotter"])
 def test_entry_points_default_to_cuda(tmp_path, entry):
     """Called without ``device=`` they run on the GPU, or raise where
     there is none; they never fall back to the CPU."""
     model = init_model(CONF["model"])
     ckpt = tmp_path / "m.pt"
     torch.save(model.state_dict(), ckpt)
+    tokens = tmp_path / "tokens.txt"
+    tokens.write_text("<blk> 0\nh 1\n")
     calls = {
         "forward": lambda: build_fused_forward(model),
         "stream": lambda: build_fused_stream(model),
         "load": lambda: load_serving_model(CONF, str(ckpt), 23),
         "engine": lambda: BatchMaxPoolSpotter(str(ckpt), CONF, 0.5,
                                               num_streams=2),
+        "spotter": lambda: KeyWordSpotter(str(ckpt), CONF, str(tokens), None,
+                                          0.5),
     }
     if torch.cuda.is_available():
         assert calls[entry]() is not None

@@ -143,3 +143,116 @@ def test_compare_pass_holds_each_output_to_its_bound():
     scale = max(float(s.abs().max()), float(ss.abs().max()), 1.0)
     with pytest.raises(AssertionError, match="f3"):
         compare_pass("f3", (r, w, s + 2e-3 * scale, ss), (r, w, s, ss))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 8, 70, 130])
+@pytest.mark.parametrize("b", [1, 5])
+def test_fused_ds_tcn_kernel_matches_plain(b, t):
+    """A single frame, a streaming chunk shorter than pad_max, partial
+    and whole 64-row tiles, from a random carried cache: output and new
+    cache 1e-4 abs + 1e-4 rel (fp32, another summation order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from wekws_tpu_torch.ops.fused_tcn import fused_ds_tcn, fused_ds_tcn_plain
+
+    g = torch.Generator().manual_seed(10 * t + b)
+    for c, k, dil in ((64, 8, (1, 2, 4, 8)), (32, 5, (1, 2))):
+        n_layers, pad = len(dil), (k - 1) * max(dil)
+        w = [(torch.randn(shape, generator=g) * scale).cuda()
+             for shape, scale in (((n_layers, k, c), 0.3), ((n_layers, c), 0.1),
+                                  ((n_layers, c, c), c ** -0.5),
+                                  ((n_layers, c), 0.1))]
+        x = torch.randn((b, t, c), generator=g).cuda()
+        cache = torch.randn((n_layers, b, pad, c), generator=g).cuda()
+        before = fused_ds_tcn.launches
+        got_y, got_c = fused_ds_tcn(x, cache, *w, dil, k)
+        assert fused_ds_tcn.launches == before + 1
+        want_y, want_c = fused_ds_tcn_plain(x, cache, *w, dil, k)
+        torch.testing.assert_close(got_y, want_y, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(got_c, want_c, atol=1e-4, rtol=1e-4)
+    with pytest.raises(ValueError, match="C in"):
+        fused_ds_tcn(torch.zeros((1, 4, 48)).cuda(),
+                     torch.zeros((1, 1, 7, 48)).cuda(),
+                     torch.zeros((1, 8, 48)).cuda(),
+                     torch.zeros((1, 48)).cuda(),
+                     torch.zeros((1, 48, 48)).cuda(),
+                     torch.zeros((1, 48)).cuda(), (1,), 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 8, 70, 130])
+@pytest.mark.parametrize("b", [1, 5])
+def test_fused_fsmn_kernel_matches_plain(b, t):
+    """The recipe's ragged widths (250, 128, P = 11), ``rorder`` 0, and
+    strides 2 at small widths; T below P, partial and whole 32-row
+    tiles: output and new cache 1e-4 abs + 1e-4 rel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from wekws_tpu_torch.ops.fused_fsmn import (
+        fused_fsmn_layers,
+        fused_fsmn_layers_plain,
+    )
+
+    g = torch.Generator().manual_seed(10 * t + b)
+    for ld, pd, lo, ro, ls, rs in ((250, 128, 10, 2, 1, 1),
+                                   (250, 128, 10, 0, 1, 1),
+                                   (40, 16, 5, 2, 2, 2), (140, 70, 3, 1, 2, 1)):
+        n_layers, pad = 3, (lo - 1) * ls + ro * rs
+        w = [(torch.randn(shape, generator=g) * scale).cuda()
+             for shape, scale in (((n_layers, ld, pd), ld ** -0.5),
+                                  ((n_layers, lo, pd), 0.3),
+                                  ((n_layers, max(ro, 1), pd), 0.3),
+                                  ((n_layers, pd, ld), pd ** -0.5),
+                                  ((n_layers, ld), 0.1))]
+        x = torch.randn((b, t, ld), generator=g).cuda()
+        cache = torch.randn((n_layers, b, pad, pd), generator=g).cuda()
+        before = fused_fsmn_layers.launches
+        got_y, got_c = fused_fsmn_layers(x, cache, *w, lo, ro, ls, rs)
+        assert fused_fsmn_layers.launches == before + 1
+        want_y, want_c = fused_fsmn_layers_plain(x, cache, *w, lo, ro, ls, rs)
+        torch.testing.assert_close(got_y, want_y, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(got_c, want_c, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    {"num_mel_bins": 40}, {"num_mel_bins": 80},
+    {"feature_type": "mfcc", "num_mel_bins": 40, "num_ceps": 13},
+    {"num_mel_bins": 23, "use_power": False, "use_log_fbank": False},
+    {"num_mel_bins": 40, "sample_rate": 8000},
+], ids=["fbank40", "fbank80", "mfcc13", "magnitude", "8k"])
+@pytest.mark.parametrize("b,n", [(1, 400), (5, 20800), (3, 5519)])
+def test_fused_fbank_kernel_matches_plain(kw, b, n):
+    """One frame, whole and ragged 32-frame tiles (5 x 128 and 3 x 32
+    frames).  Log features 1e-3 abs + 1e-4 rel (fp32 sums over 400 and
+    257 terms in another order, then a log); magnitudes 1e-4 of the
+    largest.  In-kernel dither: same seed bitwise equal, other seed
+    differs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from wekws_tpu_torch.frontend.features import FeatureExtractor
+    from wekws_tpu_torch.frontend.kaldi import FrontendConfig
+    from wekws_tpu_torch.ops.fused_frontend import fused_fbank
+
+    g = torch.Generator().manual_seed(n + b)
+    cfg = FrontendConfig(dither=1.0, dither_mode="frame", **kw)
+    n = n * cfg.sample_rate // 16000
+    waves = (torch.randn((b, n), generator=g) * 1000).cuda()
+    fused, plain = FeatureExtractor(cfg, use_fused=True), FeatureExtractor(cfg)
+    before = fused_fbank.launches
+    got, _ = fused(waves)
+    assert fused_fbank.launches == before + 1
+    want, _ = plain(waves)
+    if cfg.use_log_fbank:
+        torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-4)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-4 * float(want.abs().max()))
+    gen = torch.Generator(device="cuda")
+    outs = []
+    for seed in (1, 1, 2):
+        gen.manual_seed(seed)
+        outs.append(fused(waves, generator=gen)[0])
+    assert torch.equal(outs[0], outs[1]) and not torch.equal(outs[0], outs[2])
+    assert not torch.equal(outs[0], got) and bool(torch.isfinite(outs[0]).all())

@@ -117,7 +117,7 @@ def test_unported_configs_raise(rng):
     from wekws_tpu_torch.models import init_model
 
     conf = _model_conf(rng)
-    conf["backbone"] = {"type": "fsmn"}
+    conf["backbone"] = {"type": "gru", "num_layers": 1}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         init_model(conf)
     conf = _model_conf(rng, head="global")

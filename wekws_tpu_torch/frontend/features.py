@@ -12,6 +12,13 @@ All products run in float32.  The JAX package's ``precision`` knob
 has no counterpart here: both settings give full float32 products, as
 long as the caller leaves ``torch.backends.cuda.matmul.allow_tf32`` at
 its default (False); this module never changes that flag.
+
+``use_fused=True`` (``dataset_conf: fused_frontend: true``) runs the
+whole chain after the optional wave-mode dither through
+``ops/fused_frontend.fused_fbank``: the hand-written CUDA kernel on the
+card, its plain version on the CPU.  Frame-mode dither then happens
+inside the kernel, from its own counter-based generator: the same
+distribution as the unfused path's ``torch.randn``, another stream.
 """
 
 from typing import Optional, Tuple
@@ -26,6 +33,7 @@ from wekws_tpu_torch.frontend.kaldi import (
     lifter_coeffs,
     mel_banks,
 )
+from wekws_tpu_torch.ops.fused_frontend import fused_fbank
 
 
 def _dft_matrix(frame_length: int, padded_size: int) -> np.ndarray:
@@ -63,14 +71,10 @@ class FeatureExtractor:
             raise ValueError(f"unknown feature_type {cfg.feature_type}")
         if not cfg.snip_edges:
             raise NotImplementedError("only snip_edges=True is supported")
-        if use_fused:
-            raise NotImplementedError(
-                "the fused fbank kernel (wekws_tpu/ops/fused_frontend.py) "
-                "is not ported yet (ROADMAP queue B, row 3)"
-            )
         if cfg.dither_mode not in ("frame", "wave"):
             raise ValueError(f"unknown dither_mode {cfg.dither_mode}")
         self.cfg = cfg
+        self.use_fused = use_fused
         n = cfg.padded_window_size
         length = cfg.frame_length
         # DC removal (I - J/L), preemphasis (bidiagonal, Kaldi's
@@ -95,7 +99,7 @@ class FeatureExtractor:
                 dct = dct * lifter_coeffs(cfg.num_ceps,
                                           cfg.cepstral_lifter)[None, :]
             mats["dct"] = dct
-        self._cpu = {k: torch.tensor(np.asarray(v, np.float32))
+        self._cpu = {k: torch.tensor(np.ascontiguousarray(v, np.float32))
                      for k, v in mats.items()}
         self._on_device = {}
 
@@ -117,6 +121,26 @@ class FeatureExtractor:
         return torch.where(num_samples >= cfg.frame_length, n,
                            torch.zeros_like(n))
 
+    def _fused_call(self, waves: torch.Tensor,
+                    generator: Optional[torch.Generator]) -> torch.Tensor:
+        """The chain from framing on through ``fused_fbank``;
+        ``generator`` is given only for frame-mode dither.  The kernel's
+        seed is drawn on the waves' device and stays there, so a train
+        step does not wait for it."""
+        cfg = self.cfg
+        mats = self._mats(waves.device)
+        seed = None
+        if generator is not None:
+            seed = torch.randint(0, 2 ** 62, (1,), generator=generator,
+                                 device=waves.device, dtype=torch.int64)
+        return fused_fbank(
+            waves.contiguous(), mats["analysis"], mats["mel_t"],
+            mats.get("dct"), frame_length=cfg.frame_length,
+            frame_shift=cfg.frame_shift,
+            dither=float(cfg.dither) if generator is not None else 0.0,
+            seed=seed, use_power=cfg.use_power, use_log=cfg.use_log_fbank,
+            epsilon=EPSILON)
+
     def __call__(
         self,
         waves: torch.Tensor,
@@ -129,6 +153,11 @@ class FeatureExtractor:
         if dither and cfg.dither_mode == "wave":
             waves = waves + cfg.dither * torch.randn(
                 waves.shape, generator=generator, device=waves.device)
+        if self.use_fused:
+            frame_dither = dither and cfg.dither_mode == "frame"
+            mel = self._fused_call(waves, generator if frame_dither else None)
+            return mel, (None if lengths is None
+                         else self.num_frames(lengths))
         mats = self._mats(waves.device)
         frames = frame_waveform(waves, cfg.frame_length, cfg.frame_shift)
         if dither and cfg.dither_mode == "frame":

@@ -5,11 +5,12 @@ preprocessing -> backbone (+cache) -> classifier -> activation
 (sigmoid for wake word, identity otherwise), with a softmax variant.
 Features past ``lengths`` are zero-masked before and after CMVN.
 
-The port builds the MDTC backbone with ``linear`` or ``none``
-preprocessing and the linear, element and identity heads, in float32,
-with ``backbone.fused_train`` routing whole-utterance training forwards
-through the fused exact-BN kernels; other configurations and the
-training knobs ``dtype: bfloat16``, ``bn_dtype``, ``remat`` and
+The port builds the MDTC, TCN / DS-TCN and FSMN backbones with
+``linear`` or ``none`` preprocessing and the linear, element and
+identity heads, in float32, with MDTC's ``backbone.fused_train``
+routing whole-utterance training forwards through the fused exact-BN
+kernels; the GRU backbone, ``cnn1d_s1`` preprocessing and the training
+knobs ``dtype: bfloat16``, ``bn_dtype``, ``remat`` and
 ``ghost_bn > 1`` raise ``NotImplementedError`` naming the ROADMAP item
 that ports them.
 """
@@ -27,9 +28,16 @@ from wekws_tpu_torch.models.classifier import (
     LinearClassifier,
 )
 from wekws_tpu_torch.models.cmvn import GlobalCMVN
-from wekws_tpu_torch.models.layers import DepthwiseConv1d, PointwiseConv1d
+from wekws_tpu_torch.models.fsmn import FSMN
+from wekws_tpu_torch.models.layers import (
+    Conv1d,
+    DepthwiseConv1d,
+    MemoryTaps,
+    PointwiseConv1d,
+)
 from wekws_tpu_torch.models.mdtc import MDTC
 from wekws_tpu_torch.models.subsampling import LinearSubsampling1, NoSubsampling
+from wekws_tpu_torch.models.tcn import TCN
 
 
 def mask_padding(x: torch.Tensor,
@@ -93,13 +101,17 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
                 fan_in = mod.weight.shape[1]
             elif isinstance(mod, DepthwiseConv1d):
                 fan_in = mod.kernel_size
+            elif isinstance(mod, Conv1d):
+                fan_in = mod.weight.shape[1] * mod.kernel_size
+            elif isinstance(mod, MemoryTaps):
+                fan_in = mod.order
             else:
                 continue
             mod.weight.copy_(
                 torch.randn(mod.weight.shape, generator=generator)
                 / np.sqrt(fan_in)
             )
-            if mod.bias is not None:
+            if getattr(mod, "bias", None) is not None:
                 mod.bias.zero_()
 
 
@@ -160,8 +172,30 @@ def init_model(configs: dict,
             causal=bconf["causal"],
             fused_train=bool(bconf.get("fused_train", False)),
         )
-    elif btype in ("tcn", "fsmn", "gru"):
-        raise _not_ported(f"backbone '{btype}'", "item 7, other backbones")
+    elif btype == "tcn":
+        backbone = TCN(
+            num_layers=bconf["num_layers"],
+            channel=hidden_dim,
+            kernel_size=bconf.get("kernel_size", 8),
+            dropout=bconf.get("dropout", 0.1),
+            ds=bconf.get("ds", False),
+        )
+    elif btype == "fsmn":
+        backbone = FSMN(
+            input_dim=hidden_dim if prep_type == "linear" else input_dim,
+            input_affine_dim=bconf["input_affine_dim"],
+            fsmn_layers=bconf["num_layers"],
+            linear_dim=bconf["linear_dim"],
+            proj_dim=bconf["proj_dim"],
+            lorder=bconf["left_order"],
+            rorder=bconf["right_order"],
+            lstride=bconf["left_stride"],
+            rstride=bconf["right_stride"],
+            output_affine_dim=bconf["output_affine_dim"],
+            output_dim=output_dim,
+        )
+    elif btype == "gru":
+        raise _not_ported("backbone 'gru'", "item 7, other backbones")
     else:
         raise ValueError(f"Unknown backbone type {btype}")
 

@@ -48,6 +48,57 @@ class DepthwiseConv1d(nn.Module):
         return y
 
 
+class Conv1d(nn.Module):
+    """Causal dilated full convolution, VALID after ``left_pad`` zeros,
+    stored as the reference ``Conv1d`` (``weight (out, in, K)``).
+
+    K shifted float32 matmuls rather than ``F.conv1d``: cuDNN runs a
+    float32 convolution in TF32 by default, a plain matmul does not."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 dilation: int = 1):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.dilation = dilation
+        self.weight = nn.Parameter(
+            torch.empty(out_channels, in_channels, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+
+    def forward(self, x: torch.Tensor, left_pad: int = 0) -> torch.Tensor:
+        if left_pad:
+            x = nn.functional.pad(x, (0, 0, left_pad, 0))
+        k, d = self.kernel_size, self.dilation
+        t_out = x.shape[1] - (k - 1) * d
+        y = self.bias
+        for j in range(k):
+            y = y + torch.matmul(x[:, j * d:j * d + t_out, :],
+                                 self.weight[:, :, j].t())
+        return y
+
+
+class MemoryTaps(nn.Module):
+    """Depthwise FSMN memory taps without bias, stored as the
+    reference's ``Conv2d`` weight ``(C, 1, order, 1)``.  ``forward``
+    is a VALID cross-correlation over time as shifted multiply-adds:
+    ``(B, T_in, C) -> (B, T_in - (order-1)*stride, C)``."""
+
+    def __init__(self, channels: int, order: int, stride: int = 1):
+        super().__init__()
+        self.order = order
+        self.stride = stride
+        self.weight = nn.Parameter(torch.empty(channels, 1, order, 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        t_out = x.shape[1] - (self.order - 1) * self.stride
+        w = self.weight[:, 0, :, 0]  # (C, order)
+        y = None
+        for j in range(self.order):
+            s = j * self.stride
+            tap = x[:, s:s + t_out, :] * w[:, j]
+            y = tap if y is None else y + tap
+        return y
+
+
 class PointwiseConv1d(nn.Module):
     """1x1 conv over channels, stored as the reference ``Conv1d``."""
 

@@ -2,10 +2,28 @@
 
 Every fused temporal-conv backbone streams with the same
 ``(L, B, pad_max, C)`` left-context ring cache, and folds
-inference-time BatchNorm into the preceding conv in float64.
+inference-time BatchNorm into the preceding conv in float64.  Every
+wrapper checks what it hands its kernel with ``check_tensor``.
 """
 
 import torch
+
+
+def check_tensor(name: str, t: torch.Tensor, shape, device,
+                 dtype=torch.float32) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape``
+    on ``device``: what a kernel reading raw pointers relies on."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a torch.Tensor, got {type(t)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
 
 
 def init_ring_cache(

@@ -26,7 +26,11 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from wekws_tpu_torch.ops import cuda_build
-from wekws_tpu_torch.ops.fused_common import fold_bn, init_ring_cache
+from wekws_tpu_torch.ops.fused_common import (
+    check_tensor as _check,
+    fold_bn,
+    init_ring_cache,
+)
 
 init_stream_cache = init_ring_cache
 
@@ -78,20 +82,6 @@ def fused_mdtc_stream_plain(x, cache, dw_w, dw_b, pw1_w, pw1_b, pw2_w,
     """Eager PyTorch version of the streaming kernel."""
     return _mdtc_plain(x, cache, dw_w, dw_b, pw1_w, pw1_b, pw2_w, pw2_b,
                        dilations, kernel_size, stack_size)
-
-
-def _check(name: str, t: torch.Tensor, shape, device) -> None:
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name}: expected a torch.Tensor, got {type(t)}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected float32")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def _validate(x, cache, weights, dilations, kernel_size, stack_size):

@@ -2,12 +2,18 @@
 
 Port of wekws_tpu/ops/serving.py.  The KWSModel forward (cmvn ->
 preprocessing -> backbone -> classifier -> activation) is rebuilt
-around the whole-backbone kernel ``fused_mdtc_forward`` /
-``fused_mdtc_stream`` (ops/fused_mdtc.py).  Supported heads: linear
-(wake word), identity (CTC), element MLP; for another head or an MDTC
-without linear preprocessing the builders return None, as the JAX
-package's do.  The FSMN and DS-TCN kernels are not ported yet, so any
-other backbone raises.
+around a whole-backbone kernel: ``fused_mdtc_forward`` /
+``fused_mdtc_stream`` (ops/fused_mdtc.py), ``fused_fsmn_layers``
+(ops/fused_fsmn.py) or ``fused_ds_tcn`` (ops/fused_tcn.py).  Supported
+heads: linear (wake word), identity (CTC), element MLP.  As in the JAX
+package ``build_fused_*`` return None for another head, for an MDTC or
+DS-TCN without linear preprocessing, and for a full-conv TCN (its
+(K, C, C) kernels are K matmuls per layer and stay on the module path).
+Any other backbone (GRU) raises, where the JAX package returns None.
+
+Each ``_build_fused_*`` only supplies a ``backbone_fn(x, cache)`` and a
+cache constructor; the surrounding pipeline (padding mask, cmvn, linear
+preprocessing, head, sigmoid/softmax) is shared in ``_make_runner``.
 
 The builders copy the model's weights to ``device`` (CUDA unless the
 caller asks for the CPU) and return functions that run there under
@@ -24,14 +30,26 @@ from wekws_tpu_torch.models.classifier import (
     IdentityClassifier,
     LinearClassifier,
 )
+from wekws_tpu_torch.models.fsmn import FSMN
 from wekws_tpu_torch.models.kws_model import KWSModel, mask_padding
 from wekws_tpu_torch.models.mdtc import MDTC
-from wekws_tpu_torch.models.subsampling import LinearSubsampling1
+from wekws_tpu_torch.models.subsampling import LinearSubsampling1, NoSubsampling
+from wekws_tpu_torch.models.tcn import TCN
+from wekws_tpu_torch.ops.fused_fsmn import (
+    extract_fsmn_weights,
+    fused_fsmn_layers,
+    init_fsmn_cache,
+)
 from wekws_tpu_torch.ops.fused_mdtc import (
     extract_mdtc_weights,
     fused_mdtc_forward,
     fused_mdtc_stream,
     init_stream_cache,
+)
+from wekws_tpu_torch.ops.fused_tcn import (
+    extract_ds_tcn_weights,
+    fused_ds_tcn,
+    init_tcn_cache,
 )
 
 
@@ -65,27 +83,31 @@ def _cmvn_weights(model, device):
 
 
 def _prep_weights(model, device):
-    """(W (in, out), b) of the linear preprocessing, or None."""
+    """-> ((W (in, out), b) | (None, None), ok) for the preprocessing."""
     prep = model.preprocessing
-    if not isinstance(prep, LinearSubsampling1):
-        return None
-    lin = prep.out[0]
-    return _f32(lin.weight.t(), device), _f32(lin.bias, device)
+    if isinstance(prep, LinearSubsampling1):
+        lin = prep.out[0]
+        return (_f32(lin.weight.t(), device), _f32(lin.bias, device)), True
+    if isinstance(prep, NoSubsampling):
+        return (None, None), True
+    return (None, None), False
 
 
 def _make_runner(model, device, backbone_fn, init_cache, softmax,
-                 streaming):
+                 streaming, *, require_linear_prep=False):
     """Shared pipeline around a fused backbone.
 
-    backbone_fn: (x (B,T,D), cache) -> (x', cache').  Returns
-    ``forward(feats, lengths)`` or, when streaming,
-    ``(step(feats, cache), init_cache)``; None when the head is
-    unsupported or the preprocessing is not linear."""
+    backbone_fn: (x (B,T,D), cache) -> (x', cache').  The
+    whole-utterance MDTC passes its cache (None) through untouched; the
+    others start from ``init_cache``.  Returns ``forward(feats,
+    lengths)`` or, when streaming, ``(step(feats, cache), init_cache)``;
+    None when the head or the preprocessing is unsupported."""
     clf_head = _head_weights(model.classifier, device)
-    prep = _prep_weights(model, device)
-    if clf_head is None or prep is None:
+    if clf_head is None:
         return None
-    prep_w, prep_b = prep
+    (prep_w, prep_b), prep_ok = _prep_weights(model, device)
+    if not prep_ok or (require_linear_prep and prep_w is None):
+        return None
     cmvn_mean, cmvn_istd = _cmvn_weights(model, device)
     sigmoid = model.activation == "sigmoid"
 
@@ -100,7 +122,8 @@ def _make_runner(model, device, backbone_fn, init_cache, softmax,
             x = (x - cmvn_mean) * cmvn_istd
             if not streaming:
                 x = mask_padding(x, lengths)
-        x = torch.relu(x @ prep_w + prep_b)
+        if prep_w is not None:
+            x = torch.relu(x @ prep_w + prep_b)
         x, cache = backbone_fn(x.contiguous(), cache)
         for wgt, bias, act in clf_head:
             x = x @ wgt + bias
@@ -116,7 +139,7 @@ def _make_runner(model, device, backbone_fn, init_cache, softmax,
         return run, init_cache
 
     def forward(feats, lengths=None):
-        out, _ = run(feats, None, lengths)
+        out, _ = run(feats, init_cache(len(feats)), lengths)
         return out
 
     return forward
@@ -150,22 +173,76 @@ def _build_fused_mdtc(model, device, softmax, streaming):
             return out, cache
 
     def init_cache(batch: int = 1):
+        if not streaming:
+            return None
         return init_stream_cache(len(dilations), batch, pad_max, channels,
                                  device)
+
+    return _make_runner(model, device, backbone_fn, init_cache, softmax,
+                        streaming, require_linear_prep=True)
+
+
+def _build_fused_fsmn(model, device, softmax, streaming):
+    """Forward/step for the fused FSMN path: the in/out linear pairs
+    are matmuls around the layer-chain kernel."""
+    fsmn = model.backbone
+    (in1_w, in1_b, in2_w, in2_b, proj_w, wl, wr, aff_w, aff_b,
+     out1_w, out1_b, out2_w, out2_b) = (
+        _f32(w, device) for w in extract_fsmn_weights(fsmn))
+
+    def backbone_fn(x, cache):
+        x = torch.relu((x @ in1_w + in1_b) @ in2_w + in2_b)
+        x, cache = fused_fsmn_layers(
+            x.contiguous(), cache, proj_w, wl, wr, aff_w, aff_b,
+            fsmn.lorder, fsmn.rorder, fsmn.lstride, fsmn.rstride)
+        x = (x @ out1_w + out1_b) @ out2_w + out2_b
+        return x, cache
+
+    def init_cache(batch: int = 1):
+        return init_fsmn_cache(fsmn.fsmn_layers, batch, fsmn.layer_padding,
+                               fsmn.proj_dim, device)
 
     return _make_runner(model, device, backbone_fn, init_cache, softmax,
                         streaming)
 
 
+def _build_fused_tcn(model, device, softmax, streaming):
+    """Forward/step for the fused DS-TCN path."""
+    if not model.backbone.ds:
+        return None  # full-conv blocks stay on the module path
+    weights = extract_ds_tcn_weights(model.backbone)
+    dilations = weights[-1]
+    dw_w, dw_b, pw_w, pw_b = (_f32(w, device) for w in weights[:-1])
+    kern = model.backbone.kernel_size
+    pad_max = (kern - 1) * max(dilations)
+    channels = model.backbone.channel
+
+    def backbone_fn(x, cache):
+        return fused_ds_tcn(x, cache, dw_w, dw_b, pw_w, pw_b, dilations,
+                            kern)
+
+    def init_cache(batch: int = 1):
+        return init_tcn_cache(len(dilations), batch, pad_max, channels,
+                              device)
+
+    return _make_runner(model, device, backbone_fn, init_cache, softmax,
+                        streaming, require_linear_prep=True)
+
+
+_BUILDERS = (
+    (FSMN, _build_fused_fsmn),
+    (TCN, _build_fused_tcn),
+    (MDTC, _build_fused_mdtc),
+)
+
+
 def _dispatch(model, softmax, streaming, device):
     device = resolve_device(device)
-    if not isinstance(model.backbone, MDTC):
-        raise NotImplementedError(
-            f"no fused serving kernel for {type(model.backbone).__name__}: "
-            "the FSMN and DS-TCN kernels (wekws_tpu/ops/fused_fsmn.py, "
-            "fused_tcn.py) are not ported yet (ROADMAP queue B)"
-        )
-    return _build_fused_mdtc(model, device, softmax, streaming)
+    for cls, build in _BUILDERS:
+        if isinstance(model.backbone, cls):
+            return build(model, device, softmax, streaming)
+    raise NotImplementedError(
+        f"no fused serving kernel for {type(model.backbone).__name__}")
 
 
 def build_fused_forward(

@@ -24,8 +24,9 @@ Correctness under batching (unchanged from the JAX engine):
 (ops/serving.py ``build_fused_stream``) with the packed
 ``(L, B, pad_max, C)`` cache, whose rows are axis 1; otherwise the
 module runs with its tuple of ``(B, (K-1)*d, C)`` caches, rows on
-axis 0.  The device frontend, device decode and the CTC engine are
-not ported yet.
+axis 0.  It serves MDTC and DS-TCN wake-word models.  The device
+frontend, device decode and the batched CTC engine are not ported yet;
+the single-stream CTC engine is runtime/keyword_spotter.py.
 """
 
 import time
@@ -263,8 +264,9 @@ class BatchMaxPoolSpotter(_BatchedStreamEngine):
             if fused is None:
                 raise ValueError(
                     "use_fused=True: this model is not supported by the "
-                    "fused stream (needs linear preprocessing and a "
-                    "linear, element or identity head)"
+                    "fused stream (needs a DS-TCN or MDTC with linear "
+                    "preprocessing or an FSMN, and a linear, element or "
+                    "identity head)"
                 )
             apply, init_cache = fused
             cache, row_axis = init_cache(num_streams), 1

@@ -4,14 +4,15 @@ Takes the JAX package's ``(params, batch_stats)`` (nested dicts of
 arrays, as its checkpoints hold them), the ``model`` config and the
 CMVN statistics, and returns a state_dict with the reference wekws
 names the port's modules use.  This is the port's own copy of the
-MDTC, linear-preprocessing, head and CMVN parts of the mapping in
-wekws_tpu/tools/export_torch.py; other backbones come with their
-modules.
+MDTC, TCN / DS-TCN, FSMN, linear-preprocessing, head and CMVN parts of
+the mapping in wekws_tpu/tools/export_torch.py; the GRU comes with its
+module.
 
 Layouts (both frameworks use cross-correlation, so only axis
 permutations): Dense kernel (in, out) -> Linear (out, in); Conv
 kernel (k, in, out) -> Conv1d (out, in, k); depthwise (K, 1, C) ->
-(C, 1, K); BN scale/bias and mean/var -> weight/bias and
+(C, 1, K); FSMN memory taps (order, 1, C) -> Conv2d (C, 1, order, 1);
+BN scale/bias and mean/var -> weight/bias and
 running_mean/running_var.
 """
 
@@ -63,6 +64,35 @@ def _mdtc_block(params, stats, prefix, out):
     _bn(params["bn2"], sub("bn2"), f"{prefix}.bn2", out)
 
 
+def _tcn_block(params, stats, prefix, ds, out):
+    """``prefix`` is the block's ``nn.Sequential``: (dw conv, BN, ReLU,
+    1x1 conv, BN, ...) or (conv, BN, ...)."""
+    def sub(key):
+        return None if stats is None else stats[key]
+
+    if ds:
+        _conv1d(params["dw_conv"], f"{prefix}.0", out)
+        _bn(params["dw_bn"], sub("dw_bn"), f"{prefix}.1", out)
+        _conv1d(params["pw_conv"], f"{prefix}.3", out)
+        _bn(params["pw_bn"], sub("pw_bn"), f"{prefix}.4", out)
+    else:
+        _conv1d(params["conv"], f"{prefix}.0", out)
+        _bn(params["bn"], sub("bn"), f"{prefix}.1", out)
+
+
+def _fsmn(bp, num_layers, out):
+    for name in ("in_linear1", "in_linear2", "out_linear1", "out_linear2"):
+        _linear(bp[name], f"backbone.{name}.linear", out)
+    for i in range(num_layers):
+        _linear(bp[f"layer_{i}_proj"], f"backbone.fsmn.{i}.0.linear", out)
+        taps = bp[f"layer_{i}_fsmn"]
+        for side in ("conv_left", "conv_right"):
+            if side in taps:
+                out[f"backbone.fsmn.{i}.1.{side}.weight"] = _t(np.transpose(
+                    np.asarray(taps[side]["kernel"]), (2, 1, 0))[..., None])
+        _linear(bp[f"layer_{i}_affine"], f"backbone.fsmn.{i}.2.linear", out)
+
+
 def state_dict_from_jax(
     params: dict,
     batch_stats: Optional[dict],
@@ -86,19 +116,31 @@ def state_dict_from_jax(
         raise NotImplementedError(f"preprocessing {prep!r} is not bridged")
 
     bconf = model_conf["backbone"]
-    if bconf["type"] != "mdtc":
+    btype = bconf["type"]
+    bp = params["backbone"]
+    bs = None if batch_stats is None else batch_stats.get("backbone")
+    if btype == "mdtc":
+        names = [("preprocessor", "backbone.preprocessor")] + [
+            (f"stack_{si}_block_{bi}",
+             f"backbone.blocks.{si}.res_blocks.{bi}")
+            for si in range(bconf["num_stack"])
+            for bi in range(bconf["stack_size"])]
+        for name, prefix in names:
+            _mdtc_block(bp[name], None if bs is None else bs[name], prefix,
+                        out)
+    elif btype == "tcn":
+        for i in range(bconf["num_layers"]):
+            name = f"block_{i}"
+            _tcn_block(bp[name], None if bs is None else bs[name],
+                       f"backbone.network.{i}.cnn", bconf.get("ds", False),
+                       out)
+    elif btype == "fsmn":
+        _fsmn(bp, bconf["num_layers"], out)
+    else:
         raise NotImplementedError(
-            f"backbone {bconf['type']!r} is not ported yet (ROADMAP queue A, "
+            f"backbone {btype!r} is not ported yet (ROADMAP queue A, "
             "item 7, other backbones)"
         )
-    bp = params["backbone"]
-    bs = None if batch_stats is None else batch_stats["backbone"]
-    names = [("preprocessor", "backbone.preprocessor")] + [
-        (f"stack_{si}_block_{bi}", f"backbone.blocks.{si}.res_blocks.{bi}")
-        for si in range(bconf["num_stack"])
-        for bi in range(bconf["stack_size"])]
-    for name, prefix in names:
-        _mdtc_block(bp[name], None if bs is None else bs[name], prefix, out)
 
     cls = params.get("classifier", {})
     if "linear" in cls:
