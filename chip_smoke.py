@@ -10,7 +10,9 @@ FSMN-CTC model (80-mel fbank, context +-2, skip 3, 4 layers 250/128,
 one CUDA device, in phases; any failure exits non-zero:
 
 1. card name and power limit (nvidia-smi); a GPU is required;
-2. build every CUDA kernel from ``wekws_tpu_torch/csrc``;
+2. build every CUDA kernel from ``wekws_tpu_torch/csrc`` and print
+   what ``ptxas`` says of registers and spills (B3's and B4's kernels
+   by name);
 3. each serving kernel against its plain PyTorch version on the card,
    at flagship width: whole-utterance forward at B=64 x T=198 and
    B=4 x T=1024, streaming at B=16 in chunks of 8 over 200 frames
@@ -27,11 +29,12 @@ one CUDA device, in phases; any failure exits non-zero:
    torch.profiler) beside the bound computed from this run's shapes;
 6. the eight fused training passes (F1-F4, B1-B4) against their plain
    versions on identical inputs, at flagship width (C=64, K=5): the
-   main path's B=512 x T=198 at dilations 1, 2, 4 and 8 (about eight
+   main path's B=512 x T=198 at dilations 1, 2, 4 and 8 (six to eight
    tiles per block of the persistent grid), B=64 x T=198 (one tile
-   per block) and a ragged B=5 x T=130 at dilations 1 and 8, and C=32
-   once; each pass launched twice must agree bitwise (deterministic
-   reductions).  The whole fused block (forward, six batch statistics,
+   per block), a ragged B=5 x T=130 at dilations 1 and 8, B=7 x T=20
+   (shorter than the halo of 32 frames), and C=32 and C=128 once; each
+   pass launched twice must agree bitwise (deterministic reductions).
+   The whole fused block (forward, six batch statistics,
    twelve parameter gradients and dx) against the unfused module block
    by autograd on the card;
 7. the training slice end to end at B=512 x 2 s: device fbank +
@@ -108,6 +111,7 @@ TOL = 1e-4  # abs and rel: fp32 with another summation order
 # H100 SXM published peaks (NVIDIA data sheet): fp32 outside the
 # tensor cores, and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12  # tensor cores, dense
 PEAK_BYTES_PER_S = 3.35e12
 TRAIN_B, TRAIN_SECONDS = 512, 2
 TRAIN_DATASET_CONF = {  # __graft_entry__.DATASET_CONF, the flagship recipe
@@ -443,29 +447,36 @@ def serving_slice(tag, base_conf, gen, dev, work, waves, offline_kernel,
 def train_pass_bound_ms(name, b, t, c, k):
     """Least time on an H100 for one training pass: the larger of the
     compulsory bytes over HBM bandwidth (each (B, T, C) input read once,
-    each output written once, weights once) and its fp32 operations
-    over the fp32 peak (an FMA counts 2).  Per frame and channel: the
-    depthwise conv 2K, each C x C product 2C, the elementwise BN, ReLU
-    and exact-BN backward terms as counted below."""
+    each output written once, weights once) and its operations over the
+    peak of the unit the kernel uses (an FMA counts 2).  Per frame and
+    channel: the depthwise conv 2K, each C x C product 2C, the
+    elementwise BN, ReLU and exact-BN backward terms as counted below,
+    all at the fp32 peak outside the tensor cores, except B3's four
+    products: they run on the tensor cores in TF32, three passes each,
+    so at a third of the TF32 peak (0.0201 ms at the main shape; as
+    fp32 FMAs they would take 0.0496 ms).  B3 reads dy, w, x, r and
+    writes ds0; B4 reads dy, w, x, ds0, writes dx and has no product."""
     n = b * t
     act = 4 * n * c  # one (B, T, C) float32 tensor
     w = 4 * c * c
-    per_frame = {  # operations per frame
+    per_frame = {  # fp32 operations per frame outside the tensor cores
         "f1": c * (2 * k + 3),
         "f2": c * (2 * k + 2) + 2 * c * c + 4 * c,
         "f3": c * (2 * k + 2) + 4 * c * c + 11 * c,
         "f4": 4 * c,
         "b1": 10 * c,
         "b2": 4 * c * c + 20 * c,
-        "b3": 8 * c * c + c * (2 * k + 30),
-        "b4": 6 * c * c + c * (6 * k + 30),
+        "b3": c * (2 * k + 30),
+        "b4": c * (6 * k + 30),
     }[name]
+    tensor_per_frame = 8 * c * c if name == "b3" else 0
     nbytes = {
         "f1": act, "f2": act + w, "f3": 3 * act + 2 * w, "f4": 3 * act,
-        "b1": 3 * act, "b2": 4 * act + 2 * w, "b3": 4 * act + 3 * w,
-        "b4": 5 * act + 2 * w,
+        "b1": 3 * act, "b2": 4 * act + 2 * w, "b3": 5 * act + 3 * w,
+        "b4": 5 * act + 4 * (2 * k * c + c),
     }[name]
-    t_ops = n * per_frame / PEAK_FP32_FLOPS * 1e3
+    t_ops = (n * per_frame / PEAK_FP32_FLOPS
+             + n * tensor_per_frame / (PEAK_TF32_FLOPS / 3)) * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
@@ -491,11 +502,13 @@ def phase6_train_kernels(dev, gen):
     errs = {name: 0.0 for name in TRAIN_PASSES}
     k = 5
     # the main path's shape at each of the flagship's dilations, where
-    # each block of the persistent grid carries its sums across about
-    # eight tiles; one tile per block; a ragged batch; C=32
+    # each block of the persistent grid carries its sums across six to
+    # eight tiles; one tile per block; a ragged batch; an utterance
+    # shorter than the halo (K-1) d = 32; C=32; C=128
     cases = [(TRAIN_B, 198, 64, d) for d in (1, 2, 4, 8)] + [
         (64, 198, 64, 1), (64, 198, 64, 8), (5, 130, 64, 1),
-        (5, 130, 64, 8), (64, 198, 32, 8)]
+        (5, 130, 64, 8), (7, 20, 64, 8), (64, 198, 32, 8),
+        (64, 198, 128, 8)]
     main_calls = None
     for b, t, c, d in cases:
         p, x, dy = seeded_block_inputs(gen, b, t, c, k, dev)
@@ -796,7 +809,7 @@ def phase8_train_times(trainer, state, batch, card, launches, errs,
     pass_kernel = {"f1": "fwd_kernel<64, 1>", "f2": "fwd_kernel<64, 2>",
                    "f3": "fwd_kernel<64, 3>", "f4": "f4_kernel<64>",
                    "b1": "bwd_kernel<64, 5>", "b2": "bwd_kernel<64, 6>",
-                   "b3": "bwd_kernel<64, 7>", "b4": "bwd_kernel<64, 8>"}
+                   "b3": "b3_kernel<64>", "b4": "b4_kernel<64>"}
 
     def dev_ms(fragment):
         for key, (total, count) in kernels.items():
@@ -804,8 +817,10 @@ def phase8_train_times(trainer, state, batch, card, launches, errs,
                 return total / count / 1e3
         return None
 
-    dx_ms = dev_ms("dx_kernel<64>") or 0.0
-    ours = list(pass_kernel.values()) + ["reduce_kernel", "dx_kernel<64>"]
+    if any("dx_kernel" in key for key in kernels):
+        raise AssertionError("a dx_kernel ran in the profiled step: B4 is "
+                             "one kernel and its reduction")
+    ours = list(pass_kernel.values()) + ["reduce_kernel"]
     kernel_total = sum(t for key, (t, _) in kernels.items()
                        if any(f in key for f in ours)) / 1e3
     print(f"  profiled step: {busy / 1e3:.3f} ms of device time in all, "
@@ -814,6 +829,7 @@ def phase8_train_times(trainer, state, batch, card, launches, errs,
           f"unprofiled {step_ms:.3f} ms step [{card}]", flush=True)
 
     record = []
+    device_ms = {}
     b, t, c, k, d = TRAIN_B, 198, 64, 5, 8
     for name in TRAIN_PASSES:
         args = calls[name]
@@ -834,13 +850,15 @@ def phase8_train_times(trainer, state, batch, card, launches, errs,
         bound, bound_by = train_pass_bound_ms(name, b, t, c, k)
         main = dev_ms(pass_kernel[name])
         reduce_ms = None
-        if main is not None and name != "f4":  # its own block reduction
+        if name != "f4":  # its own block reduction
             reduce_ms = dev_ms(f"reduce_kernel<{PASS_IDS[name]}>")
-            main = None if reduce_ms is None else main + reduce_ms
-        if main is not None and name == "b4":
-            main += dx_ms
-        dev_txt = "not measured" if main is None else f"{main:.4f} ms"
-        if main is not None and reduce_ms is not None:
+        if main is None or (name != "f4" and reduce_ms is None):
+            raise AssertionError(
+                f"pass {name}: no kernel {pass_kernel[name]} (or its "
+                f"reduction) in the profiled train step")
+        device_ms[name] = main + (reduce_ms or 0.0)
+        dev_txt = f"{device_ms[name]:.4f} ms"
+        if reduce_ms is not None:
             dev_txt += f", of it {reduce_ms:.4f} ms its reduction"
         print(f"  fused_train_{name} B={b} T={t} d={d}: kernel {ms:.4f} ms "
               f"per call (device time per call in the train step "
@@ -860,6 +878,10 @@ def phase8_train_times(trainer, state, batch, card, launches, errs,
             "bound_ms": bound, "bound_by": bound_by,
             "library_ms": None,
         })
+    print(f"  B3 + B4 per block, with their reductions: "
+          f"{device_ms['b3'] + device_ms['b4']:.4f} ms of device time; all "
+          f"eight passes {sum(device_ms.values()):.4f} ms [{card}]",
+          flush=True)
     return record, step_ms
 
 
@@ -1466,6 +1488,22 @@ def main() -> int:
             for line in cuda_build.build_logs.get(name, "").splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}")
+        # the two redesigned backward passes by name: 128 registers or
+        # fewer leave two blocks of 256 threads on an SM
+        found = 0
+        train_log = cuda_build.build_logs.get("fused_mdtc_train", "")
+        for entry, regs, st, ld in cuda_build.parse_ptxas_log(train_log):
+            for kern in ("b3_kernel", "b4_kernel"):
+                width = entry.partition(f"{kern}ILi")[2].partition("E")[0]
+                if width:
+                    found += 1
+                    print(f"  fused_mdtc_train {kern}<{width}>: {regs} "
+                          f"registers, {st} bytes spill stores, {ld} bytes "
+                          f"spill loads")
+        if train_log and found != 6:  # no log when the library was there
+            raise AssertionError(f"expected ptxas lines for b3_kernel and "
+                                 f"b4_kernel at C = 32, 64, 128, found "
+                                 f"{found}")
         print(f"  built {len(paths)} librar(ies) in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
 

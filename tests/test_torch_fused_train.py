@@ -26,23 +26,28 @@ from wekws_tpu_torch.models.layers import BatchNorm
 from wekws_tpu_torch.models.mdtc import TCNBlock
 from wekws_tpu_torch.ops.fused_mdtc_train import (
     PARAM_KEYS,
+    PASSES,
+    _ds0,
+    b4_smem_bytes,
+    b4_tile_rows,
     fused_tcn_block_train,
+    trace_pass_inputs,
 )
 from wekws_tpu_torch.tools.from_jax import grads_from_jax, model_from_jax
 
 C, K = 8, 3
 
 
-def _params(rng):
+def _params(rng, c=C, k=K):
     def r(*shape, scale=0.3):
         return (rng.standard_normal(shape) * scale).astype(np.float32)
 
-    p = {"dw_kernel": r(K, 1, C), "dw_bias": r(C),
-         "pw1_kernel": r(C, C), "pw1_bias": r(C, scale=0.1),
-         "pw2_kernel": r(C, C), "pw2_bias": r(C, scale=0.1)}
+    p = {"dw_kernel": r(k, 1, c), "dw_bias": r(c),
+         "pw1_kernel": r(c, c), "pw1_bias": r(c, scale=0.1),
+         "pw2_kernel": r(c, c), "pw2_bias": r(c, scale=0.1)}
     for i in range(3):
-        p[f"bn{i}_scale"] = 1.0 + r(C, scale=0.1)
-        p[f"bn{i}_bias"] = r(C, scale=0.1)
+        p[f"bn{i}_scale"] = 1.0 + r(c, scale=0.1)
+        p[f"bn{i}_bias"] = r(c, scale=0.1)
     return p
 
 
@@ -58,7 +63,8 @@ def _loss_weights(y_shape, rng):
 
 def _port_block(p, dilation):
     """Port TCNBlock (plain modules, training mode) holding ``p``."""
-    blk = TCNBlock(C, C, K, dilation).train()
+    k, _, c = p["dw_kernel"].shape
+    blk = TCNBlock(c, c, k, dilation).train()
     with torch.no_grad():
         blk.conv1.conv.weight.copy_(torch.from_numpy(p["dw_kernel"])
                                     .permute(2, 1, 0))
@@ -140,6 +146,89 @@ def test_fused_block_matches_jax(dilation):
     for key in PARAM_KEYS:
         _close_grad(leaves[key].grad.numpy(), grads_u[key].numpy(),
                     f"{key} (unfused)")
+
+
+# (B, T, C, K, dilation): T not a multiple of the 64-row tile, T shorter
+# than the halo (K-1) d, the narrowest kernel width, the most taps
+SPLIT_CASES = [(2, 70, 8, 3, 2), (3, 5, 8, 3, 4), (2, 21, 32, 3, 1),
+               (2, 40, 8, 8, 2)]
+
+
+@pytest.mark.parametrize("b,t,c,k,dilation", SPLIT_CASES)
+def test_b3_hands_ds0_to_b4(b, t, c, k, dilation):
+    """The line between the last two backward passes: B3 returns JAX's
+    dW1, db1, Σds0, Σds0·û (the fused JAX block's gradients of
+    pw1_kernel, pw1_bias, bn0_bias, bn0_scale; 1e-4 of max(1, max
+    |grad|), as ``test_fused_block_matches_jax``) and the ds0 of the
+    ``_ds0`` chain (bitwise: the same ops); B4 fed that ds0, and no
+    pointwise weight, returns the dx, dWd, dbd of autograd through the
+    unfused TCNBlock (fp32 on the CPU: dx within 1e-5 of max(1, max
+    |dx|); dWd and dbd within 1e-5 of the largest of the two, because
+    dbd, the gradient of a bias that a BatchNorm follows, cancels to
+    about zero and carries the rounding of terms as large as dWd's)."""
+    rng = np.random.default_rng(1000 * t + c + k)
+    p = _params(rng, c, k)
+    x = rng.standard_normal((b, t, c)).astype(np.float32)
+    cot = _loss_weights(x.shape, rng)
+    calls = trace_pass_inputs(
+        torch.from_numpy(x), {key: torch.from_numpy(v)
+                              for key, v in p.items()},
+        torch.from_numpy(cot), dilation)
+    dw1, db1, sds0, sds0u, ds0 = PASSES["b3"](*calls["b3"])
+    assert ds0.shape == x.shape
+    assert torch.equal(ds0, _ds0(*calls["b3"])[3])
+
+    jp = {key: jnp.asarray(v) for key, v in p.items()}
+
+    def loss(xx, pp):
+        y, _ = jax_fused_block(xx, pp, k, dilation, 1e-5, b)
+        return jnp.sum(y * cot)
+
+    _, gp = jax.jit(jax.grad(loss, argnums=(0, 1)))(jnp.asarray(x), jp)
+    for got, key in ((dw1, "pw1_kernel"), (db1, "pw1_bias"),
+                     (sds0, "bn0_bias"), (sds0u, "bn0_scale")):
+        _close_grad(got.numpy(), np.asarray(gp[key]), key)
+
+    b4_args = calls["b4"]
+    assert b4_args[3] is ds0 or torch.equal(b4_args[3], ds0)
+    assert sum(isinstance(a, torch.Tensor) and a.dim() == 2
+               for a in b4_args) == 1  # the (K, C) taps, no (C, C) weight
+    assert set(b4_args[5]) == {"a2", "c2", "dw_b", "mu0", "inv0", "coef0",
+                               "sds0", "sds0u"}
+    dx, dwd, dbd = PASSES["b4"](*b4_args)
+    blk = _port_block(p, dilation)
+    xu = torch.from_numpy(x).requires_grad_()
+    yu, _ = blk(xu, None)
+    (yu * torch.from_numpy(cot)).sum().backward()
+    want_dwd = blk.conv1.conv.weight.grad.permute(2, 1, 0)[:, 0]
+    sum_scale = max(float(want_dwd.abs().max()), 1.0)
+    for got, want, scale, name in (
+            (dx, xu.grad, max(float(xu.grad.abs().max()), 1.0), "dx"),
+            (dwd, want_dwd, sum_scale, "dWd"),
+            (dbd, blk.conv1.conv.bias.grad, sum_scale, "dbd")):
+        err = float((got - want).abs().max())
+        assert err <= 1e-5 * scale, f"{name}: {err} vs {scale}"
+
+
+@pytest.mark.parametrize("t,c,halo,want", [
+    (198, 64, 32, 50),    # four tiles of 50 and 48 frames, not 3 x 64 + 6
+    (64, 64, 4, 64), (65, 32, 0, 33), (20, 64, 32, 20),
+    (130, 128, 56, 44),   # C=128, K=8, d=8: fits without halving
+    (198, 128, 130, 13),  # halved twice to fit a block's shared memory
+])
+def test_b4_tile_rows(t, c, halo, want):
+    """B4's tile: equal cuts of an utterance of at most 64 frames,
+    halved until the tile with its halos fits a block's shared memory;
+    a halo that cannot fit raises."""
+    rows = b4_tile_rows(t, c, halo)
+    assert rows == want
+    assert b4_smem_bytes(rows, c, halo) <= 232448
+    assert -(-t // rows) * rows >= t
+
+
+def test_b4_tile_rows_rejects_a_halo_over_shared_memory():
+    with pytest.raises(ValueError, match="shared memory"):
+        b4_tile_rows(198, 128, 7 * 32)
 
 
 def test_fused_block_rejects_bf16_and_wrong_taps():

@@ -59,7 +59,10 @@ def test_fused_mdtc_kernel_matches_plain(t):
 def test_fused_train_passes_match_plain(t, dilation):
     """Each of the eight training passes on identical inputs: whole
     64-frame tiles, partial last tiles and causal halos longer than a
-    tile; and bitwise equal when launched twice."""
+    tile or than the utterance; at T=70 every kernel width, K=8 at
+    C=128, and B x T = 210 frames, which no tile of B3 (64 or 32 rows
+    over the flattened frames) divides; B3 hands its ds0 to B4; and
+    bitwise equal when launched twice."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from wekws_tpu_torch.ops.fused_mdtc_train import (
@@ -70,9 +73,12 @@ def test_fused_train_passes_match_plain(t, dilation):
     )
 
     g = torch.Generator().manual_seed(100 * t + dilation)
-    for c in (32, 64, 128) if t == 70 else (64,):
-        p, x, dy = seeded_block_inputs(g, 3, t, c, 5, "cuda")
+    combos = ((32, 5), (64, 5), (128, 5), (128, 8)) if t == 70 else (
+        (64, 5),)
+    for c, k in combos:
+        p, x, dy = seeded_block_inputs(g, 3, t, c, k, "cuda")
         calls = trace_pass_inputs(x, p, dy, dilation)
+        assert len(calls["b3"]) == 10 and len(calls["b4"]) == 8
         for name, args in calls.items():
             before = PASSES[name].launches
             got = PASSES[name](*args)

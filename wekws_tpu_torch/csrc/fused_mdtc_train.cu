@@ -10,45 +10,96 @@
 // with a*, c* the BN scales folded from this batch's statistics, which
 // the host computes between passes from the sums these kernels return.
 //
-//   F1  x            -> Σu, Σu²                        (2C)
-//   F2  x            -> Σv, Σv²                        (2C)
-//   F3  x            -> r, w; Σw, Σw²                  (2C)
-//   F4  w, x         -> y                              (elementwise)
-//   B1  dy, w, x     -> Σg2, Σg2·ŵ                     (2C)
-//   B2  dy, w, x, r  -> dW2 = rᵀ·dwg, db2, Σds1, Σds1·v̂ (C² + 3C)
-//   B3  dy, w, x, r  -> dW1 = s0ᵀ·dv, db1, Σds0, Σds0·û (C² + 3C)
-//   B4  dy, w, x, r  -> dx, dWd, dbd                   (KC + C)
+//   F1  x             -> Σu, Σu²                        (2C)
+//   F2  x             -> Σv, Σv²                        (2C)
+//   F3  x             -> r, w; Σw, Σw²                  (2C)
+//   F4  w, x          -> y                              (elementwise)
+//   B1  dy, w, x      -> Σg2, Σg2·ŵ                     (2C)
+//   B2  dy, w, x, r   -> dW2 = rᵀ·dwg, db2, Σds1, Σds1·v̂ (C² + 3C)
+//   B3  dy, w, x, r   -> dW1 = s0ᵀ·dv, db1, Σds0, Σds0·û (C² + 3C); ds0
+//   B4  dy, w, x, ds0 -> dx, dWd, dbd                   (KC + C)
 // with g2 = dy·[a2 w + c2 + x > 0], dwg the exact-BN backward of bn2,
 // ds1 = (dwg W2ᵀ)·[r > 0], dv the exact-BN backward of bn1, ds0 = dv W1ᵀ,
 // du the exact-BN backward of bn0 and dx = g2 + Σ_tap du[t + (K-1-tap) d]
 // w_tap.
 //
-// Bound on an H100 at B=512, T=198, C=64: F1, F4 and B1 stream
-// (B, T, C) tensors and are bound by bytes (3.35 TB/s); F2, F3 and B3
-// do 2-8 C² FMAs per frame and are bound by fp32 operations (67
-// TFLOP/s, no tensor cores); B2 and B4 sit between.
+// Bound on an H100 at B=512, T=198, C=64: F1, F4, B1, B3 and B4 stream
+// (B, T, C) tensors and are bound by bytes (3.35 TB/s); F2 and F3 do
+// 2-4 C² FMAs per frame and are bound by fp32 operations (67 TFLOP/s,
+// no tensor cores); B2 sits between.
 //
 // Design.  The TPU kernels walk the batch in order on one core and
-// carry their sums in VMEM scratch.  Here the work unit is a tile of
-// 64 consecutive frames of ONE utterance (so a causal halo never reads
-// another utterance; frames before t = 0 are zero), and a persistent
-// grid of about two blocks per SM walks the tiles with a grid stride.
-// Each thread owns one channel and a strided set of the tile's rows;
-// it keeps its per-channel sums and its share of a C x C weight
-// gradient in registers, the block reduces them over its row groups in
-// a fixed order and writes ONE partial per block, and a second small
-// kernel sums the partials over the blocks in block order.  No float
-// atomics: a result is bitwise the same from run to run.  The two C x C
-// products of a tile are fp32 FMA loops from shared memory, as in
-// fused_mdtc.cu; weights are kept with a row stride of C + 1 floats, so
-// both W and Wᵀ are read without bank conflicts.  Rows past T are
-// zeroed in the shared tiles and left out of every sum.  B4's dx needs
-// du at later frames that another tile computes, so B4 writes du and
-// dx = g2, and a third kernel adds the transposed depthwise taps.
-// Tensor cores (wgmma), TMA and smaller working sets are left to later
-// changes.
+// carry their sums in VMEM scratch.  Here a persistent grid of two
+// blocks per SM walks tiles with a grid stride; each block keeps its
+// sums (and its share of a C x C weight gradient) in registers, reduces
+// them over its threads in a fixed order and writes ONE partial, and a
+// second small kernel sums the partials over the blocks in block order.
+// No float atomics: a result is bitwise the same from run to run.  Rows
+// past the end are zeroed in the shared tiles and left out of every sum.
+//
+// F1-F3, B1, B2: a tile is 64 consecutive frames of ONE utterance (so a
+// causal halo never reads another utterance; frames before t = 0 are
+// zero).  Each thread owns one channel and a strided set of the tile's
+// rows; the C x C products are fp32 FMA loops from shared memory, with
+// the weights at a row stride of C + 1 floats, so both W and Wᵀ are
+// read without bank conflicts.
+//
+// B3 and B4 are cut for this card, not as the TPU kernels are.  There
+// B4 recomputes all of B3 (three C x C products per frame) to save one
+// tensor of device-memory traffic; here B3 writes ds0, which it holds
+// anyway, and B4 reads it: 26 MB more each way at the main shape, under
+// 0.02 ms, against 2.5 GFLOP.  g2 is not handed over: B4 recomputes it
+// from dy, w and x, which moves the same bytes as reading it.
+//
+// B3: 64-row tiles (32 at C = 128, where two padded weight matrices
+// leave room for no more) over the FLATTENED B x T frames, so no tile
+// is ragged but the last; only the depthwise conv looks at where an
+// utterance starts.  Its four products (dr = dwg W2ᵀ, v = s0 W1,
+// dW1 += s0ᵀ dv, ds0 = dv W1ᵀ) run on the tensor cores: `nvcuda::wmma`
+// m16n16k8 TF32 fragments, each operand split in registers into
+// hi = a cut to TF32 and lo = tf32(a - hi) (integer operations: the
+// conversion instruction is too slow) and each product taken as
+// lo·hi + hi·lo + hi·hi in fp32 accumulators, which keeps the error at
+// the fp32 level (one TF32 pass keeps three digits and would break the
+// 1e-4 bound on ds0).  `row_major` / `col_major` fragments read Wᵀ and
+// s0ᵀ in place.  A warp owns the output fragments of one column block,
+// so one fragment of W serves them all.  A product's result goes to a
+// shared tile, and the elementwise steps that need per-channel constants
+// (g2 and dwg, the conv, the ReLU mask, v̂, dv, the sums) run on the
+// tiles with a thread owning four neighbouring channels of a strided
+// set of rows: 16-byte loads, stores and shared traffic, the constants
+// and the taps waiting in shared memory.  (With one channel a thread,
+// as in the other passes, these steps alone took longer than the four
+// products: the pass is bound by instruction count, at 16 warps an
+// SM.)  The dW1 accumulator fragments stay in registers across a
+// block's tiles.  Tiles and weights have a row stride of C + 4 floats:
+// wmma needs a multiple of 4, and with C + 4 the row-major A and
+// col-major B fragment loads (lane -> 4 row + col) touch 32 different
+// banks; the col-major A load of s0ᵀ and the row-major B loads (W1 in
+// v, dv in dW1) are two-way conflicted.  The products wait for their
+// operands (four 4-byte loads and twelve operations of the split a
+// fragment), not for the tensor cores, so wgmma and TMA are not used;
+// operands split once where they are written would need shared memory
+// that two blocks per SM do not leave.
+//
+// B4 has no product.  du is elementwise in (ds0, û), so the later
+// frames' du that dx needs are recomputed from a halo instead of read
+// from another tile's output (the former du tensor and third kernel
+// are gone).  An utterance is cut into equal tiles of at most 64 rows
+// (T = 198: 50, 50, 50, 48).  A block stages x rows [t0 - H, t0 + rows
+// + H), ds0 rows [t0, t0 + rows + H), H = (K-1) d, and the tile's dy
+// and w rows in shared memory with 16-byte `cp.async` copies (zero
+// fill before frame 0 and past frame T-1), in two groups so that dy
+// and w arrive while u, û and du are formed for the rows plus the
+// forward halo (du overwrites ds0 in place; dWd and dbd sum the tile's
+// own rows only); then it writes dx once.  A thread owns four
+// neighbouring channels of a strided set of rows.  The second block of
+// an SM loads while the first computes.
 
 #include <cuda_runtime.h>
+#include <mma.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -78,7 +129,7 @@ struct Args {
   float* out_w;
   float* out_y;
   float* dx;
-  float* du;
+  float* ds0;        // (B, T, C): B3 writes it, B4 reads it
   float* partials;   // (gridDim.x, width)
   int B, T, K, d;
   float n;           // B * T
@@ -88,12 +139,12 @@ __device__ __forceinline__ float vc(const Args& a, int row, int C, int c) {
   return __ldg(a.vec + row * C + c);
 }
 
-// (C, C) row-major -> shared, row stride C + 1
-template <int C>
+// (C, C) row-major -> shared, row stride LD
+template <int C, int LD = C + 1>
 __device__ __forceinline__ void load_padded(const float* __restrict__ g,
                                             float* s) {
   for (int i = threadIdx.x; i < C * C; i += kThreads) {
-    s[(i / C) * (C + 1) + i % C] = g[i];
+    s[(i / C) * LD + i % C] = g[i];
   }
 }
 
@@ -204,7 +255,7 @@ template <int C, int S>
 __global__ void __launch_bounds__(kThreads) fwd_kernel(Args a) {
   constexpr int G = kThreads / C;  // row groups
   constexpr int R = kTile / G;     // tile rows per thread
-  extern __shared__ float4 smem4[];
+  extern __shared__ __align__(128) float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   float* w1 = sm;                                      // C x (C+1)
   float* w2 = w1 + (S >= kF2 ? C * (C + 1) : 0);       // C x (C+1)
@@ -302,8 +353,7 @@ __global__ void __launch_bounds__(kThreads) f4_kernel(Args a, size_t total) {
 }
 
 // ---------------------------------------------------------------------------
-// backward: B2, B3, B4 share the prefix g2 -> dwg -> dr -> ds1 (then
-// recompute u, s0, v); B1 is its first reduction
+// backward: B1 is the first reduction of B2's prefix g2 -> dwg -> dr -> ds1
 // ---------------------------------------------------------------------------
 
 template <int C, int S>
@@ -311,37 +361,24 @@ __global__ void __launch_bounds__(kThreads) bwd_kernel(Args a) {
   constexpr int G = kThreads / C;
   constexpr int R = kTile / G;
   constexpr int M = C / G;  // weight-gradient rows per thread
-  extern __shared__ float4 smem4[];
+  extern __shared__ __align__(128) float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   float* w2 = sm;                                        // C x (C+1)
-  float* w1 = w2 + (S >= kB2 ? C * (C + 1) : 0);         // C x (C+1)
-  float* tile_a = w1 + (S >= kB3 ? C * (C + 1) : 0);     // kTile x C
+  float* tile_a = w2 + (S == kB2 ? C * (C + 1) : 0);     // kTile x C
   float* tile_b = tile_a + kTile * C;                    // kTile x C
-  float* red = tile_b + kTile * C;                       // G x (kMaxTaps+1) x C
+  float* red = tile_b + kTile * C;                       // G x 3 x C
 
   const int c = threadIdx.x % C;
   const int g = threadIdx.x / C;
-  if (S >= kB2) load_padded<C>(a.pw2, w2);
-  if (S >= kB3) load_padded<C>(a.pw1, w1);
+  if (S == kB2) load_padded<C>(a.pw2, w2);
   const float n = a.n;
   const float a2 = vc(a, V_A2, C, c), c2 = vc(a, V_C2, C, c);
   const float mu2 = vc(a, V_MU2, C, c), inv2 = vc(a, V_INV2, C, c);
   const float coef2 = vc(a, V_COEF2, C, c);
   const float sg = vc(a, V_SG, C, c), sgw = vc(a, V_SGW, C, c);
   const float beta1 = vc(a, V_BETA1, C, c), gamma1 = vc(a, V_GAMMA1, C, c);
-  const float dwb = vc(a, V_DWB, C, c);
-  const float a0 = vc(a, V_A0, C, c), c0 = vc(a, V_C0, C, c);
-  const float mu0 = vc(a, V_MU0, C, c), inv0 = vc(a, V_INV0, C, c);
-  const float b1 = vc(a, V_B1, C, c);
-  const float mu1 = vc(a, V_MU1, C, c), inv1 = vc(a, V_INV1, C, c);
-  const float coef1 = vc(a, V_COEF1, C, c);
-  const float sds1 = vc(a, V_SDS1, C, c), sds1v = vc(a, V_SDS1V, C, c);
-  const float coef0 = vc(a, V_COEF0, C, c);
-  const float sds0 = vc(a, V_SDS0, C, c), sds0u = vc(a, V_SDS0U, C, c);
 
-  float sums[kMaxTaps + 1];
-#pragma unroll
-  for (int i = 0; i <= kMaxTaps; ++i) sums[i] = 0.f;
+  float sums[3] = {0.f, 0.f, 0.f};
   float accw[M];
 #pragma unroll
   for (int m = 0; m < M; ++m) accw[m] = 0.f;
@@ -352,26 +389,23 @@ __global__ void __launch_bounds__(kThreads) bwd_kernel(Args a) {
     const int b = tile / tiles_per_utt;
     const int t0 = (tile % tiles_per_utt) * kTile;
     const size_t base = static_cast<size_t>(b) * a.T * C;
-    const float* xb = a.x + base;
     __syncthreads();
-    float g2[R];
 #pragma unroll
     for (int j = 0; j < R; ++j) {
       const int row = g + j * G;
       const int t = t0 + row;
       float dwg = 0.f;
-      g2[j] = 0.f;
       if (t < a.T) {
         const size_t at = base + static_cast<size_t>(t) * C + c;
         const float wv = a.w[at];
         const float pre = wv * a2 + c2 + a.x[at];
-        g2[j] = pre > 0.f ? a.dy[at] : 0.f;
+        const float g2 = pre > 0.f ? a.dy[at] : 0.f;
         const float what = (wv - mu2) * inv2;
         if (S == kB1) {
-          sums[0] += g2[j];
-          sums[1] += g2[j] * what;
+          sums[0] += g2;
+          sums[1] += g2 * what;
         } else {
-          dwg = coef2 / n * (n * g2[j] - sg - what * sgw);
+          dwg = coef2 / n * (n * g2 - sg - what * sgw);
         }
         if (S == kB2) tile_b[row * C + c] = a.r[at];
       } else if (S == kB2) {
@@ -381,11 +415,9 @@ __global__ void __launch_bounds__(kThreads) bwd_kernel(Args a) {
     }
     if (S == kB1) continue;
     __syncthreads();
-    if (S == kB2) {
-      outer_rows<C, G>(tile_b, tile_a, g, c, accw);  // dW2 += rᵀ·dwg
+    outer_rows<C, G>(tile_b, tile_a, g, c, accw);  // dW2 += rᵀ·dwg
 #pragma unroll
-      for (int j = 0; j < R; ++j) sums[0] += tile_a[(g + j * G) * C + c];
-    }
+    for (int j = 0; j < R; ++j) sums[0] += tile_a[(g + j * G) * C + c];
     float ds1[R];
     matmul_rows_t<C, R, G>(tile_a, w2, g, c, ds1);  // dr = dwg W2ᵀ
 #pragma unroll
@@ -394,71 +426,9 @@ __global__ void __launch_bounds__(kThreads) bwd_kernel(Args a) {
       const float rv = t < a.T
           ? a.r[base + static_cast<size_t>(t) * C + c] : 0.f;
       ds1[j] = rv > 0.f ? ds1[j] : 0.f;
-      if (S == kB2 && t < a.T) {
+      if (t < a.T) {
         sums[1] += ds1[j];
         sums[2] += ds1[j] * ((rv - beta1) / gamma1);
-      }
-    }
-    if (S == kB2) continue;
-
-    // B3, B4: recompute u, s0, v from x
-    float uhat[R];
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const int row = g + j * G;
-      const int t = t0 + row;
-      float s0 = 0.f;
-      uhat[j] = 0.f;
-      if (t < a.T) {
-        const float u = dwconv(xb, a.dw, dwb, t, a.K, a.d, C, c);
-        s0 = fmaf(u, a0, c0);
-        uhat[j] = (u - mu0) * inv0;
-      }
-      tile_b[row * C + c] = s0;
-    }
-    __syncthreads();  // s0 tile written; every dwg read is done
-    float acc[R];
-    matmul_rows<C, R, G>(tile_b, w1, g, c, acc);  // v = s0 W1 (+ b1)
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const int row = g + j * G;
-      float dv = 0.f;
-      if (t0 + row < a.T) {
-        const float vhat = (acc[j] + b1 - mu1) * inv1;
-        dv = coef1 / n * (n * ds1[j] - sds1 - vhat * sds1v);
-      }
-      tile_a[row * C + c] = dv;
-    }
-    __syncthreads();
-    if (S == kB3) {
-      outer_rows<C, G>(tile_b, tile_a, g, c, accw);  // dW1 += s0ᵀ·dv
-#pragma unroll
-      for (int j = 0; j < R; ++j) sums[0] += tile_a[(g + j * G) * C + c];
-    }
-    matmul_rows_t<C, R, G>(tile_a, w1, g, c, acc);  // ds0 = dv W1ᵀ
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const int t = t0 + g + j * G;
-      if (t >= a.T) continue;
-      if (S == kB3) {
-        sums[1] += acc[j];
-        sums[2] += acc[j] * uhat[j];
-      } else {  // B4
-        const float du = coef0 / n * (n * acc[j] - sds0 - uhat[j] * sds0u);
-        const size_t at = base + static_cast<size_t>(t) * C + c;
-        a.du[at] = du;
-        a.dx[at] = g2[j];
-        sums[kMaxTaps] += du;
-#pragma unroll
-        for (int tap = 0; tap < kMaxTaps; ++tap) {
-          if (tap < a.K) {
-            const int ts = t - (a.K - 1 - tap) * a.d;
-            if (ts >= 0) {
-              sums[tap] = fmaf(du, xb[static_cast<size_t>(ts) * C + c],
-                               sums[tap]);
-            }
-          }
-        }
       }
     }
   }
@@ -467,53 +437,521 @@ __global__ void __launch_bounds__(kThreads) bwd_kernel(Args a) {
   if (S == kB1) {
     block_sums<C, 2>(red, sums, part + static_cast<size_t>(blockIdx.x) * 2 * C,
                      g, c);
-  } else if (S == kB2 || S == kB3) {
+  } else {
     // this block's C x C gradient: entry (g + m G, c) belongs to this
     // thread alone, then the three channel sums
     float* out = part + static_cast<size_t>(blockIdx.x) * (C * C + 3 * C);
 #pragma unroll
     for (int m = 0; m < M; ++m) out[(g + m * G) * C + c] = accw[m];
     block_sums<C, 3>(red, sums, out + C * C, g, c);
-  } else {  // B4: dWd (K x C) then dbd, from K + 1 sums
-    const int width = a.K * C + C;
-    float* out = part + static_cast<size_t>(blockIdx.x) * width;
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i <= kMaxTaps; ++i) {
-      red[(g * (kMaxTaps + 1) + i) * C + c] = sums[i];
-    }
-    __syncthreads();
-    if (g == 0) {
-      for (int i = 0; i < a.K; ++i) {
-        float acc = 0.f;
-        for (int gg = 0; gg < G; ++gg) acc += red[(gg * (kMaxTaps + 1) + i) * C + c];
-        out[i * C + c] = acc;
-      }
-      float acc = 0.f;
-      for (int gg = 0; gg < G; ++gg) {
-        acc += red[(gg * (kMaxTaps + 1) + kMaxTaps) * C + c];
-      }
-      out[a.K * C + c] = acc;
-    }
   }
 }
 
-// dx[t] += Σ_tap du[t + (K-1-tap) d] w_tap  (the transpose of the
-// causal depthwise conv; dx holds g2)
+// ---------------------------------------------------------------------------
+// B3 on the tensor cores: TF32 fragments, each product in three passes
+// ---------------------------------------------------------------------------
+
+namespace wm = nvcuda::wmma;
+
+constexpr int kWarps = kThreads / 32;
+using FragAcc = wm::fragment<wm::accumulator, 16, 16, 8, float>;
+template <typename Layout>
+using FragA = wm::fragment<wm::matrix_a, 16, 16, 8, wm::precision::tf32, Layout>;
+template <typename Layout>
+using FragB = wm::fragment<wm::matrix_b, 16, 16, 8, wm::precision::tf32, Layout>;
+
+// hi holds fp32 values on entry.  hi = a cut to TF32's 10 mantissa bits
+// (the tensor cores read only those of an operand), lo = a - hi, exact
+// in fp32, rounded to TF32 by adding half an ulp before the hardware
+// cuts it: a - hi - lo is under 2^-21 |a|.  Integer operations, because
+// the conversion instruction runs at a fraction of their rate.
+template <typename Frag>
+__device__ __forceinline__ void split_tf32(Frag& hi, Frag& lo) {
+#pragma unroll
+  for (int i = 0; i < hi.num_elements; ++i) {
+    const float v = hi.x[i];
+    const float h = __uint_as_float(__float_as_uint(v) & 0xffffe000u);
+    hi.x[i] = h;
+    lo.x[i] = __uint_as_float(__float_as_uint(v - h) + 0x1000u);
+  }
+}
+
+// acc += a · b as lo·hi + hi·lo + hi·hi: the small terms first
+template <typename FA, typename FB>
+__device__ __forceinline__ void mma_3x(FragAcc& acc, const FA& ah,
+                                       const FA& al, const FB& bh,
+                                       const FB& bl) {
+  wm::mma_sync(acc, al, bh, acc);
+  wm::mma_sync(acc, ah, bl, acc);
+  wm::mma_sync(acc, ah, bh, acc);
+}
+
+// out (ROWS x C) = in (ROWS x C) · W (TRANS = false) or · Wᵀ (TRANS =
+// true), W as [in][out]; all three in shared memory at row stride C + 4.
+// A warp owns the 16 x 16 output fragments of one column block, so one
+// fragment of W, loaded and split once, serves all of them, and their
+// accumulators are independent chains for the tensor cores.
+template <int C, int ROWS, bool TRANS>
+__device__ __forceinline__ void tile_product(const float* in, const float* w,
+                                             float* out, int warp) {
+  constexpr int LD = C + 4;
+  constexpr int NF = C / 16;
+  constexpr int PER = (ROWS / 16) * NF / kWarps;  // fragments of a warp
+  constexpr int M_STEP = (kWarps / NF) * 16;      // rows between them
+  static_assert((ROWS / 16) * NF % kWarps == 0 && kWarps % NF == 0,
+                "the output fragments do not deal out evenly");
+  using LB = typename std::conditional<TRANS, wm::col_major,
+                                       wm::row_major>::type;
+  const int n0 = (warp % NF) * 16;
+  const float* a = in + (warp / NF) * 16 * LD;
+  // Wᵀ: element (k, n) is W[n][k], a col-major fragment of W
+  const float* b = TRANS ? w + n0 * LD : w + n0;
+  FragAcc acc[PER];
+#pragma unroll
+  for (int j = 0; j < PER; ++j) wm::fill_fragment(acc[j], 0.f);
+#pragma unroll 2
+  for (int k = 0; k < C; k += 8) {
+    FragB<LB> bh, bl;
+    wm::load_matrix_sync(bh, b + (TRANS ? k : k * LD), LD);
+    split_tf32(bh, bl);
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      FragA<wm::row_major> ah, al;
+      wm::load_matrix_sync(ah, a + j * M_STEP * LD + k, LD);
+      split_tf32(ah, al);
+      mma_3x(acc[j], ah, al, bh, bl);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    wm::store_matrix_sync(out + ((warp / NF) * 16 + j * M_STEP) * LD + n0,
+                          acc[j], LD, wm::mem_row_major);
+  }
+}
+
 template <int C>
-__global__ void __launch_bounds__(kThreads) dx_kernel(Args a, size_t total) {
-  for (size_t i = blockIdx.x * static_cast<size_t>(kThreads) + threadIdx.x;
-       i < total; i += static_cast<size_t>(gridDim.x) * kThreads) {
-    const int c = static_cast<int>(i % C);
-    const int t = static_cast<int>((i / C) % a.T);
-    float acc = a.dx[i];
-    for (int tap = 0; tap < a.K; ++tap) {
-      const int s = (a.K - 1 - tap) * a.d;
-      if (t + s < a.T) {
-        acc = fmaf(a.du[i + static_cast<size_t>(s) * C], __ldg(a.dw + tap * C + c), acc);
+struct B3Shape {
+  static constexpr int kRows = C == 128 ? 32 : 64;  // rows of a tile
+  static constexpr int kLd = C + 4;
+  static constexpr int kFrags = (C / 16) * (C / 16);  // of dW1
+  // per warp: fragment j of warp w is number w + j kWarps; at C = 32
+  // there are four fragments and warps 4-7 own none
+  static constexpr int kOwn = (kFrags + kWarps - 1) / kWarps;
+  static constexpr int kQuads = C / 4;                // float4s of a row
+  static constexpr int kGroups = kThreads / kQuads;   // row groups
+};
+
+// the per-channel vector and the taps, two padded weight matrices, four
+// tiles (the block's reduction reuses the first two)
+template <int C>
+constexpr size_t b3_smem_bytes() {
+  using S = B3Shape<C>;
+  return sizeof(float) * ((kNumVec + kMaxTaps) * C + 2 * C * S::kLd +
+                          4 * S::kRows * S::kLd);
+}
+
+__device__ __forceinline__ float4 fma4(float4 a, float4 b, float4 c) {
+  return make_float4(fmaf(a.x, b.x, c.x), fmaf(a.y, b.y, c.y),
+                     fmaf(a.z, b.z, c.z), fmaf(a.w, b.w, c.w));
+}
+
+// exact-BN backward of one layer: k (n g - sg - hat sgh), k = coef / n
+__device__ __forceinline__ float bn_back(float k, float n, float g, float sg,
+                                         float hat, float sgh) {
+  return k * (n * g - sg - hat * sgh);
+}
+
+__device__ __forceinline__ float4 bn_back4(float4 k, float n, float4 g,
+                                           float4 sg, float4 hat,
+                                           float4 sgh) {
+  return make_float4(bn_back(k.x, n, g.x, sg.x, hat.x, sgh.x),
+                     bn_back(k.y, n, g.y, sg.y, hat.y, sgh.y),
+                     bn_back(k.z, n, g.z, sg.z, hat.z, sgh.z),
+                     bn_back(k.w, n, g.w, sg.w, hat.w, sgh.w));
+}
+
+// (v - mu) inv
+__device__ __forceinline__ float4 hat4(float4 v, float4 mu, float4 inv) {
+  return make_float4((v.x - mu.x) * inv.x, (v.y - mu.y) * inv.y,
+                     (v.z - mu.z) * inv.z, (v.w - mu.w) * inv.w);
+}
+
+// g where gate > 0, else 0
+__device__ __forceinline__ float4 gate4(float4 gate, float4 g) {
+  return make_float4(gate.x > 0.f ? g.x : 0.f, gate.y > 0.f ? g.y : 0.f,
+                     gate.z > 0.f ? g.z : 0.f, gate.w > 0.f ? g.w : 0.f);
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads, C == 128 ? 1 : 2)
+b3_kernel(Args a) {
+  using S = B3Shape<C>;
+  constexpr int ROWS = S::kRows;
+  constexpr int LD = S::kLd;
+  constexpr int LQ = LD / 4;  // float4s of a tile row
+  constexpr int Q = S::kQuads;
+  constexpr int G = S::kGroups;
+  constexpr int R = ROWS / G;  // rows of a thread: 2 or 4
+  constexpr int NF = C / 16;
+  static_assert(ROWS % G == 0 && LD % 4 == 0, "float4 rows");
+  extern __shared__ __align__(128) float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* cv = sm;                        // kNumVec x C, then kMaxTaps x C
+  float* w2 = cv + (kNumVec + kMaxTaps) * C;  // C x LD
+  float* w1 = w2 + C * LD;         // C x LD
+  float* ta = w1 + C * LD;         // ROWS x LD: dwg, then v, then dv
+  float* tb = ta + ROWS * LD;      // ROWS x LD: s0
+  float* td = tb + ROWS * LD;      // ROWS x LD: dr, then ds0
+  float* tu = td + ROWS * LD;      // ROWS x LD: û
+  float4* ta4 = reinterpret_cast<float4*>(ta);
+  float4* tb4 = reinterpret_cast<float4*>(tb);
+  float4* td4 = reinterpret_cast<float4*>(td);
+  float4* tu4 = reinterpret_cast<float4*>(tu);
+
+  // The elementwise steps: a thread owns four neighbouring channels
+  // (one float4) of R rows, so a load, a store and an address serve
+  // four values.  The per-channel constants wait in shared memory.
+  const int q = threadIdx.x % Q;
+  const int g = threadIdx.x / Q;
+  const int warp = threadIdx.x / 32;
+  const float n = a.n;
+  for (int i = threadIdx.x; i < kNumVec * C; i += kThreads) {
+    const float v = __ldg(a.vec + i);
+    const int row = i / C;
+    cv[i] = row == V_COEF1 || row == V_COEF2 ? v / n : v;  // k = coef / n
+  }
+  for (int i = threadIdx.x; i < kMaxTaps * C; i += kThreads) {
+    cv[kNumVec * C + i] = i < a.K * C ? __ldg(a.dw + i) : 0.f;  // zero past K
+  }
+  load_padded<C, LD>(a.pw2, w2);
+  load_padded<C, LD>(a.pw1, w1);
+  const float4* cv4 = reinterpret_cast<const float4*>(cv) + q;
+#define VEC4(row) cv4[(row) * Q]
+  const float4* x4 = reinterpret_cast<const float4*>(a.x);
+  const float4* dy4 = reinterpret_cast<const float4*>(a.dy);
+  const float4* w4 = reinterpret_cast<const float4*>(a.w);
+  const float4* r4 = reinterpret_cast<const float4*>(a.r);
+  float4* ds04 = reinterpret_cast<float4*>(a.ds0);
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  float4 sums[3] = {zero4, zero4, zero4};  // Σdv, Σds0, Σds0·û
+  FragAcc accw[S::kOwn];                   // this warp's fragments of dW1
+#pragma unroll
+  for (int j = 0; j < S::kOwn; ++j) wm::fill_fragment(accw[j], 0.f);
+
+  const int n_rows = a.B * a.T;
+  const int n_tiles = (n_rows + ROWS - 1) / ROWS;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row0 = tile * ROWS;
+    __syncthreads();  // the previous tile's shared reads are done (and,
+                      // the first time, the constants are in place)
+    float4 rv[R];  // r, for the ReLU mask after two products
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int lr = g + j * G;
+      const int row = row0 + lr;
+      float4 dwg = zero4, s0 = zero4, uhat = zero4;
+      rv[j] = zero4;
+      if (row < n_rows) {
+        // every load of the row is started, through the read-only path,
+        // before the first value is used
+        const size_t at = static_cast<size_t>(row) * Q + q;
+        const float4 wv = __ldg(w4 + at);
+        const float4 xv = __ldg(x4 + at);
+        const float4 dyv = __ldg(dy4 + at);
+        rv[j] = __ldg(r4 + at);
+        const int t = row % a.T;  // the conv alone cares where t = 0 is
+        float4 xt[kMaxTaps];
+#pragma unroll
+        for (int tap = 0; tap < kMaxTaps; ++tap) {
+          const int back = (a.K - 1 - tap) * a.d;
+          xt[tap] = tap < a.K && back <= t
+              ? __ldg(x4 + at - static_cast<size_t>(back) * Q) : zero4;
+        }
+        const float4 pre = fma4(wv, VEC4(V_A2), VEC4(V_C2));
+        const float4 g2 = gate4(make_float4(pre.x + xv.x, pre.y + xv.y,
+                                            pre.z + xv.z, pre.w + xv.w), dyv);
+        dwg = bn_back4(VEC4(V_COEF2), n, g2, VEC4(V_SG),
+                       hat4(wv, VEC4(V_MU2), VEC4(V_INV2)), VEC4(V_SGW));
+        float4 u = VEC4(V_DWB);
+#pragma unroll
+        for (int tap = 0; tap < kMaxTaps; ++tap) {
+          if (tap < a.K) u = fma4(xt[tap], VEC4(kNumVec + tap), u);
+        }
+        s0 = fma4(u, VEC4(V_A0), VEC4(V_C0));
+        uhat = hat4(u, VEC4(V_MU0), VEC4(V_INV0));
+      }
+      ta4[lr * LQ + q] = dwg;
+      tb4[lr * LQ + q] = s0;
+      tu4[lr * LQ + q] = uhat;
+    }
+    __syncthreads();
+    tile_product<C, ROWS, true>(ta, w2, td, warp);   // dr = dwg W2ᵀ
+    __syncthreads();  // every read of dwg is done
+    tile_product<C, ROWS, false>(tb, w1, ta, warp);  // v = s0 W1
+    __syncthreads();
+    {
+      const float4 b1 = VEC4(V_B1), mu1 = VEC4(V_MU1), inv1 = VEC4(V_INV1);
+      const float4 k1 = VEC4(V_COEF1), sds1 = VEC4(V_SDS1);
+      const float4 sds1v = VEC4(V_SDS1V);
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int lr = g + j * G;
+        float4 dv = zero4;
+        if (row0 + lr < n_rows) {
+          const float4 ds1 = gate4(rv[j], td4[lr * LQ + q]);
+          const float4 v = ta4[lr * LQ + q];
+          const float4 vhat = hat4(make_float4(v.x + b1.x, v.y + b1.y,
+                                               v.z + b1.z, v.w + b1.w),
+                                   mu1, inv1);
+          dv = bn_back4(k1, n, ds1, sds1, vhat, sds1v);
+          sums[0].x += dv.x;
+          sums[0].y += dv.y;
+          sums[0].z += dv.z;
+          sums[0].w += dv.w;
+        }
+        ta4[lr * LQ + q] = dv;
       }
     }
-    a.dx[i] = acc;
+    __syncthreads();
+    if (warp < S::kFrags) {  // dW1 += s0ᵀ·dv
+      // this warp's fragments share the column block warp % NF of dv;
+      // s0ᵀ: element (m, k) is s0[k][m], a col-major fragment of s0
+      for (int k = 0; k < ROWS; k += 8) {
+        FragB<wm::row_major> bh, bl;
+        wm::load_matrix_sync(bh, ta + k * LD + (warp % NF) * 16, LD);
+        split_tf32(bh, bl);
+#pragma unroll
+        for (int j = 0; j < S::kOwn; ++j) {
+          FragA<wm::col_major> ah, al;
+          wm::load_matrix_sync(
+              ah, tb + k * LD + ((warp + j * kWarps) / NF) * 16, LD);
+          split_tf32(ah, al);
+          mma_3x(accw[j], ah, al, bh, bl);
+        }
+      }
+    }
+    tile_product<C, ROWS, true>(ta, w1, td, warp);   // ds0 = dv W1ᵀ
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int lr = g + j * G;
+      const int row = row0 + lr;
+      if (row < n_rows) {
+        const float4 ds0 = td4[lr * LQ + q];
+        sums[1].x += ds0.x;
+        sums[1].y += ds0.y;
+        sums[1].z += ds0.z;
+        sums[1].w += ds0.w;
+        sums[2] = fma4(ds0, tu4[lr * LQ + q], sums[2]);
+        ds04[static_cast<size_t>(row) * Q + q] = ds0;
+      }
+    }
+  }
+#undef VEC4
+
+  float* out = a.partials + static_cast<size_t>(blockIdx.x) * (C * C + 3 * C);
+#pragma unroll
+  for (int j = 0; j < S::kOwn; ++j) {
+    const int f = warp + j * kWarps;
+    if (f < S::kFrags) {
+      wm::store_matrix_sync(out + (f / NF) * 16 * C + (f % NF) * 16, accw[j],
+                            C, wm::mem_row_major);
+    }
+  }
+  // the three channel sums: the row groups added in order, through the
+  // first two tiles (G x 3 x C floats)
+  static_assert(G * 3 * C <= 2 * ROWS * LD, "the reduction fits two tiles");
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 3; ++i) ta4[(g * 3 + i) * Q + q] = sums[i];
+  __syncthreads();
+  for (int o = threadIdx.x; o < 3 * C; o += kThreads) {
+    float acc = 0.f;
+    for (int gg = 0; gg < G; ++gg) acc += ta[(gg * 3 + o / C) * C + o % C];
+    out[C * C + o] = acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B4: one streaming kernel, no product
+// ---------------------------------------------------------------------------
+
+constexpr size_t kSmemLimit = 232448;  // bytes a block may take on sm_90
+
+// 16 bytes global -> shared without passing through registers; zeros
+// where `valid` is false (src-size 0: nothing is read)
+__device__ __forceinline__ void cp_async16(float4* dst, const float4* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// x rows with a halo each way, ds0 rows with the forward halo, dy and w
+// rows, the taps; at least the block's reduction buffer (G x
+// (kMaxTaps + 1) x C floats = 1024 x (kMaxTaps + 1)).  The wrapper's
+// `b4_smem_bytes` is the same count.
+template <int C>
+size_t b4_smem_bytes(int rows, int halo) {
+  const size_t staged =
+      sizeof(float) * C * (4 * static_cast<size_t>(rows) + 3 * halo + kMaxTaps);
+  const size_t red = sizeof(float) * 1024 * (kMaxTaps + 1);
+  return staged > red ? staged : red;
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads, 2) b4_kernel(Args a, int rows) {
+  constexpr int Q = C / 4;        // float4s of a row
+  constexpr int G = kThreads / Q;  // row groups
+  extern __shared__ __align__(128) float4 smem4[];
+  const int K = a.K;
+  const int H = (K - 1) * a.d;
+  float4* sx = smem4;                  // (rows + 2H) x Q: x from t0 - H
+  float4* sd = sx + (rows + 2 * H) * Q;  // (rows + H) x Q: ds0, then du
+  float4* sy = sd + (rows + H) * Q;    // rows x Q: dy
+  float4* sw = sy + rows * Q;          // rows x Q: w
+  float4* taps = sw + rows * Q;        // kMaxTaps x Q
+
+  const int q = threadIdx.x % Q;
+  const int g = threadIdx.x / Q;
+  const float4* vec4 = reinterpret_cast<const float4*>(a.vec);
+  const float4* x4 = reinterpret_cast<const float4*>(a.x);
+  const float4* dy4 = reinterpret_cast<const float4*>(a.dy);
+  const float4* w4 = reinterpret_cast<const float4*>(a.w);
+  const float4* ds04 = reinterpret_cast<const float4*>(a.ds0);
+  float4* dx4 = reinterpret_cast<float4*>(a.dx);
+  for (int i = threadIdx.x; i < K * Q; i += kThreads) {
+    taps[i] = __ldg(reinterpret_cast<const float4*>(a.dw) + i);
+  }
+  const float n = a.n;
+  const float4 dwb = __ldg(vec4 + V_DWB * Q + q);
+  const float4 mu0 = __ldg(vec4 + V_MU0 * Q + q);
+  const float4 inv0 = __ldg(vec4 + V_INV0 * Q + q);
+  const float4 coef0 = __ldg(vec4 + V_COEF0 * Q + q);
+  const float4 k0 = make_float4(coef0.x / n, coef0.y / n, coef0.z / n,
+                                coef0.w / n);
+  const float4 sds0 = __ldg(vec4 + V_SDS0 * Q + q);
+  const float4 sds0u = __ldg(vec4 + V_SDS0U * Q + q);
+  const float4 a2 = __ldg(vec4 + V_A2 * Q + q);
+  const float4 c2 = __ldg(vec4 + V_C2 * Q + q);
+
+  float4 sums[kMaxTaps + 1];  // dWd per tap, then dbd
+#pragma unroll
+  for (int i = 0; i <= kMaxTaps; ++i) sums[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  const int tiles_per_utt = (a.T + rows - 1) / rows;
+  const int n_tiles = a.B * tiles_per_utt;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int b = tile / tiles_per_utt;
+    const int t0 = (tile % tiles_per_utt) * rows;
+    const size_t base = static_cast<size_t>(b) * a.T * Q;
+    __syncthreads();  // the previous tile's shared reads are done
+    for (int i = threadIdx.x; i < (rows + 2 * H) * Q; i += kThreads) {
+      const int t = t0 - H + i / Q;
+      const bool ok = t >= 0 && t < a.T;
+      cp_async16(sx + i, x4 + base + (ok ? static_cast<size_t>(t) * Q + i % Q : 0),
+                 ok);
+    }
+    for (int i = threadIdx.x; i < (rows + H) * Q; i += kThreads) {
+      const int t = t0 + i / Q;
+      const bool ok = t < a.T;
+      cp_async16(sd + i, ds04 + base + (ok ? static_cast<size_t>(t) * Q + i % Q : 0),
+                 ok);
+    }
+    cp_async_commit();
+    for (int i = threadIdx.x; i < rows * Q; i += kThreads) {
+      const int t = t0 + i / Q;
+      const bool ok = t < a.T;
+      const size_t at = base + (ok ? static_cast<size_t>(t) * Q + i % Q : 0);
+      cp_async16(sy + i, dy4 + at, ok);
+      cp_async16(sw + i, w4 + at, ok);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // x and ds0 have landed; dy and w may be in flight
+    __syncthreads();
+
+    // u, û and du for the tile's rows and the forward halo; du = 0 past
+    // the utterance's end
+    for (int lr = g; lr < rows + H; lr += G) {
+      float4 du = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (t0 + lr < a.T) {
+        const float4* xr = sx + (lr + H) * Q + q;  // x at frame t0 + lr
+        float4 u = dwb;
+        for (int tap = 0; tap < K; ++tap) {
+          u = fma4(xr[-(K - 1 - tap) * a.d * Q], taps[tap * Q + q], u);
+        }
+        const float4 ds = sd[lr * Q + q];
+        du.x = k0.x * (n * ds.x - sds0.x - (u.x - mu0.x) * inv0.x * sds0u.x);
+        du.y = k0.y * (n * ds.y - sds0.y - (u.y - mu0.y) * inv0.y * sds0u.y);
+        du.z = k0.z * (n * ds.z - sds0.z - (u.z - mu0.z) * inv0.z * sds0u.z);
+        du.w = k0.w * (n * ds.w - sds0.w - (u.w - mu0.w) * inv0.w * sds0u.w);
+        if (lr < rows) {  // the sums take the tile's own rows only
+          sums[kMaxTaps].x += du.x;
+          sums[kMaxTaps].y += du.y;
+          sums[kMaxTaps].z += du.z;
+          sums[kMaxTaps].w += du.w;
+#pragma unroll
+          for (int tap = 0; tap < kMaxTaps; ++tap) {
+            if (tap < K) {
+              sums[tap] = fma4(du, xr[-(K - 1 - tap) * a.d * Q], sums[tap]);
+            }
+          }
+        }
+      }
+      sd[lr * Q + q] = du;
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+
+    // dx[t] = g2[t] + Σ_tap du[t + (K-1-tap) d] w_tap
+    for (int lr = g; lr < rows; lr += G) {
+      const int t = t0 + lr;
+      if (t >= a.T) break;
+      const float4 wv = sw[lr * Q + q];
+      const float4 xv = sx[(lr + H) * Q + q];
+      const float4 dyv = sy[lr * Q + q];
+      float4 acc;
+      acc.x = wv.x * a2.x + c2.x + xv.x > 0.f ? dyv.x : 0.f;
+      acc.y = wv.y * a2.y + c2.y + xv.y > 0.f ? dyv.y : 0.f;
+      acc.z = wv.z * a2.z + c2.z + xv.z > 0.f ? dyv.z : 0.f;
+      acc.w = wv.w * a2.w + c2.w + xv.w > 0.f ? dyv.w : 0.f;
+      for (int tap = 0; tap < K; ++tap) {
+        acc = fma4(sd[(lr + (K - 1 - tap) * a.d) * Q + q], taps[tap * Q + q],
+                   acc);
+      }
+      dx4[base + static_cast<size_t>(t) * Q + q] = acc;
+    }
+  }
+
+  // this block's partial: dWd (K x C) then dbd, the row groups added in
+  // order
+  __syncthreads();
+  float4* red4 = smem4;  // G x (kMaxTaps + 1) x Q
+#pragma unroll
+  for (int i = 0; i <= kMaxTaps; ++i) {
+    red4[(g * (kMaxTaps + 1) + i) * Q + q] = sums[i];
+  }
+  __syncthreads();
+  const float* red = reinterpret_cast<const float*>(smem4);
+  float* out = a.partials + static_cast<size_t>(blockIdx.x) * (K * C + C);
+  for (int o = threadIdx.x; o < (K + 1) * C; o += kThreads) {
+    const int i = o / C < K ? o / C : kMaxTaps;
+    float acc = 0.f;
+    for (int gg = 0; gg < G; ++gg) {
+      acc += red[(gg * (kMaxTaps + 1) + i) * C + o % C];
+    }
+    out[o] = acc;
   }
 }
 
@@ -558,7 +996,7 @@ int elementwise_blocks(size_t total) {
 }
 
 template <int C>
-int run(int pass, const Args& a, int n_blocks, float* reduced,
+int run(int pass, const Args& a, int n_blocks, int b4_rows, float* reduced,
         cudaStream_t s) {
   constexpr int G = kThreads / C;
   const size_t wsz = sizeof(float) * C * (C + 1);
@@ -596,12 +1034,19 @@ int run(int pass, const Args& a, int n_blocks, float* reduced,
                            n_blocks, s);
         width = C * C + 3 * C;
       } else if (pass == kB3) {
-        err = launch_tiles(bwd_kernel<C, kB3>, a, 2 * wsz + tiles + red,
-                           n_blocks, s);
+        err = launch_tiles(b3_kernel<C>, a, b3_smem_bytes<C>(), n_blocks, s);
         width = C * C + 3 * C;
       } else if (pass == kB4) {
-        err = launch_tiles(bwd_kernel<C, kB4>, a, 2 * wsz + tiles + red,
-                           n_blocks, s);
+        const size_t smem = b4_smem_bytes<C>(b4_rows, (a.K - 1) * a.d);
+        if (b4_rows < 1 || smem > kSmemLimit) {
+          return static_cast<int>(cudaErrorInvalidValue);
+        }
+        err = static_cast<int>(cudaFuncSetAttribute(
+            b4_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem)));
+        if (err != 0) return err;
+        b4_kernel<C><<<n_blocks, kThreads, smem, s>>>(a, b4_rows);
+        err = static_cast<int>(cudaGetLastError());
         width = a.K * C + C;
       } else {
         return static_cast<int>(cudaErrorInvalidValue);
@@ -618,9 +1063,7 @@ int run(int pass, const Args& a, int n_blocks, float* reduced,
     case kB3: err = launch_reduce<kB3>(a.partials, n_blocks, width, reduced, s); break;
     default: err = launch_reduce<kB4>(a.partials, n_blocks, width, reduced, s); break;
   }
-  if (err != 0 || pass != kB4) return err;
-  dx_kernel<C><<<elementwise_blocks(total), kThreads, 0, s>>>(a, total);
-  return static_cast<int>(cudaGetLastError());
+  return err;
 }
 
 }  // namespace
@@ -629,8 +1072,9 @@ extern "C" {
 
 // One pass of the fused training block.  `ptrs` lists, in order: x, dy,
 // w, r, dw (K, C), pw1, pw2, vec (kNumVec, C), out_r, out_w, out_y, dx,
-// du (B, T, C scratch), partials (n_blocks, width), reduced (width);
-// unused slots are null.  `dims` = {C, B, T, K, dilation, n_blocks}.
+// ds0 (B, T, C: B3's output, B4's input), partials (n_blocks, width),
+// reduced (width); unused slots are null.  `dims` = {C, B, T, K,
+// dilation, n_blocks, rows of a B4 tile}.
 // Returns a cudaError_t code (0 on success).
 int fused_train_launch(int pass, void* const* ptrs, const int* dims,
                        float n, void* stream) {
@@ -648,7 +1092,7 @@ int fused_train_launch(int pass, void* const* ptrs, const int* dims,
   a.out_w = static_cast<float*>(ptrs[9]);
   a.out_y = static_cast<float*>(ptrs[10]);
   a.dx = static_cast<float*>(ptrs[11]);
-  a.du = static_cast<float*>(ptrs[12]);
+  a.ds0 = static_cast<float*>(ptrs[12]);
   a.partials = static_cast<float*>(ptrs[13]);
   float* reduced = static_cast<float*>(ptrs[14]);
   a.B = dims[1];
@@ -657,15 +1101,16 @@ int fused_train_launch(int pass, void* const* ptrs, const int* dims,
   a.d = dims[4];
   a.n = n;
   const int n_blocks = dims[5];
+  const int b4_rows = dims[6];
   if (a.B < 1 || a.T < 1 || a.K < 1 || a.K > kMaxTaps || a.d < 1 ||
       n_blocks < 1 || pass < kF1 || pass > kB4) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto s = static_cast<cudaStream_t>(stream);
   switch (C) {
-    case 32: return run<32>(pass, a, n_blocks, reduced, s);
-    case 64: return run<64>(pass, a, n_blocks, reduced, s);
-    case 128: return run<128>(pass, a, n_blocks, reduced, s);
+    case 32: return run<32>(pass, a, n_blocks, b4_rows, reduced, s);
+    case 64: return run<64>(pass, a, n_blocks, b4_rows, reduced, s);
+    case 128: return run<128>(pass, a, n_blocks, b4_rows, reduced, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

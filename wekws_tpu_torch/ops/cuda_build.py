@@ -10,9 +10,10 @@ stale one is never loaded.  Nothing here runs at import time.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Tuple
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
@@ -73,6 +74,29 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> List[str]:
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return paths
+
+
+def parse_ptxas_log(log: str) -> List[Tuple[str, int, int, int]]:
+    """What ``-Xptxas -v`` said of each kernel: (mangled entry function,
+    registers a thread, spill-store bytes, spill-load bytes), in the
+    log's order."""
+    out = []
+    entry, spills = None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry, spills = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            out.append((entry, int(m.group(1))) + spills)
+            entry = None
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -21,8 +21,16 @@ BN layer, so the passes end where a batch statistic is needed:
             F4 read w, x     -> write y
   backward  B1 read dy,w,x   -> (sg, sgw)                  bn2 grad sums
             B2 read dy,w,x,r -> dW2, db2, (sds1, sds1v)    bn1 grad sums
-            B3 read dy,w,x,r -> dW1, db1, (sds0, sds0u)    bn0 grad sums
-            B4 read dy,w,x,r -> dWd, dbd, write dx
+            B3 read dy,w,x,r -> dW1, db1, (sds0, sds0u)    bn0 grad sums;
+                                write ds0
+            B4 read dy,w,x,ds0 -> dWd, dbd, write dx
+
+B3 holds ds0 = dv W1^T for every frame when it sums it, so it also
+writes it, and B4 (which the TPU kernel makes recompute all of B3) needs
+no C x C product: on this card one more (B, T, C) tensor written and
+read costs less than three products per frame.  g2 is not handed over:
+B4 recomputes it from dy, w and x (one compare and select per element),
+which moves the same bytes as reading it.
 
 The few per-channel ops between the passes (means, variances, the
 folded scales) stay plain PyTorch, as the JAX package leaves them to
@@ -115,10 +123,14 @@ def _f4_plain(w, x, v):
     return torch.relu(w * v["a2"] + v["c2"] + x)
 
 
+def _g2(dy, w, x, v):
+    """g2 = dy * relu'(bn2(w) + x)."""
+    return dy * (w * v["a2"] + v["c2"] + x > 0.0)
+
+
 def _g2_what(dy, w, x, v):
-    """g2 = dy * relu'(bn2(w) + x), and w-hat."""
-    pre = w * v["a2"] + v["c2"] + x
-    return dy * (pre > 0.0), (w - v["mu2"]) * v["inv2"]
+    """g2 and w-hat."""
+    return _g2(dy, w, x, v), (w - v["mu2"]) * v["inv2"]
 
 
 def _b1_plain(dy, w, x, v):
@@ -135,7 +147,7 @@ def _ds1(dy, w, x, r, w2, v, n):
     g2, what = _g2_what(dy, w, x, v)
     dwg = _bn_back(v["coef2"], g2, v["sg"], v["sgw"], what, n)
     dr = torch.matmul(dwg, w2.t())
-    return g2, dwg, dr * (r > 0.0)
+    return dwg, dr * (r > 0.0)
 
 
 def _rows(z):
@@ -143,7 +155,7 @@ def _rows(z):
 
 
 def _b2_plain(dy, w, x, r, w2, v, n):
-    _, dwg, ds1 = _ds1(dy, w, x, r, w2, v, n)
+    dwg, ds1 = _ds1(dy, w, x, r, w2, v, n)
     dw2 = torch.matmul(_rows(r).t(), _rows(dwg))
     # v-hat where ds1 != 0: there r = s1 = gamma1 * vhat + beta1
     vhat = (r - v["beta1"]) / v["gamma1"]
@@ -152,23 +164,24 @@ def _b2_plain(dy, w, x, r, w2, v, n):
 
 
 def _ds0(dy, w, x, r, dw_w, w1, w2, v, dilation, n):
-    g2, _, ds1 = _ds1(dy, w, x, r, w2, v, n)
+    _, ds1 = _ds1(dy, w, x, r, w2, v, n)
     u, s0, vv = _pw1(x, dw_w, w1, v, dilation)
     uhat = (u - v["mu0"]) * v["inv0"]
     vhat = (vv - v["mu1"]) * v["inv1"]
     dv = _bn_back(v["coef1"], ds1, v["sds1"], v["sds1v"], vhat, n)
-    return g2, s0, uhat, dv, torch.matmul(dv, w1.t())
+    return s0, uhat, dv, torch.matmul(dv, w1.t())
 
 
 def _b3_plain(dy, w, x, r, dw_w, w1, w2, v, dilation, n):
-    _, s0, uhat, dv, ds0 = _ds0(dy, w, x, r, dw_w, w1, w2, v, dilation, n)
+    s0, uhat, dv, ds0 = _ds0(dy, w, x, r, dw_w, w1, w2, v, dilation, n)
     dw1 = torch.matmul(_rows(s0).t(), _rows(dv))
     return (dw1, dv.sum(dim=(0, 1)), ds0.sum(dim=(0, 1)),
-            (ds0 * uhat).sum(dim=(0, 1)))
+            (ds0 * uhat).sum(dim=(0, 1)), ds0)
 
 
-def _b4_plain(dy, w, x, r, dw_w, w1, w2, v, dilation, n):
-    g2, _, uhat, _, ds0 = _ds0(dy, w, x, r, dw_w, w1, w2, v, dilation, n)
+def _b4_plain(dy, w, x, ds0, dw_w, v, dilation, n):
+    g2 = _g2(dy, w, x, v)
+    uhat = (_dw(x, dw_w, v["dw_b"], dilation) - v["mu0"]) * v["inv0"]
     du = _bn_back(v["coef0"], ds0, v["sds0"], v["sds0u"], uhat, n)
     t = x.shape[1]
     k = dw_w.shape[0]
@@ -207,13 +220,55 @@ def _kernel_fn():
 
 # pointer slots of the C interface, in order
 _SLOTS = ("x", "dy", "w", "r", "dw", "pw1", "pw2", "vec", "out_r", "out_w",
-          "out_y", "dx", "du", "partials", "reduced")
+          "out_y", "dx", "ds0", "partials", "reduced")
+TILE_ROWS = 64
+SMEM_LIMIT = 232448  # bytes of shared memory one block may take on sm_90
 
 
-def _grid_blocks(device: torch.device, b: int, t: int) -> int:
-    """Persistent grid: two blocks per SM, at most one per 64-row tile."""
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def b4_smem_bytes(rows: int, c: int, halo: int) -> int:
+    """Shared memory of one B4 block (csrc/fused_mdtc_train.cu
+    ``b4_smem_bytes``): x rows with a halo each way, ds0 rows with the
+    forward halo, dy and w rows, the taps; at least the block's
+    reduction buffer."""
+    staged = 4 * c * (4 * rows + 3 * halo + MAX_TAPS)
+    return max(staged, 4 * 1024 * (MAX_TAPS + 1))
+
+
+def b4_tile_rows(t: int, c: int, halo: int) -> int:
+    """Frames of one utterance per B4 tile: the utterance cut into equal
+    tiles of at most 64 rows, so that the ragged last tile is not mostly
+    empty; halved while the tile and its halos overflow a block's shared
+    memory."""
+    rows = _cdiv(t, _cdiv(t, TILE_ROWS))
+    while rows > 8 and b4_smem_bytes(rows, c, halo) > SMEM_LIMIT:
+        rows = _cdiv(rows, 2)
+    if b4_smem_bytes(rows, c, halo) > SMEM_LIMIT:
+        raise ValueError(
+            f"the B4 kernel stages a halo of (K-1)*dilation = {halo} frames "
+            f"each way in shared memory; at C={c} that overflows a block's "
+            f"{SMEM_LIMIT} bytes")
+    return rows
+
+
+def _tiles(name: str, b: int, t: int, c: int, rows: int) -> int:
+    """Work units of one pass: B3 tiles the flattened B x T frames (32
+    rows at C=128), B4 cuts each utterance into ``rows``-frame tiles,
+    the others into 64-frame tiles."""
+    if name == "b3":
+        return _cdiv(b * t, 32 if c == 128 else TILE_ROWS)
+    if name == "b4":
+        return b * _cdiv(t, rows)
+    return b * _cdiv(t, TILE_ROWS)
+
+
+def _grid_blocks(device: torch.device, tiles: int) -> int:
+    """Persistent grid: two blocks per SM, at most one per tile."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(b * ((t + 63) // 64), 2 * sms))
+    return max(1, min(tiles, 2 * sms))
 
 
 def _partial_width(name: str, c: int, k: int) -> int:
@@ -238,7 +293,9 @@ def _launch(name, x, tensors, v, dilation, n, k):
     b, t, c = x.shape
     dev = x.device
     width = _partial_width(name, c, k)
-    nblocks = _grid_blocks(dev, b, t)
+    rows = (b4_tile_rows(t, c, (k - 1) * int(dilation)) if name == "b4"
+            else TILE_ROWS)
+    nblocks = _grid_blocks(dev, _tiles(name, b, t, c, rows))
     ptrs = dict(tensors)
     ptrs["vec"] = _pack(v, c, dev)
     out = {}
@@ -247,9 +304,10 @@ def _launch(name, x, tensors, v, dilation, n, k):
         out["out_w"] = torch.empty_like(x)
     elif name == "f4":
         out["out_y"] = torch.empty_like(x)
+    elif name == "b3":
+        out["ds0"] = torch.empty_like(x)
     elif name == "b4":
         out["dx"] = torch.empty_like(x)
-        out["du"] = torch.empty_like(x)
     if width:
         out["partials"] = torch.empty((nblocks, width), dtype=torch.float32,
                                       device=dev)
@@ -258,7 +316,7 @@ def _launch(name, x, tensors, v, dilation, n, k):
     ptrs.update(out)
     arr = (ctypes.c_void_p * len(_SLOTS))(
         *[ptrs[s].data_ptr() if s in ptrs else None for s in _SLOTS])
-    dims = (ctypes.c_int * 6)(c, b, t, k, int(dilation), nblocks)
+    dims = (ctypes.c_int * 7)(c, b, t, k, int(dilation), nblocks, rows)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(PASS_IDS[name], arr, dims, float(n), stream)
@@ -383,28 +441,28 @@ def pass_b2(dy, w, x, r, w2, v, n):
 
 
 def pass_b3(dy, w, x, r, dw_w, w1, w2, v, dilation, n):
-    """B3: dW1, db1 and the bn0 gradient sums (Σds0, Σds0·û).
-    v: B2's plus dw_b, a0, c0, mu0, inv0, b1, mu1, inv1, coef1, sds1,
-    sds1v."""
+    """B3: dW1, db1, the bn0 gradient sums (Σds0, Σds0·û) and ds0
+    (B, T, C) itself, which B4 reads.  v: B2's plus dw_b, a0, c0, mu0,
+    inv0, b1, mu1, inv1, coef1, sds1, sds1v."""
     mats = {"x": x, "dy": dy, "w": w, "r": r, "dw": dw_w, "pw1": w1,
             "pw2": w2}
     _check(x, mats, v, dw_w.shape[0])
     if x.device.type == "cpu":
         return _b3_plain(dy, w, x, r, dw_w, w1, w2, v, dilation, n)
     c = x.shape[2]
-    red = _launch("b3", x, mats, v, dilation, n, dw_w.shape[0])["reduced"]
-    dw1, db1, sds0, sds0u = _split(red, c * c, c, c, c)
-    return dw1.view(c, c), db1, sds0, sds0u
+    out = _launch("b3", x, mats, v, dilation, n, dw_w.shape[0])
+    dw1, db1, sds0, sds0u = _split(out["reduced"], c * c, c, c, c)
+    return dw1.view(c, c), db1, sds0, sds0u, out["ds0"]
 
 
-def pass_b4(dy, w, x, r, dw_w, w1, w2, v, dilation, n):
-    """B4: dx, dWd (K, C), dbd.  v: B3's plus coef0, sds0, sds0u."""
-    mats = {"x": x, "dy": dy, "w": w, "r": r, "dw": dw_w, "pw1": w1,
-            "pw2": w2}
+def pass_b4(dy, w, x, ds0, dw_w, v, dilation, n):
+    """B4: dx, dWd (K, C), dbd from B3's ds0; no C x C product.
+    v: a2, c2, dw_b, mu0, inv0, coef0, sds0, sds0u."""
+    mats = {"x": x, "dy": dy, "w": w, "ds0": ds0, "dw": dw_w}
     k = dw_w.shape[0]
     _check(x, mats, v, k)
     if x.device.type == "cpu":
-        return _b4_plain(dy, w, x, r, dw_w, w1, w2, v, dilation, n)
+        return _b4_plain(dy, w, x, ds0, dw_w, v, dilation, n)
     c = x.shape[2]
     out = _launch("b4", x, mats, v, dilation, n, k)
     dwd, dbd = _split(out["reduced"], k * c, c)
@@ -482,10 +540,10 @@ def block_backward(dy, x, r, w, p, v, dilation, run=_run_public):
     v["sg"], v["sgw"] = run("b1", dy, w, x, _only(v, "b1"))
     dw2, db2, v["sds1"], v["sds1v"] = run("b2", dy, w, x, r, w2,
                                           _only(v, "b2"), n)
-    dw1, db1, v["sds0"], v["sds0u"] = run("b3", dy, w, x, r, dw_w, w1, w2,
-                                          _only(v, "b3"), dilation, n)
-    dx, dwd, dbd = run("b4", dy, w, x, r, dw_w, w1, w2, _only(v, "b4"),
-                       dilation, n)
+    dw1, db1, v["sds0"], v["sds0u"], ds0 = run(
+        "b3", dy, w, x, r, dw_w, w1, w2, _only(v, "b3"), dilation, n)
+    dx, dwd, dbd = run("b4", dy, w, x, ds0, dw_w, _only(v, "b4"), dilation,
+                       n)
     grads = {
         "dw_kernel": dwd, "dw_bias": dbd,
         "pw1_kernel": dw1, "pw1_bias": db1,
@@ -510,7 +568,8 @@ _PASS_VALUES = {
 _PASS_VALUES["b3"] = _PASS_VALUES["b2"] + (
     "dw_b", "a0", "c0", "mu0", "inv0", "b1", "mu1", "inv1", "coef1",
     "sds1", "sds1v")
-_PASS_VALUES["b4"] = _PASS_VALUES["b3"] + ("coef0", "sds0", "sds0u")
+_PASS_VALUES["b4"] = ("a2", "c2", "dw_b", "mu0", "inv0", "coef0", "sds0",
+                      "sds0u")
 
 
 def _only(v, name):
