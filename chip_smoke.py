@@ -11,8 +11,8 @@ one CUDA device, in phases; any failure exits non-zero:
 
 1. card name and power limit (nvidia-smi); a GPU is required;
 2. build every CUDA kernel from ``wekws_tpu_torch/csrc`` and print
-   what ``ptxas`` says of registers and spills (B3's and B4's kernels
-   by name);
+   what ``ptxas`` says of registers and spills (the kernels of F3, B2,
+   B3 and B4 by name, at C = 32, 64, 128);
 3. each serving kernel against its plain PyTorch version on the card,
    at flagship width: whole-utterance forward at B=64 x T=198 and
    B=4 x T=1024, streaming at B=16 in chunks of 8 over 200 frames
@@ -32,8 +32,10 @@ one CUDA device, in phases; any failure exits non-zero:
    main path's B=512 x T=198 at dilations 1, 2, 4 and 8 (six to eight
    tiles per block of the persistent grid), B=64 x T=198 (one tile
    per block), a ragged B=5 x T=130 at dilations 1 and 8, B=7 x T=20
-   (shorter than the halo of 32 frames), and C=32 and C=128 once; each
-   pass launched twice must agree bitwise (deterministic reductions).
+   (shorter than the halo of 32 frames; F3's, B2's and B3's tiles of the
+   flattened frames span several utterances), and C=32 and C=128 once;
+   each pass launched twice must agree bitwise (deterministic
+   reductions).
    The whole fused block (forward, six batch statistics,
    twelve parameter gradients and dx) against the unfused module block
    by autograd on the card;
@@ -49,8 +51,10 @@ one CUDA device, in phases; any failure exits non-zero:
    ``build_fused_forward``, held against the module forward;
 8. training times: each pass per call (CUDA events, median of 30) at
    B=512 x T=198, its device time per call in a profiled train step
-   (its kernel and its own block reduction), the plain version's time
-   and the bound; the whole train step;
+   (its kernel and its own block reduction; failing where a pass's
+   kernel is missing from the profile), the plain version's time and
+   the bound; F3 + B2 and B3 + B4 per block; the device time of the
+   whole step and of the training kernels in it; the whole train step;
 9. the three later kernels against their plain versions at full width:
    ``fused_ds_tcn`` at B=64 x T=198, B=4 x T=1024 and B=16 chained in
    chunks of 8 over 200 frames; ``fused_fsmn_layers`` at B=16 x T=66,
@@ -131,6 +135,10 @@ TRAIN_STEPS_PLAIN, TRAIN_STEPS_AUG = 5, 2
 # kernel is off by the order of the gradient itself
 GRAD64_TOL = 2e-2
 TRAIN_PASSES = ("f1", "f2", "f3", "f4", "b1", "b2", "b3", "b4")
+# the passes redesigned for the card (float4 elementwise steps; products
+# in registers, on the tensor cores or none): phase 2 prints their
+# registers and spills by name
+REDESIGNED_KERNELS = ("f3_kernel", "b2_kernel", "b3_kernel", "b4_kernel")
 KEYWORD = "HI"
 DS_TCN_MODEL_CONF = {  # examples/hey_snips/conf/ds_tcn.yaml
     "input_dim": 40, "output_dim": 1, "hidden_dim": CHANNELS,
@@ -454,8 +462,9 @@ def train_pass_bound_ms(name, b, t, c, k):
     all at the fp32 peak outside the tensor cores, except B3's four
     products: they run on the tensor cores in TF32, three passes each,
     so at a third of the TF32 peak (0.0201 ms at the main shape; as
-    fp32 FMAs they would take 0.0496 ms).  B3 reads dy, w, x, r and
-    writes ds0; B4 reads dy, w, x, ds0, writes dx and has no product."""
+    fp32 FMAs they would take 0.0496 ms).  F3's and B2's products are
+    fp32 FMAs.  B3 reads dy, w, x, r and writes ds0; B4 reads dy, w, x,
+    ds0, writes dx and has no product."""
     n = b * t
     act = 4 * n * c  # one (B, T, C) float32 tensor
     w = 4 * c * c
@@ -775,7 +784,11 @@ def phase8_train_times(trainer, state, batch, card, launches, errs,
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from wekws_tpu_torch.ops.fused_mdtc_train import PASS_IDS, PASSES
+    from wekws_tpu_torch.ops.fused_mdtc_train import (
+        PASS_IDS,
+        PASSES,
+        kernel_name,
+    )
 
     # the whole train step (host clock around synchronised steps)
     for _ in range(2):
@@ -798,18 +811,15 @@ def phase8_train_times(trainer, state, batch, card, launches, errs,
         trainer.train_step(state, batch, SEED, 1e-3)
         torch.cuda.synchronize()
     kernels = {}
-    busy = 0.0
+    on_device = {}  # device entries (kernels, copies, fills): total us
     for evt in prof.key_averages():
         total = getattr(evt, "device_time_total",
                         getattr(evt, "cuda_time_total", 0.0))
         if evt.count and total and str(getattr(evt, "device_type", "")) \
                 .endswith("CUDA"):
-            busy += total
+            on_device[evt.key] = total
         kernels[evt.key] = (total, evt.count)
-    pass_kernel = {"f1": "fwd_kernel<64, 1>", "f2": "fwd_kernel<64, 2>",
-                   "f3": "fwd_kernel<64, 3>", "f4": "f4_kernel<64>",
-                   "b1": "bwd_kernel<64, 5>", "b2": "bwd_kernel<64, 6>",
-                   "b3": "b3_kernel<64>", "b4": "b4_kernel<64>"}
+    busy = sum(on_device.values())
 
     def dev_ms(fragment):
         for key, (total, count) in kernels.items():
@@ -820,6 +830,7 @@ def phase8_train_times(trainer, state, batch, card, launches, errs,
     if any("dx_kernel" in key for key in kernels):
         raise AssertionError("a dx_kernel ran in the profiled step: B4 is "
                              "one kernel and its reduction")
+    pass_kernel = {name: kernel_name(name, 64) for name in TRAIN_PASSES}
     ours = list(pass_kernel.values()) + ["reduce_kernel"]
     kernel_total = sum(t for key, (t, _) in kernels.items()
                        if any(f in key for f in ours)) / 1e3
@@ -827,6 +838,11 @@ def phase8_train_times(trainer, state, batch, card, launches, errs,
           f"{kernel_total:.3f} ms in the training kernels; the device is "
           f"idle for {max(0.0, 1 - busy / 1e3 / step_ms):.1%} of the "
           f"unprofiled {step_ms:.3f} ms step [{card}]", flush=True)
+    rest = sorted(((t, key) for key, t in on_device.items()
+                   if not any(f in key for f in ours)), reverse=True)
+    print("  the rest of the device time, largest first: "
+          + "; ".join(f"{key[:70]} {t / 1e3:.3f} ms" for t, key in rest[:6])
+          + f" [{card}]", flush=True)
 
     record = []
     device_ms = {}
@@ -878,7 +894,8 @@ def phase8_train_times(trainer, state, batch, card, launches, errs,
             "bound_ms": bound, "bound_by": bound_by,
             "library_ms": None,
         })
-    print(f"  B3 + B4 per block, with their reductions: "
+    print(f"  per block, with their reductions: F3 + B2 "
+          f"{device_ms['f3'] + device_ms['b2']:.4f} ms, B3 + B4 "
           f"{device_ms['b3'] + device_ms['b4']:.4f} ms of device time; all "
           f"eight passes {sum(device_ms.values()):.4f} ms [{card}]",
           flush=True)
@@ -1488,22 +1505,23 @@ def main() -> int:
             for line in cuda_build.build_logs.get(name, "").splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}")
-        # the two redesigned backward passes by name: 128 registers or
-        # fewer leave two blocks of 256 threads on an SM
+        # the four redesigned passes by name: 128 registers or fewer
+        # leave two blocks of 256 threads on an SM
         found = 0
         train_log = cuda_build.build_logs.get("fused_mdtc_train", "")
         for entry, regs, st, ld in cuda_build.parse_ptxas_log(train_log):
-            for kern in ("b3_kernel", "b4_kernel"):
+            for kern in REDESIGNED_KERNELS:
                 width = entry.partition(f"{kern}ILi")[2].partition("E")[0]
                 if width:
                     found += 1
                     print(f"  fused_mdtc_train {kern}<{width}>: {regs} "
                           f"registers, {st} bytes spill stores, {ld} bytes "
                           f"spill loads")
-        if train_log and found != 6:  # no log when the library was there
-            raise AssertionError(f"expected ptxas lines for b3_kernel and "
-                                 f"b4_kernel at C = 32, 64, 128, found "
-                                 f"{found}")
+        if train_log and found != 3 * len(REDESIGNED_KERNELS):
+            # (no log when the library was there)
+            raise AssertionError(f"expected ptxas lines for "
+                                 f"{', '.join(REDESIGNED_KERNELS)} at C = "
+                                 f"32, 64, 128, found {found}")
         print(f"  built {len(paths)} librar(ies) in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
 

@@ -38,3 +38,16 @@ def test_library_path_follows_the_source(name):
     assert os.path.basename(path).startswith(f"lib{name}-")
     assert path == cuda_build.library_path(name)
     assert os.path.exists(os.path.join(cuda_build.CSRC_DIR, f"{name}.cu"))
+
+
+@pytest.mark.parametrize("name", ["f1", "f2", "f3", "f4", "b1", "b2", "b3",
+                                  "b4"])
+def test_kernel_name_is_in_the_source(name):
+    """The kernel name that ``chip_smoke.py`` looks for in a profile is
+    a kernel of ``csrc/fused_mdtc_train.cu``."""
+    from wekws_tpu_torch.ops.fused_mdtc_train import kernel_name
+
+    with open(os.path.join(cuda_build.CSRC_DIR, "fused_mdtc_train.cu")) as f:
+        source = f.read()
+    kern = kernel_name(name, 64).partition("<")[0]
+    assert f"{kern}(Args a" in source

@@ -25,12 +25,19 @@ from wekws_tpu_torch.models import init_model
 from wekws_tpu_torch.models.layers import BatchNorm
 from wekws_tpu_torch.models.mdtc import TCNBlock
 from wekws_tpu_torch.ops.fused_mdtc_train import (
+    FLAT_PASSES,
     PARAM_KEYS,
     PASSES,
+    SM_SMEM,
+    SMEM_LIMIT,
     _ds0,
+    _tiles,
     b4_smem_bytes,
     b4_tile_rows,
+    blocks_per_sm,
+    f3_window_bytes,
     fused_tcn_block_train,
+    tile_smem_bytes,
     trace_pass_inputs,
 )
 from wekws_tpu_torch.tools.from_jax import grads_from_jax, model_from_jax
@@ -224,6 +231,47 @@ def test_b4_tile_rows(t, c, halo, want):
     assert rows == want
     assert b4_smem_bytes(rows, c, halo) <= 232448
     assert -(-t // rows) * rows >= t
+
+
+@pytest.mark.parametrize("name,b,t,c,want", [
+    ("f3", 512, 198, 64, 1584), ("b2", 512, 198, 64, 1584),
+    ("b3", 512, 198, 64, 1584),   # 101,376 frames in 64-row tiles
+    ("f3", 512, 198, 128, 3168), ("b2", 512, 198, 128, 3168),  # 32 rows
+    ("f3", 3, 70, 64, 4), ("b2", 3, 70, 32, 4),  # tiles span utterances
+    ("f2", 512, 198, 64, 2048),   # per utterance: 3 x 64 + 6 frames
+    ("b1", 3, 70, 64, 6),
+])
+def test_tiles_of_each_pass(name, b, t, c, want):
+    """F3, B2 and B3 tile the flattened B x T frames, so only the last
+    tile is ragged; F1, F2 and B1 cut each utterance into 64 frames."""
+    assert _tiles(name, b, t, c, 64) == want
+
+
+@pytest.mark.parametrize("c", [32, 64, 128])
+@pytest.mark.parametrize("name", FLAT_PASSES)
+def test_tile_smem_fits_a_block(name, c):
+    """F3's, B2's and B3's shared memory fits one block's 227 KB, and
+    two blocks share an SM at C <= 64, as their launch bounds plan (F3
+    with its window of x at the flagship's largest halo, 4 x 8)."""
+    smem = tile_smem_bytes(name, c, 32)
+    assert smem <= SMEM_LIMIT
+    assert blocks_per_sm(smem, c) == (2 if c <= 64 else 1)
+    assert blocks_per_sm(smem, c) * (smem + 1024) <= SM_SMEM
+    if (name, c) == ("f3", 64):  # (26 + 8) x 64 + four 64 x 68 floats,
+        assert smem == 78336 + 4 * 64 * (64 + 32)  # then 96 rows of x
+
+
+@pytest.mark.parametrize("c,halo,staged", [
+    (64, 32, True), (64, 538, True), (64, 539, False),
+    (128, 56, True), (128, 58, True), (128, 59, False)])
+def test_f3_stages_its_window_where_it_fits(c, halo, staged):
+    """F3 stages a tile's rows of x and the halo before them in shared
+    memory where they fit beside its weights and tiles, and otherwise
+    reads its taps from device memory: any dilation runs."""
+    base = tile_smem_bytes("f3", c, 10 ** 6)  # no window fits
+    assert tile_smem_bytes("f3", c, halo) == (
+        base + f3_window_bytes(c, halo) if staged else base)
+    assert tile_smem_bytes("f3", c, halo) <= SMEM_LIMIT
 
 
 def test_b4_tile_rows_rejects_a_halo_over_shared_memory():

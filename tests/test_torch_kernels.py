@@ -54,14 +54,18 @@ def test_fused_mdtc_kernel_matches_plain(t):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("t", [8, 64, 70, 130])
+@pytest.mark.parametrize("t", [8, 20, 64, 70, 130])
 @pytest.mark.parametrize("dilation", [1, 8])
 def test_fused_train_passes_match_plain(t, dilation):
-    """Each of the eight training passes on identical inputs: whole
-    64-frame tiles, partial last tiles and causal halos longer than a
-    tile or than the utterance; at T=70 every kernel width, K=8 at
-    C=128, and B x T = 210 frames, which no tile of B3 (64 or 32 rows
-    over the flattened frames) divides; B3 hands its ds0 to B4; and
+    """Each of the eight training passes on identical inputs (B=3):
+    whole 64-frame tiles, partial last tiles and causal halos longer
+    than a tile or than the utterance; at T=70 every kernel width, K=8
+    at C=128, and B x T = 210 frames, which no tile of F3, B2 or B3 (64
+    or 32 rows over the flattened frames) divides.  Their tiles span
+    utterances: at T=70 and T=130 a tile holds the end of one and the
+    start of the next, at T=8 and T=20 a tile holds all three, shorter
+    than dilation 8's halo of 32 frames; F3's conv must not reach into
+    the earlier utterance.  B3 hands its ds0 to B4; every pass is
     bitwise equal when launched twice."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
@@ -92,6 +96,38 @@ def test_fused_train_passes_match_plain(t, dilation):
             again = again if isinstance(again, tuple) else (again,)
             for a, b in zip(got, again):
                 assert torch.equal(a, b), f"{name} is not reproducible"
+
+
+@pytest.mark.cuda
+def test_fused_train_f3_without_its_window():
+    """At C=128 a halo of (5-1) x 16 = 64 frames leaves no room for
+    F3's staged window of x beside its weights and tiles, so it reads
+    its taps from device memory: outputs within 1e-4 abs + 1e-4 rel of
+    the plain version's, sums within 1e-3 of the largest, bitwise equal
+    when launched twice."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from wekws_tpu_torch.ops.fused_mdtc_train import (
+        PASSES,
+        SMEM_LIMIT,
+        compare_pass,
+        f3_window_bytes,
+        seeded_block_inputs,
+        tile_smem_bytes,
+        trace_pass_inputs,
+    )
+
+    assert tile_smem_bytes("f3", 128, 64) + f3_window_bytes(128, 64) \
+        > SMEM_LIMIT
+    g = torch.Generator().manual_seed(16)
+    p, x, dy = seeded_block_inputs(g, 3, 130, 128, 5, "cuda")
+    args = trace_pass_inputs(x, p, dy, 16)["f3"]
+    got = PASSES["f3"](*args)
+    again = PASSES["f3"](*args)
+    torch.cuda.synchronize()
+    compare_pass("f3", got, PASSES["f3"].plain(*args))
+    for a, b in zip(got, again):
+        assert torch.equal(a, b), "f3 is not reproducible"
 
 
 @pytest.mark.cuda

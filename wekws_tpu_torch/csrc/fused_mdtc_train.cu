@@ -23,27 +23,48 @@
 // du the exact-BN backward of bn0 and dx = g2 + Σ_tap du[t + (K-1-tap) d]
 // w_tap.
 //
-// Bound on an H100 at B=512, T=198, C=64: F1, F4, B1, B3 and B4 stream
-// (B, T, C) tensors and are bound by bytes (3.35 TB/s); F2 and F3 do
-// 2-4 C² FMAs per frame and are bound by fp32 operations (67 TFLOP/s,
-// no tensor cores); B2 sits between.
+// Bound on an H100 at B=512, T=198, C=64: F1, F4, B1, B2, B3 and B4
+// stream (B, T, C) tensors and are bound by bytes (3.35 TB/s); F2 and
+// F3 do 2-4 C² FMAs per frame in fp32 (67 TFLOP/s) and are bound by
+// operations; B3 runs its products on the tensor cores.
 //
 // Design.  The TPU kernels walk the batch in order on one core and
-// carry their sums in VMEM scratch.  Here a persistent grid of two
-// blocks per SM walks tiles with a grid stride; each block keeps its
-// sums (and its share of a C x C weight gradient) in registers, reduces
-// them over its threads in a fixed order and writes ONE partial, and a
-// second small kernel sums the partials over the blocks in block order.
-// No float atomics: a result is bitwise the same from run to run.  Rows
-// past the end are zeroed in the shared tiles and left out of every sum.
+// carry their sums in VMEM scratch.  Here a persistent grid of at most
+// two blocks per SM walks tiles with a grid stride; each block keeps
+// its sums (and its share of a C x C weight gradient) in registers,
+// reduces them over its threads in a fixed order and writes ONE
+// partial, and a second small kernel sums the partials over the blocks
+// in block order.  No float atomics: a result is bitwise the same from
+// run to run.  Rows past the end are left out of every sum and output,
+// and zeroed in the tiles that a weight gradient sums over.
 //
-// F1-F3, B1, B2: a tile is 64 consecutive frames of ONE utterance (so a
+// F1, F2, B1: a tile is 64 consecutive frames of ONE utterance (so a
 // causal halo never reads another utterance; frames before t = 0 are
 // zero).  Each thread owns one channel and a strided set of the tile's
-// rows; the C x C products are fp32 FMA loops from shared memory, with
-// the weights at a row stride of C + 1 floats, so both W and Wᵀ are
-// read without bank conflicts.
+// rows; F2's product is an fp32 FMA loop from shared memory, with the
+// weights at a row stride of C + 1 floats.
 //
+// F3 and B2 take B3's tiles (below) over the flattened frames and its
+// float4 elementwise steps, with fp32 products: a thread forms the four
+// channels of its own R rows of a product in registers (float4 loads of
+// a row of the input tile and of four rows of W, 64 FMAs per eight
+// 16-byte shared loads at C = 64), so the product's output never goes
+// through shared memory and the elementwise step that follows reads it
+// where it is.  F3: conv and s0 into a tile, v = s0 W1 -> r, written and
+// into the second tile, w = r W2 written, Σw and Σw².  B2: dwg and r
+// into two tiles (r read once, kept in registers for the mask and v̂),
+// dr = dwg W2ᵀ (W2 stored transposed) -> ds1 and its sums, and dW2 +=
+// rᵀ dwg with each thread's (C / G) x 4 block of dW2 in registers across
+// a block's tiles.  While a tile's products run, 16-byte `cp.async`
+// copies bring the next tile's inputs into shared memory: F3's window
+// of x (the tile's rows and the causal halo (K-1) d before them, zero
+// before frame 0; where it does not fit beside the rest, a halo over
+// 538 frames at C = 64 or 58 at C = 128, the taps are read from device
+// memory), B2's rows of w, x and dy (r is read directly: a fourth
+// staged input would leave one block per SM).  B3's three TF32 passes
+// on the tensor cores were slower here (F3) or as fast with ten times
+// the error (B2).
+
 // B3 and B4 are cut for this card, not as the TPU kernels are.  There
 // B4 recomputes all of B3 (three C x C products per frame) to save one
 // tensor of device-memory traffic; here B3 writes ds0, which it holds
@@ -69,7 +90,7 @@
 // tiles with a thread owning four neighbouring channels of a strided
 // set of rows: 16-byte loads, stores and shared traffic, the constants
 // and the taps waiting in shared memory.  (With one channel a thread,
-// as in the other passes, these steps alone took longer than the four
+// as in F1, F2 and B1, these steps alone took longer than the four
 // products: the pass is bound by instruction count, at 16 warps an
 // SM.)  The dW1 accumulator fragments stay in registers across a
 // block's tiles.  Tiles and weights have a row stride of C + 4 floats:
@@ -79,8 +100,8 @@
 // v, dv in dW1) are two-way conflicted.  The products wait for their
 // operands (four 4-byte loads and twelve operations of the split a
 // fragment), not for the tensor cores, so wgmma and TMA are not used;
-// operands split once where they are written would need shared memory
-// that two blocks per SM do not leave.
+// B3's four products leave no shared memory for operands split once
+// where they are written, at two blocks per SM.
 //
 // B4 has no product.  du is elementwise in (ds0, û), so the later
 // frames' du that dx needs are recomputed from a halo instead of read
@@ -186,46 +207,6 @@ __device__ __forceinline__ void matmul_rows(const float* __restrict__ tile,
   }
 }
 
-// acc[j] = Σ_o tile[row_j][o] * W[c][o]   (W padded: the product with Wᵀ)
-template <int C, int R, int G>
-__device__ __forceinline__ void matmul_rows_t(const float* __restrict__ tile,
-                                              const float* __restrict__ wp,
-                                              int g, int c, float* acc) {
-#pragma unroll
-  for (int j = 0; j < R; ++j) acc[j] = 0.f;
-  const float* wr = wp + c * (C + 1);
-  for (int o = 0; o < C; o += 4) {
-    const float w0 = wr[o];
-    const float w1 = wr[o + 1];
-    const float w2 = wr[o + 2];
-    const float w3 = wr[o + 3];
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const float4 t4 =
-          *reinterpret_cast<const float4*>(&tile[(g + j * G) * C + o]);
-      acc[j] = fmaf(t4.x, w0, acc[j]);
-      acc[j] = fmaf(t4.y, w1, acc[j]);
-      acc[j] = fmaf(t4.z, w2, acc[j]);
-      acc[j] = fmaf(t4.w, w3, acc[j]);
-    }
-  }
-}
-
-// accw[m] += Σ_rows A[row][g + m G] * Gt[row][c]: this thread's entries
-// (g + m G, c) of a C x C weight gradient Aᵀ·Gt
-template <int C, int G>
-__device__ __forceinline__ void outer_rows(const float* __restrict__ a_tile,
-                                           const float* __restrict__ g_tile,
-                                           int g, int c, float* accw) {
-  constexpr int M = C / G;
-  for (int row = 0; row < kTile; ++row) {
-    const float gv = g_tile[row * C + c];
-    const float* ar = a_tile + row * C + g;
-#pragma unroll
-    for (int m = 0; m < M; ++m) accw[m] = fmaf(ar[m * G], gv, accw[m]);
-  }
-}
-
 // Reduce NS per-thread channel sums over the G row groups in a fixed
 // order and write them as this block's partial (NS x C floats at
 // `out`).  `red` holds G * NS * C floats.
@@ -248,7 +229,7 @@ __device__ __forceinline__ void block_sums(float* red, const float* s,
 }
 
 // ---------------------------------------------------------------------------
-// forward: F1, F2, F3 share the prefix dw -> bn0 -> pw1 -> bn1 -> relu -> pw2
+// forward: F1 and F2 share the prefix dw -> bn0 -> pw1 (F3: f3_kernel)
 // ---------------------------------------------------------------------------
 
 template <int C, int S>
@@ -258,20 +239,15 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(Args a) {
   extern __shared__ __align__(128) float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   float* w1 = sm;                                      // C x (C+1)
-  float* w2 = w1 + (S >= kF2 ? C * (C + 1) : 0);       // C x (C+1)
-  float* tile_a = w2 + (S == kF3 ? C * (C + 1) : 0);   // kTile x C
-  float* tile_b = tile_a + kTile * C;                  // kTile x C
-  float* red = tile_b + kTile * C;                     // G x 2 x C
+  float* tile_a = w1 + (S == kF2 ? C * (C + 1) : 0);   // kTile x C
+  float* red = tile_a + kTile * C;                     // G x 2 x C
 
   const int c = threadIdx.x % C;
   const int g = threadIdx.x / C;
-  if (S >= kF2) load_padded<C>(a.pw1, w1);
-  if (S == kF3) load_padded<C>(a.pw2, w2);
+  if (S == kF2) load_padded<C>(a.pw1, w1);
   const float dwb = vc(a, V_DWB, C, c);
   const float a0 = vc(a, V_A0, C, c), c0 = vc(a, V_C0, C, c);
   const float b1 = vc(a, V_B1, C, c);
-  const float a1 = vc(a, V_A1, C, c), c1 = vc(a, V_C1, C, c);
-  const float b2 = vc(a, V_B2, C, c);
 
   float sums[2] = {0.f, 0.f};
   const int tiles_per_utt = (a.T + kTile - 1) / kTile;
@@ -306,34 +282,12 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(Args a) {
     __syncthreads();
     float acc[R];
     matmul_rows<C, R, G>(tile_a, w1, g, c, acc);
-    if (S == kF2) {
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        if (t0 + g + j * G < a.T) {
-          const float v = acc[j] + b1;
-          sums[0] += v;
-          sums[1] += v * v;
-        }
-      }
-      continue;
-    }
 #pragma unroll
     for (int j = 0; j < R; ++j) {
-      const int t = t0 + g + j * G;
-      const float rr = t < a.T ? fmaxf(fmaf(acc[j] + b1, a1, c1), 0.f) : 0.f;
-      tile_b[(g + j * G) * C + c] = rr;
-      if (t < a.T) a.out_r[base + static_cast<size_t>(t) * C + c] = rr;
-    }
-    __syncthreads();
-    matmul_rows<C, R, G>(tile_b, w2, g, c, acc);
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const int t = t0 + g + j * G;
-      if (t < a.T) {
-        const float ww = acc[j] + b2;
-        a.out_w[base + static_cast<size_t>(t) * C + c] = ww;
-        sums[0] += ww;
-        sums[1] += ww * ww;
+      if (t0 + g + j * G < a.T) {
+        const float v = acc[j] + b1;
+        sums[0] += v;
+        sums[1] += v * v;
       }
     }
   }
@@ -353,98 +307,43 @@ __global__ void __launch_bounds__(kThreads) f4_kernel(Args a, size_t total) {
 }
 
 // ---------------------------------------------------------------------------
-// backward: B1 is the first reduction of B2's prefix g2 -> dwg -> dr -> ds1
+// backward: B1, the bn2 gradient sums of g2 (B2: b2_kernel)
 // ---------------------------------------------------------------------------
 
-template <int C, int S>
-__global__ void __launch_bounds__(kThreads) bwd_kernel(Args a) {
+template <int C>
+__global__ void __launch_bounds__(kThreads) b1_kernel(Args a) {
   constexpr int G = kThreads / C;
   constexpr int R = kTile / G;
-  constexpr int M = C / G;  // weight-gradient rows per thread
   extern __shared__ __align__(128) float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
-  float* w2 = sm;                                        // C x (C+1)
-  float* tile_a = w2 + (S == kB2 ? C * (C + 1) : 0);     // kTile x C
-  float* tile_b = tile_a + kTile * C;                    // kTile x C
-  float* red = tile_b + kTile * C;                       // G x 3 x C
+  float* red = reinterpret_cast<float*>(smem4);  // G x 2 x C
 
   const int c = threadIdx.x % C;
   const int g = threadIdx.x / C;
-  if (S == kB2) load_padded<C>(a.pw2, w2);
-  const float n = a.n;
   const float a2 = vc(a, V_A2, C, c), c2 = vc(a, V_C2, C, c);
   const float mu2 = vc(a, V_MU2, C, c), inv2 = vc(a, V_INV2, C, c);
-  const float coef2 = vc(a, V_COEF2, C, c);
-  const float sg = vc(a, V_SG, C, c), sgw = vc(a, V_SGW, C, c);
-  const float beta1 = vc(a, V_BETA1, C, c), gamma1 = vc(a, V_GAMMA1, C, c);
 
-  float sums[3] = {0.f, 0.f, 0.f};
-  float accw[M];
-#pragma unroll
-  for (int m = 0; m < M; ++m) accw[m] = 0.f;
-
+  float sums[2] = {0.f, 0.f};
   const int tiles_per_utt = (a.T + kTile - 1) / kTile;
   const int n_tiles = a.B * tiles_per_utt;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int b = tile / tiles_per_utt;
     const int t0 = (tile % tiles_per_utt) * kTile;
     const size_t base = static_cast<size_t>(b) * a.T * C;
-    __syncthreads();
 #pragma unroll
     for (int j = 0; j < R; ++j) {
-      const int row = g + j * G;
-      const int t = t0 + row;
-      float dwg = 0.f;
+      const int t = t0 + g + j * G;
       if (t < a.T) {
         const size_t at = base + static_cast<size_t>(t) * C + c;
         const float wv = a.w[at];
         const float pre = wv * a2 + c2 + a.x[at];
         const float g2 = pre > 0.f ? a.dy[at] : 0.f;
-        const float what = (wv - mu2) * inv2;
-        if (S == kB1) {
-          sums[0] += g2;
-          sums[1] += g2 * what;
-        } else {
-          dwg = coef2 / n * (n * g2 - sg - what * sgw);
-        }
-        if (S == kB2) tile_b[row * C + c] = a.r[at];
-      } else if (S == kB2) {
-        tile_b[row * C + c] = 0.f;
-      }
-      if (S != kB1) tile_a[row * C + c] = dwg;
-    }
-    if (S == kB1) continue;
-    __syncthreads();
-    outer_rows<C, G>(tile_b, tile_a, g, c, accw);  // dW2 += rᵀ·dwg
-#pragma unroll
-    for (int j = 0; j < R; ++j) sums[0] += tile_a[(g + j * G) * C + c];
-    float ds1[R];
-    matmul_rows_t<C, R, G>(tile_a, w2, g, c, ds1);  // dr = dwg W2ᵀ
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const int t = t0 + g + j * G;
-      const float rv = t < a.T
-          ? a.r[base + static_cast<size_t>(t) * C + c] : 0.f;
-      ds1[j] = rv > 0.f ? ds1[j] : 0.f;
-      if (t < a.T) {
-        sums[1] += ds1[j];
-        sums[2] += ds1[j] * ((rv - beta1) / gamma1);
+        sums[0] += g2;
+        sums[1] += g2 * ((wv - mu2) * inv2);
       }
     }
   }
-
-  float* part = a.partials;
-  if (S == kB1) {
-    block_sums<C, 2>(red, sums, part + static_cast<size_t>(blockIdx.x) * 2 * C,
-                     g, c);
-  } else {
-    // this block's C x C gradient: entry (g + m G, c) belongs to this
-    // thread alone, then the three channel sums
-    float* out = part + static_cast<size_t>(blockIdx.x) * (C * C + 3 * C);
-#pragma unroll
-    for (int m = 0; m < M; ++m) out[(g + m * G) * C + c] = accw[m];
-    block_sums<C, 3>(red, sums, out + C * C, g, c);
-  }
+  block_sums<C, 2>(red, sums,
+                   a.partials + static_cast<size_t>(blockIdx.x) * 2 * C, g, c);
 }
 
 // ---------------------------------------------------------------------------
@@ -529,11 +428,12 @@ __device__ __forceinline__ void tile_product(const float* in, const float* w,
   }
 }
 
+// tiles over the flattened B x T frames (F3, B2, B3)
 template <int C>
-struct B3Shape {
+struct TileShape {
   static constexpr int kRows = C == 128 ? 32 : 64;  // rows of a tile
   static constexpr int kLd = C + 4;
-  static constexpr int kFrags = (C / 16) * (C / 16);  // of dW1
+  static constexpr int kFrags = (C / 16) * (C / 16);  // of B3's dW1
   // per warp: fragment j of warp w is number w + j kWarps; at C = 32
   // there are four fragments and warps 4-7 own none
   static constexpr int kOwn = (kFrags + kWarps - 1) / kWarps;
@@ -545,9 +445,65 @@ struct B3Shape {
 // tiles (the block's reduction reuses the first two)
 template <int C>
 constexpr size_t b3_smem_bytes() {
-  using S = B3Shape<C>;
+  using S = TileShape<C>;
   return sizeof(float) * ((kNumVec + kMaxTaps) * C + 2 * C * S::kLd +
                           4 * S::kRows * S::kLd);
+}
+
+// the per-channel vector and the taps, W1 and W2, two tiles
+template <int C>
+constexpr size_t f3_smem_bytes() {
+  using S = TileShape<C>;
+  return sizeof(float) * ((kNumVec + kMaxTaps) * C + 2 * C * S::kLd +
+                          2 * S::kRows * S::kLd);
+}
+
+// the per-channel vector, W2ᵀ, two tiles, then the next tile's w, x and
+// dy rows, staged
+template <int C>
+constexpr size_t b2_smem_bytes() {
+  using S = TileShape<C>;
+  return sizeof(float) * (kNumVec * C + C * S::kLd + 2 * S::kRows * S::kLd +
+                          3 * S::kRows * C);
+}
+
+// The packed per-channel vector into shared memory, with k = coef / n
+// in the two coef rows and 1 / gamma1 in the gamma1 row; then, where
+// the pass has the conv, the taps (zero past K).
+template <int C, bool TAPS>
+__device__ __forceinline__ void load_consts(const Args& a, float* cv) {
+  for (int i = threadIdx.x; i < kNumVec * C; i += kThreads) {
+    const float v = __ldg(a.vec + i);
+    const int row = i / C;
+    cv[i] = row == V_COEF1 || row == V_COEF2 ? v / a.n
+          : row == V_GAMMA1                  ? 1.f / v
+                                             : v;
+  }
+  if (TAPS) {
+    for (int i = threadIdx.x; i < kMaxTaps * C; i += kThreads) {
+      cv[kNumVec * C + i] = i < a.K * C ? __ldg(a.dw + i) : 0.f;
+    }
+  }
+}
+
+// NS channel sums, a float4 of four channels in each thread of row group
+// g, added over the row groups in order through `red` (G x NS x C
+// floats) and written to `out` (NS x C)
+template <int C, int NS>
+__device__ __forceinline__ void block_sums4(float* red, const float4* sums,
+                                            float* out, int g, int q) {
+  constexpr int Q = C / 4;
+  constexpr int G = kThreads / Q;
+  float4* red4 = reinterpret_cast<float4*>(red);
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < NS; ++i) red4[(g * NS + i) * Q + q] = sums[i];
+  __syncthreads();
+  for (int o = threadIdx.x; o < NS * C; o += kThreads) {
+    float acc = 0.f;
+    for (int gg = 0; gg < G; ++gg) acc += red[(gg * NS + o / C) * C + o % C];
+    out[o] = acc;
+  }
 }
 
 __device__ __forceinline__ float4 fma4(float4 a, float4 b, float4 c) {
@@ -582,10 +538,19 @@ __device__ __forceinline__ float4 gate4(float4 gate, float4 g) {
                      gate.z > 0.f ? g.z : 0.f, gate.w > 0.f ? g.w : 0.f);
 }
 
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+__device__ __forceinline__ float4 relu4(float4 a) {
+  return make_float4(fmaxf(a.x, 0.f), fmaxf(a.y, 0.f), fmaxf(a.z, 0.f),
+                     fmaxf(a.w, 0.f));
+}
+
 template <int C>
 __global__ void __launch_bounds__(kThreads, C == 128 ? 1 : 2)
 b3_kernel(Args a) {
-  using S = B3Shape<C>;
+  using S = TileShape<C>;
   constexpr int ROWS = S::kRows;
   constexpr int LD = S::kLd;
   constexpr int LQ = LD / 4;  // float4s of a tile row
@@ -615,14 +580,7 @@ b3_kernel(Args a) {
   const int g = threadIdx.x / Q;
   const int warp = threadIdx.x / 32;
   const float n = a.n;
-  for (int i = threadIdx.x; i < kNumVec * C; i += kThreads) {
-    const float v = __ldg(a.vec + i);
-    const int row = i / C;
-    cv[i] = row == V_COEF1 || row == V_COEF2 ? v / n : v;  // k = coef / n
-  }
-  for (int i = threadIdx.x; i < kMaxTaps * C; i += kThreads) {
-    cv[kNumVec * C + i] = i < a.K * C ? __ldg(a.dw + i) : 0.f;  // zero past K
-  }
+  load_consts<C, true>(a, cv);
   load_padded<C, LD>(a.pw2, w2);
   load_padded<C, LD>(a.pw1, w1);
   const float4* cv4 = reinterpret_cast<const float4*>(cv) + q;
@@ -759,22 +717,13 @@ b3_kernel(Args a) {
                             C, wm::mem_row_major);
     }
   }
-  // the three channel sums: the row groups added in order, through the
-  // first two tiles (G x 3 x C floats)
+  // the three channel sums, through the first two tiles
   static_assert(G * 3 * C <= 2 * ROWS * LD, "the reduction fits two tiles");
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 3; ++i) ta4[(g * 3 + i) * Q + q] = sums[i];
-  __syncthreads();
-  for (int o = threadIdx.x; o < 3 * C; o += kThreads) {
-    float acc = 0.f;
-    for (int gg = 0; gg < G; ++gg) acc += ta[(gg * 3 + o / C) * C + o % C];
-    out[C * C + o] = acc;
-  }
+  block_sums4<C, 3>(ta, sums, out + C * C, g, q);
 }
 
 // ---------------------------------------------------------------------------
-// B4: one streaming kernel, no product
+// F3 and B2 with fp32 register-blocked products
 // ---------------------------------------------------------------------------
 
 constexpr size_t kSmemLimit = 232448;  // bytes a block may take on sm_90
@@ -797,6 +746,319 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
+
+// c + s b, four lanes
+__device__ __forceinline__ float4 fma4s(float s, float4 b, float4 c) {
+  return make_float4(fmaf(s, b.x, c.x), fmaf(s, b.y, c.y), fmaf(s, b.z, c.z),
+                     fmaf(s, b.w, c.w));
+}
+
+// acc[j] = Σ_k in[g + j G][k] W[k][4q .. 4q + 3]: the outputs at this
+// thread's own rows and channels of the elementwise steps, so they stay
+// in registers; in and W in shared memory at row stride C + 4
+template <int C, int R>
+__device__ __forceinline__ void rows_product(const float* in, const float* w,
+                                             int g, int q, float4 (&acc)[R]) {
+  constexpr int LD = C + 4;
+  constexpr int G = TileShape<C>::kGroups;
+#pragma unroll
+  for (int j = 0; j < R; ++j) acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 2
+  for (int k = 0; k < C; k += 4) {
+    float4 wk[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      wk[i] = *reinterpret_cast<const float4*>(w + (k + i) * LD + 4 * q);
+    }
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const float4 av =
+          *reinterpret_cast<const float4*>(in + (g + j * G) * LD + k);
+      acc[j] = fma4s(av.x, wk[0], acc[j]);
+      acc[j] = fma4s(av.y, wk[1], acc[j]);
+      acc[j] = fma4s(av.z, wk[2], acc[j]);
+      acc[j] = fma4s(av.w, wk[3], acc[j]);
+    }
+  }
+}
+
+// acc[i] += Σ_rows A[row][MB g + i] B[row][4q .. 4q + 3], MB = C / G:
+// this thread's MB x 4 block of a C x C weight gradient Aᵀ·B
+template <int C, int ROWS, int MB>
+__device__ __forceinline__ void rows_outer(const float* at, const float* bt,
+                                           int g, int q, float4 (&acc)[MB]) {
+  constexpr int LD = C + 4;
+#pragma unroll 4
+  for (int k = 0; k < ROWS; ++k) {
+    const float4 bv = *reinterpret_cast<const float4*>(bt + k * LD + 4 * q);
+    const float* ar = at + k * LD + MB * g;
+    if constexpr (MB % 4 == 0) {
+#pragma unroll
+      for (int i = 0; i < MB; i += 4) {
+        const float4 av = *reinterpret_cast<const float4*>(ar + i);
+        acc[i] = fma4s(av.x, bv, acc[i]);
+        acc[i + 1] = fma4s(av.y, bv, acc[i + 1]);
+        acc[i + 2] = fma4s(av.z, bv, acc[i + 2]);
+        acc[i + 3] = fma4s(av.w, bv, acc[i + 3]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < MB; ++i) acc[i] = fma4s(ar[i], bv, acc[i]);
+    }
+  }
+}
+
+// F3's window of x: the tile's rows and the causal halo H = (K-1) d
+// before them
+template <int C>
+size_t f3_window_bytes(int halo) {
+  return sizeof(float) * C * (TileShape<C>::kRows + halo);
+}
+
+// rows [first, first + count) of a (n_rows, Q) float4 tensor into
+// shared memory by 16-byte `cp.async` copies, zeros outside the tensor
+template <int Q>
+__device__ __forceinline__ void stage_rows(float4* dst, const float4* src,
+                                           int first, int count,
+                                           int n_rows) {
+  for (int i = threadIdx.x; i < count * Q; i += kThreads) {
+    const int row = first + i / Q;
+    const bool ok = row >= 0 && row < n_rows;
+    cp_async16(dst + i, src + (ok ? static_cast<size_t>(row) * Q + i % Q : 0),
+               ok);
+  }
+  cp_async_commit();
+}
+
+// staged: the window of the block's next tile is copied into shared
+// memory while this tile's products run (where it fits beside the rest:
+// run()), else the taps are read from device memory
+template <int C>
+__global__ void __launch_bounds__(kThreads, C == 128 ? 1 : 2)
+f3_kernel(Args a, bool staged) {
+  using S = TileShape<C>;
+  constexpr int ROWS = S::kRows;
+  constexpr int LD = S::kLd;
+  constexpr int LQ = LD / 4;
+  constexpr int Q = S::kQuads;
+  constexpr int G = S::kGroups;
+  constexpr int R = ROWS / G;
+  extern __shared__ __align__(128) float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* cv = sm;                             // kNumVec x C, then the taps
+  float* w1 = cv + (kNumVec + kMaxTaps) * C;  // C x LD
+  float* w2 = w1 + C * LD;                    // C x LD
+  float* ta = w2 + C * LD;                    // ROWS x LD: s0
+  float* tb = ta + ROWS * LD;                 // ROWS x LD: r
+  float4* ta4 = reinterpret_cast<float4*>(ta);
+  float4* tb4 = reinterpret_cast<float4*>(tb);
+  float4* xs4 = tb4 + ROWS * LQ;              // (ROWS + H) x Q: x, staged
+
+  const int q = threadIdx.x % Q;
+  const int g = threadIdx.x / Q;
+  load_consts<C, true>(a, cv);
+  load_padded<C, LD>(a.pw1, w1);
+  load_padded<C, LD>(a.pw2, w2);
+  const float4* cv4 = reinterpret_cast<const float4*>(cv) + q;
+#define VEC4(row) cv4[(row) * Q]
+  const float4* x4 = reinterpret_cast<const float4*>(a.x);
+  float4* r4 = reinterpret_cast<float4*>(a.out_r);
+  float4* w4 = reinterpret_cast<float4*>(a.out_w);
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  float4 sums[2] = {zero4, zero4};  // Σw, Σw²
+  const int n_rows = a.B * a.T;
+  const int n_tiles = (n_rows + ROWS - 1) / ROWS;
+  const int H = (a.K - 1) * a.d;
+  if (staged && blockIdx.x < n_tiles) {
+    stage_rows<Q>(xs4, x4, blockIdx.x * ROWS - H, ROWS + H, n_rows);
+  }
+  __syncthreads();  // the constants and the weights are in place
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row0 = tile * ROWS;
+    if (staged) {
+      cp_async_wait<0>();
+      __syncthreads();  // every thread's copies of the window have landed
+    }
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int lr = g + j * G;
+      const int row = row0 + lr;
+      float4 s0 = zero4;
+      if (row < n_rows) {
+        const size_t at = static_cast<size_t>(row) * Q + q;
+        // a tap before the utterance's first frame is zero, so a tile
+        // that spans two utterances never reads the earlier one
+        const int t = row % a.T;
+        float4 xt[kMaxTaps];
+#pragma unroll
+        for (int tap = 0; tap < kMaxTaps; ++tap) {
+          const int back = (a.K - 1 - tap) * a.d;
+          xt[tap] = tap >= a.K || back > t ? zero4
+              : staged ? xs4[(lr + H - back) * Q + q]
+                       : __ldg(x4 + at - static_cast<size_t>(back) * Q);
+        }
+        float4 u = VEC4(V_DWB);
+#pragma unroll
+        for (int tap = 0; tap < kMaxTaps; ++tap) {
+          if (tap < a.K) u = fma4(xt[tap], VEC4(kNumVec + tap), u);
+        }
+        s0 = fma4(u, VEC4(V_A0), VEC4(V_C0));
+      }
+      ta4[lr * LQ + q] = s0;
+    }
+    __syncthreads();  // s0 is in place and the window is read
+    if (staged && tile + gridDim.x < n_tiles) {
+      stage_rows<Q>(xs4, x4, (tile + gridDim.x) * ROWS - H, ROWS + H, n_rows);
+    }
+    float4 acc[R];
+    rows_product<C, R>(ta, w1, g, q, acc);  // v - b1 = s0 W1
+    {
+      const float4 b1 = VEC4(V_B1), a1 = VEC4(V_A1), c1 = VEC4(V_C1);
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int lr = g + j * G;
+        const int row = row0 + lr;
+        const float4 r = relu4(fma4(add4(acc[j], b1), a1, c1));
+        tb4[lr * LQ + q] = r;
+        if (row < n_rows) r4[static_cast<size_t>(row) * Q + q] = r;
+      }
+    }
+    __syncthreads();
+    rows_product<C, R>(tb, w2, g, q, acc);  // w - b2 = r W2
+    {
+      const float4 b2 = VEC4(V_B2);
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int row = row0 + g + j * G;
+        if (row < n_rows) {
+          const float4 w = add4(acc[j], b2);
+          w4[static_cast<size_t>(row) * Q + q] = w;
+          sums[0] = add4(sums[0], w);
+          sums[1] = fma4(w, w, sums[1]);
+        }
+      }
+    }
+  }
+#undef VEC4
+  block_sums4<C, 2>(ta, sums,
+                    a.partials + static_cast<size_t>(blockIdx.x) * 2 * C, g, q);
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads, C == 128 ? 1 : 2)
+b2_kernel(Args a) {
+  using S = TileShape<C>;
+  constexpr int ROWS = S::kRows;
+  constexpr int LD = S::kLd;
+  constexpr int LQ = LD / 4;
+  constexpr int Q = S::kQuads;
+  constexpr int G = S::kGroups;
+  constexpr int R = ROWS / G;
+  constexpr int MB = C / G;  // rows of dW2 a thread owns
+  extern __shared__ __align__(128) float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* cv = sm;                // kNumVec x C
+  float* w2t = cv + kNumVec * C;  // C x LD: W2ᵀ
+  float* ta = w2t + C * LD;      // ROWS x LD: dwg
+  float* tr = ta + ROWS * LD;    // ROWS x LD: r
+  float4* ta4 = reinterpret_cast<float4*>(ta);
+  float4* tr4 = reinterpret_cast<float4*>(tr);
+  float4* sw4 = tr4 + ROWS * LQ;  // ROWS x Q each: w, x, dy, staged
+  float4* sx4 = sw4 + ROWS * Q;
+  float4* sdy4 = sx4 + ROWS * Q;
+
+  const int q = threadIdx.x % Q;
+  const int g = threadIdx.x / Q;
+  const float n = a.n;
+  load_consts<C, false>(a, cv);
+  for (int i = threadIdx.x; i < C * C; i += kThreads) {
+    w2t[(i % C) * LD + i / C] = __ldg(a.pw2 + i);
+  }
+  const float4* cv4 = reinterpret_cast<const float4*>(cv) + q;
+#define VEC4(row) cv4[(row) * Q]
+  const float4* x4 = reinterpret_cast<const float4*>(a.x);
+  const float4* dy4 = reinterpret_cast<const float4*>(a.dy);
+  const float4* w4 = reinterpret_cast<const float4*>(a.w);
+  const float4* r4 = reinterpret_cast<const float4*>(a.r);
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  float4 sums[3] = {zero4, zero4, zero4};  // db2 = Σdwg, Σds1, Σds1·v̂
+  float4 accw[MB];                         // this thread's block of dW2
+#pragma unroll
+  for (int i = 0; i < MB; ++i) accw[i] = zero4;
+
+  const int n_rows = a.B * a.T;
+  const int n_tiles = (n_rows + ROWS - 1) / ROWS;
+  if (blockIdx.x < n_tiles) {
+    stage_rows<Q>(sw4, w4, blockIdx.x * ROWS, ROWS, n_rows);
+    stage_rows<Q>(sx4, x4, blockIdx.x * ROWS, ROWS, n_rows);
+    stage_rows<Q>(sdy4, dy4, blockIdx.x * ROWS, ROWS, n_rows);
+  }
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row0 = tile * ROWS;
+    cp_async_wait<0>();
+    __syncthreads();  // every thread's copies have landed, and the last
+                      // tile's reads of both tiles are done (the first
+                      // time: the constants and W2ᵀ are in place)
+    float4 rv[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int lr = g + j * G;
+      const int row = row0 + lr;
+      float4 dwg = zero4;
+      rv[j] = zero4;
+      if (row < n_rows) {
+        const size_t at = static_cast<size_t>(row) * Q + q;
+        rv[j] = __ldg(r4 + at);
+        const float4 wv = sw4[lr * Q + q];
+        const float4 xv = sx4[lr * Q + q];
+        const float4 dyv = sdy4[lr * Q + q];
+        const float4 g2 =
+            gate4(add4(fma4(wv, VEC4(V_A2), VEC4(V_C2)), xv), dyv);
+        dwg = bn_back4(VEC4(V_COEF2), n, g2, VEC4(V_SG),
+                       hat4(wv, VEC4(V_MU2), VEC4(V_INV2)), VEC4(V_SGW));
+        sums[0] = add4(sums[0], dwg);
+      }
+      ta4[lr * LQ + q] = dwg;
+      tr4[lr * LQ + q] = rv[j];
+    }
+    __syncthreads();  // the tiles are in place and the staged rows read
+    const int next = tile + gridDim.x;
+    if (next < n_tiles) {  // its rows land while this tile's products run
+      stage_rows<Q>(sw4, w4, next * ROWS, ROWS, n_rows);
+      stage_rows<Q>(sx4, x4, next * ROWS, ROWS, n_rows);
+      stage_rows<Q>(sdy4, dy4, next * ROWS, ROWS, n_rows);
+    }
+    float4 dr[R];
+    rows_product<C, R>(ta, w2t, g, q, dr);  // dr = dwg W2ᵀ
+    {
+      const float4 beta1 = VEC4(V_BETA1), rgamma1 = VEC4(V_GAMMA1);
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        if (row0 + g + j * G < n_rows) {
+          const float4 ds1 = gate4(rv[j], dr[j]);
+          sums[1] = add4(sums[1], ds1);
+          sums[2] = fma4(ds1, hat4(rv[j], beta1, rgamma1), sums[2]);
+        }
+      }
+    }
+    rows_outer<C, ROWS, MB>(tr, ta, g, q, accw);  // dW2 += rᵀ·dwg
+  }
+#undef VEC4
+
+  float* out = a.partials + static_cast<size_t>(blockIdx.x) * (C * C + 3 * C);
+#pragma unroll
+  for (int i = 0; i < MB; ++i) {
+    *reinterpret_cast<float4*>(out + (MB * g + i) * C + 4 * q) = accw[i];
+  }
+  static_assert(G * 3 * C <= 2 * ROWS * LD, "the reduction fits two tiles");
+  block_sums4<C, 3>(ta, sums, out + C * C, g, q);
+}
+
+// ---------------------------------------------------------------------------
+// B4: one streaming kernel, no product
+// ---------------------------------------------------------------------------
 
 // x rows with a halo each way, ds0 rows with the forward halo, dy and w
 // rows, the taps; at least the block's reduction buffer (G x
@@ -998,60 +1260,61 @@ int elementwise_blocks(size_t total) {
 template <int C>
 int run(int pass, const Args& a, int n_blocks, int b4_rows, float* reduced,
         cudaStream_t s) {
-  constexpr int G = kThreads / C;
   const size_t wsz = sizeof(float) * C * (C + 1);
-  const size_t tiles = sizeof(float) * 2 * kTile * C;
+  const size_t tile = sizeof(float) * kTile * C;
+  const size_t red = sizeof(float) * (kThreads / C) * 2 * C;  // block_sums
   const size_t total = static_cast<size_t>(a.B) * a.T * C;
-  int width = 0;
+  int width = 2 * C;
   int err = 0;
   switch (pass) {
     case kF1:
-      err = launch_tiles(fwd_kernel<C, kF1>, a,
-                         tiles + sizeof(float) * G * 2 * C, n_blocks, s);
-      width = 2 * C;
+      err = launch_tiles(fwd_kernel<C, kF1>, a, tile + red, n_blocks, s);
       break;
     case kF2:
-      err = launch_tiles(fwd_kernel<C, kF2>, a,
-                         wsz + tiles + sizeof(float) * G * 2 * C, n_blocks, s);
-      width = 2 * C;
+      err = launch_tiles(fwd_kernel<C, kF2>, a, wsz + tile + red, n_blocks, s);
       break;
-    case kF3:
-      err = launch_tiles(fwd_kernel<C, kF3>, a,
-                         2 * wsz + tiles + sizeof(float) * G * 2 * C,
-                         n_blocks, s);
-      width = 2 * C;
+    case kF3: {
+      const size_t window = f3_window_bytes<C>((a.K - 1) * a.d);
+      const bool staged = f3_smem_bytes<C>() + window <= kSmemLimit;
+      const size_t smem = f3_smem_bytes<C>() + (staged ? window : 0);
+      err = static_cast<int>(cudaFuncSetAttribute(
+          f3_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem)));
+      if (err != 0) return err;
+      f3_kernel<C><<<n_blocks, kThreads, smem, s>>>(a, staged);
+      err = static_cast<int>(cudaGetLastError());
       break;
+    }
     case kF4:
       f4_kernel<C><<<elementwise_blocks(total), kThreads, 0, s>>>(a, total);
       return static_cast<int>(cudaGetLastError());
-    default: {
-      const size_t red = sizeof(float) * G * (kMaxTaps + 1) * C;
-      if (pass == kB1) {
-        err = launch_tiles(bwd_kernel<C, kB1>, a, tiles + red, n_blocks, s);
-        width = 2 * C;
-      } else if (pass == kB2) {
-        err = launch_tiles(bwd_kernel<C, kB2>, a, wsz + tiles + red,
-                           n_blocks, s);
-        width = C * C + 3 * C;
-      } else if (pass == kB3) {
-        err = launch_tiles(b3_kernel<C>, a, b3_smem_bytes<C>(), n_blocks, s);
-        width = C * C + 3 * C;
-      } else if (pass == kB4) {
-        const size_t smem = b4_smem_bytes<C>(b4_rows, (a.K - 1) * a.d);
-        if (b4_rows < 1 || smem > kSmemLimit) {
-          return static_cast<int>(cudaErrorInvalidValue);
-        }
-        err = static_cast<int>(cudaFuncSetAttribute(
-            b4_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(smem)));
-        if (err != 0) return err;
-        b4_kernel<C><<<n_blocks, kThreads, smem, s>>>(a, b4_rows);
-        err = static_cast<int>(cudaGetLastError());
-        width = a.K * C + C;
-      } else {
+    case kB1:
+      err = launch_tiles(b1_kernel<C>, a, red, n_blocks, s);
+      break;
+    case kB2:
+      err = launch_tiles(b2_kernel<C>, a, b2_smem_bytes<C>(), n_blocks, s);
+      width = C * C + 3 * C;
+      break;
+    case kB3:
+      err = launch_tiles(b3_kernel<C>, a, b3_smem_bytes<C>(), n_blocks, s);
+      width = C * C + 3 * C;
+      break;
+    case kB4: {
+      const size_t smem = b4_smem_bytes<C>(b4_rows, (a.K - 1) * a.d);
+      if (b4_rows < 1 || smem > kSmemLimit) {
         return static_cast<int>(cudaErrorInvalidValue);
       }
+      err = static_cast<int>(cudaFuncSetAttribute(
+          b4_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem)));
+      if (err != 0) return err;
+      b4_kernel<C><<<n_blocks, kThreads, smem, s>>>(a, b4_rows);
+      err = static_cast<int>(cudaGetLastError());
+      width = a.K * C + C;
+      break;
     }
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
   if (err != 0) return err;
   switch (pass) {

@@ -75,6 +75,15 @@ PASS_IDS = {"f1": 1, "f2": 2, "f3": 3, "f4": 4,
             "b1": 5, "b2": 6, "b3": 7, "b4": 8}
 
 
+def kernel_name(name: str, c: int) -> str:
+    """The CUDA kernel of pass ``name`` at C channels, as a profiler
+    names it (its block reduction is ``reduce_kernel<PASS_IDS[name]>``)."""
+    return {"f1": f"fwd_kernel<{c}, 1>", "f2": f"fwd_kernel<{c}, 2>",
+            "f3": f"f3_kernel<{c}>", "f4": f"f4_kernel<{c}>",
+            "b1": f"b1_kernel<{c}>", "b2": f"b2_kernel<{c}>",
+            "b3": f"b3_kernel<{c}>", "b4": f"b4_kernel<{c}>"}[name]
+
+
 # ---------------------------------------------------------------------------
 # plain versions: the same function as each kernel, in PyTorch
 # ---------------------------------------------------------------------------
@@ -223,6 +232,9 @@ _SLOTS = ("x", "dy", "w", "r", "dw", "pw1", "pw2", "vec", "out_r", "out_w",
           "out_y", "dx", "ds0", "partials", "reduced")
 TILE_ROWS = 64
 SMEM_LIMIT = 232448  # bytes of shared memory one block may take on sm_90
+SM_SMEM = 233472  # bytes of shared memory of one SM; a block reserves 1024
+# passes whose tiles cut the flattened B x T frames
+FLAT_PASSES = ("f3", "b2", "b3")
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -254,21 +266,63 @@ def b4_tile_rows(t: int, c: int, halo: int) -> int:
     return rows
 
 
+def flat_tile_rows(c: int) -> int:
+    """Rows of an F3, B2 or B3 tile: 64, or 32 at C=128, where the
+    weight matrices leave shared memory for no more."""
+    return 32 if c == 128 else TILE_ROWS
+
+
+def f3_window_bytes(c: int, halo: int) -> int:
+    """F3's staged window of x: a tile's rows and the causal halo
+    (K-1) * dilation before them."""
+    return 4 * c * (flat_tile_rows(c) + halo)
+
+
+def tile_smem_bytes(name: str, c: int, halo: int = 0) -> int:
+    """Shared memory of one F3, B2 or B3 block (csrc/fused_mdtc_train.cu
+    ``f3_smem_bytes``, ``b2_smem_bytes``, ``b3_smem_bytes``): the packed
+    per-channel vector (with the taps, but in B2), the C x C weight
+    matrices and the tiles, at row stride C + 4; B2 adds the next
+    tile's w, x and dy rows, staged; F3 its window of x
+    (``f3_window_bytes``) where that fits a block (``run`` there decides
+    the same), else it reads the taps from device memory."""
+    ld = c + 4
+    vec, mats, tiles = {
+        "f3": (len(VEC_KEYS) + MAX_TAPS, 2, 2),
+        "b2": (len(VEC_KEYS), 1, 2),
+        "b3": (len(VEC_KEYS) + MAX_TAPS, 2, 4),
+    }[name]
+    smem = 4 * (vec * c + mats * c * ld + tiles * flat_tile_rows(c) * ld)
+    if name == "b2":  # the next tile's w, x and dy rows, staged
+        smem += 4 * 3 * flat_tile_rows(c) * c
+    if name == "f3" and smem + f3_window_bytes(c, halo) <= SMEM_LIMIT:
+        smem += f3_window_bytes(c, halo)
+    return smem
+
+
+def blocks_per_sm(smem: int, c: int) -> int:
+    """Blocks of an F3, B2 or B3 launch that one SM holds at once: as
+    many as its shared memory allows, at most the blocks that their
+    ``__launch_bounds__`` plan registers for (two at C <= 64, one at
+    C=128)."""
+    return min(1 if c == 128 else 2, SM_SMEM // (smem + 1024))
+
+
 def _tiles(name: str, b: int, t: int, c: int, rows: int) -> int:
-    """Work units of one pass: B3 tiles the flattened B x T frames (32
-    rows at C=128), B4 cuts each utterance into ``rows``-frame tiles,
-    the others into 64-frame tiles."""
-    if name == "b3":
-        return _cdiv(b * t, 32 if c == 128 else TILE_ROWS)
+    """Work units of one pass: F3, B2 and B3 tile the flattened B x T
+    frames (``flat_tile_rows``), B4 cuts each utterance into
+    ``rows``-frame tiles, the others into 64-frame tiles."""
+    if name in FLAT_PASSES:
+        return _cdiv(b * t, flat_tile_rows(c))
     if name == "b4":
         return b * _cdiv(t, rows)
     return b * _cdiv(t, TILE_ROWS)
 
 
-def _grid_blocks(device: torch.device, tiles: int) -> int:
-    """Persistent grid: two blocks per SM, at most one per tile."""
+def _grid_blocks(device: torch.device, tiles: int, per_sm: int = 2) -> int:
+    """Persistent grid: ``per_sm`` blocks per SM, at most one per tile."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(tiles, 2 * sms))
+    return max(1, min(tiles, per_sm * sms))
 
 
 def _partial_width(name: str, c: int, k: int) -> int:
@@ -295,7 +349,11 @@ def _launch(name, x, tensors, v, dilation, n, k):
     width = _partial_width(name, c, k)
     rows = (b4_tile_rows(t, c, (k - 1) * int(dilation)) if name == "b4"
             else TILE_ROWS)
-    nblocks = _grid_blocks(dev, _tiles(name, b, t, c, rows))
+    per_sm = 2
+    if name in FLAT_PASSES:
+        smem = tile_smem_bytes(name, c, (k - 1) * int(dilation))
+        per_sm = blocks_per_sm(smem, c)
+    nblocks = _grid_blocks(dev, _tiles(name, b, t, c, rows), per_sm)
     ptrs = dict(tensors)
     ptrs["vec"] = _pack(v, c, dev)
     out = {}
