@@ -11,8 +11,8 @@ one CUDA device, in phases; any failure exits non-zero:
 
 1. card name and power limit (nvidia-smi); a GPU is required;
 2. build every CUDA kernel from ``wekws_tpu_torch/csrc`` and print
-   what ``ptxas`` says of registers and spills (the kernels of F3, B2,
-   B3 and B4 by name, at C = 32, 64, 128);
+   what ``ptxas`` says of registers and spills (the kernels of F2, F3,
+   B1, B2, B3 and B4 by name, at C = 32, 64, 128);
 3. each serving kernel against its plain PyTorch version on the card,
    at flagship width: whole-utterance forward at B=64 x T=198 and
    B=4 x T=1024, streaming at B=16 in chunks of 8 over 200 frames
@@ -38,22 +38,30 @@ one CUDA device, in phases; any failure exits non-zero:
    reductions).
    The whole fused block (forward, six batch statistics,
    twelve parameter gradients and dx) against the unfused module block
-   by autograd on the card;
+   by autograd on the card, with no element near either ReLU's kink
+   (where rounding picks the side): bn1's bias shifted per channel so
+   that its outputs leave a gap around zero, the upstream gradient zero
+   within 1e-4 of the residual ReLU's kink;
 7. the training slice end to end at B=512 x 2 s: device fbank +
    CMVN from the batch + ``init_model(FLAGSHIP + fused_train)`` +
    ``Trainer``: step 0 held against the unfused Trainer (loss) and,
    with the unfused Trainer, against the unfused model in float64 (the
    gradients of each block and of each other tensor, against their own
-   scale), 5 steps without augmentation (loss finite and
+   scale; the group and tensor of the worst share named for each
+   route), 5 steps without augmentation (loss finite and
    decreasing), 2 steps with the flagship dither + spec_aug; every
-   pass launched 17 x steps times; cv step, two checkpoints saved,
+   pass launched 17 x steps times; step 0's fused gradients again with
+   each pass in turn (then all eight) run by its plain version, the
+   worst share of each (a bisection of the route's numerics by pass);
+   cv step, two checkpoints saved,
    averaged and loaded, and the trained model served through
    ``build_fused_forward``, held against the module forward;
 8. training times: each pass per call (CUDA events, median of 30) at
    B=512 x T=198, its device time per call in a profiled train step
    (its kernel and its own block reduction; failing where a pass's
    kernel is missing from the profile), the plain version's time and
-   the bound; F3 + B2 and B3 + B4 per block; the device time of the
+   the bound; F2 + B1, F3 + B2 and B3 + B4 per block; the device time
+   of the
    whole step and of the training kernels in it; the whole train step;
 9. the three later kernels against their plain versions at full width:
    ``fused_ds_tcn`` at B=64 x T=198, B=4 x T=1024 and B=16 chained in
@@ -86,6 +94,7 @@ and ``{"ok": true, "device": {...}}``.  Run from the repository root:
 ``python3 chip_smoke.py``.
 """
 
+import copy
 import json
 import os
 import subprocess
@@ -134,11 +143,16 @@ TRAIN_STEPS_PLAIN, TRAIN_STEPS_AUG = 5, 2
 # block's largest |grad| here (1.1e-2 on the CPU at B=8); a wrong
 # kernel is off by the order of the gradient itself
 GRAD64_TOL = 2e-2
+# |pre-activation| of the block's residual ReLU below which fp32 rounding
+# may put an element on the kink's other side in the fused route than in
+# the unfused one (phase 6: the upstream gradient is zero there)
+KINK = 1e-4
 TRAIN_PASSES = ("f1", "f2", "f3", "f4", "b1", "b2", "b3", "b4")
 # the passes redesigned for the card (float4 elementwise steps; products
 # in registers, on the tensor cores or none): phase 2 prints their
 # registers and spills by name
-REDESIGNED_KERNELS = ("f3_kernel", "b2_kernel", "b3_kernel", "b4_kernel")
+REDESIGNED_KERNELS = ("f2_kernel", "f3_kernel", "b1_stream_kernel",
+                      "b2_kernel", "b3_kernel", "b4_kernel")
 KEYWORD = "HI"
 DS_TCN_MODEL_CONF = {  # examples/hey_snips/conf/ds_tcn.yaml
     "input_dim": 40, "output_dim": 1, "hidden_dim": CHANNELS,
@@ -462,8 +476,8 @@ def train_pass_bound_ms(name, b, t, c, k):
     all at the fp32 peak outside the tensor cores, except B3's four
     products: they run on the tensor cores in TF32, three passes each,
     so at a third of the TF32 peak (0.0201 ms at the main shape; as
-    fp32 FMAs they would take 0.0496 ms).  F3's and B2's products are
-    fp32 FMAs.  B3 reads dy, w, x, r and writes ds0; B4 reads dy, w, x,
+    fp32 FMAs they would take 0.0496 ms).  F2's, F3's and B2's products
+    are fp32 FMAs.  B3 reads dy, w, x, r and writes ds0; B4 reads dy, w, x,
     ds0, writes dx and has no product."""
     n = b * t
     act = 4 * n * c  # one (B, T, C) float32 tensor
@@ -490,6 +504,21 @@ def train_pass_bound_ms(name, b, t, c, k):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
 
+
+def kink_gap_shift(s, width=1e-3):
+    """Per channel of ``s`` (B, T, C), the shift that moves zero to the
+    middle of the widest gap between the channel's sorted values within
+    ``width`` of zero, so that ``s + shift`` has no value near a ReLU's
+    kink."""
+    import torch
+
+    shifts = []
+    for col in s.reshape(-1, s.shape[-1]).t():
+        z = torch.sort(col[col.abs() < width]).values
+        z = torch.cat([z.new_tensor([-width]), z, z.new_tensor([width])])
+        i = int((z[1:] - z[:-1]).argmax())
+        shifts.append(-(z[i] + z[i + 1]) / 2)
+    return torch.stack(shifts)
 
 def phase6_train_kernels(dev, gen):
     """Every training pass against its plain version, plus the whole
@@ -539,7 +568,14 @@ def phase6_train_kernels(dev, gen):
               + ", ".join(f"{n} {errs[n]:.2e}" for n in TRAIN_PASSES)
               + " (running max abs err; bitwise reproducible)", flush=True)
 
-    # the whole block: fused Function vs autograd of the unfused modules
+    # the whole block: fused Function vs autograd of the unfused modules.
+    # Where a ReLU's input lies within rounding of zero, the two fp32
+    # routes may put it on opposite sides, and a flipped gate moves dx
+    # and the sums by a whole term.  So no element sits near either kink:
+    # the inner ReLU's (bn1's output) is moved per channel into the
+    # widest gap between that channel's values near zero (a shift of the
+    # bn1 bias), and the upstream gradient is zero within KINK of the
+    # residual ReLU's (the unfused pre-activation bn2(w) + x)
     for b, t, d in ((64, 198, 1), (5, 130, 8)):
         blocks = [TCNBlock(64, 64, k, d, fused_train=fused).to(dev).train()
                   for fused in (True, False)]
@@ -547,16 +583,31 @@ def phase6_train_kernels(dev, gen):
             for prm in blocks[0].parameters():
                 prm.copy_(torch.randn(prm.shape, generator=gen).to(dev)
                           * 0.3)
-        blocks[1].load_state_dict(blocks[0].state_dict())
         x = torch.randn((b, t, 64), generator=gen).to(dev)
         dy = torch.randn((b, t, 64), generator=gen).to(dev)
-        outs = []
-        for blk in blocks:
-            xi = x.clone().requires_grad_()
-            y, _ = blk(xi, None)
+        pre = {}
+        hooks = [blk.register_forward_hook(
+            lambda mod, inp, out, key=key: pre.update({key: out.detach()}))
+            for key, blk in (("bn1", blocks[1].bn1), ("bn2", blocks[1].bn2))]
+        probe = copy.deepcopy(blocks[0])
+        probe.fused_train = False
+        probe.bn1.register_forward_hook(
+            lambda mod, inp, out: pre.update(probe=out.detach()))
+        with torch.no_grad():
+            probe(x, None)
+            blocks[0].bn1.bias.add_(kink_gap_shift(pre["probe"]))
+        blocks[1].load_state_dict(blocks[0].state_dict())
+        xs = [x.clone().requires_grad_() for _ in blocks]
+        ys = [blk(xi, None)[0] for blk, xi in zip(blocks, xs)]
+        for hook in hooks:
+            hook.remove()
+        clear = float(pre["bn1"].abs().min())
+        kink = (pre["bn2"] + x).abs() < KINK
+        dy = dy.masked_fill(kink, 0.0)
+        for y in ys:
             (y * dy).sum().backward()
-            outs.append((y.detach(), xi.grad, blk))
-        (yf, dxf, bf), (yu, dxu, bu) = outs
+        (yf, yu), (dxf, dxu) = [y.detach() for y in ys], [xi.grad for xi in xs]
+        bf, bu = blocks
         check_close(f"block B={b} T={t} d={d} y", yf, yu)
         check_close(f"block B={b} T={t} d={d} dx", dxf, dxu)
         for (name, bufa), bufb in zip(bf.named_buffers(), bu.buffers()):
@@ -568,7 +619,10 @@ def phase6_train_kernels(dev, gen):
         print(f"  fused block B={b} T={t} d={d} vs unfused autograd: y, "
               f"dx and running statistics within {TOL} abs + {TOL} rel; "
               f"12 parameter gradients max err {worst:.2e} (bound "
-              f"{SUM_TOL} x the largest |grad|)", flush=True)
+              f"{SUM_TOL} x the largest |grad|); no bn1 output within "
+              f"{clear:.1e} of the inner ReLU's kink, dy zero at "
+              f"{int(kink.sum())} elements within {KINK} of the residual "
+              f"ReLU's", flush=True)
     return errs, main_calls
 
 
@@ -594,20 +648,51 @@ def float64_grads(conf, state_dict, feats, feat_lengths, batch):
 
 
 def grad_groups(model):
-    """{name: parameters}: one group per TCNBlock, whose twelve
-    gradients share one scale as a pass's sums do, and one group for
-    each other parameter tensor."""
+    """{group: {parameter name: parameter}}: one group per TCNBlock,
+    whose twelve gradients share one scale as a pass's sums do, and one
+    group for each other parameter tensor."""
     from wekws_tpu_torch.models.mdtc import TCNBlock
 
     groups, grouped = {}, set()
     for name, mod in model.named_modules():
         if isinstance(mod, TCNBlock):
-            groups[name] = list(mod.parameters())
-            grouped.update(id(p) for p in groups[name])
+            groups[name] = dict(mod.named_parameters())
+            grouped.update(id(p) for p in groups[name].values())
     for name, prm in model.named_parameters():
         if id(prm) not in grouped:
-            groups[name] = [prm]
+            groups[name] = {"": prm}
     return groups
+
+
+def worst_grad_share(model, ref, route):
+    """Each group's gradients against float64 (``ref``: the groups of
+    ``float64_grads``), within GRAD64_TOL x the group's own largest
+    |grad| (a small absolute floor for a group near zero), so that a
+    wrong block cannot hide under the head's gradients.  Returns the
+    worst (share of that scale, group, parameter) and the mean of the
+    groups' worst shares, which moves less with where rounding lands."""
+    from wekws_tpu_torch.ops.fused_mdtc_train import compare_sums
+
+    worst, shares = (0.0, "", ""), []
+    for gname, got in grad_groups(model).items():
+        wants = {k: p.grad.float() for k, p in ref[gname].items()}
+        compare_sums(f"step-0 grads {route} {gname} vs float64",
+                     [p.grad for p in got.values()], list(wants.values()),
+                     floor=1e-6, tol=GRAD64_TOL)
+        scale = max([float(w.abs().max()) for w in wants.values()] + [1e-6])
+        shares.append(0.0)
+        for pname, prm in got.items():
+            share = float((prm.grad - wants[pname]).abs().max()) / scale
+            shares[-1] = max(shares[-1], share)
+            if share > worst[0]:
+                worst = (share, gname, pname)
+    return worst, sum(shares) / len(shares)
+
+
+def share_text(found):
+    (share, group, param), mean = found
+    return (f"{share:.2e} ({group}{'.' + param if param else ''}; mean "
+            f"{mean:.2e})")
 
 
 def train_batch(rng):
@@ -633,7 +718,7 @@ def phase7_train_slice(dev, work, launches):
     from wekws_tpu_torch.models import init_model
     from wekws_tpu_torch.ops.fused_mdtc_train import (
         PASSES,
-        compare_sums,
+        plain_passes,
         reset_launches,
     )
     from wekws_tpu_torch.ops.serving import build_fused_forward
@@ -700,31 +785,20 @@ def phase7_train_slice(dev, work, launches):
             if err > 1e-5 * abs(float(want_loss)):
                 raise AssertionError(f"step-0 loss {losses[0]} vs unfused "
                                      f"{float(want_loss)}")
-            # both fp32 routes against float64, each block's gradients
-            # against that block's own largest |grad| (a small absolute
-            # floor for a group near zero), so that a wrong block cannot
-            # hide under the head's gradients
+            # both fp32 routes against float64
             with torch.no_grad():
                 f0, l0 = twin.pipeline(waves, lengths)
             ref = grad_groups(float64_grads(
                 unfused_conf, twin.model.state_dict(), f0, l0, batch))
-            share = {}
-            for route, tr in (("fused", trainer), ("unfused", twin)):
-                share[route] = 0.0
-                for gname, got in grad_groups(tr.model).items():
-                    wants = [p.grad.float() for p in ref[gname]]
-                    gerr = compare_sums(
-                        f"step-0 grads {route} {gname} vs float64",
-                        [p.grad for p in got], wants, floor=1e-6,
-                        tol=GRAD64_TOL)
-                    scale = max([float(g.abs().max()) for g in wants]
-                                + [1e-6])
-                    share[route] = max(share[route], gerr / scale)
+            share = {route: worst_grad_share(tr.model, ref, route)
+                     for route, tr in (("fused", trainer),
+                                       ("unfused", twin))}
             print(f"  step 0 vs the unfused Trainer: loss {losses[0]:.6f} "
                   f"(diff {err:.2e}); gradients vs float64, 17 blocks and "
                   f"4 other tensors each within {GRAD64_TOL} x its own "
-                  f"largest |grad|: worst fused {share['fused']:.2e}, "
-                  f"unfused {share['unfused']:.2e} of that", flush=True)
+                  f"largest |grad|: worst fused "
+                  f"{share_text(share['fused'])}, unfused "
+                  f"{share_text(share['unfused'])} of that", flush=True)
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"loss not finite and decreasing: {losses}")
     # the flagship recipe's augmentation from here on
@@ -748,6 +822,24 @@ def phase7_train_slice(dev, work, launches):
           f"with dither + spec_aug: {[round(v, 5) for v in aug_losses]}; "
           f"each pass launched {n_blocks} x {steps} = {n_blocks * steps} "
           f"times", flush=True)
+
+    # step 0's fused gradients again, from the same weights, with one
+    # pass at a time run by its plain version (then all eight): a swap
+    # that moves the worst share to the unfused route's names the pass
+    # whose summation order is to blame
+    probe = trainer_for(conf, plain_conf, twin.model.state_dict())
+    probe_state = probe.init_state()
+    found = {}
+    for swap in (("none",) + TRAIN_PASSES + ("all",)):
+        names = {"none": (), "all": TRAIN_PASSES}.get(swap, (swap,))
+        with plain_passes(*names):
+            probe.loss_and_grads(probe_state, batch, SEED)
+        found[swap] = worst_grad_share(probe.model, ref, f"fused, {swap} "
+                                       f"plain")
+    print("  bisection, step-0 fused gradients vs float64 with one pass by "
+          "its plain version: "
+          + "; ".join(f"{k} {share_text(v)}" for k, v in found.items()),
+          flush=True)
 
     cv = trainer.cv_step(state, batch)
     cv_loss = float(cv["loss_sum"]) / max(float(cv["count"]), 1.0)
@@ -894,7 +986,8 @@ def phase8_train_times(trainer, state, batch, card, launches, errs,
             "bound_ms": bound, "bound_by": bound_by,
             "library_ms": None,
         })
-    print(f"  per block, with their reductions: F3 + B2 "
+    print(f"  per block, with their reductions: F2 + B1 "
+          f"{device_ms['f2'] + device_ms['b1']:.4f} ms, F3 + B2 "
           f"{device_ms['f3'] + device_ms['b2']:.4f} ms, B3 + B4 "
           f"{device_ms['b3'] + device_ms['b4']:.4f} ms of device time; all "
           f"eight passes {sum(device_ms.values()):.4f} ms [{card}]",
@@ -1505,8 +1598,8 @@ def main() -> int:
             for line in cuda_build.build_logs.get(name, "").splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}")
-        # the four redesigned passes by name: 128 registers or fewer
-        # leave two blocks of 256 threads on an SM
+        # the redesigned passes by name: 128 registers or fewer leave
+        # two blocks of 256 threads on an SM
         found = 0
         train_log = cuda_build.build_logs.get("fused_mdtc_train", "")
         for entry, regs, st, ld in cuda_build.parse_ptxas_log(train_log):

@@ -51,3 +51,13 @@ def test_kernel_name_is_in_the_source(name):
         source = f.read()
     kern = kernel_name(name, 64).partition("<")[0]
     assert f"{kern}(Args a" in source
+
+
+def test_one_channel_f2_and_b1_are_gone():
+    """F2 and B1 run only their flattened, four-channels-a-thread
+    kernels: the one-channel ``fwd_kernel<C, 2>`` and ``b1_kernel`` are
+    not in the source, so a profile cannot show them."""
+    with open(os.path.join(cuda_build.CSRC_DIR, "fused_mdtc_train.cu")) as f:
+        source = f.read()
+    assert "fwd_kernel" not in source
+    assert " b1_kernel(" not in source

@@ -236,29 +236,38 @@ def test_b4_tile_rows(t, c, halo, want):
 @pytest.mark.parametrize("name,b,t,c,want", [
     ("f3", 512, 198, 64, 1584), ("b2", 512, 198, 64, 1584),
     ("b3", 512, 198, 64, 1584),   # 101,376 frames in 64-row tiles
+    ("f2", 512, 198, 64, 1584),   # 2,048 when cut per utterance
     ("f3", 512, 198, 128, 3168), ("b2", 512, 198, 128, 3168),  # 32 rows
+    ("f2", 512, 198, 128, 3168),
     ("f3", 3, 70, 64, 4), ("b2", 3, 70, 32, 4),  # tiles span utterances
-    ("f2", 512, 198, 64, 2048),   # per utterance: 3 x 64 + 6 frames
-    ("b1", 3, 70, 64, 6),
+    ("f2", 3, 70, 64, 4),  # tile 1: frames 64-69 of one, 0-57 of the next
+    ("b1", 512, 198, 64, 1584),   # 64 rows a block at a time at C=64
+    ("b1", 512, 198, 128, 3168), ("b1", 3, 70, 32, 2),  # 32, 128 rows
+    ("b1", 3, 70, 64, 4),
+    ("f1", 512, 198, 64, 2048),   # per utterance: 3 x 64 + 6 frames
 ])
 def test_tiles_of_each_pass(name, b, t, c, want):
-    """F3, B2 and B3 tile the flattened B x T frames, so only the last
-    tile is ragged; F1, F2 and B1 cut each utterance into 64 frames."""
+    """F2, F3, B2 and B3 tile the flattened B x T frames and B1 streams
+    them, so only the last tile is ragged; F1 cuts each utterance into
+    64 frames."""
     assert _tiles(name, b, t, c, 64) == want
 
 
 @pytest.mark.parametrize("c", [32, 64, 128])
 @pytest.mark.parametrize("name", FLAT_PASSES)
 def test_tile_smem_fits_a_block(name, c):
-    """F3's, B2's and B3's shared memory fits one block's 227 KB, and
-    two blocks share an SM at C <= 64, as their launch bounds plan (F3
-    with its window of x at the flagship's largest halo, 4 x 8)."""
+    """F2's, F3's, B2's and B3's shared memory fits one block's 227 KB,
+    and two blocks share an SM at C <= 64, as their launch bounds plan
+    (F2 and F3 with their window of x at the flagship's largest halo,
+    4 x 8)."""
     smem = tile_smem_bytes(name, c, 32)
     assert smem <= SMEM_LIMIT
     assert blocks_per_sm(smem, c) == (2 if c <= 64 else 1)
     assert blocks_per_sm(smem, c) * (smem + 1024) <= SM_SMEM
     if (name, c) == ("f3", 64):  # (26 + 8) x 64 + four 64 x 68 floats,
         assert smem == 78336 + 4 * 64 * (64 + 32)  # then 96 rows of x
+    if (name, c) == ("f2", 64):  # (26 + 8) x 64 + two 64 x 68 floats
+        assert smem == 43520 + 4 * 64 * (64 + 32)
 
 
 @pytest.mark.parametrize("c,halo,staged", [
@@ -267,11 +276,13 @@ def test_tile_smem_fits_a_block(name, c):
 def test_f3_stages_its_window_where_it_fits(c, halo, staged):
     """F3 stages a tile's rows of x and the halo before them in shared
     memory where they fit beside its weights and tiles, and otherwise
-    reads its taps from device memory: any dilation runs."""
-    base = tile_smem_bytes("f3", c, 10 ** 6)  # no window fits
-    assert tile_smem_bytes("f3", c, halo) == (
-        base + f3_window_bytes(c, halo) if staged else base)
-    assert tile_smem_bytes("f3", c, halo) <= SMEM_LIMIT
+    reads its taps from device memory: any dilation runs.  F2 stages
+    its window where F3 does (one rule for both)."""
+    for name in ("f3", "f2"):
+        base = tile_smem_bytes(name, c, 10 ** 6)  # no window fits
+        assert tile_smem_bytes(name, c, halo) == (
+            base + f3_window_bytes(c, halo) if staged else base)
+        assert tile_smem_bytes(name, c, halo) <= SMEM_LIMIT
 
 
 def test_b4_tile_rows_rejects_a_halo_over_shared_memory():

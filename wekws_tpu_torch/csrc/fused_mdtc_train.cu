@@ -26,7 +26,10 @@
 // Bound on an H100 at B=512, T=198, C=64: F1, F4, B1, B2, B3 and B4
 // stream (B, T, C) tensors and are bound by bytes (3.35 TB/s); F2 and
 // F3 do 2-4 C² FMAs per frame in fp32 (67 TFLOP/s) and are bound by
-// operations; B3 runs its products on the tensor cores.
+// operations; B3 runs its products on the tensor cores.  At 16 warps
+// an SM a pass with one channel a thread is bound by the instructions
+// it issues before either, so every pass but F1 and F4 gives a thread
+// four neighbouring channels (float4 loads, stores and shared traffic).
 //
 // Design.  The TPU kernels walk the batch in order on one core and
 // carry their sums in VMEM scratch.  Here a persistent grid of at most
@@ -38,32 +41,44 @@
 // run to run.  Rows past the end are left out of every sum and output,
 // and zeroed in the tiles that a weight gradient sums over.
 //
-// F1, F2, B1: a tile is 64 consecutive frames of ONE utterance (so a
-// causal halo never reads another utterance; frames before t = 0 are
-// zero).  Each thread owns one channel and a strided set of the tile's
-// rows; F2's product is an fp32 FMA loop from shared memory, with the
-// weights at a row stride of C + 1 floats.
+// F1 alone keeps the first design: a tile is 64 consecutive frames of
+// ONE utterance (so a causal halo never reads another utterance; frames
+// before t = 0 are zero), and each thread owns one channel and a
+// strided set of the tile's rows.
 //
-// F3 and B2 take B3's tiles (below) over the flattened frames and its
-// float4 elementwise steps, with fp32 products: a thread forms the four
-// channels of its own R rows of a product in registers (float4 loads of
-// a row of the input tile and of four rows of W, 64 FMAs per eight
-// 16-byte shared loads at C = 64), so the product's output never goes
-// through shared memory and the elementwise step that follows reads it
-// where it is.  F3: conv and s0 into a tile, v = s0 W1 -> r, written and
-// into the second tile, w = r W2 written, Σw and Σw².  B2: dwg and r
-// into two tiles (r read once, kept in registers for the mask and v̂),
-// dr = dwg W2ᵀ (W2 stored transposed) -> ds1 and its sums, and dW2 +=
-// rᵀ dwg with each thread's (C / G) x 4 block of dW2 in registers across
-// a block's tiles.  While a tile's products run, 16-byte `cp.async`
-// copies bring the next tile's inputs into shared memory: F3's window
-// of x (the tile's rows and the causal halo (K-1) d before them, zero
-// before frame 0; where it does not fit beside the rest, a halo over
-// 538 frames at C = 64 or 58 at C = 128, the taps are read from device
-// memory), B2's rows of w, x and dy (r is read directly: a fourth
-// staged input would leave one block per SM).  B3's three TF32 passes
-// on the tensor cores were slower here (F3) or as fast with ten times
-// the error (B2).
+// F2, F3 and B2 take B3's tiles (below) over the flattened frames and
+// its float4 elementwise steps, with fp32 products: a thread forms the
+// four channels of its own R rows of a product in registers (float4
+// loads of a row of the input tile and of four rows of W, 64 FMAs per
+// eight 16-byte shared loads at C = 64), so the product's output never
+// goes through shared memory and the elementwise step that follows
+// reads it where it is.  F2 and F3 are one body (tile_forward): conv
+// and s0 into a tile, v = s0 W1; F2 ends there with Σv and Σv² (bound
+// by its one product; nothing written but the partials), F3 goes on:
+// r written and into the second tile, w = r W2 written, Σw and Σw².
+// B2: dwg and r into two tiles (r read once, kept in registers for the
+// mask and v̂), dr = dwg W2ᵀ (W2 stored transposed) -> ds1 and its
+// sums, and dW2 += rᵀ dwg with each thread's (C / G) x 4 block of dW2
+// in registers across a block's tiles.  While a tile's products run,
+// 16-byte `cp.async` copies bring the next tile's inputs into shared
+// memory: F2's and F3's window of x (the tile's rows and the causal
+// halo (K-1) d before them, zero before frame 0; where F3's does not
+// fit beside the rest, a halo over 538 frames at C = 64 or 58 at
+// C = 128, both read the taps from device memory), B2's rows of w, x
+// and dy (r is read directly: a fourth staged input would leave one
+// block per SM).  B3's three TF32 passes on the tensor cores were
+// slower here (F3) or as fast with ten times the error (B2).
+//
+// B1 has no halo and no product: one stream over the flattened frames,
+// bound by its reads of w, x and dy (78 MB at the main shape).  A
+// thread keeps one channel quad for the whole grid stride, a2, c2, mu2
+// and inv2 in registers, and issues the loads of kB1Rows rows before it
+// uses the first, so that enough bytes are in flight to near the
+// card's rate; its eight sums are reduced over the block in row-group
+// order.  On an NVIDIA H100 80GB HBM3 at 700 W, B=512 x T=198 x C=64
+// (chip_smoke.py phase 8, reductions included): B1 0.036 ms a call
+// against 0.023 for its bytes, F2 0.050 ms against 0.014 for its fp32
+// operations (PERF.md §6).
 
 // B3 and B4 are cut for this card, not as the TPU kernels are.  There
 // B4 recomputes all of B3 (three C x C products per frame) to save one
@@ -90,9 +105,8 @@
 // tiles with a thread owning four neighbouring channels of a strided
 // set of rows: 16-byte loads, stores and shared traffic, the constants
 // and the taps waiting in shared memory.  (With one channel a thread,
-// as in F1, F2 and B1, these steps alone took longer than the four
-// products: the pass is bound by instruction count, at 16 warps an
-// SM.)  The dW1 accumulator fragments stay in registers across a
+// as in F1, these steps alone took longer than the four products: the
+// pass is bound by instruction count, at 16 warps an SM.)  The dW1 accumulator fragments stay in registers across a
 // block's tiles.  Tiles and weights have a row stride of C + 4 floats:
 // wmma needs a multiple of 4, and with C + 4 the row-major A and
 // col-major B fragment loads (lane -> 4 row + col) touch 32 different
@@ -161,7 +175,7 @@ __device__ __forceinline__ float vc(const Args& a, int row, int C, int c) {
 }
 
 // (C, C) row-major -> shared, row stride LD
-template <int C, int LD = C + 1>
+template <int C, int LD>
 __device__ __forceinline__ void load_padded(const float* __restrict__ g,
                                             float* s) {
   for (int i = threadIdx.x; i < C * C; i += kThreads) {
@@ -181,30 +195,6 @@ __device__ __forceinline__ float dwconv(const float* __restrict__ xb,
                           __ldg(dw + tap * C + c), u);
   }
   return u;
-}
-
-// acc[j] = Σ_k tile[row_j][k] * W[k][c]   (W padded, [in][out])
-template <int C, int R, int G>
-__device__ __forceinline__ void matmul_rows(const float* __restrict__ tile,
-                                            const float* __restrict__ wp,
-                                            int g, int c, float* acc) {
-#pragma unroll
-  for (int j = 0; j < R; ++j) acc[j] = 0.f;
-  for (int k = 0; k < C; k += 4) {
-    const float w0 = wp[(k + 0) * (C + 1) + c];
-    const float w1 = wp[(k + 1) * (C + 1) + c];
-    const float w2 = wp[(k + 2) * (C + 1) + c];
-    const float w3 = wp[(k + 3) * (C + 1) + c];
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const float4 t4 =
-          *reinterpret_cast<const float4*>(&tile[(g + j * G) * C + k]);
-      acc[j] = fmaf(t4.x, w0, acc[j]);
-      acc[j] = fmaf(t4.y, w1, acc[j]);
-      acc[j] = fmaf(t4.z, w2, acc[j]);
-      acc[j] = fmaf(t4.w, w3, acc[j]);
-    }
-  }
 }
 
 // Reduce NS per-thread channel sums over the G row groups in a fixed
@@ -229,25 +219,19 @@ __device__ __forceinline__ void block_sums(float* red, const float* s,
 }
 
 // ---------------------------------------------------------------------------
-// forward: F1 and F2 share the prefix dw -> bn0 -> pw1 (F3: f3_kernel)
+// forward: F1, one channel a thread (F2 and F3: tile_forward)
 // ---------------------------------------------------------------------------
 
-template <int C, int S>
-__global__ void __launch_bounds__(kThreads) fwd_kernel(Args a) {
+template <int C>
+__global__ void __launch_bounds__(kThreads) f1_kernel(Args a) {
   constexpr int G = kThreads / C;  // row groups
   constexpr int R = kTile / G;     // tile rows per thread
   extern __shared__ __align__(128) float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
-  float* w1 = sm;                                      // C x (C+1)
-  float* tile_a = w1 + (S == kF2 ? C * (C + 1) : 0);   // kTile x C
-  float* red = tile_a + kTile * C;                     // G x 2 x C
+  float* red = reinterpret_cast<float*>(smem4);  // G x 2 x C
 
   const int c = threadIdx.x % C;
   const int g = threadIdx.x / C;
-  if (S == kF2) load_padded<C>(a.pw1, w1);
   const float dwb = vc(a, V_DWB, C, c);
-  const float a0 = vc(a, V_A0, C, c), c0 = vc(a, V_C0, C, c);
-  const float b1 = vc(a, V_B1, C, c);
 
   float sums[2] = {0.f, 0.f};
   const int tiles_per_utt = (a.T + kTile - 1) / kTile;
@@ -255,39 +239,18 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(Args a) {
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int b = tile / tiles_per_utt;
     const int t0 = (tile % tiles_per_utt) * kTile;
-    const size_t base = static_cast<size_t>(b) * a.T * C;
-    const float* xb = a.x + base;
-    __syncthreads();  // the previous tile's shared reads are done
+    const float* xb = a.x + static_cast<size_t>(b) * a.T * C;
     float u[R];
 #pragma unroll
     for (int j = 0; j < R; ++j) {
       const int t = t0 + g + j * G;
       u[j] = t < a.T ? dwconv(xb, a.dw, dwb, t, a.K, a.d, C, c) : 0.f;
     }
-    if (S == kF1) {
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        if (t0 + g + j * G < a.T) {
-          sums[0] += u[j];
-          sums[1] += u[j] * u[j];
-        }
-      }
-      continue;
-    }
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const int t = t0 + g + j * G;
-      tile_a[(g + j * G) * C + c] = t < a.T ? fmaf(u[j], a0, c0) : 0.f;
-    }
-    __syncthreads();
-    float acc[R];
-    matmul_rows<C, R, G>(tile_a, w1, g, c, acc);
 #pragma unroll
     for (int j = 0; j < R; ++j) {
       if (t0 + g + j * G < a.T) {
-        const float v = acc[j] + b1;
-        sums[0] += v;
-        sums[1] += v * v;
+        sums[0] += u[j];
+        sums[1] += u[j] * u[j];
       }
     }
   }
@@ -304,46 +267,6 @@ __global__ void __launch_bounds__(kThreads) f4_kernel(Args a, size_t total) {
     const float s2 = a.w[i] * vc(a, V_A2, C, c) + vc(a, V_C2, C, c);
     a.out_y[i] = fmaxf(s2 + a.x[i], 0.f);
   }
-}
-
-// ---------------------------------------------------------------------------
-// backward: B1, the bn2 gradient sums of g2 (B2: b2_kernel)
-// ---------------------------------------------------------------------------
-
-template <int C>
-__global__ void __launch_bounds__(kThreads) b1_kernel(Args a) {
-  constexpr int G = kThreads / C;
-  constexpr int R = kTile / G;
-  extern __shared__ __align__(128) float4 smem4[];
-  float* red = reinterpret_cast<float*>(smem4);  // G x 2 x C
-
-  const int c = threadIdx.x % C;
-  const int g = threadIdx.x / C;
-  const float a2 = vc(a, V_A2, C, c), c2 = vc(a, V_C2, C, c);
-  const float mu2 = vc(a, V_MU2, C, c), inv2 = vc(a, V_INV2, C, c);
-
-  float sums[2] = {0.f, 0.f};
-  const int tiles_per_utt = (a.T + kTile - 1) / kTile;
-  const int n_tiles = a.B * tiles_per_utt;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int b = tile / tiles_per_utt;
-    const int t0 = (tile % tiles_per_utt) * kTile;
-    const size_t base = static_cast<size_t>(b) * a.T * C;
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const int t = t0 + g + j * G;
-      if (t < a.T) {
-        const size_t at = base + static_cast<size_t>(t) * C + c;
-        const float wv = a.w[at];
-        const float pre = wv * a2 + c2 + a.x[at];
-        const float g2 = pre > 0.f ? a.dy[at] : 0.f;
-        sums[0] += g2;
-        sums[1] += g2 * ((wv - mu2) * inv2);
-      }
-    }
-  }
-  block_sums<C, 2>(red, sums,
-                   a.partials + static_cast<size_t>(blockIdx.x) * 2 * C, g, c);
 }
 
 // ---------------------------------------------------------------------------
@@ -450,12 +373,14 @@ constexpr size_t b3_smem_bytes() {
                           4 * S::kRows * S::kLd);
 }
 
-// the per-channel vector and the taps, W1 and W2, two tiles
-template <int C>
-constexpr size_t f3_smem_bytes() {
+// the per-channel vector and the taps, then W1 and the s0 tile (F2), or
+// W1, W2 and two tiles (F3)
+template <int C, int P>
+constexpr size_t fwd_smem_bytes() {
   using S = TileShape<C>;
-  return sizeof(float) * ((kNumVec + kMaxTaps) * C + 2 * C * S::kLd +
-                          2 * S::kRows * S::kLd);
+  constexpr int n = P == kF3 ? 2 : 1;
+  return sizeof(float) * ((kNumVec + kMaxTaps) * C + n * C * S::kLd +
+                          n * S::kRows * S::kLd);
 }
 
 // the per-channel vector, W2ᵀ, two tiles, then the next tile's w, x and
@@ -830,35 +755,40 @@ __device__ __forceinline__ void stage_rows(float4* dst, const float4* src,
   cp_async_commit();
 }
 
-// staged: the window of the block's next tile is copied into shared
-// memory while this tile's products run (where it fits beside the rest:
-// run()), else the taps are read from device memory
-template <int C>
-__global__ void __launch_bounds__(kThreads, C == 128 ? 1 : 2)
-f3_kernel(Args a, bool staged) {
+// F2 and F3 share their prefix: the conv, s0 into a tile and v = s0 W1.
+// F2 (P = kF2) ends there with Σv and Σv²; F3 goes on to r, w and Σw,
+// Σw².  staged: the window of the block's next tile is copied into
+// shared memory while this tile's products run (where F3's fits beside
+// the rest, run(): one rule for both), else the taps are read from
+// device memory.
+template <int C, int P>
+__device__ __forceinline__ void tile_forward(const Args& a, bool staged) {
   using S = TileShape<C>;
+  constexpr bool kFull = P == kF3;
   constexpr int ROWS = S::kRows;
   constexpr int LD = S::kLd;
   constexpr int LQ = LD / 4;
   constexpr int Q = S::kQuads;
   constexpr int G = S::kGroups;
   constexpr int R = ROWS / G;
+  static_assert(G * 2 * C <= ROWS * LD, "the reduction fits the s0 tile");
   extern __shared__ __align__(128) float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   float* cv = sm;                             // kNumVec x C, then the taps
   float* w1 = cv + (kNumVec + kMaxTaps) * C;  // C x LD
-  float* w2 = w1 + C * LD;                    // C x LD
-  float* ta = w2 + C * LD;                    // ROWS x LD: s0
-  float* tb = ta + ROWS * LD;                 // ROWS x LD: r
+  float* w2 = w1 + C * LD;                    // C x LD (F3)
+  float* ta = w2 + (kFull ? C * LD : 0);      // ROWS x LD: s0
+  float* tb = ta + ROWS * LD;                 // ROWS x LD: r (F3)
   float4* ta4 = reinterpret_cast<float4*>(ta);
   float4* tb4 = reinterpret_cast<float4*>(tb);
-  float4* xs4 = tb4 + ROWS * LQ;              // (ROWS + H) x Q: x, staged
+  float4* xs4 = reinterpret_cast<float4*>(tb + (kFull ? ROWS * LD : 0));
+                                              // (ROWS + H) x Q: x, staged
 
   const int q = threadIdx.x % Q;
   const int g = threadIdx.x / Q;
   load_consts<C, true>(a, cv);
   load_padded<C, LD>(a.pw1, w1);
-  load_padded<C, LD>(a.pw2, w2);
+  if (kFull) load_padded<C, LD>(a.pw2, w2);
   const float4* cv4 = reinterpret_cast<const float4*>(cv) + q;
 #define VEC4(row) cv4[(row) * Q]
   const float4* x4 = reinterpret_cast<const float4*>(a.x);
@@ -866,20 +796,19 @@ f3_kernel(Args a, bool staged) {
   float4* w4 = reinterpret_cast<float4*>(a.out_w);
   const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  float4 sums[2] = {zero4, zero4};  // Σw, Σw²
+  float4 sums[2] = {zero4, zero4};  // F2: Σv, Σv²; F3: Σw, Σw²
   const int n_rows = a.B * a.T;
   const int n_tiles = (n_rows + ROWS - 1) / ROWS;
   const int H = (a.K - 1) * a.d;
   if (staged && blockIdx.x < n_tiles) {
     stage_rows<Q>(xs4, x4, blockIdx.x * ROWS - H, ROWS + H, n_rows);
   }
-  __syncthreads();  // the constants and the weights are in place
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int row0 = tile * ROWS;
-    if (staged) {
-      cp_async_wait<0>();
-      __syncthreads();  // every thread's copies of the window have landed
-    }
+    if (staged) cp_async_wait<0>();
+    __syncthreads();  // every thread's copies of the window have landed,
+                      // and the last tile's reads of s0 are done (the
+                      // first time: the constants and weights are in place)
 #pragma unroll
     for (int j = 0; j < R; ++j) {
       const int lr = g + j * G;
@@ -913,20 +842,30 @@ f3_kernel(Args a, bool staged) {
     }
     float4 acc[R];
     rows_product<C, R>(ta, w1, g, q, acc);  // v - b1 = s0 W1
-    {
-      const float4 b1 = VEC4(V_B1), a1 = VEC4(V_A1), c1 = VEC4(V_C1);
+    const float4 b1 = VEC4(V_B1);
+    if constexpr (!kFull) {
 #pragma unroll
       for (int j = 0; j < R; ++j) {
-        const int lr = g + j * G;
-        const int row = row0 + lr;
-        const float4 r = relu4(fma4(add4(acc[j], b1), a1, c1));
-        tb4[lr * LQ + q] = r;
-        if (row < n_rows) r4[static_cast<size_t>(row) * Q + q] = r;
+        if (row0 + g + j * G < n_rows) {
+          const float4 v = add4(acc[j], b1);
+          sums[0] = add4(sums[0], v);
+          sums[1] = fma4(v, v, sums[1]);
+        }
       }
-    }
-    __syncthreads();
-    rows_product<C, R>(tb, w2, g, q, acc);  // w - b2 = r W2
-    {
+    } else {
+      {
+        const float4 a1 = VEC4(V_A1), c1 = VEC4(V_C1);
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          const int lr = g + j * G;
+          const int row = row0 + lr;
+          const float4 r = relu4(fma4(add4(acc[j], b1), a1, c1));
+          tb4[lr * LQ + q] = r;
+          if (row < n_rows) r4[static_cast<size_t>(row) * Q + q] = r;
+        }
+      }
+      __syncthreads();
+      rows_product<C, R>(tb, w2, g, q, acc);  // w - b2 = r W2
       const float4 b2 = VEC4(V_B2);
 #pragma unroll
       for (int j = 0; j < R; ++j) {
@@ -943,6 +882,18 @@ f3_kernel(Args a, bool staged) {
 #undef VEC4
   block_sums4<C, 2>(ta, sums,
                     a.partials + static_cast<size_t>(blockIdx.x) * 2 * C, g, q);
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads, C == 128 ? 1 : 2)
+f2_kernel(Args a, bool staged) {
+  tile_forward<C, kF2>(a, staged);
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads, C == 128 ? 1 : 2)
+f3_kernel(Args a, bool staged) {
+  tile_forward<C, kF3>(a, staged);
 }
 
 template <int C>
@@ -1054,6 +1005,66 @@ b2_kernel(Args a) {
   }
   static_assert(G * 3 * C <= 2 * ROWS * LD, "the reduction fits two tiles");
   block_sums4<C, 3>(ta, sums, out + C * C, g, q);
+}
+
+// ---------------------------------------------------------------------------
+// B1: the bn2 gradient sums of g2, one stream over the flattened frames
+// ---------------------------------------------------------------------------
+
+constexpr int kB1Rows = 4;  // rows of a thread in flight at once
+
+// the block's reduction of B1's two channel sums (block_sums4)
+template <int C>
+constexpr size_t b1_smem_bytes() {
+  return sizeof(float) * (kThreads / (C / 4)) * 2 * C;
+}
+
+// A thread owns one channel quad for the whole grid stride and holds
+// kB1Rows rows of w, x and dy in flight (every load issued before the
+// first is used); a block takes kThreads / (C / 4) x kB1Rows rows at a
+// time.
+template <int C>
+__global__ void __launch_bounds__(kThreads, 2) b1_stream_kernel(Args a) {
+  constexpr int Q = C / 4;
+  constexpr int G = kThreads / Q;
+  constexpr int ROWS = G * kB1Rows;
+  extern __shared__ __align__(128) float4 smem4[];
+  const int q = threadIdx.x % Q;
+  const int g = threadIdx.x / Q;
+  const float4* vec4 = reinterpret_cast<const float4*>(a.vec) + q;
+  const float4 a2 = __ldg(vec4 + V_A2 * Q), c2 = __ldg(vec4 + V_C2 * Q);
+  const float4 mu2 = __ldg(vec4 + V_MU2 * Q);
+  const float4 inv2 = __ldg(vec4 + V_INV2 * Q);
+  const float4* x4 = reinterpret_cast<const float4*>(a.x);
+  const float4* dy4 = reinterpret_cast<const float4*>(a.dy);
+  const float4* w4 = reinterpret_cast<const float4*>(a.w);
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  float4 sums[2] = {zero4, zero4};  // Σg2, Σg2·ŵ
+  const int n_rows = a.B * a.T;
+  const int n_tiles = (n_rows + ROWS - 1) / ROWS;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row0 = tile * ROWS + g;
+    float4 wv[kB1Rows], xv[kB1Rows], dyv[kB1Rows];
+#pragma unroll
+    for (int j = 0; j < kB1Rows; ++j) {  // rows past the end read row 0
+      const int row = row0 + j * G;
+      const size_t at = static_cast<size_t>(row < n_rows ? row : 0) * Q + q;
+      wv[j] = __ldg(w4 + at);
+      xv[j] = __ldg(x4 + at);
+      dyv[j] = __ldg(dy4 + at);
+    }
+#pragma unroll
+    for (int j = 0; j < kB1Rows; ++j) {
+      if (row0 + j * G < n_rows) {
+        const float4 g2 = gate4(add4(fma4(wv[j], a2, c2), xv[j]), dyv[j]);
+        sums[0] = add4(sums[0], g2);
+        sums[1] = fma4(g2, hat4(wv[j], mu2, inv2), sums[1]);
+      }
+    }
+  }
+  block_sums4<C, 2>(reinterpret_cast<float*>(smem4), sums,
+                    a.partials + static_cast<size_t>(blockIdx.x) * 2 * C, g, q);
 }
 
 // ---------------------------------------------------------------------------
@@ -1233,14 +1244,14 @@ reduce_kernel(const float* __restrict__ partials, int n_blocks, int width,
   out[j] = acc;
 }
 
-template <typename Kern>
+template <typename Kern, typename... Extra>
 int launch_tiles(Kern kern, const Args& a, size_t smem, int n_blocks,
-                 cudaStream_t s) {
+                 cudaStream_t s, Extra... extra) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<n_blocks, kThreads, smem, s>>>(a);
+  kern<<<n_blocks, kThreads, smem, s>>>(a, extra...);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1260,36 +1271,32 @@ int elementwise_blocks(size_t total) {
 template <int C>
 int run(int pass, const Args& a, int n_blocks, int b4_rows, float* reduced,
         cudaStream_t s) {
-  const size_t wsz = sizeof(float) * C * (C + 1);
-  const size_t tile = sizeof(float) * kTile * C;
   const size_t red = sizeof(float) * (kThreads / C) * 2 * C;  // block_sums
   const size_t total = static_cast<size_t>(a.B) * a.T * C;
   int width = 2 * C;
   int err = 0;
   switch (pass) {
     case kF1:
-      err = launch_tiles(fwd_kernel<C, kF1>, a, tile + red, n_blocks, s);
+      err = launch_tiles(f1_kernel<C>, a, red, n_blocks, s);
       break;
     case kF2:
-      err = launch_tiles(fwd_kernel<C, kF2>, a, wsz + tile + red, n_blocks, s);
-      break;
     case kF3: {
       const size_t window = f3_window_bytes<C>((a.K - 1) * a.d);
-      const bool staged = f3_smem_bytes<C>() + window <= kSmemLimit;
-      const size_t smem = f3_smem_bytes<C>() + (staged ? window : 0);
-      err = static_cast<int>(cudaFuncSetAttribute(
-          f3_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem)));
-      if (err != 0) return err;
-      f3_kernel<C><<<n_blocks, kThreads, smem, s>>>(a, staged);
-      err = static_cast<int>(cudaGetLastError());
+      const bool staged = fwd_smem_bytes<C, kF3>() + window <= kSmemLimit;
+      const size_t extra = staged ? window : 0;
+      err = pass == kF2
+          ? launch_tiles(f2_kernel<C>, a, fwd_smem_bytes<C, kF2>() + extra,
+                         n_blocks, s, staged)
+          : launch_tiles(f3_kernel<C>, a, fwd_smem_bytes<C, kF3>() + extra,
+                         n_blocks, s, staged);
       break;
     }
     case kF4:
       f4_kernel<C><<<elementwise_blocks(total), kThreads, 0, s>>>(a, total);
       return static_cast<int>(cudaGetLastError());
     case kB1:
-      err = launch_tiles(b1_kernel<C>, a, red, n_blocks, s);
+      err = launch_tiles(b1_stream_kernel<C>, a, b1_smem_bytes<C>(), n_blocks,
+                         s);
       break;
     case kB2:
       err = launch_tiles(b2_kernel<C>, a, b2_smem_bytes<C>(), n_blocks, s);
@@ -1304,12 +1311,7 @@ int run(int pass, const Args& a, int n_blocks, int b4_rows, float* reduced,
       if (b4_rows < 1 || smem > kSmemLimit) {
         return static_cast<int>(cudaErrorInvalidValue);
       }
-      err = static_cast<int>(cudaFuncSetAttribute(
-          b4_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem)));
-      if (err != 0) return err;
-      b4_kernel<C><<<n_blocks, kThreads, smem, s>>>(a, b4_rows);
-      err = static_cast<int>(cudaGetLastError());
+      err = launch_tiles(b4_kernel<C>, a, smem, n_blocks, s, b4_rows);
       width = a.K * C + C;
       break;
     }

@@ -41,7 +41,9 @@ CPU tensors and launches its kernel (or raises) for CUDA tensors.
 its kernel launches in ``.launches`` and carries its plain version as
 ``.plain``.  ``trace_pass_inputs``, ``compare_pass`` and
 ``compare_sums`` hold each kernel against its plain version on the
-same inputs, for the tests and ``chip_smoke.py``.
+same inputs, for the tests and ``chip_smoke.py``; inside ``with
+plain_passes(...)`` the fused block runs the named passes by their
+plain versions, to bisect its numerics by pass.
 
 Gradients are the textbook exact-BN backward per layer composed
 through the block; they equal autograd of the unfused block
@@ -49,6 +51,7 @@ through the block; they equal autograd of the unfused block
 is the ``torch.autograd.Function`` around the eight passes.
 """
 
+import contextlib
 import ctypes
 from typing import Dict, Tuple
 
@@ -78,9 +81,9 @@ PASS_IDS = {"f1": 1, "f2": 2, "f3": 3, "f4": 4,
 def kernel_name(name: str, c: int) -> str:
     """The CUDA kernel of pass ``name`` at C channels, as a profiler
     names it (its block reduction is ``reduce_kernel<PASS_IDS[name]>``)."""
-    return {"f1": f"fwd_kernel<{c}, 1>", "f2": f"fwd_kernel<{c}, 2>",
+    return {"f1": f"f1_kernel<{c}>", "f2": f"f2_kernel<{c}>",
             "f3": f"f3_kernel<{c}>", "f4": f"f4_kernel<{c}>",
-            "b1": f"b1_kernel<{c}>", "b2": f"b2_kernel<{c}>",
+            "b1": f"b1_stream_kernel<{c}>", "b2": f"b2_kernel<{c}>",
             "b3": f"b3_kernel<{c}>", "b4": f"b4_kernel<{c}>"}[name]
 
 
@@ -234,7 +237,8 @@ TILE_ROWS = 64
 SMEM_LIMIT = 232448  # bytes of shared memory one block may take on sm_90
 SM_SMEM = 233472  # bytes of shared memory of one SM; a block reserves 1024
 # passes whose tiles cut the flattened B x T frames
-FLAT_PASSES = ("f3", "b2", "b3")
+FLAT_PASSES = ("f2", "f3", "b2", "b3")
+B1_ROWS_IN_FLIGHT = 4  # rows of w, x and dy a B1 thread loads at once
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -267,53 +271,69 @@ def b4_tile_rows(t: int, c: int, halo: int) -> int:
 
 
 def flat_tile_rows(c: int) -> int:
-    """Rows of an F3, B2 or B3 tile: 64, or 32 at C=128, where the
-    weight matrices leave shared memory for no more."""
+    """Rows of an F2, F3, B2 or B3 tile: 64, or 32 at C=128, where F3's
+    and B3's weight matrices leave shared memory for no more."""
     return 32 if c == 128 else TILE_ROWS
 
 
+def b1_block_rows(c: int) -> int:
+    """Rows a B1 block loads at once: 256 threads, C / 4 of them to a
+    row, each holding B1_ROWS_IN_FLIGHT rows (``kB1Rows`` in the
+    kernel)."""
+    return B1_ROWS_IN_FLIGHT * 1024 // c
+
+
 def f3_window_bytes(c: int, halo: int) -> int:
-    """F3's staged window of x: a tile's rows and the causal halo
-    (K-1) * dilation before them."""
+    """F2's and F3's staged window of x: a tile's rows and the causal
+    halo (K-1) * dilation before them."""
     return 4 * c * (flat_tile_rows(c) + halo)
 
 
 def tile_smem_bytes(name: str, c: int, halo: int = 0) -> int:
-    """Shared memory of one F3, B2 or B3 block (csrc/fused_mdtc_train.cu
-    ``f3_smem_bytes``, ``b2_smem_bytes``, ``b3_smem_bytes``): the packed
-    per-channel vector (with the taps, but in B2), the C x C weight
-    matrices and the tiles, at row stride C + 4; B2 adds the next
-    tile's w, x and dy rows, staged; F3 its window of x
-    (``f3_window_bytes``) where that fits a block (``run`` there decides
-    the same), else it reads the taps from device memory."""
-    ld = c + 4
-    vec, mats, tiles = {
-        "f3": (len(VEC_KEYS) + MAX_TAPS, 2, 2),
-        "b2": (len(VEC_KEYS), 1, 2),
-        "b3": (len(VEC_KEYS) + MAX_TAPS, 2, 4),
-    }[name]
-    smem = 4 * (vec * c + mats * c * ld + tiles * flat_tile_rows(c) * ld)
+    """Shared memory of one F2, F3, B2 or B3 block
+    (csrc/fused_mdtc_train.cu ``fwd_smem_bytes``, ``b2_smem_bytes``,
+    ``b3_smem_bytes``): the packed per-channel vector (with the taps,
+    but in B2), the C x C weight matrices and the tiles, at row stride
+    C + 4; B2 adds the next tile's w, x and dy rows, staged; F2 and F3
+    their window of x (``f3_window_bytes``) where F3's fits a block
+    (``run`` there decides the same), else they read the taps from
+    device memory."""
+    def unstaged(name):
+        vec, mats, tiles = {
+            "f2": (len(VEC_KEYS) + MAX_TAPS, 1, 1),
+            "f3": (len(VEC_KEYS) + MAX_TAPS, 2, 2),
+            "b2": (len(VEC_KEYS), 1, 2),
+            "b3": (len(VEC_KEYS) + MAX_TAPS, 2, 4),
+        }[name]
+        ld = c + 4
+        return 4 * (vec * c + mats * c * ld + tiles * flat_tile_rows(c) * ld)
+
+    smem = unstaged(name)
     if name == "b2":  # the next tile's w, x and dy rows, staged
         smem += 4 * 3 * flat_tile_rows(c) * c
-    if name == "f3" and smem + f3_window_bytes(c, halo) <= SMEM_LIMIT:
-        smem += f3_window_bytes(c, halo)
+    window = f3_window_bytes(c, halo)
+    if name in ("f2", "f3") and unstaged("f3") + window <= SMEM_LIMIT:
+        smem += window
     return smem
 
 
 def blocks_per_sm(smem: int, c: int) -> int:
-    """Blocks of an F3, B2 or B3 launch that one SM holds at once: as
-    many as its shared memory allows, at most the blocks that their
+    """Blocks of an F2, F3, B2 or B3 launch that one SM holds at once:
+    as many as its shared memory allows, at most the blocks that their
     ``__launch_bounds__`` plan registers for (two at C <= 64, one at
     C=128)."""
     return min(1 if c == 128 else 2, SM_SMEM // (smem + 1024))
 
 
 def _tiles(name: str, b: int, t: int, c: int, rows: int) -> int:
-    """Work units of one pass: F3, B2 and B3 tile the flattened B x T
-    frames (``flat_tile_rows``), B4 cuts each utterance into
-    ``rows``-frame tiles, the others into 64-frame tiles."""
+    """Work units of one pass: F2, F3, B2 and B3 tile the flattened
+    B x T frames (``flat_tile_rows``) and B1 streams them
+    (``b1_block_rows`` at a time), B4 cuts each utterance into
+    ``rows``-frame tiles, F1 into 64-frame tiles."""
     if name in FLAT_PASSES:
         return _cdiv(b * t, flat_tile_rows(c))
+    if name == "b1":
+        return _cdiv(b * t, b1_block_rows(c))
     if name == "b4":
         return b * _cdiv(t, rows)
     return b * _cdiv(t, TILE_ROWS)
@@ -556,6 +576,28 @@ def _run_public(name, *args):
     return PASSES[name](*args)
 
 
+_block_run = _run_public  # how FusedTCNBlockTrain runs a pass
+
+
+@contextlib.contextmanager
+def plain_passes(*names):
+    """Inside the ``with``, ``FusedTCNBlockTrain`` runs the passes
+    ``names`` by their plain versions (on any device) and the others by
+    their kernels: a bisection of the fused block's numerics by pass.
+    Outside it every pass launches its kernel."""
+    global _block_run
+
+    def run(name, *args):
+        fn = PASSES[name]
+        return fn.plain(*args) if name in names else fn(*args)
+
+    before, _block_run = _block_run, run
+    try:
+        yield
+    finally:
+        _block_run = before
+
+
 def block_forward(x, p, dilation, eps, run=_run_public):
     """F1..F4.  ``p``: PARAM_KEYS, with dw_kernel as (K, C) and the
     pointwise kernels as (in, out), all contiguous float32.  Returns
@@ -650,7 +692,7 @@ class FusedTCNBlockTrain(torch.autograd.Function):
     def forward(ctx, x, dilation, eps, *params):
         p = _kernel_layout(dict(zip(PARAM_KEYS, params)))
         x = x.contiguous()
-        y, r, w, v = block_forward(x, p, dilation, eps)
+        y, r, w, v = block_forward(x, p, dilation, eps, _block_run)
         keep = ("dw_b", "a0", "c0", "mu0", "inv0", "b1", "mu1", "inv1",
                 "b2", "a2", "c2", "mu2", "inv2")
         ctx.dilation = dilation
@@ -670,7 +712,7 @@ class FusedTCNBlockTrain(torch.autograd.Function):
         p = dict(zip(PARAM_KEYS, saved[3:3 + nk]))
         v = dict(zip(ctx.keep, saved[3 + nk:]))
         dx, grads = block_backward(dy.contiguous(), x, r, w, p, v,
-                                   ctx.dilation)
+                                   ctx.dilation, _block_run)
         g = dict(grads)
         g["dw_kernel"] = g["dw_kernel"][:, None, :]
         return (dx, None, None) + tuple(g[k] for k in PARAM_KEYS)

@@ -2,7 +2,7 @@
 source as it is and for variants of it.
 
     python -m wekws_tpu_torch.tools.time_train_passes \
-        [--passes f3,b2] [--variant NAME ...] [--rounds 2]
+        [--passes f2,b1] [--variant NAME ...] [--rounds 2]
 
 Builds ``csrc/fused_mdtc_train.cu`` and, for each named variant, a copy
 of it with the variant's text edits (``VARIANTS``), all ``nvcc`` runs
@@ -29,12 +29,17 @@ ZERO_ACC = "for (int j = 0; j < R; ++j) acc[j] = zero4;"
 # name -> text edits (old, new) of csrc/fused_mdtc_train.cu; each old
 # text must occur exactly once
 VARIANTS = {
-    # F3 without its cp.async window: the taps read from device memory
+    # F2 and F3 without their cp.async window: the taps read from device
+    # memory
     "no_stage": [(
-        "const bool staged = f3_smem_bytes<C>() + window <= kSmemLimit;",
+        "const bool staged = fwd_smem_bytes<C, kF3>() + window <= "
+        "kSmemLimit;",
         "const bool staged = false;")],
-    # F3 without its two products, B2 without dr: what the elementwise
-    # steps, the loads and the stores cost alone
+    # B1 with two or eight rows of a thread in flight, not four
+    "b1_rows2": [("constexpr int kB1Rows = 4;", "constexpr int kB1Rows = 2;")],
+    "b1_rows8": [("constexpr int kB1Rows = 4;", "constexpr int kB1Rows = 8;")],
+    # F2 and F3 without their products, B2 without dr: what the
+    # elementwise steps, the loads and the stores cost alone
     "no_products": [
         ("rows_product<C, R>(ta, w1, g, q, acc);", ZERO_ACC),
         ("rows_product<C, R>(tb, w2, g, q, acc);", ZERO_ACC),
@@ -103,7 +108,7 @@ def device_ms(fn, kernel, pass_id, reps=20):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--passes", default="f3,b2")
+    ap.add_argument("--passes", default="f2,b1")
     ap.add_argument("--variant", action="append", default=[],
                     choices=sorted(VARIANTS))
     ap.add_argument("--rounds", type=int, default=2)
