@@ -11,8 +11,9 @@ one CUDA device, in phases; any failure exits non-zero:
 
 1. card name and power limit (nvidia-smi); a GPU is required;
 2. build every CUDA kernel from ``wekws_tpu_torch/csrc`` and print
-   what ``ptxas`` says of registers and spills (the kernels of F2, F3,
-   B1, B2, B3 and B4 by name, at C = 32, 64, 128);
+   what ``ptxas`` says of registers and spills (the kernels of F1, F2,
+   F3, B1, B2, B3 and B4 by name, at C = 32, 64, 128, and the FSMN
+   kernel by its template arguments);
 3. each serving kernel against its plain PyTorch version on the card,
    at flagship width: whole-utterance forward at B=64 x T=198 and
    B=4 x T=1024, streaming at B=16 in chunks of 8 over 200 frames
@@ -32,8 +33,9 @@ one CUDA device, in phases; any failure exits non-zero:
    main path's B=512 x T=198 at dilations 1, 2, 4 and 8 (six to eight
    tiles per block of the persistent grid), B=64 x T=198 (one tile
    per block), a ragged B=5 x T=130 at dilations 1 and 8, B=7 x T=20
-   (shorter than the halo of 32 frames; F3's, B2's and B3's tiles of the
-   flattened frames span several utterances), and C=32 and C=128 once;
+   (shorter than the halo of 32 frames; the tiles of F1, F2, F3, B2 and
+   B3 over the flattened frames span several utterances; also at C=32
+   and C=128), and C=32 and C=128 at B=64;
    each pass launched twice must agree bitwise (deterministic
    reductions).
    The whole fused block (forward, six batch statistics,
@@ -66,7 +68,8 @@ one CUDA device, in phases; any failure exits non-zero:
 9. the three later kernels against their plain versions at full width:
    ``fused_ds_tcn`` at B=64 x T=198, B=4 x T=1024 and B=16 chained in
    chunks of 8 over 200 frames; ``fused_fsmn_layers`` at B=16 x T=66,
-   B=4 x T=1024 and B=1 chained in chunks of 10 over 200 frames (each
+   B=4 x T=1024, B=1 x T = 1, 10 and 11 (below and at P = 11) and
+   B=1 chained in chunks of 10 over 200 frames (each
    chain against the one-shot call and the plain chain, final cache
    too; 1e-4 abs + 1e-4 rel); ``fused_fbank`` at (512, 32000) M=40,
    (64, 32000) M=80, MFCC and magnitude/no-log against the three-matmul
@@ -85,9 +88,12 @@ one CUDA device, in phases; any failure exits non-zero:
     features and loss against the unfused frontend, steps with the
     flagship's wave-mode dither + spec_aug, two steps with frame-mode
     (in-kernel) dither, a cv step; one ``fused_fbank`` launch per step;
-13. times of the three kernels at their main shapes, of the path-C
-    train step beside the unfused-frontend step, and of
-    ``KeyWordSpotter.forward`` per 300 ms chunk.
+13. times of the three kernels at their main shapes, the FSMN
+    variants' (clusters of 8 or 16 blocks;
+    ``wekws_tpu_torch/tools/time_fsmn.py``) and the grid of an FSMN
+    launch from the profiler's trace (B x 8 blocks), of the path-C train step
+    beside the unfused-frontend step, and of ``KeyWordSpotter.forward``
+    per 300 ms chunk.
 
 The last lines are the card, the per-kernel JSON record (13 kernels)
 and ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -151,8 +157,9 @@ TRAIN_PASSES = ("f1", "f2", "f3", "f4", "b1", "b2", "b3", "b4")
 # the passes redesigned for the card (float4 elementwise steps; products
 # in registers, on the tensor cores or none): phase 2 prints their
 # registers and spills by name
-REDESIGNED_KERNELS = ("f2_kernel", "f3_kernel", "b1_stream_kernel",
-                      "b2_kernel", "b3_kernel", "b4_kernel")
+REDESIGNED_KERNELS = ("f1_tile_kernel", "f2_kernel", "f3_kernel",
+                      "b1_stream_kernel", "b2_kernel", "b3_kernel",
+                      "b4_kernel")
 KEYWORD = "HI"
 DS_TCN_MODEL_CONF = {  # examples/hey_snips/conf/ds_tcn.yaml
     "input_dim": 40, "output_dim": 1, "hidden_dim": CHANNELS,
@@ -542,11 +549,12 @@ def phase6_train_kernels(dev, gen):
     # the main path's shape at each of the flagship's dilations, where
     # each block of the persistent grid carries its sums across six to
     # eight tiles; one tile per block; a ragged batch; an utterance
-    # shorter than the halo (K-1) d = 32; C=32; C=128
+    # shorter than the halo (K-1) d = 32, also at C=32 and C=128; C=32;
+    # C=128
     cases = [(TRAIN_B, 198, 64, d) for d in (1, 2, 4, 8)] + [
         (64, 198, 64, 1), (64, 198, 64, 8), (5, 130, 64, 1),
-        (5, 130, 64, 8), (7, 20, 64, 8), (64, 198, 32, 8),
-        (64, 198, 128, 8)]
+        (5, 130, 64, 8), (7, 20, 64, 8), (7, 20, 32, 8), (7, 20, 128, 8),
+        (64, 198, 32, 8), (64, 198, 128, 8)]
     main_calls = None
     for b, t, c, d in cases:
         p, x, dy = seeded_block_inputs(gen, b, t, c, k, dev)
@@ -1117,7 +1125,9 @@ def phase9_new_kernels(dev, gen, batch):
     orders = (fsmn.lorder, fsmn.rorder, fsmn.lstride, fsmn.rstride)
     ld, pd, pad = fsmn.linear_dim, fsmn.proj_dim, fsmn.layer_padding
     n_fsmn = fsmn.fsmn_layers
-    for b, t in ((16, 66), (4, 1024)):
+    # the offline batch, long utterances, and one stream's chunks: one
+    # frame, the engine's 10, and 11 = P (the new cache all new frames)
+    for b, t in ((16, 66), (4, 1024), (1, 1), (1, 10), (1, 11)):
         # the chain's input is a ReLU output: non-negative
         x, cache = randn(b, t, ld).relu(), randn(n_fsmn, b, pad, pd)
         got = fused_fsmn_layers(x, cache, *fw, *orders)
@@ -1440,6 +1450,53 @@ def phase12_fused_frontend(dev, trainer, conf, batch, launches):
     return fused, state
 
 
+def fsmn_variants(fw, orders, gen, dev, card):
+    """Device time of the FSMN kernel's variants at the main path's two
+    shapes (``wekws_tpu_torch/tools/time_fsmn.py``: clusters of 8 or 16
+    blocks; each held against the plain version first)."""
+    from wekws_tpu_torch.tools.time_fsmn import time_variants
+
+    for (name, (b, t)), ms in time_variants(fw, orders, gen, dev).items():
+        txt = "not measured" if ms is None else f"{ms:.4f} ms"
+        print(f"  fused_fsmn_layers variant {name} B={b} T={t}: device "
+              f"{txt} per call (median of 3 rounds) [{card}]", flush=True)
+
+
+def kernel_grids(fn, kernel_name, reps=5):
+    """The launch arguments (grid, block and, where the trace records
+    them, cluster dimensions) of the launches of ``kernel_name`` in a
+    torch.profiler trace of ``reps`` calls of ``fn``."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    seen = set()
+    for _ in range(3):  # a trace now and then comes back without kernels
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f).get("traceEvents", [])
+        out = []
+        for evt in events:
+            args = evt.get("args") or {}
+            if kernel_name in str(evt.get("name", "")) and "grid" in args:
+                out.append({k: v for k, v in args.items()
+                            if k in ("grid", "block") or "luster" in k})
+        if out:
+            return out
+        seen.update(str(evt.get("cat")) for evt in events)
+    return [{"no launch of the kernel; event categories": sorted(seen)}]
+
+
 def phase13_times(dev, bench, errs, launches, card, trainer, state,
                   fused_trainer, fused_state, batch, step_ms, chunk_ms):
     """Per-call times of the three later kernels at their main shapes
@@ -1449,8 +1506,10 @@ def phase13_times(dev, bench, errs, launches, card, trainer, state,
     import torch
 
     from wekws_tpu_torch.ops.fused_fsmn import (
+        CLUSTER,
         fused_fsmn_layers,
         fused_fsmn_layers_plain,
+        pack_fsmn_weights,
     )
     from wekws_tpu_torch.ops.fused_tcn import fused_ds_tcn, fused_ds_tcn_plain
 
@@ -1498,18 +1557,31 @@ def phase13_times(dev, bench, errs, launches, card, trainer, state,
                       "wekws_tpu/ops/fused_tcn.py:29", rows[0], rows[1:]))
 
     fw, orders, ld, pd, n_fsmn, pad = bench["fsmn"]
+    packed = pack_fsmn_weights(fw[0], fw[3])  # as build_fused_forward does
     rows = []
     for b, t in ((1, 10), (N_UTTS, 66)):  # the engine's chunk, offline
         x, cache = randn(b, t, ld).relu(), randn(n_fsmn, b, pad, pd)
         rows.append(timed(
             "fused_fsmn_layers", f"B={b} T={t}",
-            lambda: fused_fsmn_layers(x, cache, *fw, *orders),
+            lambda: fused_fsmn_layers(x, cache, *fw, *orders, packed=packed),
             lambda: fused_fsmn_layers_plain(x, cache, *fw, *orders),
             "fused_fsmn_kernel",
             fsmn_bound_ms(b, t, ld, pd, n_fsmn, orders[0], orders[1], pad)))
     out.append(record("fused_fsmn_layers",
                       "wekws_tpu_torch/csrc/fused_fsmn.cu",
                       "wekws_tpu/ops/fused_fsmn.py:29", rows[0], rows[1:]))
+    fsmn_variants(fw, orders, gen, dev, card)
+    x, cache = randn(N_UTTS, 66, ld).relu(), randn(n_fsmn, N_UTTS, pad, pd)
+    grids = kernel_grids(
+        lambda: fused_fsmn_layers(x, cache, *fw, *orders, packed=packed),
+        "fused_fsmn_kernel")
+    print(f"  fused_fsmn_kernel launch B={N_UTTS} T=66 in the profiler's "
+          f"trace: {grids}", flush=True)
+    blocks = N_UTTS * CLUSTER
+    if not grids or any(g.get("grid", [0])[0] != blocks for g in grids):
+        raise AssertionError(f"fused_fsmn_kernel: expected a grid of B x "
+                             f"{CLUSTER} = {blocks} blocks, the trace has "
+                             f"{grids}")
 
     fused, plain, waves = bench["fbank"]
     cfg = fused.cfg
@@ -1615,6 +1687,22 @@ def main() -> int:
             raise AssertionError(f"expected ptxas lines for "
                                  f"{', '.join(REDESIGNED_KERNELS)} at C = "
                                  f"32, 64, 128, found {found}")
+        # the FSMN kernel by its template arguments: lanes over the owned
+        # proj channels and affine columns, blocks an SM
+        fsmn_log = cuda_build.build_logs.get("fused_fsmn", "")
+        found = 0
+        for entry, regs, st, ld in cuda_build.parse_ptxas_log(fsmn_log):
+            args = entry.partition("fused_fsmn_kernelILi")[2]
+            if args:
+                found += 1
+                lp, ll, mb = (a.lstrip("Li") for a in args.split("E")[0:3])
+                print(f"  fused_fsmn fused_fsmn_kernel<{lp}, {ll}, {mb}>: "
+                      f"{regs} registers, {st} bytes spill stores, {ld} "
+                      f"bytes spill loads")
+        if fsmn_log and found != 8:
+            raise AssertionError(f"expected ptxas lines for 8 "
+                                 f"fused_fsmn_kernel instantiations, found "
+                                 f"{found}")
         print(f"  built {len(paths)} librar(ies) in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
 

@@ -61,3 +61,14 @@ def test_one_channel_f2_and_b1_are_gone():
         source = f.read()
     assert "fwd_kernel" not in source
     assert " b1_kernel(" not in source
+
+
+def test_one_channel_f1_is_gone():
+    """F1 runs only its flattened, four-channels-a-thread kernel
+    (``tile_forward<C, kF1>``): the one-channel ``f1_kernel`` and its
+    scalar ``dwconv`` are not in the source."""
+    with open(os.path.join(cuda_build.CSRC_DIR, "fused_mdtc_train.cu")) as f:
+        source = f.read()
+    assert " f1_kernel(" not in source
+    assert "dwconv(" not in source
+    assert "tile_forward<C, kF1>(a, staged)" in source

@@ -17,11 +17,16 @@ from wekws_tpu.ops.fused_fsmn import fused_fsmn_layers as jax_fsmn_layers
 from wekws_tpu.ops.serving import build_fused_forward as jax_build_forward
 from wekws_tpu.ops.serving import build_fused_stream as jax_build_stream
 from wekws_tpu_torch.ops.fused_fsmn import (
+    MAX_SHARED_BYTES,
+    cluster_slices,
     extract_fsmn_weights,
     fused_fsmn_forward,
     fused_fsmn_layers,
     fused_fsmn_layers_plain,
+    fused_fsmn_smem_bytes,
     init_fsmn_cache,
+    pack_fsmn_weights,
+    slice_width,
 )
 from wekws_tpu_torch.ops.serving import build_fused_forward, build_fused_stream
 from wekws_tpu_torch.tools.from_jax import model_from_jax
@@ -165,3 +170,85 @@ def test_wrapper_checks_its_inputs():
                           init_fsmn_cache(3, 2, 6, 16), *w, 5, 2)
     y, c = fused_fsmn_layers_plain(x, init_fsmn_cache(3, 2, 6, 16), *w, 5, 2)
     assert y.shape == (2, 8, 40) and c.shape == (3, 2, 6, 16)
+
+
+@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("n", [1, 5, 16, 40, 70, 128, 140, 250, 256])
+def test_cluster_slices_cover_every_column_once(n, cluster):
+    """The kernel's cluster of blocks splits the proj channels and the
+    affine columns into slices of one width, a multiple of 4 (16-byte
+    copies) and at most 32 (the kernel's lanes); the ragged last owner
+    and the empty ones past it included, every column is owned once."""
+    slices = cluster_slices(n, cluster)
+    width = slice_width(n, cluster)
+    assert len(slices) == cluster and width % 4 == 0
+    if n <= 256:
+        assert width <= 32
+    owned = [c for b, e in slices for c in range(b, e)]
+    assert owned == list(range(n))
+    assert all(e - b <= width for b, e in slices)
+    assert all(b % 4 == 0 for b, e in slices if e > b)
+    if (n, cluster) == (250, 8):  # seven of 32 and one of 26
+        assert [e - b for b, e in slices] == [32] * 7 + [26]
+
+
+@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("ld,pd,lorder,rorder,stride", [
+    (250, 128, 10, 2, 1),   # the hi_xiaowen recipe
+    (256, 256, 10, 2, 1),   # the widest the kernel takes
+    (40, 16, 5, 2, 2),
+])
+def test_fsmn_smem_fits_a_block(ld, pd, lorder, rorder, stride, cluster):
+    """One block's shared memory (two weight buffers of its slices, a
+    16-row tile of cur, two o buffers, three windows, the partial sums,
+    two mbarriers)
+    stays under a block's 227 KB at every width the kernel takes, and at
+    the recipe's widths two blocks share an SM (233,472 bytes, 1,024
+    reserved a block)."""
+    smem = fused_fsmn_smem_bytes(ld, pd, lorder, rorder, stride, stride,
+                                 cluster)
+    assert smem <= MAX_SHARED_BYTES
+    pc, lc = slice_width(pd, cluster), slice_width(ld, cluster)
+    ldp, pdp = -(-ld // 4) * 4, -(-pd // 4) * 4
+    pad = (lorder - 1) * stride + rorder * stride
+    weights = 2 * (ldp * pc + pdp * lc + (lorder + rorder) * pc + lc)
+    assert smem == 4 * (weights + 16 * ldp + 2 * 16 * pdp
+                        + 3 * (pad + 16) * pc + 4 * 16 * 32) + 16
+    if (ld, pd) == (250, 128):
+        assert 2 * (smem + 1024) <= 233472
+
+
+def test_pack_fsmn_weights_holds_each_slice(rng):
+    """Packed weights hold block k's column slice of every layer as one
+    contiguous run, zero past the matrix's last column."""
+    proj_w = torch.from_numpy(rng.standard_normal((3, 250, 128))
+                              .astype(np.float32))
+    aff_w = torch.from_numpy(rng.standard_normal((3, 128, 250))
+                             .astype(np.float32))
+    pp, pa = pack_fsmn_weights(proj_w, aff_w)
+    assert pp.shape == (3, 8, 250, 16) and pa.shape == (3, 8, 128, 32)
+    assert pp.is_contiguous() and pa.is_contiguous()
+    for k, (b, e) in enumerate(cluster_slices(250, 8)):
+        torch.testing.assert_close(pa[:, k, :, :e - b], aff_w[:, :, b:e],
+                                   atol=0, rtol=0)
+        assert not pa[:, k, :, e - b:].any()
+    for k, (b, e) in enumerate(cluster_slices(128, 8)):
+        torch.testing.assert_close(pp[:, k], proj_w[:, :, b:e], atol=0,
+                                   rtol=0)
+
+
+def test_wrapper_checks_its_packed_weights():
+    """Packed weights of the wrong shape raise before anything runs; on
+    the CPU valid packed weights change nothing (the plain version
+    ignores them)."""
+    _, _, pmodel = _jax_and_port(_conf())
+    w = extract_fsmn_weights(pmodel.backbone)[4:9]
+    x = torch.rand((2, 8, 40))
+    cache = init_fsmn_cache(3, 2, 6, 16)
+    with pytest.raises(ValueError, match="packed proj_w"):
+        fused_fsmn_layers(x, cache, *w, 5, 2,
+                          packed=(w[0][:, None].contiguous(), w[3]))
+    got = fused_fsmn_layers(x, cache, *w, 5, 2,
+                            packed=pack_fsmn_weights(w[0], w[3]))
+    want = fused_fsmn_layers_plain(x, cache, *w, 5, 2)
+    torch.testing.assert_close(got[0], want[0], atol=0, rtol=0)

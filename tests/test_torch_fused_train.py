@@ -36,6 +36,8 @@ from wekws_tpu_torch.ops.fused_mdtc_train import (
     b4_tile_rows,
     blocks_per_sm,
     f3_window_bytes,
+    f1_tile_rows,
+    flat_tile_rows,
     fused_tcn_block_train,
     tile_smem_bytes,
     trace_pass_inputs,
@@ -244,13 +246,30 @@ def test_b4_tile_rows(t, c, halo, want):
     ("b1", 512, 198, 64, 1584),   # 64 rows a block at a time at C=64
     ("b1", 512, 198, 128, 3168), ("b1", 3, 70, 32, 2),  # 32, 128 rows
     ("b1", 3, 70, 64, 4),
-    ("f1", 512, 198, 64, 2048),   # per utterance: 3 x 64 + 6 frames
+    ("f1", 512, 198, 64, 792),    # 128-row tiles: 2,048 when cut into
+    ("f1", 512, 198, 128, 1584),  # 64-frame tiles per utterance
+    ("f1", 3, 70, 32, 2), ("f1", 3, 70, 64, 2),  # tiles span utterances
 ])
 def test_tiles_of_each_pass(name, b, t, c, want):
-    """F2, F3, B2 and B3 tile the flattened B x T frames and B1 streams
-    them, so only the last tile is ragged; F1 cuts each utterance into
-    64 frames."""
+    """F1, F2, F3, B2 and B3 tile the flattened B x T frames (F1 twice
+    F2's rows) and B1 streams them, so only the last tile is ragged."""
     assert _tiles(name, b, t, c, 64) == want
+
+
+@pytest.mark.parametrize("c,halo,staged", [
+    (64, 32, True), (64, 56, True), (128, 32, True), (32, 700, True),
+    (32, 1000, False), (64, 400, False), (128, 180, False)])
+def test_f1_stages_two_windows_where_they_fit(c, halo, staged):
+    """F1 has no weights and one tile (its reduction's), so it keeps two
+    windows of x (the tile's rows and the halo before them) while they
+    fit in a block's shared memory, and streams its taps otherwise."""
+    base = tile_smem_bytes("f1", c, 10 ** 6)  # no window fits
+    assert base == 4 * ((26 + 8) * c + flat_tile_rows(c) * (c + 4))
+    assert f1_tile_rows(c) == 2 * flat_tile_rows(c)
+    window = 4 * c * (f1_tile_rows(c) + halo)
+    assert tile_smem_bytes("f1", c, halo) == (
+        base + 2 * window if staged else base)
+    assert tile_smem_bytes("f1", c, halo) <= SMEM_LIMIT
 
 
 @pytest.mark.parametrize("c", [32, 64, 128])

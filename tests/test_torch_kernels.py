@@ -64,8 +64,9 @@ def test_fused_train_passes_match_plain(t, dilation):
     (64 or 32 rows over the flattened frames) nor B1's rows divide.
     Their tiles span utterances: at T=70 and T=130 a tile holds the end
     of one and the start of the next, at T=8 and T=20 a tile holds all
-    three, shorter than dilation 8's halo of 32 frames; F2's and F3's
-    conv must not reach into the earlier utterance.  B3 hands its ds0
+    three, shorter than dilation 8's halo of 32 frames (there at C = 32
+    and 128 too); F1's, F2's and F3's conv must not reach into the
+    earlier utterance.  B3 hands its ds0
     to B4; every pass is bitwise equal when launched twice."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
@@ -78,7 +79,7 @@ def test_fused_train_passes_match_plain(t, dilation):
 
     g = torch.Generator().manual_seed(100 * t + dilation)
     combos = ((32, 5), (64, 5), (128, 5), (128, 8)) if t == 70 else (
-        (64, 5),)
+        ((32, 5), (64, 5), (128, 5)) if t == 20 else ((64, 5),))
     for c, k in combos:
         p, x, dy = seeded_block_inputs(g, 3, t, c, k, "cuda")
         calls = trace_pass_inputs(x, p, dy, dilation)
@@ -233,13 +234,24 @@ def test_fused_ds_tcn_kernel_matches_plain(b, t):
                      torch.zeros((1, 48)).cuda(), (1,), 8)
 
 
+def _fsmn_weights(g, n_layers, ld, pd, lo, ro):
+    return [(torch.randn(shape, generator=g) * scale).cuda()
+            for shape, scale in (((n_layers, ld, pd), ld ** -0.5),
+                                 ((n_layers, lo, pd), 0.3),
+                                 ((n_layers, max(ro, 1), pd), 0.3),
+                                 ((n_layers, pd, ld), pd ** -0.5),
+                                 ((n_layers, ld), 0.1))]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("t", [1, 8, 70, 130])
+@pytest.mark.parametrize("t", [1, 8, 11, 70, 130])
 @pytest.mark.parametrize("b", [1, 5])
 def test_fused_fsmn_kernel_matches_plain(b, t):
-    """The recipe's ragged widths (250, 128, P = 11), ``rorder`` 0, and
-    strides 2 at small widths; T below P, partial and whole 32-row
-    tiles: output and new cache 1e-4 abs + 1e-4 rel."""
+    """The recipe's ragged widths (250, 128, P = 11) over five layers,
+    ``rorder`` 0, and strides 2 at small widths; T below P and equal to
+    it, one tile (the chunk's y gathered through distributed shared
+    memory), partial and whole 32-row tiles: output and new cache 1e-4
+    abs + 1e-4 rel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from wekws_tpu_torch.ops.fused_fsmn import (
@@ -248,16 +260,11 @@ def test_fused_fsmn_kernel_matches_plain(b, t):
     )
 
     g = torch.Generator().manual_seed(10 * t + b)
-    for ld, pd, lo, ro, ls, rs in ((250, 128, 10, 2, 1, 1),
-                                   (250, 128, 10, 0, 1, 1),
-                                   (40, 16, 5, 2, 2, 2), (140, 70, 3, 1, 2, 1)):
-        n_layers, pad = 3, (lo - 1) * ls + ro * rs
-        w = [(torch.randn(shape, generator=g) * scale).cuda()
-             for shape, scale in (((n_layers, ld, pd), ld ** -0.5),
-                                  ((n_layers, lo, pd), 0.3),
-                                  ((n_layers, max(ro, 1), pd), 0.3),
-                                  ((n_layers, pd, ld), pd ** -0.5),
-                                  ((n_layers, ld), 0.1))]
+    for ld, pd, lo, ro, ls, rs, n_layers in (
+            (250, 128, 10, 2, 1, 1, 5), (250, 128, 10, 0, 1, 1, 3),
+            (40, 16, 5, 2, 2, 2, 3), (140, 70, 3, 1, 2, 1, 3)):
+        pad = (lo - 1) * ls + ro * rs
+        w = _fsmn_weights(g, n_layers, ld, pd, lo, ro)
         x = torch.randn((b, t, ld), generator=g).cuda()
         cache = torch.randn((n_layers, b, pad, pd), generator=g).cuda()
         before = fused_fsmn_layers.launches
@@ -266,6 +273,37 @@ def test_fused_fsmn_kernel_matches_plain(b, t):
         want_y, want_c = fused_fsmn_layers_plain(x, cache, *w, lo, ro, ls, rs)
         torch.testing.assert_close(got_y, want_y, atol=1e-4, rtol=1e-4)
         torch.testing.assert_close(got_c, want_c, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("t", [10, 66])
+def test_fused_fsmn_packed_weights_and_cluster_sizes(t, cluster,
+                                                     monkeypatch):
+    """Weights packed once (as build_fused_forward does) and packed by
+    the wrapper give the plain version's output and cache, with clusters
+    of 8 blocks and of 16 (non-portable), at the widest widths the
+    kernel takes and at the recipe's; the kernel's shared memory is the
+    Python mirror's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from wekws_tpu_torch.ops import cuda_build
+    from wekws_tpu_torch.ops import fused_fsmn as ff
+
+    monkeypatch.setattr(ff, "CLUSTER", cluster)
+    lib = cuda_build.load("fused_fsmn")
+    g = torch.Generator().manual_seed(t)
+    for ld, pd in ((250, 128), (256, 256)):
+        w = _fsmn_weights(g, 4, ld, pd, 10, 2)
+        x = torch.randn((3, t, ld), generator=g).cuda()
+        cache = torch.randn((4, 3, 11, pd), generator=g).cuda()
+        want = ff.fused_fsmn_layers_plain(x, cache, *w, 10, 2)
+        for packed in (None, ff.pack_fsmn_weights(w[0], w[3])):
+            got = ff.fused_fsmn_layers(x, cache, *w, 10, 2, packed=packed)
+            torch.testing.assert_close(got[0], want[0], atol=1e-4, rtol=1e-4)
+            torch.testing.assert_close(got[1], want[1], atol=1e-4, rtol=1e-4)
+        assert lib.fused_fsmn_smem_bytes(ld, pd, 10, 2, 1, 1, cluster) == \
+            ff.fused_fsmn_smem_bytes(ld, pd, 10, 2, 1, 1, cluster)
 
 
 @pytest.mark.cuda

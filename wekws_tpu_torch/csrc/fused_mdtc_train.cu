@@ -28,8 +28,8 @@
 // F3 do 2-4 C² FMAs per frame in fp32 (67 TFLOP/s) and are bound by
 // operations; B3 runs its products on the tensor cores.  At 16 warps
 // an SM a pass with one channel a thread is bound by the instructions
-// it issues before either, so every pass but F1 and F4 gives a thread
-// four neighbouring channels (float4 loads, stores and shared traffic).
+// it issues before either, so every pass but F4 gives a thread four
+// neighbouring channels (float4 loads, stores and shared traffic).
 //
 // Design.  The TPU kernels walk the batch in order on one core and
 // carry their sums in VMEM scratch.  Here a persistent grid of at most
@@ -41,10 +41,15 @@
 // run to run.  Rows past the end are left out of every sum and output,
 // and zeroed in the tiles that a weight gradient sums over.
 //
-// F1 alone keeps the first design: a tile is 64 consecutive frames of
-// ONE utterance (so a causal halo never reads another utterance; frames
-// before t = 0 are zero), and each thread owns one channel and a
-// strided set of the tile's rows.
+// F1 is the conv alone: tile_forward's prefix (below) without W1 and
+// without a product.  It tiles the flattened frames as F2 does, with
+// twice F2's rows (eight rows a thread), four channels a thread, and
+// sums u and u² in registers; with nothing to hide a copy behind, it
+// keeps two windows of x in shared memory and copies the tile after
+// next while it reads this one (kF1Staged; streaming instead, each
+// thread reading its taps by __ldg from L1 and L2, was 0.0003 ms slower
+// on an H100, PERF.md §6).  From frame (K-1) d of an utterance on
+// the conv's loads go unpredicated.
 //
 // F2, F3 and B2 take B3's tiles (below) over the flattened frames and
 // its float4 elementwise steps, with fp32 products: a thread forms the
@@ -139,7 +144,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTile = 64;
 constexpr int kMaxTaps = 8;
 
 enum Pass { kF1 = 1, kF2, kF3, kF4, kB1, kB2, kB3, kB4 };
@@ -183,80 +187,9 @@ __device__ __forceinline__ void load_padded(const float* __restrict__ g,
   }
 }
 
-// u at frame t of utterance xb for channel c (zero left context)
-__device__ __forceinline__ float dwconv(const float* __restrict__ xb,
-                                        const float* __restrict__ dw,
-                                        float bias, int t, int K, int d,
-                                        int C, int c) {
-  float u = bias;
-  for (int tap = 0; tap < K; ++tap) {
-    const int ts = t - (K - 1 - tap) * d;
-    if (ts >= 0) u = fmaf(__ldg(xb + static_cast<size_t>(ts) * C + c),
-                          __ldg(dw + tap * C + c), u);
-  }
-  return u;
-}
-
-// Reduce NS per-thread channel sums over the G row groups in a fixed
-// order and write them as this block's partial (NS x C floats at
-// `out`).  `red` holds G * NS * C floats.
-template <int C, int NS>
-__device__ __forceinline__ void block_sums(float* red, const float* s,
-                                           float* out, int g, int c) {
-  constexpr int G = kThreads / C;
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < NS; ++i) red[(g * NS + i) * C + c] = s[i];
-  __syncthreads();
-  if (g == 0) {
-#pragma unroll
-    for (int i = 0; i < NS; ++i) {
-      float acc = 0.f;
-      for (int gg = 0; gg < G; ++gg) acc += red[(gg * NS + i) * C + c];
-      out[i * C + c] = acc;
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// forward: F1, one channel a thread (F2 and F3: tile_forward)
+// forward: F4 (F1, F2 and F3: tile_forward)
 // ---------------------------------------------------------------------------
-
-template <int C>
-__global__ void __launch_bounds__(kThreads) f1_kernel(Args a) {
-  constexpr int G = kThreads / C;  // row groups
-  constexpr int R = kTile / G;     // tile rows per thread
-  extern __shared__ __align__(128) float4 smem4[];
-  float* red = reinterpret_cast<float*>(smem4);  // G x 2 x C
-
-  const int c = threadIdx.x % C;
-  const int g = threadIdx.x / C;
-  const float dwb = vc(a, V_DWB, C, c);
-
-  float sums[2] = {0.f, 0.f};
-  const int tiles_per_utt = (a.T + kTile - 1) / kTile;
-  const int n_tiles = a.B * tiles_per_utt;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int b = tile / tiles_per_utt;
-    const int t0 = (tile % tiles_per_utt) * kTile;
-    const float* xb = a.x + static_cast<size_t>(b) * a.T * C;
-    float u[R];
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const int t = t0 + g + j * G;
-      u[j] = t < a.T ? dwconv(xb, a.dw, dwb, t, a.K, a.d, C, c) : 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      if (t0 + g + j * G < a.T) {
-        sums[0] += u[j];
-        sums[1] += u[j] * u[j];
-      }
-    }
-  }
-  block_sums<C, 2>(red, sums, a.partials + static_cast<size_t>(blockIdx.x) * 2 * C,
-                   g, c);
-}
 
 // F4: y = relu(a2 w + c2 + x), elementwise
 template <int C>
@@ -373,14 +306,15 @@ constexpr size_t b3_smem_bytes() {
                           4 * S::kRows * S::kLd);
 }
 
-// the per-channel vector and the taps, then W1 and the s0 tile (F2), or
-// W1, W2 and two tiles (F3)
+// the per-channel vector and the taps, then the reduction tile (F1), W1
+// and the s0 tile (F2), or W1, W2 and two tiles (F3)
 template <int C, int P>
 constexpr size_t fwd_smem_bytes() {
   using S = TileShape<C>;
-  constexpr int n = P == kF3 ? 2 : 1;
-  return sizeof(float) * ((kNumVec + kMaxTaps) * C + n * C * S::kLd +
-                          n * S::kRows * S::kLd);
+  constexpr int mats = P == kF3 ? 2 : (P == kF2 ? 1 : 0);
+  constexpr int tiles = P == kF3 ? 2 : 1;
+  return sizeof(float) * ((kNumVec + kMaxTaps) * C + mats * C * S::kLd +
+                          tiles * S::kRows * S::kLd);
 }
 
 // the per-channel vector, W2ᵀ, two tiles, then the next tile's w, x and
@@ -755,39 +689,89 @@ __device__ __forceinline__ void stage_rows(float4* dst, const float4* src,
   cp_async_commit();
 }
 
-// F2 and F3 share their prefix: the conv, s0 into a tile and v = s0 W1.
-// F2 (P = kF2) ends there with Σv and Σv²; F3 goes on to r, w and Σw,
-// Σw².  staged: the window of the block's next tile is copied into
-// shared memory while this tile's products run (where F3's fits beside
-// the rest, run(): one rule for both), else the taps are read from
-// device memory.
+// F1 stages its windows of x (true) or streams, reading its taps by
+// __ldg from L1 and L2 (false); its tiles are kF1RowScale times F2's rows
+constexpr bool kF1Staged = true;
+constexpr int kF1RowScale = 2;
+
+// u, the causal depthwise conv of x plus dw_b, for this thread's
+// channel quad at frame t of its utterance; `xr` points at the row's
+// quad of x, in a staged window (kShared) or in device memory.  A tap
+// before the utterance's first frame is zero, so a tile that spans two
+// utterances never reads the earlier one; from frame H = (K-1) d on no
+// tap is, and the loads go unpredicated.
+template <int C, bool kShared>
+__device__ __forceinline__ float4 conv4(const Args& a, const float4* cv4,
+                                        const float4* xr, int t, int H) {
+  constexpr int Q = C / 4;
+  float4 u = cv4[V_DWB * Q];
+  if (t >= H) {
+#pragma unroll
+    for (int tap = 0; tap < kMaxTaps; ++tap) {
+      if (tap < a.K) {
+        const float4* p = xr - (a.K - 1 - tap) * a.d * Q;
+        u = fma4(kShared ? *p : __ldg(p), cv4[(kNumVec + tap) * Q], u);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int tap = 0; tap < kMaxTaps; ++tap) {
+      const int back = (a.K - 1 - tap) * a.d;
+      if (tap < a.K && back <= t) {
+        const float4* p = xr - back * Q;
+        u = fma4(kShared ? *p : __ldg(p), cv4[(kNumVec + tap) * Q], u);
+      }
+    }
+  }
+  return u;
+}
+
+// the frame in its utterance of a row G rows on from frame t
+__device__ __forceinline__ int next_frame(int t, int G, int T) {
+  t += G;
+  while (t >= T) t -= T;
+  return t;
+}
+
+// F1, F2 and F3 share their prefix: the conv over flattened tiles.  F1
+// (P = kF1) ends there with Σu and Σu² (no product, no tile but the
+// reduction's); F2 and F3 go on to s0 in a tile and v = s0 W1, F2 ending
+// with Σv and Σv², F3 going on to r, w and Σw, Σw².  staged: F2's and
+// F3's window of the block's next tile is copied into shared memory
+// while this tile's products run (where F3's fits beside the rest,
+// run(): one rule for both), else the taps are read from device memory.
+// F1 has no product to hide a copy behind, so it keeps two windows and
+// copies the tile after next while it works on this one (where they
+// fit and kF1Staged).
 template <int C, int P>
 __device__ __forceinline__ void tile_forward(const Args& a, bool staged) {
   using S = TileShape<C>;
   constexpr bool kFull = P == kF3;
-  constexpr int ROWS = S::kRows;
+  constexpr int ROWS = S::kRows * (P == kF1 ? kF1RowScale : 1);
   constexpr int LD = S::kLd;
   constexpr int LQ = LD / 4;
   constexpr int Q = S::kQuads;
   constexpr int G = S::kGroups;
   constexpr int R = ROWS / G;
-  static_assert(G * 2 * C <= ROWS * LD, "the reduction fits the s0 tile");
+  static_assert(G * 2 * C <= S::kRows * LD, "the reduction fits the s0 tile");
   extern __shared__ __align__(128) float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   float* cv = sm;                             // kNumVec x C, then the taps
-  float* w1 = cv + (kNumVec + kMaxTaps) * C;  // C x LD
-  float* w2 = w1 + C * LD;                    // C x LD (F3)
-  float* ta = w2 + (kFull ? C * LD : 0);      // ROWS x LD: s0
-  float* tb = ta + ROWS * LD;                 // ROWS x LD: r (F3)
+  float* w1 = cv + (kNumVec + kMaxTaps) * C;  // C x LD (F2, F3)
+  float* w2 = w1 + (P == kF1 ? 0 : C * LD);   // C x LD (F3)
+  float* ta = w2 + (kFull ? C * LD : 0);      // ROWS x LD: s0 (F1: only
+                                              // the reduction)
+  float* tb = ta + S::kRows * LD;             // ROWS x LD: r (F3)
   float4* ta4 = reinterpret_cast<float4*>(ta);
   float4* tb4 = reinterpret_cast<float4*>(tb);
   float4* xs4 = reinterpret_cast<float4*>(tb + (kFull ? ROWS * LD : 0));
                                               // (ROWS + H) x Q: x, staged
+                                              // (F1: two of them)
 
   const int q = threadIdx.x % Q;
   const int g = threadIdx.x / Q;
   load_consts<C, true>(a, cv);
-  load_padded<C, LD>(a.pw1, w1);
+  if (P != kF1) load_padded<C, LD>(a.pw1, w1);
   if (kFull) load_padded<C, LD>(a.pw2, w2);
   const float4* cv4 = reinterpret_cast<const float4*>(cv) + q;
 #define VEC4(row) cv4[(row) * Q]
@@ -796,10 +780,60 @@ __device__ __forceinline__ void tile_forward(const Args& a, bool staged) {
   float4* w4 = reinterpret_cast<float4*>(a.out_w);
   const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  float4 sums[2] = {zero4, zero4};  // F2: Σv, Σv²; F3: Σw, Σw²
+  float4 sums[2] = {zero4, zero4};  // F1: Σu, Σu²; F2: Σv, Σv²; F3: Σw, Σw²
   const int n_rows = a.B * a.T;
   const int n_tiles = (n_rows + ROWS - 1) / ROWS;
   const int H = (a.K - 1) * a.d;
+  if constexpr (P == kF1) {
+    const int span = (ROWS + H) * Q;  // float4s of one window
+    if (staged) {  // the block's first two tiles, one group each
+      for (int i = 0; i < 2; ++i) {
+        const int tile = blockIdx.x + i * gridDim.x;
+        if (tile < n_tiles) {
+          stage_rows<Q>(xs4 + i * span, x4, tile * ROWS - H, ROWS + H, n_rows);
+        } else {
+          cp_async_commit();
+        }
+      }
+    }
+    __syncthreads();  // the constants are in place
+    for (int tile = blockIdx.x, it = 0; tile < n_tiles;
+         tile += gridDim.x, ++it) {
+      const float4* xw = nullptr;
+      if (staged) {
+        cp_async_wait<1>();  // this tile's group has landed (this thread's)
+        __syncthreads();     // (every thread's)
+        xw = xs4 + (it & 1) * span;
+      }
+      const int row0 = tile * ROWS;
+      int t = (row0 + g) % a.T;  // the frame of row row0 + g + j G
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int lr = g + j * G;
+        const int row = row0 + lr;
+        if (row < n_rows) {
+          const float4 u =
+              xw != nullptr
+                  ? conv4<C, true>(a, cv4, xw + (lr + H) * Q + q, t, H)
+                  : conv4<C, false>(a, cv4, x4 + static_cast<size_t>(row) * Q
+                                                + q, t, H);
+          sums[0] = add4(sums[0], u);
+          sums[1] = fma4(u, u, sums[1]);
+        }
+        t = next_frame(t, G, a.T);
+      }
+      if (staged) {
+        __syncthreads();  // every read of this window is done
+        const int later = tile + 2 * gridDim.x;
+        if (later < n_tiles) {
+          stage_rows<Q>(xs4 + (it & 1) * span, x4, later * ROWS - H, ROWS + H,
+                        n_rows);
+        } else {
+          cp_async_commit();
+        }
+      }
+    }
+  } else {
   if (staged && blockIdx.x < n_tiles) {
     stage_rows<Q>(xs4, x4, blockIdx.x * ROWS - H, ROWS + H, n_rows);
   }
@@ -809,32 +843,21 @@ __device__ __forceinline__ void tile_forward(const Args& a, bool staged) {
     __syncthreads();  // every thread's copies of the window have landed,
                       // and the last tile's reads of s0 are done (the
                       // first time: the constants and weights are in place)
+    int t = (row0 + g) % a.T;  // the frame of row row0 + g + j G
 #pragma unroll
     for (int j = 0; j < R; ++j) {
       const int lr = g + j * G;
       const int row = row0 + lr;
       float4 s0 = zero4;
       if (row < n_rows) {
-        const size_t at = static_cast<size_t>(row) * Q + q;
-        // a tap before the utterance's first frame is zero, so a tile
-        // that spans two utterances never reads the earlier one
-        const int t = row % a.T;
-        float4 xt[kMaxTaps];
-#pragma unroll
-        for (int tap = 0; tap < kMaxTaps; ++tap) {
-          const int back = (a.K - 1 - tap) * a.d;
-          xt[tap] = tap >= a.K || back > t ? zero4
-              : staged ? xs4[(lr + H - back) * Q + q]
-                       : __ldg(x4 + at - static_cast<size_t>(back) * Q);
-        }
-        float4 u = VEC4(V_DWB);
-#pragma unroll
-        for (int tap = 0; tap < kMaxTaps; ++tap) {
-          if (tap < a.K) u = fma4(xt[tap], VEC4(kNumVec + tap), u);
-        }
+        const float4 u =
+            staged ? conv4<C, true>(a, cv4, xs4 + (lr + H) * Q + q, t, H)
+                   : conv4<C, false>(a, cv4, x4 + static_cast<size_t>(row) * Q
+                                                 + q, t, H);
         s0 = fma4(u, VEC4(V_A0), VEC4(V_C0));
       }
       ta4[lr * LQ + q] = s0;
+      t = next_frame(t, G, a.T);
     }
     __syncthreads();  // s0 is in place and the window is read
     if (staged && tile + gridDim.x < n_tiles) {
@@ -879,9 +902,16 @@ __device__ __forceinline__ void tile_forward(const Args& a, bool staged) {
       }
     }
   }
+  }
 #undef VEC4
   block_sums4<C, 2>(ta, sums,
                     a.partials + static_cast<size_t>(blockIdx.x) * 2 * C, g, q);
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads, C == 128 ? 1 : 2)
+f1_tile_kernel(Args a, bool staged) {
+  tile_forward<C, kF1>(a, staged);
 }
 
 template <int C>
@@ -1271,14 +1301,21 @@ int elementwise_blocks(size_t total) {
 template <int C>
 int run(int pass, const Args& a, int n_blocks, int b4_rows, float* reduced,
         cudaStream_t s) {
-  const size_t red = sizeof(float) * (kThreads / C) * 2 * C;  // block_sums
   const size_t total = static_cast<size_t>(a.B) * a.T * C;
   int width = 2 * C;
   int err = 0;
   switch (pass) {
-    case kF1:
-      err = launch_tiles(f1_kernel<C>, a, red, n_blocks, s);
+    case kF1: {  // two windows where they fit
+      const size_t windows =
+          2 * sizeof(float) * C *
+          (TileShape<C>::kRows * kF1RowScale + (a.K - 1) * a.d);
+      const bool staged =
+          kF1Staged && fwd_smem_bytes<C, kF1>() + windows <= kSmemLimit;
+      err = launch_tiles(f1_tile_kernel<C>, a,
+                         fwd_smem_bytes<C, kF1>() + (staged ? windows : 0),
+                         n_blocks, s, staged);
       break;
+    }
     case kF2:
     case kF3: {
       const size_t window = f3_window_bytes<C>((a.K - 1) * a.d);

@@ -16,9 +16,18 @@ Layouts are the JAX package's: ``x (B, T, linear_dim)``, ``cache
 row when ``rorder == 0``), ``aff_w (L, proj_dim, linear_dim)``,
 ``aff_b (L, linear_dim)``.
 
+The kernel runs one thread-block cluster of CLUSTER blocks per batch
+row; block k owns a slice of the proj channels and of the affine
+output columns (``cluster_slices``) and holds only its slices of the
+weights, which it brings in as contiguous runs by the copy engine from
+``pack_fsmn_weights(proj_w, aff_w)`` (build_fused_forward packs once
+and passes ``packed``; without it the wrapper packs on every call).
+``fused_fsmn_smem_bytes`` mirrors the kernel's shared memory.
+
 ``fused_fsmn_layers`` takes the plain PyTorch version only for tensors
-on the CPU; for CUDA tensors it launches the kernel or raises.  It
-counts its kernel launches in ``fused_fsmn_layers.launches``.  The JAX
+on the CPU; for CUDA tensors it launches the kernel or raises (also
+when no cluster of that size can be resident on the card).  It counts
+its kernel launches in ``fused_fsmn_layers.launches``.  The JAX
 function's ``block_batch`` (a TPU tiling knob) has no counterpart.
 """
 
@@ -32,6 +41,63 @@ from wekws_tpu_torch.ops.fused_common import check_tensor
 
 MAX_WIDTH = 256  # linear_dim and proj_dim the CUDA kernel takes
 MAX_SHARED_BYTES = 232448  # what one block may use on an H100
+# blocks of a cluster (one cluster per batch row); the kernel also takes
+# 16, the non-portable size (wekws_tpu_torch/tools/time_fsmn.py times it)
+CLUSTER = 8
+TILE_ROWS = 16  # rows of a time tile (``kRows``)
+SPLITS = 4  # splits of a product's reduction depth (``kSplits``)
+MAX_SLICE = 32  # widest slice a block owns (``kMaxSlice``)
+
+
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def slice_width(n: int, cluster: int) -> int:
+    """Columns of n one block of the cluster owns: ceil(n / cluster),
+    rounded up to a multiple of 4 (the kernel's ``slice_width``)."""
+    return _round4(-(-n // cluster))
+
+
+def cluster_slices(n: int, cluster: int):
+    """[(begin, end)] of the n columns each block of the cluster owns,
+    in rank order (``cluster_slice`` in csrc/fused_fsmn.cu): equal
+    widths but the last owner's, which is ragged; owners past the end
+    hold an empty slice."""
+    width = slice_width(n, cluster)
+    return [(min(k * width, n), min((k + 1) * width, n))
+            for k in range(cluster)]
+
+
+def fused_fsmn_smem_bytes(ld, pd, lorder, rorder, lstride=1, rstride=1,
+                          cluster=CLUSTER):
+    """Shared memory of one block of the kernel (csrc/fused_fsmn.cu
+    ``layout``): two weight buffers (the proj and aff slices, the taps,
+    the bias), a time tile's rows of cur, two o buffers, three windows
+    of P + TILE_ROWS frames of the own channels, the products' partial
+    sums, and two mbarriers (16 bytes)."""
+    pc, lc = slice_width(pd, cluster), slice_width(ld, cluster)
+    ldp, pdp = _round4(ld), _round4(pd)
+    pad = (lorder - 1) * lstride + rorder * rstride
+    wsize = ldp * pc + pdp * lc + (lorder + max(rorder, 1)) * pc + lc
+
+    rows = TILE_ROWS
+    return 4 * (2 * wsize + rows * ldp + 2 * rows * pdp
+                + 3 * (pad + rows) * pc + SPLITS * rows * MAX_SLICE) + 16
+
+
+def pack_fsmn_weights(proj_w, aff_w):
+    """proj_w (L, LD, PD) and aff_w (L, PD, LD) -> (L, CLUSTER, LD, pc)
+    and (L, CLUSTER, PD, lc): block k's column slice of each layer as one
+    contiguous run, zero past the matrix's last column."""
+    def pack(w):
+        n_layers, rows, n = w.shape
+        out = w.new_zeros((n_layers, CLUSTER, rows, slice_width(n, CLUSTER)))
+        for k, (b, e) in enumerate(cluster_slices(n, CLUSTER)):
+            out[:, k, :, :e - b] = w[:, :, b:e]
+        return out.contiguous()
+
+    return pack(proj_w), pack(aff_w)
 
 
 def fused_fsmn_layers_plain(x, cache, proj_w, wl, wr, aff_w, aff_b, lorder,
@@ -91,37 +157,39 @@ def _kernel_fn():
     lib = cuda_build.load("fused_fsmn")
     fn = lib.fused_fsmn_launch
     if fn.argtypes is None:  # without argtypes ctypes cuts pointers to int
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.fused_fsmn_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.fused_fsmn_smem_bytes.argtypes = [ctypes.c_int] * 7
         lib.fused_fsmn_smem_bytes.restype = ctypes.c_int
         lib.fused_fsmn_error_string.argtypes = [ctypes.c_int]
         lib.fused_fsmn_error_string.restype = ctypes.c_char_p
     return lib, fn
 
 
-def _launch(x, cache, weights, lorder, rorder, lstride, rstride):
+def _launch(x, cache, weights, lorder, rorder, lstride, rstride, packed):
     """One kernel launch on x's device and current stream."""
     lib, fn = _kernel_fn()
     b, t, ld = x.shape
     n_layers, _, pad, pd = cache.shape
-    need = lib.fused_fsmn_smem_bytes(ld, pd, lorder, rorder)
+    need = lib.fused_fsmn_smem_bytes(ld, pd, lorder, rorder, lstride,
+                                     rstride, CLUSTER)
     if need > MAX_SHARED_BYTES:
         raise ValueError(
             f"the CUDA kernel needs {need} bytes of shared memory at "
             f"linear_dim {ld}, proj_dim {pd}, {lorder}+{rorder} taps; a "
             f"block has {MAX_SHARED_BYTES}")
+    _, wl, wr, _, aff_b = weights
+    proj_w, aff_w = packed
     out = torch.empty_like(x)
     # fresh output cache: with T < P it overlaps the input cache in time
     cache_out = torch.empty_like(cache)
-    ext = torch.empty((b, pad + t, pd), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), cache.data_ptr(),
-                 *[w.data_ptr() for w in weights], out.data_ptr(),
-                 cache_out.data_ptr(), ext.data_ptr(), b, t, n_layers, ld,
-                 pd, lorder, rorder, lstride, rstride, stream)
+                 *[w.data_ptr() for w in (proj_w, wl, wr, aff_w, aff_b)],
+                 out.data_ptr(), cache_out.data_ptr(), b, t, n_layers, ld,
+                 pd, lorder, rorder, lstride, rstride, CLUSTER, stream)
     if err != 0:
         msg = lib.fused_fsmn_error_string(err).decode()
         raise RuntimeError(f"fused_fsmn kernel launch failed: {msg} ({err})")
@@ -140,6 +208,8 @@ def fused_fsmn_layers(
     rorder: int,
     lstride: int = 1,
     rstride: int = 1,
+    *,
+    packed: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the full FSMN layer chain fused.
 
@@ -147,13 +217,27 @@ def fused_fsmn_layers(
     (L, B, P, proj_dim) carried context (zeros at start).  Returns
     (y (B, T, linear_dim), new_cache); chunked calls equal one
     whole-utterance call.  The new cache is a fresh tensor.  On CUDA:
-    linear_dim and proj_dim up to 256."""
+    linear_dim and proj_dim up to 256.  ``packed``:
+    ``pack_fsmn_weights(proj_w, aff_w)``, the form the kernel reads the
+    matrices in (packed here when not given); the plain version ignores
+    it."""
     weights = (proj_w, wl, wr, aff_w, aff_b)
     _validate(x, cache, weights, lorder, rorder, lstride, rstride)
+    if packed is not None:
+        n_layers, ld, pd = proj_w.shape
+        for name, ten, shape in (
+                ("packed proj_w", packed[0],
+                 (n_layers, CLUSTER, ld, slice_width(pd, CLUSTER))),
+                ("packed aff_w", packed[1],
+                 (n_layers, CLUSTER, pd, slice_width(ld, CLUSTER)))):
+            check_tensor(name, ten, shape, x.device)
     if x.device.type == "cpu":
         return fused_fsmn_layers_plain(x, cache, *weights, lorder, rorder,
                                        lstride, rstride)
-    out = _launch(x, cache, weights, lorder, rorder, lstride, rstride)
+    if packed is None:
+        packed = pack_fsmn_weights(proj_w, aff_w)
+    out = _launch(x, cache, weights, lorder, rorder, lstride, rstride,
+                  packed)
     fused_fsmn_layers.launches += 1
     return out
 

@@ -81,7 +81,7 @@ PASS_IDS = {"f1": 1, "f2": 2, "f3": 3, "f4": 4,
 def kernel_name(name: str, c: int) -> str:
     """The CUDA kernel of pass ``name`` at C channels, as a profiler
     names it (its block reduction is ``reduce_kernel<PASS_IDS[name]>``)."""
-    return {"f1": f"f1_kernel<{c}>", "f2": f"f2_kernel<{c}>",
+    return {"f1": f"f1_tile_kernel<{c}>", "f2": f"f2_kernel<{c}>",
             "f3": f"f3_kernel<{c}>", "f4": f"f4_kernel<{c}>",
             "b1": f"b1_stream_kernel<{c}>", "b2": f"b2_kernel<{c}>",
             "b3": f"b3_kernel<{c}>", "b4": f"b4_kernel<{c}>"}[name]
@@ -237,7 +237,11 @@ TILE_ROWS = 64
 SMEM_LIMIT = 232448  # bytes of shared memory one block may take on sm_90
 SM_SMEM = 233472  # bytes of shared memory of one SM; a block reserves 1024
 # passes whose tiles cut the flattened B x T frames
-FLAT_PASSES = ("f2", "f3", "b2", "b3")
+FLAT_PASSES = ("f1", "f2", "f3", "b2", "b3")
+# F1 stages two windows of x where they fit (``kF1Staged``), or streams;
+# its tiles are F1_ROW_SCALE times F2's rows (``kF1RowScale``)
+F1_STAGED = True
+F1_ROW_SCALE = 2
 B1_ROWS_IN_FLIGHT = 4  # rows of w, x and dy a B1 thread loads at once
 
 
@@ -271,9 +275,14 @@ def b4_tile_rows(t: int, c: int, halo: int) -> int:
 
 
 def flat_tile_rows(c: int) -> int:
-    """Rows of an F2, F3, B2 or B3 tile: 64, or 32 at C=128, where F3's
+    """Rows of an F1, F2, F3, B2 or B3 tile: 64, or 32 at C=128, where F3's
     and B3's weight matrices leave shared memory for no more."""
     return 32 if c == 128 else TILE_ROWS
+
+
+def f1_tile_rows(c: int) -> int:
+    """Rows of an F1 tile: F1_ROW_SCALE times ``flat_tile_rows``."""
+    return F1_ROW_SCALE * flat_tile_rows(c)
 
 
 def b1_block_rows(c: int) -> int:
@@ -290,16 +299,18 @@ def f3_window_bytes(c: int, halo: int) -> int:
 
 
 def tile_smem_bytes(name: str, c: int, halo: int = 0) -> int:
-    """Shared memory of one F2, F3, B2 or B3 block
+    """Shared memory of one F1, F2, F3, B2 or B3 block
     (csrc/fused_mdtc_train.cu ``fwd_smem_bytes``, ``b2_smem_bytes``,
     ``b3_smem_bytes``): the packed per-channel vector (with the taps,
     but in B2), the C x C weight matrices and the tiles, at row stride
-    C + 4; B2 adds the next tile's w, x and dy rows, staged; F2 and F3
-    their window of x (``f3_window_bytes``) where F3's fits a block
-    (``run`` there decides the same), else they read the taps from
-    device memory."""
+    C + 4 (F1: no matrix, one tile for its reduction); B2 adds the next
+    tile's w, x and dy rows, staged; F2 and F3 their window of x
+    (``f3_window_bytes``) where F3's fits a block (``run`` there
+    decides the same), else they read the taps from device memory; F1
+    two windows where they fit beside its own (``F1_STAGED``)."""
     def unstaged(name):
         vec, mats, tiles = {
+            "f1": (len(VEC_KEYS) + MAX_TAPS, 0, 1),
             "f2": (len(VEC_KEYS) + MAX_TAPS, 1, 1),
             "f3": (len(VEC_KEYS) + MAX_TAPS, 2, 2),
             "b2": (len(VEC_KEYS), 1, 2),
@@ -312,13 +323,18 @@ def tile_smem_bytes(name: str, c: int, halo: int = 0) -> int:
     if name == "b2":  # the next tile's w, x and dy rows, staged
         smem += 4 * 3 * flat_tile_rows(c) * c
     window = f3_window_bytes(c, halo)
+    if name == "f1":
+        windows = 2 * 4 * c * (f1_tile_rows(c) + halo)
+        if F1_STAGED and smem + windows <= SMEM_LIMIT:
+            smem += windows
+        return smem
     if name in ("f2", "f3") and unstaged("f3") + window <= SMEM_LIMIT:
         smem += window
     return smem
 
 
 def blocks_per_sm(smem: int, c: int) -> int:
-    """Blocks of an F2, F3, B2 or B3 launch that one SM holds at once:
+    """Blocks of an F1, F2, F3, B2 or B3 launch that one SM holds at once:
     as many as its shared memory allows, at most the blocks that their
     ``__launch_bounds__`` plan registers for (two at C <= 64, one at
     C=128)."""
@@ -326,17 +342,19 @@ def blocks_per_sm(smem: int, c: int) -> int:
 
 
 def _tiles(name: str, b: int, t: int, c: int, rows: int) -> int:
-    """Work units of one pass: F2, F3, B2 and B3 tile the flattened
-    B x T frames (``flat_tile_rows``) and B1 streams them
+    """Work units of one pass: F1, F2, F3, B2 and B3 tile the
+    flattened B x T frames (``flat_tile_rows``) and B1 streams them
     (``b1_block_rows`` at a time), B4 cuts each utterance into
-    ``rows``-frame tiles, F1 into 64-frame tiles."""
+    ``rows``-frame tiles; F4 is elementwise (no tiles)."""
+    if name == "f1":
+        return _cdiv(b * t, f1_tile_rows(c))
     if name in FLAT_PASSES:
         return _cdiv(b * t, flat_tile_rows(c))
     if name == "b1":
         return _cdiv(b * t, b1_block_rows(c))
     if name == "b4":
         return b * _cdiv(t, rows)
-    return b * _cdiv(t, TILE_ROWS)
+    return 0
 
 
 def _grid_blocks(device: torch.device, tiles: int, per_sm: int = 2) -> int:

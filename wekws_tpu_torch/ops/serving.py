@@ -39,6 +39,7 @@ from wekws_tpu_torch.ops.fused_fsmn import (
     extract_fsmn_weights,
     fused_fsmn_layers,
     init_fsmn_cache,
+    pack_fsmn_weights,
 )
 from wekws_tpu_torch.ops.fused_mdtc import (
     extract_mdtc_weights,
@@ -189,12 +190,15 @@ def _build_fused_fsmn(model, device, softmax, streaming):
     (in1_w, in1_b, in2_w, in2_b, proj_w, wl, wr, aff_w, aff_b,
      out1_w, out1_b, out2_w, out2_b) = (
         _f32(w, device) for w in extract_fsmn_weights(fsmn))
+    # each block's slices as contiguous runs, for the kernel's copy engine
+    packed = pack_fsmn_weights(proj_w, aff_w)
 
     def backbone_fn(x, cache):
         x = torch.relu((x @ in1_w + in1_b) @ in2_w + in2_b)
         x, cache = fused_fsmn_layers(
             x.contiguous(), cache, proj_w, wl, wr, aff_w, aff_b,
-            fsmn.lorder, fsmn.rorder, fsmn.lstride, fsmn.rstride)
+            fsmn.lorder, fsmn.rorder, fsmn.lstride, fsmn.rstride,
+            packed=packed)
         x = (x @ out1_w + out1_b) @ out2_w + out2_b
         return x, cache
 

@@ -2,17 +2,20 @@
 source as it is and for variants of it.
 
     python -m wekws_tpu_torch.tools.time_train_passes \
-        [--passes f2,b1] [--variant NAME ...] [--rounds 2]
+        [--passes f1,f2] [--variant NAME ...] [--rounds 2]
 
 Builds ``csrc/fused_mdtc_train.cu`` and, for each named variant, a copy
 of it with the variant's text edits (``VARIANTS``), all ``nvcc`` runs
-at once, into ``wekws_tpu_torch/build/variants/``.  Then, at the
+at once, into ``wekws_tpu_torch/build/variants/``; while a variant is
+timed, the wrapper's constants that mirror its edits are set to match
+(``KNOBS``).  Then, at the
 flagship's main training shape (B=512 x T=198 x C=64, K=5, dilation 8,
 inputs traced through the plain passes from seed 0), each pass of each
 build is held against its plain version (``compare_pass``; not the
 ``TIMING_ONLY`` variants, which leave work out) and timed:
 device time per call of its kernel and its block reduction, from
-torch.profiler over 20 launches.  The builds are timed in turns, first
+torch.profiler over 20 launches (the reduction's share printed
+beside).  The builds are timed in turns, first
 to last and back, ``--rounds`` times, in one process on one card; the
 median of a build's rounds is printed with its registers and spills.
 Needs a GPU and ``nvcc``.
@@ -26,6 +29,9 @@ import subprocess
 import sys
 
 ZERO_ACC = "for (int j = 0; j < R; ++j) acc[j] = zero4;"
+F1_STREAM = ("constexpr bool kF1Staged = true;",
+             "constexpr bool kF1Staged = false;")
+F1_ROWS1 = ("constexpr int kF1RowScale = 2;", "constexpr int kF1RowScale = 1;")
 # name -> text edits (old, new) of csrc/fused_mdtc_train.cu; each old
 # text must occur exactly once
 VARIANTS = {
@@ -35,6 +41,11 @@ VARIANTS = {
         "const bool staged = fwd_smem_bytes<C, kF3>() + window <= "
         "kSmemLimit;",
         "const bool staged = false;")],
+    # F1 as one stream: no window, each thread reads its taps by __ldg
+    # float4 from L1 and L2
+    "f1_stream": [F1_STREAM],
+    # F1's tiles as F2's rows (four rows a thread, not eight)
+    "f1_rows1": [F1_ROWS1],
     # B1 with two or eight rows of a thread in flight, not four
     "b1_rows2": [("constexpr int kB1Rows = 4;", "constexpr int kB1Rows = 2;")],
     "b1_rows8": [("constexpr int kB1Rows = 4;", "constexpr int kB1Rows = 8;")],
@@ -48,6 +59,12 @@ VARIANTS = {
     # B2 without dW2 += rᵀ·dwg
     "no_outer_b2": [(
         "rows_outer<C, ROWS, MB>(tr, ta, g, q, accw);", "")],
+}
+# the wrapper's mirror of a variant's edits (ops/fused_mdtc_train.py
+# constants), set while that build is timed
+KNOBS = {
+    "f1_stream": {"F1_STAGED": False},
+    "f1_rows1": {"F1_ROW_SCALE": 1},
 }
 # variants that leave work out: timed, not held against the plain version
 TIMING_ONLY = ("no_products", "no_outer_b2")
@@ -87,7 +104,8 @@ def build_variants(names):
 
 
 def device_ms(fn, kernel, pass_id, reps=20):
-    """Mean device time per call of ``kernel`` and its reduction."""
+    """Mean device time per call of ``kernel`` and its reduction, and
+    of the reduction alone."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -98,17 +116,20 @@ def device_ms(fn, kernel, pass_id, reps=20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = 0.0
+    total = reduce = 0.0
     for evt in prof.key_averages():
-        if kernel in evt.key or f"reduce_kernel<{pass_id}>" in evt.key:
-            total += getattr(evt, "device_time_total",
-                             getattr(evt, "cuda_time_total", 0.0))
-    return total / reps / 1e3
+        dev = getattr(evt, "device_time_total",
+                      getattr(evt, "cuda_time_total", 0.0))
+        if f"reduce_kernel<{pass_id}>" in evt.key:
+            reduce += dev
+        elif kernel in evt.key:
+            total += dev
+    return (total + reduce) / reps / 1e3, reduce / reps / 1e3
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--passes", default="f2,b1")
+    ap.add_argument("--passes", default="f1,f2")
     ap.add_argument("--variant", action="append", default=[],
                     choices=sorted(VARIANTS))
     ap.add_argument("--rounds", type=int, default=2)
@@ -146,17 +167,24 @@ def main(argv=None) -> int:
     for rnd in range(args.rounds):
         for name in order if rnd % 2 == 0 else order[::-1]:
             cuda_build._loaded["fused_mdtc_train"] = libs[name]
+            knobs = KNOBS.get(name, {})
+            saved = {k: getattr(fmt, k) for k in knobs}
+            for k, v in knobs.items():
+                setattr(fmt, k, v)
             for q in passes:
                 fn = fmt.PASSES[q]
                 err = float("nan")
                 if name not in TIMING_ONLY:
                     err = fmt.compare_pass(q, fn(*calls[q]),
                                            fn.plain(*calls[q]))
-                ms = device_ms(lambda: fn(*calls[q]),
-                               fmt.kernel_name(q, 64), fmt.PASS_IDS[q])
+                ms, red = device_ms(lambda: fn(*calls[q]),
+                                    fmt.kernel_name(q, 64), fmt.PASS_IDS[q])
                 times[(name, q)].append(ms)
                 print(f"  round {rnd} {name} {q}: {ms:.4f} ms device per "
-                      f"call, max abs err {err:.2e}", flush=True)
+                      f"call, of it {red:.4f} ms its reduction, max abs "
+                      f"err {err:.2e}", flush=True)
+            for k, v in saved.items():
+                setattr(fmt, k, v)
     cuda_build._loaded.pop("fused_mdtc_train", None)
     for name in order:
         print(f"{name}: " + ", ".join(
