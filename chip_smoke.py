@@ -12,13 +12,17 @@ one CUDA device, in phases; any failure exits non-zero:
 1. card name and power limit (nvidia-smi); a GPU is required;
 2. build every CUDA kernel from ``wekws_tpu_torch/csrc`` and print
    what ``ptxas`` says of registers and spills (the kernels of F1, F2,
-   F3, B1, B2, B3 and B4 by name, at C = 32, 64, 128, and the FSMN
-   kernel by its template arguments);
-3. each serving kernel against its plain PyTorch version on the card,
-   at flagship width: whole-utterance forward at B=64 x T=198 and
-   B=4 x T=1024, streaming at B=16 in chunks of 8 over 200 frames
-   (chained, against the one-shot forward); bound 1e-4 abs + 1e-4 rel
-   (fp32, another summation order);
+   F3, B1, B2, B3 and B4 by name, at C = 32, 64, 128, the FSMN kernel
+   by its template arguments, the fbank kernels of both plans and the
+   MDTC serving kernel's instantiations);
+3. the MDTC serving kernel against its plain PyTorch version on the
+   card at the flagship's depth: whole utterances and one streaming
+   chunk (a random cache; output and new cache) at T = 1, 7, 8, 198,
+   1024 and 2048, B = 1, 4, 16, 64, C = 32, 64, 128, each with the plan
+   the wrapper chose and launched twice (bitwise equal); streaming at
+   B=16 in chunks of 8 over 200 frames (chained, against the one-shot
+   forward and the plain chain); bound 1e-4 abs + 1e-4 rel (fp32,
+   another summation order);
 4. the serving slice end to end: 16 synthetic 2 s utterances ->
    fbank -> checkpoint saved and loaded through ``load_serving_model``
    -> (a) offline ``build_fused_forward`` -> score file -> DET, held
@@ -71,11 +75,16 @@ one CUDA device, in phases; any failure exits non-zero:
    B=4 x T=1024, B=1 x T = 1, 10 and 11 (below and at P = 11) and
    B=1 chained in chunks of 10 over 200 frames (each
    chain against the one-shot call and the plain chain, final cache
-   too; 1e-4 abs + 1e-4 rel); ``fused_fbank`` at (512, 32000) M=40,
-   (64, 32000) M=80, MFCC and magnitude/no-log against the three-matmul
-   plain version; its in-kernel dither by the per-bin mean and standard
-   deviation of the log-mel over 101,376 frames against torch.randn,
-   same seed bitwise equal, another seed different;
+   too; 1e-4 abs + 1e-4 rel); ``fused_fbank`` through both plans (the
+   shared-memory FFT and the dense DFT, each launched twice, bitwise
+   equal) at (512, 32000) M=40, (64, 32000) M=80, MFCC, magnitude/no-
+   log, hamming, no preemphasis, no DC removal, an odd frame of 401 and
+   ``round_to_power_of_two: false`` (the dense plan alone) against the
+   three-matmul plain version; with dither on and one seed the FFT plan
+   against the dense plan (the same noise); the in-kernel dither by the
+   per-bin mean and standard deviation of the log-mel over 101,376
+   frames against torch.randn, same seed bitwise equal, another seed
+   different;
 10. path A, as phase 4 for the DS-TCN recipe: offline fused forward ->
     score file -> DET and ``BatchMaxPoolSpotter(use_fused=True)``,
     through ``fused_ds_tcn``;
@@ -88,8 +97,9 @@ one CUDA device, in phases; any failure exits non-zero:
     features and loss against the unfused frontend, steps with the
     flagship's wave-mode dither + spec_aug, two steps with frame-mode
     (in-kernel) dither, a cv step; one ``fused_fbank`` launch per step;
-13. times of the three kernels at their main shapes, the FSMN
-    variants' (clusters of 8 or 16 blocks;
+13. times of the three kernels at their main shapes (fbank's dense-DFT
+    plan beside its FFT plan), the FSMN variants' (clusters of 8 or 16
+    blocks;
     ``wekws_tpu_torch/tools/time_fsmn.py``) and the grid of an FSMN
     launch from the profiler's trace (B x 8 blocks), of the path-C train step
     beside the unfused-frontend step, and of ``KeyWordSpotter.forward``
@@ -102,6 +112,7 @@ and ``{"ok": true, "device": {...}}``.  Run from the repository root:
 
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -310,6 +321,48 @@ def mdtc_bound_ms(b, t, c, n_layers, k, n_stacks, pad_max, stream):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
+
+
+# phase 3's MDTC shapes (B, T, C): the main path's (16 x 198 offline,
+# 16 x 8 streaming), 64 utterances, one frame, chunks shorter and longer
+# than a block's rows, long utterances (1024, 2048), C = 32 and 128
+MDTC_CASES = ((16, 198, 64), (16, 8, 64), (64, 198, 64), (1, 1, 64),
+              (16, 7, 64), (4, 1024, 64), (1, 2048, 64), (16, 198, 32),
+              (1, 2048, 32), (16, 8, 32), (16, 198, 128), (4, 2048, 128),
+              (16, 8, 128), (64, 7, 128))
+# and with a halo longer than shared memory holds at C=128 (a dilation of
+# 64 at K=5: pad_max 256, each tap's rows staged), five layers
+LONG_HALO_DILATIONS = (1, 1, 2, 4, 64)
+LONG_HALO_CASES = ((2, 300, 128), (16, 8, 128), (1, 1, 128), (2, 300, 64))
+
+
+def mdtc_weights(c, n_layers, k, gen):
+    """Seeded folded weight stacks of an MDTC backbone of width c."""
+    import torch
+
+    def randn(*shape, scale):
+        return torch.randn(shape, generator=gen) * scale
+
+    return (randn(n_layers, k, c, scale=0.3), randn(n_layers, c, scale=0.1),
+            randn(n_layers, c, c, scale=c ** -0.5),
+            randn(n_layers, c, scale=0.1),
+            randn(n_layers, c, c, scale=c ** -0.5),
+            randn(n_layers, c, scale=0.1))
+
+
+def mdtc_plan_text(b, t, c, k, pad_max):
+    """The plan the MDTC wrapper chose for these shapes on this card."""
+    from wekws_tpu_torch.ops import fused_mdtc
+
+    plan = next((v for key, v in fused_mdtc._plans.items()
+                 if key[:5] == (b, t, c, k, pad_max)), None)
+    if plan is None:
+        return "no plan yet"
+    return (f"cluster {plan['cluster']}{' spread' if plan['spread'] else ''}"
+            f", {plan['rows']} frames a block, tile {plan['tile']}"
+            f"{', depth split' if plan['splits'] == 2 else ''}, "
+            f"layer inputs: {plan['window']}, {plan['nbuf']} weight "
+            f"buffer(s), {plan['smem']} B")
 
 
 def check_close(name, got, want, quiet=False, atol=TOL, rtol=TOL):
@@ -1028,11 +1081,32 @@ def fsmn_bound_ms(b, t, ld, pd, n_layers, lorder, rorder, pad):
     return roofline_ms(flops, nbytes)
 
 
-def fbank_bound_ms(b, s, frame_length, frame_shift, nbin, n_mel, n_out):
-    """Least time on an H100 for one fused fbank call: per frame the two
-    DFT products 2 x FL x 2 nbin, power 3 nbin, mel 2 nbin M, log M and
-    for MFCC the DCT 2 M C.  Bytes: the wave read once, the features
-    written once, the operators once (no frames buffer)."""
+def fbank_bound_ms(b, s, frame_length, frame_shift, n_fft, n_band, n_mel,
+                   n_out):
+    """Least time on an H100 for one fused fbank call, counting the work
+    the function needs by the FFT route: per frame the pre-chain 4 FL
+    (the mean, the preemphasis's multiply-add, the window), a real FFT
+    of n_fft points 2.5 n log2 n, the power 3 nbin, mel over the
+    filters' nonzero bins 2 n_band (this bank's), the log M and for MFCC
+    the DCT 2 M C.  Bytes: the wave read once, the features written
+    once, the operators once (window, twiddles, packed mel weights,
+    DCT).  The FFT plan's 16 low bins by the folded operator (4 FL 16
+    flops a frame more) are its design's cost and stay out."""
+    rows = b * (1 + (s - frame_length) // frame_shift)
+    nbin = n_fft // 2 + 1
+    dct = 2 * n_mel * n_out if n_out != n_mel else 0
+    flops = rows * (4 * frame_length + 2.5 * n_fft * math.log2(n_fft)
+                    + 3 * nbin + 2 * n_band + n_mel + dct)
+    nbytes = 4 * (b * s + rows * n_out + frame_length + 2 * n_fft
+                  + n_band + dct // 2)
+    return roofline_ms(flops, nbytes)
+
+
+def fbank_dense_bound_ms(b, s, frame_length, frame_shift, nbin, n_mel, n_out):
+    """The same for the work the dense plan (and the TPU kernel) does:
+    the two DFT products 2 x FL x 2 nbin a frame, power 3 nbin, mel over
+    every bin 2 nbin M, log M, DCT 2 M C; bytes as above with the folded
+    operator and the dense bank."""
     rows = b * (1 + (s - frame_length) // frame_shift)
     dct = 2 * n_mel * n_out if n_out != n_mel else 0
     flops = rows * (4 * frame_length * nbin + 3 * nbin + 2 * nbin * n_mel
@@ -1047,6 +1121,40 @@ def roofline_ms(flops, nbytes):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
+
+
+# phase 9's fbank cases: (name, FrontendConfig keywords, batch)
+FBANK_CASES = (
+    ("(512, 32000) fbank M=40", {"num_mel_bins": 40}, TRAIN_B),
+    ("(64, 32000) fbank M=80", {"num_mel_bins": 80}, 64),
+    ("(64, 32000) MFCC 13 of 40",
+     {"feature_type": "mfcc", "num_mel_bins": 40, "num_ceps": 13}, 64),
+    ("(64, 32000) magnitude, no log",
+     {"num_mel_bins": 40, "use_power": False, "use_log_fbank": False}, 64),
+    ("(64, 32000) hamming window", {"window_type": "hamming"}, 64),
+    ("(64, 32000) no preemphasis", {"preemphasis": 0.0}, 64),
+    ("(64, 32000) no DC removal", {"remove_dc_offset": False}, 64),
+    ("(64, 32000) odd frame of 401", {"frame_length_ms": 25.0625}, 64),
+    ("(64, 32000) round_to_power_of_two false",
+     {"round_to_power_of_two": False}, 64),
+)
+
+def fbank_call(fe, waves, plan, seed=None):
+    """``fused_fbank`` with ``fe``'s operands through ``plan``: "fft"
+    with the FFT plan's operands (the plan ``fbank_plan`` then picks),
+    "dense" with the folded operator alone; frame dither 1.0 from
+    ``seed`` when given."""
+    from wekws_tpu_torch.frontend.kaldi import EPSILON
+    from wekws_tpu_torch.ops.fused_frontend import fused_fbank
+
+    cfg = fe.cfg
+    mats = fe._mats(waves.device)
+    return fused_fbank(
+        waves, mats["analysis"], mats["mel_t"], mats.get("dct"),
+        frame_length=cfg.frame_length, frame_shift=cfg.frame_shift,
+        dither=1.0 if seed is not None else 0.0, seed=seed,
+        use_power=cfg.use_power, use_log=cfg.use_log_fbank, epsilon=EPSILON,
+        **(fe.fft_operands(mats) if plan == "fft" else {}))
 
 
 def chained(step, x, cache, chunk):
@@ -1068,6 +1176,7 @@ def phase9_new_kernels(dev, gen, batch):
 
     from wekws_tpu_torch.frontend.features import FeatureExtractor
     from wekws_tpu_torch.frontend.kaldi import FrontendConfig
+    from wekws_tpu_torch.ops.fused_frontend import fbank_plan
     from wekws_tpu_torch.ops.fused_fsmn import (
         extract_fsmn_weights,
         fused_fsmn_layers,
@@ -1150,34 +1259,52 @@ def phase9_new_kernels(dev, gen, batch):
           ("vs plain chain", got[0], want[0]),
           ("final cache vs plain", got[1], want[1])))
 
-    # ---- fused_fbank against the unfused three-matmul extractor
+    # ---- fused_fbank against the unfused three-matmul extractor, through
+    # both plans: the FFT plan (what a power-of-two n_fft runs) and the
+    # dense-DFT plan (what any other size runs), launched directly
     waves = torch.as_tensor(batch["waves"], device=dev)
-    cases = (
-        ("(512, 32000) fbank M=40", {"num_mel_bins": 40}, TRAIN_B),
-        ("(64, 32000) fbank M=80", {"num_mel_bins": 80}, 64),
-        ("(64, 32000) MFCC 13 of 40",
-         {"feature_type": "mfcc", "num_mel_bins": 40, "num_ceps": 13}, 64),
-        ("(64, 32000) magnitude, no log",
-         {"num_mel_bins": 40, "use_power": False, "use_log_fbank": False},
-         64),
-    )
     extractors = {}
-    for name, kw, b in cases:
+    for name, kw, b in FBANK_CASES:
         cfg = FrontendConfig(dither=1.0, dither_mode="frame", **kw)
         fused = FeatureExtractor(cfg, use_fused=True)
         plain = FeatureExtractor(cfg)
-        got, _ = fused(waves[:b])
-        torch.cuda.synchronize()
         want, _ = plain(waves[:b])
         if cfg.use_log_fbank:
             atol, rtol = FBANK_ATOL, FBANK_RTOL
         else:  # energies up to ~1e6: relative to the largest
             atol, rtol = 1e-4 * float(want.abs().max()), 1e-4
-        err = check_close(f"fused_fbank {name}", got, want, atol=atol,
-                          rtol=rtol)
-        if cfg.use_log_fbank:
-            errs["fused_fbank"] = max(errs["fused_fbank"], err)
+        for plan in ("fft", "dense"):
+            if plan == "fft" and fbank_plan(cfg.padded_window_size) != "fft":
+                continue
+            got = fbank_call(fused, waves[:b], plan)
+            again = fbank_call(fused, waves[:b], plan)
+            torch.cuda.synchronize()
+            err = check_close(f"fused_fbank {name}, {plan} plan (n_fft "
+                              f"{cfg.padded_window_size})", got, want,
+                              atol=atol, rtol=rtol)
+            if not torch.equal(got, again):
+                raise AssertionError(f"fused_fbank {name} {plan}: two "
+                                     f"launches differ")
+            if cfg.use_log_fbank:
+                errs["fused_fbank"] = max(errs["fused_fbank"], err)
         extractors[name] = (fused, plain)
+    # one seed, the same noise in both plans (Philox by position): the
+    # FFT plan against the dense one with dither on, at the main shape and
+    # an odd frame (401 samples, quads across frames)
+    for name in ("(512, 32000) fbank M=40", "(64, 32000) odd frame of 401"):
+        fused = extractors[name][0]
+        b = TRAIN_B if name.startswith("(512") else 64
+        seed = torch.tensor([20261017], dtype=torch.int64, device=dev)
+        got = fbank_call(fused, waves[:b], "fft", seed)
+        want = fbank_call(fused, waves[:b], "dense", seed)
+        again = fbank_call(fused, waves[:b], "fft", seed)
+        torch.cuda.synchronize()
+        check_close(f"fused_fbank {name} with dither 1.0, one seed: FFT plan "
+                    f"vs dense plan", got, want, atol=FBANK_ATOL,
+                    rtol=FBANK_RTOL)
+        if not torch.equal(got, again):
+            raise AssertionError(f"fused_fbank {name}: dithered launches "
+                                 f"differ")
 
     # in-kernel dither against torch.randn: distributions, not bits
     fused, plain = extractors["(512, 32000) fbank M=40"]
@@ -1585,14 +1712,24 @@ def phase13_times(dev, bench, errs, launches, card, trainer, state,
 
     fused, plain, waves = bench["fbank"]
     cfg = fused.cfg
+    n_fft = cfg.padded_window_size
     main = timed(
         "fused_fbank", f"waves {tuple(waves.shape)} M={cfg.num_mel_bins}",
         lambda: fused(waves), lambda: plain(waves), "fused_fbank_kernel",
         fbank_bound_ms(waves.shape[0], waves.shape[1], cfg.frame_length,
-                       cfg.frame_shift, cfg.padded_window_size // 2 + 1,
+                       cfg.frame_shift, n_fft, fused.n_band,
                        cfg.num_mel_bins, cfg.feat_dim))
+    # the dense-DFT plan on the same waves, beside: the TPU kernel's work
+    dense = timed(
+        "fused_fbank, dense-DFT plan",
+        f"waves {tuple(waves.shape)} M={cfg.num_mel_bins}",
+        lambda: fbank_call(fused, waves, "dense"), lambda: plain(waves),
+        "fused_fbank_dense_kernel",
+        fbank_dense_bound_ms(waves.shape[0], waves.shape[1],
+                             cfg.frame_length, cfg.frame_shift,
+                             n_fft // 2 + 1, cfg.num_mel_bins, cfg.feat_dim))
     out.append(record("fused_fbank", "wekws_tpu_torch/csrc/fused_frontend.cu",
-                      "wekws_tpu/ops/fused_frontend.py:111", main, []))
+                      "wekws_tpu/ops/fused_frontend.py:111", main, [dense]))
 
     # the path-C train step beside the unfused-frontend step: unfused
     # (phase 8), fused, fused, unfused
@@ -1619,6 +1756,25 @@ def phase13_times(dev, bench, errs, launches, card, trainer, state,
           f"300 ms chunk (FSMN-CTC, host clock, phase 11) [{card}]",
           flush=True)
     return out
+
+
+# the instantiations phase 2 prints: 5 n_fft + the dense plan; 3 widths
+# x (rows a thread 1 to 4 and the split depth)
+SERVING_KERNELS = {"fused_frontend": 6, "fused_mdtc": 15}
+
+
+def kernel_instance(entry):
+    """``fused_fbank_kernel<9>``, ``fused_fbank_dense_kernel`` or
+    ``fused_mdtc_kernel<64, 2, 1>`` from a mangled entry name, else
+    None."""
+    for kern in ("fused_fbank_kernel", "fused_mdtc_kernel"):
+        args = entry.partition(f"{kern}ILi")[2]
+        if args:
+            vals = [a.lstrip("Li") for a in args.split("EE")[0].split("E")]
+            return f"{kern}<{', '.join(vals)}>"
+    if "fused_fbank_dense_kernel" in entry:
+        return "fused_fbank_dense_kernel"
+    return None
 
 
 TRAIN_REPLACES = {
@@ -1703,6 +1859,21 @@ def main() -> int:
             raise AssertionError(f"expected ptxas lines for 8 "
                                  f"fused_fsmn_kernel instantiations, found "
                                  f"{found}")
+        # the fbank kernels (FFT plan by log2 n_fft and frames a block;
+        # the dense plan) and the MDTC serving kernel (by C, rows a
+        # thread, splits of the depth)
+        for source, want in SERVING_KERNELS.items():
+            log = cuda_build.build_logs.get(source, "")
+            found = 0
+            for entry, regs, st, ld in cuda_build.parse_ptxas_log(log):
+                name = kernel_instance(entry)
+                if name:
+                    found += 1
+                    print(f"  {source} {name}: {regs} registers, {st} bytes "
+                          f"spill stores, {ld} bytes spill loads")
+            if log and found != want:
+                raise AssertionError(f"expected ptxas lines for {want} "
+                                     f"kernels of {source}, found {found}")
         print(f"  built {len(paths)} librar(ies) in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -1720,15 +1891,59 @@ def main() -> int:
         return torch.randn((b, t, CHANNELS), generator=gen).to(dev)
 
     with phase("3 kernels vs plain (flagship width)"):
-        for b, t in ((64, 198), (4, 1024)):
-            x = feats_like(b, t)
-            got = fused_mdtc_forward(x, *weights, dilations, k, stack_size)
+        # the flagship's weights at C=64, seeded weights at the flagship's
+        # depth for C=32 and C=128; whole utterances and one streaming
+        # chunk (a random cache) at each shape, output and new cache
+        # against the plain version, each launched twice (bitwise equal)
+        wide = {64: weights}
+        for c in (32, 128):
+            wide[c] = tuple(w.to(dev) for w in mdtc_weights(
+                c, n_layers, k, gen))
+
+        def hold_mdtc(b, t, c, w, dil):
+            pad = (k - 1) * max(dil)
+            x = torch.randn((b, t, c), generator=gen).to(dev)
+            c0 = torch.randn((len(dil), b, pad, c), generator=gen).to(dev)
+            got = fused_mdtc_forward(x, *w, dil, k, stack_size)
+            again = fused_mdtc_forward(x, *w, dil, k, stack_size)
+            got_y, got_c = fused_mdtc_stream(x, c0, *w, dil, k, stack_size)
+            again_y, again_c = fused_mdtc_stream(x, c0, *w, dil, k,
+                                                 stack_size)
             torch.cuda.synchronize()
-            want = fused_mdtc_forward_plain(x, *weights, dilations, k,
-                                            stack_size)
+            want = fused_mdtc_forward_plain(x, *w, dil, k, stack_size)
+            want_y, want_c = fused_mdtc_stream_plain(x, c0, *w, dil, k,
+                                                     stack_size)
+            what = f"B={b} T={t} C={c}"
+            if pad != pad_max:
+                what += f" pad_max={pad}"
+            plan = mdtc_plan_text(b, t, c, k, pad)
+            quiet = (b, t) != (N_UTTS, 198) or c != CHANNELS
             errs["fused_mdtc_forward"] = max(
                 errs["fused_mdtc_forward"],
-                check_close(f"fused_mdtc_forward B={b} T={t}", got, want))
+                check_close(f"fused_mdtc_forward {what} ({plan})", got,
+                            want))
+            errs["fused_mdtc_stream"] = max(
+                errs["fused_mdtc_stream"],
+                check_close(f"fused_mdtc_stream {what} output", got_y,
+                            want_y, quiet=quiet),
+                check_close(f"fused_mdtc_stream {what} new cache", got_c,
+                            want_c, quiet=quiet))
+            if not (torch.equal(got, again) and torch.equal(got_y, again_y)
+                    and torch.equal(got_c, again_c)):
+                raise AssertionError(f"fused_mdtc {what}: two launches "
+                                     f"differ")
+
+        for b, t, c in MDTC_CASES:
+            hold_mdtc(b, t, c, wide[c], dilations)
+        long_w = {c: tuple(w.to(dev) for w in mdtc_weights(
+            c, len(LONG_HALO_DILATIONS), k, gen)) for c in (64, 128)}
+        for b, t, c in LONG_HALO_CASES:
+            hold_mdtc(b, t, c, long_w[c], LONG_HALO_DILATIONS)
+        print(f"  {len(MDTC_CASES)} shapes (T = 1 to 2048, B = 1 to 64, "
+              f"C = 32, 64, 128) and {len(LONG_HALO_CASES)} with pad_max "
+              f"{(k - 1) * max(LONG_HALO_DILATIONS)}, offline and one "
+              f"streaming chunk each: bitwise equal from launch to launch",
+              flush=True)
         b, t, step = 16, 200, 8
         x = feats_like(b, t)
         cache = init_stream_cache(n_layers, b, pad_max, CHANNELS, dev)
@@ -1746,8 +1961,9 @@ def main() -> int:
         streamed = torch.cat(outs, dim=1)
         full = fused_mdtc_forward(x, *weights, dilations, k, stack_size)
         errs["fused_mdtc_stream"] = max(
-            check_close("fused_mdtc_stream vs one-shot forward (kernel)",
-                        streamed, full),
+            errs["fused_mdtc_stream"],
+            check_close("fused_mdtc_stream 25 chunks of 8 vs one-shot "
+                        "forward (kernel)", streamed, full),
             check_close("fused_mdtc_stream vs plain stream",
                         streamed, torch.cat(plain_outs, dim=1)),
             check_close("fused_mdtc_stream final cache vs plain",
@@ -1804,8 +2020,9 @@ def main() -> int:
                            else f"{dev_ms:.4f} ms")
                 print(f"  {name} B={b} T={t}: kernel {ms:.4f} ms per call "
                       f"(device time {dev_txt}), plain {plain_ms:.4f} ms, "
-                      f"bound {bound:.5f} ms ({bound_by}) [{card}]",
-                      flush=True)
+                      f"bound {bound:.5f} ms ({bound_by}); "
+                      f"{mdtc_plan_text(b, t, CHANNELS, k, pad_max)} "
+                      f"[{card}]", flush=True)
                 if (b, t) == main_shape[name]:
                     record.append({
                         "name": name, "route": "cuda",

@@ -157,3 +157,167 @@ def test_pipeline_reads_fused_frontend_flag(rng):
         b, lb = plain(waves, lens, torch.Generator().manual_seed(1))
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-6)
         assert torch.equal(la, lb)
+
+
+# ---- the kernel's FFT plan: its operands, schedule and checks
+
+from wekws_tpu_torch.frontend.features import analysis_matrix  # noqa: E402
+from wekws_tpu_torch.ops import fused_frontend as ff  # noqa: E402
+
+
+@pytest.mark.parametrize("window", ["povey", "hamming"])
+@pytest.mark.parametrize("preemphasis", [0.0, 0.97])
+@pytest.mark.parametrize("remove_dc", [True, False])
+@pytest.mark.parametrize("pow2", [True, False])
+def test_fft_operands_equal_the_folded_analysis(rng, window, preemphasis,
+                                                remove_dc, pow2):
+    """In float64: DC removal, Kaldi preemphasis, the window and a real
+    FFT of the zero-padded frame (the FFT plan's route, from the
+    extractor's operands) equal frames @ analysis (the dense plan's
+    folded operator, the plain version's) within 1e-9 of the largest
+    bin; n_fft 512, or the frame's own 400 (round_to_power_of_two
+    false, the dense plan's size)."""
+    cfg = kaldi.FrontendConfig(window_type=window, preemphasis=preemphasis,
+                               remove_dc_offset=remove_dc,
+                               round_to_power_of_two=pow2)
+    fe = FeatureExtractor(cfg, use_fused=True)
+    ops = fe.fft_operands(fe._cpu)
+    assert ops["n_fft"] == cfg.padded_window_size == (512 if pow2 else 400)
+    assert ff.fbank_plan(ops["n_fft"]) == ("fft" if pow2 else "dense")
+    frames = rng.standard_normal((6, cfg.frame_length)) * 1000.0
+    x = frames - (frames.mean(axis=1, keepdims=True)
+                  if ops["remove_dc_offset"] else 0.0)
+    prev = np.concatenate([x[:, :1], x[:, :-1]], axis=1)
+    # the window in float64; the kernel's operand is it rounded once
+    x = (x - ops["preemphasis"] * prev) * cfg.window()
+    spec = np.fft.rfft(x, n=ops["n_fft"], axis=1)
+    folded = frames @ analysis_matrix(cfg)
+    nbin = ops["n_fft"] // 2 + 1
+    want = np.concatenate([spec.real, spec.imag], axis=1)
+    assert folded.shape == want.shape == (6, 2 * nbin)
+    np.testing.assert_allclose(folded, want, rtol=0,
+                               atol=1e-9 * np.abs(want).max())
+    np.testing.assert_allclose(
+        ops["window"].numpy(), cfg.window().astype(np.float32))
+    # the low bins' columns of the folded operator, as [re, im] pairs
+    low, a32 = ops["low"].numpy(), fe._cpu["analysis"].numpy()
+    fl = cfg.frame_length
+    assert low.shape == (-(-fl // 32) * 32, 2 * ff.LOW_BINS)
+    np.testing.assert_array_equal(low[:fl, 0::2], a32[:, :ff.LOW_BINS])
+    np.testing.assert_array_equal(low[:fl, 1::2],
+                                  a32[:, nbin:nbin + ff.LOW_BINS])
+    assert not low[fl:].any()
+
+
+@pytest.mark.parametrize("n_fft", ff.FFT_SIZES)
+def test_twiddle_table_and_the_kernels_fft_schedule(rng, n_fft):
+    """The table is exp(-2 pi i m / n_fft) rounded once to float32; the
+    kernel's schedule (packed pairs, Stockham stages of the radices of
+    ``fft_radices``, the split pass) reproduces numpy's rfft in float64
+    within 1e-12 of the largest bin."""
+    tw = ff.twiddle_table(n_fft)
+    assert tw.dtype == torch.float32 and tuple(tw.shape) == (n_fft, 2)
+    ref = np.exp(-2j * np.pi * np.arange(n_fft) / n_fft)
+    np.testing.assert_allclose(tw[:, 0].numpy(), ref.real, atol=6e-8)
+    np.testing.assert_allclose(tw[:, 1].numpy(), ref.imag, atol=6e-8)
+    n = n_fft // 2
+    radices = ff.fft_radices(n_fft)
+    assert int(np.prod(radices)) == n and all(r in (2, 4, 8, 16)
+                                              for r in radices)
+    x = rng.standard_normal(n_fft)
+    z = x[0::2] + 1j * x[1::2]
+    ns = 1
+    for rs in radices:  # csrc/fused_frontend.cu fft_stage
+        out = np.empty_like(z)
+        for j in range(n // rs):
+            k = j % ns
+            v = z[j + np.arange(rs) * (n // rs)] * ref[
+                2 * k * np.arange(rs) * (n // (ns * rs))]
+            v = np.fft.fft(v)
+            out[(j // ns) * ns * rs + k + np.arange(rs) * ns] = v
+        z, ns = out, ns * rs
+    k = np.arange(n // 2 + 1)
+    a, b = z[k], z[(n - k) % n]
+    e = 0.5 * (a + np.conj(b))
+    o = -0.5j * (a - np.conj(b))
+    spec = np.zeros(n + 1, complex)
+    spec[k] = e + ref[k] * o
+    spec[n - k] = np.conj(e - ref[k] * o)
+    want = np.fft.rfft(x)
+    np.testing.assert_allclose(spec, want, rtol=0,
+                               atol=1e-12 * np.abs(want).max())
+
+
+def test_plan_choice_and_block_sizes():
+    """Powers of two from 128 to 2048 take the FFT plan, any other
+    padded size (or none) the dense plan.  A block's frames fill 16,384
+    floats; a block fits an SM at every size, two at 25 ms frames of
+    16 kHz (and of 8 kHz up to 40 bins)."""
+    for n in ff.FFT_SIZES:
+        assert ff.fbank_plan(n) == "fft"
+        assert ff.fft_frames(n) * n == ff.FFT_FLOATS
+        for m in (23, 40, 80):
+            smem = ff.fft_smem_bytes(n, min(n, 400), 2 * (n // 2 + 1) + m, m)
+            assert smem <= 232448
+            # 25 ms at 16 kHz (and at 8 kHz up to 40 bins): two blocks an SM
+            if n == 512 or (n == 256 and m <= 40):
+                assert 2 * (smem + 1024) <= 233472
+    for n in (None, 64, 400, 401, 4096):
+        assert ff.fbank_plan(n) == "dense"
+        if n is not None:
+            with pytest.raises(ValueError, match="no FFT plan"):
+                ff.fft_frames(n)
+    # 32 frames of 512 points: twiddles 4 KB, frames 69.9 KB, window,
+    # 492 packed weights, 40 bands, the 32 x 40 log-mel tile, 16 low bins
+    # and two chunks of 32 rows of their operator
+    assert ff.fft_smem_bytes(512, 400, 492, 40) == 4 * (
+        1024 + 32 * 546 + 400 + 492 + 120 + 1280 + 32 * 16 + 2 * 32 * 32)
+
+
+@pytest.mark.parametrize("n_mel", [23, 40, 80])
+def test_mel_bands_hold_every_nonzero_once(n_mel):
+    fe = FeatureExtractor(kaldi.FrontendConfig(num_mel_bins=n_mel))
+    mel_t = fe._cpu["mel_t"]
+    for dense in (False, True):
+        bands, n_band = ff.mel_bands(mel_t, dense=dense)
+        assert bands.dtype == torch.int32 and tuple(bands.shape) == (n_mel, 3)
+        lo, hi, off = bands.numpy().T
+        assert off[0] == 0 and np.all(off[1:] == off[:-1] + (hi - lo)[:-1])
+        assert n_band == off[-1] + hi[-1] - lo[-1]
+        for m in range(n_mel):
+            nz = np.flatnonzero(mel_t[:, m].numpy())
+            assert lo[m] <= nz.min() and nz.max() < hi[m]
+            if dense:
+                assert (lo[m], hi[m]) == (0, mel_t.shape[0])
+            else:
+                assert (lo[m], hi[m]) == (nz.min(), nz.max() + 1)
+    assert fe.n_band == ff.mel_bands(mel_t)[1] < 2 * mel_t.shape[0]
+
+
+@pytest.mark.parametrize("bad", ["window", "twiddles", "low", "bands_dtype",
+                                 "n_band", "n_fft", "missing"])
+def test_wrapper_checks_the_fft_operands(rng, bad):
+    fe = FeatureExtractor(kaldi.FrontendConfig(dither=0.0), use_fused=True)
+    waves = torch.from_numpy(_waves(rng, b=2, n=4000))
+    ops = fe.fft_operands(fe._cpu)
+    kw = dict(frame_length=400, frame_shift=160)
+    err = ValueError
+    if bad == "window":
+        ops["window"] = ops["window"][:399]
+    elif bad == "twiddles":
+        ops["twiddles"] = ops["twiddles"][:256]
+    elif bad == "low":
+        ops["low"] = ops["low"][:, :16].contiguous()
+    elif bad == "bands_dtype":
+        ops["bands"], err = ops["bands"].long(), TypeError
+    elif bad == "n_band":
+        ops["n_band"] += 1
+    elif bad == "n_fft":
+        ops["n_fft"] = 1024
+    else:
+        del ops["bands"]
+    with pytest.raises(err):
+        fused_fbank(waves, *_fused_args(fe), **ops, **kw)
+    good = fe.fft_operands(fe._cpu)
+    got = fused_fbank(waves, *_fused_args(fe), **good, **kw)
+    torch.testing.assert_close(got, fe(waves)[0], atol=0, rtol=0)

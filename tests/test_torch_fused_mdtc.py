@@ -148,3 +148,136 @@ def test_wrapper_rejects_bad_inputs(weights, bad):
         cache = cache[:, :, :5]
     with pytest.raises((TypeError, ValueError)):
         fused_mdtc_stream(x, cache, *pw[:-1], pw[-1], 5, 3)
+
+
+# ---- the kernel's plan: cluster, thread map, windows, shared memory
+
+from wekws_tpu_torch.ops import fused_mdtc as fm  # noqa: E402
+
+
+def _fits_16(plan):
+    """A card on which 16 spread clusters of up to 7 blocks fit at once
+    and only 14 of 8 (an H100 whose smallest GPCs hold 14 SMs)."""
+    return 16 if plan["cluster"] <= 7 else 14
+
+
+@pytest.mark.parametrize("b,t,c,stream,want", [
+    # offline scoring, B=16 x 2 s at the flagship width: the portable rule
+    # without the card, 7 spread blocks a row with it
+    (16, 198, 64, False, {"cluster": 8, "rows": 25, "splits": 1,
+                          "rows_per_thread": 2, "window": "smem", "nbuf": 2,
+                          "spread": False}),
+    # the engine's step, 16 streams x 8 frames: a block a row, the depth
+    # split over two threads
+    (16, 8, 64, True, {"cluster": 1, "rows": 8, "splits": 2,
+                       "rows_per_thread": 1, "window": "smem", "nbuf": 2}),
+    (1, 1, 64, True, {"cluster": 1, "rows": 1, "splits": 2}),
+    (16, 7, 64, True, {"cluster": 1, "rows": 7, "splits": 2}),
+    (64, 198, 64, False, {"cluster": 4, "rows": 50, "rows_per_thread": 4}),
+    (4, 1024, 64, False, {"cluster": 8, "rows": 128, "window": "smem",
+                          "nbuf": 2}),
+    # long utterances: one weight buffer (C=64), the outputs in the
+    # device buffer (C=128)
+    (1, 2048, 64, False, {"cluster": 8, "rows": 256, "window": "smem",
+                          "nbuf": 1}),
+    (4, 2048, 128, False, {"cluster": 8, "window": "staged", "nbuf": 1}),
+    (16, 198, 32, False, {"cluster": 8, "rows_per_thread": 1, "nbuf": 2}),
+    (16, 198, 128, False, {"cluster": 8, "rows_per_thread": 4, "nbuf": 1}),
+    (16, 8, 128, True, {"cluster": 1, "splits": 1, "nbuf": 1}),
+])
+def test_plan_at_the_main_shapes(b, t, c, stream, want):
+    plan = fm.mdtc_plan(b, t, c, 5, 32)
+    for key, value in want.items():
+        assert plan[key] == value, key
+    n, rows = plan["cluster"], plan["rows"]
+    assert n * rows >= t > (n - 1) * rows
+    assert plan["smem"] == fm.mdtc_smem_bytes(
+        t, c, 5, 32, n, plan["rows_per_thread"], plan["splits"],
+        plan["window"], plan["nbuf"]) <= fm.SMEM_LIMIT
+    groups = fm.THREADS // (plan["splits"] * (c // 4))
+    assert plan["tile"] == groups * plan["rows_per_thread"]
+    if plan["window"] == "smem" and plan["rows_per_thread"] < 4:
+        assert plan["tile"] >= rows  # one sub-tile a layer
+    # with the card's residency: spread clusters where they all fit
+    spread = fm.mdtc_plan(b, t, c, 5, 32, resident=_fits_16)
+    if t >= 2 * fm.MIN_ROWS and b <= 16:  # as many as _fits_16 holds
+        assert spread["spread"] and spread["smem"] >= fm.SPREAD_SMEM
+        assert _fits_16(spread) >= b and b * spread["cluster"] <= fm.SMS
+    else:
+        assert spread == plan
+
+
+def test_plan_spreads_over_the_card():
+    """Offline B=16 x T=198: 7 blocks a row (29 frames each, 112 SMs)
+    where clusters of 8 would not all fit; none spread when too few fit;
+    ``fit_plan`` gives the plan of any cluster size, spread or not."""
+    got = fm.mdtc_plan(16, 198, 64, 5, 32, resident=_fits_16)
+    assert (got["cluster"], got["rows"], got["spread"]) == (7, 29, True)
+    assert got == fm.fit_plan(198, 64, 5, 32, 7, True)
+    assert fm.mdtc_plan(16, 198, 64, 5, 32, resident=lambda p: 1) == \
+        fm.mdtc_plan(16, 198, 64, 5, 32) == fm.fit_plan(198, 64, 5, 32, 8,
+                                                        False)
+    fixed = fm.fit_plan(198, 64, 5, 32, 3, False)
+    assert (fixed["cluster"], fixed["rows"], fixed["spread"]) == (3, 66, False)
+    assert fm.fit_plan(198, 64, 5, 32, 8, True)["smem"] == fm.SPREAD_SMEM
+
+
+@pytest.mark.parametrize("b,t,stream", [(1, 2048, False), (2, 300, False),
+                                        (16, 8, True), (1, 1, True)])
+@pytest.mark.parametrize("c", [32, 64, 128])
+@pytest.mark.parametrize("pad_max", [256, 1024])
+def test_plan_of_a_long_halo(b, t, stream, c, pad_max):
+    """A halo longer than a block's shared memory holds (a dilation of 64
+    or 256 at K=5) still has a plan: the windows in shared memory where
+    they fit, else each sub-tile's window staged, else the rows each tap
+    reads (K slices of a sub-tile), whose shared memory does not grow
+    with pad_max."""
+    plan = fm.mdtc_plan(b, t, c, 5, pad_max)
+    assert plan["smem"] == fm.mdtc_smem_bytes(
+        t, c, 5, pad_max, plan["cluster"], plan["rows_per_thread"],
+        plan["splits"], plan["window"], plan["nbuf"]) <= fm.SMEM_LIMIT
+    earlier = fm.WINDOWS[:fm.WINDOWS.index(plan["window"])]
+    for window in earlier:  # each preferred one does not fit
+        assert fm.mdtc_smem_bytes(t, c, 5, pad_max, plan["cluster"], 1,
+                                  plan["splits"], window, 1) > fm.SMEM_LIMIT
+    if plan["window"] == "taps":
+        assert plan["smem"] == fm.mdtc_smem_bytes(
+            t, c, 5, 0, plan["cluster"], plan["rows_per_thread"],
+            plan["splits"], "taps", plan["nbuf"])
+    if c == 128:  # the weights leave no room for a window of 256 rows
+        assert plan["window"] == "taps"
+
+
+@pytest.mark.parametrize("rows,c,want", [
+    (1, 64, (1, 2)), (8, 64, (1, 2)), (9, 64, (1, 1)), (16, 64, (1, 1)),
+    (25, 64, (2, 1)), (33, 64, (3, 1)), (48, 64, (3, 1)), (50, 64, (4, 1)),
+    (128, 64, (4, 1)),
+    (16, 32, (1, 2)), (17, 32, (1, 1)), (33, 32, (2, 1)),
+    (4, 128, (1, 2)), (8, 128, (1, 1)), (24, 128, (3, 1)), (25, 128, (4, 1)),
+])
+def test_thread_map(rows, c, want):
+    """256 threads as C/4 channel quads x row groups x halves of the
+    depth: halves where half the groups cover the rows, else the fewest
+    rows a thread (1 to 4)."""
+    assert fm.thread_map(rows, c) == want
+    rpt, splits = want
+    groups = fm.THREADS // (splits * (c // 4))
+    assert groups * rpt >= rows or rpt == 4
+
+
+def test_smem_bytes_of_the_main_plans():
+    """Two weight buffers (W1, W2, 5 taps, 3 biases), two windows of 32
+    halo + 25 rows of 64 floats, a 32-row tile at row stride 68, two
+    mbarriers: 107,536 bytes at B=16 x T=198, so two blocks fit an SM."""
+    assert fm.mdtc_smem_bytes(198, 64, 5, 32, 8, 2, 1, "smem", 2) == 4 * (
+        2 * (2 * 64 * 64 + 8 * 64) + 2 * 57 * 64 + 32 * 68 + 4) == 107536
+    assert 2 * (107536 + 1024) <= 233472
+    # streaming: a window of the cache and 8 rows, an 8-row tile
+    assert fm.mdtc_smem_bytes(8, 64, 5, 32, 1, 1, 2, "smem", 2) == 4 * (
+        2 * 8704 + 2 * 40 * 64 + 8 * 68 + 4)
+    # the device-buffer plans: one staged window of halo + tile, or K
+    # slices of the tile
+    assert fm.mdtc_smem_bytes(2048, 128, 5, 32, 8, 4, 1, "staged", 1) == 4 * (
+        2 * 128 * 128 + 8 * 128 + (32 + 32) * 128 + 32 * 132 + 4)
+    assert fm.mdtc_smem_bytes(2048, 128, 5, 1024, 8, 3, 1, "taps", 1) == 4 * (
+        2 * 128 * 128 + 8 * 128 + 5 * 24 * 128 + 24 * 132 + 4)

@@ -347,3 +347,140 @@ def test_fused_fbank_kernel_matches_plain(kw, b, n):
         outs.append(fused(waves, generator=gen)[0])
     assert torch.equal(outs[0], outs[1]) and not torch.equal(outs[0], outs[2])
     assert not torch.equal(outs[0], got) and bool(torch.isfinite(outs[0]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    {}, {"frame_length_ms": 25.0625}, {"sample_rate": 8000},
+    {"frame_length_ms": 64.0}, {"frame_length_ms": 100.0},
+], ids=["n_fft512", "odd_frame", "n_fft256", "n_fft1024", "n_fft2048"])
+def test_fused_fbank_fft_and_dense_plans_agree(kw):
+    """With dither on and one seed both plans add bitwise the same noise
+    (Philox keyed by position): the FFT plan holds the dense-DFT plan
+    within the log-mel bound, at every FFT size the plan takes (where
+    the dense plan fits a block) and an odd frame; without dither it
+    holds the three-matmul extractor.  Given the folded operator alone,
+    the wrapper runs the dense plan."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from wekws_tpu_torch.frontend.features import FeatureExtractor
+    from wekws_tpu_torch.frontend.kaldi import EPSILON, FrontendConfig
+    from wekws_tpu_torch.ops import fused_frontend as ff
+
+    cfg = FrontendConfig(dither=1.0, dither_mode="frame", **kw)
+    fe = FeatureExtractor(cfg, use_fused=True)
+    assert ff.fbank_plan(cfg.padded_window_size) == "fft"
+    g = torch.Generator().manual_seed(7)
+    waves = (torch.randn((3, 9000), generator=g) * 1000).cuda()
+    mats = fe._mats(waves.device)
+    seed = torch.tensor([99], dtype=torch.int64, device="cuda")
+
+    def run(plan):
+        return ff.fused_fbank(
+            waves, mats["analysis"], mats["mel_t"], None,
+            frame_length=cfg.frame_length, frame_shift=cfg.frame_shift,
+            dither=1.0, seed=seed, epsilon=EPSILON,
+            **(fe.fft_operands(mats) if plan == "fft" else {}))
+
+    before = ff.fused_fbank.launches
+    fft = run("fft")
+    assert ff.fused_fbank.launches == before + 1
+    assert torch.equal(run("fft"), fft)
+    nbin = cfg.padded_window_size // 2 + 1
+    dense_smem = 4 * (32 * (cfg.frame_length + 3) + 32 * nbin + 32 * 40)
+    if dense_smem <= 232448:  # else the dense plan raises (n_fft 2048)
+        torch.testing.assert_close(fft, run("dense"), atol=1e-3, rtol=1e-4)
+    clean, _ = fe(waves)
+    torch.testing.assert_close(clean, FeatureExtractor(cfg)(waves)[0],
+                               atol=1e-3, rtol=1e-4)
+
+
+_FLAGSHIP_DIL = (1,) + (1, 2, 4, 8) * 4
+_LONG_DIL = (1, 1, 2, 4, 64)  # pad_max 256 at K=5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,c,dil,forced", [
+    (16, 198, 64, _FLAGSHIP_DIL, None), (16, 8, 64, _FLAGSHIP_DIL, None),
+    (1, 1, 64, _FLAGSHIP_DIL, None), (16, 7, 32, _FLAGSHIP_DIL, None),
+    (2, 2048, 64, _FLAGSHIP_DIL, None), (2, 2048, 128, _FLAGSHIP_DIL, None),
+    (64, 198, 128, _FLAGSHIP_DIL, None),
+    (5, 40, 64, _FLAGSHIP_DIL, {"cluster": 3}),
+    (3, 7, 64, _FLAGSHIP_DIL, {"cluster": 8}),
+    (16, 198, 64, _FLAGSHIP_DIL, {"window": "staged"}),
+    (16, 198, 64, _FLAGSHIP_DIL, {"window": "taps"}),
+    (16, 8, 64, _FLAGSHIP_DIL, {"splits": 1}),
+    (16, 198, 64, _FLAGSHIP_DIL, {"cluster": 4, "spread": True}),
+    (2, 300, 128, _LONG_DIL, None), (16, 8, 128, _LONG_DIL, None),
+    (2, 300, 64, _LONG_DIL, None),
+])
+def test_fused_mdtc_plans_match_plain(b, t, c, dil, forced):
+    """Every plan of the cluster kernel against the plain version: at the
+    flagship's depth (17 layers, K=5, dilations up to 8) one frame,
+    chunks shorter than the halo, long utterances (the windows in shared
+    memory at C=64, each sub-tile's window staged at C=128), clusters of
+    3 and 8 (blocks without frames), the depth split or not, the layer
+    inputs in L2 with a staged window or each tap's rows; a halo of 256
+    rows (each tap's rows at C=128, a halo over several blocks at C=64).
+    Output
+    and new cache 1e-4 abs + 1e-4 rel, bitwise equal from launch to
+    launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from wekws_tpu_torch.ops import fused_mdtc as fm
+    from wekws_tpu_torch.tools.time_serving_kernels import forced_plan
+
+    g = torch.Generator().manual_seed(b * t + c)
+    n, pad = len(dil), 4 * max(dil)
+    w = [(torch.randn(s, generator=g) * sc).cuda() for s, sc in (
+        ((n, 5, c), 0.3), ((n, c), 0.1), ((n, c, c), c ** -0.5),
+        ((n, c), 0.1), ((n, c, c), c ** -0.5), ((n, c), 0.1))]
+    x = torch.randn((b, t, c), generator=g).cuda()
+    cache = torch.randn((n, b, pad, c), generator=g).cuda()
+    if forced is None:
+        got = fm.fused_mdtc_forward(x, *w, dil, 5, 4)
+        got_y, got_c = fm.fused_mdtc_stream(x, cache, *w, dil, 5, 4)
+        again = fm.fused_mdtc_forward(x, *w, dil, 5, 4)
+    else:
+        fixed = dict(forced)
+        cluster = fixed.pop("cluster", fm.mdtc_plan(b, t, c, 5, pad)["cluster"])
+        plan = forced_plan(t, c, 5, pad, cluster, fixed.pop("spread", False),
+                           **fixed)
+        got = fm._launch(x, None, w, dil, 5, 4, plan)[0]
+        got_y, got_c = fm._launch(x, cache, w, dil, 5, 4, plan)
+        again = fm._launch(x, None, w, dil, 5, 4, plan)[0]
+    want = fm.fused_mdtc_forward_plain(x, *w, dil, 5, 4)
+    want_y, want_c = fm.fused_mdtc_stream_plain(x, cache, *w, dil, 5, 4)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got_y, want_y, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got_c, want_c, atol=1e-4, rtol=1e-4)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_serving_kernels_shared_memory_mirrors():
+    """The wrappers' mirrors of the two kernels' shared memory and block
+    sizes equal what the compiled libraries compute."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from wekws_tpu_torch.ops import cuda_build
+    from wekws_tpu_torch.ops import fused_frontend as ff
+    from wekws_tpu_torch.ops import fused_mdtc as fm
+
+    lib = cuda_build.load("fused_frontend")
+    for n_fft in ff.FFT_SIZES:
+        assert lib.fused_fbank_fft_frames(n_fft) == ff.fft_frames(n_fft)
+        assert lib.fused_fbank_fft_smem_bytes(
+            n_fft, min(400, n_fft), 492, 40) == ff.fft_smem_bytes(
+                n_fft, min(400, n_fft), 492, 40)
+    assert lib.fused_fbank_fft_frames(400) == 0
+    lib = cuda_build.load("fused_mdtc")
+    for t, c, pad, n, rpt, splits, window, nbuf in (
+            (198, 64, 32, 8, 2, 1, "smem", 2), (8, 64, 32, 1, 1, 2, "smem", 2),
+            (2048, 128, 32, 8, 4, 1, "staged", 1),
+            (198, 32, 32, 6, 4, 1, "smem", 2),
+            (300, 128, 256, 8, 3, 1, "taps", 1)):
+        assert lib.fused_mdtc_smem_bytes(
+            t, c, 5, pad, n, rpt, splits, fm.WINDOWS.index(window),
+            nbuf) == fm.mdtc_smem_bytes(t, c, 5, pad, n, rpt, splits, window,
+                                        nbuf)

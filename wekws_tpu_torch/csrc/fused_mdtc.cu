@@ -15,282 +15,743 @@
 // pad_max rows of [cache_in[l] | layer-l input]; all pad_max rows are
 // carried although only the last (K-1) d_l are read.
 //
-// Bound on an H100: at B=64, T=198 the work is ~3.7 GFLOP of fp32 FMA
-// against ~7 MB of compulsory traffic, so it is bound by operations on
-// the CUDA cores (67 TFLOP/s fp32).  At the serving step (B=16, T=8) it
-// is bound by bytes: the 17 layers' folded weights (~0.6 MB) and the
-// (L, B, pad_max, C) cache in and out (~4.5 MB) against ~40 MFLOP.  In
-// practice this design is bound by latency inside one SM per row: 17
-// layers in sequence, each a weight load and two barriers per tile.
+// Bound on an H100: at B=16, T=198 (the offline batch) the work is ~0.93
+// GFLOP of fp32 FMA against ~2 MB of compulsory traffic: 0.014 ms at 67
+// TFLOP/s, bound by operations.  At the serving step (B=16, T=8) it is
+// bound by bytes: the 17 layers' folded weights (~0.6 MB) and the (L, B,
+// pad_max, C) cache in and out (~4.5 MB), 0.0015 ms.  A design that walks
+// the 17 layers of one row inside one block is bound by that chain.
 //
-// Design: one thread block per batch row walks all layers in order, so
-// no state crosses blocks.  The TPU kernel keeps the whole
-// (pad_max + T, C) window in VMEM; a Hopper block has 227 KB of shared
-// memory, which T = 2048 frames would overflow, so the activations live
-// in a per-row global ping-pong buffer (`act`, 2 x (pad_max + T) x C,
-// L2-resident at these sizes) and shared memory holds the layer's folded
-// weights and one time tile of 64 rows.  Each thread owns one channel
-// and a strided set of the tile's rows; the two C x C products are plain
-// fp32 FMA loops from shared memory (the activation row is read as
-// float4 broadcasts).  Layer l reads buffer l%2 and writes buffer
-// (l+1)%2, so no tile overwrites context another tile still reads.  A
-// tile with fewer than 64 live rows (a streaming chunk, the last tile)
-// computes only those.  Tensor cores (wgmma), more warps and more than
-// one block per row are left to a later change.
+// Design: one thread-block CLUSTER of N blocks per batch row
+// (`cudaLaunchKernelEx`; ops/fused_mdtc.py `mdtc_plan` picks N and the
+// rest of the plan from the shapes and from how many clusters the card
+// holds at once: on an H100 N = 6 at B=16 x T=198, each block on an SM
+// of its own, where the 16 clusters of 7 or 8 would not all fit; N = 1
+// for a streaming chunk of 8 frames).  Block k owns the frames
+// [k R, (k + 1) R), R = ceil(T / N), and walks the layers in order; one
+// cluster barrier per layer.  Where they fit, a block keeps each layer's input in shared
+// memory as a window [P halo rows | its R rows] (two windows, by layer
+// parity): the layer's output rows go straight into the next window,
+// and only the halo, the (K-1) d rows before the block's frames, is
+// copied per layer: from the blocks to its left through distributed
+// shared memory, from x (layer 0), from the cache (streaming) or zero
+// (offline).  Block 0's halo is the cache itself, brought by the copy
+// engine.  A range that does not fit (long utterances at C = 128) keeps
+// the layer outputs in a per-row device buffer (`act`) and stages each
+// sub-tile's window, the halo read from L2 by __ldcg (an L1 may hold
+// stale lines); where even that window does not fit (a halo of hundreds
+// of rows: a dilation of 64 at C = 128), only the rows each tap reads
+// are staged, K slices of a sub-tile's rows, whatever the halo.  Per
+// sub-tile of TR rows the conv runs four channels a
+// thread (float4), then both C x C products as fp32 products blocked in
+// registers (thread (g, q) owns channels 4q .. 4q+3 of rows g + j G, j <
+// RJ; a streaming chunk of few rows splits each product's depth over two
+// threads, Map), the hidden tile written over the conv's.  A layer's folded
+// weights (W1, W2, taps, biases), its cache rows and layer 0's x rows
+// come by bulk copies of the copy engine (TMA) on an mbarrier, one
+// thread issuing them: a layer ahead into a second weight buffer where
+// two fit (not at C = 128, nor at T = 2048).  `out` rows are the block's
+// own, summed by the thread that owns them.  Everything is
+// deterministic: no atomics, fixed summation order.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <mutex>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTileRows = 64;
 constexpr int kMaxLayers = 64;
+constexpr int kMaxSmem = 232448;
+constexpr int kNoCluster = -2;
+constexpr int kMaxTaps = 8;  // the conv's taps unrolled (more run a loop)
+// where a layer's input lies (Plan::mode; ops/fused_mdtc.py WINDOWS)
+constexpr int kSmem = 0;    // windows [P halo | R rows] in shared memory
+constexpr int kStaged = 1;  // `act`; each sub-tile's window staged
+constexpr int kTaps = 2;    // `act`; each tap's rows of a sub-tile staged
 
 struct LayerDilations {
   int d[kMaxLayers];
 };
 
-// One time tile of one layer: rows t0 .. t0 + 63 (those below T).
-// Thread (g, c) owns channel c of tile rows g + j * kGroups.  kFull
-// tiles (64 live rows) run the loops without row guards; a partial tile
-// (a short streaming chunk, the last tile) stops at jmax, the first j
-// whose rows are all past T, so it pays only for the rows it has.
-template <int C, bool kFull>
-__device__ __forceinline__ void mdtc_tile(
-    const float* __restrict__ cur, float* __restrict__ nxt,
-    float* __restrict__ outr, const float* __restrict__ w1,
-    const float* __restrict__ w2, float* __restrict__ a_tile,
-    float* __restrict__ b_tile, const float* __restrict__ bias,
-    const float* __restrict__ dw, int t0, int T, int K, int d, int pad_max,
-    bool accumulate, int g, int c) {
-  constexpr int kGroups = kThreads / C;
-  constexpr int kRows = kTileRows / kGroups;  // tile rows per thread
-  const int jmax = kFull ? kRows : (T - t0 + kGroups - 1) / kGroups;
+struct Plan {
+  int batch, T, C, L, K, stack_size, P;
+  int N;         // blocks of a cluster, one cluster per batch row
+  int R;         // frames a block owns: ceil(T / N)
+  int TR;        // rows of a sub-tile: G RJ (Map<C, S>)
+  int mode;      // kSmem, kStaged or kTaps
+  int nbuf;      // weight buffers: 2 overlaps the next layer's copy
+};
 
-  // causal dilated depthwise conv + bias -> a_tile
-#pragma unroll
-  for (int j = 0; j < kRows; ++j) {
-    if (!kFull && j >= jmax) break;
-    const int r = g + j * kGroups;
-    const int t = t0 + r;
-    float v = 0.f;
-    if (kFull || t < T) {
-      const float* src = cur + static_cast<size_t>(pad_max + t) * C + c;
-      for (int tap = 0; tap < K; ++tap) {
-        v = fmaf(src[-(K - 1 - tap) * d * C], dw[tap * C + c], v);
-      }
-      v += bias[c];
-    }
-    a_tile[r * C + c] = v;
-  }
-  __syncthreads();
+// Shared-memory layout in floats; every offset is a multiple of 4.
+struct Layout {
+  int wsize;            // one weight buffer: W1, W2 (C x C), taps, biases
+  int w2, dw, bias;     // offsets inside a weight buffer
+  int win;              // two windows (P + R) x C, or one staged
+  int wspan;            // floats of one window
+  int ta;               // the conv's tile, then the hidden one: TR x (C + 4)
+  int bar, total;       // two mbarriers
+};
 
-  // b = relu(a @ W1 + b1)
-  float acc[kRows];
-#pragma unroll
-  for (int j = 0; j < kRows; ++j) acc[j] = 0.f;
-  for (int k = 0; k < C; k += 4) {
-    const float wa = w1[k * C + c];
-    const float wb = w1[(k + 1) * C + c];
-    const float wc = w1[(k + 2) * C + c];
-    const float wd = w1[(k + 3) * C + c];
-#pragma unroll
-    for (int j = 0; j < kRows; ++j) {
-      if (!kFull && j >= jmax) break;
-      const float4 av = *reinterpret_cast<const float4*>(&a_tile[(g + j * kGroups) * C + k]);
-      acc[j] = fmaf(av.x, wa, acc[j]);
-      acc[j] = fmaf(av.y, wb, acc[j]);
-      acc[j] = fmaf(av.z, wc, acc[j]);
-      acc[j] = fmaf(av.w, wd, acc[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < kRows; ++j) {
-    if (!kFull && j >= jmax) break;
-    b_tile[(g + j * kGroups) * C + c] = fmaxf(acc[j] + bias[C + c], 0.f);
-  }
-  __syncthreads();
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
 
-  // y = relu(b @ W2 + b2 + x_in); stack outputs summed into out
-#pragma unroll
-  for (int j = 0; j < kRows; ++j) acc[j] = 0.f;
-  for (int k = 0; k < C; k += 4) {
-    const float wa = w2[k * C + c];
-    const float wb = w2[(k + 1) * C + c];
-    const float wc = w2[(k + 2) * C + c];
-    const float wd = w2[(k + 3) * C + c];
-#pragma unroll
-    for (int j = 0; j < kRows; ++j) {
-      if (!kFull && j >= jmax) break;
-      const float4 bv = *reinterpret_cast<const float4*>(&b_tile[(g + j * kGroups) * C + k]);
-      acc[j] = fmaf(bv.x, wa, acc[j]);
-      acc[j] = fmaf(bv.y, wb, acc[j]);
-      acc[j] = fmaf(bv.z, wc, acc[j]);
-      acc[j] = fmaf(bv.w, wd, acc[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < kRows; ++j) {
-    if (!kFull && j >= jmax) break;
-    const int t = t0 + g + j * kGroups;
-    if (kFull || t < T) {
-      const size_t at = static_cast<size_t>(pad_max + t) * C + c;
-      const float y = fmaxf(acc[j] + bias[2 * C + c] + cur[at], 0.f);
-      nxt[at] = y;
-      if (accumulate) outr[static_cast<size_t>(t) * C + c] += y;
-    }
-  }
-  // the next tile's depthwise writes a_tile only after every thread has
-  // passed this tile's second barrier, and its first barrier orders its
-  // b_tile writes after these reads
+__host__ __device__ inline Layout layout(const Plan& p) {
+  const int C = p.C;
+  Layout s;
+  s.w2 = C * C;
+  s.dw = 2 * C * C;
+  s.bias = s.dw + p.K * C;
+  s.wsize = s.bias + 3 * C;
+  s.win = p.nbuf * s.wsize;
+  s.wspan = p.mode == kSmem     ? (p.P + p.R) * C
+            : p.mode == kStaged ? (p.P + p.TR) * C
+                                : p.K * p.TR * C;
+  s.ta = s.win + (p.mode == kSmem ? 2 : 1) * s.wspan;
+  s.bar = s.ta + p.TR * (C + 4);
+  s.total = s.bar + 4;
+  return s;
 }
 
-template <int C>
-__global__ void __launch_bounds__(kThreads)
-fused_mdtc_kernel(const float* __restrict__ x,
-                  const float* __restrict__ cache_in,
-                  const float* __restrict__ dw_w,
-                  const float* __restrict__ dw_b,
-                  const float* __restrict__ pw1_w,
-                  const float* __restrict__ pw1_b,
-                  const float* __restrict__ pw2_w,
-                  const float* __restrict__ pw2_b,
-                  float* __restrict__ out,
-                  float* __restrict__ cache_out,
-                  float* __restrict__ act,
-                  int batch, int T, int L, int K, int stack_size, int pad_max,
-                  LayerDilations dil) {
-  extern __shared__ float4 smem4[];
-  float* w1 = reinterpret_cast<float*>(smem4);  // (C, C) [in][out]
-  float* w2 = w1 + C * C;
-  float* a_tile = w2 + C * C;                    // (kTileRows, C)
-  float* b_tile = a_tile + kTileRows * C;
-  float* bias = b_tile + kTileRows * C;          // dw_b | pw1_b | pw2_b
-  float* dw = bias + 3 * C;                      // (K, C)
+__device__ __forceinline__ unsigned smem_u32(const void* ptr) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+}
 
-  const int row = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int c = tid % C;
-  const int g = tid / C;
-  const size_t span = static_cast<size_t>(pad_max + T) * C;
-  float* bufs[2] = {act + 2 * row * span, act + (2 * row + 1) * span};
-  const float* xr = x + static_cast<size_t>(row) * T * C;
-  float* outr = out + static_cast<size_t>(row) * T * C;
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+               :: "r"(smem_u32(bar)));
+}
 
-  for (int i = tid; i < T * C; i += kThreads) {
-    bufs[0][pad_max * C + i] = xr[i];
-    outr[i] = 0.f;
+// the one arrival of the barrier's phase, which then also waits for
+// `bytes` of bulk copies
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                            unsigned bytes) {
+  unsigned long long state;
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 %0, [%1], %2;\n"
+               : "=l"(state) : "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
   }
-  if (cache_in == nullptr) {
-    for (int i = tid; i < pad_max * C; i += kThreads) {
-      bufs[0][i] = 0.f;
-      bufs[1][i] = 0.f;
+}
+
+// `bytes` (a multiple of 16) global -> shared by the copy engine (TMA),
+// completing on `bar`
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ float4 fma4s(float s, float4 b, float4 c) {
+  return make_float4(fmaf(s, b.x, c.x), fmaf(s, b.y, c.y), fmaf(s, b.z, c.z),
+                     fmaf(s, b.w, c.w));
+}
+
+__device__ __forceinline__ float4 fma4(float4 a, float4 b, float4 c) {
+  return make_float4(fmaf(a.x, b.x, c.x), fmaf(a.y, b.y, c.y),
+                     fmaf(a.z, b.z, c.z), fmaf(a.w, b.w, c.w));
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+__device__ __forceinline__ float4 relu4(float4 a) {
+  return make_float4(fmaxf(a.x, 0.f), fmaxf(a.y, 0.f), fmaxf(a.z, 0.f),
+                     fmaxf(a.w, 0.f));
+}
+
+// The thread map of a sub-tile: thread t owns channel quad q = (t / S) %
+// Q (channels 4q .. 4q+3) of rows g + j G, j < RJ, g = t / (S Q), and
+// for S = 2 one half of every product's reduction depth (s = t % S, the
+// two halves added by a shuffle).  TR = G RJ rows.  S = 2 halves each
+// thread's chain of FMAs where a sub-tile has few rows (a streaming
+// chunk): more threads busy, shorter chains.
+template <int C, int S>
+struct Map {
+  static constexpr int Q = C / 4;
+  static constexpr int G = kThreads / (S * Q);
+};
+
+// acc[j] = Σ_k in[g + j G][k] W[k][4q .. 4q + 3] over this thread's half
+// of k (S = 2) or all of it, then the halves summed: the outputs at this
+// thread's rows and channels, in registers; in at row stride C + 4, W at
+// C, both in shared memory
+template <int C, int RJ, int S>
+__device__ __forceinline__ void rows_product(const float* in, const float* w,
+                                             int g, int q, int sh,
+                                             float4 (&acc)[RJ]) {
+  constexpr int LD = C + 4;
+  constexpr int G = Map<C, S>::G;
+  constexpr int KS = C / S;
+#pragma unroll
+  for (int j = 0; j < RJ; ++j) acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int k0 = sh * KS;
+#pragma unroll 2
+  for (int k = k0; k < k0 + KS; k += 4) {
+    float4 wk[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      wk[i] = *reinterpret_cast<const float4*>(w + (k + i) * C + 4 * q);
+    }
+#pragma unroll
+    for (int j = 0; j < RJ; ++j) {
+      const float4 av =
+          *reinterpret_cast<const float4*>(in + (g + j * G) * LD + k);
+      acc[j] = fma4s(av.x, wk[0], acc[j]);
+      acc[j] = fma4s(av.y, wk[1], acc[j]);
+      acc[j] = fma4s(av.z, wk[2], acc[j]);
+      acc[j] = fma4s(av.w, wk[3], acc[j]);
+    }
+  }
+  if constexpr (S == 2) {
+#pragma unroll
+    for (int j = 0; j < RJ; ++j) {
+      acc[j].x += __shfl_xor_sync(0xffffffffu, acc[j].x, 1);
+      acc[j].y += __shfl_xor_sync(0xffffffffu, acc[j].y, 1);
+      acc[j].z += __shfl_xor_sync(0xffffffffu, acc[j].z, 1);
+      acc[j].w += __shfl_xor_sync(0xffffffffu, acc[j].w, 1);
+    }
+  }
+}
+
+struct Ptrs {
+  const float* x;
+  const float* cache_in;
+  const float* dw_w;
+  const float* dw_b;
+  const float* pw1_w;
+  const float* pw1_b;
+  const float* pw2_w;
+  const float* pw2_b;
+  float* out;
+  float* cache_out;
+  float* act;
+};
+
+// Thread 0 issues layer l's group of bulk copies on `bar`: its weights
+// into the weight buffer wb and, into the window `win` of layer l's
+// input, block 0's cache rows (streaming) and, for layer 0, the block's
+// x rows.
+template <int C>
+__device__ __forceinline__ void issue_layer(const Ptrs& a, const Plan& p,
+                                            const Layout& s, float* wb,
+                                            float* win, int l, int row,
+                                            int t0, int nr, bool cache,
+                                            unsigned long long* bar) {
+  const unsigned cc = 4u * C * C, kc = 4u * p.K * C, c4 = 4u * C;
+  const unsigned cache_bytes = cache ? p.P * c4 : 0u;
+  const unsigned x_bytes = l == 0 && p.mode == kSmem ? nr * c4 : 0u;
+  mbar_expect(bar, 2 * cc + kc + 3 * c4 + cache_bytes + x_bytes);
+  const size_t lcc = static_cast<size_t>(l) * C * C;
+  bulk_copy(wb, a.pw1_w + lcc, cc, bar);
+  bulk_copy(wb + s.w2, a.pw2_w + lcc, cc, bar);
+  bulk_copy(wb + s.dw, a.dw_w + static_cast<size_t>(l) * p.K * C, kc, bar);
+  bulk_copy(wb + s.bias, a.dw_b + l * C, c4, bar);
+  bulk_copy(wb + s.bias + C, a.pw1_b + l * C, c4, bar);
+  bulk_copy(wb + s.bias + 2 * C, a.pw2_b + l * C, c4, bar);
+  if (cache_bytes) {
+    bulk_copy(win, a.cache_in + (static_cast<size_t>(l) * p.batch + row) *
+                                    p.P * C, cache_bytes, bar);
+  }
+  if (x_bytes) {
+    bulk_copy(win + p.P * C,
+              a.x + (static_cast<size_t>(row) * p.T + t0) * C, x_bytes, bar);
+  }
+}
+
+// blocks an SM the registers are planned for: two, where the plan's
+// shared memory can leave two (C <= 64 and sub-tiles of up to two rows a
+// thread); else one, so that four rows a thread do not spill
+template <int C, int RJ>
+constexpr int kMinBlocks = C <= 64 && RJ <= 2 ? 2 : 1;
+
+template <int C, int RJ, int S>
+__global__ void __launch_bounds__(kThreads, (kMinBlocks<C, RJ>))
+fused_mdtc_kernel(Ptrs a, Plan p, LayerDilations dil) {
+  constexpr int Q = C / 4;
+  constexpr int LD = C + 4;
+  constexpr int LQ = LD / 4;
+  constexpr int G = Map<C, S>::G;
+  extern __shared__ __align__(16) float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  cg::cluster_group cluster = cg::this_cluster();
+  const Layout s = layout(p);
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int row = blockIdx.x / p.N;
+  const int t0 = rank * p.R;
+  const int nr = imax(0, imin(p.R, p.T - t0));  // frames this block owns
+  const int sh = threadIdx.x % S;             // the half of the depth
+  const int q = (threadIdx.x / S) % Q;        // the channel quad
+  const int g = threadIdx.x / (S * Q);        // the rows g + j G
+  const bool stream = a.cache_in != nullptr;
+  const int T = p.T, P = p.P;
+  // block 0 of the smem plan finds its whole halo in the window: the
+  // cache by the copy engine (streaming) or zeros (offline)
+  const bool own_halo = p.mode == kSmem && rank == 0;
+  unsigned long long* bars = reinterpret_cast<unsigned long long*>(sm + s.bar);
+
+  float* ta = sm + s.ta;
+  float4* ta4 = reinterpret_cast<float4*>(ta);
+  float4* out4 = reinterpret_cast<float4*>(a.out) +
+                 static_cast<size_t>(row) * T * Q;
+  const float4* x4 = reinterpret_cast<const float4*>(a.x) +
+                     static_cast<size_t>(row) * T * Q;
+  float4* act_g4 = reinterpret_cast<float4*>(a.act) +
+                   static_cast<size_t>(row) * 2 * T * Q;
+  // the window of layer l's input: l odd -> 0, l even -> 1 (layer l's
+  // output goes to the other); the one staging window of kStaged, kTaps
+  auto window = [&](int l) {
+    return sm + s.win + (p.mode == kSmem ? ((l + 1) & 1) * s.wspan : 0);
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(bars);
+    mbar_init(bars + 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (own_halo && !stream) {  // the zero left context, once
+    for (int i = threadIdx.x; i < P * C; i += kThreads) {
+      sm[s.win + i] = 0.f;
+      sm[s.win + s.wspan + i] = 0.f;
+    }
+  }
+  for (int i = threadIdx.x; i < nr * Q; i += kThreads) {
+    out4[static_cast<size_t>(t0) * Q + i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    issue_layer<C>(a, p, s, sm, window(0), 0, row, t0, nr,
+                   stream && own_halo, bars);
+    if (p.nbuf == 2 && p.L > 1) {
+      issue_layer<C>(a, p, s, sm + s.wsize, window(1), 1, row, t0, nr,
+                     stream && own_halo, bars + 1);
     }
   }
 
-  for (int l = 0; l < L; ++l) {
-    float* cur = bufs[l & 1];
-    float* nxt = bufs[(l + 1) & 1];
+  for (int l = 0; l < p.L; ++l) {
     const int d = dil.d[l];
+    const int H = (p.K - 1) * d;
+    // layer l - 1's rows are in place in every block of the cluster, and
+    // every read of what this layer's copies and stores overwrite is done
+    cluster.sync();
+    const int buf = p.nbuf == 2 ? (l & 1) : 0;
+    if (p.nbuf == 2 && l >= 1 && l + 1 < p.L && threadIdx.x == 0) {
+      issue_layer<C>(a, p, s, sm + ((l + 1) & 1) * s.wsize, window(l + 1),
+                     l + 1, row, t0, nr, stream && own_halo,
+                     bars + ((l + 1) & 1));
+    }
+    // this layer's group has landed
+    mbar_wait(bars + buf, p.nbuf == 2 ? (l >> 1) & 1 : l & 1);
+    const float* wl = sm + buf * s.wsize;
+    const float* w1 = wl;
+    const float* w2 = wl + s.w2;
+    const float4* dw4 = reinterpret_cast<const float4*>(wl + s.dw);
+    const float4* bias4 = reinterpret_cast<const float4*>(wl + s.bias);
+    const float4* cache_g4 =
+        stream ? reinterpret_cast<const float4*>(a.cache_in) +
+                     (static_cast<size_t>(l) * p.batch + row) * P * Q
+               : nullptr;
+    float4* cache_o4 =
+        stream ? reinterpret_cast<float4*>(a.cache_out) +
+                     (static_cast<size_t>(l) * p.batch + row) * P * Q
+               : nullptr;
+    float* win = window(l);
+    float4* win4 = reinterpret_cast<float4*>(win);
+    // the other window: this layer's output (smem plan)
+    float4* nxt4 = reinterpret_cast<float4*>(window(l + 1));
+    const float4* in_g4 = act_g4 + static_cast<size_t>((l + 1) & 1) * T * Q;
+    float4* out_g4 = act_g4 + static_cast<size_t>(l & 1) * T * Q;
+    const bool accumulate = l > 0 && (l % p.stack_size) == 0;
 
-    // everything the previous layer wrote (and read) is settled
-    __syncthreads();
-    const float4* w1g = reinterpret_cast<const float4*>(pw1_w + static_cast<size_t>(l) * C * C);
-    const float4* w2g = reinterpret_cast<const float4*>(pw2_w + static_cast<size_t>(l) * C * C);
-    for (int i = tid; i < C * C / 4; i += kThreads) {
-      reinterpret_cast<float4*>(w1)[i] = w1g[i];
-      reinterpret_cast<float4*>(w2)[i] = w2g[i];
-    }
-    for (int i = tid; i < K * C; i += kThreads) dw[i] = dw_w[static_cast<size_t>(l) * K * C + i];
-    for (int i = tid; i < C; i += kThreads) {
-      bias[i] = dw_b[l * C + i];
-      bias[C + i] = pw1_b[l * C + i];
-      bias[2 * C + i] = pw2_b[l * C + i];
-    }
-    if (cache_in != nullptr) {
-      const float* ci = cache_in + (static_cast<size_t>(l) * batch + row) * pad_max * C;
-      for (int i = tid; i < pad_max * C; i += kThreads) cur[i] = ci[i];
-    }
-    __syncthreads();
-    if (cache_out != nullptr) {
-      // last pad_max rows of [margin | layer input], read before any write
-      float* co = cache_out + (static_cast<size_t>(l) * batch + row) * pad_max * C;
-      for (int i = tid; i < pad_max * C; i += kThreads) co[i] = cur[T * C + i];
-    }
-    const bool accumulate = l > 0 && (l % stack_size) == 0;
+    // layer l's input row t (t < 0: the left context), from wherever it
+    // lies; rows of other blocks after the cluster barrier
+    auto input_row = [&](int t, int qq) -> float4 {
+      if (t < 0) {
+        return stream ? __ldg(cache_g4 + (P + t) * Q + qq)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      if (l == 0) return __ldg(x4 + static_cast<size_t>(t) * Q + qq);
+      if (p.mode == kSmem) {
+        const int o = t / p.R;
+        float* src = window(l);
+        if (o != rank) src = cluster.map_shared_rank(src, o);
+        return reinterpret_cast<const float4*>(src)[(P + t - o * p.R) * Q +
+                                                    qq];
+      }
+      return __ldcg(in_g4 + static_cast<size_t>(t) * Q + qq);
+    };
+    // rows [first, first + count) of the input into window rows from
+    // `at`, four float4s a thread in flight before any is stored
+    auto fill = [&](int first, int count, int at) {
+      const int total = count * Q;
+      for (int i0 = threadIdx.x; i0 < total; i0 += 4 * kThreads) {
+        float4 v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int i = i0 + u * kThreads;
+          v[u] = i < total ? input_row(first + i / Q, i % Q)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int i = i0 + u * kThreads;
+          if (i < total) win4[(at + i / Q) * Q + i % Q] = v[u];
+        }
+      }
+    };
 
-    for (int t0 = 0; t0 < T; t0 += kTileRows) {
-      if (T - t0 >= kTileRows) {
-        mdtc_tile<C, true>(cur, nxt, outr, w1, w2, a_tile, b_tile, bias, dw,
-                           t0, T, K, d, pad_max, accumulate, g, c);
+    if (nr == 0) {
+      // no frames here (a short utterance over a wide cluster)
+    } else if (p.mode == kSmem) {
+      if (!own_halo) fill(t0 - H, H, P - H);
+      if (stream) {  // the new cache: the last P rows of [cache | input]
+        if (rank == 0) {
+          for (int i = threadIdx.x; i < (P - T) * Q; i += kThreads) {
+            cache_o4[i] = win4[T * Q + i];
+          }
+        }
+        const int first = imax(t0, T - P);
+        for (int i = threadIdx.x; i < (t0 + nr - first) * Q; i += kThreads) {
+          const int t = first + i / Q;
+          cache_o4[(t - (T - P)) * Q + i % Q] =
+              win4[(P + t - t0) * Q + i % Q];
+        }
+      }
+    } else if (stream && rank == 0) {
+      for (int i = threadIdx.x; i < (P - T) * Q; i += kThreads) {
+        cache_o4[i] = cache_g4[static_cast<size_t>(T) * Q + i];
+      }
+    }
+
+    for (int s0 = t0; s0 < t0 + nr; s0 += p.TR) {
+      const int n = imin(p.TR, t0 + nr - s0);
+      // tap j of the conv reads frame s0 + r at window row tap0 + j step +
+      // r: in the windows of kSmem and kStaged frame s0 - back sits back
+      // rows before frame s0; kTaps stages each tap's n rows in a slice
+      // of its own, tap j at TR j
+      const float4* tap0;
+      int step = d * Q;
+      if (p.mode == kSmem) {
+        tap0 = win4 + (P + s0 - t0 - (p.K - 1) * d) * Q;
+      } else if (p.mode == kStaged) {
+        tap0 = win4 + (P - (p.K - 1) * d) * Q;
+        fill(s0 - H, H + n, P - H);
       } else {
-        mdtc_tile<C, false>(cur, nxt, outr, w1, w2, a_tile, b_tile, bias,
-                            dw, t0, T, K, d, pad_max, accumulate, g, c);
+        tap0 = win4;
+        step = p.TR * Q;
+        for (int tap = 0; tap < p.K; ++tap) {
+          fill(s0 - (p.K - 1 - tap) * d, n, tap * p.TR);
+        }
+      }
+      // the input rows themselves (the last tap's): the residual
+      const float4* xw = tap0 + (p.K - 1) * step;
+      // the window is in place, and the last sub-tile's reads of ta are
+      // done
+      __syncthreads();
+      if (p.mode != kSmem && stream) {  // the sub-tile's rows of the new cache
+        const int first = imax(s0, T - P);
+        for (int i = threadIdx.x; i < (s0 + n - first) * Q; i += kThreads) {
+          const int t = first + i / Q;
+          cache_o4[(t - (T - P)) * Q + i % Q] = xw[(t - s0) * Q + i % Q];
+        }
+      }
+      // causal dilated depthwise conv + bias (both halves of a pair of
+      // threads compute and store the same values)
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) {
+        const int r = g + j * G;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (r < n) {
+          const float4* xr = tap0 + r * Q + q;
+#pragma unroll
+          for (int tap = 0; tap < kMaxTaps; ++tap) {
+            if (tap < p.K) v = fma4(xr[tap * step], dw4[tap * Q + q], v);
+          }
+          for (int tap = kMaxTaps; tap < p.K; ++tap) {
+            v = fma4(xr[tap * step], dw4[tap * Q + q], v);
+          }
+          v = add4(v, bias4[q]);
+        }
+        ta4[r * LQ + q] = v;
+      }
+      __syncthreads();
+      float4 acc[RJ];
+      rows_product<C, RJ, S>(ta, w1, g, q, sh, acc);  // a W1
+      __syncthreads();  // every read of the conv's tile is done
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) {
+        ta4[(g + j * G) * LQ + q] = relu4(add4(acc[j], bias4[Q + q]));
+      }
+      __syncthreads();
+      rows_product<C, RJ, S>(ta, w2, g, q, sh, acc);  // relu(a W1 + b1) W2
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) {
+        const int r = g + j * G;
+        if (r < n && sh == 0) {
+          const int t = s0 + r;
+          // the residual: this layer's input row
+          const float4 y =
+              relu4(add4(add4(acc[j], bias4[2 * Q + q]), xw[r * Q + q]));
+          if (p.mode == kSmem) {
+            nxt4[(P + t - t0) * Q + q] = y;
+          } else {
+            out_g4[static_cast<size_t>(t) * Q + q] = y;
+          }
+          if (accumulate) {
+            float4* o = out4 + static_cast<size_t>(t) * Q + q;
+            *o = add4(*o, y);
+          }
+        }
+      }
+    }
+    if (p.nbuf == 1 && l + 1 < p.L) {
+      __syncthreads();  // every read of the one weight buffer is done
+      if (threadIdx.x == 0) {
+        issue_layer<C>(a, p, s, sm, window(l + 1), l + 1, row, t0, nr,
+                       stream && own_halo, bars);
       }
     }
   }
+  // no block leaves while a peer may still read its shared memory
+  cluster.sync();
 }
 
-template <int C>
-int launch(const float* x, const float* cache_in, const float* dw_w,
-           const float* dw_b, const float* pw1_w, const float* pw1_b,
-           const float* pw2_w, const float* pw2_b, float* out,
-           float* cache_out, float* act, int batch, int T, int L, int K,
-           int stack_size, int pad_max, const LayerDilations& dil,
-           cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (2 * C * C + 2 * kTileRows * C + 3 * C + K * C);
+// Whether a cluster of this kernel's shape can be resident on this
+// card, asked once per combination.
+template <typename Kern>
+bool cluster_fits(Kern kern, const cudaLaunchConfig_t& cfg) {
+  static std::mutex mu;
+  static const void* seen_kern[64];
+  static size_t seen_smem[64];
+  static int seen_n[64], seen_ok[64], n_seen = 0;
+  std::lock_guard<std::mutex> lock(mu);
+  const void* key = reinterpret_cast<const void*>(kern);
+  const int n = static_cast<int>(cfg.attrs[0].val.clusterDim.x);
+  for (int i = 0; i < n_seen; ++i) {
+    if (seen_kern[i] == key && seen_smem[i] == cfg.dynamicSmemBytes &&
+        seen_n[i] == n) {
+      return seen_ok[i] != 0;
+    }
+  }
+  int clusters = 0;
+  if (cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg) != cudaSuccess) {
+    cudaGetLastError();  // clear it; the launch reports its own
+    clusters = 0;
+  }
+  if (n_seen < 64) {
+    seen_kern[n_seen] = key;
+    seen_smem[n_seen] = cfg.dynamicSmemBytes;
+    seen_n[n_seen] = n;
+    seen_ok[n_seen] = clusters > 0;
+    ++n_seen;
+  }
+  return clusters > 0;
+}
+
+template <int C, int RJ, int S>
+int launch(const Ptrs& a, const Plan& p, const LayerDilations& dil,
+           size_t smem_floor, cudaStream_t stream) {
+  auto kern = fused_mdtc_kernel<C, RJ, S>;
+  size_t smem = sizeof(float) * static_cast<size_t>(layout(p).total);
+  if (smem < smem_floor) smem = smem_floor;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_mdtc_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_mdtc_kernel<C><<<batch, kThreads, smem, stream>>>(
-      x, cache_in, dw_w, dw_b, pw1_w, pw1_b, pw2_w, pw2_b, out, cache_out,
-      act, batch, T, L, K, stack_size, pad_max, dil);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.N;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(p.batch * p.N, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (!cluster_fits(kern, cfg)) return kNoCluster;
+  err = cudaLaunchKernelEx(&cfg, kern, a, p, dil);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+Plan make_plan(int batch, int T, int C, int L, int K, int stack_size,
+               int pad_max, int N, int rows_per_thread, int splits,
+               int mode, int nbuf) {
+  Plan p;
+  p.batch = batch;
+  p.T = T;
+  p.C = C;
+  p.L = L;
+  p.K = K;
+  p.stack_size = stack_size;
+  p.P = pad_max;
+  p.N = N;
+  p.R = N > 0 ? (T + N - 1) / N : 0;
+  p.TR = C >= 4 && splits >= 1 ? kThreads / (splits * (C / 4)) *
+                                      rows_per_thread
+                                : 0;
+  p.mode = mode;
+  p.nbuf = nbuf;
+  return p;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns a cudaError_t code (0 on success).  `act` is scratch of
-// batch * 2 * (pad_max + T) * C floats; cache pointers are both null
-// (whole utterance, zero left context) or both set (streaming).
+// Bytes of shared memory one block takes under this plan, for the
+// wrapper's check (ops/fused_mdtc.py `mdtc_smem_bytes` mirrors it).
+int fused_mdtc_smem_bytes(int T, int C, int K, int pad_max, int N,
+                          int rows_per_thread, int splits, int mode,
+                          int nbuf) {
+  const Plan p = make_plan(1, T, C, 1, K, 1, pad_max, N, rows_per_thread,
+                           splits, mode, nbuf);
+  return static_cast<int>(sizeof(float)) * layout(p).total;
+}
+
+// Returns a cudaError_t code (0 on success), or -2 when no cluster of N
+// blocks with this shared memory can be resident on the card.  The plan
+// (ops/fused_mdtc.py `mdtc_plan`): N blocks a batch row (1 to 8),
+// rows_per_thread (1 to 4) and splits (1, or 2 with one row: halves of
+// the reduction depth) of the thread map (Map), mode (kSmem: layer
+// windows in shared memory; kStaged, kTaps: the outputs in `act`, batch
+// * 2 * T * C floats of scratch, each sub-tile's window staged, or each
+// tap's rows of it),
+// nbuf (1 or 2 weight buffers), smem_floor (bytes of shared memory a
+// block takes at least: above half an SM's, one block an SM).  Every
+// pointer is 16-byte aligned (bulk copies).  Cache pointers are both
+// null (whole utterance, zero left context) or both set (streaming).
 int fused_mdtc_launch(const void* x, const void* cache_in, const void* dw_w,
                       const void* dw_b, const void* pw1_w, const void* pw1_b,
                       const void* pw2_w, const void* pw2_b, void* out,
                       void* cache_out, void* act, int batch, int T, int C,
                       int L, int K, int stack_size, int pad_max,
-                      const int* dilations, void* stream) {
+                      const int* dilations, int N, int rows_per_thread,
+                      int splits, int mode, int nbuf, int smem_floor,
+                      void* stream) {
+  const bool streaming = cache_in != nullptr;
   if (L < 1 || L > kMaxLayers || batch < 1 || T < 1 || K < 1 ||
-      stack_size < 1 || (cache_in == nullptr) != (cache_out == nullptr)) {
+      stack_size < 1 || pad_max < 0 ||
+      streaming != (cache_out != nullptr) ||
+      N < 1 || N > 8 ||
+      rows_per_thread < 1 || rows_per_thread > 4 ||
+      (splits != 1 && splits != 2) || (splits == 2 && rows_per_thread != 1) ||
+      (nbuf != 1 && nbuf != 2) || mode < kSmem || mode > kTaps ||
+      (mode != kSmem && act == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   LayerDilations dil;
-  for (int l = 0; l < L; ++l) dil.d[l] = dilations[l];
+  for (int l = 0; l < L; ++l) {
+    dil.d[l] = dilations[l];
+    if (dilations[l] < 1 || (K - 1) * dilations[l] > pad_max) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  const Plan p = make_plan(batch, T, C, L, K, stack_size, pad_max, N,
+                           rows_per_thread, splits, mode, nbuf);
+  if (sizeof(float) * static_cast<size_t>(layout(p).total) > kMaxSmem ||
+      smem_floor < 0 || smem_floor > kMaxSmem) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Ptrs a;
+  a.x = static_cast<const float*>(x);
+  a.cache_in = static_cast<const float*>(cache_in);
+  a.dw_w = static_cast<const float*>(dw_w);
+  a.dw_b = static_cast<const float*>(dw_b);
+  a.pw1_w = static_cast<const float*>(pw1_w);
+  a.pw1_b = static_cast<const float*>(pw1_b);
+  a.pw2_w = static_cast<const float*>(pw2_w);
+  a.pw2_b = static_cast<const float*>(pw2_b);
+  a.out = static_cast<float*>(out);
+  a.cache_out = static_cast<float*>(cache_out);
+  a.act = static_cast<float*>(act);
   const auto s = static_cast<cudaStream_t>(stream);
-#define WEKWS_LAUNCH(CH)                                                   \
-  launch<CH>(static_cast<const float*>(x),                                 \
-             static_cast<const float*>(cache_in),                          \
-             static_cast<const float*>(dw_w),                              \
-             static_cast<const float*>(dw_b),                              \
-             static_cast<const float*>(pw1_w),                             \
-             static_cast<const float*>(pw1_b),                             \
-             static_cast<const float*>(pw2_w),                             \
-             static_cast<const float*>(pw2_b), static_cast<float*>(out),   \
-             static_cast<float*>(cache_out), static_cast<float*>(act),     \
-             batch, T, L, K, stack_size, pad_max, dil, s)
+  const size_t smem_min = static_cast<size_t>(smem_floor);
+#define WEKWS_RJ(CH)                                               \
+  if (splits == 2) return launch<CH, 1, 2>(a, p, dil, smem_min, s); \
+  switch (rows_per_thread) {                                       \
+    case 1: return launch<CH, 1, 1>(a, p, dil, smem_min, s);       \
+    case 2: return launch<CH, 2, 1>(a, p, dil, smem_min, s);       \
+    case 3: return launch<CH, 3, 1>(a, p, dil, smem_min, s);       \
+    default: return launch<CH, 4, 1>(a, p, dil, smem_min, s);      \
+  }
   switch (C) {
-    case 32: return WEKWS_LAUNCH(32);
-    case 64: return WEKWS_LAUNCH(64);
-    case 128: return WEKWS_LAUNCH(128);
+    case 32: WEKWS_RJ(32)
+    case 64: WEKWS_RJ(64)
+    case 128: WEKWS_RJ(128)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef WEKWS_LAUNCH
+#undef WEKWS_RJ
+}
+
+// How many clusters of N blocks of the kernel planned for (C,
+// rows_per_thread, splits) can be resident at once on the current card
+// with smem_bytes of shared memory a block (cudaOccupancyMaxActiveClusters;
+// a negative cudaError_t code on failure).  The wrapper asks before it
+// picks a cluster size.
+int fused_mdtc_max_clusters(int C, int rows_per_thread, int splits, int N,
+                            int smem_bytes) {
+  auto query = [&](auto kern) -> int {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return -static_cast<int>(err);
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = N;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(N, 1, 1);
+    cfg.blockDim = dim3(kThreads, 1, 1);
+    cfg.dynamicSmemBytes = static_cast<size_t>(smem_bytes);
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+    return err == cudaSuccess ? clusters : -static_cast<int>(err);
+  };
+  if (N < 1 || N > 8 || smem_bytes < 0 || smem_bytes > kMaxSmem) {
+    return -static_cast<int>(cudaErrorInvalidValue);
+  }
+#define WEKWS_Q(CH)                                                 \
+  if (splits == 2) return query(fused_mdtc_kernel<CH, 1, 2>);       \
+  if (rows_per_thread == 1) return query(fused_mdtc_kernel<CH, 1, 1>); \
+  if (rows_per_thread == 2) return query(fused_mdtc_kernel<CH, 2, 1>); \
+  if (rows_per_thread == 3) return query(fused_mdtc_kernel<CH, 3, 1>); \
+  return query(fused_mdtc_kernel<CH, 4, 1>);
+  switch (C) {
+    case 32: WEKWS_Q(32)
+    case 64: WEKWS_Q(64)
+    case 128: WEKWS_Q(128)
+    default: return -static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef WEKWS_Q
 }
 
 const char* fused_mdtc_error_string(int code) {
+  if (code == kNoCluster) {
+    return "no cluster of this size and shared memory can be resident "
+           "(cudaOccupancyMaxActiveClusters returned 0)";
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -4,8 +4,8 @@ Port of wekws_tpu/frontend/features.py.  The training pipeline ships
 raw padded waveforms (int16 scale) and computes features on the card:
 framing, then DC removal, preemphasis, window and the real DFT folded
 into ONE ``(frame_length, 2 * (nfft/2 + 1))`` analysis matrix
-(precomputed in float64), power, a mel matmul, the log floor and, for
-MFCC, a DCT with the cepstral lifter.
+(precomputed in float64, ``analysis_matrix``), power, a mel matmul, the
+log floor and, for MFCC, a DCT with the cepstral lifter.
 
 All products run in float32.  The JAX package's ``precision`` knob
 ('high' = bf16_3x, 'default' = one bf16 pass on the TPU's matrix unit)
@@ -16,9 +16,14 @@ its default (False); this module never changes that flag.
 ``use_fused=True`` (``dataset_conf: fused_frontend: true``) runs the
 whole chain after the optional wave-mode dither through
 ``ops/fused_frontend.fused_fbank``: the hand-written CUDA kernel on the
-card, its plain version on the CPU.  Frame-mode dither then happens
-inside the kernel, from its own counter-based generator: the same
-distribution as the unfused path's ``torch.randn``, another stream.
+card, its plain version on the CPU.  Beside the folded matrix the
+extractor builds the kernel's FFT-plan operands once: the window, the
+twiddle table, the folded matrix's low-bin columns and the mel bands,
+with the preemphasis coefficient, DC removal and the padded size from
+the configuration.  Frame-mode dither
+then happens inside the kernel, from its own counter-based generator:
+the same distribution as the unfused path's ``torch.randn``, another
+stream.
 """
 
 from typing import Optional, Tuple
@@ -33,7 +38,12 @@ from wekws_tpu_torch.frontend.kaldi import (
     lifter_coeffs,
     mel_banks,
 )
-from wekws_tpu_torch.ops.fused_frontend import fused_fbank
+from wekws_tpu_torch.ops.fused_frontend import (
+    fused_fbank,
+    low_operator,
+    mel_bands,
+    twiddle_table,
+)
 
 
 def _dft_matrix(frame_length: int, padded_size: int) -> np.ndarray:
@@ -45,6 +55,24 @@ def _dft_matrix(frame_length: int, padded_size: int) -> np.ndarray:
     k = np.arange(padded_size // 2 + 1, dtype=np.float64)[None, :]
     ang = 2.0 * np.pi * n * k / padded_size
     return np.concatenate([np.cos(ang), -np.sin(ang)], axis=1)
+
+
+def analysis_matrix(cfg: FrontendConfig) -> np.ndarray:
+    """The folded float64 ``(frame_length, 2 * nbin)`` operator: DC
+    removal (I - J/L), preemphasis (bidiagonal, Kaldi's x0 -= coeff *
+    x0) and the window are linear in the frame, so they fold into the
+    real DFT of the padded frame."""
+    length = cfg.frame_length
+    analysis = _dft_matrix(length, cfg.padded_window_size)
+    analysis = np.asarray(cfg.window(), np.float64)[:, None] * analysis
+    if cfg.preemphasis != 0.0:
+        p = np.eye(length)
+        p[0, 0] = 1.0 - cfg.preemphasis
+        p[np.arange(0, length - 1), np.arange(1, length)] = -cfg.preemphasis
+        analysis = p @ analysis
+    if cfg.remove_dc_offset:
+        analysis = analysis - np.mean(analysis, axis=0, keepdims=True)
+    return analysis
 
 
 def frame_waveform(waves: torch.Tensor, frame_length: int,
@@ -76,23 +104,10 @@ class FeatureExtractor:
         self.cfg = cfg
         self.use_fused = use_fused
         n = cfg.padded_window_size
-        length = cfg.frame_length
-        # DC removal (I - J/L), preemphasis (bidiagonal, Kaldi's
-        # x0 -= coeff * x0) and the window are linear in the frame:
-        # fold them and the DFT into one float64 matrix
-        analysis = _dft_matrix(length, n)
-        analysis = np.asarray(cfg.window(), np.float64)[:, None] * analysis
-        if cfg.preemphasis != 0.0:
-            p = np.eye(length)
-            p[0, 0] = 1.0 - cfg.preemphasis
-            p[np.arange(0, length - 1), np.arange(1, length)] = \
-                -cfg.preemphasis
-            analysis = p @ analysis
-        if cfg.remove_dc_offset:
-            analysis = analysis - np.mean(analysis, axis=0, keepdims=True)
         bank = mel_banks(cfg.num_mel_bins, n, cfg.sample_rate, cfg.low_freq,
                          cfg.high_freq)
-        mats = {"analysis": analysis, "mel_t": bank.T}
+        mats = {"analysis": analysis_matrix(cfg), "mel_t": bank.T,
+                "window": cfg.window()}
         if cfg.feature_type == "mfcc":
             dct = dct_matrix(cfg.num_ceps, cfg.num_mel_bins)
             if cfg.cepstral_lifter != 0.0:
@@ -101,6 +116,10 @@ class FeatureExtractor:
             mats["dct"] = dct
         self._cpu = {k: torch.tensor(np.ascontiguousarray(v, np.float32))
                      for k, v in mats.items()}
+        # the FFT plan's operands (fused_fbank)
+        self._cpu["twiddles"] = twiddle_table(n)
+        self._cpu["low"] = low_operator(self._cpu["analysis"])
+        self._cpu["bands"], self.n_band = mel_bands(self._cpu["mel_t"])
         self._on_device = {}
 
     @property
@@ -139,7 +158,17 @@ class FeatureExtractor:
             frame_shift=cfg.frame_shift,
             dither=float(cfg.dither) if generator is not None else 0.0,
             seed=seed, use_power=cfg.use_power, use_log=cfg.use_log_fbank,
-            epsilon=EPSILON)
+            epsilon=EPSILON, **self.fft_operands(mats))
+
+    def fft_operands(self, mats) -> dict:
+        """``fused_fbank``'s FFT-plan keywords, with ``mats`` =
+        ``self._mats(device)``."""
+        cfg = self.cfg
+        return {"n_fft": cfg.padded_window_size, "window": mats["window"],
+                "preemphasis": float(cfg.preemphasis),
+                "remove_dc_offset": bool(cfg.remove_dc_offset),
+                "twiddles": mats["twiddles"], "low": mats["low"],
+                "bands": mats["bands"], "n_band": self.n_band}
 
     def __call__(
         self,

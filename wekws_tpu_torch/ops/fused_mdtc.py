@@ -18,10 +18,18 @@ into the result (multi-scale aggregation).
 PyTorch version only for tensors on the CPU; for CUDA tensors they
 launch the kernel or raise.  Each counts its kernel launches in its
 ``launches`` attribute.
+
+The kernel runs one thread-block cluster per batch row, its blocks
+splitting the frames; ``mdtc_plan`` chooses the cluster, the sub-tile,
+where the layer inputs live (``WINDOWS``) and how many weight buffers a
+block keeps from the shapes before the launch (``mdtc_smem_bytes``
+mirrors the kernel's shared memory).  The wrapper raises when no
+cluster of the plan's size can be resident on the card.
 """
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+import math
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -36,10 +44,115 @@ init_stream_cache = init_ring_cache
 
 KERNEL_CHANNELS = (32, 64, 128)
 MAX_LAYERS = 64
+THREADS = 256
+SMEM_LIMIT = 232448  # bytes of shared memory a block may take (sm_90)
+SMS = 132  # an H100 SXM's streaming multiprocessors
+# the plan's rule: at most MAX_CLUSTER blocks a row (the portable
+# cluster size) and at least MIN_ROWS frames a block
+MAX_CLUSTER = 8
+MIN_ROWS = 16
+# shared memory a spread block asks for at least: more than half an SM's
+# 228 KB, so that no two blocks share an SM
+SPREAD_SMEM = 119808
+# where a layer's input lies, in the plan's order of preference (the
+# kernel's Plan::mode, by index): "smem" each block's frames and halo in
+# shared-memory windows; "staged" the outputs in the device buffer
+# ``act``, each sub-tile's window staged; "taps" the same, only the rows
+# each tap reads staged, K slices of a sub-tile (a halo too long for
+# either)
+WINDOWS = ("smem", "staged", "taps")
 
 
 def _pad_max(dilations: Sequence[int], kernel_size: int) -> int:
     return (kernel_size - 1) * max(dilations)
+
+
+def thread_map(rows: int, c: int) -> Tuple[int, int]:
+    """(rows_per_thread, splits) of the kernel's thread map (``Map`` in
+    csrc/fused_mdtc.cu) for a block of ``rows`` frames: 256 threads as
+    C / 4 channel quads x G row groups x ``splits`` halves of the
+    reduction depth.  Two halves where one row a thread covers the rows
+    with half the groups (a streaming chunk), else the fewest rows a
+    thread (1 to 4) that cover them."""
+    quads = c // 4
+    if rows <= THREADS // (2 * quads):
+        return 1, 2
+    groups = THREADS // quads
+    return next((r for r in (1, 2, 3, 4) if groups * r >= rows), 4), 1
+
+
+def mdtc_smem_bytes(t: int, c: int, kernel_size: int, pad_max: int,
+                    cluster: int, rows_per_thread: int, splits: int,
+                    window: str, nbuf: int) -> int:
+    """Shared memory one block of the kernel takes
+    (``fused_mdtc_smem_bytes`` in csrc/fused_mdtc.cu): ``nbuf`` weight
+    buffers (W1, W2, taps, biases), the layer input's windows by
+    ``window`` (two of [P halo rows | the block's rows], one staged
+    window of a sub-tile, or K slices of a sub-tile's rows), the
+    sub-tile's conv (then hidden)
+    tile at row stride C + 4, two mbarriers."""
+    rows = -(-t // cluster)
+    tile = THREADS // (splits * (c // 4)) * rows_per_thread
+    wsize = 2 * c * c + (kernel_size + 3) * c
+    span = {"smem": 2 * (pad_max + rows), "staged": pad_max + tile,
+            "taps": kernel_size * tile}[window]
+    return 4 * (nbuf * wsize + span * c + tile * (c + 4) + 4)
+
+
+def fit_plan(t: int, c: int, kernel_size: int, pad_max: int, cluster: int,
+             spread: bool) -> Optional[dict]:
+    """The plan of ``cluster`` blocks a batch row, each owning ``rows``
+    = ceil(T / cluster) frames in sub-tiles of ``tile`` rows
+    (``thread_map``): the first that fits a block's shared memory, in
+    this order of preference: ``WINDOWS``; the thread map's rows a
+    thread (else fewer); two weight buffers (else one).  ``spread``:
+    each block asks for at least ``SPREAD_SMEM`` bytes, an SM of its
+    own.  None where nothing fits."""
+    rows = -(-t // cluster)
+    widest, splits = thread_map(rows, c)
+    for window in WINDOWS:
+        for rpt in range(widest, 0, -1):
+            for nbuf in (2, 1):
+                smem = mdtc_smem_bytes(t, c, kernel_size, pad_max, cluster,
+                                       rpt, splits, window, nbuf)
+                if smem <= SMEM_LIMIT:
+                    return {"cluster": cluster, "rows": rows,
+                            "rows_per_thread": rpt, "splits": splits,
+                            "tile": THREADS // (splits * (c // 4)) * rpt,
+                            "window": window, "nbuf": nbuf,
+                            "spread": spread,
+                            "smem": max(smem, SPREAD_SMEM) if spread
+                            else smem}
+    return None
+
+
+def mdtc_plan(batch: int, t: int, c: int, kernel_size: int, pad_max: int,
+              resident: Optional[Callable[[dict], int]] = None) -> dict:
+    """The kernel's plan for these shapes, chosen before the launch
+    (``fit_plan`` for the cluster size).  Given ``resident(plan)`` (how
+    many clusters of the plan fit the card at once), the largest cluster
+    of up to ``MAX_CLUSTER`` blocks, at least ``MIN_ROWS`` frames a block
+    and no more blocks than SMs whose spread clusters all fit at once;
+    else (or without ``resident``) the largest power of two up to
+    ``MAX_CLUSTER`` with at least ``MIN_ROWS`` frames a block and about
+    two blocks an SM over the batch, not spread.  Raises where nothing
+    fits."""
+    if resident is not None:
+        for n in range(MAX_CLUSTER, 1, -1):
+            if -(-t // n) < MIN_ROWS or batch * n > SMS:
+                continue
+            plan = fit_plan(t, c, kernel_size, pad_max, n, True)
+            if plan is not None and resident(plan) >= batch:
+                return plan
+    limit = min(MAX_CLUSTER, max(1, 2 * SMS // batch),
+                max(1, -(-t // MIN_ROWS)))
+    plan = fit_plan(t, c, kernel_size, pad_max, 1 << int(math.log2(limit)),
+                    False)
+    if plan is None:
+        raise ValueError(f"no MDTC kernel plan fits a block's shared memory "
+                         f"at T={t}, C={c}, K={kernel_size}, "
+                         f"pad_max={pad_max}")
+    return plan
 
 
 def _mdtc_plain(x, cache, dw_w, dw_b, pw1_w, pw1_b, pw2_w, pw2_b,
@@ -108,6 +221,11 @@ def _validate(x, cache, weights, dilations, kernel_size, stack_size):
         if n_layers > MAX_LAYERS:
             raise ValueError(f"the CUDA kernel takes at most {MAX_LAYERS} "
                              f"layers, got {n_layers}")
+        mdtc_plan(b, t, c, k, _pad_max(dilations, k))
+        tensors = (x, cache) + tuple(weights)
+        if any(w is not None and w.data_ptr() % 16 for w in tensors):
+            raise ValueError("the CUDA kernel's bulk copies need every "
+                             "tensor 16-byte aligned")
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
 
@@ -117,15 +235,38 @@ def _kernel_fn():
     fn = lib.fused_mdtc_launch
     if fn.argtypes is None:  # without argtypes ctypes cuts pointers to int
         fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
-                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+                       + [ctypes.POINTER(ctypes.c_int)]
+                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        lib.fused_mdtc_max_clusters.argtypes = [ctypes.c_int] * 5
+        lib.fused_mdtc_max_clusters.restype = ctypes.c_int
         lib.fused_mdtc_error_string.argtypes = [ctypes.c_int]
         lib.fused_mdtc_error_string.restype = ctypes.c_char_p
     return lib, fn
 
 
-def _launch(x, cache, weights, dilations, kernel_size, stack_size):
-    """One kernel launch on x's device and current stream."""
+# plans chosen on this card, by (B, T, C, K, pad_max, device)
+_plans: Dict[tuple, dict] = {}
+
+
+def _card_plan(b, t, c, kernel_size, pad_max):
+    """``mdtc_plan`` with the card's answer to how many clusters fit."""
+    key = (b, t, c, kernel_size, pad_max, torch.cuda.current_device())
+    if key not in _plans:
+        lib, _ = _kernel_fn()
+
+        def resident(plan):
+            return lib.fused_mdtc_max_clusters(
+                c, plan["rows_per_thread"], plan["splits"], plan["cluster"],
+                plan["smem"])
+
+        _plans[key] = mdtc_plan(b, t, c, kernel_size, pad_max, resident)
+    return _plans[key]
+
+
+def _launch(x, cache, weights, dilations, kernel_size, stack_size, plan):
+    """One kernel launch under ``plan`` on x's device and current
+    stream."""
     lib, fn = _kernel_fn()
     b, t, c = x.shape
     n_layers = len(dilations)
@@ -134,8 +275,9 @@ def _launch(x, cache, weights, dilations, kernel_size, stack_size):
     # fresh output cache: the kernel reads cache_in[l] while writing
     # cache_out[l], so the two must never alias
     cache_out = torch.empty_like(cache) if cache is not None else None
-    act = torch.empty((b, 2, pad_max + t, c), dtype=torch.float32,
-                      device=x.device)
+    # the layer outputs of a plan whose frames do not fit shared memory
+    act = (None if plan["window"] == "smem" else
+           torch.empty((b, 2, t, c), dtype=torch.float32, device=x.device))
     dil = (ctypes.c_int * n_layers)(*[int(d) for d in dilations])
     ptr = [w.data_ptr() for w in weights]
     with torch.cuda.device(x.device):
@@ -144,8 +286,11 @@ def _launch(x, cache, weights, dilations, kernel_size, stack_size):
                  cache.data_ptr() if cache is not None else None,
                  *ptr, out.data_ptr(),
                  cache_out.data_ptr() if cache_out is not None else None,
-                 act.data_ptr(), b, t, c, n_layers, kernel_size, stack_size,
-                 pad_max, dil, stream)
+                 act.data_ptr() if act is not None else None, b, t, c,
+                 n_layers, kernel_size, stack_size, pad_max, dil,
+                 plan["cluster"], plan["rows_per_thread"], plan["splits"],
+                 WINDOWS.index(plan["window"]), plan["nbuf"],
+                 plan["smem"] if plan["spread"] else 0, stream)
     if err != 0:
         msg = lib.fused_mdtc_error_string(err).decode()
         raise RuntimeError(f"fused_mdtc kernel launch failed: {msg} ({err})")
@@ -172,7 +317,9 @@ def fused_mdtc_forward(
     if x.device.type == "cpu":
         return fused_mdtc_forward_plain(x, *weights, dilations, kernel_size,
                                         stack_size)
-    out, _ = _launch(x, None, weights, dilations, kernel_size, stack_size)
+    plan = _card_plan(*x.shape, kernel_size, _pad_max(dilations, kernel_size))
+    out, _ = _launch(x, None, weights, dilations, kernel_size, stack_size,
+                     plan)
     fused_mdtc_forward.launches += 1
     return out
 
@@ -201,8 +348,9 @@ def fused_mdtc_stream(
     if x.device.type == "cpu":
         return fused_mdtc_stream_plain(x, cache, *weights, dilations,
                                        kernel_size, stack_size)
+    plan = _card_plan(*x.shape, kernel_size, _pad_max(dilations, kernel_size))
     out, new_cache = _launch(x, cache, weights, dilations, kernel_size,
-                             stack_size)
+                             stack_size, plan)
     fused_mdtc_stream.launches += 1
     return out, new_cache
 
