@@ -4,7 +4,8 @@
 Drives the flagship MDTC max-pooling wake word (40-mel fbank, global
 CMVN, linear preprocessing, MDTC 4 stacks x 4 blocks, kernel 5, 64
 channels, linear head + sigmoid), the hey_snips DS-TCN wake word
-(linear preprocessing to 64, 4 DS blocks, kernel 8) and the hi_xiaowen
+(linear preprocessing to 64, 4 DS blocks, kernel 8), the hi_xiaowen
+DS-TCN (the same at 256 channels, two keywords) and the hi_xiaowen
 FSMN-CTC model (80-mel fbank, context +-2, skip 3, 4 layers 250/128,
 2599 tokens), each at full width with random weights from a seed, on
 one CUDA device, in phases; any failure exits non-zero:
@@ -14,7 +15,7 @@ one CUDA device, in phases; any failure exits non-zero:
    what ``ptxas`` says of registers and spills (the kernels of F1, F2,
    F3, B1, B2, B3 and B4 by name, at C = 32, 64, 128, the FSMN kernel
    by its template arguments, the fbank kernels of both plans and the
-   MDTC serving kernel's instantiations);
+   serving kernel's instantiations: MDTC's and DS-TCN's);
 3. the MDTC serving kernel against its plain PyTorch version on the
    card at the flagship's depth: whole utterances and one streaming
    chunk (a random cache; output and new cache) at T = 1, 7, 8, 198,
@@ -70,10 +71,14 @@ one CUDA device, in phases; any failure exits non-zero:
    of the
    whole step and of the training kernels in it; the whole train step;
 9. the three later kernels against their plain versions at full width:
-   ``fused_ds_tcn`` at B=64 x T=198, B=4 x T=1024 and B=16 chained in
-   chunks of 8 over 200 frames; ``fused_fsmn_layers`` at B=16 x T=66,
-   B=4 x T=1024, B=1 x T = 1, 10 and 11 (below and at P = 11) and
-   B=1 chained in chunks of 10 over 200 frames (each
+   ``fused_ds_tcn`` (the MDTC kernel's body with the DS-TCN layer) at
+   C = 64, 48, 256, 32 and 128, T = 1, 7, 8, 198, 1024 and 2048, B = 1,
+   4, 16 and 64, and 8 layers of dilations 1-128 over 2048 frames, each
+   with the plan the wrapper chose and launched twice (bitwise equal),
+   and B=16 chained in chunks of 8 over 200 frames;
+   ``fused_fsmn_layers`` at B=16 x T=66, B=4 x T=1024, B=1 x T = 1, 10
+   and 11 (below and at P = 11) and B=1 chained in chunks of 10 over
+   200 frames (each
    chain against the one-shot call and the plain chain, final cache
    too; 1e-4 abs + 1e-4 rel); ``fused_fbank`` through both plans (the
    shared-memory FFT and the dense DFT, each launched twice, bitwise
@@ -87,7 +92,8 @@ one CUDA device, in phases; any failure exits non-zero:
    different;
 10. path A, as phase 4 for the DS-TCN recipe: offline fused forward ->
     score file -> DET and ``BatchMaxPoolSpotter(use_fused=True)``,
-    through ``fused_ds_tcn``;
+    through ``fused_ds_tcn``; then the hi_xiaowen DS-TCN (C=256, two
+    keywords, its 80 input dimensions as 80 log-mel bins);
 11. path B: ``KeyWordSpotter`` with and without ``use_fused`` fed the
     same 2 s waves in 300 ms chunks (softmax posteriors and result
     dicts agree; one ``fused_fsmn_layers`` launch per chunk that carried
@@ -97,9 +103,9 @@ one CUDA device, in phases; any failure exits non-zero:
     features and loss against the unfused frontend, steps with the
     flagship's wave-mode dither + spec_aug, two steps with frame-mode
     (in-kernel) dither, a cv step; one ``fused_fbank`` launch per step;
-13. times of the three kernels at their main shapes (fbank's dense-DFT
-    plan beside its FFT plan), the FSMN variants' (clusters of 8 or 16
-    blocks;
+13. times of the three kernels at their main shapes (DS-TCN at C = 64
+    and 256; fbank's dense-DFT plan beside its FFT plan), the FSMN
+    variants' (clusters of 8 or 16 blocks;
     ``wekws_tpu_torch/tools/time_fsmn.py``) and the grid of an FSMN
     launch from the profiler's trace (B x 8 blocks), of the path-C train step
     beside the unfused-frontend step, and of ``KeyWordSpotter.forward``
@@ -178,6 +184,29 @@ DS_TCN_MODEL_CONF = {  # examples/hey_snips/conf/ds_tcn.yaml
     "backbone": {"type": "tcn", "ds": True, "num_layers": 4,
                  "kernel_size": 8, "dropout": 0.1},
 }
+DS_TCN_WIDE_MODEL_CONF = {  # examples/hi_xiaowen/conf/ds_tcn.yaml
+    "input_dim": 80, "output_dim": 2, "hidden_dim": 256,
+    "preprocessing": {"type": "linear"},
+    "backbone": {"type": "tcn", "ds": True, "num_layers": 4,
+                 "kernel_size": 8, "dropout": 0.1},
+}
+# its 80 input dimensions as 80 log-mel bins: the recipe's features are
+# 80 MFCC cepstra, and the streaming engine computes fbank only
+DS_TCN_WIDE_DATASET_CONF = {
+    "feats_type": "fbank",
+    "fbank_conf": {"num_mel_bins": 80, "frame_shift": 10,
+                   "frame_length": 25, "dither": 0.0},
+}
+DS_TCN_WIDE_KEYWORDS = (KEYWORD, "NIHAO")
+# phase 9's DS-TCN widths (the recipes' 64, 48 and 256, then 32 and 128)
+# and shapes (B, T): the engine's step, offline scoring, one frame, a
+# chunk shorter than the step, 64 utterances, long utterances; and 8
+# layers of dilations 1-128 (pad_max 896: the halo does not fit the
+# windows in shared memory)
+DS_TCN_WIDTHS = (64, 48, 256, 32, 128)
+DS_TCN_CASES = ((16, 8), (16, 198), (1, 1), (4, 7), (64, 198), (4, 1024),
+                (1, 2048))
+DS_TCN_LONG_DILATIONS = tuple(2 ** i for i in range(8))
 FSMN_VOCAB = 2599
 FSMN_MODEL_CONF = {  # examples/hi_xiaowen/conf/fsmn_ctc.yaml
     "input_dim": 400, "output_dim": FSMN_VOCAB, "hidden_dim": 128,
@@ -336,6 +365,18 @@ LONG_HALO_DILATIONS = (1, 1, 2, 4, 64)
 LONG_HALO_CASES = ((2, 300, 128), (16, 8, 128), (1, 1, 128), (2, 300, 64))
 
 
+def ds_tcn_weights(c, n_layers, k, gen):
+    """Seeded folded weight stacks of a DS-TCN backbone of width c."""
+    import torch
+
+    def randn(*shape, scale):
+        return torch.randn(shape, generator=gen) * scale
+
+    return (randn(n_layers, k, c, scale=0.3), randn(n_layers, c, scale=0.1),
+            randn(n_layers, c, c, scale=c ** -0.5),
+            randn(n_layers, c, scale=0.1))
+
+
 def mdtc_weights(c, n_layers, k, gen):
     """Seeded folded weight stacks of an MDTC backbone of width c."""
     import torch
@@ -350,12 +391,13 @@ def mdtc_weights(c, n_layers, k, gen):
             randn(n_layers, c, scale=0.1))
 
 
-def mdtc_plan_text(b, t, c, k, pad_max):
-    """The plan the MDTC wrapper chose for these shapes on this card."""
+def mdtc_plan_text(b, t, c, k, pad_max, arch="mdtc"):
+    """The plan the MDTC (or, ``arch`` "ds_tcn", DS-TCN) wrapper chose
+    for these shapes on this card."""
     from wekws_tpu_torch.ops import fused_mdtc
 
     plan = next((v for key, v in fused_mdtc._plans.items()
-                 if key[:5] == (b, t, c, k, pad_max)), None)
+                 if key[:6] == (arch, b, t, c, k, pad_max)), None)
     if plan is None:
         return "no plan yet"
     return (f"cluster {plan['cluster']}{' spread' if plan['spread'] else ''}"
@@ -389,9 +431,12 @@ def synth_waves(rng):
 
 
 def serving_slice(tag, base_conf, gen, dev, work, waves, offline_kernel,
-                  stream_kernel, launches):
-    """A max-pooling wake-word model of ``base_conf`` served end to end:
-    16 synthetic 2 s utterances -> fbank -> checkpoint saved and loaded
+                  stream_kernel, launches, dataset_conf=None,
+                  keywords=(KEYWORD,)):
+    """A max-pooling wake-word model of ``base_conf`` (one output per
+    name of ``keywords``, the first the one the DET scores) served end
+    to end: 16 synthetic 2 s utterances -> fbank (``dataset_conf``,
+    else ``DATASET_CONF``) -> checkpoint saved and loaded
     through ``load_serving_model`` -> (a) offline ``build_fused_forward``
     -> score file -> DET, held against the module forward; (b)
     ``BatchMaxPoolSpotter(use_fused=True)`` fed 300 ms chunks, stepped
@@ -416,7 +461,7 @@ def serving_slice(tag, base_conf, gen, dev, work, waves, offline_kernel,
         load_spotter_config,
     )
 
-    configs = {"dataset_conf": DATASET_CONF}
+    configs = {"dataset_conf": dataset_conf or DATASET_CONF}
     _, cfg, _, _, _ = load_spotter_config(configs)
     feats = np.stack([compute_fbank_np(w.astype(np.float32), cfg)
                       for w in waves])
@@ -450,7 +495,7 @@ def serving_slice(tag, base_conf, gen, dev, work, waves, offline_kernel,
 
     score_file = os.path.join(work, f"{tag}_score.txt")
     label_file = os.path.join(work, f"{tag}_labels.jsonl")
-    write_score_file(forward_fn, [batch], [KEYWORD], score_file)
+    write_score_file(forward_fn, [batch], list(keywords), score_file)
     torch.cuda.synchronize()
     launches[f"{tag}_offline"] = offline_kernel.launches
     with open(label_file, "w") as f:
@@ -462,7 +507,7 @@ def serving_slice(tag, base_conf, gen, dev, work, waves, offline_kernel,
         KEYWORD, label_file, score_file)
     det = compute_det(kw_table, filler_table, filler_s)
     probs_a = offline["probs"]
-    if tuple(probs_a.shape) != (N_UTTS, n_frames, 1):
+    if tuple(probs_a.shape) != (N_UTTS, n_frames, len(keywords)):
         raise AssertionError(f"offline posteriors {tuple(probs_a.shape)}")
     if len(kw_table) != N_UTTS // 2 or not det:
         raise AssertionError("score file / DET lost utterances")
@@ -484,7 +529,7 @@ def serving_slice(tag, base_conf, gen, dev, work, waves, offline_kernel,
     stream_kernel.launches = 0
     engine = BatchMaxPoolSpotter(
         ckpt, config_path, threshold, num_streams=N_UTTS,
-        step_frames=8, keyword_names=[KEYWORD], use_fused=True,
+        step_frames=8, keyword_names=list(keywords), use_fused=True,
         device=dev,
     )
     streamed = [[] for _ in range(N_UTTS)]
@@ -1196,24 +1241,56 @@ def phase9_new_kernels(dev, gen, batch):
     def randn(*shape):
         return torch.randn(shape, generator=gen).to(dev)
 
-    def hold(kernel, name, pairs):
+    def hold(kernel, name, pairs, quiet=False):
         for what, got, want in pairs:
             errs[kernel] = max(errs[kernel],
-                               check_close(f"{name} {what}", got, want))
+                               check_close(f"{name} {what}", got, want,
+                                           quiet=quiet))
 
-    # ---- fused_ds_tcn at the hey_snips width
+    # ---- fused_ds_tcn at every recipe width: the hey_snips model's
+    # folded weights at 64, seeded weights at the others; each shape from
+    # a random cache with the plan the wrapper chose, launched twice
+    # (bitwise equal), output and new cache against the plain version
     tcn = seeded_model(DS_TCN_MODEL_CONF, gen)[0].backbone
     *stacks, dil = extract_ds_tcn_weights(tcn)
-    tw = tuple(w.to(dev) for w in stacks)
-    k, c, n_layers = tcn.kernel_size, tcn.channel, len(dil)
+    k, n_layers = tcn.kernel_size, len(dil)
     pad_max = (k - 1) * max(dil)
-    for b, t in ((64, 198), (4, 1024)):
-        x, cache = randn(b, t, c), randn(n_layers, b, pad_max, c)
-        got = fused_ds_tcn(x, cache, *tw, dil, k)
+    tcn_w = {c: (tuple(w.to(dev) for w in stacks) if c == tcn.channel
+                 else tuple(w.to(dev) for w in ds_tcn_weights(
+                     c, n_layers, k, gen)))
+             for c in DS_TCN_WIDTHS}
+
+    def hold_tcn(b, t, c, w, dl):
+        pad = (k - 1) * max(dl)
+        x, cache = randn(b, t, c), randn(len(dl), b, pad, c)
+        got = fused_ds_tcn(x, cache, *w, dl, k)
+        again = fused_ds_tcn(x, cache, *w, dl, k)
         torch.cuda.synchronize()
-        want = fused_ds_tcn_plain(x, cache, *tw, dil, k)
-        hold("fused_ds_tcn", f"fused_ds_tcn B={b} T={t}",
-             (("output", got[0], want[0]), ("new cache", got[1], want[1])))
+        want = fused_ds_tcn_plain(x, cache, *w, dl, k)
+        what = f"B={b} T={t} C={c}"
+        if pad != pad_max:
+            what += f", {len(dl)} layers, pad_max={pad}"
+        plan = mdtc_plan_text(b, t, c, k, pad, "ds_tcn")
+        quiet = (b, t) not in ((N_UTTS, 8), (N_UTTS, 198)) and pad == pad_max
+        hold("fused_ds_tcn", f"fused_ds_tcn {what} ({plan})",
+             (("output", got[0], want[0]), ("new cache", got[1], want[1])),
+             quiet)
+        if not (torch.equal(got[0], again[0])
+                and torch.equal(got[1], again[1])):
+            raise AssertionError(f"fused_ds_tcn {what}: two launches differ")
+
+    for c in DS_TCN_WIDTHS:
+        for b, t in DS_TCN_CASES:
+            hold_tcn(b, t, c, tcn_w[c], dil)
+        long_w = tuple(w.to(dev) for w in ds_tcn_weights(
+            c, len(DS_TCN_LONG_DILATIONS), k, gen))
+        hold_tcn(1, 2048, c, long_w, DS_TCN_LONG_DILATIONS)
+    print(f"  fused_ds_tcn: {len(DS_TCN_CASES)} shapes (T = 1 to 2048, B = 1 "
+          f"to 64) at C = {', '.join(map(str, DS_TCN_WIDTHS))}, and 8 layers "
+          f"over 2048 frames at each: bitwise equal from launch to launch",
+          flush=True)
+    tw = tcn_w[tcn.channel]
+    c = tcn.channel
     x = randn(16, 200, c)
     zero = init_tcn_cache(n_layers, 16, pad_max, c, dev)
     got = chained(lambda xc, cc: fused_ds_tcn(xc, cc, *tw, dil, k), x, zero,
@@ -1341,7 +1418,8 @@ def phase9_new_kernels(dev, gen, batch):
     if not torch.equal(seed_half, outs[0][:TRAIN_B // 2]):
         raise AssertionError("dither: the first half of a batch must not "
                              "depend on the batch size")
-    bench = {"tcn": (tw, dil, k, c, n_layers, pad_max),
+    bench = {"tcn": ({c: tcn_w[c] for c in (tcn.channel, 256)}, dil, k,
+                     n_layers, pad_max),
              "fsmn": (fw, orders, ld, pd, n_fsmn, pad),
              "fbank": (fused, plain, waves)}
     return errs, bench
@@ -1671,16 +1749,25 @@ def phase13_times(dev, bench, errs, launches, card, trainer, state,
                 "also": also}
 
     out = []
-    tw, dil, k, c, n_layers, pad_max = bench["tcn"]
+    tcn_w, dil, k, n_layers, pad_max = bench["tcn"]
     rows = []
-    for b, t in ((N_UTTS, 8), (N_UTTS, 198)):  # streaming step, offline
-        x, cache = randn(b, t, c), randn(n_layers, b, pad_max, c)
+    # the streaming step, then offline scoring (zero cache), at the
+    # hey_snips width (the main path's) and the hi_xiaowen width
+    for c, (b, t) in ((CHANNELS, (N_UTTS, 8)), (CHANNELS, (N_UTTS, 198)),
+                      (256, (N_UTTS, 8)), (256, (N_UTTS, 198))):
+        tw = tcn_w[c]
+        x = randn(b, t, c)
+        cache = (randn(n_layers, b, pad_max, c) if t == 8 else
+                 torch.zeros((n_layers, b, pad_max, c), device=dev))
         rows.append(timed(
-            "fused_ds_tcn", f"B={b} T={t}",
+            "fused_ds_tcn", f"B={b} T={t} C={c}",
             lambda: fused_ds_tcn(x, cache, *tw, dil, k),
             lambda: fused_ds_tcn_plain(x, cache, *tw, dil, k),
-            "fused_tcn_kernel", tcn_bound_ms(b, t, c, n_layers, k, pad_max)))
-    out.append(record("fused_ds_tcn", "wekws_tpu_torch/csrc/fused_tcn.cu",
+            "fused_ds_tcn_kernel", tcn_bound_ms(b, t, c, n_layers, k,
+                                                pad_max)))
+        print(f"  fused_ds_tcn B={b} T={t} C={c}: "
+              f"{mdtc_plan_text(b, t, c, k, pad_max, 'ds_tcn')}", flush=True)
+    out.append(record("fused_ds_tcn", "wekws_tpu_torch/csrc/fused_mdtc.cu",
                       "wekws_tpu/ops/fused_tcn.py:29", rows[0], rows[1:]))
 
     fw, orders, ld, pd, n_fsmn, pad = bench["fsmn"]
@@ -1758,16 +1845,18 @@ def phase13_times(dev, bench, errs, launches, card, trainer, state,
     return out
 
 
-# the instantiations phase 2 prints: 5 n_fft + the dense plan; 3 widths
-# x (rows a thread 1 to 4 and the split depth)
-SERVING_KERNELS = {"fused_frontend": 6, "fused_mdtc": 15}
+# the instantiations phase 2 prints: 5 n_fft + the dense plan; MDTC's 3
+# widths and DS-TCN's 5, each x (rows a thread 1 to 4 and the split
+# depth), and DS-TCN's 6, 8 and 9 rows a thread at C=256
+SERVING_KERNELS = {"fused_frontend": 6, "fused_mdtc": 15 + 25 + 3}
 
 
 def kernel_instance(entry):
-    """``fused_fbank_kernel<9>``, ``fused_fbank_dense_kernel`` or
-    ``fused_mdtc_kernel<64, 2, 1>`` from a mangled entry name, else
-    None."""
-    for kern in ("fused_fbank_kernel", "fused_mdtc_kernel"):
+    """``fused_fbank_kernel<9>``, ``fused_fbank_dense_kernel``,
+    ``fused_mdtc_kernel<64, 2, 1>`` or ``fused_ds_tcn_kernel<48, 1, 2>``
+    from a mangled entry name, else None."""
+    for kern in ("fused_fbank_kernel", "fused_mdtc_kernel",
+                 "fused_ds_tcn_kernel"):
         args = entry.partition(f"{kern}ILi")[2]
         if args:
             vals = [a.lstrip("Li") for a in args.split("EE")[0].split("E")]
@@ -2057,6 +2146,10 @@ def main() -> int:
                       fused_ds_tcn, fused_ds_tcn, launches)
         launches["fused_ds_tcn"] = (launches["ds_tcn_offline"]
                                     + launches["ds_tcn_stream"])
+        # the hi_xiaowen DS-TCN (C = 256: W streamed in slices)
+        serving_slice("ds_tcn_256", DS_TCN_WIDE_MODEL_CONF, gen, dev, work,
+                      waves, fused_ds_tcn, fused_ds_tcn, launches,
+                      DS_TCN_WIDE_DATASET_CONF, DS_TCN_WIDE_KEYWORDS)
 
     with phase("11 path B: FSMN-CTC served by KeyWordSpotter"):
         chunk_ms = phase11_fsmn_ctc(dev, gen, work, waves, launches)

@@ -72,3 +72,38 @@ def test_one_channel_f1_is_gone():
     assert " f1_kernel(" not in source
     assert "dwconv(" not in source
     assert "tile_forward<C, kF1>(a, staged)" in source
+
+
+def test_ds_tcn_runs_on_the_mdtc_kernel_body():
+    """The DS-TCN serving kernel is the MDTC kernel's body with another
+    layer: both entries in csrc/fused_mdtc.cu call one ``run_layers``;
+    the one-block-a-row ``csrc/fused_tcn.cu`` and its library are gone."""
+    assert "fused_tcn" not in cuda_build.KERNEL_SOURCES
+    assert not os.path.exists(os.path.join(cuda_build.CSRC_DIR,
+                                           "fused_tcn.cu"))
+    with open(os.path.join(cuda_build.CSRC_DIR, "fused_mdtc.cu")) as f:
+        source = f.read()
+    for arch, kern in (("kMdtc", "fused_mdtc_kernel"),
+                       ("kDsTcn", "fused_ds_tcn_kernel")):
+        assert f"{kern}(Ptrs a, Plan p, LayerDilations dil) {{\n" \
+               f"  run_layers<{arch}, C, RJ, S>(a, p, dil);" in source
+    assert source.count("__global__") == 2
+
+
+@pytest.mark.parametrize("module", ["fused_mdtc", "fused_tcn"])
+def test_wrappers_call_entries_of_the_source(module):
+    """Every C entry a wrapper calls through ctypes is exported by
+    csrc/fused_mdtc.cu."""
+    import re
+
+    with open(os.path.join(cuda_build.CSRC_DIR, "fused_mdtc.cu")) as f:
+        source = f.read()
+    path = os.path.join(cuda_build.PACKAGE_DIR, "ops", f"{module}.py")
+    with open(path) as f:
+        called = set(re.findall(r"lib\.(fused_\w+)", f.read()))
+    if module == "fused_mdtc":  # the per-layer entries by f-string
+        called |= {f"fused_{a}_{e}" for a in ("mdtc", "ds_tcn")
+                   for e in ("launch", "max_clusters")}
+    assert called
+    for name in called:
+        assert re.search(rf"^(int|const char\*) {name}\(", source, re.M), name

@@ -281,3 +281,19 @@ def test_smem_bytes_of_the_main_plans():
         2 * 128 * 128 + 8 * 128 + (32 + 32) * 128 + 32 * 132 + 4)
     assert fm.mdtc_smem_bytes(2048, 128, 5, 1024, 8, 3, 1, "taps", 1) == 4 * (
         2 * 128 * 128 + 8 * 128 + 5 * 24 * 128 + 24 * 132 + 4)
+
+
+def test_plan_is_mdtc_by_default():
+    """The plan functions, generalised by the layer's weights, give
+    MDTC's plan unless asked for another layer: never a W in slices nor
+    more than 4 rows a thread."""
+    for b, t, c in ((16, 198, 64), (16, 8, 64), (4, 2048, 128)):
+        assert fm.mdtc_plan(b, t, c, 5, 32) == fm.mdtc_plan(
+            b, t, c, 5, 32, arch="mdtc")
+        assert fm.fit_plan(t, c, 5, 32, 4, True) == fm.fit_plan(
+            t, c, 5, 32, 4, True, "mdtc")
+    assert fm.rows_choices(256) == fm.ROWS_PER_THREAD == (1, 2, 3, 4)
+    assert fm.thread_map(200, 128) == (4, 1)
+    assert fm.weight_floats("mdtc", 128, 5) == (2 * 128 * 128 + 8 * 128, 0)
+    assert fm.mdtc_smem_bytes(198, 64, 5, 32, 8, 2, 1, "smem", 2) == \
+        fm.mdtc_smem_bytes(198, 64, 5, 32, 8, 2, 1, "smem", 2, "mdtc")

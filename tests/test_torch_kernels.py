@@ -199,39 +199,111 @@ def test_compare_pass_holds_each_output_to_its_bound():
         compare_pass("f3", (r, w, s + 2e-3 * scale, ss), (r, w, s, ss))
 
 
+def _ds_tcn_weights(g, n_layers, k, c):
+    return [(torch.randn(shape, generator=g) * scale).cuda()
+            for shape, scale in (((n_layers, k, c), 0.3), ((n_layers, c), 0.1),
+                                 ((n_layers, c, c), c ** -0.5),
+                                 ((n_layers, c), 0.1))]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("t", [1, 8, 70, 130])
+@pytest.mark.parametrize("t", [1, 8, 70, 130, 198])
 @pytest.mark.parametrize("b", [1, 5])
 def test_fused_ds_tcn_kernel_matches_plain(b, t):
     """A single frame, a streaming chunk shorter than pad_max, partial
-    and whole 64-row tiles, from a random carried cache: output and new
-    cache 1e-4 abs + 1e-4 rel (fp32, another summation order)."""
+    and whole sub-tiles and T=198 (the hey_snips utterance: with K=8 and
+    dilations 1-8 the halo of 56 rows spans two blocks), from a random
+    carried cache, at every width the kernel takes (48 with idle
+    threads, 256 with W in slices): output and new cache 1e-4 abs +
+    1e-4 rel (fp32, another summation order), bitwise equal from launch
+    to launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from wekws_tpu_torch.ops.fused_tcn import fused_ds_tcn, fused_ds_tcn_plain
 
     g = torch.Generator().manual_seed(10 * t + b)
-    for c, k, dil in ((64, 8, (1, 2, 4, 8)), (32, 5, (1, 2))):
+    for c, k, dil in ((64, 8, (1, 2, 4, 8)), (48, 8, (1, 2, 4, 8)),
+                      (256, 8, (1, 2, 4, 8)), (32, 5, (1, 2)),
+                      (128, 8, (1, 2))):
         n_layers, pad = len(dil), (k - 1) * max(dil)
-        w = [(torch.randn(shape, generator=g) * scale).cuda()
-             for shape, scale in (((n_layers, k, c), 0.3), ((n_layers, c), 0.1),
-                                  ((n_layers, c, c), c ** -0.5),
-                                  ((n_layers, c), 0.1))]
+        w = _ds_tcn_weights(g, n_layers, k, c)
         x = torch.randn((b, t, c), generator=g).cuda()
         cache = torch.randn((n_layers, b, pad, c), generator=g).cuda()
         before = fused_ds_tcn.launches
         got_y, got_c = fused_ds_tcn(x, cache, *w, dil, k)
-        assert fused_ds_tcn.launches == before + 1
+        again_y, again_c = fused_ds_tcn(x, cache, *w, dil, k)
+        assert fused_ds_tcn.launches == before + 2
         want_y, want_c = fused_ds_tcn_plain(x, cache, *w, dil, k)
         torch.testing.assert_close(got_y, want_y, atol=1e-4, rtol=1e-4)
         torch.testing.assert_close(got_c, want_c, atol=1e-4, rtol=1e-4)
+        assert torch.equal(got_y, again_y) and torch.equal(got_c, again_c)
+
+
+@pytest.mark.cuda
+def test_fused_ds_tcn_raises_outside_its_widths():
+    """A width outside KERNEL_CHANNELS raises on the card, never falls
+    back to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from wekws_tpu_torch.ops.fused_tcn import KERNEL_CHANNELS, fused_ds_tcn
+
+    assert KERNEL_CHANNELS == (32, 48, 64, 128, 256)
+    before = fused_ds_tcn.launches
     with pytest.raises(ValueError, match="C in"):
-        fused_ds_tcn(torch.zeros((1, 4, 48)).cuda(),
-                     torch.zeros((1, 1, 7, 48)).cuda(),
-                     torch.zeros((1, 8, 48)).cuda(),
-                     torch.zeros((1, 48)).cuda(),
-                     torch.zeros((1, 48, 48)).cuda(),
-                     torch.zeros((1, 48)).cuda(), (1,), 8)
+        fused_ds_tcn(torch.zeros((1, 4, 50)).cuda(),
+                     torch.zeros((1, 1, 7, 50)).cuda(),
+                     torch.zeros((1, 8, 50)).cuda(),
+                     torch.zeros((1, 50)).cuda(),
+                     torch.zeros((1, 50, 50)).cuda(),
+                     torch.zeros((1, 50)).cuda(), (1,), 8)
+    assert fused_ds_tcn.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [48, 64, 256])
+@pytest.mark.parametrize("b,t,forced", [
+    (16, 198, None), (16, 8, None), (3, 7, {"cluster": 8}),
+    (5, 40, {"cluster": 3}), (16, 198, {"window": "staged"}),
+    (16, 198, {"window": "taps", "nbuf": 1, "rows_per_thread": 2}),
+    (16, 8, {"splits": 1}),
+    (16, 198, {"cluster": 4, "spread": True}), (1, 2048, "eight layers"),
+])
+def test_fused_ds_tcn_plans_match_plain(c, b, t, forced):
+    """The DS-TCN layer on every plan of the cluster kernel: the wrapper's
+    at the main shapes, clusters of 3 and 8 (blocks without frames), the
+    layer inputs in L2 (a staged window or each tap's rows), the depth
+    split or not, spread clusters, and 8 layers of dilations 1-128
+    (pad_max 896: the taps window at C = 64 and 256) over 2048 frames.
+    Output and new cache 1e-4 abs + 1e-4 rel, bitwise equal from launch
+    to launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from wekws_tpu_torch.ops import fused_mdtc as fm
+    from wekws_tpu_torch.ops import fused_tcn as ft
+    from wekws_tpu_torch.tools.time_serving_kernels import forced_plan
+
+    dil = (tuple(2 ** i for i in range(8)) if forced == "eight layers"
+           else (1, 2, 4, 8))
+    n, pad = len(dil), 7 * max(dil)
+    g = torch.Generator().manual_seed(b * t + c)
+    w = _ds_tcn_weights(g, n, 8, c)
+    x = torch.randn((b, t, c), generator=g).cuda()
+    cache = torch.randn((n, b, pad, c), generator=g).cuda()
+    if isinstance(forced, dict):
+        fixed = dict(forced)
+        cluster = fixed.pop("cluster", fm.mdtc_plan(
+            b, t, c, 8, pad, arch="ds_tcn")["cluster"])
+        plan = forced_plan(t, c, 8, pad, cluster, fixed.pop("spread", False),
+                           "ds_tcn", **fixed)
+        got = ft._launch(x, cache, w, dil, 8, plan)
+        again = ft._launch(x, cache, w, dil, 8, plan)
+    else:
+        got = ft.fused_ds_tcn(x, cache, *w, dil, 8)
+        again = ft.fused_ds_tcn(x, cache, *w, dil, 8)
+    want = ft.fused_ds_tcn_plain(x, cache, *w, dil, 8)
+    for a, b_, c_ in zip(got, want, again):
+        torch.testing.assert_close(a, b_, atol=1e-4, rtol=1e-4)
+        assert torch.equal(a, c_)
 
 
 def _fsmn_weights(g, n_layers, ld, pd, lo, ro):
@@ -484,3 +556,14 @@ def test_serving_kernels_shared_memory_mirrors():
             t, c, 5, pad, n, rpt, splits, fm.WINDOWS.index(window),
             nbuf) == fm.mdtc_smem_bytes(t, c, 5, pad, n, rpt, splits, window,
                                         nbuf)
+    # the DS-TCN layer's: one resident W, or (C = 256) W in slices
+    for t, c, pad, n, rpt, splits, window, nbuf in (
+            (198, 64, 56, 6, 3, 1, "smem", 2), (8, 64, 56, 1, 1, 2, "smem", 2),
+            (198, 48, 56, 7, 2, 1, "smem", 2), (8, 48, 56, 1, 1, 2, "smem", 2),
+            (198, 256, 56, 7, 4, 1, "staged", 2),
+            (8, 256, 56, 1, 2, 1, "smem", 2),
+            (2048, 256, 896, 8, 4, 1, "taps", 1)):
+        assert lib.fused_ds_tcn_smem_bytes(
+            t, c, 8, pad, n, rpt, splits, fm.WINDOWS.index(window),
+            nbuf) == fm.mdtc_smem_bytes(t, c, 8, pad, n, rpt, splits, window,
+                                        nbuf, "ds_tcn")

@@ -18,8 +18,8 @@ from typing import Dict, Iterable, List, Tuple
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(PACKAGE_DIR, "build")
-KERNEL_SOURCES = ("fused_mdtc", "fused_mdtc_train", "fused_tcn",
-                  "fused_fsmn", "fused_frontend")
+KERNEL_SOURCES = ("fused_mdtc", "fused_mdtc_train", "fused_fsmn",
+                  "fused_frontend")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -24,7 +24,10 @@ splitting the frames; ``mdtc_plan`` chooses the cluster, the sub-tile,
 where the layer inputs live (``WINDOWS``) and how many weight buffers a
 block keeps from the shapes before the launch (``mdtc_smem_bytes``
 mirrors the kernel's shared memory).  The wrapper raises when no
-cluster of the plan's size can be resident on the card.
+cluster of the plan's size can be resident on the card.  The same
+kernel body runs the DS-TCN layer (``ops/fused_tcn.py``): the plan
+functions take the layer (``ARCHS``) and size its weights by
+``weight_floats``.
 """
 
 import ctypes
@@ -61,46 +64,87 @@ SPREAD_SMEM = 119808
 # each tap reads staged, K slices of a sub-tile (a halo too long for
 # either)
 WINDOWS = ("smem", "staged", "taps")
+# the layers the kernel body runs (its Arch, by index): MDTC's block (two
+# C x C products) and DS-TCN's (one)
+ARCHS = ("mdtc", "ds_tcn")
+# the widest C whose C x C weights a block holds; a DS-TCN W above it
+# streams through two slices of SLICE_ROWS input rows
+MAX_RESIDENT = 128
+SLICE_ROWS = 32
+# rows a thread of the thread map the kernel is built for; where W
+# streams in slices also 6, 8 and 9: one sub-tile covers a block's
+# frames, so that each slice of W serves them all
+ROWS_PER_THREAD = (1, 2, 3, 4)
+SLICED_ROWS_PER_THREAD = (1, 2, 3, 4, 6, 8, 9)
 
 
 def _pad_max(dilations: Sequence[int], kernel_size: int) -> int:
     return (kernel_size - 1) * max(dilations)
 
 
-def thread_map(rows: int, c: int) -> Tuple[int, int]:
+def sliced(arch: str, c: int) -> bool:
+    """Whether the layer's W streams through the kernel in slices."""
+    return arch == "ds_tcn" and c > MAX_RESIDENT
+
+
+def rows_choices(c: int, arch: str = "mdtc") -> Tuple[int, ...]:
+    return SLICED_ROWS_PER_THREAD if sliced(arch, c) else ROWS_PER_THREAD
+
+
+def row_groups(c: int, splits: int) -> int:
+    """G of the kernel's thread map: row groups of 256 threads as C / 4
+    channel quads x ``splits``; the THREADS - G splits C / 4 threads
+    left over (C = 48: 4, or 16 split) are idle."""
+    return THREADS // (splits * (c // 4))
+
+
+def thread_map(rows: int, c: int, arch: str = "mdtc") -> Tuple[int, int]:
     """(rows_per_thread, splits) of the kernel's thread map (``Map`` in
     csrc/fused_mdtc.cu) for a block of ``rows`` frames: 256 threads as
     C / 4 channel quads x G row groups x ``splits`` halves of the
     reduction depth.  Two halves where one row a thread covers the rows
     with half the groups (a streaming chunk), else the fewest rows a
-    thread (1 to 4) that cover them."""
-    quads = c // 4
-    if rows <= THREADS // (2 * quads):
+    thread (``rows_choices``) that cover them."""
+    if rows <= row_groups(c, 2):
         return 1, 2
-    groups = THREADS // quads
-    return next((r for r in (1, 2, 3, 4) if groups * r >= rows), 4), 1
+    choices = rows_choices(c, arch)
+    groups = row_groups(c, 1)
+    return next((r for r in choices if groups * r >= rows), choices[-1]), 1
+
+
+def weight_floats(arch: str, c: int, kernel_size: int) -> Tuple[int, int]:
+    """Floats of one weight buffer of the layer ``arch`` (its C x C
+    matrices where a block holds them, taps, biases) and of the ring of W
+    slices (0 where W is resident): ``Layout`` in csrc/fused_mdtc.cu."""
+    if arch == "mdtc":
+        return 2 * c * c + (kernel_size + 3) * c, 0
+    if sliced(arch, c):
+        return (kernel_size + 2) * c, 2 * SLICE_ROWS * c
+    return c * c + (kernel_size + 2) * c, 0
 
 
 def mdtc_smem_bytes(t: int, c: int, kernel_size: int, pad_max: int,
                     cluster: int, rows_per_thread: int, splits: int,
-                    window: str, nbuf: int) -> int:
+                    window: str, nbuf: int, arch: str = "mdtc") -> int:
     """Shared memory one block of the kernel takes
-    (``fused_mdtc_smem_bytes`` in csrc/fused_mdtc.cu): ``nbuf`` weight
-    buffers (W1, W2, taps, biases), the layer input's windows by
-    ``window`` (two of [P halo rows | the block's rows], one staged
-    window of a sub-tile, or K slices of a sub-tile's rows), the
-    sub-tile's conv (then hidden)
-    tile at row stride C + 4, two mbarriers."""
+    (``fused_mdtc_smem_bytes`` / ``fused_ds_tcn_smem_bytes`` in
+    csrc/fused_mdtc.cu): ``nbuf`` weight buffers and the ring of W
+    slices (``weight_floats``), the layer input's windows by ``window``
+    (two of [P halo rows | the block's rows], one staged window of a
+    sub-tile, or K slices of a sub-tile's rows), the sub-tile's conv
+    (then hidden) tile at row stride C + 4, two mbarriers (four with W
+    slices)."""
     rows = -(-t // cluster)
-    tile = THREADS // (splits * (c // 4)) * rows_per_thread
-    wsize = 2 * c * c + (kernel_size + 3) * c
+    tile = row_groups(c, splits) * rows_per_thread
+    wsize, ring = weight_floats(arch, c, kernel_size)
     span = {"smem": 2 * (pad_max + rows), "staged": pad_max + tile,
             "taps": kernel_size * tile}[window]
-    return 4 * (nbuf * wsize + span * c + tile * (c + 4) + 4)
+    bars = 8 if ring else 4
+    return 4 * (nbuf * wsize + ring + span * c + tile * (c + 4) + bars)
 
 
 def fit_plan(t: int, c: int, kernel_size: int, pad_max: int, cluster: int,
-             spread: bool) -> Optional[dict]:
+             spread: bool, arch: str = "mdtc") -> Optional[dict]:
     """The plan of ``cluster`` blocks a batch row, each owning ``rows``
     = ceil(T / cluster) frames in sub-tiles of ``tile`` rows
     (``thread_map``): the first that fits a block's shared memory, in
@@ -109,16 +153,16 @@ def fit_plan(t: int, c: int, kernel_size: int, pad_max: int, cluster: int,
     each block asks for at least ``SPREAD_SMEM`` bytes, an SM of its
     own.  None where nothing fits."""
     rows = -(-t // cluster)
-    widest, splits = thread_map(rows, c)
+    widest, splits = thread_map(rows, c, arch)
     for window in WINDOWS:
-        for rpt in range(widest, 0, -1):
+        for rpt in [r for r in rows_choices(c, arch) if r <= widest][::-1]:
             for nbuf in (2, 1):
                 smem = mdtc_smem_bytes(t, c, kernel_size, pad_max, cluster,
-                                       rpt, splits, window, nbuf)
+                                       rpt, splits, window, nbuf, arch)
                 if smem <= SMEM_LIMIT:
                     return {"cluster": cluster, "rows": rows,
                             "rows_per_thread": rpt, "splits": splits,
-                            "tile": THREADS // (splits * (c // 4)) * rpt,
+                            "tile": row_groups(c, splits) * rpt,
                             "window": window, "nbuf": nbuf,
                             "spread": spread,
                             "smem": max(smem, SPREAD_SMEM) if spread
@@ -127,30 +171,31 @@ def fit_plan(t: int, c: int, kernel_size: int, pad_max: int, cluster: int,
 
 
 def mdtc_plan(batch: int, t: int, c: int, kernel_size: int, pad_max: int,
-              resident: Optional[Callable[[dict], int]] = None) -> dict:
-    """The kernel's plan for these shapes, chosen before the launch
-    (``fit_plan`` for the cluster size).  Given ``resident(plan)`` (how
-    many clusters of the plan fit the card at once), the largest cluster
-    of up to ``MAX_CLUSTER`` blocks, at least ``MIN_ROWS`` frames a block
-    and no more blocks than SMs whose spread clusters all fit at once;
-    else (or without ``resident``) the largest power of two up to
-    ``MAX_CLUSTER`` with at least ``MIN_ROWS`` frames a block and about
-    two blocks an SM over the batch, not spread.  Raises where nothing
-    fits."""
+              resident: Optional[Callable[[dict], int]] = None,
+              arch: str = "mdtc") -> dict:
+    """The kernel's plan for these shapes and the layer ``arch``, chosen
+    before the launch (``fit_plan`` for the cluster size).  Given
+    ``resident(plan)`` (how many clusters of the plan fit the card at
+    once), the largest cluster of up to ``MAX_CLUSTER`` blocks, at least
+    ``MIN_ROWS`` frames a block and no more blocks than SMs whose spread
+    clusters all fit at once; else (or without ``resident``) the largest
+    power of two up to ``MAX_CLUSTER`` with at least ``MIN_ROWS`` frames
+    a block and about two blocks an SM over the batch, not spread.
+    Raises where nothing fits."""
     if resident is not None:
         for n in range(MAX_CLUSTER, 1, -1):
             if -(-t // n) < MIN_ROWS or batch * n > SMS:
                 continue
-            plan = fit_plan(t, c, kernel_size, pad_max, n, True)
+            plan = fit_plan(t, c, kernel_size, pad_max, n, True, arch)
             if plan is not None and resident(plan) >= batch:
                 return plan
     limit = min(MAX_CLUSTER, max(1, 2 * SMS // batch),
                 max(1, -(-t // MIN_ROWS)))
     plan = fit_plan(t, c, kernel_size, pad_max, 1 << int(math.log2(limit)),
-                    False)
+                    False, arch)
     if plan is None:
-        raise ValueError(f"no MDTC kernel plan fits a block's shared memory "
-                         f"at T={t}, C={c}, K={kernel_size}, "
+        raise ValueError(f"no {arch} kernel plan fits a block's shared "
+                         f"memory at T={t}, C={c}, K={kernel_size}, "
                          f"pad_max={pad_max}")
     return plan
 
@@ -230,44 +275,68 @@ def _validate(x, cache, weights, dilations, kernel_size, stack_size):
         raise ValueError(f"unsupported device {dev}")
 
 
-def _kernel_fn():
+def kernel_lib():
+    """The loaded library of csrc/fused_mdtc.cu, its entries typed."""
     lib = cuda_build.load("fused_mdtc")
-    fn = lib.fused_mdtc_launch
-    if fn.argtypes is None:  # without argtypes ctypes cuts pointers to int
-        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
-                       + [ctypes.POINTER(ctypes.c_int)]
-                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.fused_mdtc_max_clusters.argtypes = [ctypes.c_int] * 5
-        lib.fused_mdtc_max_clusters.restype = ctypes.c_int
+    if lib.fused_mdtc_launch.argtypes is None:
+        # without argtypes ctypes cuts pointers to int
+        lib.fused_mdtc_launch.argtypes = (
+            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+            + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 6
+            + [ctypes.c_void_p])
+        lib.fused_ds_tcn_launch.argtypes = (
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+            + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 6
+            + [ctypes.c_void_p])
+        for arch in ARCHS:
+            getattr(lib, f"fused_{arch}_launch").restype = ctypes.c_int
+            clusters = getattr(lib, f"fused_{arch}_max_clusters")
+            clusters.argtypes = [ctypes.c_int] * 5
+            clusters.restype = ctypes.c_int
         lib.fused_mdtc_error_string.argtypes = [ctypes.c_int]
         lib.fused_mdtc_error_string.restype = ctypes.c_char_p
-    return lib, fn
+    return lib
 
 
-# plans chosen on this card, by (B, T, C, K, pad_max, device)
+# plans chosen on this card, by (arch, B, T, C, K, pad_max, device)
 _plans: Dict[tuple, dict] = {}
 
 
-def _card_plan(b, t, c, kernel_size, pad_max):
-    """``mdtc_plan`` with the card's answer to how many clusters fit."""
-    key = (b, t, c, kernel_size, pad_max, torch.cuda.current_device())
+def card_plan(b, t, c, kernel_size, pad_max, arch="mdtc"):
+    """``mdtc_plan`` with the card's answer to how many clusters of the
+    layer ``arch``'s kernel fit."""
+    key = (arch, b, t, c, kernel_size, pad_max, torch.cuda.current_device())
     if key not in _plans:
-        lib, _ = _kernel_fn()
+        clusters = getattr(kernel_lib(), f"fused_{arch}_max_clusters")
 
         def resident(plan):
-            return lib.fused_mdtc_max_clusters(
-                c, plan["rows_per_thread"], plan["splits"], plan["cluster"],
-                plan["smem"])
+            return clusters(c, plan["rows_per_thread"], plan["splits"],
+                            plan["cluster"], plan["smem"])
 
-        _plans[key] = mdtc_plan(b, t, c, kernel_size, pad_max, resident)
+        _plans[key] = mdtc_plan(b, t, c, kernel_size, pad_max, resident,
+                                arch)
     return _plans[key]
+
+
+def plan_args(plan):
+    """The plan's launch arguments after the dilations, before the
+    stream: cluster, rows a thread, splits, window, weight buffers, the
+    shared-memory floor."""
+    return (plan["cluster"], plan["rows_per_thread"], plan["splits"],
+            WINDOWS.index(plan["window"]), plan["nbuf"],
+            plan["smem"] if plan["spread"] else 0)
+
+
+def raise_on_error(lib, err, name):
+    if err != 0:
+        msg = lib.fused_mdtc_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
 
 
 def _launch(x, cache, weights, dilations, kernel_size, stack_size, plan):
     """One kernel launch under ``plan`` on x's device and current
     stream."""
-    lib, fn = _kernel_fn()
+    lib = kernel_lib()
     b, t, c = x.shape
     n_layers = len(dilations)
     pad_max = _pad_max(dilations, kernel_size)
@@ -282,18 +351,13 @@ def _launch(x, cache, weights, dilations, kernel_size, stack_size, plan):
     ptr = [w.data_ptr() for w in weights]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(),
-                 cache.data_ptr() if cache is not None else None,
-                 *ptr, out.data_ptr(),
-                 cache_out.data_ptr() if cache_out is not None else None,
-                 act.data_ptr() if act is not None else None, b, t, c,
-                 n_layers, kernel_size, stack_size, pad_max, dil,
-                 plan["cluster"], plan["rows_per_thread"], plan["splits"],
-                 WINDOWS.index(plan["window"]), plan["nbuf"],
-                 plan["smem"] if plan["spread"] else 0, stream)
-    if err != 0:
-        msg = lib.fused_mdtc_error_string(err).decode()
-        raise RuntimeError(f"fused_mdtc kernel launch failed: {msg} ({err})")
+        err = lib.fused_mdtc_launch(
+            x.data_ptr(), cache.data_ptr() if cache is not None else None,
+            *ptr, out.data_ptr(),
+            cache_out.data_ptr() if cache_out is not None else None,
+            act.data_ptr() if act is not None else None, b, t, c, n_layers,
+            kernel_size, stack_size, pad_max, dil, *plan_args(plan), stream)
+    raise_on_error(lib, err, "fused_mdtc")
     return out, cache_out
 
 
@@ -317,7 +381,7 @@ def fused_mdtc_forward(
     if x.device.type == "cpu":
         return fused_mdtc_forward_plain(x, *weights, dilations, kernel_size,
                                         stack_size)
-    plan = _card_plan(*x.shape, kernel_size, _pad_max(dilations, kernel_size))
+    plan = card_plan(*x.shape, kernel_size, _pad_max(dilations, kernel_size))
     out, _ = _launch(x, None, weights, dilations, kernel_size, stack_size,
                      plan)
     fused_mdtc_forward.launches += 1
@@ -348,7 +412,7 @@ def fused_mdtc_stream(
     if x.device.type == "cpu":
         return fused_mdtc_stream_plain(x, cache, *weights, dilations,
                                        kernel_size, stack_size)
-    plan = _card_plan(*x.shape, kernel_size, _pad_max(dilations, kernel_size))
+    plan = card_plan(*x.shape, kernel_size, _pad_max(dilations, kernel_size))
     out, new_cache = _launch(x, cache, weights, dilations, kernel_size,
                              stack_size, plan)
     fused_mdtc_stream.launches += 1

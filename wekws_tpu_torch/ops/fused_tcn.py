@@ -2,10 +2,14 @@
 
 The JAX package runs the BN-folded depthwise-separable TCN as one
 Pallas program (wekws_tpu/ops/fused_tcn.py); here the same function is
-the hand-written Hopper kernel ``csrc/fused_tcn.cu``, launched through
-``ctypes``.  Layouts are the JAX package's: activations ``(B, T, C)``,
-weight stacks ``(L, K, C)``, ``(L, C)``, ``(L, C, C)`` (input channels
-first) and ``(L, C)``, streaming cache ``(L, B, pad_max, C)``.
+the hand-written Hopper kernel ``fused_ds_tcn_kernel`` of
+``csrc/fused_mdtc.cu``: the MDTC serving kernel's body with the DS-TCN
+layer, launched through ``ctypes`` on the plan of
+``fused_mdtc.mdtc_plan(..., arch="ds_tcn")`` (a thread-block cluster per
+batch row, the frames split over its blocks).  Layouts are the JAX
+package's: activations ``(B, T, C)``, weight stacks ``(L, K, C)``,
+``(L, C)``, ``(L, C, C)`` (input channels first) and ``(L, C)``,
+streaming cache ``(L, B, pad_max, C)``.
 
 Layer math (BN folded):
     a = dw_conv(x_padded) + b_dw      # (K, C) taps, dilation d_l
@@ -27,7 +31,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from wekws_tpu_torch.ops import cuda_build
+from wekws_tpu_torch.ops import fused_mdtc
 from wekws_tpu_torch.ops.fused_common import (
     check_tensor,
     fold_bn,
@@ -36,7 +40,9 @@ from wekws_tpu_torch.ops.fused_common import (
 
 init_tcn_cache = init_ring_cache
 
-KERNEL_CHANNELS = (32, 64, 128)
+# the widths of the repo's DS-TCN recipes (hey_snips 64, synthetic 48,
+# hi_xiaowen 256) and MDTC's
+KERNEL_CHANNELS = (32, 48, 64, 128, 256)
 MAX_LAYERS = 64
 MAX_TAPS = 8
 
@@ -91,25 +97,19 @@ def _validate(x, cache, weights, dilations, kernel_size):
             raise ValueError(
                 f"the CUDA kernel takes at most {MAX_LAYERS} layers and "
                 f"{MAX_TAPS} taps, got {n_layers} and {k}")
+        fused_mdtc.mdtc_plan(b, t, c, k, _pad_max(dilations, k),
+                             arch="ds_tcn")
+        if any(w.data_ptr() % 16 for w in (x, cache) + tuple(weights)):
+            raise ValueError("the CUDA kernel's bulk copies need every "
+                             "tensor 16-byte aligned")
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
 
 
-def _kernel_fn():
-    lib = cuda_build.load("fused_tcn")
-    fn = lib.fused_tcn_launch
-    if fn.argtypes is None:  # without argtypes ctypes cuts pointers to int
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
-                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.fused_tcn_error_string.argtypes = [ctypes.c_int]
-        lib.fused_tcn_error_string.restype = ctypes.c_char_p
-    return lib, fn
-
-
-def _launch(x, cache, weights, dilations, kernel_size):
-    """One kernel launch on x's device and current stream."""
-    lib, fn = _kernel_fn()
+def _launch(x, cache, weights, dilations, kernel_size, plan):
+    """One kernel launch under ``plan`` on x's device and current
+    stream."""
+    lib = fused_mdtc.kernel_lib()
     b, t, c = x.shape
     n_layers = len(dilations)
     pad_max = _pad_max(dilations, kernel_size)
@@ -117,18 +117,18 @@ def _launch(x, cache, weights, dilations, kernel_size):
     # fresh output cache: the kernel reads cache[l] while writing
     # cache_out[l] (they overlap when T < pad_max), so they never alias
     cache_out = torch.empty_like(cache)
-    act = torch.empty((b, 2, pad_max + t, c), dtype=torch.float32,
-                      device=x.device)
+    # the layer outputs of a plan whose frames do not fit shared memory
+    act = (None if plan["window"] == "smem" else
+           torch.empty((b, 2, t, c), dtype=torch.float32, device=x.device))
     dil = (ctypes.c_int * n_layers)(*[int(d) for d in dilations])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), cache.data_ptr(),
-                 *[w.data_ptr() for w in weights], out.data_ptr(),
-                 cache_out.data_ptr(), act.data_ptr(), b, t, c, n_layers,
-                 kernel_size, pad_max, dil, stream)
-    if err != 0:
-        msg = lib.fused_tcn_error_string(err).decode()
-        raise RuntimeError(f"fused_tcn kernel launch failed: {msg} ({err})")
+        err = lib.fused_ds_tcn_launch(
+            x.data_ptr(), cache.data_ptr(), *[w.data_ptr() for w in weights],
+            out.data_ptr(), cache_out.data_ptr(),
+            act.data_ptr() if act is not None else None, b, t, c, n_layers,
+            kernel_size, pad_max, dil, *fused_mdtc.plan_args(plan), stream)
+    fused_mdtc.raise_on_error(lib, err, "fused_ds_tcn")
     return out, cache_out
 
 
@@ -145,12 +145,14 @@ def fused_ds_tcn(
     """x: (B, T, C) float32; cache: (L, B, pad_max, C) (zeros at
     start).  Returns (y (B, T, C), new_cache); chunked calls equal one
     whole-utterance call.  The new cache is a fresh tensor.  On CUDA:
-    C in {32, 64, 128}, at most 8 taps and 64 layers."""
+    C in KERNEL_CHANNELS, at most 8 taps and 64 layers."""
     weights = (dw_w, dw_b, pw_w, pw_b)
     _validate(x, cache, weights, dilations, kernel_size)
     if x.device.type == "cpu":
         return fused_ds_tcn_plain(x, cache, *weights, dilations, kernel_size)
-    out = _launch(x, cache, weights, dilations, kernel_size)
+    plan = fused_mdtc.card_plan(*x.shape, kernel_size,
+                                _pad_max(dilations, kernel_size), "ds_tcn")
+    out = _launch(x, cache, weights, dilations, kernel_size, plan)
     fused_ds_tcn.launches += 1
     return out
 

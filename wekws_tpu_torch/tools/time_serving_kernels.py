@@ -1,11 +1,12 @@
-"""Device time of the fbank and MDTC serving kernels on the card, per variant.
+"""Device time of the fbank, MDTC and DS-TCN serving kernels on the card,
+per variant.
 
     python -m wekws_tpu_torch.tools.time_serving_kernels [--rounds 3] \
-        [--only fbank|mdtc] [--clocks] [--precision]
+        [--only fbank|mdtc|tcn] [--clocks] [--precision]
 
 At the main path's shapes, each variant is held against the plain
-version first (log-mel 1e-3 abs + 1e-4 rel; MDTC output and new cache
-1e-4 abs + 1e-4 rel) and then timed: device time per call of the
+version first (log-mel 1e-3 abs + 1e-4 rel; MDTC and DS-TCN output and
+new cache 1e-4 abs + 1e-4 rel) and then timed: device time per call of the
 variant's kernel from torch.profiler over 20 launches, the variants in
 turns, first to last and back, ``--rounds`` times in one process; the
 median of a variant's rounds is printed with the card's name and power
@@ -32,6 +33,15 @@ limit.
   two threads), without the split, the 8 frames split over a cluster of
   2 blocks, and the layer outputs in the device buffer ("staged",
   "taps").
+- ``fused_ds_tcn`` (the same kernel body with the DS-TCN layer; 4
+  layers, K=8, dilations 1, 2, 4, 8) at the hey_snips width (C=64) and
+  the hi_xiaowen width (C=256, W streamed in slices), each at B=16 x
+  T=198 (offline scoring, zero cache) and B=16 x T=8 (the engine's
+  step): the plan and, as for MDTC, clusters of 8 and 4 packed, of 4,
+  7 and 8 spread, the "staged" and "taps" windows and 4 rows a thread
+  (at C=256 sub-tiles of 16 rows, each streaming all of W) offline;
+  without the depth split, a cluster of 2, "staged" and "taps"
+  streaming.
 
 With ``--precision`` it measures the fbank FFT plan's log-mel error on
 the flagship's synthetic batch (a 500 Hz tone in noise on every other
@@ -102,12 +112,12 @@ CLOCK_EDITS = {
          _at("    for (int s0 = t0; s0 < t0 + nr; s0 += p.TR) {\n", 3),
          _at("      // causal dilated depthwise conv + bias (both halves", 4),
          _at("      __syncthreads();\n      float4 acc[RJ];", 5),
-         _at("      rows_product<C, RJ, S>(ta, w1, g, q, sh, acc);  // a W1\n",
-             6),
-         _at("      __syncthreads();  // every read of the conv's tile", 7),
-         _at("      rows_product<C, RJ, S>(ta, w2, g, q, sh, acc);", 8),
+         _at("      float4 acc[RJ];\n      if constexpr (kSliced)", 6),
+         _at("      if constexpr (Arch == kMdtc) {\n"
+             "        __syncthreads();", 7),
+         _at("        rows_product<C, RJ, S>(ta, w2, g, q, sh, acc);", 8),
          _at("#pragma unroll\n      for (int j = 0; j < RJ; ++j) {\n"
-             "        const int r = g + j * G;\n        if (r < n && sh == 0) {",
+             "        const int r = g + j * G;\n        if (r < n && sh == 0",
              9),
          _at("    if (p.nbuf == 1 && l + 1 < p.L) {\n", 10),
          _at("  // no block leaves while a peer may still read its shared "
@@ -198,19 +208,20 @@ def with_library(source, path, fn):
     return call
 
 
-def forced_plan(t, c, k, pad_max, cluster, spread=False, **fixed):
-    """``fit_plan``'s plan for a cluster of ``cluster`` blocks with some
-    of its fields set (``window``, ``splits``), the tile and the shared
-    memory recomputed: a plan the wrapper would not choose, for
-    ``fused_mdtc._launch``."""
+def forced_plan(t, c, k, pad_max, cluster, spread=False, arch="mdtc",
+                **fixed):
+    """``fit_plan``'s plan for a cluster of ``cluster`` blocks of the
+    layer ``arch`` with some of its fields set (``window``, ``splits``),
+    the tile and the shared memory recomputed: a plan the wrapper would
+    not choose, for ``fused_mdtc._launch`` or ``fused_tcn._launch``."""
     from wekws_tpu_torch.ops import fused_mdtc as fm
 
-    plan = dict(fm.fit_plan(t, c, k, pad_max, cluster, spread), **fixed)
-    plan["tile"] = (fm.THREADS // (plan["splits"] * (c // 4))
-                    * plan["rows_per_thread"])
+    plan = dict(fm.fit_plan(t, c, k, pad_max, cluster, spread, arch),
+                **fixed)
+    plan["tile"] = fm.row_groups(c, plan["splits"]) * plan["rows_per_thread"]
     smem = fm.mdtc_smem_bytes(t, c, k, pad_max, cluster,
                               plan["rows_per_thread"], plan["splits"],
-                              plan["window"], plan["nbuf"])
+                              plan["window"], plan["nbuf"], arch)
     if smem > fm.SMEM_LIMIT:
         raise ValueError(f"{fixed} does not fit a block: {smem} bytes")
     plan["smem"] = max(smem, fm.SPREAD_SMEM) if spread else smem
@@ -388,8 +399,8 @@ def mdtc_variants(gen, device):
                                          STACK)
 
     t_off, t_st = MDTC_OFFLINE[1], MDTC_STREAM[1]
-    plan_off = fm._card_plan(*x_off.shape, k, pad)
-    plan_st = fm._card_plan(*x_st.shape, k, pad)
+    plan_off = fm.card_plan(*x_off.shape, k, pad)
+    plan_st = fm.card_plan(*x_st.shape, k, pad)
 
     def offline(cluster=None, spread=None, **fixed):
         plan = forced_plan(
@@ -434,6 +445,83 @@ def mdtc_variants(gen, device):
     return {name: ("fused_mdtc_kernel", fn) for name, fn in out.items()}
 
 
+TCN_DILATIONS, TCN_KERNEL = (1, 2, 4, 8), 8
+TCN_WIDTHS = (64, 256)  # hey_snips, hi_xiaowen
+
+
+def tcn_variants(gen, device):
+    """{name: (kernel name, call)} of the DS-TCN kernel at each of
+    ``TCN_WIDTHS``, each checked against the plain version."""
+    import torch
+
+    from wekws_tpu_torch.ops import fused_tcn as ft
+
+    n_layers, k, dil = len(TCN_DILATIONS), TCN_KERNEL, TCN_DILATIONS
+    pad = (k - 1) * max(dil)
+    out = {}
+    for c in TCN_WIDTHS:
+        w = tuple((torch.randn(s, generator=gen) * sc).to(device)
+                  for s, sc in (((n_layers, k, c), 0.3), ((n_layers, c), 0.1),
+                                ((n_layers, c, c), c ** -0.5),
+                                ((n_layers, c), 0.1)))
+        cases = {}
+        for mode, (b, t) in (("offline", MDTC_OFFLINE),
+                             ("stream", MDTC_STREAM)):
+            x = torch.randn((b, t, c), generator=gen).to(device)
+            cache = (torch.zeros((n_layers, b, pad, c), device=device)
+                     if mode == "offline" else
+                     torch.randn((n_layers, b, pad, c), generator=gen)
+                     .to(device))
+            plan = ft.fused_mdtc.card_plan(b, t, c, k, pad, "ds_tcn")
+            cases[mode] = (x, cache, plan,
+                           ft.fused_ds_tcn_plain(x, cache, *w, dil, k))
+
+        def forced(mode, cluster=None, spread=None, *, w=w, **fixed):
+            x, cache, plan, _ = cases[mode]
+            plan = forced_plan(
+                x.shape[1], c, k, pad, cluster or plan["cluster"],
+                plan["spread"] if spread is None else spread, "ds_tcn",
+                **fixed)
+            return lambda: ft._launch(x, cache, w, dil, k, plan)
+
+        def planned(mode, w=w):
+            x, cache, _, _ = cases[mode]
+            return lambda: ft.fused_ds_tcn(x, cache, *w, dil, k)
+
+        makers = {
+            "offline (plan)": lambda: planned("offline"),
+            "offline cluster8 packed": lambda: forced("offline", 8, False),
+            "offline cluster4 packed": lambda: forced("offline", 4, False),
+            "offline cluster4 spread": lambda: forced("offline", 4, True),
+            "offline cluster7 spread": lambda: forced("offline", 7, True),
+            "offline cluster8 spread": lambda: forced("offline", 8, True),
+            "offline staged": lambda: forced("offline", window="staged"),
+            "offline taps": lambda: forced("offline", window="taps"),
+            "offline rows4": lambda: forced("offline", rows_per_thread=4),
+            "stream (plan)": lambda: planned("stream"),
+            "stream splits1": lambda: forced("stream", splits=1),
+            "stream cluster2": lambda: forced("stream", 2),
+            "stream staged": lambda: forced("stream", window="staged"),
+            "stream taps": lambda: forced("stream", window="taps"),
+        }
+        for name, make in makers.items():
+            try:
+                fn = make()
+            except ValueError as err:  # the variant does not fit a block
+                print(f"fused_ds_tcn C={c} {name}: skipped, {err}",
+                      flush=True)
+                continue
+            want = cases[name.split()[0]][3]
+            got = fn()
+            torch.cuda.synchronize()
+            for a, b_ in zip(got, want):
+                if not torch.allclose(a, b_, atol=1e-4, rtol=1e-4):
+                    raise AssertionError(f"fused_ds_tcn C={c} {name} "
+                                         f"disagrees with the plain version")
+            out[f"C={c} {name}"] = ("fused_ds_tcn_kernel", fn)
+    return out
+
+
 def time_variants(variants, rounds=3):
     """{name: median device ms per call} over ``rounds`` rounds in turns."""
     times = {name: [] for name in variants}
@@ -449,7 +537,7 @@ def time_variants(variants, rounds=3):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rounds", type=int, default=3)
-    ap.add_argument("--only", choices=("fbank", "mdtc"))
+    ap.add_argument("--only", choices=("fbank", "mdtc", "tcn"))
     ap.add_argument("--clocks", action="store_true")
     ap.add_argument("--precision", action="store_true")
     args = ap.parse_args(argv)
@@ -476,7 +564,8 @@ def main(argv=None) -> int:
         texts.update(clock_texts())
     libs = build_sources(texts)
     groups = {"fbank": (fbank_variants, f"fused_fbank {FBANK_SHAPE} M=40"),
-              "mdtc": (mdtc_variants, "fused_mdtc B=16")}
+              "mdtc": (mdtc_variants, "fused_mdtc B=16"),
+              "tcn": (tcn_variants, "fused_ds_tcn B=16")}
     for key, (make, title) in groups.items():
         if args.only not in (None, key):
             continue
@@ -487,12 +576,14 @@ def main(argv=None) -> int:
             txt = "not measured" if ms is None else f"{ms:.4f} ms"
             print(f"{title} {name}: device {txt} per call (median of "
                   f"{args.rounds}) [{card}]", flush=True)
-        if key == "mdtc":
+        if key in ("mdtc", "tcn"):
             from wekws_tpu_torch.ops import fused_mdtc as fm
 
+            arch = "mdtc" if key == "mdtc" else "ds_tcn"
             for shape, plan in fm._plans.items():
-                print(f"{title} plan at (B, T, C, K, pad_max) "
-                      f"{shape[:5]}: {plan}", flush=True)
+                if shape[0] == arch:
+                    print(f"{title} plan at (B, T, C, K, pad_max) "
+                          f"{shape[1:6]}: {plan}", flush=True)
         if args.clocks:
             for name, cycles in phase_cycles(variants, libs).items():
                 print(f"{title} {name} cycles per call by phase (thread 0 "
