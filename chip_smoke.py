@@ -1848,6 +1848,427 @@ def phase13_times(dev, bench, errs, launches, card, trainer, state,
 # the instantiations phase 2 prints: 5 n_fft + the dense plan; MDTC's 3
 # widths and DS-TCN's 5, each x (rows a thread 1 to 4 and the split
 # depth), and DS-TCN's 6, 8 and 9 rows a thread at C=256
+RECIPE = os.path.join("examples", "synthetic")
+RECIPE_SPLITS = (("train", 480), ("dev", 96), ("test", 192))
+RECIPE_EPOCHS, RECIPE_WORKERS = 2, 2
+# the recipe phase's own limit: training starts two loader workers per
+# data list, which must be torn down on every exit path
+RECIPE_TIMEOUT_S = 480
+# the JAX fixture's committed score.txt came from a TPU run, whose matmul
+# noise moved posteriors by about 4e-3 (commit 3bf1a59)
+FIXTURE_TOL = 1e-2
+FIXTURE_STREAM_SHAPE = (16, 8)
+# the plain versions of the kernels that the recipe runs: a call on a
+# CUDA tensor would mean that a kernel was passed over
+PLAIN_VERSIONS = (
+    ("wekws_tpu_torch.ops.fused_mdtc_train",
+     tuple(f"_{p}_plain" for p in TRAIN_PASSES)),
+    ("wekws_tpu_torch.ops.fused_frontend", ("fused_fbank_plain",)),
+    ("wekws_tpu_torch.ops.fused_mdtc", ("fused_mdtc_forward_plain",)),
+    ("wekws_tpu_torch.ops.fused_tcn", ("fused_ds_tcn_plain",)),
+)
+
+
+class PlainOnCuda:
+    """Within the ``with``, counts the calls of each plain version in
+    ``PLAIN_VERSIONS`` that were given a CUDA tensor."""
+
+    def __enter__(self):
+        import importlib
+
+        import torch
+
+        self.counts, self._saved = {}, []
+        for modname, names in PLAIN_VERSIONS:
+            mod = importlib.import_module(modname)
+            for name in names:
+                fn = getattr(mod, name)
+
+                def counted(*args, _fn=fn, _key=name, **kwargs):
+                    if any(isinstance(a, torch.Tensor) and a.is_cuda
+                           for a in list(args) + list(kwargs.values())):
+                        self.counts[_key] = self.counts.get(_key, 0) + 1
+                    return _fn(*args, **kwargs)
+
+                setattr(mod, name, counted)
+                self._saved.append((mod, name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+        return False
+
+    def check(self, what):
+        if self.counts:
+            raise AssertionError(f"{what}: plain versions ran on CUDA "
+                                 f"tensors: {self.counts}")
+
+
+class TimeLimit:
+    """SIGALRM after ``seconds``: the phase fails instead of hanging."""
+
+    def __init__(self, seconds, what):
+        self.seconds, self.what = seconds, what
+
+    def __enter__(self):
+        import signal
+
+        def expired(signum, frame):
+            raise TimeoutError(f"{self.what}: over {self.seconds} s")
+
+        self._old = signal.signal(signal.SIGALRM, expired)
+        signal.alarm(self.seconds)
+        return self
+
+    def __exit__(self, *exc):
+        import signal
+
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, self._old)
+        return False
+
+
+def recipe_lists(tmp):
+    """The three data lists from the committed wavs, as run_torch.sh's
+    stage 0 writes them: key <split>_<i>, label "0" for even i and "-1"
+    for odd (as local/gen_data.py made them), absolute paths, durations
+    through the port's bin.make_list."""
+    from wekws_tpu_torch.bin import make_list
+
+    lists = {}
+    for split, n in RECIPE_SPLITS:
+        wav_dir = os.path.abspath(os.path.join(RECIPE, "data", split))
+        scp, text = (os.path.join(tmp, f"{split}.{x}")
+                     for x in ("wav.scp", "text"))
+        with open(scp, "w") as f:
+            f.writelines(f"{split}_{i} {wav_dir}/{split}_{i}.wav\n"
+                         for i in range(n))
+        with open(text, "w") as f:
+            f.writelines(f"{split}_{i} {0 if i % 2 == 0 else -1}\n"
+                         for i in range(n))
+        lists[split] = os.path.join(tmp, f"{split}.list")
+        make_list.main([scp, text, os.path.join(tmp, f"{split}.dur"),
+                        lists[split]])
+        with open(lists[split]) as f:
+            lines = [json.loads(line) for line in f]
+        if len(lines) != n or not all(
+                float(x.get("duration", 0)) > 0 for x in lines):
+            raise AssertionError(f"{split}.list: {len(lines)} lines, want "
+                                 f"{n}, each with a duration")
+    return lists
+
+
+def recipe_config(tmp):
+    """conf/mdtc.yaml's data and training settings + fused_frontend,
+    with the flagship model + fused_train."""
+    import yaml
+
+    with open(os.path.join(RECIPE, "conf", "mdtc.yaml")) as f:
+        configs = yaml.safe_load(f)
+    configs["dataset_conf"]["fused_frontend"] = True
+    model = copy.deepcopy(FLAGSHIP_MODEL_CONF)
+    model["backbone"]["fused_train"] = True
+    configs["model"] = model
+    path = os.path.join(tmp, "mdtc_flagship.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(configs, f)
+    return path, configs
+
+
+def module_vs_fused(config, checkpoint, test_list, dev, tag):
+    """The checkpoint's posteriors on the test list through the fused
+    serving kernel and through the module route, both on the card:
+    every frame within TOL.  Returns (max error, the batches' feature
+    shapes, the model)."""
+    import torch
+
+    from wekws_tpu_torch.bin.common import load_test_setup
+    from wekws_tpu_torch.data import init_dataset
+    from wekws_tpu_torch.ops.serving import build_fused_forward
+
+    _, model, pipeline, test_conf = load_test_setup(config, checkpoint, 256,
+                                                    dev)
+    fused = build_fused_forward(model, device=dev)
+    err, shapes = 0.0, []
+    for batch in init_dataset(test_list, test_conf, split="test"):
+        waves = torch.as_tensor(batch["waves"]).to(dev, torch.float32)
+        lengths = torch.as_tensor(batch["wave_lengths"]).to(dev)
+        with torch.inference_mode():
+            feats, feat_lengths = pipeline(waves, lengths)
+            got = fused(feats, feat_lengths)
+            want, _ = model(feats, lengths=feat_lengths)
+        shapes.append(tuple(feats.shape[:2]))
+        err = max(err, check_close(f"{tag}: fused serving vs module route, "
+                                   f"B x T = {shapes[-1]}", got, want))
+    return err, shapes, model
+
+
+def read_scores(path):
+    with open(path) as f:
+        return {line.split()[0]: np.array(line.split()[2:], np.float64)
+                for line in f}
+
+
+def phase14_recipe(dev, card):
+    """The flagship recipe end to end through the port's CLIs: lists,
+    bin.train (2 epochs, fused passes and fused fbank), average, score
+    (fused MDTC serving), DET; then the JAX DS-TCN fixture scored
+    through the fused DS-TCN kernel at C=48."""
+    import logging
+    import tempfile
+
+    import torch
+    import yaml
+
+    from wekws_tpu_torch.bin import average_model, compute_det, score, train
+    from wekws_tpu_torch.data import DataLoader, init_dataset
+    from wekws_tpu_torch.ops import fused_frontend, fused_mdtc, fused_tcn
+    from wekws_tpu_torch.ops.fused_mdtc import extract_mdtc_weights
+    from wekws_tpu_torch.ops.fused_mdtc_train import PASSES, reset_launches
+    from wekws_tpu_torch.ops.fused_tcn import (
+        extract_ds_tcn_weights,
+        init_tcn_cache,
+    )
+
+    with tempfile.TemporaryDirectory() as tmp:
+        lists = recipe_lists(tmp)
+        config, configs = recipe_config(tmp)
+        exp = os.path.join(tmp, "exp")
+        print(f"  lists {', '.join(f'{s} {n}' for s, n in RECIPE_SPLITS)} "
+              f"lines with durations; config: conf/mdtc.yaml's data + "
+              f"fused_frontend, the flagship MDTC + fused_train", flush=True)
+
+        # train, the launch counters zeroed just before
+        epoch_done = []
+
+        class EpochTimes(logging.Handler):
+            def emit(self, record):
+                if record.getMessage().startswith("Epoch") and \
+                        " done: " in record.getMessage():
+                    epoch_done.append(time.perf_counter())
+
+        logging.basicConfig(level=logging.INFO,
+                            format="%(asctime)s %(levelname)s %(message)s")
+        root_logger = logging.getLogger()
+        level = root_logger.level
+        root_logger.setLevel(logging.INFO)
+        handler = EpochTimes()
+        root_logger.addHandler(handler)
+        reset_launches()
+        fused_frontend.fused_fbank.launches = 0
+        t0 = time.perf_counter()
+        try:
+            with PlainOnCuda() as plain, TimeLimit(RECIPE_TIMEOUT_S,
+                                                   "bin.train"):
+                train.main([
+                    "--config", config, "--train_data", lists["train"],
+                    "--cv_data", lists["dev"], "--model_dir", exp,
+                    "--min_duration", "20", "--seed", "666",
+                    "--cmvn_file", os.path.join(RECIPE, "data",
+                                                "global_cmvn"),
+                    "--norm_var", "--num_epochs", str(RECIPE_EPOCHS),
+                    "--num_workers", str(RECIPE_WORKERS),
+                    "--device", dev.type])
+                torch.cuda.synchronize()
+        finally:
+            root_logger.removeHandler(handler)
+            root_logger.setLevel(level)
+        plain.check("bin.train")
+        train_s = time.perf_counter() - t0
+        fbank_launches = fused_frontend.fused_fbank.launches
+        want_files = ["config.yaml", "metrics.jsonl", "init.pt"] + [
+            f"{e}.{x}" for e in range(RECIPE_EPOCHS) for x in ("pt", "yaml")]
+        missing = [f for f in want_files
+                   if not os.path.exists(os.path.join(exp, f))]
+        events = os.listdir(os.path.join(exp, "tensorboard"))
+        if missing or len(events) != 1:
+            raise AssertionError(f"bin.train outputs: missing {missing}, "
+                                 f"tensorboard {events}")
+        with open(os.path.join(exp, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        cv_losses = []
+        for e in range(RECIPE_EPOCHS):
+            with open(os.path.join(exp, f"{e}.yaml")) as f:
+                cv_losses.append(float(yaml.safe_load(f)["cv_loss"]))
+        train_losses = [r["train_loss"] for r in records]
+        if len(records) != RECIPE_EPOCHS or not all(
+                np.isfinite(train_losses + cv_losses)):
+            raise AssertionError(f"train losses {train_losses}, cv losses "
+                                 f"{cv_losses}")
+        steps = sum(r["batches"] for r in records)
+        # each cv batch runs the fused fbank once: per worker shard, its
+        # utterances in batches of batch_size
+        batch_size = configs["dataset_conf"]["batch_conf"]["batch_size"]
+        n_dev = dict(RECIPE_SPLITS)["dev"]
+        cv_batches = RECIPE_EPOCHS * sum(
+            math.ceil(len(range(w, n_dev, RECIPE_WORKERS)) / batch_size)
+            for w in range(RECIPE_WORKERS))
+        n_blocks = 1 + 4 * 4
+        counts = {name: PASSES[name].launches for name in TRAIN_PASSES}
+        if any(v != n_blocks * steps for v in counts.values()) or \
+                fbank_launches != steps + cv_batches:
+            raise AssertionError(
+                f"{steps} train steps, {cv_batches} cv batches: pass "
+                f"launches {counts} (want {n_blocks} x {steps}), "
+                f"fused_fbank {fbank_launches} (want {steps + cv_batches})")
+        epoch_s = np.diff([t0] + epoch_done[-RECIPE_EPOCHS:]).tolist()
+        print(f"  bin.train: {RECIPE_EPOCHS} epochs, {steps} steps of "
+              f"B={batch_size}; train losses {train_losses}, cv losses "
+              f"{cv_losses}; each pass launched {n_blocks} x {steps} = "
+              f"{n_blocks * steps} times, fused_fbank {fbank_launches} "
+              f"(steps + {cv_batches} cv batches), no plain version on a "
+              f"CUDA tensor", flush=True)
+        # the host pipeline alone: the same train list through a fresh
+        # DataLoader, no training (the first epoch starts the workers)
+        loader = DataLoader(init_dataset(lists["train"],
+                                         configs["dataset_conf"],
+                                         split="train"),
+                            num_workers=RECIPE_WORKERS)
+        loader_s, loader_audio = [], 0.0
+        try:
+            with TimeLimit(RECIPE_TIMEOUT_S, "DataLoader alone"):
+                for epoch in range(RECIPE_EPOCHS):
+                    t1 = time.perf_counter()
+                    loader.set_epoch(epoch)
+                    loader_audio = sum(float(b["wave_lengths"].sum())
+                                       for b in loader) / 16000.0
+                    loader_s.append(time.perf_counter() - t1)
+        finally:
+            loader.close()
+        print(f"  the DataLoader alone ({RECIPE_WORKERS} workers, no "
+              f"training): epochs {', '.join(f'{x:.2f}' for x in loader_s)}"
+              f" s ({loader_audio / loader_s[-1]:.1f} audio-s/s in the "
+              f"last; the first starts the workers)", flush=True)
+        rates = [r["audio_seconds_per_s"] for r in records]
+        print(f"  bin.train wall time {train_s:.1f} s (workers' start "
+              f"included); per epoch (train + cv + checkpoint) "
+              f"{', '.join(f'{x:.2f}' for x in epoch_s)} s; train rate "
+              f"{', '.join(f'{x:.1f}' for x in rates)} audio-s/s "
+              f"[{card}]", flush=True)
+
+        # average, score (fused MDTC serving), DET
+        avg = os.path.join(exp, f"avg_{RECIPE_EPOCHS}.pt")
+        average_model.main(["--dst_model", avg, "--src_path", exp, "--num",
+                            str(RECIPE_EPOCHS), "--val_best", "--device",
+                            dev.type])
+        score_file = os.path.join(exp, "score.txt")
+        fused_mdtc.fused_mdtc_forward.launches = 0
+        t0 = time.perf_counter()
+        with PlainOnCuda() as plain:
+            n_scored = score.main([
+                "--config", os.path.join(exp, "config.yaml"), "--test_data",
+                lists["test"], "--checkpoint", avg, "--score_file",
+                score_file, "--device", dev.type])
+            torch.cuda.synchronize()
+        score_s = time.perf_counter() - t0
+        plain.check("bin.score")
+        mdtc_launches = fused_mdtc.fused_mdtc_forward.launches
+        n_test = dict(RECIPE_SPLITS)["test"]
+        if n_scored != n_test or mdtc_launches < 1:
+            raise AssertionError(f"bin.score: {n_scored} utterances, "
+                                 f"{mdtc_launches} fused_mdtc launches")
+        err, shapes, model = module_vs_fused(
+            os.path.join(exp, "config.yaml"), avg, lists["test"], dev,
+            "flagship averaged")
+        stats = os.path.join(exp, "stats.0.txt")
+        compute_det.main(["--keyword", "0", "--test_data", lists["test"],
+                          "--score_file", score_file, "--stats_file", stats,
+                          "--device", dev.type])
+        with open(stats) as f:
+            rows = [tuple(map(float, line.split())) for line in f]
+        if len(rows) < 100 or any(len(r) != 3 for r in rows):
+            raise AssertionError(f"stats file: {len(rows)} rows")
+        print(f"  averaged {RECIPE_EPOCHS} checkpoints; bin.score: "
+              f"{n_scored} utterances, {mdtc_launches} fused_mdtc launch(es) "
+              f"at B x T = {shapes}, {score_s:.2f} s wall (config, weights, "
+              f"features, kernel, score file) [{card}]; module route "
+              f"within {err:.2e}; DET: {len(rows)} thresholds, FRR "
+              f"{rows[50][2]:.4f} and FA/h {rows[50][1]:.2f} at 0.5",
+              flush=True)
+
+        # the JAX fixture (DS-TCN, C=48), its cmvn path pointed here
+        fixture = os.path.join(RECIPE, "exp", "ds_tcn")
+        with open(os.path.join(fixture, "config.yaml")) as f:
+            fconf = yaml.safe_load(f)
+        fconf["model"]["cmvn"]["cmvn_file"] = os.path.abspath(
+            os.path.join(RECIPE, "data", "global_cmvn"))
+        fconfig = os.path.join(tmp, "ds_tcn.yaml")
+        with open(fconfig, "w") as f:
+            yaml.safe_dump(fconf, f)
+        ckpt = os.path.join(fixture, "avg_5.ckpt")
+        fscore = os.path.join(tmp, "ds_tcn_score.txt")
+        fused_tcn.fused_ds_tcn.launches = 0
+        with PlainOnCuda() as plain:
+            n_fixture = score.main([
+                "--config", fconfig, "--test_data", lists["test"],
+                "--checkpoint", ckpt, "--score_file", fscore, "--device",
+                dev.type])
+        plain.check("bin.score, fixture")
+        tcn_launches = fused_tcn.fused_ds_tcn.launches
+        if n_fixture != n_test or tcn_launches < 1:
+            raise AssertionError(f"fixture: {n_fixture} utterances, "
+                                 f"{tcn_launches} fused_ds_tcn launches")
+        ferr, fshapes, fmodel = module_vs_fused(fconfig, ckpt,
+                                                lists["test"], dev,
+                                                "JAX DS-TCN fixture")
+        got, want = read_scores(fscore), read_scores(
+            os.path.join(fixture, "score.txt"))
+        if got.keys() != want.keys() or any(
+                got[k].shape != want[k].shape for k in got):
+            raise AssertionError("fixture: score keys or frame counts "
+                                 "differ from the committed score.txt")
+        tpu_err = max(float(np.abs(got[k] - want[k]).max()) for k in got)
+        if not tpu_err <= FIXTURE_TOL:
+            raise AssertionError(f"fixture vs committed score.txt: "
+                                 f"{tpu_err} > {FIXTURE_TOL}")
+        print(f"  JAX fixture avg_5.ckpt (DS-TCN, C=48): {n_fixture} "
+              f"utterances through fused_ds_tcn ({tcn_launches} launch(es) at "
+              f"B x T = {fshapes}), module route within {ferr:.2e}, the "
+              f"committed TPU score.txt within {tpu_err:.2e} (bound "
+              f"{FIXTURE_TOL})", flush=True)
+
+    # fused_mdtc at bin.score's shape, the trained flagship's weights
+    gen = torch.Generator().manual_seed(SEED + 14)
+    *stacks, dilations = extract_mdtc_weights(model.backbone)
+    weights = tuple(w.to(dev) for w in stacks)
+    mdtc = model.backbone
+    b, t = shapes[0]
+    x = torch.randn((b, t, mdtc.res_channels), generator=gen).to(dev)
+    dev_ms = profiled_device_ms(
+        lambda: fused_mdtc.fused_mdtc_forward(
+            x, *weights, dilations, mdtc.kernel_size, mdtc.stack_size),
+        "fused_mdtc_kernel")
+    bound, bound_by = mdtc_bound_ms(
+        b, t, mdtc.res_channels, len(dilations), mdtc.kernel_size,
+        mdtc.stack_num, (mdtc.kernel_size - 1) * max(dilations), False)
+    dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+    print(f"  fused_mdtc (bin.score's call) B={b} T={t}: device time "
+          f"{dev_txt} per call, bound {bound:.5f} ms ({bound_by}) [{card}]",
+          flush=True)
+    times = {("mdtc", b, t): dev_ms}
+
+    # fused_ds_tcn at C=48: the fixture's scoring shape and a streaming step
+    *stacks, dilations = extract_ds_tcn_weights(fmodel.backbone)
+    weights = tuple(w.to(dev) for w in stacks)
+    k = fmodel.backbone.kernel_size
+    pad = (k - 1) * max(dilations)
+    c = fmodel.backbone.channel
+    for b, t in (fshapes[0], FIXTURE_STREAM_SHAPE):
+        x = torch.randn((b, t, c), generator=gen).to(dev)
+        cache = init_tcn_cache(len(dilations), b, pad, c, dev)
+        dev_ms = profiled_device_ms(
+            lambda: fused_tcn.fused_ds_tcn(x, cache, *weights, dilations, k),
+            "fused_ds_tcn_kernel")
+        bound, bound_by = tcn_bound_ms(b, t, c, len(dilations), k, pad)
+        times[("ds_tcn", b, t)] = dev_ms
+        dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+        print(f"  fused_ds_tcn C={c} B={b} T={t}: device time {dev_txt} per "
+              f"call, bound {bound:.5f} ms ({bound_by}) [{card}]",
+              flush=True)
+    return times
+
+
 SERVING_KERNELS = {"fused_frontend": 6, "fused_mdtc": 15 + 25 + 3}
 
 
@@ -2162,6 +2583,9 @@ def main() -> int:
         record += phase13_times(dev, bench, errs3, launches, card, trainer,
                                 state, fused_trainer, fused_state, batch,
                                 step_ms, chunk_ms)
+
+    with phase("14 recipe: bin.train, average, score, DET, JAX fixture"):
+        phase14_recipe(dev, card)
 
     print(card)
     print(json.dumps({"kernels": record}))

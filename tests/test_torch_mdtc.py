@@ -120,6 +120,10 @@ def test_unported_configs_raise(rng):
     conf["backbone"] = {"type": "gru", "num_layers": 1}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         init_model(conf)
-    conf = _model_conf(rng, head="global")
+    # the CE heads (global, last) are ported; cnn1d_s1 is not
+    conf = _model_conf(rng)
+    conf["preprocessing"] = {"type": "cnn1d_s1"}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         init_model(conf)
+    assert type(init_model(_model_conf(rng, head="global")).classifier
+                ).__name__ == "GlobalClassifier"

@@ -2,6 +2,9 @@
 package's Trainer on the CPU: the fused MDTC max-pooling model with
 the same weights (bridged by tools/from_jax.py) and the same batch."""
 
+import json
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -9,6 +12,7 @@ import optax
 import pytest
 import torch
 
+from wekws_tpu.data.audio import read_wav
 from wekws_tpu.data.device_pipeline import (
     DeviceFeaturePipeline as JaxPipeline,
 )
@@ -17,7 +21,11 @@ from wekws_tpu.models import init_model as jax_init_model
 from wekws_tpu.parallel import make_mesh, shard_batch
 from wekws_tpu.train import Trainer as JaxTrainer
 from wekws_tpu.train.steps import make_optimizer as jax_make_optimizer
-from wekws_tpu_torch.data import DeviceFeaturePipeline
+from wekws_tpu_torch.data import (
+    DataLoader,
+    DeviceFeaturePipeline,
+    init_dataset,
+)
 from wekws_tpu_torch.models import init_model
 from wekws_tpu_torch.tools.from_jax import grads_from_jax, model_from_jax
 from wekws_tpu_torch.train import (
@@ -289,3 +297,82 @@ def test_augmented_epoch_cv_checkpoints_and_average(jax_run, tmp_path):
     sched = ReduceLROnPlateau(LR, patience=1)
     lrs = [sched.step(m) for m in (1.0, 1.0, 1.0, 0.5)]
     assert lrs == [LR, LR, LR / 2, LR / 2]
+
+
+@pytest.fixture(scope="module")
+def loader_batches(tmp_path_factory):
+    """Three batches of 8 from the port's DataLoader over 20 committed
+    wavs of examples/synthetic (cv split, one bucket of 2 s): 8, 8, and 4
+    utterances with 4 fill rows (``valid`` 0, one sample each)."""
+    wavs = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples", "synthetic", "data",
+        "train")
+    lines = []
+    for i in range(20):
+        path = os.path.join(wavs, f"train_{i}.wav")
+        wave, sr = read_wav(path)
+        lines.append(json.dumps({"key": f"train_{i}",
+                                 "txt": "0" if i % 2 == 0 else "-1",
+                                 "wav": path, "duration": len(wave) / sr}))
+    data_list = tmp_path_factory.mktemp("loader") / "data.list"
+    data_list.write_text("\n".join(lines) + "\n")
+    conf = dict(DATASET_CONF, batch_conf={"batch_size": 8,
+                                          "bucket_boundaries": [32000]})
+    loader = DataLoader(init_dataset(str(data_list), conf, split="cv"))
+    try:
+        batches = list(loader)
+    finally:
+        loader.close()
+    return batches
+
+
+def test_three_loader_steps_match_jax(loader_batches):
+    """Three Trainer steps on the DataLoader's batches, the last with
+    fill rows, from the same weights (bridged by from_jax), no dither and
+    no spec_aug: the port's fused route against the JAX Trainer, losses
+    within 1e-5 rel.  The fill rows count in exact BN's batch statistics
+    in both, and ``valid`` leaves them out of both losses."""
+    batches = [{k: v for k, v in b.items() if isinstance(v, np.ndarray)}
+               for b in loader_batches]
+    assert len(batches) == 3 and batches[0]["waves"].dtype == np.int16
+    assert batches[2]["valid"].tolist() == [1.0] * 4 + [0.0] * 4
+    conf = _model_conf(dict(batches[0],
+                            waves=batches[0]["waves"].astype(np.float32)))
+    model = jax_init_model(dict(conf, backbone=dict(conf["backbone"],
+                                                    fused_train=False)))
+    pipe = JaxPipeline.from_conf(DATASET_CONF, training=True)
+    cvp = JaxPipeline.from_conf(DATASET_CONF, training=False)
+    jtrainer = JaxTrainer(model, pipe, cvp, "max_pooling", learning_rate=LR,
+                          grad_clip=5.0, min_duration=5)
+    mesh = make_mesh()
+    jstate = jtrainer.init_state(jax.random.PRNGKey(0), batches[0], mesh)
+    port = Trainer(model_from_jax(jstate.params, jstate.batch_stats, conf),
+                   DeviceFeaturePipeline.from_conf(DATASET_CONF),
+                   DeviceFeaturePipeline.from_conf(DATASET_CONF,
+                                                   training=False),
+                   "max_pooling", grad_clip=5.0, min_duration=5,
+                   device="cpu")
+    state = port.init_state()
+    for batch in batches:
+        jstate, jm = jtrainer.train_step(jstate, shard_batch(batch, mesh),
+                                         jax.random.PRNGKey(1), LR)
+        state, metrics = port.train_step(state, batch, 1, LR)
+        np.testing.assert_allclose(float(metrics["loss"]), float(jm["loss"]),
+                                   rtol=1e-5)
+    assert state.step == 3
+
+
+def test_executor_profile_trace(jax_run, tmp_path):
+    """``profile_dir`` (``bin/train --profile_dir``): a torch.profiler
+    trace from step 3 on, closed when the epoch ends inside the window;
+    only the first epoch trained is traced."""
+    trainer = _port_trainer(jax_run)
+    executor = Executor(trainer, profile_dir=str(tmp_path / "prof"))
+    state = trainer.init_state()
+    batch = jax_run["batch"]
+    state, summary = executor.train(state, [batch] * 4, 1, LR, 0)
+    trace = tmp_path / "prof" / "trace.json"
+    assert summary["batches"] == 4 and trace.stat().st_size > 0
+    trace.unlink()
+    executor.train(state, [batch] * 4, 1, LR, 1)
+    assert not trace.exists()

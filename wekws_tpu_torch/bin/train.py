@@ -1,0 +1,228 @@
+"""Training CLI.
+
+Port of wekws_tpu/bin/train.py (the reference wekws's bin/train.py):
+YAML config + flags, per-epoch checkpoints ``<epoch>.pt`` with
+{epoch, lr, cv_loss} sidecars, the resolved config at
+``<model_dir>/config.yaml`` (with an absolute cmvn path) for scoring,
+``init.pt``, ``metrics.jsonl``, TensorBoard epoch scalars under
+``tensorboard/`` and a ``final.pt`` link.  One process on one card
+(``--device``, CUDA unless ``cpu`` is asked for): the host pipeline's
+``DataLoader`` feeds the ``Trainer``, which runs the fused exact-BN
+passes and the fused fbank as the config asks.  ``--checkpoint``
+resumes from a port ``.pt`` or a JAX-package ``.ckpt``.  The flags of
+unported items raise: ``--device_resident`` (ROADMAP A.10),
+``--coordinator`` / ``--num_processes`` / ``--process_id`` (A.13),
+``--dict`` (the CTC path, A.8).
+
+Torch is imported inside ``main``, so the loader's spawned workers,
+which import this module as their main module, start without it.
+"""
+
+import argparse
+import logging
+import os
+import random
+
+import numpy as np
+import yaml
+
+
+def get_args(argv=None):
+    parser = argparse.ArgumentParser(description="training your network")
+    parser.add_argument("--config", required=True, help="config file")
+    parser.add_argument("--train_data", required=True, help="train data list")
+    parser.add_argument("--cv_data", required=True, help="cv data list")
+    parser.add_argument("--model_dir", required=True, help="save model dir")
+    parser.add_argument("--checkpoint",
+                        help="checkpoint to resume from (.pt, or a JAX "
+                             "package .ckpt)")
+    parser.add_argument("--num_keywords", default=1, type=int,
+                        help="number of keywords (output dim)")
+    parser.add_argument("--min_duration", default=50, type=int,
+                        help="min duration frames of the keyword")
+    parser.add_argument("--seed", default=777, type=int, help="random seed")
+    parser.add_argument("--cmvn_file", default=None, help="global cmvn file")
+    parser.add_argument("--norm_var", action="store_true", default=False,
+                        help="norm var option")
+    parser.add_argument("--dict", dest="dict_dir", default=None,
+                        help="dict dir for CTC (not ported yet)")
+    parser.add_argument("--num_epochs", type=int, default=None,
+                        help="override training_config.max_epoch")
+    parser.add_argument("--coordinator", default=None,
+                        help="multi-process training (not ported yet)")
+    parser.add_argument("--num_processes", type=int, default=None)
+    parser.add_argument("--process_id", type=int, default=None)
+    parser.add_argument("--profile_dir", default=None,
+                        help="write a torch.profiler trace of early steps")
+    parser.add_argument("--num_workers", type=int, default=0,
+                        help="data-loading worker processes")
+    parser.add_argument("--device_resident", action="store_true",
+                        default=False,
+                        help="device-resident epochs (not ported yet)")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default) or cpu")
+    return parser.parse_args(argv)
+
+
+def check_ported(args) -> None:
+    from wekws_tpu_torch.models.kws_model import _not_ported
+
+    if args.device_resident:
+        raise _not_ported("--device_resident",
+                          "item 10, device-resident epochs")
+    if any(v is not None for v in (args.coordinator, args.num_processes,
+                                   args.process_id)):
+        raise _not_ported("--coordinator/--num_processes/--process_id",
+                          "item 13, data parallelism")
+    if args.dict_dir is not None:
+        raise _not_ported("--dict (the CTC path)", "item 8, the CTC path")
+
+
+def main(argv=None):
+    args = get_args(argv)
+    logging.basicConfig(
+        level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s"
+    )
+    check_ported(args)
+    import torch
+
+    from wekws_tpu_torch.data import DeviceFeaturePipeline, init_dataset
+    from wekws_tpu_torch.data.loader import DataLoader
+    from wekws_tpu_torch.device import resolve_device
+    from wekws_tpu_torch.models import init_model
+    from wekws_tpu_torch.models.kws_model import _not_ported
+    from wekws_tpu_torch.train import (
+        Executor,
+        ReduceLROnPlateau,
+        Trainer,
+        link_final,
+        load_checkpoint_info,
+        save_checkpoint,
+    )
+    from wekws_tpu_torch.train.checkpoint import load_model_state
+    from wekws_tpu_torch.train.tensorboard import SummaryWriter
+
+    device = resolve_device(args.device)
+    random.seed(args.seed)
+    np.random.seed(args.seed)
+    torch.manual_seed(args.seed)
+
+    with open(args.config, "r") as fin:
+        configs = yaml.safe_load(fin)
+    dataset_conf = configs["dataset_conf"]
+    train_conf = configs.get("training_config", {})
+    criterion_type = train_conf.get("criterion", None)
+    if criterion_type == "ctc":
+        raise _not_ported("the CTC criterion", "item 8, the CTC path")
+
+    train_pipeline = DeviceFeaturePipeline.from_conf(dataset_conf, True)
+    cv_pipeline = DeviceFeaturePipeline.from_conf(dataset_conf, False)
+
+    # resolve the model config (reference train.py)
+    model_conf = configs["model"]
+    model_conf["input_dim"] = train_pipeline.output_dim
+    model_conf["output_dim"] = args.num_keywords
+    if args.cmvn_file is not None:
+        model_conf["cmvn"] = {
+            # absolute: the resolved config is consumed from other cwds
+            "cmvn_file": os.path.abspath(args.cmvn_file),
+            "norm_var": args.norm_var,
+        }
+    if criterion_type is None:
+        criterion_type = (
+            "ce" if "classifier" in model_conf else "max_pooling"
+        )
+    configs["model"] = model_conf
+
+    os.makedirs(args.model_dir, exist_ok=True)
+    with open(os.path.join(args.model_dir, "config.yaml"), "w") as fout:
+        yaml.dump(configs, fout)
+
+    model = init_model(model_conf, torch.Generator().manual_seed(args.seed))
+    start_epoch = 0
+    optim_conf = configs.get("optim_conf", {})
+    scheduler = ReduceLROnPlateau(optim_conf.get("lr", 1e-3))
+    if args.checkpoint is not None:
+        model.load_state_dict(load_model_state(args.checkpoint, model_conf,
+                                               model))
+        info = load_checkpoint_info(args.checkpoint)
+        start_epoch = int(info.get("epoch", -1)) + 1
+        if "lr" in info:
+            scheduler.lr = float(info["lr"])
+        if "cv_loss" in info:
+            scheduler.best = float(info["cv_loss"])
+        logging.info("resumed from %s at epoch %d", args.checkpoint,
+                     start_epoch)
+    else:
+        save_checkpoint(os.path.join(args.model_dir, "init.pt"),
+                        model.state_dict())
+
+    trainer = Trainer(
+        model,
+        train_pipeline,
+        cv_pipeline,
+        criterion_type,
+        grad_clip=train_conf.get("grad_clip", 5.0),
+        weight_decay=optim_conf.get("weight_decay", 0.0),
+        min_duration=args.min_duration,
+        device=device,
+    )
+    executor = Executor(
+        trainer,
+        log_interval=train_conf.get("log_interval", 10),
+        metrics_path=os.path.join(args.model_dir, "metrics.jsonl"),
+        profile_dir=args.profile_dir,
+    )
+    state = trainer.init_state()
+    max_epoch = args.num_epochs or train_conf.get("max_epoch", 100)
+    train_dataset = DataLoader(
+        init_dataset(args.train_data, dataset_conf, split="train"),
+        num_workers=args.num_workers,
+    )
+    cv_dataset = DataLoader(
+        init_dataset(args.cv_data, dataset_conf, split="cv"),
+        num_workers=args.num_workers,
+    )
+    # TensorBoard epoch scalars (reference train.py), beside metrics.jsonl
+    writer = SummaryWriter(os.path.join(args.model_dir, "tensorboard"))
+    final_epoch = None
+    try:
+        for epoch in range(start_epoch, max_epoch):
+            train_dataset.set_epoch(epoch)
+            state, summary = executor.train(
+                state, train_dataset, args.seed + 1, scheduler.lr, epoch
+            )
+            cv = executor.cv(state, cv_dataset, epoch)
+            logging.info(
+                "Epoch %d done: train_loss %.6f cv_loss %.6f cv_acc %.4f "
+                "throughput %.1f audio-s/s",
+                epoch, summary["train_loss"], cv["cv_loss"], cv["cv_acc"],
+                summary["audio_seconds_per_s"],
+            )
+            save_checkpoint(
+                os.path.join(args.model_dir, f"{epoch}.pt"),
+                state.model.state_dict(),
+                {"epoch": epoch, "lr": scheduler.lr,
+                 "cv_loss": cv["cv_loss"]},
+            )
+            writer.add_scalars(
+                {"cv_loss": cv["cv_loss"], "cv_acc": cv["cv_acc"],
+                 "lr": scheduler.lr,
+                 "train_loss": summary["train_loss"]},
+                step=epoch,
+            )
+            writer.flush()
+            scheduler.step(cv["cv_loss"])
+            final_epoch = epoch
+    finally:
+        writer.close()
+        train_dataset.close()
+        cv_dataset.close()
+
+    if final_epoch is not None:
+        link_final(args.model_dir, final_epoch)
+    return state
+
+
+if __name__ == "__main__":
+    main()

@@ -6,8 +6,8 @@ preprocessing -> backbone (+cache) -> classifier -> activation
 Features past ``lengths`` are zero-masked before and after CMVN.
 
 The port builds the MDTC, TCN / DS-TCN and FSMN backbones with
-``linear`` or ``none`` preprocessing and the linear, element and
-identity heads, in float32, with MDTC's ``backbone.fused_train``
+``linear`` or ``none`` preprocessing and the linear, element, global,
+last and identity heads, in float32, with MDTC's ``backbone.fused_train``
 routing whole-utterance training forwards through the fused exact-BN
 kernels; the GRU backbone, ``cnn1d_s1`` preprocessing and the training
 knobs ``dtype: bfloat16``, ``bn_dtype``, ``remat`` and
@@ -15,6 +15,7 @@ knobs ``dtype: bfloat16``, ``bn_dtype``, ``remat`` and
 that ports them.
 """
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -24,7 +25,9 @@ from torch import nn
 from wekws_tpu_torch.frontend.cmvn import load_cmvn
 from wekws_tpu_torch.models.classifier import (
     ElementClassifier,
+    GlobalClassifier,
     IdentityClassifier,
+    LastClassifier,
     LinearClassifier,
 )
 from wekws_tpu_torch.models.cmvn import GlobalCMVN
@@ -76,7 +79,7 @@ class KWSModel(nn.Module):
             x = mask_padding(self.global_cmvn(x), lengths)
         x = self.preprocessing(x)
         x, out_cache = self.backbone(x, cache)
-        x = self.classifier(x)
+        x = self.classifier(x, lengths)
         if self.activation == "sigmoid":
             x = torch.sigmoid(x)
         if softmax:
@@ -91,10 +94,28 @@ def _not_ported(what: str, item: str):
     )
 
 
+# standard deviation of N(0, 1) truncated to [-2, 2]: flax's
+# variance_scaling divides by it so that the draw keeps variance 1/fan_in
+_TRUNC_STD = 0.87962566103423978
+
+
+def truncated_lecun_normal(shape, fan_in: int,
+                           generator: torch.Generator) -> torch.Tensor:
+    """flax's ``lecun_normal()``: N(0, 1) truncated to [-2, 2] (by the
+    inverse CDF of a uniform draw, as ``jax.random.truncated_normal``),
+    times sqrt(1/fan_in) / 0.87962566; the same distribution as the
+    JAX package's initialiser, not the same numbers."""
+    lo, hi = (math.erf(v / math.sqrt(2.0)) for v in (-2.0, 2.0))
+    u = torch.rand(shape, generator=generator, dtype=torch.float64)
+    z = math.sqrt(2.0) * torch.erfinv(lo + (hi - lo) * u)
+    z = torch.clamp(z, -2.0, 2.0)
+    return (z / (_TRUNC_STD * math.sqrt(fan_in))).to(torch.float32)
+
+
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
-    """Seeded initialisation: weights ~ N(0, 1/fan_in) (flax's
-    lecun-normal scale without truncation), biases zero, BatchNorm at
-    identity."""
+    """Seeded initialisation as flax draws it: weights from the
+    truncated lecun normal (``truncated_lecun_normal``), biases zero,
+    BatchNorm at identity."""
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, (nn.Linear, PointwiseConv1d)):
@@ -107,10 +128,8 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
                 fan_in = mod.order
             else:
                 continue
-            mod.weight.copy_(
-                torch.randn(mod.weight.shape, generator=generator)
-                / np.sqrt(fan_in)
-            )
+            mod.weight.copy_(truncated_lecun_normal(mod.weight.shape,
+                                                    fan_in, generator))
             if getattr(mod, "bias", None) is not None:
                 mod.bias.zero_()
 
@@ -201,15 +220,13 @@ def init_model(configs: dict,
 
     if "classifier" in configs:
         ctype = configs["classifier"]["type"]
-        if ctype == "element":
-            classifier = ElementClassifier(
-                hidden_dim, output_dim, configs["classifier"].get("dropout", 0.1)
-            )
+        dropout = configs["classifier"].get("dropout", 0.1)
+        heads = {"element": ElementClassifier, "global": GlobalClassifier,
+                 "last": LastClassifier}
+        if ctype in heads:
+            classifier = heads[ctype](hidden_dim, output_dim, dropout)
         elif ctype == "identity":
             classifier = IdentityClassifier()
-        elif ctype in ("global", "last"):
-            raise _not_ported(f"classifier '{ctype}'",
-                              "item 6, the training slice's close (CE heads)")
         else:
             raise ValueError(f"Unknown classifier type {ctype}")
         activation = "identity"

@@ -5,6 +5,8 @@ from wekws_tpu_torch.train.checkpoint import (
     link_final,
     load_checkpoint,
     load_checkpoint_info,
+    load_jax_checkpoint,
+    load_model_state,
     save_checkpoint,
 )
 from wekws_tpu_torch.train.executor import Executor
@@ -20,6 +22,8 @@ __all__ = [
     "link_final",
     "load_checkpoint",
     "load_checkpoint_info",
+    "load_jax_checkpoint",
+    "load_model_state",
     "make_optimizer",
     "save_checkpoint",
 ]
