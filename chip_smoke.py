@@ -76,9 +76,11 @@ one CUDA device, in phases; any failure exits non-zero:
    4, 16 and 64, and 8 layers of dilations 1-128 over 2048 frames, each
    with the plan the wrapper chose and launched twice (bitwise equal),
    and B=16 chained in chunks of 8 over 200 frames;
-   ``fused_fsmn_layers`` at B=16 x T=66, B=4 x T=1024, B=1 x T = 1, 10
-   and 11 (below and at P = 11) and B=1 chained in chunks of 10 over
-   200 frames (each
+   ``fused_fsmn_layers`` at the hi_xiaowen width (4 x 250/128, orders
+   10/2) at B=16 x T=66, B=4 x T=1024, B=1 x T = 1, 10 and 11 (below
+   and at P = 11), and at the synthetic CTC recipe's (3 x 64/32, orders
+   8/2, P = 9: path D) at B=256 x T=66 and B=1 x T = 1, 10 and 11; at
+   each width B=1 chained in chunks of 10 over 200 frames (each
    chain against the one-shot call and the plain chain, final cache
    too; 1e-4 abs + 1e-4 rel); ``fused_fbank`` through both plans (the
    shared-memory FFT and the dense DFT, each launched twice, bitwise
@@ -104,12 +106,38 @@ one CUDA device, in phases; any failure exits non-zero:
     flagship's wave-mode dither + spec_aug, two steps with frame-mode
     (in-kernel) dither, a cv step; one ``fused_fbank`` launch per step;
 13. times of the three kernels at their main shapes (DS-TCN at C = 64
-    and 256; fbank's dense-DFT plan beside its FFT plan), the FSMN
+    and 256; FSMN also at path D's; fbank's dense-DFT plan beside its FFT plan), the FSMN
     variants' (clusters of 8 or 16 blocks;
     ``wekws_tpu_torch/tools/time_fsmn.py``) and the grid of an FSMN
     launch from the profiler's trace (B x 8 blocks), of the path-C train step
     beside the unfused-frontend step, and of ``KeyWordSpotter.forward``
-    per 300 ms chunk.
+    per 300 ms chunk;
+14. the flagship recipe through the CLIs (``examples/synthetic``) and
+    the JAX DS-TCN fixture;
+15. path D, CTC: (a) the hi_xiaowen FSMN-CTC (2599 tokens, CMVN from
+    the batch) trained through ``Trainer(..., "ctc")`` on ``bench.py``
+    bench_ctc's batch, B=256 x 2 s with U=6 labels: step 0 against the
+    same model in float64 on the card (loss 1e-5 rel, each tensor's
+    gradient 1e-3 of its largest |grad|) and the port's CTC loss against
+    ``F.ctc_loss`` in float64 (1e-4 rel), 5 steps without augmentation
+    (finite, decreasing), 2 with dither + spec_aug, a cv step with the
+    decode accuracy, the step's time, device idle share and the CTC
+    loss's launches and device time, then saved, reloaded and served by
+    one ``fused_fsmn_layers`` launch for the logits and one for the
+    posteriors; (b) ``examples/synthetic_ctc``:
+    the corpus (``gen_data_torch.py``, seed 17), ``bin.train --dict`` 2
+    epochs, average, ``bin.score_ctc`` (one ``fused_fsmn_layers`` launch
+    per batch, posteriors against the module route, ``--device_decode``
+    against the same search on the CPU), ``bin.compute_det_ctc``,
+    ``bin.stream_score_ctc`` (one launch per chunk that carried frames),
+    and ``KeyWordSpotter`` with and without ``use_fused`` over the test
+    list (posteriors 1e-4 abs + 1e-4 rel, the same results); (c) the JAX fixture (``exp/fsmn_ctc/avg_5.ckpt``, its bfloat16
+    config: the dtype dropped, logged) through the same CLIs,
+    ``--device_decode`` against the host decoder, and read against its
+    committed TPU ``score.txt``, ``stream_score.txt`` and
+    ``stats.1_2_3.txt``.  No plain version of a hand kernel runs on a
+    CUDA tensor.  The FSMN record splits its launches over the timed
+    shapes and gives each the device time it loses to the bound.
 
 The last lines are the card, the per-kernel JSON record (13 kernels)
 and ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -1305,36 +1333,48 @@ def phase9_new_kernels(dev, gen, batch):
           ("vs plain chain", got[0], want[0]),
           ("final cache vs plain", got[1], want[1])))
 
-    # ---- fused_fsmn_layers at the hi_xiaowen width
-    fsmn = seeded_model(FSMN_MODEL_CONF, gen)[0].backbone
-    fw = tuple(w.to(dev) for w in extract_fsmn_weights(fsmn)[4:9])
-    orders = (fsmn.lorder, fsmn.rorder, fsmn.lstride, fsmn.rstride)
-    ld, pd, pad = fsmn.linear_dim, fsmn.proj_dim, fsmn.layer_padding
-    n_fsmn = fsmn.fsmn_layers
-    # the offline batch, long utterances, and one stream's chunks: one
-    # frame, the engine's 10, and 11 = P (the new cache all new frames)
-    for b, t in ((16, 66), (4, 1024), (1, 1), (1, 10), (1, 11)):
-        # the chain's input is a ReLU output: non-negative
-        x, cache = randn(b, t, ld).relu(), randn(n_fsmn, b, pad, pd)
-        got = fused_fsmn_layers(x, cache, *fw, *orders)
+    # ---- fused_fsmn_layers at the hi_xiaowen width (paths B and D's
+    # training) and at the synthetic CTC recipe's (path D's scoring and
+    # streaming): the offline batches, long utterances, and one stream's
+    # chunks: one frame, the engine's 10, and 11 (= P at hi_xiaowen: the
+    # new cache all new frames); then one stream in chunks of 10
+    fsmn_bench = {}
+    for tag, conf, cases in (
+            ("hi_xiaowen", FSMN_MODEL_CONF,
+             ((16, 66), (4, 1024), (1, 1), (1, 10), (1, 11))),
+            ("synthetic_ctc", ctc_recipe_model_conf(),
+             ((256, 66), (1, 1), (1, 10), (1, 11)))):
+        fsmn = seeded_model(conf, gen)[0].backbone
+        fw = tuple(w.to(dev) for w in extract_fsmn_weights(fsmn)[4:9])
+        orders = (fsmn.lorder, fsmn.rorder, fsmn.lstride, fsmn.rstride)
+        ld, pd, pad = fsmn.linear_dim, fsmn.proj_dim, fsmn.layer_padding
+        n_fsmn = fsmn.fsmn_layers
+        width = f"{tag} {n_fsmn} x {ld}/{pd}, orders {fsmn.lorder}/" \
+                f"{fsmn.rorder}, P={pad}"
+        for b, t in cases:
+            # the chain's input is a ReLU output: non-negative
+            x, cache = randn(b, t, ld).relu(), randn(n_fsmn, b, pad, pd)
+            got = fused_fsmn_layers(x, cache, *fw, *orders)
+            torch.cuda.synchronize()
+            want = fused_fsmn_layers_plain(x, cache, *fw, *orders)
+            hold("fused_fsmn_layers", f"fused_fsmn_layers {width} B={b} "
+                 f"T={t}", (("output", got[0], want[0]),
+                            ("new cache", got[1], want[1])))
+        x = randn(1, 200, ld).relu()
+        zero = init_fsmn_cache(n_fsmn, 1, pad, pd, dev)
+        got = chained(lambda xc, cc: fused_fsmn_layers(xc, cc, *fw, *orders),
+                      x, zero, 10)
+        want = chained(
+            lambda xc, cc: fused_fsmn_layers_plain(xc, cc, *fw, *orders), x,
+            zero, 10)
+        once = fused_fsmn_layers(x, zero, *fw, *orders)
         torch.cuda.synchronize()
-        want = fused_fsmn_layers_plain(x, cache, *fw, *orders)
-        hold("fused_fsmn_layers", f"fused_fsmn_layers B={b} T={t}",
-             (("output", got[0], want[0]), ("new cache", got[1], want[1])))
-    x = randn(1, 200, ld).relu()
-    zero = init_fsmn_cache(n_fsmn, 1, pad, pd, dev)
-    got = chained(lambda xc, cc: fused_fsmn_layers(xc, cc, *fw, *orders), x,
-                  zero, 10)
-    want = chained(
-        lambda xc, cc: fused_fsmn_layers_plain(xc, cc, *fw, *orders), x,
-        zero, 10)
-    once = fused_fsmn_layers(x, zero, *fw, *orders)
-    torch.cuda.synchronize()
-    hold("fused_fsmn_layers", "fused_fsmn_layers B=1, 20 chunks of 10 < P",
-         (("vs one-shot (kernel)", got[0], once[0]),
-          ("final cache vs one-shot", got[1], once[1]),
-          ("vs plain chain", got[0], want[0]),
-          ("final cache vs plain", got[1], want[1])))
+        hold("fused_fsmn_layers", f"fused_fsmn_layers {width} B=1, 20 "
+             f"chunks of 10", (("vs one-shot (kernel)", got[0], once[0]),
+                               ("final cache vs one-shot", got[1], once[1]),
+                               ("vs plain chain", got[0], want[0]),
+                               ("final cache vs plain", got[1], want[1])))
+        fsmn_bench[tag] = (fw, orders, ld, pd, n_fsmn, pad)
 
     # ---- fused_fbank against the unfused three-matmul extractor, through
     # both plans: the FFT plan (what a power-of-two n_fft runs) and the
@@ -1420,9 +1460,40 @@ def phase9_new_kernels(dev, gen, batch):
                              "depend on the batch size")
     bench = {"tcn": ({c: tcn_w[c] for c in (tcn.channel, 256)}, dil, k,
                      n_layers, pad_max),
-             "fsmn": (fw, orders, ld, pd, n_fsmn, pad),
+             "fsmn": fsmn_bench,
              "fbank": (fused, plain, waves)}
     return errs, bench
+
+
+def stream_engine(spot, pcms, chunk_bytes):
+    """Every utterance (int16 PCM bytes) through ``spot`` in chunks of
+    ``chunk_bytes``, the state reset between utterances -> posteriors per
+    utterance, results, chunks that carried frames, seconds inside
+    forward()."""
+    import torch
+
+    probs, results, carried, spent = [], [], 0, 0.0
+    orig = spot._apply_step
+
+    def capture(feats, cache):
+        out, c = orig(feats, cache)
+        probs[-1].append(out)
+        return out, c
+
+    spot._apply_step = capture
+    try:
+        for pcm in pcms:
+            spot.reset_all()
+            probs.append([])
+            for off in range(0, len(pcm), chunk_bytes):
+                t0 = time.perf_counter()
+                results.append(spot.forward(pcm[off:off + chunk_bytes]))
+                spent += time.perf_counter() - t0
+            carried += len(probs[-1])
+    finally:
+        spot._apply_step = orig
+    return ([torch.cat(p, dim=1)[0] for p in probs], results, carried,
+            spent)
 
 
 def phase11_fsmn_ctc(dev, gen, work, waves, launches):
@@ -1464,29 +1535,8 @@ def phase11_fsmn_ctc(dev, gen, work, waves, launches):
         return spot
 
     def stream(spot):
-        """Every utterance in 300 ms chunks -> posteriors per utterance,
-        results, chunks that carried frames, seconds inside forward()."""
-        probs, results, carried, spent = [], [], 0, 0.0
-        orig = spot._apply_step
-
-        def capture(feats, cache):
-            out, c = orig(feats, cache)
-            probs[-1].append(out)
-            return out, c
-
-        spot._apply_step = capture
-        for w in waves:
-            spot.reset_all()
-            probs.append([])
-            pcm = w.astype("<i2").tobytes()
-            for off in range(0, len(pcm), 2 * CHUNK_SAMPLES):
-                t0 = time.perf_counter()
-                results.append(spot.forward(pcm[off:off + 2 * CHUNK_SAMPLES]))
-                spent += time.perf_counter() - t0
-            carried += len(probs[-1])
-        spot._apply_step = orig
-        return ([torch.cat(p, dim=1)[0] for p in probs], results, carried,
-                spent)
+        return stream_engine(spot, [w.astype("<i2").tobytes() for w in waves],
+                             2 * CHUNK_SAMPLES)
 
     fused, plain = engine(True), engine(False)
     stream(fused)  # warm-up: the library load and first launches
@@ -1702,6 +1752,17 @@ def kernel_grids(fn, kernel_name, reps=5):
     return [{"no launch of the kernel; event categories": sorted(seen)}]
 
 
+# the shapes phase 13 times fused_fsmn_layers at, the first the record's
+# main row: (width, B, T)
+FSMN_TIMED_SHAPES = (("hi_xiaowen", 1, 10), ("hi_xiaowen", N_UTTS, 66),
+                     ("synthetic_ctc", 1, 10), ("synthetic_ctc", 256, 66))
+
+
+def fsmn_shape_name(key):
+    tag, b, t = key
+    return f"B={b} T={t}" + ("" if tag == "hi_xiaowen" else f" ({tag})")
+
+
 def phase13_times(dev, bench, errs, launches, card, trainer, state,
                   fused_trainer, fused_state, batch, step_ms, chunk_ms):
     """Per-call times of the three later kernels at their main shapes
@@ -1770,13 +1831,17 @@ def phase13_times(dev, bench, errs, launches, card, trainer, state,
     out.append(record("fused_ds_tcn", "wekws_tpu_torch/csrc/fused_mdtc.cu",
                       "wekws_tpu/ops/fused_tcn.py:29", rows[0], rows[1:]))
 
-    fw, orders, ld, pd, n_fsmn, pad = bench["fsmn"]
-    packed = pack_fsmn_weights(fw[0], fw[3])  # as build_fused_forward does
+    # the engine's chunk and offline scoring at the hi_xiaowen width
+    # (path B), then at the synthetic CTC recipe's (path D's streaming
+    # and scoring batch); FSMN_TIMED_SHAPES names each row
     rows = []
-    for b, t in ((1, 10), (N_UTTS, 66)):  # the engine's chunk, offline
+    for key in FSMN_TIMED_SHAPES:
+        tag, b, t = key
+        fw, orders, ld, pd, n_fsmn, pad = bench["fsmn"][tag]
+        packed = pack_fsmn_weights(fw[0], fw[3])  # as build_fused_forward
         x, cache = randn(b, t, ld).relu(), randn(n_fsmn, b, pad, pd)
         rows.append(timed(
-            "fused_fsmn_layers", f"B={b} T={t}",
+            "fused_fsmn_layers", fsmn_shape_name(key),
             lambda: fused_fsmn_layers(x, cache, *fw, *orders, packed=packed),
             lambda: fused_fsmn_layers_plain(x, cache, *fw, *orders),
             "fused_fsmn_kernel",
@@ -1784,6 +1849,8 @@ def phase13_times(dev, bench, errs, launches, card, trainer, state,
     out.append(record("fused_fsmn_layers",
                       "wekws_tpu_torch/csrc/fused_fsmn.cu",
                       "wekws_tpu/ops/fused_fsmn.py:29", rows[0], rows[1:]))
+    fw, orders, ld, pd, n_fsmn, pad = bench["fsmn"]["hi_xiaowen"]
+    packed = pack_fsmn_weights(fw[0], fw[3])
     fsmn_variants(fw, orders, gen, dev, card)
     x, cache = randn(N_UTTS, 66, ld).relu(), randn(n_fsmn, N_UTTS, pad, pd)
     grids = kernel_grids(
@@ -1866,6 +1933,7 @@ PLAIN_VERSIONS = (
     ("wekws_tpu_torch.ops.fused_frontend", ("fused_fbank_plain",)),
     ("wekws_tpu_torch.ops.fused_mdtc", ("fused_mdtc_forward_plain",)),
     ("wekws_tpu_torch.ops.fused_tcn", ("fused_ds_tcn_plain",)),
+    ("wekws_tpu_torch.ops.fused_fsmn", ("fused_fsmn_layers_plain",)),
 )
 
 
@@ -1976,7 +2044,8 @@ def recipe_config(tmp):
     return path, configs
 
 
-def module_vs_fused(config, checkpoint, test_list, dev, tag):
+def module_vs_fused(config, checkpoint, test_list, dev, tag, softmax=False,
+                    tokenizer=None):
     """The checkpoint's posteriors on the test list through the fused
     serving kernel and through the module route, both on the card:
     every frame within TOL.  Returns (max error, the batches' feature
@@ -1989,15 +2058,15 @@ def module_vs_fused(config, checkpoint, test_list, dev, tag):
 
     _, model, pipeline, test_conf = load_test_setup(config, checkpoint, 256,
                                                     dev)
-    fused = build_fused_forward(model, device=dev)
+    fused = build_fused_forward(model, softmax=softmax, device=dev)
     err, shapes = 0.0, []
-    for batch in init_dataset(test_list, test_conf, split="test"):
+    for batch in init_dataset(test_list, test_conf, tokenizer, split="test"):
         waves = torch.as_tensor(batch["waves"]).to(dev, torch.float32)
         lengths = torch.as_tensor(batch["wave_lengths"]).to(dev)
         with torch.inference_mode():
             feats, feat_lengths = pipeline(waves, lengths)
             got = fused(feats, feat_lengths)
-            want, _ = model(feats, lengths=feat_lengths)
+            want, _ = model(feats, lengths=feat_lengths, softmax=softmax)
         shapes.append(tuple(feats.shape[:2]))
         err = max(err, check_close(f"{tag}: fused serving vs module route, "
                                    f"B x T = {shapes[-1]}", got, want))
@@ -2267,6 +2336,658 @@ def phase14_recipe(dev, card):
               f"call, bound {bound:.5f} ms ({bound_by}) [{card}]",
               flush=True)
     return times
+
+
+# path D, CTC (phase 15): the hi_xiaowen FSMN-CTC trained at full width
+# on bench.py bench_ctc's batch, then the synthetic CTC recipe through
+# the CLIs and the JAX-trained fixture scored through fused_fsmn_kernel
+CTC_TRAIN_B, CTC_SECONDS, CTC_LABELS = 256, 2, 6
+CTC_DATASET_CONF = {  # bench.py bench_ctc
+    "feats_type": "fbank",
+    "fbank_conf": {"num_mel_bins": 80, "frame_shift": 10,
+                   "frame_length": 25, "dither": 1.0,
+                   "dither_mode": "wave", "precision": "default"},
+    "context_expansion": True,
+    "context_expansion_conf": {"left": 2, "right": 2},
+    "frame_skip": 3,
+    "spec_aug": True,
+    "spec_aug_conf": {"num_t_mask": 1, "num_f_mask": 1,
+                      "max_t": 20, "max_f": 10},
+}
+# step 0 against float64: the loss (fp32 sums over 2599 tokens and 66
+# frames) and each tensor's gradient against its own largest |grad|
+# (FSMN has no BatchNorm whose E[x^2] - E[x]^2 cancels)
+CTC_LOSS64_RTOL, CTC_GRAD64_TOL = 1e-5, 1e-3
+# torch.nn.functional.ctc_loss in float64, an independent witness
+CTC_WITNESS_RTOL = 1e-4
+CTC_STEPS_PLAIN, CTC_STEPS_AUG = 5, 2
+CTC_RECIPE = os.path.join("examples", "synthetic_ctc")
+CTC_RECIPE_EPOCHS, CTC_RECIPE_KEYWORD = 2, "123"
+CTC_FIXTURE = os.path.join(CTC_RECIPE, "exp", "fsmn_ctc")
+# the port at float32 against the committed TPU files (a bfloat16 run):
+# the limits tests/test_torch_ctc_recipe.py sets from its CPU reading
+# (offline 0 flips, largest error 0.0; streamed 0 flips, 0.047)
+CTC_FIXTURE_SCORE_TOL, CTC_FIXTURE_STREAM_TOL = 1e-3, 0.05
+# a score file prints three decimals
+CTC_SCORE_TOL = 2e-3
+CTC_RECIPE_VOCAB = 6  # dict/dict.txt
+
+
+def ctc_recipe_model_conf():
+    """The synthetic CTC recipe's model (conf_torch/fsmn_ctc.yaml) at the
+    widths bin.train gives it: 40 mel bins x 5 spliced frames in, the
+    dictionary's tokens out."""
+    import yaml
+
+    with open(os.path.join(CTC_RECIPE, "conf_torch", "fsmn_ctc.yaml")) as f:
+        conf = yaml.safe_load(f)
+    data = conf["dataset_conf"]
+    ctx = data["context_expansion_conf"]
+    return dict(conf["model"], output_dim=CTC_RECIPE_VOCAB,
+                input_dim=data["fbank_conf"]["num_mel_bins"]
+                * (ctx["left"] + ctx["right"] + 1))
+
+
+def ctc_train_batch(rng):
+    """bench.py bench_ctc's batch: noise waves, U=6 labels from the
+    seed, every row 2 s."""
+    n = CTC_SECONDS * RATE
+    return {"waves": (rng.standard_normal((CTC_TRAIN_B, n)) * 1000
+                      ).astype(np.float32),
+            "wave_lengths": np.full((CTC_TRAIN_B,), n, np.int32),
+            "target": rng.integers(1, FSMN_VOCAB, (CTC_TRAIN_B, CTC_LABELS)
+                                   ).astype(np.int32),
+            "target_lengths": np.full((CTC_TRAIN_B,), CTC_LABELS, np.int32)}
+
+
+def profiled_step(fn):
+    """(device time of every CUDA entry in ms, CUDA launches) of one
+    call of ``fn`` under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy = count = 0
+    for evt in prof.key_averages():
+        total = getattr(evt, "device_time_total",
+                        getattr(evt, "cuda_time_total", 0.0))
+        if evt.count and total and str(getattr(evt, "device_type", "")) \
+                .endswith("CUDA"):
+            busy += total
+            count += evt.count
+    return busy / 1e3, count
+
+
+def phase15a_ctc_training(dev, card, work):
+    """The hi_xiaowen FSMN-CTC (2599 tokens) trained through
+    ``Trainer(..., "ctc")`` at B=256 x 2 s: step 0 against float64 and
+    against ``F.ctc_loss``, 5 plain steps, 2 with dither + spec_aug, a
+    cv step with the decode accuracy, times, then saved, reloaded and
+    served through ``build_fused_forward(softmax=True)``.  Returns the
+    offline FSMN launch count."""
+    import torch
+    import torch.nn.functional as F
+
+    from wekws_tpu_torch.data import DeviceFeaturePipeline
+    from wekws_tpu_torch.losses import criterion, ctc_loss_compact
+    from wekws_tpu_torch.losses.mask import padding_mask
+    from wekws_tpu_torch.models import init_model
+    from wekws_tpu_torch.ops.fused_fsmn import fused_fsmn_layers
+    from wekws_tpu_torch.ops.serving import build_fused_forward
+    from wekws_tpu_torch.train import (
+        Executor,
+        Trainer,
+        load_checkpoint,
+        save_checkpoint,
+    )
+
+    plain_conf = dict(CTC_DATASET_CONF, spec_aug=False)
+    plain_conf["fbank_conf"] = dict(CTC_DATASET_CONF["fbank_conf"],
+                                    dither=0.0)
+    batch = ctc_train_batch(np.random.default_rng(SEED))
+    waves = torch.as_tensor(batch["waves"], device=dev)
+    lengths = torch.as_tensor(batch["wave_lengths"], device=dev)
+    target = torch.as_tensor(batch["target"], device=dev).long()
+    target_lengths = torch.as_tensor(batch["target_lengths"],
+                                     device=dev).long()
+    # global CMVN from the batch's features, as the recipe's
+    # --cmvn_file gives it (the spliced 400 inputs: 80 bins x 5)
+    cvp = DeviceFeaturePipeline.from_conf(CTC_DATASET_CONF, training=False)
+    with torch.no_grad():
+        feats, feat_lengths = cvp(waves, lengths)
+    mel = feats.reshape(-1, 5, 80)[:, 2]
+    conf = dict(FSMN_MODEL_CONF, cmvn={
+        "mean": mel.mean(dim=0).tolist(),
+        "istd": (1.0 / (mel.std(dim=0) + 1e-6)).tolist(), "norm_var": True})
+    model = init_model(conf, torch.Generator().manual_seed(SEED))
+    trainer = Trainer(model, DeviceFeaturePipeline.from_conf(plain_conf),
+                      cvp, "ctc", grad_clip=5.0, device=dev)
+    state = trainer.init_state()
+    n_params = sum(p.numel() for p in model.parameters())
+
+    # step 0: the features once, shared by the fp32 and float64 routes
+    # (the train pipeline without dither and spec_aug gives the cv one's)
+    ref = init_model(conf)
+    ref.load_state_dict(model.state_dict())
+    ref = ref.to(dev, torch.float64).train()
+    logits64, _ = ref(feats.double(), lengths=feat_lengths)
+    loss64, _ = criterion("ctc", logits64, target, feat_lengths,
+                          target_lengths)
+    loss64.backward()
+    model.train()
+    logits, _ = model(feats, lengths=feat_lengths)
+    loss, _ = criterion("ctc", logits, target, feat_lengths, target_lengths)
+    model.zero_grad(set_to_none=True)
+    loss.backward()
+    got, want = float(loss.detach()), float(loss64.detach())
+    rel = abs(got - want) / abs(want)
+    if not rel <= CTC_LOSS64_RTOL:
+        raise AssertionError(f"step-0 CTC loss {got} vs float64 {want}: "
+                             f"{rel:.2e} rel")
+    worst = (0.0, "")
+    refs = dict(ref.named_parameters())
+    for name, prm in model.named_parameters():
+        grad64 = refs[name].grad
+        share = float((prm.grad.double() - grad64).abs().max()) / max(
+            float(grad64.abs().max()), 1e-12)
+        if share > worst[0]:
+            worst = (share, name)
+    if not worst[0] <= CTC_GRAD64_TOL:
+        raise AssertionError(f"step-0 gradient of {worst[1]} off float64 "
+                             f"by {worst[0]:.2e} of its largest |grad|")
+    # the independent witness: F.ctc_loss in float64 on the same logits
+    t = logits.shape[1]
+    logit_pad = padding_mask(feat_lengths, t).float()
+    label_pad = padding_mask(target_lengths, CTC_LABELS).float()
+    with torch.no_grad():
+        port_b = ctc_loss_compact(logits, logit_pad, target, label_pad)
+        witness = F.ctc_loss(
+            torch.log_softmax(logits.double(), dim=-1).transpose(0, 1),
+            target, feat_lengths, target_lengths, blank=0,
+            reduction="none")
+    feasible = feat_lengths >= 2 * target_lengths + 1
+    wrel = float(((port_b.double() - witness).abs() / witness.abs())
+                 [feasible].max())
+    if not (int(feasible.sum()) == CTC_TRAIN_B
+            and wrel <= CTC_WITNESS_RTOL):
+        raise AssertionError(f"port CTC loss vs F.ctc_loss (float64): "
+                             f"{wrel:.2e} rel over {int(feasible.sum())} "
+                             f"feasible rows")
+    print(f"  FSMN-CTC (hi_xiaowen, {FSMN_VOCAB} tokens): {n_params} "
+          f"parameters, B={CTC_TRAIN_B} x {CTC_SECONDS} s, features "
+          f"{tuple(feats.shape)}; step 0 vs float64 on the card: loss "
+          f"{got:.6f} ({rel:.2e} rel, bound {CTC_LOSS64_RTOL}), "
+          f"worst gradient {worst[0]:.2e} of its tensor's largest |grad| "
+          f"({worst[1]}; bound {CTC_GRAD64_TOL}); the port's loss vs "
+          f"F.ctc_loss in float64, {CTC_TRAIN_B} feasible rows: {wrel:.2e} "
+          f"rel (bound {CTC_WITNESS_RTOL}) [{card}]", flush=True)
+
+    # training steps: none of a hand kernel's plain versions may run
+    losses, aug_losses = [], []
+    with PlainOnCuda() as plain:
+        for _ in range(CTC_STEPS_PLAIN):
+            state, metrics = trainer.train_step(state, batch, SEED, 1e-3)
+            losses.append(float(metrics["loss"]))
+        trainer.pipeline = DeviceFeaturePipeline.from_conf(CTC_DATASET_CONF)
+        for _ in range(CTC_STEPS_AUG):
+            state, metrics = trainer.train_step(state, batch, SEED, 1e-3)
+            aug_losses.append(float(metrics["loss"]))
+        cv = Executor(trainer).cv(state, [batch], decode_acc=True)
+        torch.cuda.synchronize()
+    plain.check("CTC training")
+    if not (np.isfinite(losses + aug_losses).all()
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"CTC losses {losses}, with augmentation "
+                             f"{aug_losses}")
+    if not (np.isfinite(cv["cv_loss"]) and cv["utts"] == CTC_TRAIN_B
+            and "cv_decode_acc" in cv):
+        raise AssertionError(f"CTC cv step: {cv}")
+    print(f"  losses, no augmentation: {[round(v, 4) for v in losses]}; "
+          f"with dither + spec_aug: {[round(v, 4) for v in aug_losses]}; "
+          f"cv loss {cv['cv_loss']:.4f}, greedy token accuracy "
+          f"{cv['cv_acc']:.4f}, decode accuracy {cv['cv_decode_acc']:.2f}% "
+          f"[{card}]", flush=True)
+
+    # times: the step (host clock, synchronised), its device time, and
+    # the CTC loss's launches and device time (forward and backward)
+    for _ in range(2):
+        trainer.train_step(state, batch, SEED, 1e-3)
+    torch.cuda.synchronize()
+    reps, step_s = 10, []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        trainer.train_step(state, batch, SEED, 1e-3)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    step_ms = float(np.median(step_s)) * 1e3
+    busy_ms, step_launches = profiled_step(
+        lambda: trainer.train_step(state, batch, SEED, 1e-3))
+    leaf = logits.detach().requires_grad_()
+
+    def ctc_fwd_bwd():
+        criterion("ctc", leaf, target, feat_lengths,
+                  target_lengths)[0].backward()
+
+    ctc_fwd_bwd()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        ctc_fwd_bwd()
+    torch.cuda.synchronize()
+    ctc_host_ms = (time.perf_counter() - t0) / reps * 1e3
+    ctc_ms, ctc_launches = profiled_step(ctc_fwd_bwd)
+    audio = CTC_TRAIN_B * CTC_SECONDS
+    idle = max(0.0, 1 - busy_ms / step_ms)
+    print(f"  train step B={CTC_TRAIN_B} x {CTC_SECONDS} s (FSMN-CTC, "
+          f"dither + spec_aug): median {step_ms:.3f} ms of {reps} "
+          f"({audio / step_ms * 1e3:.1f} audio-s/s), min "
+          f"{min(step_s) * 1e3:.3f}, max {max(step_s) * 1e3:.3f}; profiled "
+          f"step: {busy_ms:.3f} ms of device time in {step_launches} "
+          f"device entries, the device idle {idle:.1%} of the step; the CTC "
+          f"loss (forward + backward, T={t}): "
+          f"{ctc_launches} launches, {ctc_ms:.3f} ms of device time, "
+          f"{ctc_host_ms:.3f} ms host clock [{card}]", flush=True)
+
+    # saved, reloaded, served offline through the fused FSMN kernel
+    path = os.path.join(work, "fsmn_ctc_trained.pt")
+    save_checkpoint(path, state.model.state_dict())
+    served = init_model(conf)
+    served.load_state_dict(load_checkpoint(path))
+    served = served.to(dev).eval()
+    sub = slice(0, N_UTTS)
+    with torch.no_grad():
+        f16, l16 = cvp(waves[sub], lengths[sub])
+    # the logits (a posterior over 2599 tokens is about 4e-4, below the
+    # absolute bound), then the posteriors bin.score_ctc reads: one launch
+    # each
+    fused_fsmn_layers.launches = 0
+    with PlainOnCuda() as plain:
+        logits = build_fused_forward(served, device=dev)(f16, l16)
+        probs = build_fused_forward(served, softmax=True, device=dev)(f16,
+                                                                     l16)
+    plain.check("FSMN-CTC served")
+    offline = fused_fsmn_layers.launches
+    with torch.inference_mode():
+        module_logits, _ = served(f16, lengths=l16)
+        module_probs, _ = served(f16, lengths=l16, softmax=True)
+    err = max(check_close(f"trained FSMN-CTC: build_fused_forward "
+                          f"{tuple(logits.shape)} logits vs module forward",
+                          logits, module_logits),
+              check_close(f"trained FSMN-CTC: build_fused_forward(softmax="
+                          f"True) {tuple(probs.shape)} vs module forward",
+                          probs, module_probs))
+    if offline != 2:
+        raise AssertionError(f"two offline FSMN forwards launched "
+                             f"{offline} times, want 2")
+    return {"offline": offline, "err": err, "step_ms": step_ms}
+
+
+def ctc_run_cli(main, argv, what):
+    """One of the port's CLIs under PlainOnCuda, synchronised."""
+    import torch
+
+    with PlainOnCuda() as plain:
+        out = main(argv)
+        torch.cuda.synchronize()
+    plain.check(what)
+    return out
+
+
+class StreamChunks:
+    """Within the ``with``, counts ``KeyWordSpotter`` model steps: one
+    per chunk that carried frames."""
+
+    def __enter__(self):
+        from wekws_tpu_torch.runtime.keyword_spotter import KeyWordSpotter
+
+        self.count, self._cls = 0, KeyWordSpotter
+        self._orig = KeyWordSpotter._device_apply
+
+        def counted(spot, feats, cache):
+            self.count += 1
+            return self._orig(spot, feats, cache)
+
+        KeyWordSpotter._device_apply = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._device_apply = self._orig
+        return False
+
+
+def engines_agree(dev, tag, config, ckpt, token_file, test_list):
+    """``KeyWordSpotter`` on the card with and without ``use_fused``, as
+    ``bin.stream_score_ctc`` builds it, over every utterance of the list
+    in 300 ms chunks (every chunk, past detections): each chunk's
+    posteriors within TOL, and the same result after each chunk (scores
+    within TOL).  Returns (largest posterior error, chunks that carried
+    frames, detections)."""
+    from wekws_tpu_torch.data.audio import read_wav
+    from wekws_tpu_torch.runtime import KeyWordSpotter
+
+    pcms = []
+    with open(test_list) as f:
+        for line in f:
+            wave, sr = read_wav(json.loads(line)["wav"])
+            pcms.append((np.clip(wave, -1, 1) * 32767).astype("<i2")
+                        .tobytes())
+    runs = {}
+    for use_fused in (True, False):
+        spot = KeyWordSpotter(ckpt, config, token_file, None, 0.1,
+                              use_fused=use_fused, device=dev)
+        spot.set_keywords(CTC_RECIPE_KEYWORD)
+        runs[use_fused] = stream_engine(spot, pcms,
+                                        2 * int(sr * 300 / 1000))
+    (got, got_results, carried, _), (want, want_results, _, _) = (
+        runs[True], runs[False])
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        worst = max(worst, check_close(
+            f"{tag}: streamed utterance {i}, fused vs module engine", g, w,
+            quiet=True))
+    for i, (g, w) in enumerate(zip(got_results, want_results)):
+        same = g.keys() == w.keys() and all(
+            g[k] == w[k] for k in g if k != "score")
+        if not same or (g.get("score") is None) != (w.get("score") is None) \
+                or (g.get("score") is not None and abs(g["score"] - w["score"])
+                    > TOL + TOL * abs(w["score"])):
+            raise AssertionError(f"{tag}: chunk {i}: the fused engine's "
+                                 f"result {g} differs from the module "
+                                 f"engine's {w}")
+    return worst, carried, sum(bool(r.get("state")) for r in want_results)
+
+
+def ctc_score_paths(dev, card, tag, config, ckpt, test_list, out_dir):
+    """``bin.score_ctc`` (host decoder and ``--device_decode``),
+    ``bin.compute_det_ctc`` and ``bin.stream_score_ctc`` on the card for
+    one checkpoint, each kernel launch counted: one ``fused_fsmn_layers``
+    launch per scoring batch and per streamed chunk that carried frames,
+    posteriors against the module route.  Returns the files and
+    counts."""
+    from wekws_tpu_torch.bin import compute_det_ctc, score_ctc
+    from wekws_tpu_torch.bin import stream_score_ctc
+    from wekws_tpu_torch.bin.common import load_test_setup
+    from wekws_tpu_torch.data import init_dataset
+    from wekws_tpu_torch.eval import compare_ctc_score_files
+    from wekws_tpu_torch.ops.fused_fsmn import fused_fsmn_layers
+    from wekws_tpu_torch.text import CharTokenizer
+
+    dict_dir = os.path.join(CTC_RECIPE, "dict")
+    tokenizer = CharTokenizer(os.path.join(dict_dir, "dict.txt"),
+                              unk="<filler>", split_with_space=True)
+    out = {"score": os.path.join(out_dir, "score.txt"),
+           "score_dd": os.path.join(out_dir, "score_dd.txt"),
+           "stream": os.path.join(out_dir, "stream_score.txt")}
+    _, _, _, test_conf = load_test_setup(config, ckpt, 256, dev)
+    shapes = [tuple(b["waves"].shape) for b in init_dataset(
+        test_list, test_conf, tokenizer, split="test")]
+    args = ["--config", config, "--test_data", test_list, "--checkpoint",
+            ckpt, "--dict", dict_dir, "--keywords", CTC_RECIPE_KEYWORD,
+            "--device", dev.type]
+    launches = {}
+    for name, extra in (("score", []), ("score_dd", ["--device_decode"])):
+        fused_fsmn_layers.launches = 0
+        t0 = time.perf_counter()
+        n = ctc_run_cli(score_ctc.main, args + ["--score_file", out[name]]
+                        + extra, f"{tag}: bin.score_ctc {' '.join(extra)}")
+        out[f"{name}_s"] = time.perf_counter() - t0
+        launches[name] = fused_fsmn_layers.launches
+        if launches[name] != len(shapes):
+            raise AssertionError(f"{tag}: bin.score_ctc {extra} launched "
+                                 f"fused_fsmn_layers {launches[name]} "
+                                 f"times for {len(shapes)} batches")
+    out["n"] = n
+    out["stats"], = ctc_run_cli(compute_det_ctc.main, [
+        "--test_data", test_list, "--keywords", CTC_RECIPE_KEYWORD,
+        "--score_file", out["score"], "--stats_dir", out_dir, "--device",
+        dev.type],
+        f"{tag}: bin.compute_det_ctc")
+    with open(out["stats"]) as f:
+        rows = [tuple(map(float, line.split())) for line in f]
+    if len(rows) < 1000 or any(len(r) != 3 for r in rows):
+        raise AssertionError(f"{tag}: stats file {len(rows)} rows")
+    fused_fsmn_layers.launches = 0
+    t0 = time.perf_counter()
+    with StreamChunks() as chunks:
+        ctc_run_cli(stream_score_ctc.main, [
+            "--config", config, "--checkpoint", ckpt, "--test_data",
+            test_list, "--token_file", os.path.join(dict_dir, "dict.txt"),
+            "--keywords", CTC_RECIPE_KEYWORD, "--score_file", out["stream"],
+            "--threshold", "0.1", "--device", dev.type],
+            f"{tag}: bin.stream_score_ctc")
+    out["stream_s"] = time.perf_counter() - t0
+    launches["stream"] = fused_fsmn_layers.launches
+    if launches["stream"] != chunks.count or chunks.count < n:
+        raise AssertionError(f"{tag}: bin.stream_score_ctc launched "
+                             f"fused_fsmn_layers {launches['stream']} times "
+                             f"for {chunks.count} chunks that carried "
+                             f"frames")
+    err, fshapes, _ = module_vs_fused(config, ckpt, test_list, dev,
+                                      f"{tag} (softmax)", softmax=True,
+                                      tokenizer=tokenizer)
+    stream_err, n_chunks, fires = engines_agree(
+        dev, tag, config, ckpt, os.path.join(dict_dir, "dict.txt"),
+        test_list)
+    flips, dd_err = compare_ctc_score_files(out["score_dd"], out["score"])
+    out.update(launches=launches, err=err, shapes=fshapes, rows=rows,
+               dd_flips=flips, dd_err=dd_err, stream_err=stream_err,
+               stream_fires=fires)
+    print(f"  {tag}: bin.score_ctc {n} utterances, fused_fsmn_layers "
+          f"launched {launches['score']} times at B x T = {fshapes} (one per "
+          f"batch), {out['score_s']:.2f} s wall; --device_decode "
+          f"{out['score_dd_s']:.2f} s wall, {len(flips)} decision(s) off "
+          f"the host decoder's, scores within {dd_err:.3f} where both "
+          f"detect; module route within {err:.2e}; DET {len(rows)} "
+          f"thresholds; bin.stream_score_ctc {launches['stream']} launches "
+          f"= chunks that carried frames, {out['stream_s']:.2f} s wall; "
+          f"streaming engine fused vs module over {n} utterances "
+          f"({n_chunks} chunks that carried frames): posteriors within "
+          f"{stream_err:.2e}, results agree ({fires} detections) [{card}]",
+          flush=True)
+    return out
+
+
+def phase15b_ctc_recipe(dev, card, tmp):
+    """examples/synthetic_ctc end to end through the port's CLIs: the
+    corpus (gen_data_torch.py, seed 17), bin.train --dict 2 epochs,
+    average, score_ctc (fused FSMN; --device_decode against the same
+    batched search on the CPU), compute_det_ctc, stream_score_ctc.
+    Returns the FSMN launches and the generated test list."""
+    import torch
+
+    from wekws_tpu_torch.bin import average_model, train
+    from wekws_tpu_torch.bin.common import load_test_setup, make_forward_fn
+    from wekws_tpu_torch.data import init_dataset
+    from wekws_tpu_torch.eval import (
+        build_keywords_token,
+        compare_ctc_score_files,
+        write_ctc_score_file,
+    )
+    from wekws_tpu_torch.text import CharTokenizer
+
+    repo = os.path.abspath(os.path.dirname(__file__) or ".")
+    data = os.path.join(tmp, "data")
+    env = dict(os.environ, PYTHONPATH=repo)
+    subprocess.run([sys.executable, os.path.join(
+        repo, CTC_RECIPE, "local", "gen_data_torch.py"), data], cwd=tmp,
+        env=env, check=True, capture_output=True, timeout=300)
+    with open(os.path.join(tmp, "dict", "dict.txt")) as f, open(
+            os.path.join(CTC_RECIPE, "dict", "dict.txt")) as g:
+        if f.read() != g.read():
+            raise AssertionError("gen_data_torch.py's dict differs from the "
+                                 "committed dict/dict.txt")
+    lists = {s: os.path.join(data, f"{s}.list")
+             for s in ("train", "dev", "test")}
+    exp = os.path.join(tmp, "exp")
+    t0 = time.perf_counter()
+    with TimeLimit(RECIPE_TIMEOUT_S, "bin.train --dict"):
+        ctc_run_cli(train.main, [
+            "--config", os.path.join(CTC_RECIPE, "conf_torch",
+                                     "fsmn_ctc.yaml"),
+            "--train_data", lists["train"], "--cv_data", lists["dev"],
+            "--model_dir", exp, "--dict", os.path.join(CTC_RECIPE, "dict"),
+            "--seed", "888", "--cmvn_file",
+            os.path.join(CTC_RECIPE, "data", "global_cmvn"), "--norm_var",
+            "--num_epochs", str(CTC_RECIPE_EPOCHS), "--num_workers",
+            str(RECIPE_WORKERS), "--device", dev.type], "bin.train --dict")
+    train_s = time.perf_counter() - t0
+    import yaml
+
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    cv_losses = []
+    for e in range(CTC_RECIPE_EPOCHS):
+        with open(os.path.join(exp, f"{e}.yaml")) as f:
+            cv_losses.append(float(yaml.safe_load(f)["cv_loss"]))
+    train_losses = [r["train_loss"] for r in records]
+    with open(os.path.join(exp, "config.yaml")) as f:
+        vocab = yaml.safe_load(f)["model"]["output_dim"]
+    if len(records) != CTC_RECIPE_EPOCHS or vocab != CTC_RECIPE_VOCAB or not np.isfinite(
+            train_losses + cv_losses).all():
+        raise AssertionError(f"bin.train --dict: train losses "
+                             f"{train_losses}, cv losses {cv_losses}, "
+                             f"output_dim {vocab}")
+    rates = [r["audio_seconds_per_s"] for r in records]
+    print(f"  corpus 480/96/192 (gen_data_torch.py, seed 17); bin.train "
+          f"--dict {CTC_RECIPE_EPOCHS} epochs of "
+          f"{', '.join(str(r['batches']) for r in records)} steps: train "
+          f"losses {[round(v, 4) for v in train_losses]}, cv losses "
+          f"{[round(v, 4) for v in cv_losses]}, {vocab} tokens; wall "
+          f"{train_s:.1f} s, train rate "
+          f"{', '.join(f'{x:.1f}' for x in rates)} audio-s/s [{card}]",
+          flush=True)
+    avg = os.path.join(exp, f"avg_{CTC_RECIPE_EPOCHS}.pt")
+    average_model.main(["--dst_model", avg, "--src_path", exp, "--num",
+                        str(CTC_RECIPE_EPOCHS), "--val_best", "--device",
+                        dev.type])
+    out = ctc_score_paths(dev, card, "synthetic CTC recipe, averaged",
+                          os.path.join(exp, "config.yaml"), avg,
+                          lists["test"], exp)
+    # --device_decode on the card against the same batched search on the
+    # CPU over the card's posteriors (on this 2-epoch model the batched
+    # search parts from the host decoder, whose 1e-6 gates on pb and pnb
+    # it lacks, in the JAX package as in the port)
+    tokenizer = CharTokenizer(os.path.join(CTC_RECIPE, "dict", "dict.txt"),
+                              unk="<filler>", split_with_space=True)
+    kw_token, idxset = build_keywords_token([CTC_RECIPE_KEYWORD], tokenizer)
+    _, model, pipeline, test_conf = load_test_setup(
+        os.path.join(exp, "config.yaml"), avg, 256, dev)
+    cpu_dd = os.path.join(exp, "score_dd_cpu.txt")
+    write_ctc_score_file(
+        make_forward_fn(model, pipeline, dev, softmax=True),
+        init_dataset(lists["test"], test_conf, tokenizer, split="test"),
+        kw_token, idxset, cpu_dd, device_decode=True,
+        device=torch.device("cpu"))
+    flips, err = compare_ctc_score_files(out["score_dd"], cpu_dd)
+    if flips or not err <= CTC_SCORE_TOL:
+        raise AssertionError(f"--device_decode on the card vs the CPU: "
+                             f"flips {flips}, scores {err}")
+    print(f"  --device_decode on the card vs the same search on the CPU: "
+          f"0 flips, scores within {err:.3f} (bound {CTC_SCORE_TOL}) "
+          f"[{card}]", flush=True)
+    return out["launches"], lists["test"]
+
+
+def phase15c_ctc_fixture(dev, card, tmp, test_list):
+    """The JAX-trained fixture (avg_5.ckpt, its bfloat16 config, the
+    dtype dropped and logged) scored, decoded, DET-evaluated and streamed
+    on the card; read against the committed TPU files."""
+    import logging
+
+    import yaml
+
+    from wekws_tpu_torch.eval import compare_ctc_score_files
+
+    with open(os.path.join(CTC_FIXTURE, "config.yaml")) as f:
+        fconf = yaml.safe_load(f)
+    fconf["model"]["cmvn"]["cmvn_file"] = os.path.abspath(
+        os.path.join(CTC_RECIPE, "data", "global_cmvn"))
+    config = os.path.join(tmp, "fsmn_ctc_fixture.yaml")
+    with open(config, "w") as f:
+        yaml.safe_dump(fconf, f)
+    out_dir = os.path.join(tmp, "fixture")
+    os.makedirs(out_dir)
+    dropped = []
+
+    class Dropped(logging.Handler):
+        def emit(self, record):
+            if "dropped for inference" in record.getMessage():
+                dropped.append(record.getMessage())
+
+    handler = Dropped()
+    logging.getLogger().addHandler(handler)
+    try:
+        out = ctc_score_paths(dev, card, "JAX fixture avg_5.ckpt "
+                              f"(dtype {fconf['model']['dtype']})", config,
+                              os.path.join(CTC_FIXTURE, "avg_5.ckpt"),
+                              test_list, out_dir)
+    finally:
+        logging.getLogger().removeHandler(handler)
+    if not dropped:
+        raise AssertionError("the fixture's bfloat16 dtype was not dropped "
+                             "with a log line")
+    if not out["stream_fires"]:
+        raise AssertionError("fixture: the streaming engine never fired")
+    if out["dd_flips"] or not out["dd_err"] <= CTC_SCORE_TOL:
+        raise AssertionError(f"fixture: --device_decode vs the host decoder:"
+                             f" flips {out['dd_flips']}, scores "
+                             f"{out['dd_err']}")
+    readings = {}
+    for name, committed, tol in (
+            ("score", "score.txt", CTC_FIXTURE_SCORE_TOL),
+            ("stream", "stream_score.txt", CTC_FIXTURE_STREAM_TOL)):
+        flips, err = compare_ctc_score_files(out[name], os.path.join(
+            CTC_FIXTURE, committed))
+        readings[name] = (flips, err)
+        if flips or not err <= tol:
+            raise AssertionError(f"fixture {name} vs committed {committed}: "
+                                 f"flips {flips}, largest score error {err} "
+                                 f"(bound {tol})")
+    want = np.loadtxt(os.path.join(CTC_FIXTURE, "stats.1_2_3.txt"))
+    got = np.asarray(out["rows"])
+    with open(out["stats"]) as f, open(os.path.join(
+            CTC_FIXTURE, "stats.1_2_3.txt")) as g:
+        same = f.read() == g.read()
+    diff = np.abs(got - want).max(axis=0) if got.shape == want.shape else None
+    # one utterance of 96 moved across a threshold: 1/96 of FRR, one false
+    # alarm over the filler hours
+    fa_unit = float(want[:, 1][want[:, 1] > 0.01].min())
+    if diff is None or diff[0] > 1e-9 or diff[2] > 1 / 96 + 1e-6 or \
+            diff[1] > fa_unit + 1e-6:
+        raise AssertionError(f"fixture stats vs committed: shapes "
+                             f"{got.shape} {want.shape}, largest differences "
+                             f"{diff}")
+    print(f"  JAX fixture against its committed TPU files (bfloat16): "
+          f"score.txt {len(readings['score'][0])} flips, largest score "
+          f"error {readings['score'][1]:.3f} (bound "
+          f"{CTC_FIXTURE_SCORE_TOL}); stream_score.txt "
+          f"{len(readings['stream'][0])} flips, {readings['stream'][1]:.3f} "
+          f"(bound {CTC_FIXTURE_STREAM_TOL}); stats.1_2_3.txt "
+          f"{'byte-identical' if same else 'differs'} (largest FRR "
+          f"difference {diff[2]:.4f}, FA/h {diff[1]:.4f}); --device_decode "
+          f"vs host decoder: 0 flips, scores within {out['dd_err']:.3f}; "
+          f"dtype drop logged: {dropped[0]!r} [{card}]", flush=True)
+    return out["launches"]
+
+
+def phase15_ctc(dev, card, work):
+    """Path D, CTC: 15a training at full width, 15b the recipe, 15c the
+    JAX fixture.  Returns the fused_fsmn_layers launches of each path."""
+    import tempfile
+
+    launches = {}
+    launches["train_offline"] = phase15a_ctc_training(dev, card,
+                                                      work)["offline"]
+    with tempfile.TemporaryDirectory() as tmp:
+        recipe, test_list = phase15b_ctc_recipe(dev, card, tmp)
+        fixture = phase15c_ctc_fixture(dev, card, tmp, test_list)
+    for tag, counts in (("recipe", recipe), ("fixture", fixture)):
+        for name, n in counts.items():
+            launches[f"{tag}_{name}"] = n
+    return launches
 
 
 SERVING_KERNELS = {"fused_frontend": 6, "fused_mdtc": 15 + 25 + 3}
@@ -2586,6 +3307,40 @@ def main() -> int:
 
     with phase("14 recipe: bin.train, average, score, DET, JAX fixture"):
         phase14_recipe(dev, card)
+
+    with phase("15 path D, CTC: FSMN-CTC training, the CTC recipe, the "
+               "JAX fixture"):
+        ctc_launches = phase15_ctc(dev, card, work)
+        fsmn = next(r for r in record if r["name"] == "fused_fsmn_layers")
+        fsmn["launches"] += sum(ctc_launches.values())
+        fsmn["path_d_launches"] = ctc_launches
+        print(f"  fused_fsmn_layers launches on path D: {ctc_launches}; "
+              f"{fsmn['launches']} with path B's", flush=True)
+        # the launches of paths B and D that each timed shape stands for
+        # (a streamed chunk timed at T=10), and the device time they lose
+        # to the bound
+        by_shape = {
+            ("hi_xiaowen", 1, 10): (launches["fused_fsmn_layers"]
+                                    - launches["fsmn_offline"]),
+            ("hi_xiaowen", N_UTTS, 66): (launches["fsmn_offline"]
+                                         + ctc_launches["train_offline"]),
+            ("synthetic_ctc", 1, 10): (ctc_launches["recipe_stream"]
+                                       + ctc_launches["fixture_stream"]),
+            ("synthetic_ctc", 256, 66): sum(
+                ctc_launches[f"{p}_{k}"] for p in ("recipe", "fixture")
+                for k in ("score", "score_dd")),
+        }
+        if sum(by_shape.values()) != fsmn["launches"]:
+            raise AssertionError(f"fused_fsmn_layers: {by_shape} do not add "
+                                 f"up to {fsmn['launches']} launches")
+        for key, row in zip(FSMN_TIMED_SHAPES, [fsmn] + fsmn["also"]):
+            row["shape_launches"] = by_shape[key]
+            ms = row["ms"] if row["device_ms"] is None else row["device_ms"]
+            row["lost_ms"] = by_shape[key] * (ms - row["bound_ms"])
+            print(f"  fused_fsmn_layers {fsmn_shape_name(key)}: "
+                  f"{by_shape[key]} launches x ({ms:.4f} - "
+                  f"{row['bound_ms']:.5f}) ms = {row['lost_ms']:.3f} ms lost "
+                  f"to the bound [{card}]", flush=True)
 
     print(card)
     print(json.dumps({"kernels": record}))

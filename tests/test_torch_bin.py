@@ -3,7 +3,8 @@
 plain versions) trained one epoch by ``bin.train`` on 32 committed wavs,
 then averaged, scored and DET-evaluated; every output read back with
 the JAX package's readers.  Also resuming from a JAX-package ``.ckpt``,
-the flags of unported items, and the entry points' default device."""
+the flags of unported items, and the entry points' default device (the
+CTC CLIs' too)."""
 
 import json
 import os
@@ -21,7 +22,15 @@ from wekws_tpu.eval import load_label_and_score as jax_load_label_and_score
 from wekws_tpu.eval import write_stats_file as jax_write_stats_file
 from wekws_tpu.train import load_checkpoint_info as jax_load_checkpoint_info
 from wekws_tpu.train import tensorboard as jax_tensorboard
-from wekws_tpu_torch.bin import average_model, compute_det, score, train
+from wekws_tpu_torch.bin import (
+    average_model,
+    compute_det,
+    compute_det_ctc,
+    score,
+    score_ctc,
+    stream_score_ctc,
+    train,
+)
 from wekws_tpu_torch.models import init_model
 from wekws_tpu_torch.train import load_checkpoint
 from wekws_tpu_torch.train import tensorboard
@@ -189,7 +198,6 @@ def test_resume_from_jax_checkpoint(tmp_path):
     (["--coordinator", "localhost:1234"], "item 13"),
     (["--num_processes", "2"], "item 13"),
     (["--process_id", "0"], "item 13"),
-    (["--dict", "dict"], "item 8"),
 ])
 def test_unported_flags_raise(flag, item):
     args = ["--config", "c", "--train_data", "t", "--cv_data", "v",
@@ -199,7 +207,8 @@ def test_unported_flags_raise(flag, item):
 
 
 @pytest.mark.parametrize("entry", ["train", "average_model", "score",
-                                   "compute_det"])
+                                   "compute_det", "score_ctc",
+                                   "compute_det_ctc", "stream_score_ctc"])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     """Without ``--device`` each runs on the GPU, or raises where there
     is none, before reading its inputs."""
@@ -216,6 +225,15 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
         "compute_det": (compute_det, ["--test_data", x, "--keyword", "0",
                                       "--score_file", x, "--stats_file",
                                       x]),
+        "score_ctc": (score_ctc, ["--config", x, "--test_data", x,
+                                  "--checkpoint", x, "--score_file", x,
+                                  "--dict", x, "--keywords", "123"]),
+        "compute_det_ctc": (compute_det_ctc, ["--test_data", x,
+                                              "--keywords", "123",
+                                              "--score_file", x]),
+        "stream_score_ctc": (stream_score_ctc, [
+            "--config", x, "--checkpoint", x, "--test_data", x,
+            "--token_file", x, "--keywords", "123", "--score_file", x]),
     }
     mod, args = argv[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):

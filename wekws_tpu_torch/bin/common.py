@@ -16,6 +16,7 @@ import yaml
 
 from wekws_tpu_torch.data.device_pipeline import DeviceFeaturePipeline
 from wekws_tpu_torch.models import init_model
+from wekws_tpu_torch.models.kws_model import inference_model_conf
 from wekws_tpu_torch.ops.serving import build_fused_forward
 from wekws_tpu_torch.train.checkpoint import load_model_state
 
@@ -39,14 +40,15 @@ def scoring_dataset_conf(dataset_conf: dict, batch_size: int) -> dict:
 def load_test_setup(config_path: str, checkpoint: str, batch_size: int,
                     device: torch.device):
     """-> (configs, model (eval, on ``device``), cv pipeline, test_conf).
-    ``checkpoint`` is a port ``.pt`` or a JAX-package ``.ckpt``."""
+    ``checkpoint`` is a port ``.pt`` or a JAX-package ``.ckpt``; the
+    model is float32 whatever ``model.dtype`` says."""
     with open(config_path, "r") as fin:
         configs = yaml.safe_load(fin)
     test_conf = scoring_dataset_conf(configs["dataset_conf"], batch_size)
     pipeline = DeviceFeaturePipeline.from_conf(test_conf, training=False)
-    model = init_model(configs["model"])
-    model.load_state_dict(load_model_state(checkpoint, configs["model"],
-                                           model))
+    model_conf = inference_model_conf(configs["model"])
+    model = init_model(model_conf)
+    model.load_state_dict(load_model_state(checkpoint, model_conf, model))
     return configs, model.to(device).eval(), pipeline, test_conf
 
 

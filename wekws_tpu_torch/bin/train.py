@@ -9,10 +9,11 @@ YAML config + flags, per-epoch checkpoints ``<epoch>.pt`` with
 (``--device``, CUDA unless ``cpu`` is asked for): the host pipeline's
 ``DataLoader`` feeds the ``Trainer``, which runs the fused exact-BN
 passes and the fused fbank as the config asks.  ``--checkpoint``
-resumes from a port ``.pt`` or a JAX-package ``.ckpt``.  The flags of
-unported items raise: ``--device_resident`` (ROADMAP A.10),
-``--coordinator`` / ``--num_processes`` / ``--process_id`` (A.13),
-``--dict`` (the CTC path, A.8).
+resumes from a port ``.pt`` or a JAX-package ``.ckpt``.  ``--dict``
+(a CTC model: ``dict.txt``, and ``words.txt`` where present) tokenizes
+both data lists and sets the output width to the vocabulary.  The flags
+of unported items raise: ``--device_resident`` (ROADMAP A.10),
+``--coordinator`` / ``--num_processes`` / ``--process_id`` (A.13).
 
 Torch is imported inside ``main``, so the loader's spawned workers,
 which import this module as their main module, start without it.
@@ -45,7 +46,7 @@ def get_args(argv=None):
     parser.add_argument("--norm_var", action="store_true", default=False,
                         help="norm var option")
     parser.add_argument("--dict", dest="dict_dir", default=None,
-                        help="dict dir for CTC (not ported yet)")
+                        help="dict dir for CTC (dict.txt, words.txt)")
     parser.add_argument("--num_epochs", type=int, default=None,
                         help="override training_config.max_epoch")
     parser.add_argument("--coordinator", default=None,
@@ -74,8 +75,6 @@ def check_ported(args) -> None:
                                    args.process_id)):
         raise _not_ported("--coordinator/--num_processes/--process_id",
                           "item 13, data parallelism")
-    if args.dict_dir is not None:
-        raise _not_ported("--dict (the CTC path)", "item 8, the CTC path")
 
 
 def main(argv=None):
@@ -90,7 +89,7 @@ def main(argv=None):
     from wekws_tpu_torch.data.loader import DataLoader
     from wekws_tpu_torch.device import resolve_device
     from wekws_tpu_torch.models import init_model
-    from wekws_tpu_torch.models.kws_model import _not_ported
+    from wekws_tpu_torch.text import CharTokenizer
     from wekws_tpu_torch.train import (
         Executor,
         ReduceLROnPlateau,
@@ -112,8 +111,15 @@ def main(argv=None):
     dataset_conf = configs["dataset_conf"]
     train_conf = configs.get("training_config", {})
     criterion_type = train_conf.get("criterion", None)
-    if criterion_type == "ctc":
-        raise _not_ported("the CTC criterion", "item 8, the CTC path")
+
+    tokenizer = None
+    if args.dict_dir is not None:
+        words = os.path.join(args.dict_dir, "words.txt")
+        tokenizer = CharTokenizer(
+            os.path.join(args.dict_dir, "dict.txt"),
+            words if os.path.exists(words) else None,
+            unk="<filler>",
+        )
 
     train_pipeline = DeviceFeaturePipeline.from_conf(dataset_conf, True)
     cv_pipeline = DeviceFeaturePipeline.from_conf(dataset_conf, False)
@@ -121,7 +127,12 @@ def main(argv=None):
     # resolve the model config (reference train.py)
     model_conf = configs["model"]
     model_conf["input_dim"] = train_pipeline.output_dim
-    model_conf["output_dim"] = args.num_keywords
+    if criterion_type == "ctc":
+        if tokenizer is None:
+            raise ValueError("criterion ctc needs --dict")
+        model_conf["output_dim"] = tokenizer.vocab_size
+    else:
+        model_conf["output_dim"] = args.num_keywords
     if args.cmvn_file is not None:
         model_conf["cmvn"] = {
             # absolute: the resolved config is consumed from other cwds
@@ -176,11 +187,12 @@ def main(argv=None):
     state = trainer.init_state()
     max_epoch = args.num_epochs or train_conf.get("max_epoch", 100)
     train_dataset = DataLoader(
-        init_dataset(args.train_data, dataset_conf, split="train"),
+        init_dataset(args.train_data, dataset_conf, tokenizer,
+                     split="train"),
         num_workers=args.num_workers,
     )
     cv_dataset = DataLoader(
-        init_dataset(args.cv_data, dataset_conf, split="cv"),
+        init_dataset(args.cv_data, dataset_conf, tokenizer, split="cv"),
         num_workers=args.num_workers,
     )
     # TensorBoard epoch scalars (reference train.py), beside metrics.jsonl

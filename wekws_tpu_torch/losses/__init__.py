@@ -1,11 +1,12 @@
-"""Training criteria (max-pooling and cross-entropy; CTC is not ported
-yet)."""
+"""Training criteria: max-pooling, cross-entropy and CTC."""
 
+from wekws_tpu_torch.losses.ctc_compact import ctc_loss_compact
 from wekws_tpu_torch.losses.losses import (
     acc_frame,
     criterion,
     criterion_per_utt,
     cross_entropy,
+    ctc_loss,
     max_pooling_loss,
     max_pooling_per_utt,
 )
@@ -16,6 +17,8 @@ __all__ = [
     "criterion",
     "criterion_per_utt",
     "cross_entropy",
+    "ctc_loss",
+    "ctc_loss_compact",
     "max_pooling_loss",
     "max_pooling_per_utt",
     "padding_mask",

@@ -1,11 +1,12 @@
-"""Training criteria: max-pooling and cross-entropy.
+"""Training criteria: max-pooling, cross-entropy and CTC.
 
 Port of wekws_tpu/losses/losses.py: masked reductions over the
 (B, T, K) posteriors instead of the reference's per-utterance loop.
 Maxima and minima over time use ``torch.amax`` / ``torch.amin``, which
 split the gradient evenly among tied frames as JAX's ``max`` does
-(``torch.max(dim)`` would send it all to one index).  CTC is not
-ported yet and raises.
+(``torch.max(dim)`` would send it all to one index).  CTC is the
+compact recursion of ``ctc_compact``; its accuracy is 0 in training and
+the greedy token accuracy per utterance in cv (``criterion_per_utt``).
 """
 
 from typing import Optional, Tuple
@@ -13,12 +14,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from wekws_tpu_torch.losses.ctc_compact import ctc_loss_compact
 from wekws_tpu_torch.losses.mask import padding_mask
-
-
-def _ctc_not_ported():
-    return NotImplementedError(
-        "the CTC criterion is not ported yet (ROADMAP queue A, item 8)")
 
 
 def max_pooling_per_utt(
@@ -85,6 +82,29 @@ def cross_entropy(logits: torch.Tensor, target: torch.Tensor
     return loss, acc_frame(logits, target)
 
 
+def _ctc_per_utt(logits, target, lengths, target_lengths, blank_id=0):
+    t, u = logits.shape[1], target.shape[1]
+    logit_pad = padding_mask(lengths, t).to(torch.float32)
+    label_pad = padding_mask(target_lengths, u).to(torch.float32)
+    return ctc_loss_compact(logits, logit_pad, target, label_pad,
+                            blank_id=blank_id)
+
+
+def ctc_loss(
+    logits: torch.Tensor,
+    target: torch.Tensor,
+    logit_lengths: torch.Tensor,
+    target_lengths: torch.Tensor,
+    blank_id: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """CTC loss over raw frame logits (B, T, V) and padded label ids
+    (B, U): (batch mean of the per-utterance losses, 0.0).  Decode
+    accuracy is computed in cv only."""
+    per_seq = _ctc_per_utt(logits, target, logit_lengths, target_lengths,
+                           blank_id)
+    return per_seq.mean(), logits.new_zeros((), dtype=torch.float32)
+
+
 def criterion(
     loss_type: str,
     logits: torch.Tensor,
@@ -96,13 +116,15 @@ def criterion(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dispatch on 'ce' | 'max_pooling' | 'ctc'.  ``valid`` (B,) 0/1
     leaves filler rows out of the loss mean and the accuracy."""
-    if loss_type == "ctc":
-        raise _ctc_not_ported()
     if valid is not None:
-        loss_b, correct_b = criterion_per_utt(
-            loss_type, logits, target, lengths, target_lengths, min_duration)
         valid = valid.to(torch.float32)
         n = torch.clamp(valid.sum(), min=1.0)
+        if loss_type == "ctc":
+            # no greedy decode in the training step: its accuracy is 0
+            loss_b = _ctc_per_utt(logits, target, lengths, target_lengths)
+            return (loss_b * valid).sum() / n, valid.new_zeros(())
+        loss_b, correct_b = criterion_per_utt(
+            loss_type, logits, target, lengths, target_lengths, min_duration)
         loss = (loss_b * valid).sum() / n
         acc = (correct_b * valid).sum() / n
         if loss_type == "ce":
@@ -112,6 +134,8 @@ def criterion(
         return cross_entropy(logits, target)
     if loss_type == "max_pooling":
         return max_pooling_loss(logits, target, lengths, min_duration)
+    if loss_type == "ctc":
+        return ctc_loss(logits, target, lengths, target_lengths)
     raise ValueError(f"unknown criterion {loss_type}")
 
 
@@ -131,5 +155,10 @@ def criterion_per_utt(
     if loss_type == "max_pooling":
         return max_pooling_per_utt(logits, target, lengths, min_duration)
     if loss_type == "ctc":
-        raise _ctc_not_ported()
+        # the cv signal: greedy decode + token accuracy per utterance
+        from wekws_tpu_torch.decode.greedy import ctc_token_accuracy
+
+        loss_b = _ctc_per_utt(logits, target, lengths, target_lengths)
+        return loss_b, ctc_token_accuracy(logits, target, lengths,
+                                          target_lengths)
     raise ValueError(f"unknown criterion {loss_type}")

@@ -12,9 +12,13 @@ routing whole-utterance training forwards through the fused exact-BN
 kernels; the GRU backbone, ``cnn1d_s1`` preprocessing and the training
 knobs ``dtype: bfloat16``, ``bn_dtype``, ``remat`` and
 ``ghost_bn > 1`` raise ``NotImplementedError`` naming the ROADMAP item
-that ports them.
+that ports them.  The inference loaders build a config's model through
+``inference_model_conf``, which drops ``dtype``: in the JAX package it
+is the backbone's compute dtype only (parameters and checkpoints are
+float32), and its fused serving has no dtype at all.
 """
 
+import logging
 import math
 from typing import Optional
 
@@ -85,6 +89,19 @@ class KWSModel(nn.Module):
         if softmax:
             x = torch.softmax(x, dim=-1)
         return x, out_cache
+
+
+def inference_model_conf(configs: dict) -> dict:
+    """A copy of the ``model`` config for scoring and serving, without
+    ``dtype``: the model runs float32, as the JAX package's fused
+    serving does.  Logs the drop where the config named another
+    dtype."""
+    conf = dict(configs)
+    dtype = conf.pop("dtype", None)
+    if dtype and dtype != "float32":
+        logging.warning("model.dtype %r dropped for inference: the model "
+                        "runs float32 (its parameters are float32)", dtype)
+    return conf
 
 
 def _not_ported(what: str, item: str):

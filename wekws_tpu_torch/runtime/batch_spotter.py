@@ -227,7 +227,8 @@ class BatchMaxPoolSpotter(_BatchedStreamEngine):
     reaches ``threshold``, then stays silent for that (stream, keyword)
     for ``interval_frames`` frames (compute_det's window_shift
     suppression).  ``config`` is a resolved train config, as a dict or
-    a YAML path; ``ckpt_path`` a port checkpoint.  Runs on ``device``,
+    a YAML path; ``ckpt_path`` a port ``.pt`` or a JAX-package ``.ckpt``
+    (a float32 model whatever ``model.dtype`` says).  Runs on ``device``,
     CUDA unless the caller asks for the CPU."""
 
     def __init__(

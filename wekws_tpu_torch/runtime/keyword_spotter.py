@@ -16,10 +16,11 @@ refractory gating, beam reset on activation or stale keyword.
   (ops/serving.py ``build_fused_stream``) with its packed cache, and
   raises where the model is not supported (the JAX engine quietly keeps
   the module path there);
-* a port checkpoint is ``torch.save`` of the model's state_dict, with
-  the reference wekws parameter names (tools/from_jax.py converts a JAX
-  checkpoint).  The graph-artifact loader is not ported (ROADMAP queue
-  A, item 12).
+* the checkpoint is a port ``.pt`` (``torch.save`` of the model's
+  state_dict, with the reference wekws parameter names) or a
+  JAX-package ``.ckpt`` (read by train/checkpoint.load_model_state); the
+  model is float32 whatever ``model.dtype`` says.  The graph-artifact
+  loader is not ported (ROADMAP queue A, item 12).
 """
 
 import dataclasses
@@ -37,7 +38,10 @@ from wekws_tpu_torch.decode.ctc_prefix_beam_search import (
 )
 from wekws_tpu_torch.device import resolve_device
 from wekws_tpu_torch.frontend.features import frontend_from_dataset_conf
-from wekws_tpu_torch.models.kws_model import init_model
+from wekws_tpu_torch.models.kws_model import (
+    inference_model_conf,
+    init_model,
+)
 from wekws_tpu_torch.ops.serving import build_fused_stream
 from wekws_tpu_torch.runtime.streaming_frontend import StreamingFrontend
 from wekws_tpu_torch.text.tokenizer import (
@@ -45,6 +49,7 @@ from wekws_tpu_torch.text.tokenizer import (
     read_lexicon,
     read_token,
 )
+from wekws_tpu_torch.train.checkpoint import load_model_state
 
 
 class StreamDetector:
@@ -205,27 +210,27 @@ def load_spotter_config(config):
 
 def load_serving_model(configs: dict, ckpt_path: str, feat_dim: int,
                        device="cuda"):
-    """Build the model from ``configs['model']``, load a port
-    checkpoint, and return it in eval mode on ``device``."""
+    """Build the float32 model of ``configs['model']``, load a port
+    ``.pt`` or a JAX-package ``.ckpt``, and return it in eval mode on
+    ``device``."""
     device = resolve_device(device)
-    model_conf = configs["model"]
+    model_conf = inference_model_conf(configs["model"])
     if model_conf["input_dim"] != feat_dim:
         raise ValueError(
             f"model input_dim {model_conf['input_dim']} != frontend "
             f"feature dim {feat_dim}"
         )
     model = init_model(model_conf)
-    state = torch.load(ckpt_path, map_location="cpu", weights_only=True)
-    model.load_state_dict(state)
+    model.load_state_dict(load_model_state(ckpt_path, model_conf, model))
     logging.info("model %s loaded.", ckpt_path)
     return model.to(device).eval()
 
 
 class KeyWordSpotter:
     """Single-stream CTC keyword spotter.  ``config`` is a resolved
-    train config, as a dict or a YAML path; ``ckpt_path`` a port
-    checkpoint.  Runs on ``device``, CUDA unless the caller asks for
-    the CPU."""
+    train config, as a dict or a YAML path; ``ckpt_path`` a port ``.pt``
+    or a JAX-package ``.ckpt``.  Runs on ``device``, CUDA unless the
+    caller asks for the CPU."""
 
     def __init__(
         self,

@@ -21,6 +21,7 @@ import torch
 
 from wekws_tpu_torch.data.loader import DataLoader
 from wekws_tpu_torch.data.prefetch import Prefetcher
+from wekws_tpu_torch.decode.accuracy import acc_utterance
 
 # the early steps ``profile_dir`` traces: [start, stop)
 PROFILE_STEPS = (3, 9)
@@ -110,20 +111,35 @@ class Executor:
         self.log_metrics({"epoch": epoch, "lr": lr, **summary})
         return state, summary
 
-    def cv(self, state, dataset: Iterable[Dict],
-           epoch: int = 0) -> Dict[str, float]:
-        """Validation: exact per-utterance accumulation."""
+    def cv(self, state, dataset: Iterable[Dict], epoch: int = 0,
+           decode_acc: bool = False) -> Dict[str, float]:
+        """Validation: exact per-utterance accumulation.
+
+        ``decode_acc`` also runs the host prefix-beam decode accuracy of
+        a CTC model (``acc_utterance``, slow) and reports the mean over
+        batches as ``cv_decode_acc``."""
         total_loss, total_correct, total_utts = 0.0, 0.0, 0
+        decode_hits = []
+        step = self.trainer.cv_step_full if decode_acc else \
+            self.trainer.cv_step
         for batch in self._iterate(dataset):
-            out = self.trainer.cv_step(state, batch)
+            out = step(state, batch)
             total_loss += float(out["loss_sum"])
             total_correct += float(out["correct_sum"])
             total_utts += int(out["count"])
+            if "log_probs" in out:
+                decode_hits.append(acc_utterance(
+                    torch.exp(out["log_probs"]).cpu().numpy(),
+                    np.asarray(batch["target"]),
+                    out["feat_lengths"].cpu().numpy(),
+                    np.asarray(batch["target_lengths"])))
         result = {
             "cv_loss": total_loss / max(total_utts, 1),
             "cv_acc": total_correct / max(total_utts, 1),
             "utts": total_utts,
         }
+        if decode_hits:
+            result["cv_decode_acc"] = float(np.mean(decode_hits))
         logging.info("Epoch %d CV loss %.6f acc %.4f (%d utts)", epoch,
                      result["cv_loss"], result["cv_acc"], total_utts)
         return result

@@ -198,13 +198,10 @@ class Trainer:
         loss_b, correct_b = criterion_per_utt(
             self.criterion_type, logits, b["target"], feat_lengths,
             b["target_lengths"], self.min_duration)
-        return b, loss_b, correct_b, feat_lengths
+        return b, loss_b, correct_b, feat_lengths, logits
 
-    def cv_step(self, state: TrainState, batch: Dict) -> Dict[str,
-                                                             torch.Tensor]:
-        """Sums over the batch; padded (``valid`` 0) and non-finite
-        rows are left out."""
-        b, loss_b, correct_b, _ = self._eval(state, batch)
+    @staticmethod
+    def _cv_sums(b: Dict, loss_b, correct_b) -> Dict[str, torch.Tensor]:
         valid = b["valid"] if b["valid"] is not None else torch.ones_like(
             loss_b)
         ok = valid * torch.isfinite(loss_b).to(torch.float32)
@@ -215,11 +212,23 @@ class Trainer:
             "count": ok.sum(),
         }
 
+    def cv_step(self, state: TrainState, batch: Dict) -> Dict[str,
+                                                             torch.Tensor]:
+        """Sums over the batch; padded (``valid`` 0) and non-finite
+        rows are left out."""
+        b, loss_b, correct_b, _, _ = self._eval(state, batch)
+        return self._cv_sums(b, loss_b, correct_b)
+
     def cv_step_full(self, state: TrainState, batch: Dict):
-        """Per-utterance outputs."""
-        _, loss_b, correct_b, feat_lengths = self._eval(state, batch)
-        return {"loss_b": loss_b, "correct_b": correct_b,
-                "feat_lengths": feat_lengths}
+        """Per-utterance outputs, with ``cv_step``'s sums of the same
+        forward; for CTC also the frame log-probs."""
+        b, loss_b, correct_b, feat_lengths, logits = self._eval(state, batch)
+        out = {"loss_b": loss_b, "correct_b": correct_b,
+               "feat_lengths": feat_lengths,
+               **self._cv_sums(b, loss_b, correct_b)}
+        if self.criterion_type == "ctc":
+            out["log_probs"] = torch.log_softmax(logits, dim=-1)
+        return out
 
     @torch.no_grad()
     def forward(self, state: TrainState, waves, wave_lengths,
