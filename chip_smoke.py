@@ -5,10 +5,12 @@ Drives the flagship MDTC max-pooling wake word (40-mel fbank, global
 CMVN, linear preprocessing, MDTC 4 stacks x 4 blocks, kernel 5, 64
 channels, linear head + sigmoid), the hey_snips DS-TCN wake word
 (linear preprocessing to 64, 4 DS blocks, kernel 8), the hi_xiaowen
-DS-TCN (the same at 256 channels, two keywords) and the hi_xiaowen
+DS-TCN (the same at 256 channels, two keywords), the hi_xiaowen
 FSMN-CTC model (80-mel fbank, context +-2, skip 3, 4 layers 250/128,
-2599 tokens), each at full width with random weights from a seed, on
-one CUDA device, in phases; any failure exits non-zero:
+2599 tokens), the speechcommand_v1 MDTC classifier (MFCC 80, global
+head, 12 classes) and the hi_xiaowen GRU and full-conv TCN, each at
+full width with random weights from a seed, on one CUDA device, in
+phases; any failure exits non-zero:
 
 1. card name and power limit (nvidia-smi); a GPU is required;
 2. build every CUDA kernel from ``wekws_tpu_torch/csrc`` and print
@@ -137,7 +139,37 @@ one CUDA device, in phases; any failure exits non-zero:
     committed TPU ``score.txt``, ``stream_score.txt`` and
     ``stats.1_2_3.txt``.  No plain version of a hand kernel runs on a
     CUDA tensor.  The FSMN record splits its launches over the timed
-    shapes and gives each the device time it loses to the bound.
+    shapes and gives each the device time it loses to the bound;
+16. path E, classification and the other backbones: (a)
+    ``examples/speechcommand_v1/conf/mdtc.yaml`` (MFCC 80 of 80, MDTC
+    4 x 4, C=64, global head, 12 classes) with ``fused_train`` and
+    ``fused_frontend`` at B=100 x 1 s through ``Trainer(..., "ce")``:
+    ``fused_fbank`` against its plain version at that shape, step 0
+    (dropout off, the features shared) fused against unfused (loss 1e-5
+    rel) and both against float64 (each block 2e-2 of its largest
+    |grad|, the head 1e-3), 5 steps (finite, decreasing), 2 with wave
+    dither + spec_aug, F1-F4/B1-B4 launched 17 times a step and
+    ``fused_fbank`` once, the step's time and idle share, each path-E
+    kernel's device time against its bound, then served with the
+    global head by one ``fused_mdtc_kernel`` launch against the module
+    forward; (b) ``examples/synthetic_commands`` through the CLIs: the
+    corpus (``gen_data_torch.py``, seed 11), ``bin.train`` 2 epochs,
+    ``bin.average_model --val_best``, ``bin.compute_accuracy`` on the
+    card: ``conf_torch/mdtc_ce.yaml`` by the route ``fused`` (one launch
+    a batch; logits against the module route, the same argmax),
+    ``conf/gru_ce.yaml`` by the route ``module`` (no launch; the CPU's
+    accuracy); (c) the JAX fixture ``exp/mdtc_ce/avg_5.ckpt`` (its
+    bfloat16 dtype dropped, logged) through ``bin.compute_accuracy``,
+    against the module route and the README's TPU count 248/256;
+    (d) the hi_xiaowen GRU at B=256 x 2 s through ``Trainer(...,
+    "max_pooling")`` (step 0 against float64: loss 1e-5 rel, each
+    tensor's gradient 1e-3 of its largest), 3 steps, the step's time and
+    idle share, streamed by ``BatchMaxPoolSpotter(use_fused=False)``
+    against the offline posteriors; the hi_xiaowen full-conv TCN by the
+    module route on the card against the CPU.  Path E's launches are
+    added to the records of ``fused_mdtc_forward``, ``fused_fbank`` and
+    the eight passes, and kept apart (``path_e_launches``, ``path_e``:
+    shape, device time, bound).
 
 The last lines are the card, the per-kernel JSON record (13 kernels)
 and ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -329,6 +361,16 @@ def cuda_time_ms(fn, reps=30, warmup=5):
         e1.synchronize()
         times.append(e0.elapsed_time(e1))
     return float(np.median(times))
+
+
+def kernel_vs_plain_ms(kern, plain):
+    """Per-call CUDA-event times (median of 30) of a kernel and its plain
+    version, in the order plain, kernel, kernel, plain; the second of
+    each."""
+    cuda_time_ms(plain)
+    cuda_time_ms(kern)
+    ms = cuda_time_ms(kern)
+    return ms, cuda_time_ms(plain)
 
 
 def profiled_device_ms(fn, kernel_name, reps=20):
@@ -1077,10 +1119,7 @@ def phase8_train_times(trainer, state, batch, card, launches, errs,
         args = calls[name]
         kern = lambda: PASSES[name](*args)  # noqa: E731
         plain = lambda: PASSES[name].plain(*args)  # noqa: E731
-        cuda_time_ms(plain)
-        cuda_time_ms(kern)
-        ms = cuda_time_ms(kern)
-        plain_ms = cuda_time_ms(plain)
+        ms, plain_ms = kernel_vs_plain_ms(kern, plain)
         torch.cuda.synchronize()
         host = []
         for _ in range(30):  # the wrapper's host work: enqueue, no sync
@@ -1155,7 +1194,7 @@ def fsmn_bound_ms(b, t, ld, pd, n_layers, lorder, rorder, pad):
 
 
 def fbank_bound_ms(b, s, frame_length, frame_shift, n_fft, n_band, n_mel,
-                   n_out):
+                   n_out, mfcc=None):
     """Least time on an H100 for one fused fbank call, counting the work
     the function needs by the FFT route: per frame the pre-chain 4 FL
     (the mean, the preemphasis's multiply-add, the window), a real FFT
@@ -1164,10 +1203,13 @@ def fbank_bound_ms(b, s, frame_length, frame_shift, n_fft, n_band, n_mel,
     the DCT 2 M C.  Bytes: the wave read once, the features written
     once, the operators once (window, twiddles, packed mel weights,
     DCT).  The FFT plan's 16 low bins by the folded operator (4 FL 16
-    flops a frame more) are its design's cost and stay out."""
+    flops a frame more) are its design's cost and stay out.  ``mfcc``
+    (default: ``n_out != n_mel``) says whether the DCT runs."""
     rows = b * (1 + (s - frame_length) // frame_shift)
     nbin = n_fft // 2 + 1
-    dct = 2 * n_mel * n_out if n_out != n_mel else 0
+    if mfcc is None:
+        mfcc = n_out != n_mel
+    dct = 2 * n_mel * n_out if mfcc else 0
     flops = rows * (4 * frame_length + 2.5 * n_fft * math.log2(n_fft)
                     + 3 * nbin + 2 * n_band + n_mel + dct)
     nbytes = 4 * (b * s + rows * n_out + frame_length + 2 * n_fft
@@ -1785,11 +1827,7 @@ def phase13_times(dev, bench, errs, launches, card, trainer, state,
         return torch.randn(shape, generator=gen).to(dev)
 
     def timed(name, shape, kern, plain, kernel_name, bound):
-        # plain, kernel, kernel, plain: report the second of each
-        cuda_time_ms(plain)
-        cuda_time_ms(kern)
-        ms = cuda_time_ms(kern)
-        plain_ms = cuda_time_ms(plain)
+        ms, plain_ms = kernel_vs_plain_ms(kern, plain)
         dev_ms = profiled_device_ms(kern, kernel_name)
         dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
         print(f"  {name} {shape}: kernel {ms:.4f} ms per call (device time "
@@ -2400,9 +2438,10 @@ def ctc_train_batch(rng):
             "target_lengths": np.full((CTC_TRAIN_B,), CTC_LABELS, np.int32)}
 
 
-def profiled_step(fn):
-    """(device time of every CUDA entry in ms, CUDA launches) of one
-    call of ``fn`` under torch.profiler."""
+def profiled_step(fn, names=()):
+    """(device time of every CUDA entry in ms, CUDA launches, {fragment:
+    mean device ms per call of the first entry whose name holds it, or
+    None}) of one call of ``fn`` under torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2411,14 +2450,36 @@ def profiled_step(fn):
         fn()
         torch.cuda.synchronize()
     busy = count = 0
+    found = dict.fromkeys(names)
     for evt in prof.key_averages():
         total = getattr(evt, "device_time_total",
                         getattr(evt, "cuda_time_total", 0.0))
-        if evt.count and total and str(getattr(evt, "device_type", "")) \
-                .endswith("CUDA"):
+        if not (evt.count and total):
+            continue
+        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
             busy += total
             count += evt.count
-    return busy / 1e3, count
+        for name in names:
+            if found[name] is None and name in evt.key:
+                found[name] = total / evt.count / 1e3
+    return busy / 1e3, count, found
+
+
+def timed_steps(step, reps=10):
+    """Median, min and max host-clock ms of synchronised calls (two
+    warm-up calls first)."""
+    import torch
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), min(times), max(times)
 
 
 def phase15a_ctc_training(dev, card, work):
@@ -2553,17 +2614,10 @@ def phase15a_ctc_training(dev, card, work):
 
     # times: the step (host clock, synchronised), its device time, and
     # the CTC loss's launches and device time (forward and backward)
-    for _ in range(2):
-        trainer.train_step(state, batch, SEED, 1e-3)
-    torch.cuda.synchronize()
-    reps, step_s = 10, []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        trainer.train_step(state, batch, SEED, 1e-3)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-    step_ms = float(np.median(step_s)) * 1e3
-    busy_ms, step_launches = profiled_step(
+    reps = 10
+    step_ms, lo, hi = timed_steps(
+        lambda: trainer.train_step(state, batch, SEED, 1e-3), reps)
+    busy_ms, step_launches, _ = profiled_step(
         lambda: trainer.train_step(state, batch, SEED, 1e-3))
     leaf = logits.detach().requires_grad_()
 
@@ -2578,13 +2632,13 @@ def phase15a_ctc_training(dev, card, work):
         ctc_fwd_bwd()
     torch.cuda.synchronize()
     ctc_host_ms = (time.perf_counter() - t0) / reps * 1e3
-    ctc_ms, ctc_launches = profiled_step(ctc_fwd_bwd)
+    ctc_ms, ctc_launches, _ = profiled_step(ctc_fwd_bwd)
     audio = CTC_TRAIN_B * CTC_SECONDS
     idle = max(0.0, 1 - busy_ms / step_ms)
     print(f"  train step B={CTC_TRAIN_B} x {CTC_SECONDS} s (FSMN-CTC, "
           f"dither + spec_aug): median {step_ms:.3f} ms of {reps} "
           f"({audio / step_ms * 1e3:.1f} audio-s/s), min "
-          f"{min(step_s) * 1e3:.3f}, max {max(step_s) * 1e3:.3f}; profiled "
+          f"{lo:.3f}, max {hi:.3f}; profiled "
           f"step: {busy_ms:.3f} ms of device time in {step_launches} "
           f"device entries, the device idle {idle:.1%} of the step; the CTC "
           f"loss (forward + backward, T={t}): "
@@ -2625,7 +2679,7 @@ def phase15a_ctc_training(dev, card, work):
     return {"offline": offline, "err": err, "step_ms": step_ms}
 
 
-def ctc_run_cli(main, argv, what):
+def run_cli(main, argv, what):
     """One of the port's CLIs under PlainOnCuda, synchronised."""
     import torch
 
@@ -2731,7 +2785,7 @@ def ctc_score_paths(dev, card, tag, config, ckpt, test_list, out_dir):
     for name, extra in (("score", []), ("score_dd", ["--device_decode"])):
         fused_fsmn_layers.launches = 0
         t0 = time.perf_counter()
-        n = ctc_run_cli(score_ctc.main, args + ["--score_file", out[name]]
+        n = run_cli(score_ctc.main, args + ["--score_file", out[name]]
                         + extra, f"{tag}: bin.score_ctc {' '.join(extra)}")
         out[f"{name}_s"] = time.perf_counter() - t0
         launches[name] = fused_fsmn_layers.launches
@@ -2740,7 +2794,7 @@ def ctc_score_paths(dev, card, tag, config, ckpt, test_list, out_dir):
                                  f"fused_fsmn_layers {launches[name]} "
                                  f"times for {len(shapes)} batches")
     out["n"] = n
-    out["stats"], = ctc_run_cli(compute_det_ctc.main, [
+    out["stats"], = run_cli(compute_det_ctc.main, [
         "--test_data", test_list, "--keywords", CTC_RECIPE_KEYWORD,
         "--score_file", out["score"], "--stats_dir", out_dir, "--device",
         dev.type],
@@ -2752,7 +2806,7 @@ def ctc_score_paths(dev, card, tag, config, ckpt, test_list, out_dir):
     fused_fsmn_layers.launches = 0
     t0 = time.perf_counter()
     with StreamChunks() as chunks:
-        ctc_run_cli(stream_score_ctc.main, [
+        run_cli(stream_score_ctc.main, [
             "--config", config, "--checkpoint", ckpt, "--test_data",
             test_list, "--token_file", os.path.join(dict_dir, "dict.txt"),
             "--keywords", CTC_RECIPE_KEYWORD, "--score_file", out["stream"],
@@ -2824,7 +2878,7 @@ def phase15b_ctc_recipe(dev, card, tmp):
     exp = os.path.join(tmp, "exp")
     t0 = time.perf_counter()
     with TimeLimit(RECIPE_TIMEOUT_S, "bin.train --dict"):
-        ctc_run_cli(train.main, [
+        run_cli(train.main, [
             "--config", os.path.join(CTC_RECIPE, "conf_torch",
                                      "fsmn_ctc.yaml"),
             "--train_data", lists["train"], "--cv_data", lists["dev"],
@@ -2988,6 +3042,810 @@ def phase15_ctc(dev, card, work):
         for name, n in counts.items():
             launches[f"{tag}_{name}"] = n
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 16, path E: classification and the other backbones
+# ---------------------------------------------------------------------------
+
+SC_CONF = os.path.join("examples", "speechcommand_v1", "conf", "mdtc.yaml")
+SC_INPUT_DIM, SC_CLASSES = 80, 12  # MFCC 80; the 12 Speech Commands v1 classes
+SC_TRAIN_B, SC_SECONDS = 100, 1  # the recipe's batch_size, 1 s clips
+SC_STEPS_PLAIN, SC_STEPS_AUG = 5, 2
+# step-0 gradients of the head (after the pooling, no BatchNorm behind
+# it) against float64, relative to each tensor's largest |grad|; the
+# blocks keep GRAD64_TOL
+HEAD_GRAD64_TOL = 1e-3
+COMMANDS_RECIPE = os.path.join("examples", "synthetic_commands")
+COMMANDS_FIXTURE = os.path.join(COMMANDS_RECIPE, "exp", "mdtc_ce")
+COMMANDS_CLASSES, COMMANDS_EPOCHS = 8, 2  # the recipe's 15 (MDTC), 30 (GRU)
+# examples/synthetic_commands/README.md: the fixture's test accuracy on
+# the TPU (bfloat16).  The port at float32 reads the same 248 on the CPU
+# (tests/test_torch_accuracy.py, 0 flips against JAX at float32; the
+# smallest top-two logit margin 0.032), so the card may differ by 0
+COMMANDS_README_CORRECT, COMMANDS_TEST_UTTS = 248, 256
+COMMANDS_FIXTURE_FLIPS = 0
+GRU_CONF = os.path.join("examples", "hi_xiaowen", "conf", "gru.yaml")
+TCN_CONF = os.path.join("examples", "hi_xiaowen", "conf", "tcn.yaml")
+GRU_TRAIN_B, GRU_SECONDS, GRU_STEPS = 256, 2, 3
+GRU_LOSS64_RTOL, GRU_GRAD64_TOL = 1e-5, 1e-3
+KWS_KEYWORDS = 2  # hi_xiaowen: "hi xiaowen", "nihao wenwen"
+
+
+def recipe_yaml(path):
+    import yaml
+
+    with open(path) as f:
+        return yaml.safe_load(f)
+
+
+def class_batch(rng, b, seconds, classes):
+    """``b`` utterances of ``seconds``: labels 0..classes-1 from the seed,
+    each a class tone (300 + 100 k Hz) over noise."""
+    n = seconds * RATE
+    t = np.arange(n) / RATE
+    target = rng.integers(0, classes, b).astype(np.int32)
+    waves = rng.standard_normal((b, n)) * 300
+    waves += 3000 * np.sin(2 * np.pi * (300 + 100 * target[:, None])
+                           * t[None, :])
+    return {"waves": np.clip(waves, -32768, 32767).astype(np.float32),
+            "wave_lengths": np.full((b,), n, np.int32), "target": target,
+            "target_lengths": np.ones((b,), np.int32)}
+
+
+class NoDropout:
+    """Within the ``with``, every ``nn.Dropout`` of the models drops
+    nothing: the step-0 comparisons hold the routes' arithmetic, not two
+    draws of the mask."""
+
+    def __init__(self, *models):
+        import torch
+
+        self.mods = [m for model in models for m in model.modules()
+                     if isinstance(m, torch.nn.Dropout)]
+
+    def __enter__(self):
+        self.saved = [m.p for m in self.mods]
+        for m in self.mods:
+            m.p = 0.0
+        return self
+
+    def __exit__(self, *exc):
+        for m, p in zip(self.mods, self.saved):
+            m.p = p
+        return False
+
+
+class Routes:
+    """Within the ``with``, records the ``route`` of every forward that
+    ``bin.common.make_forward_fn`` returns (the CLIs import it when
+    called)."""
+
+    def __enter__(self):
+        from wekws_tpu_torch.bin import common
+
+        self.routes, self._real = [], common.make_forward_fn
+
+        def recorded(*args, **kwargs):
+            forward = self._real(*args, **kwargs)
+            self.routes.append(forward.route)
+            return forward
+
+        common.make_forward_fn = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from wekws_tpu_torch.bin import common
+
+        common.make_forward_fn = self._real
+        return False
+
+
+def mdtc_kernel_times(backbone, b, t, dev):
+    """The MDTC serving kernel with ``backbone``'s folded weights on
+    random (b, t, C) inputs: (per-call ms, plain ms) as
+    ``kernel_vs_plain_ms``, and the kernel's device ms."""
+    import torch
+
+    from wekws_tpu_torch.ops.fused_mdtc import (
+        extract_mdtc_weights,
+        fused_mdtc_forward,
+        fused_mdtc_forward_plain,
+    )
+
+    *stacks, dil = extract_mdtc_weights(backbone)
+    w = [x.to(dev) for x in stacks]
+    x = torch.randn((b, t, backbone.res_channels),
+                    generator=torch.Generator().manual_seed(SEED)).to(dev)
+    k, size = backbone.kernel_size, backbone.stack_size
+
+    def kern():
+        return fused_mdtc_forward(x, *w, dil, k, size)
+
+    ms, plain_ms = kernel_vs_plain_ms(
+        kern, lambda: fused_mdtc_forward_plain(x, *w, dil, k, size))
+    return ms, plain_ms, profiled_device_ms(kern, "fused_mdtc_kernel")
+
+
+def phase16a_speech_commands(dev, card):
+    """examples/speechcommand_v1/conf/mdtc.yaml at full width (MFCC 80
+    of 80, MDTC 4 x 4, C=64, global head, 12 classes) with fused_train
+    and fused_frontend, trained through ``Trainer(..., "ce")`` at B=100 x
+    1 s, then served with the global head through ``fused_mdtc_kernel``.
+    Returns path E's launches and kernel readings of this phase."""
+    import torch
+
+    from wekws_tpu_torch.data import DeviceFeaturePipeline
+    from wekws_tpu_torch.losses import criterion
+    from wekws_tpu_torch.models import init_model
+    from wekws_tpu_torch.ops import fused_frontend
+    from wekws_tpu_torch.ops.fused_mdtc import fused_mdtc_forward
+    from wekws_tpu_torch.ops.fused_mdtc_train import (
+        PASS_IDS,
+        PASSES,
+        kernel_name,
+        reset_launches,
+    )
+    from wekws_tpu_torch.ops.serving import build_fused_forward
+    from wekws_tpu_torch.train import Trainer
+
+    configs = recipe_yaml(SC_CONF)
+    dconf = copy.deepcopy(configs["dataset_conf"])
+    dconf["fused_frontend"] = True
+    dconf["mfcc_conf"]["dither_mode"] = "wave"
+    plain_dconf = dict(dconf, spec_aug=False,
+                       mfcc_conf=dict(dconf["mfcc_conf"], dither=0.0))
+    unfused_dconf = dict(plain_dconf, fused_frontend=False)
+    batch = class_batch(np.random.default_rng(SEED + 16), SC_TRAIN_B,
+                        SC_SECONDS, SC_CLASSES)
+    waves = torch.as_tensor(batch["waves"], device=dev)
+    lengths = torch.as_tensor(batch["wave_lengths"], device=dev)
+    target = torch.as_tensor(batch["target"], device=dev).long()
+    # step 0's features: once, by the unfused frontend, shared by every
+    # route; the fused frontend against them at phase 9's limits
+    cvp = DeviceFeaturePipeline.from_conf(unfused_dconf, training=False)
+    fused_cvp = DeviceFeaturePipeline.from_conf(dconf, training=False)
+    with torch.no_grad():
+        feats, feat_lengths = cvp(waves, lengths)
+        fused_feats = fbank_call(fused_cvp.extractor, waves, "fft")
+    torch.cuda.synchronize()
+    cfg = fused_cvp.extractor.cfg
+    fbank_err = check_close(
+        f"fused_fbank ({SC_TRAIN_B}, {SC_SECONDS * RATE}) MFCC "
+        f"{cfg.num_ceps} of {cfg.num_mel_bins}, FFT plan, vs the "
+        f"three-matmul plain version", fused_feats, feats, atol=FBANK_ATOL,
+        rtol=FBANK_RTOL)
+    mean = feats.mean(dim=(0, 1)).cpu().numpy()
+    istd = (1.0 / (feats.std(dim=(0, 1)) + 1e-6)).cpu().numpy()
+    conf = dict(configs["model"], input_dim=SC_INPUT_DIM,
+                output_dim=SC_CLASSES,
+                cmvn={"mean": mean.tolist(), "istd": istd.tolist(),
+                      "norm_var": True})
+    conf["backbone"] = dict(conf["backbone"], fused_train=True)
+    unfused_conf = dict(conf, backbone=dict(conf["backbone"],
+                                            fused_train=False))
+    model = init_model(conf, torch.Generator().manual_seed(SEED))
+    twin = init_model(unfused_conf)
+    twin.load_state_dict(model.state_dict())
+    ref = init_model(unfused_conf)
+    ref.load_state_dict(model.state_dict())
+    model, twin = model.to(dev), twin.to(dev)
+    ref = ref.to(dev, torch.float64)
+    n_params = sum(p.numel() for p in model.parameters())
+
+    # step 0: the fused and unfused fp32 routes and float64, dropout off
+    losses0 = {}
+    with NoDropout(model, twin, ref):
+        for route, m, x in (("fused", model, feats), ("unfused", twin, feats),
+                            ("float64", ref, feats.double())):
+            m.train()
+            logits, _ = m(x, lengths=feat_lengths)
+            loss, _ = criterion("ce", logits, target, feat_lengths)
+            m.zero_grad(set_to_none=True)
+            loss.backward()
+            losses0[route] = float(loss.detach())
+    rel = abs(losses0["fused"] - losses0["unfused"]) / abs(losses0["unfused"])
+    if not rel <= 1e-5:
+        raise AssertionError(f"step-0 CE loss fused {losses0['fused']} vs "
+                             f"unfused {losses0['unfused']}: {rel:.2e} rel")
+    ref_groups = grad_groups(ref)
+    share = {r: worst_grad_share(m, ref_groups, r)
+             for r, m in (("fused", model), ("unfused", twin))}
+    head = {}
+    refs = dict(ref.named_parameters())
+    for route, m in (("fused", model), ("unfused", twin)):
+        worst = (0.0, "")
+        for name, prm in m.named_parameters():
+            if name.startswith("classifier."):
+                g64 = refs[name].grad
+                s = float((prm.grad.double() - g64).abs().max()) / max(
+                    float(g64.abs().max()), 1e-12)
+                worst = max(worst, (s, name))
+        head[route] = worst
+        if not worst[0] <= HEAD_GRAD64_TOL:
+            raise AssertionError(f"step-0 head gradient {worst[1]} ({route}) "
+                                 f"off float64 by {worst[0]:.2e} of its "
+                                 f"largest |grad|")
+    print(f"  speechcommand_v1 MDTC (MFCC {cfg.num_ceps}/{cfg.num_mel_bins},"
+          f" 4 x 4, C=64, global head, {SC_CLASSES} classes, fused_train "
+          f"+ fused_frontend): {n_params} parameters, B={SC_TRAIN_B} x "
+          f"{SC_SECONDS} s, features {tuple(feats.shape)}; step 0 (dropout "
+          f"off): CE loss fused {losses0['fused']:.6f} vs unfused "
+          f"{losses0['unfused']:.6f} ({rel:.2e} rel, bound 1e-5), float64 "
+          f"{losses0['float64']:.6f}; gradients vs float64, each block "
+          f"within {GRAD64_TOL} of its own largest |grad|: worst fused "
+          f"{share_text(share['fused'])}, unfused "
+          f"{share_text(share['unfused'])}; head within {HEAD_GRAD64_TOL}: "
+          f"fused {head['fused'][0]:.2e} ({head['fused'][1]}), unfused "
+          f"{head['unfused'][0]:.2e} [{card}]", flush=True)
+
+    # the main path: Trainer steps with the fused passes and fbank, the
+    # counts zeroed just before; no plain version on a CUDA tensor
+    model.zero_grad(set_to_none=True)
+    trainer = Trainer(model, DeviceFeaturePipeline.from_conf(plain_dconf),
+                      fused_cvp, "ce", grad_clip=5.0,
+                      weight_decay=configs["optim_conf"]["weight_decay"],
+                      device=dev)
+    state = trainer.init_state()
+    reset_launches()
+    fused_frontend.fused_fbank.launches = 0
+    losses, aug_losses = [], []
+    with PlainOnCuda() as plain:
+        for _ in range(SC_STEPS_PLAIN):
+            state, metrics = trainer.train_step(state, batch, SEED, 1e-3)
+            losses.append(float(metrics["loss"]))
+        trainer.pipeline = DeviceFeaturePipeline.from_conf(dconf)
+        for _ in range(SC_STEPS_AUG):
+            state, metrics = trainer.train_step(state, batch, SEED, 1e-3)
+            aug_losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+    plain.check("speechcommand_v1 training")
+    steps = SC_STEPS_PLAIN + SC_STEPS_AUG
+    n_blocks = 1 + 4 * 4
+    counts = {f"fused_train_{n}": PASSES[n].launches for n in TRAIN_PASSES}
+    counts["fused_fbank"] = fused_frontend.fused_fbank.launches
+    want = {k: (steps if k == "fused_fbank" else n_blocks * steps)
+            for k in counts}
+    if counts != want:
+        raise AssertionError(f"launches over {steps} steps: {counts}, want "
+                             f"{want}")
+    if not (np.isfinite(losses + aug_losses).all()
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"CE losses {losses}, with augmentation "
+                             f"{aug_losses}")
+    print(f"  losses, no augmentation: {[round(v, 5) for v in losses]}; with "
+          f"wave dither 1.0 + spec_aug: {[round(v, 5) for v in aug_losses]};"
+          f" each pass launched {n_blocks} x {steps} times, fused_fbank "
+          f"{steps}, no plain version on a CUDA tensor [{card}]", flush=True)
+
+    # times: the step (host clock), its device time, each kernel's
+    t = int(feat_lengths[0])
+    names = [kernel_name(n, 64) for n in TRAIN_PASSES] + [
+        f"reduce_kernel<{PASS_IDS[n]}>" for n in TRAIN_PASSES if n != "f4"]
+    names.append("fused_fbank_kernel")
+
+    def one_step():
+        trainer.train_step(state, batch, SEED, 1e-3)
+
+    step_ms, lo, hi = timed_steps(one_step)
+    busy_ms, entries, dev_ms = profiled_step(one_step, names)
+    idle = max(0.0, 1 - busy_ms / step_ms)
+    audio = SC_TRAIN_B * SC_SECONDS
+    print(f"  train step B={SC_TRAIN_B} x {SC_SECONDS} s (fused_train + "
+          f"fused_frontend, dither + spec_aug): median {step_ms:.3f} ms of "
+          f"10 ({audio / step_ms * 1e3:.1f} audio-s/s), min {lo:.3f}, max "
+          f"{hi:.3f}; profiled step: {busy_ms:.3f} ms of device time in "
+          f"{entries} device entries, the device idle {idle:.1%} of the step"
+          f" [{card}]", flush=True)
+    readings = {}
+    for n in TRAIN_PASSES:
+        main = dev_ms[kernel_name(n, 64)]
+        red = 0.0 if n == "f4" else dev_ms[f"reduce_kernel<{PASS_IDS[n]}>"]
+        if main is None or red is None:
+            raise AssertionError(f"pass {n}: its kernel or reduction is not "
+                                 f"in the profiled step")
+        bound, by = train_pass_bound_ms(n, SC_TRAIN_B, t, 64, 5)
+        readings[f"fused_train_{n}"] = {
+            "shape": f"B={SC_TRAIN_B} T={t} C=64", "device_ms": main + red,
+            "bound_ms": bound, "bound_by": by}
+    fb = fused_cvp.extractor
+    bound, by = fbank_bound_ms(SC_TRAIN_B, SC_SECONDS * RATE,
+                               cfg.frame_length, cfg.frame_shift,
+                               cfg.padded_window_size, fb.n_band,
+                               cfg.num_mel_bins, cfg.feat_dim, mfcc=True)
+    ms, plain_ms = kernel_vs_plain_ms(lambda: fused_cvp.extractor(waves),
+                                      lambda: cvp.extractor(waves))
+    readings["fused_fbank"] = {
+        "shape": f"waves ({SC_TRAIN_B}, {SC_SECONDS * RATE}) MFCC "
+                 f"{cfg.num_ceps} of {cfg.num_mel_bins}",
+        "device_ms": dev_ms["fused_fbank_kernel"], "bound_ms": bound,
+        "bound_by": by, "max_abs_err": fbank_err, "ms": ms,
+        "plain_ms": plain_ms}
+    if readings["fused_fbank"]["device_ms"] is None:
+        raise AssertionError("fused_fbank_kernel is not in the profiled step")
+    print(f"  fused_fbank per call {ms:.4f} ms, the unfused extractor "
+          f"{plain_ms:.4f} ms (CUDA events) [{card}]", flush=True)
+    print("  path E kernels in the step (device ms per call, with its "
+          "reduction; bound): " + "; ".join(
+              f"{k} {v['device_ms']:.4f} ({v['bound_ms']:.5f}, "
+              f"{v['bound_by']})" for k, v in readings.items())
+          + f" [{card}]", flush=True)
+
+    # served with the global head: one fused_mdtc_kernel launch
+    served = init_model(conf)
+    served.load_state_dict(state.model.state_dict())
+    served = served.to(dev).eval()
+    forward = build_fused_forward(served, device=dev)
+    with torch.no_grad():
+        sfeats, slengths = fused_cvp(waves, lengths)
+    fused_mdtc_forward.launches = 0
+    with PlainOnCuda() as plain:
+        logits = forward(sfeats, slengths)
+        torch.cuda.synchronize()
+    plain.check("speechcommand_v1 served")
+    served_launches = fused_mdtc_forward.launches
+    with torch.inference_mode():
+        module_logits, _ = served(sfeats, lengths=slengths)
+    err = check_close(f"speechcommand_v1 served, global head: "
+                      f"build_fused_forward {tuple(logits.shape)} logits vs "
+                      f"module forward", logits, module_logits)
+    if served_launches != 1 or tuple(logits.shape) != (SC_TRAIN_B,
+                                                       SC_CLASSES):
+        raise AssertionError(f"served: {served_launches} fused_mdtc_kernel "
+                             f"launches (want 1), logits "
+                             f"{tuple(logits.shape)}")
+    mdtc = served.backbone
+    pad_max = (mdtc.kernel_size - 1) * 8
+    bound, by = mdtc_bound_ms(SC_TRAIN_B, t, 64, 17, mdtc.kernel_size, 4,
+                              pad_max, False)
+    ms, plain_ms, dev_ms = mdtc_kernel_times(mdtc, SC_TRAIN_B, t, dev)
+    readings["fused_mdtc_forward"] = {
+        "shape": f"B={SC_TRAIN_B} T={t} C=64", "device_ms": dev_ms,
+        "bound_ms": bound, "bound_by": by, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms}
+    acc = float((logits.argmax(-1) == target).float().mean())
+    print(f"  served B={SC_TRAIN_B}: {served_launches} fused_mdtc_kernel "
+          f"launch, device {dev_ms} ms "
+          f"(bound {bound:.5f}, {by}), per call {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms; training-batch accuracy after {steps} steps "
+          f"{acc:.2f} [{card}]", flush=True)
+    launches = dict(counts, fused_mdtc_forward=served_launches)
+    return {"launches": launches, "readings": readings,
+            "step_ms": step_ms, "idle": idle}
+
+
+def classify_fused_vs_module(config, checkpoint, test_list, dev, tag):
+    """The checkpoint's logits on the test list through the card's route
+    (``make_forward_fn``, which must be ``fused``) and through the
+    module route on the card: within TOL, the same argmax on every
+    utterance.  Returns (error, utterances, model, the last batch's
+    (B, T) of features)."""
+    import torch
+
+    from wekws_tpu_torch.bin.common import load_test_setup, make_forward_fn
+    from wekws_tpu_torch.data import init_dataset
+
+    _, model, pipeline, test_conf = load_test_setup(config, checkpoint, 256,
+                                                    dev)
+    forward = make_forward_fn(model, pipeline, dev)
+    if forward.route != "fused":
+        raise AssertionError(f"{tag}: route {forward.route}, want fused")
+    err, n, last = 0.0, 0, None
+    for batch in init_dataset(test_list, test_conf, split="test"):
+        got, lens = forward(batch)
+        waves = torch.as_tensor(batch["waves"]).to(dev, torch.float32)
+        wl = torch.as_tensor(batch["wave_lengths"]).to(dev)
+        with torch.inference_mode():
+            feats, feat_lengths = pipeline(waves, wl)
+            want, _ = model(feats, lengths=feat_lengths)
+        last = tuple(feats.shape[:2])
+        got = torch.as_tensor(got, device=dev)
+        err = max(err, check_close(f"{tag}: fused route vs module route, "
+                                   f"logits {tuple(got.shape)}", got, want))
+        flips = int((got.argmax(-1) != want.argmax(-1)).sum())
+        if flips:
+            raise AssertionError(f"{tag}: {flips} argmax differ between the "
+                                 f"routes")
+        n += got.shape[0]
+    return err, n, model, last
+
+
+def run_accuracy(argv, what):
+    """bin.compute_accuracy through ``run_cli``, its routes recorded:
+    ((correct, total), routes, seconds)."""
+    from wekws_tpu_torch.bin import compute_accuracy
+
+    t0 = time.perf_counter()
+    with Routes() as routes:
+        out = run_cli(compute_accuracy.main, argv, what)
+    return out, routes.routes, time.perf_counter() - t0
+
+
+def phase16b_commands_recipe(dev, card, tmp):
+    """examples/synthetic_commands through the port's CLIs: the corpus
+    (gen_data_torch.py, seed 11), bin.train 2 epochs, average --val_best,
+    bin.compute_accuracy on the card for conf_torch/mdtc_ce.yaml (route
+    fused) and conf/gru_ce.yaml (route module, no kernel launch, the
+    accuracy the CPU prints).  Returns the test list and the MDTC CLI's
+    fused_mdtc_forward launches."""
+    import torch
+
+    from wekws_tpu_torch.bin import average_model, train
+    from wekws_tpu_torch.ops import fused_frontend
+    from wekws_tpu_torch.ops.fused_mdtc import fused_mdtc_forward
+    from wekws_tpu_torch.ops.fused_mdtc_train import PASSES, reset_launches
+
+    repo = os.path.abspath(os.path.dirname(__file__) or ".")
+    data = os.path.join(tmp, "data")
+    env = dict(os.environ, PYTHONPATH=repo)
+    subprocess.run([sys.executable, os.path.join(
+        repo, COMMANDS_RECIPE, "local", "gen_data_torch.py"), data,
+        "--classes", str(COMMANDS_CLASSES)], env=env, check=True,
+        capture_output=True, timeout=300)
+    lists = {s: os.path.join(data, f"{s}.list")
+             for s in ("train", "dev", "test")}
+    cmvn = os.path.join(COMMANDS_RECIPE, "data", "global_cmvn")
+    mdtc_launches = None
+    for tag, config, want_route in (
+            ("mdtc", os.path.join(COMMANDS_RECIPE, "conf_torch",
+                                  "mdtc_ce.yaml"), "fused"),
+            ("gru", os.path.join(COMMANDS_RECIPE, "conf", "gru_ce.yaml"),
+             "module")):
+        exp = os.path.join(tmp, f"exp_{tag}")
+        t0 = time.perf_counter()
+        with TimeLimit(RECIPE_TIMEOUT_S, f"bin.train {tag}"):
+            run_cli(train.main, [
+                "--config", config, "--train_data", lists["train"],
+                "--cv_data", lists["dev"], "--model_dir", exp,
+                "--num_keywords", str(COMMANDS_CLASSES), "--seed", "777",
+                "--cmvn_file", cmvn, "--norm_var", "--num_epochs",
+                str(COMMANDS_EPOCHS), "--num_workers", "1", "--device",
+                dev.type], f"bin.train {tag}")
+        train_s = time.perf_counter() - t0
+        with open(os.path.join(exp, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        train_losses = [r["train_loss"] for r in records]
+        cv_losses = [float(recipe_yaml(os.path.join(exp, f"{e}.yaml"))
+                           ["cv_loss"]) for e in range(COMMANDS_EPOCHS)]
+        if len(records) != COMMANDS_EPOCHS or not np.isfinite(
+                train_losses + cv_losses).all():
+            raise AssertionError(f"{tag}: train losses {train_losses}, cv "
+                                 f"losses {cv_losses}")
+        avg = os.path.join(exp, "avg.pt")
+        average_model.main(["--dst_model", avg, "--src_path", exp, "--num",
+                            str(COMMANDS_EPOCHS), "--val_best", "--device",
+                            dev.type])
+        # the CLI on the card: every kernel count zeroed just before
+        reset_launches()
+        fused_frontend.fused_fbank.launches = 0
+        fused_mdtc_forward.launches = 0
+        argv = ["--config", os.path.join(exp, "config.yaml"), "--test_data",
+                lists["test"], "--checkpoint", avg]
+        with TimeLimit(RECIPE_TIMEOUT_S, f"compute_accuracy {tag}"):
+            (correct, total), routes, acc_s = run_accuracy(
+                argv + ["--device", dev.type], f"compute_accuracy {tag}")
+        counts = {"fused_mdtc_forward": fused_mdtc_forward.launches,
+                  "fused_fbank": fused_frontend.fused_fbank.launches,
+                  **{n: PASSES[n].launches for n in TRAIN_PASSES}}
+        if routes != [want_route] or total != COMMANDS_TEST_UTTS:
+            raise AssertionError(f"compute_accuracy {tag}: routes {routes} "
+                                 f"(want [{want_route}]), {total} "
+                                 f"utterances")
+        if tag == "mdtc":
+            mdtc_launches = counts.pop("fused_mdtc_forward")
+            err, n, _, _ = classify_fused_vs_module(
+                os.path.join(exp, "config.yaml"), avg, lists["test"], dev,
+                f"synthetic_commands MDTC ({COMMANDS_EPOCHS} epochs)")
+            # one batch of 256: one launch
+            if mdtc_launches != 1 or any(counts.values()):
+                raise AssertionError(f"compute_accuracy mdtc: "
+                                     f"fused_mdtc_forward {mdtc_launches} "
+                                     f"(want 1), others {counts}")
+            extra = (f"{mdtc_launches} fused_mdtc_kernel launch; logits vs "
+                     f"the module route within {err:.2e}, the same argmax "
+                     f"on all {n}")
+        else:
+            if any(counts.values()):
+                raise AssertionError(f"compute_accuracy gru: kernel "
+                                     f"launches {counts}, want none")
+            with TimeLimit(RECIPE_TIMEOUT_S, "compute_accuracy gru, CPU"):
+                (cpu_correct, cpu_total), cpu_routes, _ = run_accuracy(
+                    argv + ["--device", "cpu"], "compute_accuracy gru cpu")
+            if (cpu_correct, cpu_total) != (correct, total):
+                raise AssertionError(f"compute_accuracy gru: card "
+                                     f"{correct}/{total}, CPU "
+                                     f"{cpu_correct}/{cpu_total}")
+            extra = (f"no kernel launch; the CPU prints the same "
+                     f"{cpu_correct}/{cpu_total}")
+        print(f"  synthetic_commands {tag}: bin.train {COMMANDS_EPOCHS} "
+              f"epochs in {train_s:.1f} s (train losses "
+              f"{[round(v, 4) for v in train_losses]}, cv losses "
+              f"{[round(v, 4) for v in cv_losses]}); compute_accuracy on the "
+              f"card: Accuracy {correct / total:.6f} ({correct}/{total}) in "
+              f"{acc_s:.2f} s, route {routes[0]}, {extra} [{card}]",
+              flush=True)
+    return lists["test"], mdtc_launches
+
+
+def phase16c_commands_fixture(dev, card, tmp, test_list):
+    """The JAX fixture examples/synthetic_commands/exp/mdtc_ce/avg_5.ckpt
+    (its bfloat16 config: the dtype dropped, logged) through
+    bin.compute_accuracy on the card, logits against the module route,
+    the count against the README's TPU run.  Returns its launches and
+    the kernel's reading at the fixture's shape (C=32)."""
+    import logging
+
+    import torch
+    import yaml
+
+    from wekws_tpu_torch.ops.fused_mdtc import fused_mdtc_forward
+
+    fconf = recipe_yaml(os.path.join(COMMANDS_FIXTURE, "config.yaml"))
+    fconf["model"]["cmvn"]["cmvn_file"] = os.path.abspath(
+        os.path.join(COMMANDS_RECIPE, "data", "global_cmvn"))
+    config = os.path.join(tmp, "mdtc_ce_fixture.yaml")
+    with open(config, "w") as f:
+        yaml.safe_dump(fconf, f)
+    ckpt = os.path.join(COMMANDS_FIXTURE, "avg_5.ckpt")
+    dropped = []
+
+    class Dropped(logging.Handler):
+        def emit(self, record):
+            if "dropped for inference" in record.getMessage():
+                dropped.append(record.getMessage())
+
+    handler = Dropped()
+    logging.getLogger().addHandler(handler)
+    fused_mdtc_forward.launches = 0
+    try:
+        with TimeLimit(RECIPE_TIMEOUT_S, "compute_accuracy fixture"):
+            (correct, total), routes, acc_s = run_accuracy(
+                ["--config", config, "--test_data", test_list,
+                 "--checkpoint", ckpt, "--device", dev.type],
+                "compute_accuracy fixture")
+        launches = fused_mdtc_forward.launches
+    finally:
+        logging.getLogger().removeHandler(handler)
+    if not dropped or routes != ["fused"] or launches != 1:
+        raise AssertionError(f"fixture: dtype drop logged {bool(dropped)}, "
+                             f"routes {routes}, {launches} launches (want "
+                             f"1)")
+    err, n, model, (b, t) = classify_fused_vs_module(
+        config, ckpt, test_list, dev, "JAX fixture mdtc_ce avg_5.ckpt")
+    diff = abs(correct - COMMANDS_README_CORRECT)
+    if total != COMMANDS_TEST_UTTS or diff > COMMANDS_FIXTURE_FLIPS:
+        raise AssertionError(f"fixture accuracy {correct}/{total}, the "
+                             f"README's TPU run {COMMANDS_README_CORRECT}/"
+                             f"{COMMANDS_TEST_UTTS} (bound "
+                             f"{COMMANDS_FIXTURE_FLIPS} apart)")
+    mdtc = model.backbone
+    c = mdtc.res_channels
+    n_layers = 1 + mdtc.stack_num * mdtc.stack_size
+    pad_max = (mdtc.kernel_size - 1) * 2 ** (mdtc.stack_size - 1)
+    bound, by = mdtc_bound_ms(b, t, c, n_layers, mdtc.kernel_size,
+                              mdtc.stack_num, pad_max, False)
+    ms, plain_ms, dev_ms = mdtc_kernel_times(mdtc, b, t, dev)
+    print(f"  JAX fixture mdtc_ce/avg_5.ckpt (dtype "
+          f"{fconf['model']['dtype']} dropped, logged): compute_accuracy on "
+          f"the card Accuracy {correct / total:.6f} ({correct}/{total}) in "
+          f"{acc_s:.2f} s, beside the README's TPU run (bfloat16) "
+          f"{COMMANDS_README_CORRECT}/{COMMANDS_TEST_UTTS}: {diff} apart "
+          f"(bound {COMMANDS_FIXTURE_FLIPS}); route fused, {launches} "
+          f"fused_mdtc_kernel launch at B={b} T={t} C={c}, device {dev_ms} "
+          f"ms (bound {bound:.5f}, {by}), per call {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms; logits vs the module route within {err:.2e}, "
+          f"the same argmax on all {n} [{card}]", flush=True)
+    return launches, {"shape": f"B={b} T={t} C={c}", "device_ms": dev_ms,
+                      "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+                      "ms": ms, "plain_ms": plain_ms}
+
+
+def phase16d_other_backbones(dev, card, work, waves):
+    """The hi_xiaowen GRU (fbank 40, H=128, 2 layers, max-pooling) at
+    B=256 x 2 s through ``Trainer(..., "max_pooling")``: step 0 against
+    float64 on the card, 3 steps, times, then streamed by
+    ``BatchMaxPoolSpotter(use_fused=False)`` against the offline module
+    forward; the hi_xiaowen full-conv TCN scored by the module route on
+    the card against the CPU."""
+    import torch
+    import yaml
+
+    from wekws_tpu_torch.bin.common import make_forward_fn
+    from wekws_tpu_torch.data import DeviceFeaturePipeline
+    from wekws_tpu_torch.frontend import compute_fbank_np
+    from wekws_tpu_torch.losses import criterion
+    from wekws_tpu_torch.models import GRU, init_model
+    from wekws_tpu_torch.runtime import BatchMaxPoolSpotter
+    from wekws_tpu_torch.runtime.keyword_spotter import (
+        load_serving_model,
+        load_spotter_config,
+    )
+    from wekws_tpu_torch.train import Trainer, save_checkpoint
+
+    configs = recipe_yaml(GRU_CONF)
+    dconf = configs["dataset_conf"]
+    plain_dconf = dict(dconf, fbank_conf=dict(dconf["fbank_conf"],
+                                              dither=0.0))
+    rng = np.random.default_rng(SEED + 17)
+    batch = class_batch(rng, GRU_TRAIN_B, GRU_SECONDS, KWS_KEYWORDS + 1)
+    batch["target"] = batch["target"] - 1  # -1: filler, 0 and 1 keywords
+    waves_b = torch.as_tensor(batch["waves"], device=dev)
+    lengths_b = torch.as_tensor(batch["wave_lengths"], device=dev)
+    target = torch.as_tensor(batch["target"], device=dev).long()
+    cvp = DeviceFeaturePipeline.from_conf(dconf, training=False)
+    with torch.no_grad():
+        feats, feat_lengths = cvp(waves_b, lengths_b)
+    conf = dict(configs["model"], input_dim=40, output_dim=KWS_KEYWORDS,
+                cmvn={"mean": feats.mean(dim=(0, 1)).tolist(),
+                      "istd": (1.0 / (feats.std(dim=(0, 1)) + 1e-6)
+                               ).tolist(), "norm_var": True})
+    model = init_model(conf, torch.Generator().manual_seed(SEED))
+    ref = init_model(conf)
+    ref.load_state_dict(model.state_dict())
+    model, ref = model.to(dev), ref.to(dev, torch.float64)
+    if not isinstance(model.backbone, GRU):
+        raise AssertionError("gru.yaml did not build a GRU backbone")
+    losses0 = {}
+    for route, m, x in (("fp32", model, feats), ("float64", ref,
+                                                 feats.double())):
+        m.train()
+        probs, _ = m(x, lengths=feat_lengths)
+        loss, _ = criterion("max_pooling", probs, target, feat_lengths,
+                            None, 50)
+        m.zero_grad(set_to_none=True)
+        loss.backward()
+        losses0[route] = float(loss.detach())
+    rel = abs(losses0["fp32"] - losses0["float64"]) / abs(losses0["float64"])
+    worst = (0.0, "")
+    refs = dict(ref.named_parameters())
+    for name, prm in model.named_parameters():
+        g64 = refs[name].grad
+        worst = max(worst, (float((prm.grad.double() - g64).abs().max())
+                            / max(float(g64.abs().max()), 1e-12), name))
+    if not (rel <= GRU_LOSS64_RTOL and worst[0] <= GRU_GRAD64_TOL):
+        raise AssertionError(f"GRU step 0 vs float64: loss {rel:.2e} rel, "
+                             f"gradient {worst[1]} {worst[0]:.2e} of its "
+                             f"largest")
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  hi_xiaowen GRU (fbank 40, H=128, 2 layers, max-pooling, "
+          f"{KWS_KEYWORDS} keywords): {n_params} parameters, B={GRU_TRAIN_B} "
+          f"x {GRU_SECONDS} s, features {tuple(feats.shape)}; step 0 vs "
+          f"float64 on the card: loss {losses0['fp32']:.6f} ({rel:.2e} rel, "
+          f"bound {GRU_LOSS64_RTOL}), worst gradient {worst[0]:.2e} of its "
+          f"tensor's largest |grad| ({worst[1]}; bound {GRU_GRAD64_TOL}) "
+          f"[{card}]", flush=True)
+    model.zero_grad(set_to_none=True)
+    trainer = Trainer(model, DeviceFeaturePipeline.from_conf(dconf), cvp,
+                      "max_pooling", grad_clip=5.0, min_duration=50,
+                      device=dev)
+    state = trainer.init_state()
+    losses = []
+    with PlainOnCuda() as plain:
+        for _ in range(GRU_STEPS):
+            state, metrics = trainer.train_step(state, batch, SEED, 1e-3)
+            losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+    plain.check("GRU training")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"GRU losses {losses}")
+
+    def one_step():
+        trainer.train_step(state, batch, SEED, 1e-3)
+
+    step_ms, lo, hi = timed_steps(one_step, reps=5)
+    busy_ms, entries, _ = profiled_step(one_step)
+    idle = max(0.0, 1 - busy_ms / step_ms)
+    audio = GRU_TRAIN_B * GRU_SECONDS
+    print(f"  GRU losses {[round(v, 5) for v in losses]}; train step "
+          f"B={GRU_TRAIN_B} x {GRU_SECONDS} s (dither 1.0; the recurrence "
+          f"a float32 product and gates a frame, no cuDNN): median "
+          f"{step_ms:.3f} ms of 5 ({audio / step_ms * 1e3:.1f} audio-s/s), "
+          f"min {lo:.3f}, max {hi:.3f}; profiled step {busy_ms:.3f} ms of "
+          f"device time in {entries} device entries, the device idle "
+          f"{idle:.1%} [{card}]", flush=True)
+
+    # streamed on the module engine against the offline module forward
+    sconf = {"dataset_conf": dict(dconf), "model": conf}
+    ckpt = os.path.join(work, "gru.pt")
+    config_path = os.path.join(work, "gru.yaml")
+    save_checkpoint(ckpt, state.model.state_dict())
+    with open(config_path, "w") as f:
+        yaml.safe_dump(sconf, f)
+    _, cfg, _, _, _ = load_spotter_config(sconf)
+    host = np.stack([compute_fbank_np(w.astype(np.float32), cfg)
+                     for w in waves])
+    served = load_serving_model(sconf, ckpt, cfg.feat_dim, device=dev)
+    with torch.inference_mode():
+        offline, _ = served(torch.as_tensor(host, device=dev))
+    engine = BatchMaxPoolSpotter(ckpt, config_path, 0.5,
+                                 num_streams=len(waves), step_frames=8,
+                                 use_fused=False, device=dev)
+    streamed = [[] for _ in waves]
+    step_fn = engine._step_fn
+
+    def capture(feats_b, active, reset, cache):
+        probs, new_cache = step_fn(feats_b, active, reset, cache)
+        out = probs.cpu().numpy()
+        for i in np.flatnonzero(active):
+            streamed[i].append(out[i])
+        return probs, new_cache
+
+    engine._step_fn = capture
+    pcm = [w.astype("<i2").tobytes() for w in waves]
+    with PlainOnCuda() as plain:
+        for off in range(0, len(pcm[0]), 2 * CHUNK_SAMPLES):
+            for i in range(len(pcm)):
+                engine.accept_wave(i, pcm[i][off:off + 2 * CHUNK_SAMPLES])
+            engine.step()
+        engine.flush()
+        torch.cuda.synchronize()
+    plain.check("GRU streaming engine")
+    n_frames = host.shape[1]
+    got = torch.as_tensor(np.stack([np.concatenate(s)[:n_frames]
+                                    for s in streamed]))
+    err = check_close(f"GRU: BatchMaxPoolSpotter(use_fused=False), "
+                      f"{len(waves)} streams in 8-frame steps, vs offline "
+                      f"module posteriors", got, offline.cpu())
+    stats = engine.stats
+    print(f"  GRU streamed: {stats['dispatches']} steps of 8 frames x "
+          f"{len(waves)} streams, mean step "
+          f"{stats['dispatch_s'] * 1e3 / stats['dispatches']:.3f} ms (host "
+          f"clock), cache {tuple(engine.cache.shape)}; within {err:.2e} of "
+          f"offline [{card}]", flush=True)
+
+    # the full-conv TCN: the module route on the card, held against the CPU
+    tconf = recipe_yaml(TCN_CONF)
+    tpipe = DeviceFeaturePipeline.from_conf(tconf["dataset_conf"],
+                                            training=False)
+    w16 = {"waves": waves.astype(np.float32),
+           "wave_lengths": np.full((len(waves),), waves.shape[1], np.int32)}
+    with torch.no_grad():
+        tfeats, _ = tpipe(torch.as_tensor(w16["waves"]),
+                          torch.as_tensor(w16["wave_lengths"]))
+    gen = torch.Generator().manual_seed(SEED + 18)
+    tcn, _ = seeded_model(
+        dict(tconf["model"], input_dim=40, output_dim=KWS_KEYWORDS), gen,
+        (tfeats.mean(dim=(0, 1)).numpy(),
+         (1.0 / (tfeats.std(dim=(0, 1)) + 1e-6)).numpy()))
+    cpu_fwd = make_forward_fn(copy.deepcopy(tcn).eval(), tpipe,
+                              torch.device("cpu"))
+    card_fwd = make_forward_fn(tcn.to(dev).eval(), tpipe, dev)
+    with PlainOnCuda() as plain:
+        got, got_l = card_fwd(w16)
+        torch.cuda.synchronize()
+    plain.check("full-conv TCN on the card")
+    want, want_l = cpu_fwd(w16)
+    if card_fwd.route != "module" or not np.array_equal(got_l, want_l):
+        raise AssertionError(f"full-conv TCN: route {card_fwd.route}, want "
+                             f"module")
+    terr = check_close(f"hi_xiaowen full-conv TCN: make_forward_fn on the "
+                       f"card (route {card_fwd.route}) vs the CPU, "
+                       f"posteriors {got.shape}", torch.as_tensor(got),
+                       torch.as_tensor(want))
+    print(f"  hi_xiaowen full-conv TCN (4 layers, K=8, C=64): route "
+          f"{card_fwd.route} on the card, within {terr:.2e} of the CPU "
+          f"[{card}]", flush=True)
+    return {"step_ms": step_ms, "idle": idle}
+
+
+def phase16_classification(dev, card, work, waves):
+    """Path E: 16a the speechcommand_v1 MDTC trained at full width and
+    served with the global head, 16b the synthetic commands recipe
+    through the CLIs, 16c the JAX fixture, 16d the GRU and full-conv TCN.
+    Returns path E's launches per kernel record and the readings at its
+    shapes."""
+    import tempfile
+
+    out = phase16a_speech_commands(dev, card)
+    launches, readings = out["launches"], out["readings"]
+    with tempfile.TemporaryDirectory() as tmp:
+        test_list, recipe_launches = phase16b_commands_recipe(dev, card, tmp)
+        fixture_launches, fixture_reading = phase16c_commands_fixture(
+            dev, card, tmp, test_list)
+    launches["fused_mdtc_forward"] += recipe_launches + fixture_launches
+    readings["fused_mdtc_forward_c32"] = fixture_reading
+    phase16d_other_backbones(dev, card, work, waves)
+    return launches, readings
 
 
 SERVING_KERNELS = {"fused_frontend": 6, "fused_mdtc": 15 + 25 + 3}
@@ -3238,11 +4096,7 @@ def main() -> int:
                         x, *weights, dilations, k, stack_size)
                     plain = lambda: fused_mdtc_forward_plain(  # noqa: E731
                         x, *weights, dilations, k, stack_size)
-                # plain, kernel, kernel, plain: report the second of each
-                cuda_time_ms(plain)
-                cuda_time_ms(kern)
-                ms = cuda_time_ms(kern)
-                plain_ms = cuda_time_ms(plain)
+                ms, plain_ms = kernel_vs_plain_ms(kern, plain)
                 bound, bound_by = mdtc_bound_ms(
                     b, t, CHANNELS, n_layers, k, mdtc.stack_num, pad_max,
                     stream)
@@ -3341,6 +4195,21 @@ def main() -> int:
                   f"{by_shape[key]} launches x ({ms:.4f} - "
                   f"{row['bound_ms']:.5f}) ms = {row['lost_ms']:.3f} ms lost "
                   f"to the bound [{card}]", flush=True)
+
+    with phase("16 path E: classification and the other backbones"):
+        e_launches, e_readings = phase16_classification(dev, card, work,
+                                                        waves)
+        rows = {r["name"]: r for r in record}
+        for name, n in e_launches.items():
+            rows[name]["launches"] += n
+            rows[name]["path_e_launches"] = n
+        for key, reading in e_readings.items():
+            row = rows["fused_mdtc_forward" if key.startswith(
+                "fused_mdtc_forward") else key]
+            row.setdefault("path_e", []).append(reading)
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     reading.get("max_abs_err", 0.0))
+        print(f"  launches on path E: {e_launches} [{card}]", flush=True)
 
     print(card)
     print(json.dumps({"kernels": record}))

@@ -24,6 +24,7 @@ from wekws_tpu.train import load_checkpoint_info as jax_load_checkpoint_info
 from wekws_tpu.train import tensorboard as jax_tensorboard
 from wekws_tpu_torch.bin import (
     average_model,
+    compute_accuracy,
     compute_det,
     compute_det_ctc,
     score,
@@ -208,7 +209,8 @@ def test_unported_flags_raise(flag, item):
 
 @pytest.mark.parametrize("entry", ["train", "average_model", "score",
                                    "compute_det", "score_ctc",
-                                   "compute_det_ctc", "stream_score_ctc"])
+                                   "compute_det_ctc", "stream_score_ctc",
+                                   "compute_accuracy"])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     """Without ``--device`` each runs on the GPU, or raises where there
     is none, before reading its inputs."""
@@ -234,6 +236,8 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
         "stream_score_ctc": (stream_score_ctc, [
             "--config", x, "--checkpoint", x, "--test_data", x,
             "--token_file", x, "--keywords", "123", "--score_file", x]),
+        "compute_accuracy": (compute_accuracy, [
+            "--config", x, "--test_data", x, "--checkpoint", x]),
     }
     mod, args = argv[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -1,6 +1,7 @@
 """Port FSMN (wekws_tpu_torch.models.fsmn) against the flax module on
 the same weights, bridged by wekws_tpu_torch.tools.from_jax: whole
-utterance, chunked streaming and gradients."""
+utterance, chunked streaming and gradients; the Kaldi nnet1 text of
+wekws_tpu_torch.models.fsmn_kaldi against the JAX package's."""
 
 import jax
 import jax.numpy as jnp
@@ -9,7 +10,9 @@ import pytest
 import torch
 
 from wekws_tpu.models import init_model as jax_init_model
+from wekws_tpu.models.fsmn_kaldi import fsmn_to_kaldi as jax_fsmn_to_kaldi
 from wekws_tpu_torch.models.fsmn import FSMN
+from wekws_tpu_torch.models.fsmn_kaldi import fsmn_from_kaldi, fsmn_to_kaldi
 from wekws_tpu_torch.tools.from_jax import grads_from_jax, model_from_jax
 
 IDIM, ODIM = 20, 8
@@ -95,3 +98,35 @@ def test_gradients_match_eager_flax(rng):
     for name, g in want.items():
         err = float((named[name].grad - g).abs().max())
         assert err <= 1e-4 * scale, f"{name}: {err} vs {scale}"
+
+
+@pytest.mark.parametrize("rorder,lstride", [(2, 1), (0, 2)])
+def test_kaldi_text_equals_jax_and_round_trips(rng, rorder, lstride):
+    """For the same weights ``fsmn_to_kaldi`` writes the JAX package's
+    text byte for byte; text -> weights -> text is the identity, and
+    weights -> text -> weights keeps the 7 printed digits (within 6e-7
+    of each value), so the restored model's output stays within 1e-5
+    of the original's."""
+    conf = _conf(rorder, lstride)
+    jmodel, variables, pmodel = _jax_and_port(conf, seed=5)
+    fsmn = pmodel.backbone
+    text = fsmn_to_kaldi(fsmn, fsmn.state_dict())
+    assert text == jax_fsmn_to_kaldi(jmodel.backbone,
+                                     variables["params"]["backbone"])
+    assert text.startswith("<Nnet>") and text.count("<Fsmn>") == 3
+    restored = fsmn_from_kaldi(fsmn, text)
+    assert set(restored) == set(fsmn.state_dict())
+    for name, want in fsmn.state_dict().items():
+        assert restored[name].shape == want.shape
+        np.testing.assert_allclose(restored[name].numpy(), want.numpy(),
+                                   rtol=6e-7, atol=1e-12)
+    assert fsmn_to_kaldi(fsmn, restored) == text
+    back = FSMN(IDIM, 24, 3, 40, 16, 5, rorder, lstride, 1, 24, ODIM)
+    back.load_state_dict(restored)
+    x = torch.from_numpy(rng.standard_normal((2, 20, IDIM)).astype(
+        np.float32))
+    with torch.inference_mode():
+        want, _ = fsmn(x)
+        got, _ = back(x)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
+                               rtol=1e-5)

@@ -140,9 +140,9 @@ def test_fused_forward_and_stream_match_jax(rng):
 
 def test_full_conv_tcn_gives_none_and_gru_raises():
     """As in the JAX package a full-conv TCN has no fused path (None);
-    a DS-TCN without linear preprocessing neither.  The GRU is not
-    ported: ``init_model`` raises, and so would the dispatch."""
-    from wekws_tpu_torch.models import init_model
+    a DS-TCN without linear preprocessing neither.  A GRU model builds
+    (it runs as modules), and the fused builders raise for it."""
+    from wekws_tpu_torch.models import GRU, init_model
 
     conf = _conf(ds=False)
     jmodel, variables, pmodel = _jax_and_port(conf)
@@ -151,11 +151,11 @@ def test_full_conv_tcn_gives_none_and_gru_raises():
     assert build_fused_stream(pmodel, device="cpu") is None
     conf = dict(_conf(), input_dim=32, preprocessing={"type": "none"})
     assert build_fused_forward(init_model(conf), device="cpu") is None
-    with pytest.raises(NotImplementedError, match="gru"):
-        init_model(_conf(backbone={"type": "gru", "num_layers": 1}))
-    pmodel.backbone = torch.nn.GRU(32, 32)
-    with pytest.raises(NotImplementedError, match="GRU"):
-        build_fused_forward(pmodel, device="cpu")
+    gru = init_model(_conf(backbone={"type": "gru", "num_layers": 1}))
+    assert isinstance(gru.backbone, GRU)
+    for build in (build_fused_forward, build_fused_stream):
+        with pytest.raises(NotImplementedError, match="GRU"):
+            build(gru, device="cpu")
 
 
 def test_wrapper_checks_its_inputs(rng):

@@ -1,6 +1,8 @@
 """The port stands alone: it imports neither JAX nor the JAX package,
 and its entry points default to the GPU."""
 
+import ast
+import glob
 import os
 import subprocess
 import sys
@@ -41,6 +43,13 @@ CONF = {
 }
 
 
+JAX_ROOTS = ("jax", "jaxlib", "flax", "optax", "wekws_tpu")
+SCRIPTS = sorted(
+    os.path.relpath(p, REPO) for p in
+    glob.glob(os.path.join(REPO, "examples", "*", "local", "*_torch.py"))
+    + [os.path.join(REPO, "chip_smoke.py")])
+
+
 def test_port_imports_no_jax():
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
@@ -74,3 +83,21 @@ def test_entry_points_default_to_cuda(tmp_path, entry):
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             calls[entry]()
+
+
+@pytest.mark.parametrize("script", SCRIPTS)
+def test_port_scripts_import_no_jax(script):
+    """The port's scripts (the recipes' ``local/*_torch.py`` and
+    ``chip_smoke.py``) name no JAX module and nothing of the JAX package
+    in any import, at module level or inside a function."""
+    with open(os.path.join(REPO, script)) as f:
+        tree = ast.parse(f.read(), script)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    assert names
+    bad = sorted(n for n in names if n.split(".")[0] in JAX_ROOTS)
+    assert not bad, bad

@@ -114,16 +114,25 @@ def test_extract_mdtc_weights_equals_jax(rng):
 
 
 def test_unported_configs_raise(rng):
-    from wekws_tpu_torch.models import init_model
+    """The training knobs of ROADMAP A.15 still raise for MDTC; the GRU
+    backbone, ``cnn1d_s1`` preprocessing (A.7) and the CE heads build
+    (a GRU config's bf16 ``dtype`` trains in float32, as in JAX)."""
+    from wekws_tpu_torch.models import GRU, init_model
+    from wekws_tpu_torch.models.subsampling import Conv1dSubsampling1
 
-    conf = _model_conf(rng)
+    for extra, bextra in (({"dtype": "bfloat16"}, {}),
+                          ({}, {"remat": True}),
+                          ({}, {"bn_dtype": "bfloat16"}),
+                          ({}, {"ghost_bn": 2})):
+        conf = dict(_model_conf(rng), **extra)
+        conf["backbone"] = dict(conf["backbone"], **bextra)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            init_model(conf)
+    conf = dict(_model_conf(rng), dtype="bfloat16")
     conf["backbone"] = {"type": "gru", "num_layers": 1}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_model(conf)
-    # the CE heads (global, last) are ported; cnn1d_s1 is not
+    assert isinstance(init_model(conf).backbone, GRU)
     conf = _model_conf(rng)
     conf["preprocessing"] = {"type": "cnn1d_s1"}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_model(conf)
+    assert isinstance(init_model(conf).preprocessing, Conv1dSubsampling1)
     assert type(init_model(_model_conf(rng, head="global")).classifier
                 ).__name__ == "GlobalClassifier"

@@ -2,13 +2,25 @@
 forward.
 
 Port of wekws_tpu/bin/common.py.  The forward runs the device feature
-pipeline, then on the card the fused serving kernel
-(``build_fused_forward``; a model it does not cover raises, nothing
-falls back to the module route) and on the CPU the module route.  The
-JAX package's ``enable_compilation_cache`` has no counterpart.
+pipeline, then the model by one of two routes, chosen from the model's
+structure alone (``forward_route``):
+
+- ``"fused"``: on the card, a backbone that has a serving kernel (MDTC,
+  DS-TCN, FSMN; ``ops.serving.has_serving_kernel``) runs through
+  ``build_fused_forward``.  A model of such a backbone that the
+  builder does not cover (no linear preprocessing, an unsupported head)
+  raises: nothing falls back to the module route.
+- ``"module"``: the model's modules with eager PyTorch ops, on the CPU
+  for every model and on the card for a backbone that has no kernel in
+  the JAX package either (GRU, full-conv TCN), as the JAX CLI runs every
+  model through ``model.apply``.  No hand kernel is on that route.
+
+The returned forward carries its route as ``forward.route``.  The JAX
+package's ``enable_compilation_cache`` has no counterpart.
 """
 
 import copy
+import logging
 
 import numpy as np
 import torch
@@ -17,7 +29,7 @@ import yaml
 from wekws_tpu_torch.data.device_pipeline import DeviceFeaturePipeline
 from wekws_tpu_torch.models import init_model
 from wekws_tpu_torch.models.kws_model import inference_model_conf
-from wekws_tpu_torch.ops.serving import build_fused_forward
+from wekws_tpu_torch.ops.serving import build_fused_forward, has_serving_kernel
 from wekws_tpu_torch.train.checkpoint import load_model_state
 
 
@@ -52,19 +64,34 @@ def load_test_setup(config_path: str, checkpoint: str, batch_size: int,
     return configs, model.to(device).eval(), pipeline, test_conf
 
 
+def forward_route(model, device: torch.device) -> str:
+    """``"fused"`` on the card for a backbone with a serving kernel,
+    else ``"module"`` (see the module docstring)."""
+    if device.type == "cuda" and has_serving_kernel(model):
+        return "fused"
+    return "module"
+
+
 def make_forward_fn(model, pipeline: DeviceFeaturePipeline,
                     device: torch.device, softmax: bool = False):
-    """batch dict -> (posteriors numpy (B, T, K), feat lengths numpy)."""
-    if device.type == "cuda":
-        fused = build_fused_forward(model, softmax=softmax, device=device)
-        if fused is None:
+    """batch dict -> (posteriors numpy (B, T, K), or logits (B, K) for a
+    pooled head; feat lengths numpy).  ``forward.route`` is
+    ``forward_route(model, device)``."""
+    route = forward_route(model, device)
+    logging.info("scoring route: %s (%s backbone, %s, %s)", route,
+                 type(model.backbone).__name__,
+                 type(model.classifier).__name__, device)
+    if route == "fused":
+        apply = build_fused_forward(model, softmax=softmax, device=device)
+        if apply is None:
             raise NotImplementedError(
                 f"no fused serving kernel covers this model "
                 f"({type(model.backbone).__name__} backbone, "
+                f"{type(model.preprocessing).__name__}, "
                 f"{type(model.classifier).__name__}); score it with "
                 f"--device cpu")
     else:
-        def fused(feats, lengths):
+        def apply(feats, lengths):
             return model(feats, lengths=lengths, softmax=softmax)[0]
 
     @torch.inference_mode()
@@ -74,7 +101,8 @@ def make_forward_fn(model, pipeline: DeviceFeaturePipeline,
         lengths = torch.as_tensor(np.asarray(batch["wave_lengths"])).to(
             device, torch.int64)
         feats, feat_lengths = pipeline(waves, lengths)
-        out = fused(feats, feat_lengths)
+        out = apply(feats, feat_lengths)
         return out.cpu().numpy(), feat_lengths.cpu().numpy()
 
+    forward.route = route
     return forward

@@ -1,5 +1,7 @@
-"""Scoring and DET: the max-pooling wake-word path and the CTC path."""
+"""Scoring and DET (the max-pooling wake-word path and the CTC path)
+and utterance accuracy (the speech-commands path)."""
 
+from wekws_tpu_torch.eval.accuracy import accuracy_over_dataset
 from wekws_tpu_torch.eval.det import (
     compute_det,
     frr_at_fa_per_hour,
@@ -21,6 +23,7 @@ from wekws_tpu_torch.eval.score_ctc import (
 )
 
 __all__ = [
+    "accuracy_over_dataset",
     "build_keywords_token",
     "compare_ctc_score_files",
     "compute_det",

@@ -5,7 +5,9 @@ wekws: ``classifier.linear`` for the wake-word Linear head,
 ``classifier.classifier.{0,3}`` for the MLP (Linear -> ReLU -> Dropout
 -> Linear) that the element, global and last heads apply per frame, to
 the length-masked mean over time, or to the last valid frame.  Every
-head takes the frame ``lengths`` (the per-frame ones ignore them).
+head takes the frame ``lengths`` (the per-frame ones ignore them).  A
+pooled head's ``pool`` (``global_pool``, ``last_frame``) is what the
+fused serving runner applies after the backbone kernel.
 """
 
 from typing import Optional
@@ -47,6 +49,29 @@ class ElementClassifier(nn.Module):
         return self.classifier(x)
 
 
+def global_pool(x: torch.Tensor,
+                lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, T, H) -> (B, H): the mean over each row's first ``lengths``
+    frames (a length of 0 divides by 1); without ``lengths`` over all."""
+    if lengths is None:
+        return x.mean(dim=1)
+    t = x.shape[1]
+    mask = (torch.arange(t, device=x.device)[None, :]
+            < lengths[:, None]).to(x.dtype)
+    return (x * mask[:, :, None]).sum(dim=1) / torch.clamp(
+        mask.sum(dim=1, keepdim=True), min=1.0)
+
+
+def last_frame(x: torch.Tensor,
+               lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, T, H) -> (B, H): each row's last valid frame (a length of 0
+    reads frame 0); without ``lengths`` the last frame."""
+    if lengths is None:
+        return x[:, -1, :]
+    idx = torch.clamp(lengths.to(torch.int64) - 1, 0, x.shape[1] - 1)
+    return x[torch.arange(x.shape[0], device=x.device), idx]
+
+
 class GlobalClassifier(nn.Module):
     """Mean over time, then the MLP: (B, T, H) -> (B, K).  With
     ``lengths`` the padded frames are left out of the mean (a length of
@@ -56,17 +81,11 @@ class GlobalClassifier(nn.Module):
         super().__init__()
         self.classifier = MLPHead(hdim, output_dim, dropout)
 
+    pool = staticmethod(global_pool)
+
     def forward(self, x: torch.Tensor,
                 lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if lengths is None:
-            pooled = x.mean(dim=1)
-        else:
-            t = x.shape[1]
-            mask = (torch.arange(t, device=x.device)[None, :]
-                    < lengths[:, None]).to(x.dtype)
-            pooled = (x * mask[:, :, None]).sum(dim=1) / torch.clamp(
-                mask.sum(dim=1, keepdim=True), min=1.0)
-        return self.classifier(pooled)
+        return self.classifier(self.pool(x, lengths))
 
 
 class LastClassifier(nn.Module):
@@ -77,14 +96,11 @@ class LastClassifier(nn.Module):
         super().__init__()
         self.classifier = MLPHead(hdim, output_dim, dropout)
 
+    pool = staticmethod(last_frame)
+
     def forward(self, x: torch.Tensor,
                 lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if lengths is None:
-            last = x[:, -1, :]
-        else:
-            idx = torch.clamp(lengths.to(torch.int64) - 1, 0, x.shape[1] - 1)
-            last = x[torch.arange(x.shape[0], device=x.device), idx]
-        return self.classifier(last)
+        return self.classifier(self.pool(x, lengths))
 
 
 class IdentityClassifier(nn.Module):

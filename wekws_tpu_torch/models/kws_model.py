@@ -5,17 +5,18 @@ preprocessing -> backbone (+cache) -> classifier -> activation
 (sigmoid for wake word, identity otherwise), with a softmax variant.
 Features past ``lengths`` are zero-masked before and after CMVN.
 
-The port builds the MDTC, TCN / DS-TCN and FSMN backbones with
-``linear`` or ``none`` preprocessing and the linear, element, global,
-last and identity heads, in float32, with MDTC's ``backbone.fused_train``
-routing whole-utterance training forwards through the fused exact-BN
-kernels; the GRU backbone, ``cnn1d_s1`` preprocessing and the training
-knobs ``dtype: bfloat16``, ``bn_dtype``, ``remat`` and
-``ghost_bn > 1`` raise ``NotImplementedError`` naming the ROADMAP item
-that ports them.  The inference loaders build a config's model through
-``inference_model_conf``, which drops ``dtype``: in the JAX package it
-is the backbone's compute dtype only (parameters and checkpoints are
-float32), and its fused serving has no dtype at all.
+The port builds the MDTC, TCN / DS-TCN, FSMN and GRU backbones with
+``linear``, ``cnn1d_s1`` or ``none`` preprocessing and the linear,
+element, global, last and identity heads, in float32, with MDTC's
+``backbone.fused_train`` routing whole-utterance training forwards
+through the fused exact-BN kernels.  A GRU config that names another
+``dtype`` trains in float32 with the JAX package's warning; for the
+other backbones the training knobs ``dtype: bfloat16``, ``bn_dtype``,
+``remat`` and ``ghost_bn > 1`` raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.  The inference loaders build a config's
+model through ``inference_model_conf``, which drops ``dtype``: in the
+JAX package it is the backbone's compute dtype only (parameters and
+checkpoints are float32), and its fused serving has no dtype at all.
 """
 
 import logging
@@ -36,6 +37,7 @@ from wekws_tpu_torch.models.classifier import (
 )
 from wekws_tpu_torch.models.cmvn import GlobalCMVN
 from wekws_tpu_torch.models.fsmn import FSMN
+from wekws_tpu_torch.models.gru import GRU
 from wekws_tpu_torch.models.layers import (
     Conv1d,
     DepthwiseConv1d,
@@ -43,7 +45,11 @@ from wekws_tpu_torch.models.layers import (
     PointwiseConv1d,
 )
 from wekws_tpu_torch.models.mdtc import MDTC
-from wekws_tpu_torch.models.subsampling import LinearSubsampling1, NoSubsampling
+from wekws_tpu_torch.models.subsampling import (
+    Conv1dSubsampling1,
+    LinearSubsampling1,
+    NoSubsampling,
+)
 from wekws_tpu_torch.models.tcn import TCN
 
 
@@ -132,9 +138,18 @@ def truncated_lecun_normal(shape, fan_in: int,
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded initialisation as flax draws it: weights from the
     truncated lecun normal (``truncated_lecun_normal``), biases zero,
-    BatchNorm at identity."""
+    BatchNorm at identity.  A GRU layer's input and hidden products
+    draw with fan_in D and H (flax's ``ih`` Dense and ``hh_kernel``)."""
     with torch.no_grad():
         for mod in model.modules():
+            if isinstance(mod, GRU):
+                for name, prm in mod.named_parameters():
+                    if name.startswith("weight"):
+                        prm.copy_(truncated_lecun_normal(
+                            prm.shape, prm.shape[1], generator))
+                    else:
+                        prm.zero_()
+                continue
             if isinstance(mod, (nn.Linear, PointwiseConv1d)):
                 fan_in = mod.weight.shape[1]
             elif isinstance(mod, DepthwiseConv1d):
@@ -183,7 +198,7 @@ def init_model(configs: dict,
     elif prep_type == "none":
         preprocessing = NoSubsampling()
     elif prep_type == "cnn1d_s1":
-        raise _not_ported("preprocessing 'cnn1d_s1'", "item 7, other backbones")
+        preprocessing = Conv1dSubsampling1(input_dim, hidden_dim)
     else:
         raise ValueError(f"Unknown preprocessing type {prep_type}")
 
@@ -191,7 +206,13 @@ def init_model(configs: dict,
     btype = bconf["type"]
     dtype = configs.get("dtype")
     if dtype and dtype != "float32":
-        raise _not_ported(f"model dtype {dtype!r}", "item 15, training knobs")
+        if btype != "gru":
+            raise _not_ported(f"model dtype {dtype!r}",
+                              "item 15, training knobs")
+        logging.warning(
+            "model.dtype=%s is not supported for the gru backbone "
+            "(sequential cell, f32 recurrence kept); training in "
+            "float32", dtype)
     for knob in ("bn_dtype", "remat"):
         if bconf.get(knob):
             raise _not_ported(f"backbone.{knob}", "item 15, training knobs")
@@ -231,7 +252,8 @@ def init_model(configs: dict,
             output_dim=output_dim,
         )
     elif btype == "gru":
-        raise _not_ported("backbone 'gru'", "item 7, other backbones")
+        backbone = GRU(input_dim if prep_type == "none" else hidden_dim,
+                       hidden_dim, bconf["num_layers"])
     else:
         raise ValueError(f"Unknown backbone type {btype}")
 

@@ -5,11 +5,18 @@ preprocessing -> backbone -> classifier -> activation) is rebuilt
 around a whole-backbone kernel: ``fused_mdtc_forward`` /
 ``fused_mdtc_stream`` (ops/fused_mdtc.py), ``fused_fsmn_layers``
 (ops/fused_fsmn.py) or ``fused_ds_tcn`` (ops/fused_tcn.py).  Supported
-heads: linear (wake word), identity (CTC), element MLP.  As in the JAX
-package ``build_fused_*`` return None for another head, for an MDTC or
-DS-TCN without linear preprocessing, and for a full-conv TCN (its
-(K, C, C) kernels are K matmuls per layer and stay on the module path).
-Any other backbone (GRU) raises, where the JAX package returns None.
+heads: linear (wake word), identity (CTC), element MLP, and for a
+whole-utterance forward the pooled CE heads: ``global`` (the mean over
+each row's valid frames) and ``last`` (its last valid frame), then the
+MLP.  The pooled heads are a departure from the JAX package, whose
+builders give None for them; the pooling takes ``lengths`` because the
+kernel's outputs at padded frames are not zero.  ``build_fused_stream``
+gives None for a pooled head (it has no streaming form), and as in the
+JAX package the builders give None for an MDTC or DS-TCN without linear
+preprocessing and for a full-conv TCN (its (K, C, C) kernels are K
+matmuls per layer and stay on the module path).  Any other backbone
+(GRU) raises, where the JAX package returns None;
+``has_serving_kernel`` says which backbones have a kernel.
 
 Each ``_build_fused_*`` only supplies a ``backbone_fn(x, cache)`` and a
 cache constructor; the surrounding pipeline (padding mask, cmvn, linear
@@ -27,7 +34,9 @@ import torch
 from wekws_tpu_torch.device import resolve_device
 from wekws_tpu_torch.models.classifier import (
     ElementClassifier,
+    GlobalClassifier,
     IdentityClassifier,
+    LastClassifier,
     LinearClassifier,
 )
 from wekws_tpu_torch.models.fsmn import FSMN
@@ -59,18 +68,22 @@ def _f32(t, device):
 
 
 def _head_weights(clf, device):
-    """Classifier -> [(W (in, out), b, act)] or None when unsupported."""
+    """Classifier -> (pool, [(W (in, out), b, act)]) or None when
+    unsupported; ``pool`` is None for a per-frame head, else the
+    head's ``pool(x (B, T, H), lengths) -> (B, H)``."""
     if isinstance(clf, LinearClassifier):
-        return [(_f32(clf.linear.weight.t(), device),
-                 _f32(clf.linear.bias, device), "none")]
-    if isinstance(clf, ElementClassifier):
+        return None, [(_f32(clf.linear.weight.t(), device),
+                       _f32(clf.linear.bias, device), "none")]
+    if isinstance(clf, (ElementClassifier, GlobalClassifier,
+                        LastClassifier)):
+        # fc1 -> ReLU -> (dropout, inactive in eval) -> fc2
         fc1, fc2 = clf.classifier[0], clf.classifier[3]
-        return [
+        return getattr(clf, "pool", None), [
             (_f32(fc1.weight.t(), device), _f32(fc1.bias, device), "relu"),
             (_f32(fc2.weight.t(), device), _f32(fc2.bias, device), "none"),
         ]
     if isinstance(clf, IdentityClassifier):
-        return []
+        return None, []
     return None
 
 
@@ -102,9 +115,13 @@ def _make_runner(model, device, backbone_fn, init_cache, softmax,
     whole-utterance MDTC passes its cache (None) through untouched; the
     others start from ``init_cache``.  Returns ``forward(feats,
     lengths)`` or, when streaming, ``(step(feats, cache), init_cache)``;
-    None when the head or the preprocessing is unsupported."""
-    clf_head = _head_weights(model.classifier, device)
-    if clf_head is None:
+    None when the head or the preprocessing is unsupported, and for a
+    pooled head when streaming."""
+    head = _head_weights(model.classifier, device)
+    if head is None:
+        return None
+    pool, clf_head = head
+    if pool is not None and streaming:
         return None
     (prep_w, prep_b), prep_ok = _prep_weights(model, device)
     if not prep_ok or (require_linear_prep and prep_w is None):
@@ -126,6 +143,8 @@ def _make_runner(model, device, backbone_fn, init_cache, softmax,
         if prep_w is not None:
             x = torch.relu(x @ prep_w + prep_b)
         x, cache = backbone_fn(x.contiguous(), cache)
+        if pool is not None:
+            x = pool(x, lengths)
         for wgt, bias, act in clf_head:
             x = x @ wgt + bias
             if act == "relu":
@@ -240,6 +259,17 @@ _BUILDERS = (
 )
 
 
+def has_serving_kernel(model: KWSModel) -> bool:
+    """Whether the model's backbone has a serving kernel (one in the
+    JAX package too): MDTC, DS-TCN and FSMN.  A GRU or full-conv TCN
+    has none and runs as modules; the builders may still refuse a
+    backbone that has one, for its preprocessing or head."""
+    backbone = model.backbone
+    if isinstance(backbone, TCN) and not backbone.ds:
+        return False  # full-conv blocks (``_build_fused_tcn``)
+    return any(isinstance(backbone, cls) for cls, _ in _BUILDERS)
+
+
 def _dispatch(model, softmax, streaming, device):
     device = resolve_device(device)
     for cls, build in _BUILDERS:
@@ -252,8 +282,9 @@ def _dispatch(model, softmax, streaming, device):
 def build_fused_forward(
     model: KWSModel, softmax: bool = False, device="cuda"
 ) -> Optional[Callable]:
-    """-> f(feats (B,T,D), lengths (B,)) -> posteriors (B,T,K) on
-    ``device``, or None when the model shape isn't supported."""
+    """-> f(feats (B,T,D), lengths (B,)) -> posteriors (B,T,K), or
+    logits (B,K) for a pooled head, on ``device``; None when the model
+    shape isn't supported."""
     return _dispatch(model, softmax, streaming=False, device=device)
 
 

@@ -23,8 +23,10 @@ Correctness under batching (unchanged from the JAX engine):
 ``use_fused=True`` steps the whole-backbone kernel
 (ops/serving.py ``build_fused_stream``) with the packed
 ``(L, B, pad_max, C)`` cache, whose rows are axis 1; otherwise the
-module runs with its tuple of ``(B, (K-1)*d, C)`` caches, rows on
-axis 0.  It serves MDTC and DS-TCN wake-word models.  The device
+module runs with its own cache, rows on axis 0: a tuple of
+``(B, (K-1)*d, C)`` caches for MDTC and TCN, the ``(B, layers, H)``
+hidden state for a GRU (which has no fused stream; ``use_fused=True``
+raises for it).  The device
 frontend, device decode and the batched CTC engine are not ported yet;
 the single-stream CTC engine is runtime/keyword_spotter.py.
 """

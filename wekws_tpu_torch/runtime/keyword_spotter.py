@@ -15,7 +15,8 @@ refractory gating, beam reset on activation or stale keyword.
 * ``use_fused=True`` steps the whole-backbone kernel
   (ops/serving.py ``build_fused_stream``) with its packed cache, and
   raises where the model is not supported (the JAX engine quietly keeps
-  the module path there);
+  the module path there); without it the model's modules step with the
+  model's own cache (a GRU's hidden state too);
 * the checkpoint is a port ``.pt`` (``torch.save`` of the model's
   state_dict, with the reference wekws parameter names) or a
   JAX-package ``.ckpt`` (read by train/checkpoint.load_model_state); the

@@ -4,15 +4,18 @@ Takes the JAX package's ``(params, batch_stats)`` (nested dicts of
 arrays, as its checkpoints hold them), the ``model`` config and the
 CMVN statistics, and returns a state_dict with the reference wekws
 names the port's modules use.  This is the port's own copy of the
-MDTC, TCN / DS-TCN, FSMN, linear-preprocessing, head and CMVN parts of
-the mapping in wekws_tpu/tools/export_torch.py; the GRU comes with its
-module.
+mapping in wekws_tpu/tools/export_torch.py: MDTC, TCN / DS-TCN, FSMN
+and GRU backbones, linear and ``cnn1d_s1`` preprocessing, heads and
+CMVN.
 
 Layouts (both frameworks use cross-correlation, so only axis
 permutations): Dense kernel (in, out) -> Linear (out, in); Conv
 kernel (k, in, out) -> Conv1d (out, in, k); depthwise (K, 1, C) ->
 (C, 1, K); FSMN memory taps (order, 1, C) -> Conv2d (C, 1, order, 1);
-BN scale/bias and mean/var -> weight/bias and
+GRU ``ih`` kernel (D, 3H) and ``hh_kernel`` (H, 3H) -> ``weight_ih``
+(3H, D) and ``weight_hh`` (3H, H), ``ih`` bias and ``hh_bias`` ->
+``bias_ih`` and ``bias_hh`` (gate order r, z, n in both); BN
+scale/bias and mean/var -> weight/bias and
 running_mean/running_var.
 """
 
@@ -112,8 +115,14 @@ def state_dict_from_jax(
     prep = model_conf.get("preprocessing", {}).get("type", "none")
     if prep == "linear":
         _linear(params["preprocessing"]["proj"], "preprocessing.out.0", out)
+    elif prep == "cnn1d_s1":
+        pp = params["preprocessing"]
+        ps = None if batch_stats is None else batch_stats["preprocessing"]
+        _conv1d(pp["conv"], "preprocessing.out.0", out)
+        _bn(pp["bn"], None if ps is None else ps["bn"],
+            "preprocessing.out.1", out)
     elif prep != "none":
-        raise NotImplementedError(f"preprocessing {prep!r} is not bridged")
+        raise ValueError(f"Unknown preprocessing type {prep}")
 
     bconf = model_conf["backbone"]
     btype = bconf["type"]
@@ -136,11 +145,17 @@ def state_dict_from_jax(
                        out)
     elif btype == "fsmn":
         _fsmn(bp, bconf["num_layers"], out)
+    elif btype == "gru":
+        for k in range(bconf["num_layers"]):
+            layer = bp[f"layer_{k}"]
+            out[f"backbone.weight_ih_l{k}"] = _t(
+                np.asarray(layer["ih"]["kernel"]).T)
+            out[f"backbone.bias_ih_l{k}"] = _t(layer["ih"]["bias"])
+            out[f"backbone.weight_hh_l{k}"] = _t(
+                np.asarray(layer["hh_kernel"]).T)
+            out[f"backbone.bias_hh_l{k}"] = _t(layer["hh_bias"])
     else:
-        raise NotImplementedError(
-            f"backbone {btype!r} is not ported yet (ROADMAP queue A, "
-            "item 7, other backbones)"
-        )
+        raise ValueError(f"Unknown backbone type {btype}")
 
     cls = params.get("classifier", {})
     if "linear" in cls:
