@@ -97,7 +97,8 @@ phases; any failure exits non-zero:
 10. path A, as phase 4 for the DS-TCN recipe: offline fused forward ->
     score file -> DET and ``BatchMaxPoolSpotter(use_fused=True)``,
     through ``fused_ds_tcn``; then the hi_xiaowen DS-TCN (C=256, two
-    keywords, its 80 input dimensions as 80 log-mel bins);
+    keywords, its recipe's MFCC 80 of 80, which the port's streaming
+    frontend computes: ROADMAP C.10);
 11. path B: ``KeyWordSpotter`` with and without ``use_fused`` fed the
     same 2 s waves in 300 ms chunks (softmax posteriors and result
     dicts agree; one ``fused_fsmn_layers`` launch per chunk that carried
@@ -169,7 +170,43 @@ phases; any failure exits non-zero:
     module route on the card against the CPU.  Path E's launches are
     added to the records of ``fused_mdtc_forward``, ``fused_fbank`` and
     the eight passes, and kept apart (``path_e_launches``, ``path_e``:
-    shape, device time, bound).
+    shape, device time, bound);
+17. path F, the serving daemon: (a) the device stream featurizer
+    (``runtime/device_frontend.py``) through ``fused_fbank`` at 64
+    streams x 8 frames for the flagship (fbank 40, windows (64, 1520)),
+    the hi_xiaowen FSMN-CTC (fbank 80, context 2/2, skip 3, (64, 4400))
+    and the hi_xiaowen DS-TCN (MFCC 80 of 80), every step against the
+    same featurizer on the CPU (phase 9's limit) and the host
+    ``StreamingFrontend``; (b) the engines at 64 streams x 8 frames:
+    the flagship through ``BatchMaxPoolSpotter(use_fused=True)`` with
+    the host and the device frontend against the module route
+    (posteriors, events), the hi_xiaowen FSMN-CTC through
+    ``BatchKeywordSpotter(use_fused=True)``, host and device decode,
+    with and without the device frontend, with a keyword planted in
+    every fourth stream's posteriors: posteriors against the module
+    route, each device-decode step against the same search on the CPU,
+    host and device decode the same detections; mean and p99 step,
+    dispatch share, real-time factor, launches per step; (c) the JAX
+    CTC fixture (host decode; device decode with the device frontend)
+    and the JAX DS-TCN fixture served by ``bin.serve`` in a subprocess
+    to 16 client threads (192 utterances each, 300 ms chunks): events
+    equal to the in-process engine's and, for CTC, ``KeyWordSpotter``'s,
+    and bin.serve's own launch counts (logged when SIGTERM stops it) one
+    a dispatch for each kernel of its route; an in-process
+    ``KwsServer`` on the CTC fixture (device decode, device frontend)
+    and on the flagship at 64 clients, every step on the engine thread's
+    default stream, and the flagship's ``bin.serve`` to the same 64
+    clients; (d) ``bin.batch_stream_kws`` (host and device decode) and
+    ``bin.stream_kws_ctc`` on the CTC fixture; (e) each path-F kernel
+    at every shape 17a-17d gave it, on that shape's first inputs as the
+    engines passed them (``ShapeTap``): against its plain version on
+    the same card tensors, then per call, device time, plain and bound.
+    Path F's launches are added to the records of
+    ``fused_mdtc_stream``, ``fused_fbank``, ``fused_ds_tcn`` and
+    ``fused_fsmn_layers`` and kept apart by sub-path
+    (``path_f_launches``, bin.serve's own counts among them;
+    ``path_f``: shape, calls, error, times, bound); the serving figures
+    are one JSON line (``path_f_figures``).
 
 The last lines are the card, the per-kernel JSON record (13 kernels)
 and ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -250,12 +287,12 @@ DS_TCN_WIDE_MODEL_CONF = {  # examples/hi_xiaowen/conf/ds_tcn.yaml
     "backbone": {"type": "tcn", "ds": True, "num_layers": 4,
                  "kernel_size": 8, "dropout": 0.1},
 }
-# its 80 input dimensions as 80 log-mel bins: the recipe's features are
-# 80 MFCC cepstra, and the streaming engine computes fbank only
+# its recipe's features: MFCC, 80 cepstra of 80 mel bins (the port's
+# streaming frontend computes MFCC for such a config: ROADMAP C.10)
 DS_TCN_WIDE_DATASET_CONF = {
-    "feats_type": "fbank",
-    "fbank_conf": {"num_mel_bins": 80, "frame_shift": 10,
-                   "frame_length": 25, "dither": 0.0},
+    "feats_type": "mfcc",
+    "mfcc_conf": {"num_ceps": 80, "num_mel_bins": 80, "frame_shift": 10,
+                  "frame_length": 25, "dither": 0.0},
 }
 DS_TCN_WIDE_KEYWORDS = (KEYWORD, "NIHAO")
 # phase 9's DS-TCN widths (the recipes' 64, 48 and 256, then 32 and 128)
@@ -381,11 +418,13 @@ def profiled_device_ms(fn, kernel_name, reps=20):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(2):  # a trace now and then comes back without it
+    for _ in range(3):  # a trace now and then comes back without it
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)  # as in profiled_step
+            torch.cuda.synchronize()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -505,8 +544,8 @@ def serving_slice(tag, base_conf, gen, dev, work, waves, offline_kernel,
                   keywords=(KEYWORD,)):
     """A max-pooling wake-word model of ``base_conf`` (one output per
     name of ``keywords``, the first the one the DET scores) served end
-    to end: 16 synthetic 2 s utterances -> fbank (``dataset_conf``,
-    else ``DATASET_CONF``) -> checkpoint saved and loaded
+    to end: 16 synthetic 2 s utterances -> fbank or MFCC as
+    ``dataset_conf`` says (else ``DATASET_CONF``) -> checkpoint saved and loaded
     through ``load_serving_model`` -> (a) offline ``build_fused_forward``
     -> score file -> DET, held against the module forward; (b)
     ``BatchMaxPoolSpotter(use_fused=True)`` fed 300 ms chunks, stepped
@@ -523,7 +562,7 @@ def serving_slice(tag, base_conf, gen, dev, work, waves, offline_kernel,
         load_label_and_score,
         write_score_file,
     )
-    from wekws_tpu_torch.frontend import compute_fbank_np
+    from wekws_tpu_torch.frontend import compute_fbank_np, compute_mfcc_np
     from wekws_tpu_torch.ops.serving import build_fused_forward
     from wekws_tpu_torch.runtime import BatchMaxPoolSpotter
     from wekws_tpu_torch.runtime.keyword_spotter import (
@@ -533,8 +572,9 @@ def serving_slice(tag, base_conf, gen, dev, work, waves, offline_kernel,
 
     configs = {"dataset_conf": dataset_conf or DATASET_CONF}
     _, cfg, _, _, _ = load_spotter_config(configs)
-    feats = np.stack([compute_fbank_np(w.astype(np.float32), cfg)
-                      for w in waves])
+    features = (compute_mfcc_np if cfg.feature_type == "mfcc"
+                else compute_fbank_np)
+    feats = np.stack([features(w.astype(np.float32), cfg) for w in waves])
     n_frames = feats.shape[1]
     mean = feats.mean(axis=(0, 1))
     istd = 1.0 / (feats.std(axis=(0, 1)) + 1e-6)
@@ -1963,13 +2003,15 @@ RECIPE_TIMEOUT_S = 480
 # noise moved posteriors by about 4e-3 (commit 3bf1a59)
 FIXTURE_TOL = 1e-2
 FIXTURE_STREAM_SHAPE = (16, 8)
+DS_TCN_FIXTURE = os.path.join(RECIPE, "exp", "ds_tcn")
 # the plain versions of the kernels that the recipe runs: a call on a
 # CUDA tensor would mean that a kernel was passed over
 PLAIN_VERSIONS = (
     ("wekws_tpu_torch.ops.fused_mdtc_train",
      tuple(f"_{p}_plain" for p in TRAIN_PASSES)),
     ("wekws_tpu_torch.ops.fused_frontend", ("fused_fbank_plain",)),
-    ("wekws_tpu_torch.ops.fused_mdtc", ("fused_mdtc_forward_plain",)),
+    ("wekws_tpu_torch.ops.fused_mdtc", ("fused_mdtc_forward_plain",
+                                        "fused_mdtc_stream_plain")),
     ("wekws_tpu_torch.ops.fused_tcn", ("fused_ds_tcn_plain",)),
     ("wekws_tpu_torch.ops.fused_fsmn", ("fused_fsmn_layers_plain",)),
 )
@@ -2109,6 +2151,20 @@ def module_vs_fused(config, checkpoint, test_list, dev, tag, softmax=False,
         err = max(err, check_close(f"{tag}: fused serving vs module route, "
                                    f"B x T = {shapes[-1]}", got, want))
     return err, shapes, model
+
+
+def fixture_config(fixture, recipe, tmp, name):
+    """A fixture's config.yaml with its CMVN file found in this checkout."""
+    import yaml
+
+    with open(os.path.join(fixture, "config.yaml")) as f:
+        conf = yaml.safe_load(f)
+    conf["model"]["cmvn"]["cmvn_file"] = os.path.abspath(
+        os.path.join(recipe, "data", "global_cmvn"))
+    path = os.path.join(tmp, name)
+    with open(path, "w") as f:
+        yaml.safe_dump(conf, f)
+    return path, conf
 
 
 def read_scores(path):
@@ -2295,14 +2351,8 @@ def phase14_recipe(dev, card):
               flush=True)
 
         # the JAX fixture (DS-TCN, C=48), its cmvn path pointed here
-        fixture = os.path.join(RECIPE, "exp", "ds_tcn")
-        with open(os.path.join(fixture, "config.yaml")) as f:
-            fconf = yaml.safe_load(f)
-        fconf["model"]["cmvn"]["cmvn_file"] = os.path.abspath(
-            os.path.join(RECIPE, "data", "global_cmvn"))
-        fconfig = os.path.join(tmp, "ds_tcn.yaml")
-        with open(fconfig, "w") as f:
-            yaml.safe_dump(fconf, f)
+        fixture = DS_TCN_FIXTURE
+        fconfig, _ = fixture_config(fixture, RECIPE, tmp, "ds_tcn.yaml")
         ckpt = os.path.join(fixture, "avg_5.ckpt")
         fscore = os.path.join(tmp, "ds_tcn_score.txt")
         fused_tcn.fused_ds_tcn.launches = 0
@@ -2441,27 +2491,36 @@ def ctc_train_batch(rng):
 def profiled_step(fn, names=()):
     """(device time of every CUDA entry in ms, CUDA launches, {fragment:
     mean device ms per call of the first entry whose name holds it, or
-    None}) of one call of ``fn`` under torch.profiler."""
+    None}) of one call of ``fn`` under torch.profiler.  A trace now and
+    then comes back without its first kernel: so the trace opens with a
+    short ``spin_kernel`` (``torch.cuda._sleep``), left out of the
+    readings, before the call; and a call whose trace still lacks a
+    named kernel is profiled again, up to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    busy = count = 0
-    found = dict.fromkeys(names)
-    for evt in prof.key_averages():
-        total = getattr(evt, "device_time_total",
-                        getattr(evt, "cuda_time_total", 0.0))
-        if not (evt.count and total):
-            continue
-        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
-            busy += total
-            count += evt.count
-        for name in names:
-            if found[name] is None and name in evt.key:
-                found[name] = total / evt.count / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        busy = count = 0
+        found = dict.fromkeys(names)
+        for evt in prof.key_averages():
+            total = getattr(evt, "device_time_total",
+                            getattr(evt, "cuda_time_total", 0.0))
+            if not (evt.count and total) or "spin_kernel" in evt.key:
+                continue
+            if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+                busy += total
+                count += evt.count
+            for name in names:
+                if found[name] is None and name in evt.key:
+                    found[name] = total / evt.count / 1e3
+        if all(v is not None for v in found.values()):
+            break
     return busy / 1e3, count, found
 
 
@@ -2951,17 +3010,10 @@ def phase15c_ctc_fixture(dev, card, tmp, test_list):
     on the card; read against the committed TPU files."""
     import logging
 
-    import yaml
-
     from wekws_tpu_torch.eval import compare_ctc_score_files
 
-    with open(os.path.join(CTC_FIXTURE, "config.yaml")) as f:
-        fconf = yaml.safe_load(f)
-    fconf["model"]["cmvn"]["cmvn_file"] = os.path.abspath(
-        os.path.join(CTC_RECIPE, "data", "global_cmvn"))
-    config = os.path.join(tmp, "fsmn_ctc_fixture.yaml")
-    with open(config, "w") as f:
-        yaml.safe_dump(fconf, f)
+    config, fconf = fixture_config(CTC_FIXTURE, CTC_RECIPE, tmp,
+                                   "fsmn_ctc_fixture.yaml")
     out_dir = os.path.join(tmp, "fixture")
     os.makedirs(out_dir)
     dropped = []
@@ -3848,6 +3900,1178 @@ def phase16_classification(dev, card, work, waves):
     return launches, readings
 
 
+# ---------------------------------------------------------------------------
+# phase 17, path F: the serving daemon
+# ---------------------------------------------------------------------------
+
+SERVE_STREAMS, SERVE_STEP = 64, 8  # path F's engines: 64 streams x 8 frames
+# the featurizer on the card against the host frontend's float64 numpy:
+# the three-matmul extractor itself is 4.7e-3 off float64 at M=80 (PERF.md
+# section 6); against its plain chain it is held at phase 9's limit
+FEATURIZER_HOST_TOL = 1e-2
+# the FSMN-CTC rows whose posteriors carry a planted keyword (random
+# weights never fire the detector): a row's steps 3, 4 and 5 each carry
+# one keyword token at frame 2, every other frame of the row is blank
+INJECT_ROWS = tuple(range(0, SERVE_STREAMS, 4))
+INJECT_STEPS = dict(zip((3, 4, 5), CTC_KEYWORD_TOKENS))
+DAEMON_CLIENTS = 16
+DAEMON_TIMEOUT_S = 240
+SERVE_THRESHOLD_CTC = 0.1  # bin.stream_score_ctc's in phase 15
+
+
+def serve_waves():
+    """Path F's 64 streams: four sets of phase 4's synthetic 2 s waves."""
+    return np.concatenate([synth_waves(np.random.default_rng(SEED + 17 + i))
+                           for i in range(SERVE_STREAMS // N_UTTS)])
+
+
+def pcm_of(path):
+    from wekws_tpu_torch.data.audio import read_wav
+
+    wave, _ = read_wav(path)
+    return (np.clip(wave, -1, 1) * 32767).astype("<i2").tobytes()
+
+
+FEATURIZER_CASES = (("flagship fbank 40", DATASET_CONF),
+                    ("hi_xiaowen FSMN-CTC fbank 80, context 2/2, skip 3",
+                     FSMN_DATASET_CONF),
+                    ("hi_xiaowen DS-TCN MFCC 80 of 80",
+                     DS_TCN_WIDE_DATASET_CONF))
+
+
+def phase17a_featurizer(dev, card):
+    """The device stream featurizer through ``fused_fbank`` at path F's
+    shapes: 64 streams, 8 frames a step, for the flagship (fbank 40),
+    the hi_xiaowen FSMN-CTC (fbank 80, context 2/2, skip 3) and the
+    hi_xiaowen DS-TCN (MFCC 80 of 80).  Every step's windows on the card
+    against the same featurizer on the CPU (the plain chain; phase 9's
+    limit) and the valid frames against the host ``StreamingFrontend``.
+    Returns the largest error against the plain chain."""
+    import torch
+
+    from wekws_tpu_torch.runtime.device_frontend import (
+        WaveStreamBuffer,
+        build_batch_featurizer,
+    )
+    from wekws_tpu_torch.runtime.keyword_spotter import load_spotter_config
+    from wekws_tpu_torch.runtime.streaming_frontend import StreamingFrontend
+
+    waves = serve_waves().astype(np.float32)
+    worst = 0.0
+    for tag, dconf in FEATURIZER_CASES:
+        _, cfg, left, right, skip = load_spotter_config(
+            {"dataset_conf": dconf})
+        fused, window = build_batch_featurizer(cfg, left, right, skip,
+                                               SERVE_STEP, dev)
+        plain, _ = build_batch_featurizer(cfg, left, right, skip,
+                                          SERVE_STEP, "cpu")
+        bufs = [WaveStreamBuffer(cfg.frame_shift, cfg.frame_length, left,
+                                 right, skip, SERVE_STEP) for _ in waves]
+        host = [StreamingFrontend(cfg, left, right, skip).accept_waveform(w)
+                for w in waves]
+        for buf, w in zip(bufs, waves):
+            buf.append(w)
+        steps, err, host_err = 0, 0.0, 0.0
+        with PlainOnCuda() as plain_on_cuda, Launches() as n:
+            while bufs[0].available_outputs() >= SERVE_STEP:
+                wins = [b.window() for b in bufs]
+                w = np.stack([x[0] for x in wins])
+                lo = np.array([x[1] for x in wins])
+                got = fused(w, lo).cpu()
+                err = max(err, check_close(
+                    f"17a {tag}: featurizer step {steps}", got, plain(w, lo),
+                    quiet=True, atol=FBANK_ATOL, rtol=FBANK_RTOL))
+                for i, b in enumerate(bufs):
+                    rows = b.consume(SERVE_STEP) // skip
+                    host_err = max(host_err, check_close(
+                        f"17a {tag}: stream {i} vs the host frontend",
+                        got[i], torch.as_tensor(host[i][0][rows]),
+                        quiet=True, atol=FEATURIZER_HOST_TOL, rtol=0.0))
+                steps += 1
+        plain_on_cuda.check(f"17a {tag}")
+        if n.counts["fused_fbank"] != steps or steps < 8:
+            raise AssertionError(f"17a {tag}: {n.counts} launches for "
+                                 f"{steps} steps")
+        worst = max(worst, err)
+        print(f"  17a {tag}: {steps} steps of windows {w.shape} -> "
+              f"{tuple(got.shape)}, one fused_fbank launch each; vs the "
+              f"plain chain on the CPU max_abs_err {err:.3e} (bound "
+              f"{FBANK_ATOL} abs + {FBANK_RTOL} rel), vs the host frontend "
+              f"{host_err:.3e} (bound {FEATURIZER_HOST_TOL} abs)", flush=True)
+    return worst
+
+
+class EngineTap:
+    """Wraps an engine's step function: keeps each step's posteriors
+    (on the device) and the valid frames of each row, and, with
+    ``inject``, plants the keyword in ``INJECT_ROWS`` (out of place, on
+    the device)."""
+
+    def __init__(self, engine, inject=False):
+        import torch
+
+        self.steps, self._torch = [], torch
+        self._row_steps = np.zeros(engine.num_streams, np.int64)
+        self._step_fn, self._consume = engine._step_fn, engine._consume
+        self._inject = inject
+        engine._step_fn, engine._consume = self.step_fn, self.consume
+
+    def step_fn(self, feats, active, reset, cache):
+        torch = self._torch
+        probs, cache = self._step_fn(feats, active, reset, cache)
+        self.steps.append((probs.clone(), {}))
+        if self._inject:
+            on = np.asarray(torch.as_tensor(active).cpu(), bool)
+            self._row_steps[on] += 1
+            planted = torch.full_like(probs, 1e-5)
+            planted[:, :, 0] = 0.9
+            rows = torch.zeros(probs.shape[0], dtype=torch.bool)
+            for r in INJECT_ROWS:
+                if on[r]:
+                    rows[r] = True
+                    tok = INJECT_STEPS.get(int(self._row_steps[r]))
+                    if tok is not None:
+                        planted[r, 2, 0] = 0.05
+                        planted[r, 2, tok] = 0.9
+            probs = torch.where(rows.to(probs.device)[:, None, None],
+                                planted, probs)
+        return probs, cache
+
+    def consume(self, i, k):
+        self.steps[-1][1][i] = k
+        return self._consume(i, k)
+
+
+class ShadowDecode:
+    """Within the ``with``, every ``stream_detect_step`` of the engines
+    also runs on the CPU, on CPU copies of its inputs, from a CPU twin
+    of the first state it saw: the same search on the CPU.  Each step's
+    events must agree (decisions, keyword, start, end exactly, scores
+    within TOL)."""
+
+    def __enter__(self):
+        import torch
+
+        import wekws_tpu_torch.runtime.batch_spotter as bs
+
+        self._bs, self._orig = bs, bs.stream_detect_step
+        self.twin, self.calls, self.fires, self.score_err = None, 0, 0, 0.0
+
+        def cpu(x):
+            if isinstance(x, torch.Tensor):
+                return x.cpu()
+            if hasattr(x, "_fields"):  # a state NamedTuple
+                return type(x)(*(cpu(y) for y in x))
+            return tuple(cpu(y) for y in x)
+
+        def shadow(state, *args, lengths=None, **fsm):
+            if self.twin is None:
+                self.twin = cpu(state)
+            new, ev = self._orig(state, *args, lengths=lengths, **fsm)
+            self.twin, want = self._orig(self.twin, *cpu(args),
+                                         lengths=cpu(lengths), **fsm)
+            got = {k: v.cpu() for k, v in ev.items()}
+            on = want["fired"]
+            if not torch.equal(got["fired"], on) or any(
+                    not torch.equal(got[k][on], want[k][on])
+                    for k in ("kw", "start", "end")):
+                raise AssertionError(f"device decode step {self.calls}: the "
+                                     f"card's events {got} differ from the "
+                                     f"CPU's {want}")
+            if on.any():
+                self.score_err = max(self.score_err, check_close(
+                    "device decode score, card vs CPU", got["score"][on],
+                    want["score"][on], quiet=True))
+            self.calls += 1
+            self.fires += int(on.sum())
+            return new, ev
+
+        bs.stream_detect_step = shadow
+        return self
+
+    def __exit__(self, *exc):
+        self._bs.stream_detect_step = self._orig
+        return False
+
+
+def run_engine(engine, pcms, chunk_bytes=2 * CHUNK_SAMPLES):
+    """Every stream's PCM in chunks, round robin; after each round every
+    full step, then ``flush()``.  Returns the results of each step (the
+    flush's last), each step's host time (ms; each ends in its device to
+    host copy), the wall time and the audio seconds."""
+    results, step_ms = [], []
+    t_start = time.perf_counter()
+    for off in range(0, max(len(p) for p in pcms), chunk_bytes):
+        for i, p in enumerate(pcms):
+            if off < len(p):
+                engine.accept_wave(i, p[off:off + chunk_bytes])
+        while True:
+            t0 = time.perf_counter()
+            res = engine.step()
+            if not res:
+                break
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            results.append(res)
+    results.append(engine.flush())
+    wall = time.perf_counter() - t_start
+    return {"results": results, "step_ms": step_ms, "wall_s": wall,
+            "audio_s": sum(len(p) for p in pcms) / 2 / RATE,
+            "dispatch_s": engine.stats["dispatch_s"],
+            "steps": engine.stats["dispatches"]}
+
+
+def same_posteriors(tag, got, want):
+    """Two taps' steps: the same schedule and valid frames; every valid
+    frame within TOL."""
+    if [s[1] for s in got.steps] != [s[1] for s in want.steps]:
+        raise AssertionError(f"{tag}: the two engines' step schedules "
+                             f"differ")
+    err = 0.0
+    for (g, rows), (w, _) in zip(got.steps, want.steps):
+        for i, k in rows.items():
+            err = max(err, check_close(f"{tag}, row {i}", g[i, :k],
+                                       w[i, :k], quiet=True))
+    return err
+
+
+def same_results(tag, got, want, score_tol=TOL):
+    """Per step, the same rows and decisions, keyword and times; scores
+    within ``score_tol``.  Returns the detections."""
+    fires = 0
+    for g, w in zip(got, want):
+        if g.keys() != w.keys():
+            raise AssertionError(f"{tag}: steps ran other rows")
+        for i in g:
+            a, b = g[i], w[i]
+            if a.get("state") != b.get("state") or any(
+                    a.get(k) != b.get(k) for k in ("keyword", "start", "end",
+                                                    "frame")):
+                raise AssertionError(f"{tag}: stream {i}: {a} vs {b}")
+            if a.get("state") == 1:
+                fires += 1
+                if abs(a["score"] - b["score"]) > score_tol + score_tol * abs(
+                        b["score"]):
+                    raise AssertionError(f"{tag}: stream {i} score {a} vs "
+                                         f"{b}")
+    if len(got) != len(want):
+        raise AssertionError(f"{tag}: {len(got)} steps vs {len(want)}")
+    return fires
+
+
+def engine_figures(tag, run, launches, card):
+    """Mean and p99 step, dispatch share, real-time factor and launches
+    per step of one engine run; printed with the card."""
+    ms = np.asarray(run["step_ms"])
+    fig = {"mean_step_ms": float(ms.mean()),
+           "p99_step_ms": float(np.percentile(ms, 99)),
+           "dispatch_share": run["dispatch_s"] / run["wall_s"],
+           "rtf": run["audio_s"] / run["wall_s"], "steps": run["steps"],
+           "launches_per_step": {k: v / run["steps"]
+                                 for k, v in launches.items()}}
+    print(f"  {tag}: {run['steps']} steps, mean step {fig['mean_step_ms']:.3f}"
+          f" ms, p99 {fig['p99_step_ms']:.3f} ms (host clock, each step "
+          f"ending in its copy to the host), dispatch share "
+          f"{fig['dispatch_share']:.3f} of {run['wall_s'] * 1e3:.1f} ms wall, "
+          f"{run['audio_s']:.0f} audio-s at {fig['rtf']:.1f}x real time, "
+          f"launches per step {fig['launches_per_step']} [{card}]",
+          flush=True)
+    return fig
+
+
+def kernel_counts():
+    """The wrappers whose launches path F counts, by kernel record."""
+    from wekws_tpu_torch.ops.fused_frontend import fused_fbank
+    from wekws_tpu_torch.ops.fused_fsmn import fused_fsmn_layers
+    from wekws_tpu_torch.ops.fused_mdtc import fused_mdtc_stream
+    from wekws_tpu_torch.ops.fused_tcn import fused_ds_tcn
+
+    return {"fused_mdtc_stream": fused_mdtc_stream, "fused_fbank": fused_fbank,
+            "fused_ds_tcn": fused_ds_tcn,
+            "fused_fsmn_layers": fused_fsmn_layers}
+
+
+def zero_counts():
+    for fn in kernel_counts().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {k: fn.launches for k, fn in kernel_counts().items()}
+
+
+class Launches:
+    """Within the ``with``, the launches of each path-F kernel (the
+    difference of the wrappers' counts)."""
+
+    def __enter__(self):
+        self._before = read_counts()
+        return self
+
+    def __exit__(self, *exc):
+        after = read_counts()
+        self.counts = {k: after[k] - self._before[k] for k in after}
+        return False
+
+    def nonzero(self):
+        return {k: v for k, v in self.counts.items() if v}
+
+
+
+
+def fresh_stats(engine):
+    engine.stats = {k: type(v)() for k, v in engine.stats.items()}
+
+
+def phase17b_engines(dev, card, work):
+    """The batched engines at full width, 64 streams x 8 frames, on the
+    card: the flagship MDTC through ``BatchMaxPoolSpotter(use_fused=
+    True)`` (``fused_mdtc_stream``) with the host and the device
+    frontend against the module route; the hi_xiaowen FSMN-CTC through
+    ``BatchKeywordSpotter(use_fused=True)`` (``fused_fsmn_layers``),
+    host decode and device decode, each with and without the device
+    frontend: posteriors against the module route, device decode
+    against the same search on the CPU and against the host decode's
+    decisions.  Returns the serving figures of the fused engines."""
+    import torch
+
+    from wekws_tpu_torch.runtime import (
+        BatchKeywordSpotter,
+        BatchMaxPoolSpotter,
+    )
+
+    pcms = [w.astype("<i2").tobytes() for w in serve_waves()]
+    figures = {}
+    # the flagship: phase 4's checkpoint and config.  The module route
+    # first (posteriors; its 95th percentile is the threshold, as phase
+    # 4's), then the fused engine at that threshold, then the module
+    # engine's events at it
+    ckpt, config = (os.path.join(work, f"flagship.{x}")
+                    for x in ("pt", "yaml"))
+    for fe in (False, True):
+        tag = f"flagship MDTC, {'device' if fe else 'host'} frontend"
+
+        def engine(fused, threshold):
+            return BatchMaxPoolSpotter(
+                ckpt, config, threshold, num_streams=SERVE_STREAMS,
+                step_frames=SERVE_STEP, use_fused=fused,
+                device_frontend=fe, device=dev)
+
+        module = engine(False, 2.0)
+        module_tap = EngineTap(module)
+        run_engine(module, pcms)
+        flat = torch.cat([p.flatten() for p, _ in module_tap.steps])
+        threshold = float(torch.quantile(flat.cpu(), 0.95))
+        fused = engine(True, threshold)
+        run_engine(fused, pcms)  # the first launches
+        fused.reset_all()
+        fresh_stats(fused)
+        tap = EngineTap(fused)
+        with PlainOnCuda() as plain, Launches() as n:
+            run = run_engine(fused, pcms)
+            torch.cuda.synchronize()
+        plain.check(f"17b {tag}")
+        err = same_posteriors(f"17b {tag}: fused vs module", tap,
+                              module_tap)
+        module = engine(False, threshold)
+        fires = same_results(f"17b {tag}: events", run["results"],
+                             run_engine(module, pcms)["results"])
+        steps = run["steps"]
+        if n.counts["fused_mdtc_stream"] != steps or fires < 1 or (
+                n.counts["fused_fbank"] != (steps if fe else 0)):
+            raise AssertionError(f"17b {tag}: launches {n.counts} for "
+                                 f"{steps} steps, {fires} events")
+        print(f"  17b {tag}: {SERVE_STREAMS} streams x {SERVE_STEP} frames, "
+              f"fused_mdtc_stream vs module posteriors max_abs_err "
+              f"{err:.3e} (bound {TOL} abs + {TOL} rel), the same {fires} "
+              f"events at threshold {threshold:.4f}", flush=True)
+        figures[tag] = engine_figures(f"17b {tag}", run, n.nonzero(), card)
+
+    # the hi_xiaowen FSMN-CTC: phase 11's checkpoint, tables and lexicon
+    ckpt, config, tokens, lexicon = (os.path.join(work, x) for x in (
+        "fsmn_ctc.pt", "fsmn_ctc.yaml", "tokens.txt", "lexicon.txt"))
+
+    def kws(fused, decode, fe):
+        eng = BatchKeywordSpotter(
+            ckpt, config, tokens, lexicon, 0.5, num_streams=SERVE_STREAMS,
+            step_frames=SERVE_STEP, min_frames=1, use_fused=fused,
+            device_decode=decode, device_frontend=fe, device=dev)
+        eng.set_keywords(CTC_KEYWORD)
+        return eng
+
+    for fe in (False, True):
+        front = f"{'device' if fe else 'host'} frontend"
+        runs, taps = {}, {}
+        for fused, decode in ((True, False), (False, False), (True, True)):
+            eng = kws(fused, decode, fe)
+            taps[fused, decode] = EngineTap(eng, inject=True)
+            with PlainOnCuda() as plain, ShadowDecode() as shadow, \
+                    Launches() as n:
+                runs[fused, decode] = run_engine(eng, pcms)
+                torch.cuda.synchronize()
+            steps = runs[fused, decode]["steps"]
+            plain.check(f"17b FSMN-CTC {front}")
+            if decode and (shadow.calls != steps or not shadow.fires):
+                raise AssertionError(f"17b FSMN-CTC: the CPU search "
+                                     f"shadowed {shadow.calls} of {steps} "
+                                     f"steps, {shadow.fires} fires")
+            if n.counts["fused_fsmn_layers"] != (steps if fused else 0) or \
+                    n.counts["fused_fbank"] != (steps if fe else 0):
+                raise AssertionError(f"17b FSMN-CTC: launches {n.counts} "
+                                     f"for {steps} steps")
+            if decode:
+                print(f"  17b FSMN-CTC, device decode, {front}: the same "
+                      f"search on the CPU over the card's posteriors: "
+                      f"{shadow.calls} steps, {shadow.fires} detections, "
+                      f"equal, scores within {shadow.score_err:.2e}",
+                      flush=True)
+        err = same_posteriors(f"17b FSMN-CTC, {front}: fused vs module",
+                              taps[True, False], taps[False, False])
+        fires = same_results("17b FSMN-CTC fused vs module, host decode",
+                             runs[True, False]["results"],
+                             runs[False, False]["results"])
+        dd = same_results("17b FSMN-CTC device vs host decode",
+                          runs[True, True]["results"],
+                          runs[True, False]["results"], CTC_SCORE_TOL)
+        if fires != dd or fires < len(INJECT_ROWS):
+            raise AssertionError(f"17b FSMN-CTC: {fires} host-decode and "
+                                 f"{dd} device-decode detections for "
+                                 f"{len(INJECT_ROWS)} planted keywords")
+        print(f"  17b FSMN-CTC, {front}, {SERVE_STREAMS} streams x "
+              f"{SERVE_STEP} frames: fused vs module posteriors max_abs_err "
+              f"{err:.3e} (bound {TOL} abs + {TOL} rel), the same {fires} "
+              f"detections (the planted keywords) by host and device decode",
+              flush=True)
+    # clean runs for the figures: no tap, no shadow, after a first run
+    for key in ((True, False, False), (True, True, True)):
+        eng = kws(*key)
+        run_engine(eng, pcms)
+        eng.reset_all()
+        fresh_stats(eng)
+        with Launches() as n:
+            run = run_engine(eng, pcms)
+            torch.cuda.synchronize()
+        tag = (f"FSMN-CTC, {'device' if key[1] else 'host'} decode, "
+               f"{'device' if key[2] else 'host'} frontend")
+        figures[tag] = engine_figures(f"17b {tag}", run, n.nonzero(), card)
+    return figures
+
+
+class ServerThread:
+    """``KwsServer`` on its own event-loop thread, port picked by the OS.
+    Records the thread, CUDA device and stream of every ``engine.step``:
+    all must be the engine thread's, on the engine's device's default
+    stream."""
+
+    def __init__(self, engine):
+        import asyncio
+        import threading
+
+        import torch
+
+        from wekws_tpu_torch.serving import KwsServer
+
+        self.server = KwsServer(engine, "127.0.0.1", 0)
+        self.seen = set()
+        step = engine.step
+
+        def recorded():
+            self.seen.add((threading.current_thread().name,
+                           torch.cuda.current_device(),
+                           torch.cuda.current_stream().cuda_stream))
+            return step()
+
+        engine.step = recorded
+        self._asyncio = asyncio
+        self._started = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+        if not self._started.wait(30):
+            raise AssertionError("the in-process daemon did not start")
+
+    def _run(self):
+        asyncio = self._asyncio
+
+        async def main():
+            self._loop = asyncio.get_running_loop()
+            await self.server.start()
+            self._started.set()
+            try:
+                await self.server._server.serve_forever()
+            except asyncio.CancelledError:
+                pass
+
+        asyncio.run(main())
+
+    @property
+    def port(self):
+        return self.server.port
+
+    def stop(self, dev):
+        import torch
+
+        self._asyncio.run_coroutine_threadsafe(
+            self.server.stop(), self._loop).result(30)
+        self.thread.join(30)
+        want = {(dev.index or 0, torch.cuda.default_stream(dev).cuda_stream)}
+        got = {(d, s) for _, d, s in self.seen}
+        if self.thread.is_alive() or got != want or not all(
+                name.startswith("kws-engine") for name, _, _ in self.seen):
+            raise AssertionError(f"in-process daemon: steps ran on "
+                                 f"{self.seen}, want the kws-engine thread "
+                                 f"on (device, default stream) {want}")
+
+
+class ServeProcess:
+    """``python -m wekws_tpu_torch.bin.serve ... --port 0 --warmup`` in a
+    subprocess; the port is read from its log.  Sent SIGTERM on exit;
+    then ``served`` holds its last log line's stats: the engine's
+    dispatches, the server's steps and each kernel's launches after the
+    warm-up."""
+
+    def __init__(self, args, log_path):
+        self.args, self.log_path = args, log_path
+
+    def __enter__(self):
+        import re
+
+        repo = os.path.abspath(os.path.dirname(__file__) or ".")
+        self._log = open(self.log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "wekws_tpu_torch.bin.serve", *self.args,
+             "--port", "0", "--warmup"], cwd=repo,
+            env=dict(os.environ, PYTHONPATH=repo, PYTHONFAULTHANDLER="1"),
+            stdout=self._log, stderr=subprocess.STDOUT)
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < DAEMON_TIMEOUT_S:
+            with open(self.log_path) as f:
+                m = re.search(r"kws server on 127\.0\.0\.1:(\d+)", f.read())
+            if m:
+                self.port = int(m.group(1))
+                self.start_s = time.perf_counter() - t0
+                return self
+            if self.proc.poll() is not None:
+                break
+            time.sleep(0.2)
+        self.__exit__()
+        with open(self.log_path) as f:
+            raise AssertionError(f"bin.serve did not open its port:\n"
+                                 f"{f.read()[-3000:]}")
+
+    def __exit__(self, *exc):
+        import re
+
+        alive = self.proc.poll() is None
+        self.proc.terminate()  # SIGTERM: bin.serve stops and logs
+        try:
+            self.proc.wait(60)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(30)
+        self._log.close()
+        with open(self.log_path) as f:
+            log = f.read()
+        if exc and exc[0] is not None or not alive:
+            print(f"  bin.serve ({'running' if alive else 'exited '
+                  f'{self.proc.returncode}'}) log, last lines:\n"
+                  f"{log[-4000:]}", flush=True)
+            return False
+        m = re.findall(r"served: (\{.*\})", log)
+        if self.proc.returncode != 0 or not m:
+            raise AssertionError(f"bin.serve exited {self.proc.returncode} "
+                                 f"without its served line:\n{log[-3000:]}")
+        self.served = json.loads(m[-1])
+        return False
+
+
+def serve_clients(port, utts, n_threads=DAEMON_CLIENTS):
+    """``n_threads`` client threads, each serving its share of ``utts``
+    ({key: PCM bytes}) one connection after another in 300 ms chunks,
+    EOS drained.  Returns ({key: events}, wall seconds)."""
+    import threading
+
+    from wekws_tpu_torch.serving import KwsClient
+
+    keys = sorted(utts)
+    out, errors = {}, []
+
+    def connect():
+        # a slot is freed after its client has read BYE: a client that
+        # reconnects at once may find it still taken, and waits
+        for _ in range(500):
+            try:
+                return KwsClient("127.0.0.1", port, timeout=120)
+            except ConnectionError as e:
+                if "server full" not in str(e):
+                    raise
+                time.sleep(0.01)
+        raise ConnectionError("the server stayed full for 5 s")
+
+    def client(share):
+        try:
+            for key in share:
+                pcm = utts[key]
+                with connect() as c:
+                    for off in range(0, len(pcm), 2 * CHUNK_SAMPLES):
+                        c.send_audio(pcm[off:off + 2 * CHUNK_SAMPLES])
+                    out[key] = c.finish()
+        except Exception as e:  # reported below, with the others'
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(keys[i::n_threads],))
+               for i in range(n_threads)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(max(t0 + DAEMON_TIMEOUT_S - time.perf_counter(), 0.0))
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads) or len(out) != len(keys):
+        raise AssertionError(f"daemon clients: {len(out)} of {len(keys)} "
+                             f"served, errors {errors[:3]}")
+    return out, wall
+
+
+def in_process_events(engine, utts, slot=0):
+    """What the daemon does for each client, in process, one utterance
+    after another on ``slot``: chunks accepted, every full step, EOS's
+    drain, the slot reset.  Returns {key: events}."""
+    out = {}
+    for key in sorted(utts):
+        pcm, events = utts[key], []
+        for off in range(0, len(pcm), 2 * CHUNK_SAMPLES):
+            engine.accept_wave(slot, pcm[off:off + 2 * CHUNK_SAMPLES])
+            while True:
+                res = engine.step()
+                if not res:
+                    break
+                events += [r for r in res.values() if r.get("state") == 1]
+        events += [r for r in engine.flush_stream(slot)
+                   if r.get("state") == 1]
+        engine.reset_stream(slot)
+        out[key] = events
+    return out
+
+
+def spotter_events(spot, utts):
+    """``KeyWordSpotter`` over each utterance in 300 ms chunks (state
+    reset between them): {key: the results with state 1}."""
+    out = {}
+    for key in sorted(utts):
+        spot.reset_all()
+        pcm = utts[key]
+        out[key] = [r for r in (spot.forward(pcm[off:off + 2 * CHUNK_SAMPLES])
+                                for off in range(0, len(pcm),
+                                                 2 * CHUNK_SAMPLES))
+                    if r and r.get("state") == 1]
+    return out
+
+
+def same_events(tag, got, want, score_tol=TOL,
+                keys=("keyword", "start", "end", "frame")):
+    """{key: events} against {key: events}: the same detections, scores
+    within ``score_tol``.  Returns their count."""
+    n = 0
+    for key in want:
+        g, w = got[key], want[key]
+        if len(g) != len(w) or any(
+                a.get(k) != b.get(k) for a, b in zip(g, w) for k in keys) or \
+                any(abs(a["score"] - b["score"]) > score_tol
+                    + score_tol * abs(b["score"]) for a, b in zip(g, w)):
+            raise AssertionError(f"{tag}: {key}: {g} vs {w}")
+        n += len(w)
+    return n
+
+
+def serve_argv(config, ckpt, streams, ctc=True, extra=()):
+    """A ``bin.serve`` argument list (a fixture's, or the flagship's)."""
+    argv = ["--config", config, "--checkpoint", ckpt, "--streams",
+            str(streams)]
+    if ctc:
+        argv += ["--threshold", str(SERVE_THRESHOLD_CTC), "--token_file",
+                 os.path.join(CTC_RECIPE, "dict", "dict.txt"), "--keywords",
+                 CTC_RECIPE_KEYWORD]
+    else:
+        argv += ["--maxpool", "--keywords", KEYWORD, "--threshold", "0.5"]
+    return argv + list(extra)
+
+
+def daemon_figures(tag, server, engine, wall, audio, n, card):
+    stats = server.stats
+    fig = {"rtf": audio / wall, "wall_s": wall,
+           "rows_per_step": stats["participants"] / max(stats["steps"], 1),
+           "mean_step_ms": stats["step_s"] / max(stats["steps"], 1) * 1e3,
+           "step_share": stats["step_s"] / wall,
+           "dispatch_ms": engine.stats["dispatch_s"]
+           / engine.stats["dispatches"] * 1e3,
+           "dispatch_share": engine.stats["dispatch_s"] / wall,
+           "launches_per_step": {k: v / engine.stats["dispatches"]
+                                 for k, v in n.nonzero().items()}}
+    print(f"  17c {tag}: {audio:.0f} audio-s in {wall:.2f} s "
+          f"({fig['rtf']:.1f}x real time), {stats['steps']} shared steps "
+          f"(mean {fig['rows_per_step']:.1f} rows, {fig['mean_step_ms']:.3f}"
+          f" ms from the loop's call to its result), step share "
+          f"{fig['step_share']:.3f} of wall, {engine.stats['dispatches']} "
+          f"dispatches of {fig['dispatch_ms']:.3f} ms each in the engine "
+          f"(share {fig['dispatch_share']:.3f}), launches per dispatch "
+          f"{fig['launches_per_step']}; every "
+          f"step on the kws-engine thread and the default stream [{card}]",
+          flush=True)
+    return fig
+
+
+def served_figures(tag, proc, kernels, wall, audio, card):
+    """bin.serve's own reading after SIGTERM: each kernel of the route
+    launched once a dispatch, and no other; its real-time factor and
+    the mean step on its engine thread."""
+    served, eng = proc.served, proc.served["engine"]
+    got = {k: v for k, v in served["launches"].items() if v}
+    if eng["dispatches"] < 1 or got != {k: eng["dispatches"]
+                                        for k in kernels}:
+        raise AssertionError(f"17c {tag}: bin.serve launched {got} for "
+                             f"{eng['dispatches']} dispatches, want each of "
+                             f"{kernels} once a dispatch")
+    steps = served["server"]["steps"]
+    fig = {"rtf": audio / wall, "wall_s": wall,
+           "dispatches": eng["dispatches"],
+           "dispatch_ms": eng["dispatch_s"] / eng["dispatches"] * 1e3,
+           "dispatch_share": eng["dispatch_s"] / wall,
+           "mean_step_ms": served["server"]["step_s"] / max(steps, 1) * 1e3,
+           "rows_per_step": served["server"]["participants"] / max(steps, 1),
+           "launches_per_step": {k: v / eng["dispatches"]
+                                 for k, v in got.items()}}
+    print(f"  17c {tag}: bin.serve in a subprocess (port open "
+          f"{proc.start_s:.1f} s after start, warm-up included), "
+          f"{audio:.0f} audio-s in {wall:.2f} s ({fig['rtf']:.1f}x real "
+          f"time), {steps} shared steps (mean {fig['rows_per_step']:.1f} "
+          f"rows, {fig['mean_step_ms']:.3f} ms from the loop's call to its "
+          f"result), {eng['dispatches']} dispatches of {fig['dispatch_ms']:.3f}"
+          f" ms each in the engine (share {fig['dispatch_share']:.3f} of "
+          f"wall); its own counts: launches per dispatch "
+          f"{fig['launches_per_step']} [{card}]", flush=True)
+    return fig, got
+
+
+def phase17c_daemons(dev, card, tmp, work):
+    """The daemon on the card.  The JAX CTC fixture (FSMN 3 x 64/32, the
+    corpus of gen_data_torch.py seed 17; host decode, and device decode
+    with the device frontend) and the JAX DS-TCN fixture (C=48, the
+    committed test wavs), each served by ``bin.serve`` in a subprocess
+    to 16 client threads (192 utterances, 300 ms chunks): the events
+    equal the in-process engine's (the same ``build_engine``) and, for
+    CTC, ``KeyWordSpotter``'s, and bin.serve's own launch counts show
+    each kernel of the route once a dispatch.  Then in process, a
+    ``KwsServer`` on the CTC fixture with device decode and the device
+    frontend, and the flagship MDTC (device frontend) to 64 clients, each
+    step on the engine thread's default stream; then the flagship's
+    ``bin.serve`` to the same clients (the same events).  Returns the
+    figures, the CTC fixture's files and events, and bin.serve's
+    launches."""
+    import torch
+
+    from wekws_tpu_torch.bin import serve
+    from wekws_tpu_torch.runtime import KeyWordSpotter
+
+    repo = os.path.abspath(os.path.dirname(__file__) or ".")
+    data = os.path.join(tmp, "data")
+    subprocess.run([sys.executable, os.path.join(
+        repo, CTC_RECIPE, "local", "gen_data_torch.py"), data], cwd=tmp,
+        env=dict(os.environ, PYTHONPATH=repo), check=True,
+        capture_output=True, timeout=300)
+    with open(os.path.join(data, "test.list")) as f:
+        lines = [json.loads(line) for line in f]
+    ctc_utts = {x["key"]: pcm_of(x["wav"]) for x in lines}
+    ctc_config, _ = fixture_config(CTC_FIXTURE, CTC_RECIPE, tmp,
+                                   "fsmn_ctc_fixture.yaml")
+    ctc_ckpt = os.path.join(CTC_FIXTURE, "avg_5.ckpt")
+    tcn_config, _ = fixture_config(DS_TCN_FIXTURE, RECIPE, tmp,
+                                   "ds_tcn_fixture.yaml")
+    tcn_dir = os.path.join(RECIPE, "data", "test")
+    tcn_utts = {f"test_{i}": pcm_of(os.path.join(tcn_dir, f"test_{i}.wav"))
+                for i in range(RECIPE_SPLITS[2][1])}
+    figures, wants, served = {}, {}, {}
+    device_ctc = ["--device_decode", "--device_frontend"]
+
+    def build(argv):
+        return serve.build_engine(serve.get_args(argv + ["--device",
+                                                         dev.type]))
+
+    for tag, kernels, utts, argv in (
+            ("JAX CTC fixture (FSMN 3 x 64/32), host decode",
+             ("fused_fsmn_layers",), ctc_utts,
+             serve_argv(ctc_config, ctc_ckpt, DAEMON_CLIENTS)),
+            ("JAX CTC fixture, device decode + device frontend",
+             ("fused_fsmn_layers", "fused_fbank"), ctc_utts,
+             serve_argv(ctc_config, ctc_ckpt, DAEMON_CLIENTS,
+                        extra=device_ctc)),
+            ("JAX DS-TCN fixture (C=48), max-pooling", ("fused_ds_tcn",),
+             tcn_utts, serve_argv(tcn_config, os.path.join(
+                 DS_TCN_FIXTURE, "avg_5.ckpt"), DAEMON_CLIENTS, ctc=False))):
+        engine = build(argv)
+        with PlainOnCuda() as plain, Launches() as n:
+            want = wants[tag] = in_process_events(engine, utts)
+            torch.cuda.synchronize()
+        plain.check(f"17c {tag}: in-process engine")
+        steps = engine.stats["dispatches"]
+        if n.nonzero() != {k: steps for k in kernels} or steps < len(utts):
+            raise AssertionError(f"17c {tag}: {n.counts} launches for "
+                                 f"{steps} steps")
+        with ServeProcess(argv + ["--device", dev.type], os.path.join(
+                tmp, f"serve_{len(figures)}.log")) as proc:
+            got, wall = serve_clients(proc.port, utts)
+        count = same_events(f"17c {tag}: daemon vs in-process engine", got,
+                            want)
+        if count < 1:
+            raise AssertionError(f"17c {tag}: no detections")
+        if tag.endswith("host decode"):
+            spot = KeyWordSpotter(
+                ctc_ckpt, ctc_config, os.path.join(CTC_RECIPE, "dict",
+                                                   "dict.txt"), None,
+                SERVE_THRESHOLD_CTC, use_fused=None, device=dev)
+            spot.set_keywords(CTC_RECIPE_KEYWORD)
+            same_events(f"17c {tag}: daemon vs KeyWordSpotter", got,
+                        spotter_events(spot, utts))
+        audio = sum(len(p) for p in utts.values()) / 2 / RATE
+        fig, launched = served_figures(
+            f"{tag}, {DAEMON_CLIENTS} client threads, {len(utts)} "
+            f"utterances, {count} detections equal to the in-process "
+            f"engine's{' and KeyWordSpotter' if 'host' in tag else ''}",
+            proc, kernels, wall, audio, card)
+        figures[f"bin.serve, {tag}"] = dict(fig, detections=count)
+        for k, v in launched.items():
+            served[k] = served.get(k, 0) + v
+
+    # in process: the CTC fixture with device decode and device frontend
+    argv = serve_argv(ctc_config, ctc_ckpt, DAEMON_CLIENTS, extra=device_ctc)
+    want = wants["JAX CTC fixture, device decode + device frontend"]
+    engine = build(argv)
+    serve.warmup_engine(engine)
+    with PlainOnCuda() as plain, Launches() as n:
+        st = ServerThread(engine)
+        try:
+            got, wall = serve_clients(st.port, ctc_utts)
+        finally:
+            st.stop(dev)
+        torch.cuda.synchronize()
+    plain.check("17c in-process daemon, CTC fixture")
+    tag = "in-process KwsServer, CTC fixture, device decode + frontend"
+    count = same_events(f"17c {tag} vs the in-process engine", got, want)
+    steps = engine.stats["dispatches"]
+    if n.counts["fused_fsmn_layers"] != steps or \
+            n.counts["fused_fbank"] != steps or count < 1:
+        raise AssertionError(f"17c {tag}: {n.counts} launches for {steps} "
+                             f"steps, {count} detections")
+    figures[tag] = daemon_figures(
+        f"{tag}: {DAEMON_CLIENTS} clients, {count} detections equal to the "
+        f"in-process engine's", st.server, engine, wall,
+        sum(len(p) for p in ctc_utts.values()) / 2 / RATE, n, card)
+
+    # the flagship MDTC to 64 clients, device frontend
+    engine = build(serve_argv(os.path.join(work, "flagship.yaml"),
+                              os.path.join(work, "flagship.pt"),
+                              SERVE_STREAMS, ctc=False,
+                              extra=["--device_frontend"]))
+    serve.warmup_engine(engine)
+    utts = {f"s{i:02d}": w.astype("<i2").tobytes()
+            for i, w in enumerate(serve_waves())}
+    with PlainOnCuda() as plain, Launches() as n:
+        st = ServerThread(engine)
+        try:
+            want, wall = serve_clients(st.port, utts, SERVE_STREAMS)
+        finally:
+            st.stop(dev)
+        torch.cuda.synchronize()
+    plain.check("17c in-process daemon, flagship")
+    steps = engine.stats["dispatches"]
+    if n.counts["fused_mdtc_stream"] != steps or \
+            n.counts["fused_fbank"] != steps:
+        raise AssertionError(f"17c flagship daemon: {n.counts} for {steps} "
+                             f"steps")
+    tag = "in-process KwsServer, flagship MDTC, device frontend"
+    audio = sum(len(p) for p in utts.values()) / 2 / RATE
+    figures[tag] = daemon_figures(
+        f"{tag}: {SERVE_STREAMS} clients x {SECONDS} s", st.server, engine,
+        wall, audio, n, card)
+    # the same daemon in its own process: the 64 client threads no
+    # longer share its interpreter
+    with ServeProcess(serve_argv(
+            os.path.join(work, "flagship.yaml"),
+            os.path.join(work, "flagship.pt"), SERVE_STREAMS, ctc=False,
+            extra=["--device_frontend", "--device", dev.type]),
+            os.path.join(tmp, "serve_flagship.log")) as proc:
+        got, wall = serve_clients(proc.port, utts, SERVE_STREAMS)
+    count = same_events("17c flagship: bin.serve vs the in-process daemon",
+                        got, want)
+    tag = "flagship MDTC, device frontend"
+    fig, launched = served_figures(
+        f"{tag}, {SERVE_STREAMS} clients, {count} events equal to the "
+        f"in-process daemon's", proc, ("fused_mdtc_stream", "fused_fbank"),
+        wall, audio, card)
+    figures[f"bin.serve, {tag}, {SERVE_STREAMS} clients"] = dict(
+        fig, detections=count)
+    for k, v in launched.items():
+        served[k] = served.get(k, 0) + v
+    return figures, (ctc_config, ctc_ckpt, lines, wants[
+        "JAX CTC fixture (FSMN 3 x 64/32), host decode"]), served
+
+
+def phase17d_clis(dev, card, ctc):
+    """``bin.batch_stream_kws`` (host and device decode) and
+    ``bin.stream_kws_ctc`` on the CTC fixture: the in-process engine's
+    detections (17c) for the same utterances."""
+    from wekws_tpu_torch.bin import batch_stream_kws, stream_kws_ctc
+
+    config, ckpt, lines, want = ctc
+    lines = lines[:DAEMON_CLIENTS]
+    base = ["--config", config, "--checkpoint", ckpt, "--token_file",
+            os.path.join(CTC_RECIPE, "dict", "dict.txt"), "--keywords",
+            CTC_RECIPE_KEYWORD, "--threshold", str(SERVE_THRESHOLD_CTC),
+            "--device", dev.type]
+    for extra in ([], ["--device_decode"]):
+        with Launches() as n:
+            out = run_cli(batch_stream_kws.main, base + [
+                "--wav_paths", *[x["wav"] for x in lines]] + extra,
+                f"bin.batch_stream_kws {extra}")
+        got = {x["key"]: [] for x in lines}
+        for i, r in out["detections"]:
+            got[lines[i]["key"]].append(r)
+        fires = same_events(f"17d bin.batch_stream_kws {extra}", got,
+                            {k: want[k] for k in got},
+                            CTC_SCORE_TOL if extra else TOL)
+        steps = out["stats"]["dispatches"]
+        if fires < 1 or n.counts["fused_fsmn_layers"] != steps:
+            raise AssertionError(f"17d: {n.counts} launches for {steps} "
+                                 f"steps, {fires} detections")
+        print(f"  17d bin.batch_stream_kws {' '.join(extra)}: "
+              f"{len(lines)} streams, {fires} detections equal to the "
+              f"in-process engine's, {steps} steps, one fused_fsmn_layers "
+              f"launch each, {out['audio_s'] / out['wall_s']:.1f}x real "
+              f"time [{card}]", flush=True)
+    for x in lines[:2]:
+        got = run_cli(stream_kws_ctc.main, base + ["--wav_path", x["wav"]],
+                      "bin.stream_kws_ctc")
+        same_events(f"17d bin.stream_kws_ctc {x['key']}", {x["key"]: got},
+                    {x["key"]: want[x["key"]]})
+    print("  17d bin.stream_kws_ctc on 2 utterances: the in-process "
+          "engine's detections", flush=True)
+
+
+# path F's wrappers where the engines call them: (wrapper, the module
+# whose name the engines call, the plain version's module, the kernel's
+# name in a profile, the bound of a check against the plain version)
+PATH_F_WRAPPERS = (
+    ("fused_mdtc_stream", "wekws_tpu_torch.ops.serving",
+     "wekws_tpu_torch.ops.fused_mdtc", "fused_mdtc_kernel", (TOL, TOL)),
+    ("fused_ds_tcn", "wekws_tpu_torch.ops.serving",
+     "wekws_tpu_torch.ops.fused_tcn", "fused_ds_tcn_kernel", (TOL, TOL)),
+    ("fused_fsmn_layers", "wekws_tpu_torch.ops.serving",
+     "wekws_tpu_torch.ops.fused_fsmn", "fused_fsmn_kernel", (TOL, TOL)),
+    ("fused_fbank", "wekws_tpu_torch.frontend.features",
+     "wekws_tpu_torch.ops.fused_frontend", "fused_fbank_kernel",
+     (FBANK_ATOL, FBANK_RTOL)),
+)
+
+
+def _tree_map(fn, x):
+    if isinstance(x, (list, tuple)):
+        return type(x)(_tree_map(fn, y) for y in x)
+    if isinstance(x, dict):
+        return {k: _tree_map(fn, v) for k, v in x.items()}
+    return fn(x)
+
+
+def path_f_shape(name, args, kwargs):
+    """A path-F call's shape, as the kernel records name it."""
+    x, cache = args[0], args[1]
+    if name == "fused_fbank":
+        mel, dct = args[2], args[3]
+        return (f"waves {tuple(x.shape)} M={mel.shape[-1]}"
+                + ("" if dct is None else f" MFCC {dct.shape[-1]}"))
+    if name == "fused_fsmn_layers":
+        return (f"B={x.shape[0]} T={x.shape[1]} ({cache.shape[0]} x "
+                f"{x.shape[2]}/{cache.shape[3]})")
+    return f"B={x.shape[0]} T={x.shape[1]} C={x.shape[2]}"
+
+
+def path_f_bound(name, args, kwargs):
+    """The bound of a path-F call, from its own arguments."""
+    x, cache = args[0], args[1]
+    if name == "fused_fbank":
+        mel, dct = args[2], args[3]
+        return fbank_bound_ms(
+            x.shape[0], x.shape[1], kwargs["frame_length"],
+            kwargs["frame_shift"], kwargs["n_fft"], kwargs["n_band"],
+            mel.shape[-1], mel.shape[-1] if dct is None else dct.shape[-1],
+            mfcc=dct is not None)
+    b, t, c = x.shape
+    if name == "fused_fsmn_layers":
+        n_layers, _, pad, pd = cache.shape
+        return fsmn_bound_ms(b, t, c, pd, n_layers, args[7], args[8], pad)
+    dil, k = args[-3:-1] if name == "fused_mdtc_stream" else args[-2:]
+    if name == "fused_mdtc_stream":
+        return mdtc_bound_ms(b, t, c, len(dil), k, len(dil) // args[-1],
+                             cache.shape[2], True)
+    return tcn_bound_ms(b, t, c, len(dil), k, cache.shape[2])
+
+
+class ShapeTap:
+    """Within the ``with``, every call of a path-F wrapper on a CUDA
+    tensor, where the engines make it: per (kernel, shape) the number
+    of calls and a copy of the first call's inputs, on which 17e holds
+    the kernel against its plain version."""
+
+    def __enter__(self):
+        import importlib
+
+        import torch
+
+        self.shapes, self._saved = {}, []
+        for name, where, *_ in PATH_F_WRAPPERS:
+            mod = importlib.import_module(where)
+            fn = getattr(mod, name)
+
+            def tapped(*args, _fn=fn, _name=name, **kwargs):
+                if args[0].is_cuda:
+                    key = (_name, path_f_shape(_name, args, kwargs))
+                    if key not in self.shapes:
+                        self.shapes[key] = [0, *_tree_map(
+                            lambda v: v.detach().clone()
+                            if isinstance(v, torch.Tensor) else v,
+                            (args, kwargs))]
+                    self.shapes[key][0] += 1
+                return _fn(*args, **kwargs)
+
+            setattr(mod, name, tapped)
+            self._saved.append((mod, name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def phase17e_kernel_checks(card, shapes):
+    """Each path-F kernel at every shape path F gave it (``ShapeTap``),
+    on that shape's first inputs: the kernel against its plain version
+    on the same card tensors (TOL, or phase 9's fbank limit), then both
+    timed (CUDA events, median of 30), the kernel's device time
+    (profiler) and its bound from the call's own arguments.  Returns
+    {record name: [readings]}."""
+    import importlib
+
+    out = {}
+    for (name, shape), (calls, args, kwargs) in sorted(shapes.items()):
+        _, _, plain_mod, kernel_name, (atol, rtol) = next(
+            w for w in PATH_F_WRAPPERS if w[0] == name)
+        kern_fn = getattr(importlib.import_module(plain_mod), name)
+        plain_fn = getattr(importlib.import_module(plain_mod),
+                           f"{name}_plain")
+        pkw = dict(kwargs)
+        if name == "fused_fsmn_layers":
+            pkw.pop("packed", None)
+        if name == "fused_fbank":
+            if pkw.get("dither", 0.0):
+                raise AssertionError("17e: path F runs fused_fbank without "
+                                     "dither")
+            for key in ("n_fft", "window", "preemphasis", "remove_dc_offset",
+                        "twiddles", "low", "bands", "n_band"):
+                pkw.pop(key, None)
+
+        def kern():
+            return kern_fn(*args, **kwargs)
+
+        def plain():
+            return plain_fn(*args, **pkw)
+
+        got, want = kern(), plain()
+        if name == "fused_fbank":
+            got, want = (got,), (want,)
+        err = max(check_close(f"17e {name} {shape}{' cache' if i else ''}",
+                              g, w, quiet=True, atol=atol, rtol=rtol)
+                  for i, (g, w) in enumerate(zip(got, want)))
+        ms, plain_ms = kernel_vs_plain_ms(kern, plain)
+        dev_ms = profiled_device_ms(kern, kernel_name)
+        bound = path_f_bound(name, args, kwargs)
+        dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+        print(f"  17e {name} {shape}: {calls} calls on path F; vs plain on "
+              f"the first call's inputs max_abs_err {err:.3e} (bound {atol} "
+              f"abs + {rtol} rel); kernel {ms:.4f} ms per call (device "
+              f"{dev_txt}), plain {plain_ms:.4f} ms, bound {bound[0]:.5f} "
+              f"ms ({bound[1]}) [{card}]", flush=True)
+        out.setdefault(name, []).append({
+            "shape": shape, "calls": calls, "max_abs_err": err, "ms": ms,
+            "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1]})
+    return out
+
+
+def merge_path_f(record, launches, readings, fbank_err):
+    """Path F's launches (by sub-path) and readings into the kernel
+    records; fails if a path-F kernel never launched."""
+    rows = {r["name"]: r for r in record}
+    totals = {}
+    for sub, counts in launches.items():
+        for name, n in counts.items():
+            if n:
+                totals[name] = totals.get(name, 0) + n
+                rows[name].setdefault("path_f_launches", {})[sub] = n
+    missing = [name for name in kernel_counts() if not totals.get(name)]
+    if missing:
+        raise AssertionError(f"path F launched no {missing}")
+    for name, n in totals.items():
+        rows[name]["launches"] += n
+    for name, rs in readings.items():
+        rows[name]["path_f"] = rs
+        rows[name]["max_abs_err"] = max(
+            [rows[name]["max_abs_err"]] + [r["max_abs_err"] for r in rs])
+    rows["fused_fbank"]["max_abs_err"] = max(
+        rows["fused_fbank"]["max_abs_err"], fbank_err)
+
+
+def phase17_serving(dev, card, work):
+    """Path F, the serving daemon: 17a the device featurizer, 17b the
+    batched engines at full width, 17c the daemon (bin.serve in a
+    subprocess and in process), 17d the serving CLIs, 17e each kernel
+    against its plain version at every shape 17a-17d gave it.  Each
+    sub-path's launches are counted from 0 and read after it; bin.serve's
+    are its own counts.  Returns ({sub-path: {kernel record: launches}},
+    {kernel record: [readings]}, the featurizer's largest error, the
+    serving figures)."""
+    import tempfile
+
+    launches, figures = {}, {}
+
+    def counted(name, fn, *args):
+        zero_counts()
+        out = fn(*args)
+        launches[name] = read_counts()
+        return out
+
+    with ShapeTap() as tap:
+        err = counted("17a featurizer", phase17a_featurizer, dev, card)
+        figures.update(counted("17b engines", phase17b_engines, dev, card,
+                               work))
+        with tempfile.TemporaryDirectory() as tmp:
+            daemon, ctc, served = counted("17c daemons", phase17c_daemons,
+                                          dev, card, tmp, work)
+            figures.update(daemon)
+            counted("17d CLIs", phase17d_clis, dev, card, ctc)
+    launches["17c bin.serve (its own counts)"] = served
+    in_process = {}
+    for sub, counts in launches.items():
+        if sub != "17c bin.serve (its own counts)":
+            for k, v in counts.items():
+                in_process[k] = in_process.get(k, 0) + v
+    tapped = {}
+    for (name, _), (calls, *_) in tap.shapes.items():
+        tapped[name] = tapped.get(name, 0) + calls
+    if tapped != {k: v for k, v in in_process.items() if v}:
+        raise AssertionError(f"path F: the calls seen by shape {tapped} "
+                             f"are not the launches counted {in_process}")
+    readings = phase17e_kernel_checks(card, tap.shapes)
+    return launches, readings, err, figures
+
+
 SERVING_KERNELS = {"fused_frontend": 6, "fused_mdtc": 15 + 25 + 3}
 
 
@@ -4210,6 +5434,14 @@ def main() -> int:
             row["max_abs_err"] = max(row["max_abs_err"],
                                      reading.get("max_abs_err", 0.0))
         print(f"  launches on path E: {e_launches} [{card}]", flush=True)
+
+    with phase("17 path F: the serving daemon"):
+        f_launches, f_readings, f_err, figures = phase17_serving(
+            dev, card, work)
+        merge_path_f(record, f_launches, f_readings, f_err)
+        print(f"  launches on path F: {f_launches} [{card}]", flush=True)
+        print(json.dumps({"path_f_figures": figures, "card": card}),
+              flush=True)
 
     print(card)
     print(json.dumps({"kernels": record}))

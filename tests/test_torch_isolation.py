@@ -12,8 +12,16 @@ import torch
 
 from wekws_tpu_torch.models import init_model
 from wekws_tpu_torch.ops.serving import build_fused_forward, build_fused_stream
-from wekws_tpu_torch.runtime import BatchMaxPoolSpotter, KeyWordSpotter
-from wekws_tpu_torch.runtime.keyword_spotter import load_serving_model
+from wekws_tpu_torch.runtime import (
+    BatchKeywordSpotter,
+    BatchMaxPoolSpotter,
+    KeyWordSpotter,
+)
+from wekws_tpu_torch.runtime.device_frontend import build_batch_featurizer
+from wekws_tpu_torch.runtime.keyword_spotter import (
+    load_serving_model,
+    load_spotter_config,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -56,11 +64,14 @@ def test_port_imports_no_jax():
                           env=env, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 47  # every module was imported
+    # every module was imported, the serving daemon's (serving/,
+    # bin/serve.py, runtime/device_frontend.py, decode/device_stream.py)
+    # among them
+    assert int(proc.stdout.split()[0]) >= 91
 
 
 @pytest.mark.parametrize("entry", ["forward", "stream", "load", "engine",
-                                   "spotter"])
+                                   "spotter", "kws_engine", "featurizer"])
 def test_entry_points_default_to_cuda(tmp_path, entry):
     """Called without ``device=`` they run on the GPU, or raise where
     there is none; they never fall back to the CPU."""
@@ -77,6 +88,11 @@ def test_entry_points_default_to_cuda(tmp_path, entry):
                                               num_streams=2),
         "spotter": lambda: KeyWordSpotter(str(ckpt), CONF, str(tokens), None,
                                           0.5),
+        "kws_engine": lambda: BatchKeywordSpotter(str(ckpt), CONF,
+                                                  str(tokens), None, 0.5,
+                                                  num_streams=2),
+        "featurizer": lambda: build_batch_featurizer(
+            *load_spotter_config(CONF)[1:], step_frames=8),
     }
     if torch.cuda.is_available():
         assert calls[entry]() is not None

@@ -3,7 +3,7 @@ forward.
 
 Port of wekws_tpu/bin/common.py.  The forward runs the device feature
 pipeline, then the model by one of two routes, chosen from the model's
-structure alone (``forward_route``):
+structure alone (``ops.serving.forward_route``):
 
 - ``"fused"``: on the card, a backbone that has a serving kernel (MDTC,
   DS-TCN, FSMN; ``ops.serving.has_serving_kernel``) runs through
@@ -29,7 +29,7 @@ import yaml
 from wekws_tpu_torch.data.device_pipeline import DeviceFeaturePipeline
 from wekws_tpu_torch.models import init_model
 from wekws_tpu_torch.models.kws_model import inference_model_conf
-from wekws_tpu_torch.ops.serving import build_fused_forward, has_serving_kernel
+from wekws_tpu_torch.ops.serving import build_fused_forward, forward_route
 from wekws_tpu_torch.train.checkpoint import load_model_state
 
 
@@ -62,14 +62,6 @@ def load_test_setup(config_path: str, checkpoint: str, batch_size: int,
     model = init_model(model_conf)
     model.load_state_dict(load_model_state(checkpoint, model_conf, model))
     return configs, model.to(device).eval(), pipeline, test_conf
-
-
-def forward_route(model, device: torch.device) -> str:
-    """``"fused"`` on the card for a backbone with a serving kernel,
-    else ``"module"`` (see the module docstring)."""
-    if device.type == "cuda" and has_serving_kernel(model):
-        return "fused"
-    return "module"
 
 
 def make_forward_fn(model, pipeline: DeviceFeaturePipeline,

@@ -16,7 +16,8 @@ JAX package the builders give None for an MDTC or DS-TCN without linear
 preprocessing and for a full-conv TCN (its (K, C, C) kernels are K
 matmuls per layer and stay on the module path).  Any other backbone
 (GRU) raises, where the JAX package returns None;
-``has_serving_kernel`` says which backbones have a kernel.
+``has_serving_kernel`` says which backbones have a kernel and
+``forward_route`` which route a loaded model takes.
 
 Each ``_build_fused_*`` only supplies a ``backbone_fn(x, cache)`` and a
 cache constructor; the surrounding pipeline (padding mask, cmvn, linear
@@ -27,7 +28,7 @@ caller asks for the CPU) and return functions that run there under
 ``torch.inference_mode``.
 """
 
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -44,6 +45,7 @@ from wekws_tpu_torch.models.kws_model import KWSModel, mask_padding
 from wekws_tpu_torch.models.mdtc import MDTC
 from wekws_tpu_torch.models.subsampling import LinearSubsampling1, NoSubsampling
 from wekws_tpu_torch.models.tcn import TCN
+from wekws_tpu_torch.ops.fused_frontend import fused_fbank
 from wekws_tpu_torch.ops.fused_fsmn import (
     extract_fsmn_weights,
     fused_fsmn_layers,
@@ -268,6 +270,22 @@ def has_serving_kernel(model: KWSModel) -> bool:
     if isinstance(backbone, TCN) and not backbone.ds:
         return False  # full-conv blocks (``_build_fused_tcn``)
     return any(isinstance(backbone, cls) for cls, _ in _BUILDERS)
+
+
+def forward_route(model: KWSModel, device) -> str:
+    """``"fused"`` on the card for a backbone with a serving kernel
+    (``has_serving_kernel``), else ``"module"``: the route the CLIs and
+    the serving engines take for a loaded model."""
+    if torch.device(device).type == "cuda" and has_serving_kernel(model):
+        return "fused"
+    return "module"
+
+
+def launch_counts() -> Dict[str, int]:
+    """The launches so far of each serving kernel's wrapper, by name."""
+    return {fn.__name__: fn.launches for fn in (
+        fused_fbank, fused_mdtc_forward, fused_mdtc_stream, fused_ds_tcn,
+        fused_fsmn_layers)}
 
 
 def _dispatch(model, softmax, streaming, device):

@@ -1,8 +1,10 @@
-"""Batched multi-stream max-pooling wake-word engine.
+"""Batched multi-stream keyword spotting engines.
 
-Port of the host-frontend half of wekws_tpu/runtime/batch_spotter.py:
-N independent PCM streams served through ONE batched, cached model
-step on the device, with per-stream host frontends and detection.
+Port of wekws_tpu/runtime/batch_spotter.py: N independent PCM streams
+served through ONE batched, cached model step on the device, with
+per-stream host state (frontend or raw-sample buffer, beam, FSM) around
+it.  ``BatchKeywordSpotter`` serves CTC models, ``BatchMaxPoolSpotter``
+max-pooling wake-word models.
 
 Correctness under batching (unchanged from the JAX engine):
 
@@ -20,15 +22,33 @@ Correctness under batching (unchanged from the JAX engine):
   each row's valid length; flushing finalizes a stream (its cache row
   resets before its next use).
 
+Detection activation resets only the beam; the model cache carries
+across an activation, as in the single-stream engine.
+
 ``use_fused=True`` steps the whole-backbone kernel
 (ops/serving.py ``build_fused_stream``) with the packed
 ``(L, B, pad_max, C)`` cache, whose rows are axis 1; otherwise the
-module runs with its own cache, rows on axis 0: a tuple of
-``(B, (K-1)*d, C)`` caches for MDTC and TCN, the ``(B, layers, H)``
+module runs with its own cache, rows on axis 0: a tuple of per-layer
+``(B, pad, C)`` caches for MDTC, TCN and FSMN, the ``(B, layers, H)``
 hidden state for a GRU (which has no fused stream; ``use_fused=True``
-raises for it).  The device
-frontend, device decode and the batched CTC engine are not ported yet;
-the single-stream CTC engine is runtime/keyword_spotter.py.
+raises for it, as for any model the builder does not cover).
+``use_fused=None`` takes the route ``ops.serving.forward_route`` gives
+the loaded model: the kernel on the card for MDTC, DS-TCN and FSMN, the
+modules for GRU and full-conv TCN and on the CPU.
+
+``device_frontend=True`` keeps only a raw-sample buffer per stream on
+the host (runtime/device_frontend.py) and featurizes every stream in
+the step function, before the model: ``fused_fbank`` on the card.
+
+Two decode modes for ``BatchKeywordSpotter``:
+
+* host (default): one ``StreamDetector`` (Python beam + FSM) per slot;
+* ``device_decode=True``: the beam + detection FSM run on the device
+  in the same step function as the model (decode/device_stream.py),
+  and the host reads one packed ``(5, N)`` event tensor a step.
+
+The JAX engines' ``mesh`` (streams sharded over devices, ROADMAP A.13)
+and ``decode_unroll`` (a ``lax.scan`` unroll) have no counterpart.
 """
 
 import time
@@ -37,65 +57,194 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from wekws_tpu_torch.decode.device_stream import (
+    init_stream_state,
+    make_keyword_arrays,
+    stream_detect_step,
+)
 from wekws_tpu_torch.device import resolve_device
-from wekws_tpu_torch.ops.serving import build_fused_stream
+from wekws_tpu_torch.ops.serving import build_fused_stream, forward_route
+from wekws_tpu_torch.runtime.device_frontend import (
+    WaveStreamBuffer,
+    build_batch_featurizer,
+)
 from wekws_tpu_torch.runtime.keyword_spotter import (
+    StreamDetector,
+    build_keyword_tables,
     load_serving_model,
     load_spotter_config,
 )
 from wekws_tpu_torch.runtime.streaming_frontend import StreamingFrontend
+from wekws_tpu_torch.text.tokenizer import read_lexicon, read_token
+
+
+def _where_rows(mask: torch.Tensor, new: torch.Tensor, old: torch.Tensor,
+                axis: int) -> torch.Tensor:
+    shape = [1] * old.dim()
+    shape[axis] = -1
+    return torch.where(mask.view(shape), new, old)
+
+
+class _FeatureQueue:
+    """A stream's source on the host frontend: its ``StreamingFrontend``
+    and the queue of spliced frames it has emitted, behind
+    ``WaveStreamBuffer``'s interface.  ``window()`` gives the next
+    ``step_frames`` frames, zero-padded past the queue's end, and a
+    ``lo`` of 0."""
+
+    def __init__(self, frontend_args, feat_dim: int, step_frames: int):
+        self.frontend = StreamingFrontend(*frontend_args)
+        self.step_frames = step_frames
+        self.window_shape = (step_frames, feat_dim)
+        self.reset()
+
+    def reset(self) -> None:
+        self.frontend.reset()
+        self._feats = np.zeros((0, self.window_shape[1]), np.float32)
+        self._idx = np.zeros((0,), np.int64)
+
+    def append(self, samples: np.ndarray) -> None:
+        feats, idx = self.frontend.accept_waveform(samples)
+        if feats.shape[0]:
+            self._feats = np.concatenate([self._feats, feats])
+            self._idx = np.concatenate([self._idx, idx])
+
+    def available_outputs(self) -> int:
+        return self._feats.shape[0]
+
+    @property
+    def next_index(self) -> int:
+        return int(self._idx[0])
+
+    def window(self):
+        out = np.zeros(self.window_shape, np.float32)
+        k = min(self._feats.shape[0], self.step_frames)
+        out[:k] = self._feats[:k]
+        return out, 0
+
+    def consume(self, m: int) -> np.ndarray:
+        idx = self._idx[:m]
+        self._feats = self._feats[m:]
+        self._idx = self._idx[m:]
+        return idx
 
 
 class _BatchedStreamEngine:
-    """Shared multi-stream machinery: per-stream frontends, pending
-    feature queues, lockstep step/flush scheduling and reset masks.
+    """Shared multi-stream machinery: one source per stream (a
+    ``_FeatureQueue`` on the host frontend, a ``WaveStreamBuffer`` with
+    ``device_frontend``), lockstep step/flush scheduling, reset masks
+    and the batched step function.
 
-    Subclasses implement ``_dispatch(ready, t, feats, active, reset,
-    tvalid)`` (one batched device step + per-stream results) and
-    ``_reset_host_state(stream)``."""
+    Subclasses call ``_setup(...)`` and implement ``_dispatch(ready, t,
+    feats, active, reset, tvalid)`` (one batched device step +
+    per-stream results) and ``_reset_host_state(stream)``."""
 
-    def _init_streams(self, num_streams: int, step_frames: int,
-                      cache) -> None:
+    def _setup(self, ckpt_path, config, num_streams: int, step_frames: int,
+               use_fused: Optional[bool], device_frontend: bool,
+               softmax: bool, device):
+        """Load the model and build the step function:
+        ``_step_fn((x, lo), active, reset, cache) -> (probs, cache')``,
+        ``x`` the sources' windows: ``(N, T, D)`` features or, with
+        ``device_frontend``, ``(N, W)`` waves featurized in the step.
+        ``use_fused=None`` takes ``forward_route``'s route for the loaded
+        model.  Returns the configs."""
         if num_streams < 1 or step_frames < 1:
             raise ValueError("num_streams and step_frames must be >= 1")
+        self.device = dev = resolve_device(device)
+        self.device_frontend = device_frontend
+        configs, cfg, left, right, downsampling = load_spotter_config(config)
+        self.sample_rate = cfg.sample_rate
+        # frontend frame indices are global pre-skip indices, so wall
+        # time is idx * frame_shift
+        self.resolution = cfg.frame_shift_ms / 1000.0
+        self.downsampling = downsampling
+        self._frontend_args = (cfg, left, right, downsampling)
+        self.feat_dim = cfg.feat_dim * (left + 1 + right)
+        self.model = load_serving_model(configs, ckpt_path, self.feat_dim,
+                                        dev)
+        if use_fused is None:
+            use_fused = forward_route(self.model, dev) == "fused"
+        if use_fused:
+            fused = build_fused_stream(self.model, softmax=softmax,
+                                       device=dev)
+            if fused is None:
+                raise ValueError(
+                    "use_fused=True: this model is not supported by the "
+                    "fused stream (needs a DS-TCN or MDTC with linear "
+                    "preprocessing or an FSMN, and a linear, element or "
+                    "identity head)")
+            apply, init_cache = fused
+            cache, row_axis = init_cache(num_streams), 1
+        else:
+            def apply(feats, cache):
+                return self.model(feats, cache, softmax=softmax)
+
+            cache, row_axis = self.model.init_cache(num_streams, dev), 0
+        if device_frontend:
+            featurize, window = build_batch_featurizer(
+                cfg, left, right, downsampling, step_frames, dev)
+            self._window_shape = (window,)
+            self.sources = [
+                WaveStreamBuffer(cfg.frame_shift, cfg.frame_length, left,
+                                 right, downsampling, step_frames)
+                for _ in range(num_streams)
+            ]
+        else:
+            featurize = None
+            self._window_shape = (step_frames, self.feat_dim)
+            self.sources = [
+                _FeatureQueue(self._frontend_args, self.feat_dim,
+                              step_frames)
+                for _ in range(num_streams)
+            ]
+        zero = torch.zeros((), device=dev)
+
+        def step_fn(feats, active, reset, cache):
+            with torch.inference_mode():
+                x, lo = feats
+                if featurize is not None:
+                    feats = featurize(x, lo)  # waves -> features
+                else:
+                    feats = torch.as_tensor(x, device=dev)
+                active = torch.as_tensor(active, device=dev)
+                reset = torch.as_tensor(reset, device=dev)
+
+                def masked(fn, *trees):
+                    if isinstance(trees[0], torch.Tensor):
+                        return fn(*trees)
+                    return tuple(fn(*leaves) for leaves in zip(*trees))
+
+                cache = masked(
+                    lambda c: _where_rows(reset, zero, c, row_axis), cache)
+                probs, new_cache = apply(feats, cache)
+                out_cache = masked(
+                    lambda n, o: _where_rows(active, n, o, row_axis),
+                    new_cache, cache)
+                return probs, out_cache
+
+        self._step_fn = step_fn
         self.num_streams = num_streams
         self.step_frames = step_frames
-        self.frontends = [
-            StreamingFrontend(*self._frontend_args)
-            for _ in range(num_streams)
-        ]
-        self._pending_feats: List[np.ndarray] = [
-            np.zeros((0, self.feat_dim), np.float32)
-            for _ in range(num_streams)
-        ]
-        self._pending_idx: List[np.ndarray] = [
-            np.zeros((0,), np.int64) for _ in range(num_streams)
-        ]
         self._reset_mask = np.zeros((num_streams,), bool)
         self.cache = cache
         # overflow events beyond the one-result-per-step contract
         self._event_backlog: List[List[Dict]] = [
             [] for _ in range(num_streams)
         ]
+        # every _run() counts here, whichever public path invoked it
         self.stats = {"dispatches": 0, "rows": 0, "frames": 0,
                       "dispatch_s": 0.0}
+        return configs
 
     # ------------- streaming -------------
 
     def accept_wave(self, stream: int, wave: bytes) -> None:
         """Queue a PCM chunk (int16 LE bytes) for one stream."""
-        data = np.frombuffer(wave, dtype="<i2").astype(np.float32)
-        feats, idx = self.frontends[stream].accept_waveform(data)
-        if feats.shape[0]:
-            self._pending_feats[stream] = np.concatenate(
-                [self._pending_feats[stream], feats]
-            )
-            self._pending_idx[stream] = np.concatenate(
-                [self._pending_idx[stream], idx]
-            )
+        self.sources[stream].append(
+            np.frombuffer(wave, dtype="<i2").astype(np.float32))
 
     def pending_frames(self, stream: int) -> int:
-        return self._pending_feats[stream].shape[0]
+        return self.sources[stream].available_outputs()
 
     def step(self) -> Dict[int, Dict]:
         """One batched step over every stream holding at least
@@ -133,6 +282,9 @@ class _BatchedStreamEngine:
         for i in range(self.num_streams):
             drained = self._drain_backlog(i)
             if drained:
+                # flush() keeps the last result per stream; a caller
+                # that must see every overflow event drains through
+                # step()/flush_stream() (the serving daemon's path)
                 results[i] = drained[-1]
         return results
 
@@ -162,7 +314,7 @@ class _BatchedStreamEngine:
              lengths: Optional[Dict[int, int]] = None) -> Dict[int, Dict]:
         """One batched step over ``ready`` rows at chunk size ``t``;
         ``lengths`` marks rows with fewer than ``t`` valid frames."""
-        n, d = self.num_streams, self.feat_dim
+        n = self.num_streams
         active = np.zeros((n,), bool)
         tvalid: Dict[int, int] = {}
         for i in ready:
@@ -171,9 +323,13 @@ class _BatchedStreamEngine:
                 k = min(int(lengths[i]), t)
             active[i] = True
             tvalid[i] = k
-        feats = np.zeros((n, t, d), np.float32)
+        # fixed-shape windows: (T, D) features, or waves featurized in
+        # the step function (runtime/device_frontend.py geometry)
+        x = np.zeros((n,) + self._window_shape, np.float32)
+        lo = np.zeros((n,), np.int64)
         for i in ready:
-            feats[i, :tvalid[i]] = self._pending_feats[i][:tvalid[i]]
+            x[i], lo[i] = self.sources[i].window()
+        feats = (x, lo)
         reset = self._reset_mask.copy()
         self._reset_mask[:] = False
         t0 = time.perf_counter()
@@ -187,10 +343,11 @@ class _BatchedStreamEngine:
     def _consume(self, stream: int, t: int) -> np.ndarray:
         """Advance one stream's queue by ``t`` frames; returns the
         consumed frames' global indices."""
-        idx = self._pending_idx[stream][:t]
-        self._pending_feats[stream] = self._pending_feats[stream][t:]
-        self._pending_idx[stream] = self._pending_idx[stream][t:]
-        return idx
+        return self.sources[stream].consume(t)
+
+    def _first_idx(self, stream: int) -> int:
+        """Absolute (pre-skip spliced) index of the next queued frame."""
+        return self.sources[stream].next_index
 
     # ------------- state -------------
 
@@ -198,10 +355,7 @@ class _BatchedStreamEngine:
         """Free a slot for a new client: clears frontend, queue, decode
         state and (on the next step) the cache row."""
         self._reset_host_state(stream)
-        self.frontends[stream].reset()
-        self._pending_feats[stream] = np.zeros((0, self.feat_dim),
-                                               np.float32)
-        self._pending_idx[stream] = np.zeros((0,), np.int64)
+        self.sources[stream].reset()
         self._reset_mask[stream] = True
 
     def reset_all(self) -> None:
@@ -215,11 +369,161 @@ class _BatchedStreamEngine:
         raise NotImplementedError
 
 
-def _where_rows(mask: torch.Tensor, new: torch.Tensor, old: torch.Tensor,
-                axis: int) -> torch.Tensor:
-    shape = [1] * old.dim()
-    shape[axis] = -1
-    return torch.where(mask.view(shape), new, old)
+class BatchKeywordSpotter(_BatchedStreamEngine):
+    """Batched multi-stream CTC keyword spotting.
+
+    ``config`` is a resolved train config, as a dict or a YAML path;
+    ``ckpt_path`` a port ``.pt`` or a JAX-package ``.ckpt`` (a float32
+    model whatever ``model.dtype`` says).  Runs on ``device``, CUDA
+    unless the caller asks for the CPU.  ``set_keywords`` must come
+    before the first step with ``device_decode``."""
+
+    def __init__(
+        self,
+        ckpt_path: str,
+        config,
+        token_path: str,
+        lexicon_path: Optional[str],
+        threshold: float,
+        num_streams: int = 16,
+        step_frames: int = 8,
+        min_frames: int = 5,
+        max_frames: int = 250,
+        interval_frames: int = 50,
+        score_beam: int = 3,
+        path_beam: int = 20,
+        device_decode: bool = False,
+        device_frontend: bool = False,
+        max_prefix: int = 32,
+        use_fused: Optional[bool] = False,
+        device="cuda",
+    ):
+        self.device_decode = device_decode
+        configs = self._setup(ckpt_path, config, num_streams, step_frames,
+                              use_fused, device_frontend, True, device)
+        self._fsm = dict(
+            threshold=float(threshold),
+            min_frames=int(min_frames),
+            max_frames=int(max_frames),
+            interval_frames=int(interval_frames),
+            downsampling=int(self.downsampling),
+            score_beam=int(score_beam),
+        )
+        self._vocab = int(configs["model"]["output_dim"])
+        self._kw_arrays = None
+        self._kw_names: List[str] = []
+        self._dstate = None
+        if device_decode:
+            self._dstate = init_stream_state(num_streams, path_beam,
+                                             max_prefix, self.device)
+
+        self.token_table = read_token(token_path)
+        self.lexicon_table = (
+            read_lexicon(lexicon_path) if lexicon_path else {}
+        )
+        self.detectors: List[StreamDetector] = [
+            StreamDetector(
+                threshold, min_frames, max_frames, interval_frames,
+                score_beam, path_beam, self.resolution, self.downsampling,
+            )
+            for _ in range(num_streams)
+        ]
+
+    # ------------- keywords -------------
+
+    def set_keywords(self, keywords: str) -> None:
+        """Shared keyword set for every stream slot."""
+        tables = build_keyword_tables(
+            keywords, self.token_table, self.lexicon_table
+        )
+        for det in self.detectors:
+            det.set_tables(*tables)
+        if self.device_decode:
+            kw_tok, kw_len, mask, names = make_keyword_arrays(
+                tables[0], self._vocab)
+            dev = self.device
+            self._kw_arrays = (
+                torch.as_tensor(kw_tok, dtype=torch.int64, device=dev),
+                torch.as_tensor(kw_len, dtype=torch.int64, device=dev),
+                torch.as_tensor(mask, device=dev),
+            )
+            self._kw_names = names
+
+    # ------------- streaming -------------
+
+    def _dispatch(self, ready, t, feats, active, reset,
+                  tvalid) -> Dict[int, Dict]:
+        if self.device_decode:
+            return self._run_device(ready, feats, active, reset, tvalid)
+        probs, self.cache = self._step_fn(feats, active, reset, self.cache)
+        probs = probs.cpu().numpy()  # (N, T, V)
+        results: Dict[int, Dict] = {}
+        for i in ready:
+            k = tvalid[i]
+            idx = self._consume(i, k)
+            results[i] = self.detectors[i].process(idx, probs[i][:k])
+        return results
+
+    def _combined_fn(self, feats, active, reset, t0, lens):
+        """The model step and ``stream_detect_step`` in one function;
+        returns the packed ``(5, N)`` float32 events (fired, keyword,
+        start, end, score; frame indices are below 2**24, exact in
+        float32)."""
+        dev = self.device
+        active = torch.as_tensor(active, device=dev)
+        reset = torch.as_tensor(reset, device=dev)
+        probs, self.cache = self._step_fn(feats, active, reset, self.cache)
+        with torch.inference_mode():
+            self._dstate, events = stream_detect_step(
+                self._dstate, probs, active, reset,
+                torch.as_tensor(t0, device=dev),
+                *self._kw_arrays, lengths=torch.as_tensor(lens, device=dev),
+                **self._fsm)
+            return torch.stack([
+                events["fired"].to(torch.float32),
+                events["kw"].to(torch.float32),
+                events["start"].to(torch.float32),
+                events["end"].to(torch.float32),
+                events["score"],
+            ])
+
+    def _run_device(self, ready, feats, active, reset,
+                    tvalid) -> Dict[int, Dict]:
+        """One step: model + beam + FSM on the device; the host reads
+        the (5, N) events in one copy."""
+        if self._kw_arrays is None:
+            raise RuntimeError(
+                "device_decode requires set_keywords() before step()"
+            )
+        n = self.num_streams
+        t0 = np.zeros((n,), np.int64)
+        lens = np.zeros((n,), np.int64)
+        for i in ready:
+            t0[i] = self._first_idx(i)
+            lens[i] = tvalid[i]
+        ev = self._combined_fn(feats, active, reset, t0, lens).cpu().numpy()
+
+        results: Dict[int, Dict] = {}
+        res = self.resolution
+        for i in ready:
+            self._consume(i, tvalid[i])
+            if ev[0, i]:
+                results[i] = {
+                    "state": 1,
+                    "keyword": self._kw_names[int(ev[1, i])],
+                    "start": float(ev[2, i]) * res,
+                    "end": float(ev[3, i]) * res,
+                    "score": float(ev[4, i]),
+                }
+            else:
+                results[i] = {
+                    "state": 0, "keyword": None, "start": None,
+                    "end": None, "score": None,
+                }
+        return results
+
+    def _reset_host_state(self, stream: int) -> None:
+        self.detectors[stream].reset_all()
 
 
 class BatchMaxPoolSpotter(_BatchedStreamEngine):
@@ -242,77 +546,28 @@ class BatchMaxPoolSpotter(_BatchedStreamEngine):
         step_frames: int = 8,
         interval_frames: int = 50,
         keyword_names: Optional[List[str]] = None,
-        use_fused: bool = False,
+        use_fused: Optional[bool] = False,
+        device_frontend: bool = False,
         device="cuda",
     ):
-        self.device = resolve_device(device)
-        configs, cfg, left, right, downsampling = load_spotter_config(config)
-        self.sample_rate = cfg.sample_rate
-        # frontend frame indices are global pre-skip indices, so wall
-        # time is idx * frame_shift
-        self.resolution = cfg.frame_shift_ms / 1000.0
-        self._frontend_args = (cfg, left, right, downsampling)
-        self.feat_dim = cfg.feat_dim * (left + 1 + right)
-        self.model = load_serving_model(configs, ckpt_path, self.feat_dim,
-                                        self.device)
+        configs = self._setup(ckpt_path, config, num_streams, step_frames,
+                              use_fused, device_frontend, False, device)
         num_keywords = int(configs["model"]["output_dim"])
         self.keyword_names = keyword_names or [
             str(k) for k in range(num_keywords)
         ]
         if len(self.keyword_names) != num_keywords:
             raise ValueError("keyword_names must name every output")
-
-        if use_fused:
-            fused = build_fused_stream(self.model, device=self.device)
-            if fused is None:
-                raise ValueError(
-                    "use_fused=True: this model is not supported by the "
-                    "fused stream (needs a DS-TCN or MDTC with linear "
-                    "preprocessing or an FSMN, and a linear, element or "
-                    "identity head)"
-                )
-            apply, init_cache = fused
-            cache, row_axis = init_cache(num_streams), 1
-        else:
-            apply = self.model
-            cache, row_axis = self.model.init_cache(num_streams,
-                                                    self.device), 0
-        dev = self.device
-        zero = torch.zeros((), device=dev)
-
-        def step_fn(feats, active, reset, cache):
-            with torch.inference_mode():
-                feats = torch.as_tensor(feats, device=dev)
-                active = torch.as_tensor(active, device=dev)
-                reset = torch.as_tensor(reset, device=dev)
-
-                def masked(fn, *trees):
-                    if isinstance(trees[0], torch.Tensor):
-                        return fn(*trees)
-                    return tuple(fn(*leaves) for leaves in zip(*trees))
-
-                cache = masked(
-                    lambda c: _where_rows(reset, zero, c, row_axis), cache)
-                probs, new_cache = apply(feats, cache)
-                out_cache = masked(
-                    lambda n, o: _where_rows(active, n, o, row_axis),
-                    new_cache, cache)
-                return probs, out_cache
-
-        self._step_fn = step_fn
         self.threshold = float(threshold)
         self.interval_frames = int(interval_frames)
         self._last_fire = np.full(
             (num_streams, num_keywords), -(10**9), np.int64
         )
-        self._init_streams(num_streams, step_frames, cache)
 
     def _dispatch(self, ready, t, feats, active, reset,
                   tvalid) -> Dict[int, Dict]:
         probs, self.cache = self._step_fn(feats, active, reset, self.cache)
-        if isinstance(probs, torch.Tensor):
-            probs = probs.cpu().numpy()
-        probs = np.asarray(probs)  # (N, T, K)
+        probs = probs.cpu().numpy()  # (N, T, K)
 
         results: Dict[int, Dict] = {}
         for i in ready:

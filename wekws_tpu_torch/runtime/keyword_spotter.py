@@ -16,7 +16,8 @@ refractory gating, beam reset on activation or stale keyword.
   (ops/serving.py ``build_fused_stream``) with its packed cache, and
   raises where the model is not supported (the JAX engine quietly keeps
   the module path there); without it the model's modules step with the
-  model's own cache (a GRU's hidden state too);
+  model's own cache (a GRU's hidden state too); ``use_fused=None`` takes
+  the route ``ops.serving.forward_route`` gives the loaded model;
 * the checkpoint is a port ``.pt`` (``torch.save`` of the model's
   state_dict, with the reference wekws parameter names) or a
   JAX-package ``.ckpt`` (read by train/checkpoint.load_model_state); the
@@ -43,7 +44,7 @@ from wekws_tpu_torch.models.kws_model import (
     inference_model_conf,
     init_model,
 )
-from wekws_tpu_torch.ops.serving import build_fused_stream
+from wekws_tpu_torch.ops.serving import build_fused_stream, forward_route
 from wekws_tpu_torch.runtime.streaming_frontend import StreamingFrontend
 from wekws_tpu_torch.text.tokenizer import (
     query_token_set,
@@ -245,7 +246,7 @@ class KeyWordSpotter:
         interval_frames: int = 50,
         score_beam: int = 3,
         path_beam: int = 20,
-        use_fused: bool = False,
+        use_fused: Optional[bool] = False,
         device="cuda",
     ):
         self.device = resolve_device(device)
@@ -259,6 +260,8 @@ class KeyWordSpotter:
             self.device)
 
         self._fused_init_cache = None
+        if use_fused is None:
+            use_fused = forward_route(self.model, self.device) == "fused"
         if use_fused:
             fused = build_fused_stream(self.model, softmax=True,
                                        device=self.device)

@@ -15,13 +15,23 @@ bookkeeping (bin/stream_kws_ctc.py):
 Emits (features, absolute_frame_indices) per chunk; concatenated over
 chunks the output equals the offline pipeline on the whole waveform
 (tests/test_torch_frontend.py).
+
+The feature is the configured one: MFCC when ``cfg.feature_type`` is
+``mfcc``, else log-mel fbank.  This departs from the JAX package's copy,
+which computes fbank whatever the configuration says; the port's copy
+agrees with its offline pipeline and with the device featurizer
+(runtime/device_frontend.py) for an MFCC model (ROADMAP C.10).
 """
 
 from typing import Optional, Tuple
 
 import numpy as np
 
-from wekws_tpu_torch.frontend.kaldi import FrontendConfig, compute_fbank_np
+from wekws_tpu_torch.frontend.kaldi import (
+    FrontendConfig,
+    compute_fbank_np,
+    compute_mfcc_np,
+)
 
 
 class StreamingFrontend:
@@ -37,6 +47,8 @@ class StreamingFrontend:
         self.left = left_context
         self.right = right_context
         self.skip = max(frame_skip, 1)
+        self._features = (compute_mfcc_np if cfg.feature_type == "mfcc"
+                          else compute_fbank_np)
         self.reset()
 
     def reset(self) -> None:
@@ -56,7 +68,7 @@ class StreamingFrontend:
         if len(wave) < cfg.frame_length:
             self.wave_remained = wave
             return self._empty()
-        feats = compute_fbank_np(wave, cfg)
+        feats = self._features(wave, cfg)
         n = feats.shape[0]
         self.wave_remained = wave[n * cfg.frame_shift :]
         if n == 0:
