@@ -206,7 +206,38 @@ phases; any failure exits non-zero:
     ``fused_fsmn_layers`` and kept apart by sub-path
     (``path_f_launches``, bin.serve's own counts among them;
     ``path_f``: shape, calls, error, times, bound); the serving figures
-    are one JSON line (``path_f_figures``).
+    are one JSON line (``path_f_figures``);
+18. path G, device-resident epochs (``data/resident.py``): (a) 16,384
+    train and 2,048 cv rows of 2 s made from a seed as int16 (phase
+    7's signal) and staged with ``stage_arrays`` (bytes, seconds, GB/s,
+    memory; rows read back equal); (b) the flagship with
+    ``fused_train`` and ``fused_frontend`` (wave dither, spec_aug): one
+    resident step at B=512 against ``Trainer.train_step`` on the same
+    rows copied to the host and back, from the same state, seed and
+    step (loss, accuracy, every parameter and BN statistic: equal), one
+    resident cv step against ``Trainer.cv_step``; (c) 32 steps through
+    ``Executor.train_resident`` (wall clock and CUDA events) and one
+    ``cv_resident`` pass, the resident step beside the host-fed step
+    (float32 waves and int16 rows) in turns, its device idle share, and
+    every copy from the host in its trace (none over 64 KB; the
+    host-fed step's wave copy as the witness that the trace shows them),
+    both traced in a fresh process, where the profiler misses nothing
+    (late in this one it loses records); (d) ``bin.train --device_resident`` on
+    ``examples/synthetic`` (``conf_torch/mdtc_flagship.yaml``, 2
+    epochs), averaged, scored through ``fused_mdtc_kernel`` and DET as
+    phase 14, each epoch's audio-s/s beside phase 14's host-fed run; a
+    ``speed_perturb`` config raises (ROADMAP A, item 10); (e)
+    ``fused_fbank`` and the eight passes at every shape 18a-18d gave
+    them (``ShapeTap``, ``PassTap``), against their plain versions on
+    the same card tensors (fbank phase 9's limit; a dithered call
+    against the dense plan with the same seed, without dither against
+    the plain version, and its dither's shift of the features against
+    the plain version's in distribution, ``DITHER_Z``; the passes as
+    phase 6), timed (device
+    times from the fresh process, on seeded inputs of each shape) and
+    bounded.  Path G's launches are added to the records of
+    ``fused_fbank`` and the passes (``path_g_launches``, ``path_g``);
+    the step figures are one JSON line (``path_g_figures``).
 
 The last lines are the card, the per-kernel JSON record (13 kernels)
 and ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -332,6 +363,11 @@ FBANK_ATOL, FBANK_RTOL = 1e-3, 1e-4
 # 0.003 and of its standard deviation about 0.3% (more in the low bins,
 # whose few DFT bins give the log a heavy tail)
 DITHER_MEAN_TOL, DITHER_STD_RTOL = 0.02, 0.03
+# a dithered fbank call at a path's own shape against the plain
+# version's torch.randn dither: per mel bin, the mean and the mean
+# square of the dither's shift of the features agree within this many
+# standard errors of their difference (frame by frame, over the call)
+DITHER_Z = 6.0
 N_UTTS, SECONDS, RATE = 16, 2, 16000
 CHUNK_SAMPLES = RATE * 300 // 1000
 
@@ -528,6 +564,28 @@ def check_close(name, got, want, quiet=False, atol=TOL, rtol=TOL):
     if not ok or not torch.isfinite(got).all():
         raise AssertionError(f"{name}: kernel disagrees with reference")
     return err
+
+
+def dither_z(kern_d, kern_0, plain_d, plain_0):
+    """The largest |z| over mel bins of the mean and of the mean square
+    of the shift that dither gives the features, ``kern_d - kern_0``
+    against ``plain_d - plain_0`` (each (B, T, M)), frame by frame: the
+    two draws of a frame's noise are independent, so each frame's
+    difference has mean 0 when the two dithers agree in distribution."""
+    import torch
+
+    m = kern_d.shape[-1]
+    dk = (kern_d - kern_0).reshape(-1, m).double()
+    dp = (plain_d - plain_0).reshape(-1, m).double()
+    if not ((dk != 0).any(0).all() and (dp != 0).any(0).all()):
+        raise AssertionError("dither moved no feature of a mel bin")
+
+    def z(x):  # 0 where the two draws agree on every frame
+        m, se = x.mean(0).abs(), (x.var(0) / x.shape[0]).sqrt()
+        return float(torch.where(se > 0, m / se, m * math.inf).nan_to_num(
+            0.0).max())
+
+    return z(dk - dp), z(dk ** 2 - dp ** 2)
 
 
 def synth_waves(rng):
@@ -2173,18 +2231,71 @@ def read_scores(path):
                 for line in f}
 
 
+def average_score_det(exp, lists, dev, card, tag=""):
+    """Stage 2 of run_torch.sh on a trained ``exp``: bin.average_model
+    (RECIPE_EPOCHS, --val_best), bin.score through the fused MDTC
+    serving kernel (no plain version on a CUDA tensor; held against the
+    module route), bin.compute_det.  Returns (the averaged model, the
+    scoring batches' (B, T))."""
+    import torch
+
+    from wekws_tpu_torch.bin import average_model, compute_det, score
+    from wekws_tpu_torch.ops import fused_mdtc
+
+    avg = os.path.join(exp, f"avg_{RECIPE_EPOCHS}.pt")
+    average_model.main(["--dst_model", avg, "--src_path", exp, "--num",
+                        str(RECIPE_EPOCHS), "--val_best", "--device",
+                        dev.type])
+    score_file = os.path.join(exp, "score.txt")
+    fused_mdtc.fused_mdtc_forward.launches = 0
+    t0 = time.perf_counter()
+    with PlainOnCuda() as plain:
+        n_scored = score.main([
+            "--config", os.path.join(exp, "config.yaml"), "--test_data",
+            lists["test"], "--checkpoint", avg, "--score_file",
+            score_file, "--device", dev.type])
+        torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    plain.check(f"bin.score{tag}")
+    mdtc_launches = fused_mdtc.fused_mdtc_forward.launches
+    n_test = dict(RECIPE_SPLITS)["test"]
+    if n_scored != n_test or mdtc_launches < 1:
+        raise AssertionError(f"bin.score{tag}: {n_scored} utterances, "
+                             f"{mdtc_launches} fused_mdtc launches")
+    err, shapes, model = module_vs_fused(
+        os.path.join(exp, "config.yaml"), avg, lists["test"], dev,
+        f"flagship averaged{tag}")
+    stats = os.path.join(exp, "stats.0.txt")
+    compute_det.main(["--keyword", "0", "--test_data", lists["test"],
+                      "--score_file", score_file, "--stats_file", stats,
+                      "--device", dev.type])
+    with open(stats) as f:
+        rows = [tuple(map(float, line.split())) for line in f]
+    if len(rows) < 100 or any(len(r) != 3 for r in rows):
+        raise AssertionError(f"stats file{tag}: {len(rows)} rows")
+    print(f"  averaged {RECIPE_EPOCHS} checkpoints{tag}; bin.score: "
+          f"{n_scored} utterances, {mdtc_launches} fused_mdtc launch(es) "
+          f"at B x T = {shapes}, {score_s:.2f} s wall (config, weights, "
+          f"features, kernel, score file) [{card}]; module route "
+          f"within {err:.2e}; DET: {len(rows)} thresholds, FRR "
+          f"{rows[50][2]:.4f} and FA/h {rows[50][1]:.2f} at 0.5",
+          flush=True)
+    return model, shapes
+
+
 def phase14_recipe(dev, card):
     """The flagship recipe end to end through the port's CLIs: lists,
     bin.train (2 epochs, fused passes and fused fbank), average, score
     (fused MDTC serving), DET; then the JAX DS-TCN fixture scored
-    through the fused DS-TCN kernel at C=48."""
+    through the fused DS-TCN kernel at C=48.  Returns bin.train's
+    audio-s/s per epoch."""
     import logging
     import tempfile
 
     import torch
     import yaml
 
-    from wekws_tpu_torch.bin import average_model, compute_det, score, train
+    from wekws_tpu_torch.bin import score, train
     from wekws_tpu_torch.data import DataLoader, init_dataset
     from wekws_tpu_torch.ops import fused_frontend, fused_mdtc, fused_tcn
     from wekws_tpu_torch.ops.fused_mdtc import extract_mdtc_weights
@@ -2310,45 +2421,8 @@ def phase14_recipe(dev, card):
               f"{', '.join(f'{x:.1f}' for x in rates)} audio-s/s "
               f"[{card}]", flush=True)
 
-        # average, score (fused MDTC serving), DET
-        avg = os.path.join(exp, f"avg_{RECIPE_EPOCHS}.pt")
-        average_model.main(["--dst_model", avg, "--src_path", exp, "--num",
-                            str(RECIPE_EPOCHS), "--val_best", "--device",
-                            dev.type])
-        score_file = os.path.join(exp, "score.txt")
-        fused_mdtc.fused_mdtc_forward.launches = 0
-        t0 = time.perf_counter()
-        with PlainOnCuda() as plain:
-            n_scored = score.main([
-                "--config", os.path.join(exp, "config.yaml"), "--test_data",
-                lists["test"], "--checkpoint", avg, "--score_file",
-                score_file, "--device", dev.type])
-            torch.cuda.synchronize()
-        score_s = time.perf_counter() - t0
-        plain.check("bin.score")
-        mdtc_launches = fused_mdtc.fused_mdtc_forward.launches
+        model, shapes = average_score_det(exp, lists, dev, card)
         n_test = dict(RECIPE_SPLITS)["test"]
-        if n_scored != n_test or mdtc_launches < 1:
-            raise AssertionError(f"bin.score: {n_scored} utterances, "
-                                 f"{mdtc_launches} fused_mdtc launches")
-        err, shapes, model = module_vs_fused(
-            os.path.join(exp, "config.yaml"), avg, lists["test"], dev,
-            "flagship averaged")
-        stats = os.path.join(exp, "stats.0.txt")
-        compute_det.main(["--keyword", "0", "--test_data", lists["test"],
-                          "--score_file", score_file, "--stats_file", stats,
-                          "--device", dev.type])
-        with open(stats) as f:
-            rows = [tuple(map(float, line.split())) for line in f]
-        if len(rows) < 100 or any(len(r) != 3 for r in rows):
-            raise AssertionError(f"stats file: {len(rows)} rows")
-        print(f"  averaged {RECIPE_EPOCHS} checkpoints; bin.score: "
-              f"{n_scored} utterances, {mdtc_launches} fused_mdtc launch(es) "
-              f"at B x T = {shapes}, {score_s:.2f} s wall (config, weights, "
-              f"features, kernel, score file) [{card}]; module route "
-              f"within {err:.2e}; DET: {len(rows)} thresholds, FRR "
-              f"{rows[50][2]:.4f} and FA/h {rows[50][1]:.2f} at 0.5",
-              flush=True)
 
         # the JAX fixture (DS-TCN, C=48), its cmvn path pointed here
         fixture = DS_TCN_FIXTURE
@@ -2403,7 +2477,6 @@ def phase14_recipe(dev, card):
     print(f"  fused_mdtc (bin.score's call) B={b} T={t}: device time "
           f"{dev_txt} per call, bound {bound:.5f} ms ({bound_by}) [{card}]",
           flush=True)
-    times = {("mdtc", b, t): dev_ms}
 
     # fused_ds_tcn at C=48: the fixture's scoring shape and a streaming step
     *stacks, dilations = extract_ds_tcn_weights(fmodel.backbone)
@@ -2418,12 +2491,11 @@ def phase14_recipe(dev, card):
             lambda: fused_tcn.fused_ds_tcn(x, cache, *weights, dilations, k),
             "fused_ds_tcn_kernel")
         bound, bound_by = tcn_bound_ms(b, t, c, len(dilations), k, pad)
-        times[("ds_tcn", b, t)] = dev_ms
         dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
         print(f"  fused_ds_tcn C={c} B={b} T={t}: device time {dev_txt} per "
               f"call, bound {bound:.5f} ms ({bound_by}) [{card}]",
               flush=True)
-    return times
+    return rates
 
 
 # path D, CTC (phase 15): the hi_xiaowen FSMN-CTC trained at full width
@@ -4914,10 +4986,14 @@ def path_f_bound(name, args, kwargs):
 
 
 class ShapeTap:
-    """Within the ``with``, every call of a path-F wrapper on a CUDA
-    tensor, where the engines make it: per (kernel, shape) the number
-    of calls and a copy of the first call's inputs, on which 17e holds
-    the kernel against its plain version."""
+    """Within the ``with``, every call of a wrapper of ``wrappers``
+    (path F's by default) on a CUDA tensor, where the path makes it:
+    per (kernel, shape) the number of calls and a copy of the first
+    call's inputs, on which 17e (18e) holds the kernel against its plain
+    version."""
+
+    def __init__(self, wrappers=PATH_F_WRAPPERS):
+        self.wrappers = wrappers
 
     def __enter__(self):
         import importlib
@@ -4925,7 +5001,7 @@ class ShapeTap:
         import torch
 
         self.shapes, self._saved = {}, []
-        for name, where, *_ in PATH_F_WRAPPERS:
+        for name, where, *_ in self.wrappers:
             mod = importlib.import_module(where)
             fn = getattr(mod, name)
 
@@ -4950,13 +5026,16 @@ class ShapeTap:
         return False
 
 
-def phase17e_kernel_checks(card, shapes):
-    """Each path-F kernel at every shape path F gave it (``ShapeTap``),
-    on that shape's first inputs: the kernel against its plain version
-    on the same card tensors (TOL, or phase 9's fbank limit), then both
-    timed (CUDA events, median of 30), the kernel's device time
-    (profiler) and its bound from the call's own arguments.  Returns
-    {record name: [readings]}."""
+def phase17e_kernel_checks(card, shapes, tag="17e", path="F",
+                           device_ms=None):
+    """Each path-F kernel at every shape path F gave it (``ShapeTap``;
+    path G's ``fused_fbank`` too, ``tag`` and ``path`` naming it in the
+    lines), on that shape's first inputs: the kernel against its plain
+    version on the same card tensors (TOL, or phase 9's fbank limit),
+    then both timed (CUDA events, median of 30), the kernel's device time
+    (profiler; from ``device_ms`` by (name, shape) where given) and its
+    bound from the call's own arguments.  Returns {record name:
+    [readings]}."""
     import importlib
 
     out = {}
@@ -4970,9 +5049,6 @@ def phase17e_kernel_checks(card, shapes):
         if name == "fused_fsmn_layers":
             pkw.pop("packed", None)
         if name == "fused_fbank":
-            if pkw.get("dither", 0.0):
-                raise AssertionError("17e: path F runs fused_fbank without "
-                                     "dither")
             for key in ("n_fft", "window", "preemphasis", "remove_dc_offset",
                         "twiddles", "low", "bands", "n_band"):
                 pkw.pop(key, None)
@@ -4983,21 +5059,43 @@ def phase17e_kernel_checks(card, shapes):
         def plain():
             return plain_fn(*args, **pkw)
 
-        got, want = kern(), plain()
-        if name == "fused_fbank":
-            got, want = (got,), (want,)
-        err = max(check_close(f"17e {name} {shape}{' cache' if i else ''}",
+        if name == "fused_fbank" and kwargs.get("dither", 0.0):
+            # in-kernel (frame-mode) dither draws Philox noise, which the
+            # plain version's torch.randn cannot repeat: the call against
+            # the dense plan with the same seed (the same noise), and the
+            # call without dither against the plain version
+            quiet = dict(dither=0.0, seed=None)
+            pairs = [(kern(), kern_fn(*args, **pkw)),
+                     (kern_fn(*args, **dict(kwargs, **quiet)),
+                      plain_fn(*args, **dict(pkw, **quiet)))]
+            # the dither's shift of the features against the plain
+            # version's (torch.randn), in distribution
+            zm, zv = dither_z(pairs[0][0], pairs[1][0], plain(), pairs[1][1])
+            print(f"  {tag} {name} {shape}: the in-kernel dither's shift of "
+                  f"the features against the plain version's, per mel bin "
+                  f"over {pairs[0][0].shape[0] * pairs[0][0].shape[1]} "
+                  f"frames: means within {zm:.2f}, mean squares within "
+                  f"{zv:.2f} standard errors (bound {DITHER_Z})", flush=True)
+            if not (zm <= DITHER_Z and zv <= DITHER_Z):
+                raise AssertionError(f"{tag} {name} {shape}: the in-kernel "
+                                     f"dither differs in distribution")
+        elif name == "fused_fbank":
+            pairs = [(kern(), plain())]
+        else:
+            pairs = list(zip(kern(), plain()))
+        err = max(check_close(f"{tag} {name} {shape}{' cache' if i else ''}",
                               g, w, quiet=True, atol=atol, rtol=rtol)
-                  for i, (g, w) in enumerate(zip(got, want)))
+                  for i, (g, w) in enumerate(pairs))
         ms, plain_ms = kernel_vs_plain_ms(kern, plain)
-        dev_ms = profiled_device_ms(kern, kernel_name)
+        dev_ms = (profiled_device_ms(kern, kernel_name) if device_ms is None
+                  else device_ms[(name, shape)])
         bound = path_f_bound(name, args, kwargs)
         dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
-        print(f"  17e {name} {shape}: {calls} calls on path F; vs plain on "
-              f"the first call's inputs max_abs_err {err:.3e} (bound {atol} "
-              f"abs + {rtol} rel); kernel {ms:.4f} ms per call (device "
-              f"{dev_txt}), plain {plain_ms:.4f} ms, bound {bound[0]:.5f} "
-              f"ms ({bound[1]}) [{card}]", flush=True)
+        print(f"  {tag} {name} {shape}: {calls} calls on path {path}; vs "
+              f"plain on the first call's inputs max_abs_err {err:.3e} "
+              f"(bound {atol} abs + {rtol} rel); kernel {ms:.4f} ms per call "
+              f"(device {dev_txt}), plain {plain_ms:.4f} ms, bound "
+              f"{bound[0]:.5f} ms ({bound[1]}) [{card}]", flush=True)
         out.setdefault(name, []).append({
             "shape": shape, "calls": calls, "max_abs_err": err, "ms": ms,
             "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound[0],
@@ -5070,6 +5168,700 @@ def phase17_serving(dev, card, work):
                              f"are not the launches counted {in_process}")
     readings = phase17e_kernel_checks(card, tap.shapes)
     return launches, readings, err, figures
+
+
+# path G (phase 18): device-resident epochs.  The flagship corpus at its
+# training shape (bench.py's B=512 x 2 s): 16,384 train rows, 32 steps
+# of B=512 an epoch (1.05 GB of int16 on the card), and 2,048 cv rows
+RESIDENT_ROWS, RESIDENT_CV_ROWS = 16384, 2048
+# the largest copy from the host a resident step may make: the step's
+# scalars and ctypes arguments, never a wave (a B=512 x 2 s batch is
+# 32.8 MB of int16)
+H2D_LIMIT = 64 << 10
+# the resident step against the host-fed step on the same rows, state,
+# seed and step: the passes are bitwise reproducible (phase 6), so equal
+RESIDENT_STEP_TOL = 0.0
+STEP_ROUNDS = 4
+PATH_G_CONF = dict(TRAIN_DATASET_CONF, fused_frontend=True)
+PATH_G_WRAPPERS = tuple(w for w in PATH_F_WRAPPERS if w[0] == "fused_fbank")
+# the argument of each pass that holds its depthwise kernel (K, C), and
+# of each pass with a conv, its dilation
+PASS_DW_ARG = {"f1": 1, "f2": 1, "f3": 1, "b3": 4, "b4": 4}
+PASS_DILATION_ARG = {"f1": -1, "f2": -1, "f3": -1, "b3": -2, "b4": -2}
+
+
+def resident_arrays(rows, seed):
+    """``rows`` utterances of TRAIN_SECONDS in int16, ``train_batch``'s
+    signal (even rows a 500 Hz keyword tone in noise, odd rows noise),
+    made 1,024 rows at a time."""
+    rng = np.random.default_rng(seed)
+    n = TRAIN_SECONDS * RATE
+    tone = (4000 * np.sin(2 * np.pi * 500 * np.arange(n) / RATE)).astype(
+        np.float32)
+    waves = np.empty((rows, n), np.int16)
+    for lo in range(0, rows, 1024):
+        w = rng.standard_normal((min(1024, rows - lo), n),
+                                dtype=np.float32) * 300
+        w[::2] += tone
+        waves[lo:lo + len(w)] = np.clip(np.rint(w), -32768, 32767)
+    return {"waves": waves, "wave_lengths": np.full((rows,), n, np.int32),
+            "target": (np.arange(rows) % 2 - 1).astype(np.int32),
+            "target_lengths": np.ones((rows,), np.int32)}
+
+
+def h2d_copies(fn):
+    """Bytes of each host-to-device copy in the profiler's trace of one
+    call of ``fn`` (its chrome trace's "Memcpy HtoD" entries).  The
+    trace opens with a short spin kernel, as ``profiled_step``'s: a
+    trace now and then loses its first device entries."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return [int(e.get("args", {}).get("bytes", 0)) for e in events
+            if str(e.get("name", "")).startswith("Memcpy HtoD")]
+
+
+def host_cpu_ms(step, reps=10):
+    """CPU time of this thread per call of ``step`` over ``reps`` calls
+    back to back (the host's own work: enqueue, copies from pageable
+    memory), which time taken by other processes on a shared host does
+    not move; the synchronise after the last call is outside the
+    reading (its wait may spin).  The thread clock ticks in whole
+    milliseconds or coarser, so the calls are read together."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.thread_time()
+    for _ in range(reps):
+        step()
+    used = time.thread_time() - t0
+    torch.cuda.synchronize()
+    return used / reps * 1e3
+
+
+def path_g_specs(fbank_shapes, pass_shapes):
+    """What the fresh process re-creates of each path-G shape: the
+    pass, B, T, C, dilation and K of a pass; B, S and whether the call
+    dithered of an fbank call."""
+    specs = []
+    for (record, shape), (_, name, args) in pass_shapes.items():
+        b, t, c = args[0].shape
+        d = args[PASS_DILATION_ARG[name]] if name in PASS_DILATION_ARG else 1
+        k = args[PASS_DW_ARG[name]].shape[0] if name in PASS_DW_ARG else 5
+        specs.append({"record": record, "shape": shape, "pass": name,
+                      "b": b, "t": t, "c": c, "d": int(d), "k": k})
+    for (record, shape), (_, args, kwargs) in fbank_shapes.items():
+        b, n = args[0].shape
+        specs.append({"record": record, "shape": shape, "b": b, "s": n,
+                      "dither": bool(kwargs.get("dither", 0.0))})
+    return specs
+
+
+def path_g_child(model_conf, specs, device="cuda"):
+    """In a fresh process (``path_g_traces``): (1) the copies from the
+    host in the trace of one resident step at B=512 x 2 s, and of one
+    host-fed step (int16 rows) as the witness that the trace shows
+    them, three traces of each (the resident step's with the largest
+    copy; the host-fed step's first that shows its waves); (2) one
+    resident step's device time (``profiled_step``) and, in the same
+    trace, its wall clock from its start to the end of its last device
+    work, beside the untraced median of 10 steps; (3) the device
+    time per call of each kernel at each path-G shape of ``specs``, on
+    seeded inputs of that shape (a pass with its block reduction).
+    Prints one line ``PATH_G {...}``.  ``device`` is the card (the CPU
+    in a rehearsal)."""
+    import torch
+
+    from wekws_tpu_torch.data.resident import gather_rows, stage_arrays
+    from wekws_tpu_torch.frontend.features import FeatureExtractor
+    from wekws_tpu_torch.frontend.features import (
+        frontend_config_from_dataset_conf as frontend_config,
+    )
+    from wekws_tpu_torch.ops.fused_mdtc_train import (
+        PASS_IDS,
+        PASSES,
+        kernel_name,
+        seeded_block_inputs,
+        trace_pass_inputs,
+    )
+
+    dev = torch.device(device)
+    host = resident_arrays(2 * TRAIN_B, SEED + 20)
+    corpus = stage_arrays(host, device=dev)
+    trainer = path_g_trainer(dev, model_conf)
+    state = trainer.init_state()
+    rows = corpus.epoch_index(0, TRAIN_B)[0]
+    rows_dev = torch.from_numpy(rows).to(dev)
+    int16_batch = {k: v[rows] for k, v in host.items()}
+
+    def resident():
+        trainer.train_step(state, gather_rows(corpus.arrays, rows_dev), SEED,
+                           1e-3)
+
+    def host_int16():
+        trainer.train_step(state, int16_batch, SEED, 1e-3)
+
+    for _ in range(2):
+        resident()
+        host_int16()
+    copies = max((h2d_copies(resident) for _ in range(3)),
+                 key=lambda c: max(c, default=0))
+    wave_bytes = TRAIN_B * TRAIN_SECONDS * RATE * 2
+    for _ in range(3):
+        witness = h2d_copies(host_int16)
+        if sum(witness) >= wave_bytes:
+            break
+    walls = []
+
+    def traced():
+        t0 = time.perf_counter()
+        resident()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+
+    busy, entries, _ = profiled_step(traced)
+    untraced_ms = timed_steps(resident)[0]
+
+    gen = torch.Generator().manual_seed(SEED + 21)
+    fe = FeatureExtractor(frontend_config(PATH_G_CONF), use_fused=True)
+    device_ms, calls = {}, {}
+    for spec in specs:
+        if "pass" in spec:
+            name, key = spec["pass"], tuple(
+                spec[x] for x in ("b", "t", "c", "d", "k"))
+            if key not in calls:
+                p, x, dy = seeded_block_inputs(gen, *key[:3], key[4], dev)
+                calls[key] = trace_pass_inputs(x, p, dy, key[3])
+            args = calls[key][name]
+            names = (kernel_name(name, key[2]),) if name == "f4" else (
+                kernel_name(name, key[2]), f"reduce_kernel<{PASS_IDS[name]}>")
+            _, _, found = profiled_step(lambda: PASSES[name](*args), names)
+            ms = (None if any(v is None for v in found.values())
+                  else sum(found.values()))
+        else:
+            waves = (300 * torch.randn((spec["b"], spec["s"]),
+                                       generator=gen)).to(dev)
+            seed = torch.zeros((1,), dtype=torch.int64, device=dev)
+            _, _, found = profiled_step(
+                lambda: fbank_call(fe, waves, "fft",
+                                   seed if spec["dither"] else None),
+                ("fused_fbank_kernel",))
+            ms = found["fused_fbank_kernel"]
+        device_ms[f"{spec['record']}|{spec['shape']}"] = ms
+    print("PATH_G " + json.dumps({
+        "resident_copies": copies, "host_copies": witness,
+        "resident_busy_ms": busy, "resident_wall_ms": walls[-1],
+        "resident_untraced_ms": untraced_ms, "resident_entries": entries,
+        "device_ms": device_ms}), flush=True)
+
+
+def path_g_traces(model_conf, specs):
+    """``path_g_child``'s readings, from a child process.  Late in this
+    process the profiler's trace loses records (a probe after each
+    phase found some copies from the host missing after phase 13, all
+    of them after phase 15, and kernels too), so the traces that path G
+    reads are taken where nothing ran before.  Fails where the host-fed
+    step's trace does not show its waves."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-c", "import json, sys, chip_smoke; "
+         "chip_smoke.path_g_child(*json.loads(sys.argv[1]))",
+         json.dumps([model_conf, specs])], cwd=here, capture_output=True,
+        text=True, timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("PATH_G ")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"path G's trace process failed "
+                             f"({proc.returncode}): {proc.stderr[-3000:]}")
+    found = json.loads(lines[-1][len("PATH_G "):])
+    wave_bytes = TRAIN_B * TRAIN_SECONDS * RATE * 2
+    if sum(found["host_copies"]) < wave_bytes:
+        raise AssertionError(f"the host-fed step's trace shows no copy of "
+                             f"its {wave_bytes}-byte waves: "
+                             f"{found['host_copies']}")
+    return found
+
+
+def pass_shape(name, args):
+    b, t, c = args[0].shape
+    d = args[PASS_DILATION_ARG[name]] if name in PASS_DILATION_ARG else 1
+    return f"B={b} T={t} C={c} d={int(d)}"
+
+
+class PassTap:
+    """Within the ``with``, every training pass that the fused block
+    (``FusedTCNBlockTrain``) runs on a CUDA tensor: per (pass record,
+    shape) the number of calls and a copy of the first call's inputs,
+    on which 18e holds the pass against its plain version."""
+
+    def __enter__(self):
+        import torch
+
+        from wekws_tpu_torch.ops import fused_mdtc_train
+
+        self.shapes = {}
+        self._mod, self._saved = fused_mdtc_train, fused_mdtc_train._block_run
+
+        def run(name, *args):
+            if args[0].is_cuda:
+                key = (f"fused_train_{name}", pass_shape(name, args))
+                if key not in self.shapes:
+                    self.shapes[key] = [0, name, _tree_map(
+                        lambda v: v.detach().clone()
+                        if isinstance(v, torch.Tensor) else v, args)]
+                self.shapes[key][0] += 1
+            return self._saved(name, *args)
+
+        fused_mdtc_train._block_run = run
+        return self
+
+    def __exit__(self, *exc):
+        self._mod._block_run = self._saved
+        return False
+
+
+def pass_rel_err(got, want):
+    """A pass's largest error relative to the scale ``compare_pass``
+    holds it to: each (B, T, C) output's largest |value|, and for the
+    sums over frames the largest |value| of the group (at least 1).
+    Path G's sums reach 1e8 (bn0's sum of squares over 101,376 frames
+    of activations about 30 in size), so their abs error reads large."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    rel, sums = [], []
+    for a, b in zip(got, want):
+        err = float((a - b).abs().max())
+        if b.dim() == 3:
+            rel.append(err / max(float(b.abs().max()), 1e-30))
+        else:
+            sums.append((err, float(b.abs().max())))
+    if sums:
+        rel.append(max(e for e, _ in sums)
+                   / max([m for _, m in sums] + [1.0]))
+    return max(rel)
+
+
+def phase18e_pass_checks(card, shapes, device_ms):
+    """Each training pass at every shape path G gave it (``PassTap``),
+    on that shape's first inputs: against its plain version on the same
+    card tensors (``compare_pass``: (B, T, C) outputs 1e-4 abs + 1e-4
+    rel, the pass's sums 1e-3 of the largest of their group, as phase
+    6), both timed (CUDA events, median of 30), the pass's device time
+    (its kernel and its block reduction: ``device_ms`` by (record,
+    shape), from ``path_g_traces``) and its bound from its own
+    arguments.  Returns {record name: [readings]}."""
+    from wekws_tpu_torch.ops.fused_mdtc_train import PASSES, compare_pass
+
+    out = {}
+    for (record, shape), (calls, name, args) in sorted(shapes.items()):
+        b, t, c = args[0].shape
+
+        def kern():
+            return PASSES[name](*args)
+
+        def plain():
+            return PASSES[name].plain(*args)
+
+        got, want = kern(), plain()
+        err = compare_pass(f"18e {record} {shape}", got, want)
+        rel = pass_rel_err(got, want)
+        ms, plain_ms = kernel_vs_plain_ms(kern, plain)
+        dev_ms = device_ms[(record, shape)]
+        k = args[PASS_DW_ARG[name]].shape[0] if name in PASS_DW_ARG else 1
+        bound, bound_by = train_pass_bound_ms(name, b, t, c, k)
+        dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+        print(f"  18e {record} {shape}: {calls} calls on path G; vs plain "
+              f"on the first call's inputs max_abs_err {err:.3e} "
+              f"({rel:.2e} of its scale); kernel "
+              f"{ms:.4f} ms per call (device {dev_txt} with its "
+              f"reduction), plain {plain_ms:.4f} ms, bound {bound:.5f} ms "
+              f"({bound_by}) [{card}]", flush=True)
+        out.setdefault(record, []).append({
+            "shape": shape, "calls": calls, "max_abs_err": err,
+            "max_rel_err": rel, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by})
+    return out
+
+
+def path_g_counts():
+    """The launch counts of path G's kernels, by kernel record."""
+    from wekws_tpu_torch.ops.fused_frontend import fused_fbank
+    from wekws_tpu_torch.ops.fused_mdtc_train import PASSES
+
+    counts = {f"fused_train_{name}": PASSES[name].launches
+              for name in TRAIN_PASSES}
+    counts["fused_fbank"] = fused_fbank.launches
+    return counts
+
+
+def phase18a_staging(dev, card):
+    """The flagship corpus made from a seed and staged with
+    ``stage_arrays``; rows read back from the card.  Returns the train
+    and cv corpora and the train arrays on the host."""
+    import torch
+
+    from wekws_tpu_torch.data.resident import stage_arrays
+
+    t0 = time.perf_counter()
+    host = resident_arrays(RESIDENT_ROWS, SEED + 18)
+    cv_host = resident_arrays(RESIDENT_CV_ROWS, SEED + 19)
+    made_s = time.perf_counter() - t0
+    before = torch.cuda.memory_allocated(dev)
+    corpus = stage_arrays(host, device=dev)
+    cv_corpus = stage_arrays(cv_host, device=dev)
+    for c, h in ((corpus, host), (cv_corpus, cv_host)):
+        if c.arrays["waves"].dtype != torch.int16 or c.n != len(h["waves"]):
+            raise AssertionError(f"staged waves {c.arrays['waves'].dtype}, "
+                                 f"{c.n} rows")
+        for key in ("wave_lengths", "target", "target_lengths"):
+            if not np.array_equal(c.arrays[key].cpu().numpy(), h[key]):
+                raise AssertionError(f"staged {key} differ from the host's")
+        for row in (0, 1, c.n // 2 + 1, c.n - 1):
+            if not np.array_equal(c.arrays["waves"][row].cpu().numpy(),
+                                  h["waves"][row]):
+                raise AssertionError(f"staged row {row} differs")
+    up_s = corpus.wait_uploaded() + cv_corpus.wait_uploaded()
+    nbytes = corpus.nbytes + cv_corpus.nbytes
+    print(f"  {RESIDENT_ROWS} train + {RESIDENT_CV_ROWS} cv rows x "
+          f"{TRAIN_SECONDS} s int16 (made in {made_s:.1f} s on the host): "
+          f"{nbytes} bytes staged in {up_s:.4f} s, {nbytes / up_s / 1e9:.2f} "
+          f"GB/s (pageable host memory, one copy an array); memory "
+          f"allocated {before} -> {torch.cuda.memory_allocated(dev)} bytes; "
+          f"rows 0, 1, n/2 + 1, n - 1 and every length and target read "
+          f"back equal [{card}]", flush=True)
+    return corpus, cv_corpus, host
+
+
+def path_g_trainer(dev, model_conf):
+    """The flagship (``model_conf``: phase 7's, with ``fused_train``)
+    with ``fused_frontend``, wave dither and spec_aug, its head started
+    small as phase 7's."""
+    import torch
+
+    from wekws_tpu_torch.data import DeviceFeaturePipeline
+    from wekws_tpu_torch.models import init_model
+    from wekws_tpu_torch.train import Trainer
+
+    model = init_model(model_conf, torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        model.classifier.linear.weight.mul_(0.01)
+    return Trainer(model, DeviceFeaturePipeline.from_conf(PATH_G_CONF),
+                   DeviceFeaturePipeline.from_conf(PATH_G_CONF,
+                                                   training=False),
+                   "max_pooling", grad_clip=5.0, min_duration=5, device=dev)
+
+
+def phase18b_same_step(dev, trainer, corpus, cv_corpus):
+    """One resident train step against ``Trainer.train_step`` on the
+    same rows copied to the host and back, from the same state, seed and
+    step; one resident cv step against ``Trainer.cv_step``.  Returns the
+    trained state."""
+    import torch
+
+    from wekws_tpu_torch.data.resident import gather_rows
+
+    state = trainer.init_state()
+    twin = copy.deepcopy(state)
+    epoch_idx = torch.from_numpy(corpus.epoch_index(0, TRAIN_B)).to(dev)
+    state, got = trainer.train_step(
+        state, gather_rows(corpus.arrays, epoch_idx[0]), SEED, 1e-3)
+    rows = {k: v[epoch_idx[0]].cpu().numpy()
+            for k, v in corpus.arrays.items()}
+    twin, want = trainer.train_step(twin, rows, SEED, 1e-3)
+    worst = max(float((got[k] - want[k]).abs()) for k in got)
+    ref = twin.model.state_dict()
+    for name, val in state.model.state_dict().items():
+        worst = max(worst, float((val.double() - ref[name].double())
+                                 .abs().max()))
+    if not worst <= RESIDENT_STEP_TOL:
+        raise AssertionError(f"resident step vs host-fed step: {worst} > "
+                             f"{RESIDENT_STEP_TOL}")
+    idx, ok = (torch.from_numpy(a).to(dev)
+               for a in cv_corpus.cv_index(TRAIN_B))
+    cv_got = trainer.cv_step(state, gather_rows(cv_corpus.arrays, idx[0],
+                                                ok[0]))
+    cv_rows = {k: v[idx[0]].cpu().numpy()
+               for k, v in cv_corpus.arrays.items()}
+    cv_want = trainer.cv_step(state, cv_rows)
+    cv_worst = max(float((cv_got[k] - cv_want[k]).abs()) for k in cv_got)
+    if not cv_worst <= RESIDENT_STEP_TOL or int(cv_got["count"]) != TRAIN_B:
+        raise AssertionError(f"resident cv step vs Trainer.cv_step: "
+                             f"{cv_got} vs {cv_want}")
+    print(f"  resident step vs host-fed step (B={TRAIN_B} x {TRAIN_SECONDS} "
+          f"s, the same rows, state, seed and step): loss "
+          f"{float(got['loss']):.6f}, largest difference of loss, accuracy, "
+          f"grad norm, every parameter and BN statistic {worst:.1e} "
+          f"(limit {RESIDENT_STEP_TOL}); cv step: {int(cv_got['count'])} "
+          f"utterances, largest difference {cv_worst:.1e}", flush=True)
+    return state
+
+
+def phase18c_epoch(dev, card, trainer, state, corpus, cv_corpus, host,
+                   batch, host_ms):
+    """32 steps through ``Executor.train_resident`` and one
+    ``cv_resident`` pass, timed; the resident step beside the host-fed
+    step (float32 waves, as phase 8's batch, and int16 rows), in turns
+    over STEP_ROUNDS rounds, by wall clock and by the thread's CPU time.
+    The step's device time and copies from the host are traced in a
+    fresh process (``path_g_traces``)."""
+    import torch
+
+    from wekws_tpu_torch.data.resident import gather_rows
+    from wekws_tpu_torch.train import Executor
+
+    ex = Executor(trainer, log_interval=10 ** 9)
+    steps = RESIDENT_ROWS // TRAIN_B
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    state, summary = ex.train_resident(state, corpus, SEED, 1e-3, 1,
+                                       TRAIN_B)
+    e1.record()
+    e1.synchronize()
+    wall_ms = (time.perf_counter() - t0) / steps * 1e3
+    event_ms = e0.elapsed_time(e1) / steps
+    t0 = time.perf_counter()
+    cv = ex.cv_resident(state, cv_corpus, TRAIN_B, 1)
+    cv_s = time.perf_counter() - t0
+    if summary["batches"] != steps or not np.isfinite(
+            [summary["train_loss"], cv["cv_loss"]]).all() or \
+            cv["utts"] != RESIDENT_CV_ROWS:
+        raise AssertionError(f"resident epoch: {summary}, cv {cv}")
+    print(f"  Executor.train_resident: {steps} steps of B={TRAIN_B} x "
+          f"{TRAIN_SECONDS} s, {wall_ms:.3f} ms a step by wall clock, "
+          f"{event_ms:.3f} ms by CUDA events, "
+          f"{summary['audio_seconds_per_s']:.1f} audio-s/s, loss "
+          f"{summary['train_loss']:.5f}; cv_resident {cv['utts']} "
+          f"utterances in {cv_s:.3f} s, loss {cv['cv_loss']:.5f} [{card}]",
+          flush=True)
+
+    rows = corpus.epoch_index(2, TRAIN_B)[0]
+    rows_dev = torch.from_numpy(rows).to(dev)
+
+    def resident():
+        trainer.train_step(state, gather_rows(corpus.arrays, rows_dev), SEED,
+                           1e-3)
+
+    int16_batch = {k: v[rows] for k, v in host.items()}
+
+    def host_int16():
+        trainer.train_step(state, int16_batch, SEED, 1e-3)
+
+    def host_f32():
+        trainer.train_step(state, batch, SEED, 1e-3)
+
+    # the host's clock moves by 10-20 ms between rounds on this step
+    # (the card's host is shared): rounds in turns, forward and back
+    order = (("host-fed float32", host_f32), ("host-fed int16", host_int16),
+             ("resident", resident))
+    rounds = {label: [] for label, _ in order}
+    cpu = {label: [] for label, _ in order}
+    for r in range(STEP_ROUNDS):
+        for label, fn in (order if r % 2 == 0 else order[::-1]):
+            rounds[label].append(timed_steps(fn)[0])
+            cpu[label].append(host_cpu_ms(fn))
+    times = {label: float(np.median(ms)) for label, ms in rounds.items()}
+    print(f"  train step by wall clock, the median of {STEP_ROUNDS} rounds' "
+          f"medians of 10 (each round's) in turns: "
+          + "; ".join(f"{label} {times[label]:.3f} ms ("
+                      + ", ".join(f"{x:.1f}" for x in ms) + ")"
+                      for label, ms in rounds.items())
+          + f"; phase 8's host-fed step (unfused frontend) {host_ms:.3f} ms "
+          f"[{card}]", flush=True)
+    print("  the host's CPU time a step (this thread, over 10 steps a round): "
+          + "; ".join(f"{label} {float(np.median(ms)):.3f} ms ("
+                      + ", ".join(f"{x:.1f}" for x in ms) + ")"
+                      for label, ms in cpu.items()) + f" [{card}]",
+          flush=True)
+    return {"resident_ms": rounds["resident"],
+            "host_f32_ms": rounds["host-fed float32"],
+            "host_int16_ms": rounds["host-fed int16"],
+            "resident_cpu_ms": cpu["resident"],
+            "host_f32_cpu_ms": cpu["host-fed float32"],
+            "host_int16_cpu_ms": cpu["host-fed int16"],
+            "resident_epoch_ms": wall_ms, "resident_event_ms": event_ms,
+            "resident_median_ms": times["resident"],
+            "audio_s_per_s": summary["audio_seconds_per_s"]}
+
+
+def phase18d_cli(dev, card, recipe_rates):
+    """``bin.train --device_resident`` on the committed corpus
+    (``conf_torch/mdtc_flagship.yaml``) for RECIPE_EPOCHS epochs, then
+    average, score and DET as phase 14; a config with speed_perturb
+    raises (ROADMAP A, item 10).  Returns the epochs' audio-s/s."""
+    import tempfile
+
+    import torch
+    import yaml
+
+    from wekws_tpu_torch.bin import train
+
+    config = os.path.join(RECIPE, "conf_torch", "mdtc_flagship.yaml")
+    with open(config) as f:
+        configs = yaml.safe_load(f)
+    batch_size = configs["dataset_conf"]["batch_conf"]["batch_size"]
+    with tempfile.TemporaryDirectory() as tmp:
+        lists = recipe_lists(tmp)
+        exp = os.path.join(tmp, "exp")
+        argv = ["--train_data", lists["train"], "--cv_data", lists["dev"],
+                "--min_duration", "20", "--seed", "666", "--cmvn_file",
+                os.path.join(RECIPE, "data", "global_cmvn"), "--norm_var",
+                "--num_epochs", str(RECIPE_EPOCHS), "--device_resident",
+                "--device", dev.type]
+        before = path_g_counts()
+        t0 = time.perf_counter()
+        with PlainOnCuda() as plain, TimeLimit(RECIPE_TIMEOUT_S,
+                                               "bin.train --device_resident"):
+            train.main(["--config", config, "--model_dir", exp] + argv)
+            torch.cuda.synchronize()
+        plain.check("bin.train --device_resident")
+        train_s = time.perf_counter() - t0
+        after = path_g_counts()
+        with open(os.path.join(exp, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        cv_losses = []
+        for e in range(RECIPE_EPOCHS):
+            for name in (f"{e}.pt", f"{e}.yaml"):
+                if not os.path.exists(os.path.join(exp, name)):
+                    raise AssertionError(f"bin.train --device_resident "
+                                         f"wrote no {name}")
+            with open(os.path.join(exp, f"{e}.yaml")) as f:
+                cv_losses.append(float(yaml.safe_load(f)["cv_loss"]))
+        train_losses = [r["train_loss"] for r in records]
+        steps = dict(RECIPE_SPLITS)["train"] // batch_size
+        cv_batches = math.ceil(dict(RECIPE_SPLITS)["dev"] / batch_size)
+        want = {f"fused_train_{p}": 17 * steps * RECIPE_EPOCHS
+                for p in TRAIN_PASSES}
+        want["fused_fbank"] = (steps + cv_batches) * RECIPE_EPOCHS
+        got = {k: after[k] - before[k] for k in after}
+        if len(records) != RECIPE_EPOCHS or not np.isfinite(
+                train_losses + cv_losses).all() or got != want or any(
+                r["batches"] != steps for r in records):
+            raise AssertionError(f"bin.train --device_resident: records "
+                                 f"{records}, cv losses {cv_losses}, "
+                                 f"launches {got} (want {want})")
+        rates = [r["audio_seconds_per_s"] for r in records]
+        print(f"  bin.train --device_resident: {RECIPE_EPOCHS} epochs of "
+              f"{steps} steps of B={batch_size} from the staged corpus, "
+              f"{train_s:.1f} s wall; train losses {train_losses}, cv "
+              f"losses {cv_losses}; launches {got}, no plain version on a "
+              f"CUDA tensor; audio-s/s per epoch "
+              f"{', '.join(f'{x:.1f}' for x in rates)} against phase 14's "
+              f"host-fed {', '.join(f'{x:.1f}' for x in recipe_rates)} "
+              f"[{card}]", flush=True)
+        average_score_det(exp, lists, dev, card, " (resident)")
+
+        configs["dataset_conf"]["speed_perturb"] = True
+        aug = os.path.join(tmp, "speed_perturb.yaml")
+        with open(aug, "w") as f:
+            yaml.safe_dump(configs, f)
+        try:
+            train.main(["--config", aug, "--model_dir",
+                        os.path.join(tmp, "aug")] + argv)
+        except NotImplementedError as e:
+            if "item 10" not in str(e):
+                raise
+            print(f"  speed_perturb with --device_resident raises: {e}",
+                  flush=True)
+        else:
+            raise AssertionError("bin.train --device_resident trained a "
+                                 "speed_perturb config")
+    return rates
+
+
+def phase18_resident(dev, card, model_conf, batch, host_ms, recipe_rates):
+    """Path G, device-resident epochs: 18a staging, 18b the resident
+    step against the host-fed step, 18c a timed resident epoch, 18d
+    ``bin.train --device_resident``; path G's launches counted from 0
+    before 18a and read after 18d, every call of ``fused_fbank`` and of
+    the eight passes tapped by shape (``ShapeTap``, ``PassTap``); 18e
+    each kernel against its plain version at every shape path G gave
+    it.  A resident step's copies from the host and device time, and
+    each kernel's device time at each shape, come from a fresh process
+    (``path_g_traces``).  Returns ({kernel record: launches}, {kernel
+    record: [readings]}, the step figures, the CLI's epoch rates)."""
+    from wekws_tpu_torch.ops.fused_frontend import fused_fbank
+    from wekws_tpu_torch.ops.fused_mdtc_train import reset_launches
+
+    reset_launches()
+    fused_fbank.launches = 0
+    with ShapeTap(PATH_G_WRAPPERS) as ftap, PassTap() as ptap:
+        corpus, cv_corpus, host = phase18a_staging(dev, card)
+        trainer = path_g_trainer(dev, model_conf)
+        state = phase18b_same_step(dev, trainer, corpus, cv_corpus)
+        figures = phase18c_epoch(dev, card, trainer, state, corpus,
+                                 cv_corpus, host, batch, host_ms)
+        del corpus, cv_corpus, host
+        rates = phase18d_cli(dev, card, recipe_rates)
+    launches = path_g_counts()
+    missing = [k for k, v in launches.items() if not v]
+    tapped = {}
+    for (name, _), (calls, *_) in list(ftap.shapes.items()) + list(
+            ptap.shapes.items()):
+        tapped[name] = tapped.get(name, 0) + calls
+    if missing or tapped != launches:
+        raise AssertionError(f"path G: the calls seen by shape {tapped} are "
+                             f"not the launches counted {launches} (none of "
+                             f"{missing})")
+    traces = path_g_traces(model_conf,
+                           path_g_specs(ftap.shapes, ptap.shapes))
+    copies = traces["resident_copies"]
+    if copies and max(copies) > H2D_LIMIT:
+        raise AssertionError(f"a resident step copied {max(copies)} bytes "
+                             f"from the host (limit {H2D_LIMIT})")
+    busy, wall = traces["resident_busy_ms"], traces["resident_wall_ms"]
+    if not 0 < busy <= wall:
+        raise AssertionError(f"the traced resident step: device time {busy} "
+                             f"ms against its wall clock {wall} ms")
+    figures.update(idle=1 - busy / wall, busy_ms=busy, traced_wall_ms=wall,
+                   untraced_ms=traces["resident_untraced_ms"],
+                   h2d_copies=len(copies), h2d_bytes=sum(copies))
+    witness = traces["host_copies"]
+    print(f"  18c, traced in a fresh process: a resident step's copies from "
+          f"the host (of three traces, the one with the largest) "
+          f"{len(copies)}, {sum(copies)} bytes, the largest "
+          f"{max(copies, default=0)} (limit {H2D_LIMIT}); a host-fed int16 "
+          f"step's {len(witness)}, {sum(witness)} bytes, the largest "
+          f"{max(witness)}; the resident step's device time {busy:.3f} ms "
+          f"in {traces['resident_entries']} device entries, idle "
+          f"{figures['idle']:.1%} of that traced step's {wall:.3f} ms wall "
+          f"clock (untraced, the median of 10 in that process: "
+          f"{figures['untraced_ms']:.3f} ms) [{card}]",
+          flush=True)
+    device_ms = {tuple(k.split("|")): v
+                 for k, v in traces["device_ms"].items()}
+    readings = phase17e_kernel_checks(card, ftap.shapes, "18e", "G",
+                                      device_ms)
+    readings.update(phase18e_pass_checks(card, ptap.shapes, device_ms))
+    return launches, readings, figures, rates
+
+
+def merge_path_g(record, launches, readings):
+    """Path G's launches and readings into the kernel records."""
+    rows = {r["name"]: r for r in record}
+    for name, n in launches.items():
+        rows[name]["launches"] += n
+        rows[name]["path_g_launches"] = n
+    for name, rs in readings.items():
+        rows[name]["path_g"] = rs
+        rows[name]["max_abs_err"] = max(
+            [rows[name]["max_abs_err"]] + [r["max_abs_err"] for r in rs])
 
 
 SERVING_KERNELS = {"fused_frontend": 6, "fused_mdtc": 15 + 25 + 3}
@@ -5384,7 +6176,7 @@ def main() -> int:
                                 step_ms, chunk_ms)
 
     with phase("14 recipe: bin.train, average, score, DET, JAX fixture"):
-        phase14_recipe(dev, card)
+        recipe_rates = phase14_recipe(dev, card)
 
     with phase("15 path D, CTC: FSMN-CTC training, the CTC recipe, the "
                "JAX fixture"):
@@ -5442,6 +6234,16 @@ def main() -> int:
         print(f"  launches on path F: {f_launches} [{card}]", flush=True)
         print(json.dumps({"path_f_figures": figures, "card": card}),
               flush=True)
+
+    with phase("18 path G: device-resident epochs"):
+        g_launches, g_readings, g_figures, g_rates = phase18_resident(
+            dev, card, train_conf, batch, step_ms, recipe_rates)
+        merge_path_g(record, g_launches, g_readings)
+        print(f"  launches on path G: {g_launches} [{card}]", flush=True)
+        print(json.dumps({"path_g_figures": dict(
+            g_figures, cli_audio_s_per_s=g_rates,
+            host_fed_cli_audio_s_per_s=recipe_rates), "card": card}),
+            flush=True)
 
     print(card)
     print(json.dumps({"kernels": record}))

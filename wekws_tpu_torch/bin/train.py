@@ -8,12 +8,15 @@ YAML config + flags, per-epoch checkpoints ``<epoch>.pt`` with
 ``tensorboard/`` and a ``final.pt`` link.  One process on one card
 (``--device``, CUDA unless ``cpu`` is asked for): the host pipeline's
 ``DataLoader`` feeds the ``Trainer``, which runs the fused exact-BN
-passes and the fused fbank as the config asks.  ``--checkpoint``
-resumes from a port ``.pt`` or a JAX-package ``.ckpt``.  ``--dict``
-(a CTC model: ``dict.txt``, and ``words.txt`` where present) tokenizes
-both data lists and sets the output width to the vocabulary.  The flags
-of unported items raise: ``--device_resident`` (ROADMAP A.10),
-``--coordinator`` / ``--num_processes`` / ``--process_id`` (A.13).
+passes and the fused fbank as the config asks.  ``--device_resident``
+stages both lists on the device once instead (``data/resident.py``,
+before the model is built) and trains every epoch from there; a config
+with waveform augmentation then raises (ROADMAP A, item 10).
+``--checkpoint`` resumes from a port ``.pt`` or a JAX-package
+``.ckpt``.  ``--dict`` (a CTC model: ``dict.txt``, and ``words.txt``
+where present) tokenizes both data lists and sets the output width to
+the vocabulary.  The flags of data parallelism raise: ``--coordinator``
+/ ``--num_processes`` / ``--process_id`` (A.13).
 
 Torch is imported inside ``main``, so the loader's spawned workers,
 which import this module as their main module, start without it.
@@ -59,7 +62,11 @@ def get_args(argv=None):
                         help="data-loading worker processes")
     parser.add_argument("--device_resident", action="store_true",
                         default=False,
-                        help="device-resident epochs (not ported yet)")
+                        help="stage the train and cv waves on the device "
+                             "once (int16) and gather every batch there: no "
+                             "wave crosses from the host during an epoch "
+                             "(waveform augmentation raises: ROADMAP A, "
+                             "item 10)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
     return parser.parse_args(argv)
@@ -68,9 +75,6 @@ def get_args(argv=None):
 def check_ported(args) -> None:
     from wekws_tpu_torch.models.kws_model import _not_ported
 
-    if args.device_resident:
-        raise _not_ported("--device_resident",
-                          "item 10, device-resident epochs")
     if any(v is not None for v in (args.coordinator, args.num_processes,
                                    args.process_id)):
         raise _not_ported("--coordinator/--num_processes/--process_id",
@@ -87,6 +91,7 @@ def main(argv=None):
 
     from wekws_tpu_torch.data import DeviceFeaturePipeline, init_dataset
     from wekws_tpu_torch.data.loader import DataLoader
+    from wekws_tpu_torch.data.resident import stage_data_list
     from wekws_tpu_torch.device import resolve_device
     from wekws_tpu_torch.models import init_model
     from wekws_tpu_torch.text import CharTokenizer
@@ -123,6 +128,15 @@ def main(argv=None):
 
     train_pipeline = DeviceFeaturePipeline.from_conf(dataset_conf, True)
     cv_pipeline = DeviceFeaturePipeline.from_conf(dataset_conf, False)
+    batch_size = dataset_conf.get("batch_conf", {}).get("batch_size", 16)
+    train_corpus = cv_corpus = None
+    if args.device_resident:
+        # staged before the model is built, as the JAX CLI does
+        train_corpus = stage_data_list(args.train_data, dataset_conf,
+                                       tokenizer, split="train",
+                                       device=device)
+        cv_corpus = stage_data_list(args.cv_data, dataset_conf, tokenizer,
+                                    split="cv", device=device)
 
     # resolve the model config (reference train.py)
     model_conf = configs["model"]
@@ -186,25 +200,34 @@ def main(argv=None):
     )
     state = trainer.init_state()
     max_epoch = args.num_epochs or train_conf.get("max_epoch", 100)
-    train_dataset = DataLoader(
-        init_dataset(args.train_data, dataset_conf, tokenizer,
-                     split="train"),
-        num_workers=args.num_workers,
-    )
-    cv_dataset = DataLoader(
-        init_dataset(args.cv_data, dataset_conf, tokenizer, split="cv"),
-        num_workers=args.num_workers,
-    )
+    train_dataset = cv_dataset = None
+    if not args.device_resident:
+        train_dataset = DataLoader(
+            init_dataset(args.train_data, dataset_conf, tokenizer,
+                         split="train"),
+            num_workers=args.num_workers,
+        )
+        cv_dataset = DataLoader(
+            init_dataset(args.cv_data, dataset_conf, tokenizer, split="cv"),
+            num_workers=args.num_workers,
+        )
     # TensorBoard epoch scalars (reference train.py), beside metrics.jsonl
     writer = SummaryWriter(os.path.join(args.model_dir, "tensorboard"))
     final_epoch = None
     try:
         for epoch in range(start_epoch, max_epoch):
-            train_dataset.set_epoch(epoch)
-            state, summary = executor.train(
-                state, train_dataset, args.seed + 1, scheduler.lr, epoch
-            )
-            cv = executor.cv(state, cv_dataset, epoch)
+            if args.device_resident:
+                state, summary = executor.train_resident(
+                    state, train_corpus, args.seed + 1, scheduler.lr, epoch,
+                    batch_size)
+                cv = executor.cv_resident(state, cv_corpus, batch_size,
+                                          epoch)
+            else:
+                train_dataset.set_epoch(epoch)
+                state, summary = executor.train(
+                    state, train_dataset, args.seed + 1, scheduler.lr, epoch
+                )
+                cv = executor.cv(state, cv_dataset, epoch)
             logging.info(
                 "Epoch %d done: train_loss %.6f cv_loss %.6f cv_acc %.4f "
                 "throughput %.1f audio-s/s",
@@ -228,8 +251,9 @@ def main(argv=None):
             final_epoch = epoch
     finally:
         writer.close()
-        train_dataset.close()
-        cv_dataset.close()
+        for loader in (train_dataset, cv_dataset):
+            if loader is not None:
+                loader.close()
 
     if final_epoch is not None:
         link_final(args.model_dir, final_epoch)

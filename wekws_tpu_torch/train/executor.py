@@ -6,8 +6,11 @@ loop with loss/acc accumulation over the host pipeline's batches.  A
 epoch); any other iterable of numpy batch dicts (a ``Dataset``, a list)
 is run ahead of the device by the thread ``Prefetcher``.  cv counts
 exactly: fill rows (``valid`` 0) and non-finite losses are left out.
-One card: no mesh, no padding to a device multiple.  Device-resident
-epochs (ROADMAP queue A, item 10) are not ported yet.
+One card: no mesh, no padding to a device multiple.
+
+``train_resident`` and ``cv_resident`` run epochs over a corpus staged
+on the device (``data/resident.py``): one upload of the epoch's
+(steps, B) row indices, then each step gathers its rows on the device.
 """
 
 import json
@@ -21,6 +24,7 @@ import torch
 
 from wekws_tpu_torch.data.loader import DataLoader
 from wekws_tpu_torch.data.prefetch import Prefetcher
+from wekws_tpu_torch.data.resident import gather_rows
 from wekws_tpu_torch.decode.accuracy import acc_utterance
 
 # the early steps ``profile_dir`` traces: [start, stop)
@@ -71,36 +75,37 @@ class Executor:
                                               "trace.json"))
         self._profiled = True
 
-    def train(self, state, dataset: Iterable[Dict], seed: int, lr: float,
-              epoch: int) -> Tuple[object, Dict[str, float]]:
-        losses, accs, audio_seconds = [], [], 0.0
-        start = time.time()
-        n_batches = 0
+    def _window(self, steps: Iterable):
+        """``enumerate(steps)``, with the first epoch's ``PROFILE_STEPS``
+        traced: the profiler starts before step ``start`` and stops
+        after step ``stop - 1``, or at the end of a shorter epoch."""
         prof = None
-        for idx, batch in enumerate(self._iterate(dataset)):
+        for idx, item in enumerate(steps):
             if self.profile_dir and not self._profiled \
                     and idx == PROFILE_STEPS[0]:
                 prof = self._profiler()
                 prof.start()
-            audio_seconds += float(np.asarray(batch["wave_lengths"]).sum()) \
-                / 16000.0
-            state, metrics = self.trainer.train_step(state, batch, seed, lr)
+            yield idx, item
             if prof is not None and idx == PROFILE_STEPS[1] - 1:
                 self._stop_profile(prof)
                 prof = None
-            n_batches += 1
-            if idx % self.log_interval == 0:
-                m = {k: float(v) for k, v in metrics.items()}
-                losses.append(m["loss"])
-                accs.append(m["acc"])
-                logging.info(
-                    "Epoch %d batch %d loss %.6f acc %.4f lr %.6g%s",
-                    epoch, idx, m["loss"], m["acc"], lr,
-                    " SKIPPED(non-finite)" if m["skipped"] else "",
-                )
-        if prof is not None:  # the epoch ended inside the window
+        if prof is not None:
             self._stop_profile(prof)
-        self._sync()
+
+    def _log_batch(self, epoch: int, idx: int, metrics, lr: float,
+                   losses: list, accs: list) -> None:
+        m = {k: float(v) for k, v in metrics.items()}
+        losses.append(m["loss"])
+        accs.append(m["acc"])
+        logging.info(
+            "Epoch %d batch %d loss %.6f acc %.4f lr %.6g%s",
+            epoch, idx, m["loss"], m["acc"], lr,
+            " SKIPPED(non-finite)" if m["skipped"] else "",
+        )
+
+    def _summary(self, epoch: int, lr: float, losses: list, accs: list,
+                 n_batches: int, audio_seconds: float,
+                 start: float) -> Dict[str, float]:
         elapsed = max(time.time() - start, 1e-9)
         summary = {
             "train_loss": float(np.mean(losses)) if losses else float("nan"),
@@ -109,7 +114,53 @@ class Executor:
             "audio_seconds_per_s": audio_seconds / elapsed,
         }
         self.log_metrics({"epoch": epoch, "lr": lr, **summary})
-        return state, summary
+        return summary
+
+    def train(self, state, dataset: Iterable[Dict], seed: int, lr: float,
+              epoch: int) -> Tuple[object, Dict[str, float]]:
+        losses, accs, audio_seconds = [], [], 0.0
+        start = time.time()
+        n_batches = 0
+        for idx, batch in self._window(self._iterate(dataset)):
+            audio_seconds += float(np.asarray(batch["wave_lengths"]).sum()) \
+                / 16000.0
+            state, metrics = self.trainer.train_step(state, batch, seed, lr)
+            n_batches += 1
+            if idx % self.log_interval == 0:
+                self._log_batch(epoch, idx, metrics, lr, losses, accs)
+        self._sync()
+        return state, self._summary(epoch, lr, losses, accs, n_batches,
+                                    audio_seconds, start)
+
+    def train_resident(self, state, corpus, seed: int, lr: float,
+                       epoch: int,
+                       batch_size: int) -> Tuple[object, Dict[str, float]]:
+        """One epoch over a staged ``ResidentCorpus``: the epoch's
+        (steps, B) row indices are its one upload, and every step
+        gathers its rows on the device and runs ``Trainer.train_step``.
+        The order is ``Random(epoch)``, the host pipeline's
+        ``DataList`` order; the tail that fills no batch is dropped.
+
+        Metrics are read from the device every ``log_interval`` steps
+        (when the epoch has that many) and once at its end."""
+        epoch_idx = corpus.epoch_index(epoch, batch_size)
+        steps = epoch_idx.shape[0]
+        idx_dev = torch.from_numpy(epoch_idx).to(self.trainer.device)
+        audio_seconds = float(corpus.host_wave_lengths[epoch_idx].sum()) \
+            / corpus.sample_rate
+        losses, accs = [], []
+        log_batches = self.log_interval <= steps
+        start = time.time()
+        for idx, rows in self._window(idx_dev):
+            state, metrics = self.trainer.train_step(
+                state, gather_rows(corpus.arrays, rows), seed, lr)
+            if log_batches and idx % self.log_interval == 0:
+                self._log_batch(epoch, idx, metrics, lr, losses, accs)
+        if not losses:
+            self._log_batch(epoch, steps - 1, metrics, lr, losses, accs)
+        self._sync()
+        return state, self._summary(epoch, lr, losses, accs, steps,
+                                    audio_seconds, start)
 
     def cv(self, state, dataset: Iterable[Dict], epoch: int = 0,
            decode_acc: bool = False) -> Dict[str, float]:
@@ -133,16 +184,45 @@ class Executor:
                     np.asarray(batch["target"]),
                     out["feat_lengths"].cpu().numpy(),
                     np.asarray(batch["target_lengths"])))
+        extra = {}
+        if decode_hits:
+            extra["cv_decode_acc"] = float(np.mean(decode_hits))
+        return self._cv_result(epoch, total_loss, total_correct,
+                               total_utts, extra)
+
+    @staticmethod
+    def _cv_result(epoch: int, total_loss: float, total_correct: float,
+                   total_utts: int, extra: Dict) -> Dict[str, float]:
         result = {
             "cv_loss": total_loss / max(total_utts, 1),
             "cv_acc": total_correct / max(total_utts, 1),
             "utts": total_utts,
+            **extra,
         }
-        if decode_hits:
-            result["cv_decode_acc"] = float(np.mean(decode_hits))
         logging.info("Epoch %d CV loss %.6f acc %.4f (%d utts)", epoch,
                      result["cv_loss"], result["cv_acc"], total_utts)
         return result
+
+    def cv_resident(self, state, corpus, batch_size: int,
+                    epoch: int = 0) -> Dict[str, float]:
+        """Validation over a staged corpus in list order, with ``cv``'s
+        accumulation: the last batch is padded with row 0 and those
+        slots' validity zeroed, so every row counts once.  The batches'
+        sums stay on the device until the last batch."""
+        idx, ok = corpus.cv_index(batch_size)
+        idx_dev = torch.from_numpy(idx).to(self.trainer.device)
+        ok_dev = torch.from_numpy(ok).to(self.trainer.device)
+        outs = [self.trainer.cv_step(state, gather_rows(corpus.arrays, i, o))
+                for i, o in zip(idx_dev, ok_dev)]
+        sums = torch.stack([torch.stack([o["loss_sum"], o["correct_sum"],
+                                         o["count"]]) for o in outs])
+        total_loss, total_correct, total_utts = 0.0, 0.0, 0
+        for loss_sum, correct_sum, count in sums.cpu().tolist():
+            total_loss += loss_sum
+            total_correct += correct_sum
+            total_utts += int(count)
+        return self._cv_result(epoch, total_loss, total_correct, total_utts,
+                               {})
 
     def test(self, state, dataset: Iterable[Dict],
              epoch: int = 0) -> Dict[str, float]:

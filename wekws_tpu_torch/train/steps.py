@@ -145,11 +145,15 @@ class Trainer:
                                                    self.weight_decay))
 
     def _tensors(self, batch: Dict):
+        """The batch on the trainer's device in the step's dtypes.  A
+        host array crosses in its own dtype and is widened on the device
+        (an int16 wave moves half the bytes of its float32 form); a
+        tensor already on the device is not copied."""
         def dev(key, dtype):
             val = batch.get(key)
             if val is None:
                 return None
-            return torch.as_tensor(val).to(self.device, dtype)
+            return torch.as_tensor(val).to(self.device).to(dtype)
 
         return {
             "waves": dev("waves", torch.float32),
