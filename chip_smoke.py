@@ -1171,16 +1171,26 @@ def phase8_train_times(trainer, state, batch, card, launches, errs,
           f"dither + spec_aug): {step_ms:.3f} ms, "
           f"{audio / step_ms * 1e3:.1f} audio-s/s [{card}]", flush=True)
 
-    # device time of each pass inside a profiled train step
+    # device time of each pass inside a profiled train step, and that
+    # step's own wall clock (the trace opens with a spin kernel, left out
+    # of the readings, as profiled_step's); the untraced median beside it
+    untraced_ms = timed_steps(
+        lambda: trainer.train_step(state, batch, SEED, 1e-3))[0]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         trainer.train_step(state, batch, SEED, 1e-3)
         torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
     kernels = {}
     on_device = {}  # device entries (kernels, copies, fills): total us
     for evt in prof.key_averages():
         total = getattr(evt, "device_time_total",
                         getattr(evt, "cuda_time_total", 0.0))
+        if "spin_kernel" in evt.key:
+            continue
         if evt.count and total and str(getattr(evt, "device_type", "")) \
                 .endswith("CUDA"):
             on_device[evt.key] = total
@@ -1200,10 +1210,13 @@ def phase8_train_times(trainer, state, batch, card, launches, errs,
     ours = list(pass_kernel.values()) + ["reduce_kernel"]
     kernel_total = sum(t for key, (t, _) in kernels.items()
                        if any(f in key for f in ours)) / 1e3
-    print(f"  profiled step: {busy / 1e3:.3f} ms of device time in all, "
-          f"{kernel_total:.3f} ms in the training kernels; the device is "
-          f"idle for {max(0.0, 1 - busy / 1e3 / step_ms):.1%} of the "
-          f"unprofiled {step_ms:.3f} ms step [{card}]", flush=True)
+    print(f"  profiled step: {kernel_total:.3f} ms of device time in the "
+          f"training kernels [{card}]", flush=True)
+    idle_share("the profiled train step",
+               {"busy_ms": busy / 1e3, "wall_ms": traced_ms,
+                "entries": sum(c for key, (_, c) in kernels.items()
+                               if key in on_device),
+                "untraced_ms": untraced_ms}, card, where="in this process")
     rest = sorted(((t, key) for key, t in on_device.items()
                    if not any(f in key for f in ours)), reverse=True)
     print("  the rest of the device time, largest first: "
@@ -2613,6 +2626,28 @@ def timed_steps(step, reps=10):
     return float(np.median(times)), min(times), max(times)
 
 
+def ctc_setup(dev):
+    """15a's seeded batch, its cv pipeline, the batch's features and the
+    hi_xiaowen FSMN-CTC config with global CMVN from those features, as
+    the recipe's --cmvn_file gives it (the spliced 400 inputs: 80 bins x
+    5)."""
+    import torch
+
+    from wekws_tpu_torch.data import DeviceFeaturePipeline
+
+    batch = ctc_train_batch(np.random.default_rng(SEED))
+    cvp = DeviceFeaturePipeline.from_conf(CTC_DATASET_CONF, training=False)
+    with torch.no_grad():
+        feats, feat_lengths = cvp(
+            torch.as_tensor(batch["waves"], device=dev),
+            torch.as_tensor(batch["wave_lengths"], device=dev))
+    mel = feats.reshape(-1, 5, 80)[:, 2]
+    conf = dict(FSMN_MODEL_CONF, cmvn={
+        "mean": mel.mean(dim=0).tolist(),
+        "istd": (1.0 / (mel.std(dim=0) + 1e-6)).tolist(), "norm_var": True})
+    return batch, cvp, feats, feat_lengths, conf
+
+
 def phase15a_ctc_training(dev, card, work):
     """The hi_xiaowen FSMN-CTC (2599 tokens) trained through
     ``Trainer(..., "ctc")`` at B=256 x 2 s: step 0 against float64 and
@@ -2639,21 +2674,12 @@ def phase15a_ctc_training(dev, card, work):
     plain_conf = dict(CTC_DATASET_CONF, spec_aug=False)
     plain_conf["fbank_conf"] = dict(CTC_DATASET_CONF["fbank_conf"],
                                     dither=0.0)
-    batch = ctc_train_batch(np.random.default_rng(SEED))
+    batch, cvp, feats, feat_lengths, conf = ctc_setup(dev)
     waves = torch.as_tensor(batch["waves"], device=dev)
     lengths = torch.as_tensor(batch["wave_lengths"], device=dev)
     target = torch.as_tensor(batch["target"], device=dev).long()
     target_lengths = torch.as_tensor(batch["target_lengths"],
                                      device=dev).long()
-    # global CMVN from the batch's features, as the recipe's
-    # --cmvn_file gives it (the spliced 400 inputs: 80 bins x 5)
-    cvp = DeviceFeaturePipeline.from_conf(CTC_DATASET_CONF, training=False)
-    with torch.no_grad():
-        feats, feat_lengths = cvp(waves, lengths)
-    mel = feats.reshape(-1, 5, 80)[:, 2]
-    conf = dict(FSMN_MODEL_CONF, cmvn={
-        "mean": mel.mean(dim=0).tolist(),
-        "istd": (1.0 / (mel.std(dim=0) + 1e-6)).tolist(), "norm_var": True})
     model = init_model(conf, torch.Generator().manual_seed(SEED))
     trainer = Trainer(model, DeviceFeaturePipeline.from_conf(plain_conf),
                       cvp, "ctc", grad_clip=5.0, device=dev)
@@ -2743,13 +2769,12 @@ def phase15a_ctc_training(dev, card, work):
           f"{cv['cv_acc']:.4f}, decode accuracy {cv['cv_decode_acc']:.2f}% "
           f"[{card}]", flush=True)
 
-    # times: the step (host clock, synchronised), its device time, and
-    # the CTC loss's launches and device time (forward and backward)
+    # times: the step (host clock, synchronised), and the CTC loss's
+    # launches and device time (forward and backward); the step's device
+    # time and idle share are traced in a fresh process (16e)
     reps = 10
     step_ms, lo, hi = timed_steps(
         lambda: trainer.train_step(state, batch, SEED, 1e-3), reps)
-    busy_ms, step_launches, _ = profiled_step(
-        lambda: trainer.train_step(state, batch, SEED, 1e-3))
     leaf = logits.detach().requires_grad_()
 
     def ctc_fwd_bwd():
@@ -2765,13 +2790,10 @@ def phase15a_ctc_training(dev, card, work):
     ctc_host_ms = (time.perf_counter() - t0) / reps * 1e3
     ctc_ms, ctc_launches, _ = profiled_step(ctc_fwd_bwd)
     audio = CTC_TRAIN_B * CTC_SECONDS
-    idle = max(0.0, 1 - busy_ms / step_ms)
     print(f"  train step B={CTC_TRAIN_B} x {CTC_SECONDS} s (FSMN-CTC, "
           f"dither + spec_aug): median {step_ms:.3f} ms of {reps} "
           f"({audio / step_ms * 1e3:.1f} audio-s/s), min "
-          f"{lo:.3f}, max {hi:.3f}; profiled "
-          f"step: {busy_ms:.3f} ms of device time in {step_launches} "
-          f"device entries, the device idle {idle:.1%} of the step; the CTC "
+          f"{lo:.3f}, max {hi:.3f}; the CTC "
           f"loss (forward + backward, T={t}): "
           f"{ctc_launches} launches, {ctc_ms:.3f} ms of device time, "
           f"{ctc_host_ms:.3f} ms host clock [{card}]", flush=True)
@@ -3291,6 +3313,31 @@ def mdtc_kernel_times(backbone, b, t, dev):
     return ms, plain_ms, profiled_device_ms(kern, "fused_mdtc_kernel")
 
 
+def sc_confs():
+    """examples/speechcommand_v1/conf/mdtc.yaml and 16a's dataset
+    configs: the fused frontend with wave dither; without dither and
+    spec_aug; that unfused."""
+    configs = recipe_yaml(SC_CONF)
+    dconf = copy.deepcopy(configs["dataset_conf"])
+    dconf["fused_frontend"] = True
+    dconf["mfcc_conf"]["dither_mode"] = "wave"
+    plain_dconf = dict(dconf, spec_aug=False,
+                       mfcc_conf=dict(dconf["mfcc_conf"], dither=0.0))
+    unfused_dconf = dict(plain_dconf, fused_frontend=False)
+    return configs, dconf, plain_dconf, unfused_dconf
+
+
+def sc_model_conf(configs, feats):
+    """16a's model config: global CMVN from ``feats``, fused_train."""
+    conf = dict(configs["model"], input_dim=SC_INPUT_DIM,
+                output_dim=SC_CLASSES,
+                cmvn={"mean": feats.mean(dim=(0, 1)).tolist(),
+                      "istd": (1.0 / (feats.std(dim=(0, 1)) + 1e-6)
+                               ).tolist(), "norm_var": True})
+    conf["backbone"] = dict(conf["backbone"], fused_train=True)
+    return conf
+
+
 def phase16a_speech_commands(dev, card):
     """examples/speechcommand_v1/conf/mdtc.yaml at full width (MFCC 80
     of 80, MDTC 4 x 4, C=64, global head, 12 classes) with fused_train
@@ -3313,13 +3360,7 @@ def phase16a_speech_commands(dev, card):
     from wekws_tpu_torch.ops.serving import build_fused_forward
     from wekws_tpu_torch.train import Trainer
 
-    configs = recipe_yaml(SC_CONF)
-    dconf = copy.deepcopy(configs["dataset_conf"])
-    dconf["fused_frontend"] = True
-    dconf["mfcc_conf"]["dither_mode"] = "wave"
-    plain_dconf = dict(dconf, spec_aug=False,
-                       mfcc_conf=dict(dconf["mfcc_conf"], dither=0.0))
-    unfused_dconf = dict(plain_dconf, fused_frontend=False)
+    configs, dconf, plain_dconf, unfused_dconf = sc_confs()
     batch = class_batch(np.random.default_rng(SEED + 16), SC_TRAIN_B,
                         SC_SECONDS, SC_CLASSES)
     waves = torch.as_tensor(batch["waves"], device=dev)
@@ -3339,13 +3380,7 @@ def phase16a_speech_commands(dev, card):
         f"{cfg.num_ceps} of {cfg.num_mel_bins}, FFT plan, vs the "
         f"three-matmul plain version", fused_feats, feats, atol=FBANK_ATOL,
         rtol=FBANK_RTOL)
-    mean = feats.mean(dim=(0, 1)).cpu().numpy()
-    istd = (1.0 / (feats.std(dim=(0, 1)) + 1e-6)).cpu().numpy()
-    conf = dict(configs["model"], input_dim=SC_INPUT_DIM,
-                output_dim=SC_CLASSES,
-                cmvn={"mean": mean.tolist(), "istd": istd.tolist(),
-                      "norm_var": True})
-    conf["backbone"] = dict(conf["backbone"], fused_train=True)
+    conf = sc_model_conf(configs, feats)
     unfused_conf = dict(conf, backbone=dict(conf["backbone"],
                                             fused_train=False))
     model = init_model(conf, torch.Generator().manual_seed(SEED))
@@ -3452,15 +3487,14 @@ def phase16a_speech_commands(dev, card):
         trainer.train_step(state, batch, SEED, 1e-3)
 
     step_ms, lo, hi = timed_steps(one_step)
-    busy_ms, entries, dev_ms = profiled_step(one_step, names)
-    idle = max(0.0, 1 - busy_ms / step_ms)
+    # each kernel's device time in the step; the step's idle share is
+    # traced in a fresh process (16e)
+    _, _, dev_ms = profiled_step(one_step, names)
     audio = SC_TRAIN_B * SC_SECONDS
     print(f"  train step B={SC_TRAIN_B} x {SC_SECONDS} s (fused_train + "
           f"fused_frontend, dither + spec_aug): median {step_ms:.3f} ms of "
           f"10 ({audio / step_ms * 1e3:.1f} audio-s/s), min {lo:.3f}, max "
-          f"{hi:.3f}; profiled step: {busy_ms:.3f} ms of device time in "
-          f"{entries} device entries, the device idle {idle:.1%} of the step"
-          f" [{card}]", flush=True)
+          f"{hi:.3f} [{card}]", flush=True)
     readings = {}
     for n in TRAIN_PASSES:
         main = dev_ms[kernel_name(n, 64)]
@@ -3534,8 +3568,7 @@ def phase16a_speech_commands(dev, card):
           f"{plain_ms:.4f} ms; training-batch accuracy after {steps} steps "
           f"{acc:.2f} [{card}]", flush=True)
     launches = dict(counts, fused_mdtc_forward=served_launches)
-    return {"launches": launches, "readings": readings,
-            "step_ms": step_ms, "idle": idle}
+    return {"launches": launches, "readings": readings, "step_ms": step_ms}
 
 
 def classify_fused_vs_module(config, checkpoint, test_list, dev, tag):
@@ -3764,6 +3797,31 @@ def phase16c_commands_fixture(dev, card, tmp, test_list):
                       "ms": ms, "plain_ms": plain_ms}
 
 
+def gru_setup(dev):
+    """16d's dataset config (examples/hi_xiaowen/conf/gru.yaml), seeded
+    batch (-1 filler, 0 and 1 keywords), cv pipeline, the batch's
+    features and the GRU config with global CMVN from them."""
+    import torch
+
+    from wekws_tpu_torch.data import DeviceFeaturePipeline
+
+    configs = recipe_yaml(GRU_CONF)
+    dconf = configs["dataset_conf"]
+    rng = np.random.default_rng(SEED + 17)
+    batch = class_batch(rng, GRU_TRAIN_B, GRU_SECONDS, KWS_KEYWORDS + 1)
+    batch["target"] = batch["target"] - 1
+    cvp = DeviceFeaturePipeline.from_conf(dconf, training=False)
+    with torch.no_grad():
+        feats, feat_lengths = cvp(
+            torch.as_tensor(batch["waves"], device=dev),
+            torch.as_tensor(batch["wave_lengths"], device=dev))
+    conf = dict(configs["model"], input_dim=40, output_dim=KWS_KEYWORDS,
+                cmvn={"mean": feats.mean(dim=(0, 1)).tolist(),
+                      "istd": (1.0 / (feats.std(dim=(0, 1)) + 1e-6)
+                               ).tolist(), "norm_var": True})
+    return dconf, batch, cvp, feats, feat_lengths, conf
+
+
 def phase16d_other_backbones(dev, card, work, waves):
     """The hi_xiaowen GRU (fbank 40, H=128, 2 layers, max-pooling) at
     B=256 x 2 s through ``Trainer(..., "max_pooling")``: step 0 against
@@ -3786,23 +3844,8 @@ def phase16d_other_backbones(dev, card, work, waves):
     )
     from wekws_tpu_torch.train import Trainer, save_checkpoint
 
-    configs = recipe_yaml(GRU_CONF)
-    dconf = configs["dataset_conf"]
-    plain_dconf = dict(dconf, fbank_conf=dict(dconf["fbank_conf"],
-                                              dither=0.0))
-    rng = np.random.default_rng(SEED + 17)
-    batch = class_batch(rng, GRU_TRAIN_B, GRU_SECONDS, KWS_KEYWORDS + 1)
-    batch["target"] = batch["target"] - 1  # -1: filler, 0 and 1 keywords
-    waves_b = torch.as_tensor(batch["waves"], device=dev)
-    lengths_b = torch.as_tensor(batch["wave_lengths"], device=dev)
+    dconf, batch, cvp, feats, feat_lengths, conf = gru_setup(dev)
     target = torch.as_tensor(batch["target"], device=dev).long()
-    cvp = DeviceFeaturePipeline.from_conf(dconf, training=False)
-    with torch.no_grad():
-        feats, feat_lengths = cvp(waves_b, lengths_b)
-    conf = dict(configs["model"], input_dim=40, output_dim=KWS_KEYWORDS,
-                cmvn={"mean": feats.mean(dim=(0, 1)).tolist(),
-                      "istd": (1.0 / (feats.std(dim=(0, 1)) + 1e-6)
-                               ).tolist(), "norm_var": True})
     model = init_model(conf, torch.Generator().manual_seed(SEED))
     ref = init_model(conf)
     ref.load_state_dict(model.state_dict())
@@ -3857,16 +3900,13 @@ def phase16d_other_backbones(dev, card, work, waves):
         trainer.train_step(state, batch, SEED, 1e-3)
 
     step_ms, lo, hi = timed_steps(one_step, reps=5)
-    busy_ms, entries, _ = profiled_step(one_step)
-    idle = max(0.0, 1 - busy_ms / step_ms)
     audio = GRU_TRAIN_B * GRU_SECONDS
     print(f"  GRU losses {[round(v, 5) for v in losses]}; train step "
           f"B={GRU_TRAIN_B} x {GRU_SECONDS} s (dither 1.0; the recurrence "
           f"a float32 product and gates a frame, no cuDNN): median "
           f"{step_ms:.3f} ms of 5 ({audio / step_ms * 1e3:.1f} audio-s/s), "
-          f"min {lo:.3f}, max {hi:.3f}; profiled step {busy_ms:.3f} ms of "
-          f"device time in {entries} device entries, the device idle "
-          f"{idle:.1%} [{card}]", flush=True)
+          f"min {lo:.3f}, max {hi:.3f}; device time and idle share traced "
+          f"in a fresh process (16e) [{card}]", flush=True)
 
     # streamed on the module engine against the offline module forward
     sconf = {"dataset_conf": dict(dconf), "model": conf}
@@ -3949,15 +3989,15 @@ def phase16d_other_backbones(dev, card, work, waves):
     print(f"  hi_xiaowen full-conv TCN (4 layers, K=8, C=64): route "
           f"{card_fwd.route} on the card, within {terr:.2e} of the CPU "
           f"[{card}]", flush=True)
-    return {"step_ms": step_ms, "idle": idle}
+    return {"step_ms": step_ms}
 
 
 def phase16_classification(dev, card, work, waves):
     """Path E: 16a the speechcommand_v1 MDTC trained at full width and
     served with the global head, 16b the synthetic commands recipe
-    through the CLIs, 16c the JAX fixture, 16d the GRU and full-conv TCN.
-    Returns path E's launches per kernel record and the readings at its
-    shapes."""
+    through the CLIs, 16c the JAX fixture, 16d the GRU and full-conv TCN,
+    16e the idle shares of 15a's, 16a's and 16d's steps.  Returns path
+    E's launches per kernel record and the readings at its shapes."""
     import tempfile
 
     out = phase16a_speech_commands(dev, card)
@@ -3969,6 +4009,7 @@ def phase16_classification(dev, card, work, waves):
     launches["fused_mdtc_forward"] += recipe_launches + fixture_launches
     readings["fused_mdtc_forward_c32"] = fixture_reading
     phase16d_other_backbones(dev, card, work, waves)
+    idle_shares(card)
     return launches, readings
 
 
@@ -5087,8 +5128,9 @@ def phase17e_kernel_checks(card, shapes, tag="17e", path="F",
                               g, w, quiet=True, atol=atol, rtol=rtol)
                   for i, (g, w) in enumerate(pairs))
         ms, plain_ms = kernel_vs_plain_ms(kern, plain)
-        dev_ms = (profiled_device_ms(kern, kernel_name) if device_ms is None
-                  else device_ms[(name, shape)])
+        dev_ms = (device_ms[(name, shape)] if device_ms is not None
+                  and (name, shape) in device_ms
+                  else profiled_device_ms(kern, kernel_name))
         bound = path_f_bound(name, args, kwargs)
         dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
         print(f"  {tag} {name} {shape}: {calls} calls on path {path}; vs "
@@ -5183,7 +5225,23 @@ H2D_LIMIT = 64 << 10
 RESIDENT_STEP_TOL = 0.0
 STEP_ROUNDS = 4
 PATH_G_CONF = dict(TRAIN_DATASET_CONF, fused_frontend=True)
-PATH_G_WRAPPERS = tuple(w for w in PATH_F_WRAPPERS if w[0] == "fused_fbank")
+# fused_fbank (18a-18f) and the DS-TCN serving kernel (18g's scoring)
+PATH_G_WRAPPERS = tuple(w for w in PATH_F_WRAPPERS
+                        if w[0] in ("fused_fbank", "fused_ds_tcn"))
+# 18f: bench.py's augmentation banks (bench_epoch, BENCH_DEVICE_AUG):
+# 50 noise clips x 8 crops at amplitude 300, SNR 0-15 dB; 20 RIRs of
+# 4,000 samples; reverb_prob 0.5, noise_prob 0.8
+AUG_NOISE_ROWS, AUG_NOISE_AMP, AUG_SNR_HI = 50 * 8, 300.0, 15.0
+AUG_RIRS, AUG_RIR_LEN = 20, 4000
+AUG_REVERB_PROB, AUG_NOISE_PROB = 0.5, 0.8
+# the card's augmentation against the same module on the CPU, stage by
+# stage on the same inputs and draws (tests/test_device_aug.py's bounds)
+AUG_SPEED_ATOL, AUG_REVERB_ATOL = 2.0, 0.15
+AUG_NOISE_RTOL, AUG_NOISE_ATOL = 1e-4, 0.05
+# each stage against float64 numpy on AUG_F64_ROWS rows: relative L2
+AUG_F64_RTOL, AUG_F64_ROWS = 1e-4, 4
+NOISY_RECIPE = os.path.join("examples", "synthetic_noisy")
+NOISY_EPOCHS = 2
 # the argument of each pass that holds its depthwise kernel (K, C), and
 # of each pass with a conv, its dilation
 PASS_DW_ARG = {"f1": 1, "f2": 1, "f3": 1, "b3": 4, "b4": 4}
@@ -5253,10 +5311,13 @@ def host_cpu_ms(step, reps=10):
     return used / reps * 1e3
 
 
-def path_g_specs(fbank_shapes, pass_shapes):
+def path_g_specs(fbank_shapes, pass_shapes, saved_dir):
     """What the fresh process re-creates of each path-G shape: the
     pass, B, T, C, dilation and K of a pass; B, S and whether the call
-    dithered of an fbank call."""
+    dithered of an fbank call; a DS-TCN call's own inputs, saved under
+    ``saved_dir``."""
+    import torch
+
     specs = []
     for (record, shape), (_, name, args) in pass_shapes.items():
         b, t, c = args[0].shape
@@ -5265,6 +5326,11 @@ def path_g_specs(fbank_shapes, pass_shapes):
         specs.append({"record": record, "shape": shape, "pass": name,
                       "b": b, "t": t, "c": c, "d": int(d), "k": k})
     for (record, shape), (_, args, kwargs) in fbank_shapes.items():
+        if record != "fused_fbank":
+            path = os.path.join(saved_dir, f"{len(specs)}.pt")
+            torch.save((args, kwargs), path)
+            specs.append({"record": record, "shape": shape, "saved": path})
+            continue
         b, n = args[0].shape
         specs.append({"record": record, "shape": shape, "b": b, "s": n,
                       "dither": bool(kwargs.get("dither", 0.0))})
@@ -5273,17 +5339,16 @@ def path_g_specs(fbank_shapes, pass_shapes):
 
 def path_g_child(model_conf, specs, device="cuda"):
     """In a fresh process (``path_g_traces``): (1) the copies from the
-    host in the trace of one resident step at B=512 x 2 s, and of one
-    host-fed step (int16 rows) as the witness that the trace shows
-    them, three traces of each (the resident step's with the largest
-    copy; the host-fed step's first that shows its waves); (2) one
-    resident step's device time (``profiled_step``) and, in the same
-    trace, its wall clock from its start to the end of its last device
-    work, beside the untraced median of 10 steps; (3) the device
-    time per call of each kernel at each path-G shape of ``specs``, on
-    seeded inputs of that shape (a pass with its block reduction).
-    Prints one line ``PATH_G {...}``.  ``device`` is the card (the CPU
-    in a rehearsal)."""
+    host in the trace of one resident step at B=512 x 2 s, of one with
+    18f's augmentation, and of one host-fed step (int16 rows) as the
+    witness that the trace shows them, three traces of each (the
+    resident steps' with the largest copy; the host-fed step's first
+    that shows its waves); (2) ``traced_idle`` of the resident step, of
+    the augmented resident step and of the augmentation alone; (3) the
+    device time per call of each kernel at each path-G shape of
+    ``specs``, on seeded inputs of that shape (a pass with its block
+    reduction).  Prints one line ``PATH_G {...}``.  ``device`` is the
+    card (the CPU in a rehearsal)."""
     import torch
 
     from wekws_tpu_torch.data.resident import gather_rows, stage_arrays
@@ -5298,12 +5363,18 @@ def path_g_child(model_conf, specs, device="cuda"):
         seeded_block_inputs,
         trace_pass_inputs,
     )
+    from wekws_tpu_torch.ops.fused_tcn import fused_ds_tcn
+    from wekws_tpu_torch.train.steps import step_generator
 
     dev = torch.device(device)
     host = resident_arrays(2 * TRAIN_B, SEED + 20)
     corpus = stage_arrays(host, device=dev)
     trainer = path_g_trainer(dev, model_conf)
     state = trainer.init_state()
+    aug_trainer = path_g_trainer(dev, model_conf)
+    aug_trainer.pipeline.wave_aug = flagship_aug(
+        dev, corpus.arrays["waves"].shape[1], SEED + 22)[0]
+    aug_state = aug_trainer.init_state()
     rows = corpus.epoch_index(0, TRAIN_B)[0]
     rows_dev = torch.from_numpy(rows).to(dev)
     int16_batch = {k: v[rows] for k, v in host.items()}
@@ -5312,29 +5383,37 @@ def path_g_child(model_conf, specs, device="cuda"):
         trainer.train_step(state, gather_rows(corpus.arrays, rows_dev), SEED,
                            1e-3)
 
+    def aug_resident():
+        aug_trainer.train_step(aug_state, gather_rows(corpus.arrays,
+                                                      rows_dev), SEED, 1e-3)
+
     def host_int16():
         trainer.train_step(state, int16_batch, SEED, 1e-3)
 
     for _ in range(2):
         resident()
+        aug_resident()
         host_int16()
-    copies = max((h2d_copies(resident) for _ in range(3)),
-                 key=lambda c: max(c, default=0))
+
+    def largest(fn):
+        return max((h2d_copies(fn) for _ in range(3)),
+                   key=lambda c: max(c, default=0))
+
+    copies, aug_copies = largest(resident), largest(aug_resident)
     wave_bytes = TRAIN_B * TRAIN_SECONDS * RATE * 2
     for _ in range(3):
         witness = h2d_copies(host_int16)
         if sum(witness) >= wave_bytes:
             break
-    walls = []
-
-    def traced():
-        t0 = time.perf_counter()
-        resident()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-
-    busy, entries, _ = profiled_step(traced)
-    untraced_ms = timed_steps(resident)[0]
+    step = traced_idle(resident)
+    aug_step = traced_idle(aug_resident)
+    # the augmentation alone, on the step's rows and generator
+    batch = gather_rows(corpus.arrays, rows_dev)
+    waves = batch["waves"].to(torch.float32)
+    lengths = batch["wave_lengths"].to(torch.int64)
+    aug = aug_trainer.pipeline.wave_aug
+    aug_alone = traced_idle(lambda: aug(waves, lengths,
+                                        step_generator(SEED, 0, dev)))
 
     gen = torch.Generator().manual_seed(SEED + 21)
     fe = FeatureExtractor(frontend_config(PATH_G_CONF), use_fused=True)
@@ -5352,6 +5431,11 @@ def path_g_child(model_conf, specs, device="cuda"):
             _, _, found = profiled_step(lambda: PASSES[name](*args), names)
             ms = (None if any(v is None for v in found.values())
                   else sum(found.values()))
+        elif "saved" in spec:  # the DS-TCN kernel on its call's inputs
+            args, kwargs = torch.load(spec["saved"], map_location=dev)
+            _, _, found = profiled_step(
+                lambda: fused_ds_tcn(*args, **kwargs), ("fused_ds_tcn_kernel",))
+            ms = found["fused_ds_tcn_kernel"]
         else:
             waves = (300 * torch.randn((spec["b"], spec["s"]),
                                        generator=gen)).to(dev)
@@ -5364,30 +5448,138 @@ def path_g_child(model_conf, specs, device="cuda"):
         device_ms[f"{spec['record']}|{spec['shape']}"] = ms
     print("PATH_G " + json.dumps({
         "resident_copies": copies, "host_copies": witness,
-        "resident_busy_ms": busy, "resident_wall_ms": walls[-1],
-        "resident_untraced_ms": untraced_ms, "resident_entries": entries,
-        "device_ms": device_ms}), flush=True)
+        "aug_copies": aug_copies, "resident": step, "aug_resident": aug_step,
+        "aug_alone": aug_alone, "device_ms": device_ms}), flush=True)
 
 
-def path_g_traces(model_conf, specs):
-    """``path_g_child``'s readings, from a child process.  Late in this
-    process the profiler's trace loses records (a probe after each
-    phase found some copies from the host missing after phase 13, all
-    of them after phase 15, and kernels too), so the traces that path G
-    reads are taken where nothing ran before.  Fails where the host-fed
-    step's trace does not show its waves."""
+def run_child(call, args, tag):
+    """``chip_smoke.<call>(*args)`` in a fresh process; returns the JSON
+    of its last line that starts with ``tag``.  Late in this process the
+    profiler's trace loses records (a probe after each phase found some
+    copies from the host missing after phase 13, all of them after phase
+    15, and kernels too), so the traces read after phase 13 are taken
+    where nothing ran before."""
     here = os.path.dirname(os.path.abspath(__file__))
     proc = subprocess.run(
         [sys.executable, "-c", "import json, sys, chip_smoke; "
-         "chip_smoke.path_g_child(*json.loads(sys.argv[1]))",
-         json.dumps([model_conf, specs])], cwd=here, capture_output=True,
-        text=True, timeout=600)
+         f"chip_smoke.{call}(*json.loads(sys.argv[1]))",
+         json.dumps(args)], cwd=here, capture_output=True, text=True,
+        timeout=600)
     lines = [ln for ln in proc.stdout.splitlines()
-             if ln.startswith("PATH_G ")]
+             if ln.startswith(f"{tag} ")]
     if proc.returncode != 0 or not lines:
-        raise AssertionError(f"path G's trace process failed "
+        raise AssertionError(f"{call}'s trace process failed "
                              f"({proc.returncode}): {proc.stderr[-3000:]}")
-    found = json.loads(lines[-1][len("PATH_G "):])
+    return json.loads(lines[-1][len(tag) + 1:])
+
+
+def traced_idle(step):
+    """The untraced median of 10 calls of ``step`` (``timed_steps``,
+    after two warm-up calls), then one call traced (``profiled_step``)
+    with its own wall clock from its start to the end of its last device
+    work: {busy_ms, wall_ms, entries, untraced_ms}."""
+    import torch
+
+    untraced_ms = timed_steps(step)[0]
+    walls = []
+
+    def traced():
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+
+    busy, entries, _ = profiled_step(traced)
+    return {"busy_ms": busy, "wall_ms": walls[-1], "entries": entries,
+            "untraced_ms": untraced_ms}
+
+
+def idle_share(tag, reading, card, where="in a fresh process"):
+    """The two bounds of a ``traced_idle`` reading's idle share: the
+    upper, 1 - busy / wall of that one traced call (tracing adds host
+    time to the wall), and the lower, 1 - busy / the untraced median
+    (the traced device time over a wall without the tracer's host
+    time; below 0 where the untraced step is device-bound).  Fails
+    where the device time is not in (0, traced wall]."""
+    busy, wall = reading["busy_ms"], reading["wall_ms"]
+    untraced = reading["untraced_ms"]
+    if not 0 < busy <= wall:
+        raise AssertionError(f"{tag}: the traced step's device time {busy} "
+                             f"ms against its wall clock {wall} ms")
+    upper, lower = 1 - busy / wall, 1 - busy / untraced
+    print(f"  {tag}, traced {where}: device time {busy:.3f} ms in "
+          f"{reading['entries']} device entries; idle between {lower:.1%} "
+          f"of the untraced median of 10 ({untraced:.3f} ms) and "
+          f"{upper:.1%} of the traced step's own {wall:.3f} ms wall clock "
+          f"[{card}]", flush=True)
+    return {"idle_untraced": lower, "idle_traced": upper}
+
+
+IDLE_STEPS = ("15a FSMN-CTC", "16a speechcommand_v1 MDTC", "16d GRU")
+
+
+def idle_step(tag, dev):
+    """The train step of phase ``tag`` (``IDLE_STEPS``) re-created from
+    its seeds: its config, batch and pipelines (dither and spec_aug on),
+    the model at its seeded start."""
+    import torch
+
+    from wekws_tpu_torch.data import DeviceFeaturePipeline
+    from wekws_tpu_torch.models import init_model
+    from wekws_tpu_torch.train import Trainer
+
+    gen = torch.Generator().manual_seed(SEED)
+    if tag.startswith("15a"):
+        batch, cvp, _, _, conf = ctc_setup(dev)
+        trainer = Trainer(init_model(conf, gen),
+                          DeviceFeaturePipeline.from_conf(CTC_DATASET_CONF),
+                          cvp, "ctc", grad_clip=5.0, device=dev)
+    elif tag.startswith("16a"):
+        configs, dconf, _, unfused_dconf = sc_confs()
+        batch = class_batch(np.random.default_rng(SEED + 16), SC_TRAIN_B,
+                            SC_SECONDS, SC_CLASSES)
+        cvp = DeviceFeaturePipeline.from_conf(unfused_dconf, training=False)
+        with torch.no_grad():
+            feats, _ = cvp(torch.as_tensor(batch["waves"], device=dev),
+                           torch.as_tensor(batch["wave_lengths"],
+                                           device=dev))
+        trainer = Trainer(
+            init_model(sc_model_conf(configs, feats), gen),
+            DeviceFeaturePipeline.from_conf(dconf),
+            DeviceFeaturePipeline.from_conf(dconf, training=False), "ce",
+            grad_clip=5.0, weight_decay=configs["optim_conf"]["weight_decay"],
+            device=dev)
+    else:
+        dconf, batch, cvp, _, _, conf = gru_setup(dev)
+        trainer = Trainer(init_model(conf, gen),
+                          DeviceFeaturePipeline.from_conf(dconf), cvp,
+                          "max_pooling", grad_clip=5.0, min_duration=50,
+                          device=dev)
+    state = trainer.init_state()
+    return lambda: trainer.train_step(state, batch, SEED, 1e-3)
+
+
+def idle_child(device="cuda"):
+    """In a fresh process (``idle_shares``): one traced step of each of
+    ``IDLE_STEPS`` (``traced_idle``).  Prints one line ``IDLE {...}``."""
+    import torch
+
+    dev = torch.device(device)
+    print("IDLE " + json.dumps({tag: traced_idle(idle_step(tag, dev))
+                                for tag in IDLE_STEPS}), flush=True)
+
+
+def idle_shares(card):
+    """16e: the idle shares of 15a's, 16a's and 16d's train steps, each
+    from one step traced with its own wall clock in one fresh process."""
+    found = run_child("idle_child", [], "IDLE")
+    return {tag: idle_share(tag, found[tag], card) for tag in IDLE_STEPS}
+
+
+def path_g_traces(model_conf, specs):
+    """``path_g_child``'s readings, from a child process (``run_child``).
+    Fails where the host-fed step's trace does not show its waves."""
+    found = run_child("path_g_child", [model_conf, specs], "PATH_G")
     wave_bytes = TRAIN_B * TRAIN_SECONDS * RATE * 2
     if sum(found["host_copies"]) < wave_bytes:
         raise AssertionError(f"the host-fed step's trace shows no copy of "
@@ -5501,10 +5693,12 @@ def path_g_counts():
     """The launch counts of path G's kernels, by kernel record."""
     from wekws_tpu_torch.ops.fused_frontend import fused_fbank
     from wekws_tpu_torch.ops.fused_mdtc_train import PASSES
+    from wekws_tpu_torch.ops.fused_tcn import fused_ds_tcn
 
     counts = {f"fused_train_{name}": PASSES[name].launches
               for name in TRAIN_PASSES}
     counts["fused_fbank"] = fused_fbank.launches
+    counts["fused_ds_tcn"] = fused_ds_tcn.launches
     return counts
 
 
@@ -5703,8 +5897,8 @@ def phase18c_epoch(dev, card, trainer, state, corpus, cv_corpus, host,
 def phase18d_cli(dev, card, recipe_rates):
     """``bin.train --device_resident`` on the committed corpus
     (``conf_torch/mdtc_flagship.yaml``) for RECIPE_EPOCHS epochs, then
-    average, score and DET as phase 14; a config with speed_perturb
-    raises (ROADMAP A, item 10).  Returns the epochs' audio-s/s."""
+    average, score and DET as phase 14.  Returns the epochs'
+    audio-s/s."""
     import tempfile
 
     import torch
@@ -5749,6 +5943,7 @@ def phase18d_cli(dev, card, recipe_rates):
         want = {f"fused_train_{p}": 17 * steps * RECIPE_EPOCHS
                 for p in TRAIN_PASSES}
         want["fused_fbank"] = (steps + cv_batches) * RECIPE_EPOCHS
+        want["fused_ds_tcn"] = 0
         got = {k: after[k] - before[k] for k in after}
         if len(records) != RECIPE_EPOCHS or not np.isfinite(
                 train_losses + cv_losses).all() or got != want or any(
@@ -5766,49 +5961,389 @@ def phase18d_cli(dev, card, recipe_rates):
               f"host-fed {', '.join(f'{x:.1f}' for x in recipe_rates)} "
               f"[{card}]", flush=True)
         average_score_det(exp, lists, dev, card, " (resident)")
-
-        configs["dataset_conf"]["speed_perturb"] = True
-        aug = os.path.join(tmp, "speed_perturb.yaml")
-        with open(aug, "w") as f:
-            yaml.safe_dump(configs, f)
-        try:
-            train.main(["--config", aug, "--model_dir",
-                        os.path.join(tmp, "aug")] + argv)
-        except NotImplementedError as e:
-            if "item 10" not in str(e):
-                raise
-            print(f"  speed_perturb with --device_resident raises: {e}",
-                  flush=True)
-        else:
-            raise AssertionError("bin.train --device_resident trained a "
-                                 "speed_perturb config")
     return rates
+
+
+def flagship_aug(dev, width, seed):
+    """18f's ``DeviceWaveAug`` on ``dev`` for staged waves ``width``
+    samples wide, from ``seed``: bench.py's banks (AUG_*) on the
+    full-utterance DFT (35,556 + 4,000 - 1 samples: (a, b) = (320, 128),
+    n = 40,960 at 2 s), speeds 0.9, 1.0 and 1.1 by row group.  Returns
+    it and its RIRs (float64, L2-normalised)."""
+    import torch
+
+    from wekws_tpu_torch.data.device_aug import DeviceWaveAug, MatmulFFT
+
+    rng = np.random.default_rng(seed)
+    out_len = int(np.ceil(width / 0.9))
+    rows = (rng.standard_normal((AUG_NOISE_ROWS, out_len))
+            * AUG_NOISE_AMP).astype(np.float32)
+    rirs = rng.standard_normal((AUG_RIRS, AUG_RIR_LEN))
+    rirs /= np.sqrt((rirs ** 2).sum(1, keepdims=True))
+    fft = MatmulFFT.for_length(out_len + AUG_RIR_LEN - 1, device=dev)
+    spec = np.stack([fft.spectrum_mat_half(r).reshape(-1) for r in rirs])
+    aug = DeviceWaveAug(
+        speed_perturb=True, fft=fft,
+        rir_re=torch.from_numpy(spec.real.copy()).to(dev),
+        rir_im=torch.from_numpy(spec.imag.copy()).to(dev),
+        reverb_prob=AUG_REVERB_PROB, noise_rows=torch.from_numpy(rows).to(dev),
+        snr_lo=torch.zeros(AUG_NOISE_ROWS, device=dev),
+        snr_hi=torch.full((AUG_NOISE_ROWS,), AUG_SNR_HI, device=dev),
+        noise_prob=AUG_NOISE_PROB)
+    return aug, rirs
+
+
+def rel_l2(got, want):
+    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want),
+                                                  1e-30))
+
+
+def float64_chain(inputs, stages, rows, speed_of, draws, aug, rirs):
+    """Each stage's output on ``rows`` against float64 numpy on that
+    stage's input from the card: the host ``audio.speed_perturb``
+    (float64 positions), ``np.convolve`` with the picked RIR, the
+    reference's SNR mix.  ``inputs``: (waves, lengths); ``stages``: the
+    speed stage's (waves, lengths), reverb's and noise's waves.
+    Returns the worst relative L2 by stage."""
+    from wekws_tpu_torch.data import audio
+
+    def host(t):
+        return t.cpu().numpy()
+
+    w0, l0 = map(host, inputs)
+    (w1, l1), w2, w3 = map(host, stages[0]), host(stages[1]), host(stages[2])
+    d = {k: host(v) for k, v in draws.items()}
+    noise = host(aug.noise_rows).astype(np.float64)
+    lo, hi = host(aug.snr_lo), host(aug.snr_hi)
+    worst = {"speed": 0.0, "reverb": 0.0, "noise": 0.0}
+    for i in rows:
+        n = int(l1[i])
+        want = audio.speed_perturb(w0[i, :int(l0[i])], float(speed_of[i]))
+        worst["speed"] = max(worst["speed"], rel_l2(w1[i, :n], want))
+        want = np.convolve(w1[i, :n].astype(np.float64),
+                           rirs[int(d["rir_pick"][i])])[:n]
+        worst["reverb"] = max(worst["reverb"], rel_l2(w2[i, :n], want))
+        x = w2[i, :n].astype(np.float64)
+        k = int(d["noise_pick"][i])
+        nz = noise[k, :n]
+        snr = lo[k] + float(d["snr_u"][i]) * (hi[k] - lo[k])
+        a_db = 10 * np.log10(np.mean((x * aug.power_scale) ** 2) + 1e-4)
+        n_db = 10 * np.log10(np.mean((nz * aug.power_scale) ** 2) + 1e-4)
+        want = x + np.sqrt(10 ** ((a_db - n_db - snr) / 10)) * nz
+        worst["noise"] = max(worst["noise"], rel_l2(w3[i, :n], want))
+    return worst
+
+
+def phase18f_augmented(dev, card, model_conf, corpus):
+    """The flagship resident step at B=512 x 2 s with ``flagship_aug``
+    attached (speed, reverb, noise, then fused_fbank and the fused
+    passes at T=220): equal, bit for bit, to the host-fed step with the
+    same augmentation; the augmentation on the card stage by stage
+    against the same module on the CPU (same inputs, same draws) and
+    against float64 numpy on AUG_F64_ROWS rows; its CUDA-event time and
+    memory; the augmented resident step beside the plain one, in turns.
+    Returns the figures."""
+    import torch
+
+    from wekws_tpu_torch.data.device_aug import (
+        mix_noise_batch,
+        reverb_batch,
+        speed_perturb_group,
+    )
+    from wekws_tpu_torch.data.resident import gather_rows
+    from wekws_tpu_torch.train.steps import step_generator
+
+    width = corpus.arrays["waves"].shape[1]
+    aug, rirs = flagship_aug(dev, width, SEED + 22)
+    trainer = path_g_trainer(dev, model_conf)
+    plain_trainer = path_g_trainer(dev, model_conf)
+    trainer.pipeline.wave_aug = aug
+    rows_dev = torch.from_numpy(corpus.epoch_index(3, TRAIN_B)[0]).to(dev)
+    batch = gather_rows(corpus.arrays, rows_dev)
+
+    # the resident step against the host-fed step, the same aug
+    state = trainer.init_state()
+    twin = copy.deepcopy(state)
+    state, got = trainer.train_step(state, batch, SEED, 1e-3)
+    twin, want = trainer.train_step(
+        twin, {k: v.cpu().numpy() for k, v in batch.items()}, SEED, 1e-3)
+    worst = max(float((got[k] - want[k]).abs()) for k in got)
+    ref = twin.model.state_dict()
+    for name, val in state.model.state_dict().items():
+        worst = max(worst, float((val.double() - ref[name].double())
+                                 .abs().max()))
+    if not worst <= RESIDENT_STEP_TOL:
+        raise AssertionError(f"augmented resident step vs host-fed step: "
+                             f"{worst} > {RESIDENT_STEP_TOL}")
+    waves = batch["waves"].to(torch.float32)
+    lengths = batch["wave_lengths"].to(torch.int64)
+    gen = step_generator(SEED, 0, dev)
+    feats, feat_lengths = trainer.pipeline(waves, lengths, gen)
+    out_len = aug.noise_rows.shape[1]
+    if feats.shape[1] != (out_len - 400) // 160 + 1:
+        raise AssertionError(f"augmented features {tuple(feats.shape)} for "
+                             f"{out_len} samples")
+    print(f"  augmented resident step vs host-fed step (B={TRAIN_B} x "
+          f"{TRAIN_SECONDS} s -> {out_len} samples, features "
+          f"{tuple(feats.shape)}; {aug.n_noise_rows} noise rows, "
+          f"{aug.n_rirs} RIRs of {AUG_RIR_LEN}, DFT {aug.fft.a} x "
+          f"{aug.fft.b}): loss {float(got['loss']):.6f}, largest difference "
+          f"of loss, accuracy, grad norm, every parameter and BN statistic "
+          f"{worst:.1e} (limit {RESIDENT_STEP_TOL})", flush=True)
+
+    # stage by stage: the card against the CPU on the same inputs, draws
+    draws = aug.draws(TRAIN_B, step_generator(SEED, 1, dev))
+    cpu = copy.deepcopy(aug).to("cpu")
+    cdraws = {k: v.cpu() for k, v in draws.items()}
+    s1 = speed_perturb_group(waves, lengths, aug.speeds, mats=aug.mats())
+    s2 = reverb_batch(*s1, aug.fft, aug.rir_re, aug.rir_im,
+                      draws["rir_pick"], draws["rir_apply_u"], aug.reverb_prob)
+    s3 = mix_noise_batch(s2, s1[1], aug.noise_rows, aug.snr_lo, aug.snr_hi,
+                         draws["noise_pick"], draws["snr_u"],
+                         draws["noise_apply_u"], aug.noise_prob,
+                         aug.power_scale)
+    whole, whole_len = aug.apply(waves, lengths, draws)
+    if not (torch.equal(whole, s3) and torch.equal(whole_len, s1[1])):
+        raise AssertionError("DeviceWaveAug.apply differs from its stages")
+    c1 = speed_perturb_group(waves.cpu(), lengths.cpu(), cpu.speeds,
+                             mats=cpu.mats())
+    c2 = reverb_batch(s1[0].cpu(), s1[1].cpu(), cpu.fft, cpu.rir_re,
+                      cpu.rir_im, cdraws["rir_pick"], cdraws["rir_apply_u"],
+                      cpu.reverb_prob)
+    c3 = mix_noise_batch(s2.cpu(), s1[1].cpu(), cpu.noise_rows, cpu.snr_lo,
+                         cpu.snr_hi, cdraws["noise_pick"], cdraws["snr_u"],
+                         cdraws["noise_apply_u"], cpu.noise_prob,
+                         cpu.power_scale)
+    if not torch.equal(c1[1], s1[1].cpu()):
+        raise AssertionError("speed-perturbed lengths differ card vs CPU")
+    errs = {
+        "speed": check_close("18f speed perturbation, card vs CPU",
+                             s1[0].cpu(), c1[0], atol=AUG_SPEED_ATOL,
+                             rtol=0.0),
+        "reverb": check_close("18f reverb (full-utterance DFT), card vs "
+                              "CPU", s2.cpu(), c2, atol=AUG_REVERB_ATOL,
+                              rtol=0.0),
+        "noise": check_close("18f noise, card vs CPU", s3.cpu(), c3,
+                             atol=AUG_NOISE_ATOL, rtol=AUG_NOISE_RTOL)}
+    ok = ((draws["rir_apply_u"] < aug.reverb_prob)
+          & (draws["noise_apply_u"] < aug.noise_prob)).cpu().numpy()
+    # speed_perturb_group's groups: the remainder rows go to the first
+    k = len(aug.speeds)
+    speed_of = np.repeat(aug.speeds, [TRAIN_B // k + (i < TRAIN_B % k)
+                                      for i in range(k)])
+    # rows at speeds 0.9 and 1.1 (half each where there are enough),
+    # reverbed and noised
+    picked = [i for sp in (0.9, 1.1)
+              for i in np.flatnonzero(ok & (speed_of == sp))
+              [:AUG_F64_ROWS // 2]]
+    picked += [i for i in np.flatnonzero(ok & (speed_of != 1.0))
+               if i not in picked][:AUG_F64_ROWS - len(picked)]
+    picked = [int(i) for i in sorted(picked)]
+    f64 = float64_chain((waves, lengths), (s1, s2, s3), picked, speed_of,
+                        draws, aug, rirs)
+    if len(picked) != AUG_F64_ROWS or max(f64.values()) > AUG_F64_RTOL:
+        raise AssertionError(f"18f against float64 on rows {picked}: {f64} "
+                             f"(bound {AUG_F64_RTOL})")
+    print(f"  18f augmentation on the card vs the same module on the CPU, "
+          f"the same inputs and draws: speed {errs['speed']:.3e} abs (bound "
+          f"{AUG_SPEED_ATOL}), reverb {errs['reverb']:.3e} abs (bound "
+          f"{AUG_REVERB_ATOL}), noise {errs['noise']:.3e} (bound "
+          f"{AUG_NOISE_ATOL} abs + {AUG_NOISE_RTOL} rel); against float64 "
+          f"numpy on rows {picked} (speeds 0.9 and 1.1, reverbed and "
+          f"noised), relative L2: speed {f64['speed']:.2e}, reverb "
+          f"{f64['reverb']:.2e}, noise {f64['noise']:.2e} (bound "
+          f"{AUG_F64_RTOL}); apply() equals its stages", flush=True)
+
+    # times: the augmentation alone, its memory, the steps in turns
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    aug(waves, lengths, gen)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - before
+    aug_ms = cuda_time_ms(lambda: aug(waves, lengths, gen))
+    plain_state = plain_trainer.init_state()
+    order = (("plain resident", lambda: plain_trainer.train_step(
+        plain_state, batch, SEED, 1e-3)), ("augmented resident",
+        lambda: trainer.train_step(state, batch, SEED, 1e-3)))
+    rounds = {label: [] for label, _ in order}
+    for r in range(STEP_ROUNDS):
+        for label, fn in (order if r % 2 == 0 else order[::-1]):
+            rounds[label].append(timed_steps(fn)[0])
+    times = {label: float(np.median(ms)) for label, ms in rounds.items()}
+    audio_s = TRAIN_B * TRAIN_SECONDS
+    print(f"  18f augmentation alone (B={TRAIN_B}): {aug_ms:.3f} ms by CUDA "
+          f"events (median of 30), {peak / 1e6:.1f} MB of device memory "
+          f"above what was allocated; train step by wall clock, the median "
+          f"of {STEP_ROUNDS} rounds' medians of 10 in turns: "
+          + "; ".join(f"{label} {times[label]:.3f} ms ("
+                      + ", ".join(f"{x:.1f}" for x in ms) + f", "
+                      f"{audio_s / times[label] * 1e3:.1f} audio-s/s)"
+                      for label, ms in rounds.items()) + f" [{card}]",
+          flush=True)
+    return {"aug_ms": aug_ms, "aug_peak_bytes": peak, "card_vs_cpu": errs,
+            "float64_rel_l2": f64, "aug_step_ms": rounds["augmented resident"],
+            "plain_step_ms": rounds["plain resident"]}
+
+
+def phase18g_noisy_recipe(dev, card):
+    """examples/synthetic_noisy through the port, as run_torch.sh's
+    stages, in a temporary directory: local/gen_data_torch.py (the
+    corpus and the noise and RIR stores), CMVN, ``bin.train
+    --device_resident`` with conf/ds_tcn_aug.yaml for NOISY_EPOCHS
+    epochs (its store paths made absolute: nothing else changed), the
+    recipe's augmentation run once a step, average, ``bin.score`` of
+    test and test_noisy through the DS-TCN kernel (C=48), DET of both.
+    Returns the epochs' audio-s/s and the DS-TCN launches."""
+    import itertools
+    import tempfile
+
+    import torch
+    import yaml
+
+    from wekws_tpu_torch.bin import average_model, compute_det, score, train
+    from wekws_tpu_torch.data import device_aug
+    from wekws_tpu_torch.ops.fused_tcn import fused_ds_tcn
+    from wekws_tpu_torch.tools.cmvn_stats import (
+        compute_cmvn_stats,
+        wav_paths_from_data_list,
+    )
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        t0 = time.perf_counter()
+        subprocess.run(
+            [sys.executable, os.path.join(here, NOISY_RECIPE, "local",
+                                          "gen_data_torch.py"), data],
+            check=True, capture_output=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=here))
+        configs = recipe_yaml(os.path.join(NOISY_RECIPE, "conf",
+                                           "ds_tcn_aug.yaml"))
+        dconf = configs["dataset_conf"]
+        for key in ("noise_source", "reverb_source"):
+            dconf[key] = os.path.join(tmp, dconf[key])
+        config = os.path.join(tmp, "ds_tcn_aug.yaml")
+        with open(config, "w") as f:
+            yaml.safe_dump(configs, f)
+        cmvn = os.path.join(data, "global_cmvn")
+        compute_cmvn_stats(itertools.islice(wav_paths_from_data_list(
+            os.path.join(data, "train.list")), 200), dconf, cmvn)
+        made_s = time.perf_counter() - t0
+        exp = os.path.join(tmp, "exp")
+        applied = []
+        apply = device_aug.DeviceWaveAug.apply
+
+        def counted(self, waves, lengths, draws):
+            applied.append(tuple(waves.shape))
+            return apply(self, waves, lengths, draws)
+
+        device_aug.DeviceWaveAug.apply = counted
+        t0 = time.perf_counter()
+        try:
+            with PlainOnCuda() as plain, TimeLimit(
+                    RECIPE_TIMEOUT_S, "bin.train noisy recipe"):
+                train.main([
+                    "--config", config, "--train_data",
+                    os.path.join(data, "train.list"), "--cv_data",
+                    os.path.join(data, "dev.list"), "--model_dir", exp,
+                    "--num_keywords", "1", "--min_duration", "20",
+                    "--seed", "666", "--cmvn_file", cmvn, "--norm_var",
+                    "--device_resident", "--num_epochs", str(NOISY_EPOCHS),
+                    "--device", dev.type])
+                torch.cuda.synchronize()
+        finally:
+            device_aug.DeviceWaveAug.apply = apply
+        plain.check("bin.train noisy recipe")
+        train_s = time.perf_counter() - t0
+        with open(os.path.join(exp, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        steps = 480 // dconf["batch_conf"]["batch_size"]
+        losses = [r["train_loss"] for r in records]
+        if len(records) != NOISY_EPOCHS or not np.isfinite(losses).all() \
+                or len(applied) != steps * NOISY_EPOCHS:
+            raise AssertionError(f"noisy recipe: records {records}, "
+                                 f"augmentation applied {len(applied)} "
+                                 f"times (want {steps * NOISY_EPOCHS})")
+        avg = os.path.join(exp, f"avg_{NOISY_EPOCHS}.pt")
+        average_model.main(["--dst_model", avg, "--src_path", exp, "--num",
+                            str(NOISY_EPOCHS), "--val_best", "--device",
+                            dev.type])
+        launches, dets = {}, {}
+        for split in ("test", "test_noisy"):
+            lst = os.path.join(data, f"{split}.list")
+            scores = os.path.join(exp, f"score_{split}.txt")
+            before = fused_ds_tcn.launches
+            with PlainOnCuda() as plain:
+                n = score.main(["--config", os.path.join(exp, "config.yaml"),
+                                "--test_data", lst, "--checkpoint", avg,
+                                "--score_file", scores, "--device",
+                                dev.type])
+                torch.cuda.synchronize()
+            plain.check(f"bin.score {split}")
+            launches[split] = fused_ds_tcn.launches - before
+            stats = os.path.join(exp, f"stats_{split}.txt")
+            compute_det.main(["--keyword", "0", "--test_data", lst,
+                              "--score_file", scores, "--stats_file", stats,
+                              "--device", dev.type])
+            with open(stats) as f:
+                rows = [tuple(map(float, line.split())) for line in f]
+            if n != 192 or launches[split] < 1 or len(rows) < 100:
+                raise AssertionError(f"noisy recipe {split}: {n} scored, "
+                                     f"{launches[split]} fused_ds_tcn "
+                                     f"launches, {len(rows)} DET rows")
+            dets[split] = rows[50]
+    rates = [r["audio_seconds_per_s"] for r in records]
+    print(f"  noisy recipe (conf/ds_tcn_aug.yaml: speed_perturb, noise 0.6, "
+          f"reverb 0.4, spec_aug): corpus and stores made in {made_s:.1f} s; "
+          f"bin.train --device_resident {NOISY_EPOCHS} epochs of {steps} "
+          f"steps, {train_s:.1f} s wall, augmentation on the card in every "
+          f"step ({applied[0]} waves), train losses "
+          f"{[round(x, 4) for x in losses]}, audio-s/s per epoch "
+          f"{', '.join(f'{x:.1f}' for x in rates)}; bin.score "
+          f"fused_ds_tcn launches {launches}, no plain version on a CUDA "
+          f"tensor; DET at 0.5 (FA/h, FRR): " + ", ".join(
+              f"{k} ({v[1]:.2f}, {v[2]:.4f})" for k, v in dets.items())
+          + f" [{card}]", flush=True)
+    return rates, launches
 
 
 def phase18_resident(dev, card, model_conf, batch, host_ms, recipe_rates):
     """Path G, device-resident epochs: 18a staging, 18b the resident
-    step against the host-fed step, 18c a timed resident epoch, 18d
-    ``bin.train --device_resident``; path G's launches counted from 0
-    before 18a and read after 18d, every call of ``fused_fbank`` and of
-    the eight passes tapped by shape (``ShapeTap``, ``PassTap``); 18e
-    each kernel against its plain version at every shape path G gave
-    it.  A resident step's copies from the host and device time, and
-    each kernel's device time at each shape, come from a fresh process
-    (``path_g_traces``).  Returns ({kernel record: launches}, {kernel
+    step against the host-fed step, 18c a timed resident epoch, 18f the
+    augmented flagship step, 18d ``bin.train --device_resident``, 18g
+    the noisy recipe; path G's launches counted from 0 before 18a and
+    read after 18g, every call of ``fused_fbank``, of the eight passes
+    and of the DS-TCN serving kernel tapped by shape (``ShapeTap``,
+    ``PassTap``); 18e each kernel against its plain version at every
+    shape path G gave it.  The resident steps' copies from the host,
+    device times and idle shares, and each pass's and fbank shape's
+    device time, come from a fresh process (``path_g_traces``).  Returns ({kernel record: launches}, {kernel
     record: [readings]}, the step figures, the CLI's epoch rates)."""
+    import tempfile
+
     from wekws_tpu_torch.ops.fused_frontend import fused_fbank
     from wekws_tpu_torch.ops.fused_mdtc_train import reset_launches
+    from wekws_tpu_torch.ops.fused_tcn import fused_ds_tcn
 
     reset_launches()
     fused_fbank.launches = 0
+    fused_ds_tcn.launches = 0
     with ShapeTap(PATH_G_WRAPPERS) as ftap, PassTap() as ptap:
         corpus, cv_corpus, host = phase18a_staging(dev, card)
         trainer = path_g_trainer(dev, model_conf)
         state = phase18b_same_step(dev, trainer, corpus, cv_corpus)
         figures = phase18c_epoch(dev, card, trainer, state, corpus,
                                  cv_corpus, host, batch, host_ms)
-        del corpus, cv_corpus, host
+        del trainer, state, cv_corpus, host
+        print("18f: the augmented flagship step", flush=True)
+        figures["aug"] = phase18f_augmented(dev, card, model_conf, corpus)
+        del corpus
+        print("18d: bin.train --device_resident", flush=True)
         rates = phase18d_cli(dev, card, recipe_rates)
+        print("18g: the noisy recipe", flush=True)
+        figures["noisy_rates"], figures["noisy_ds_tcn_launches"] = \
+            phase18g_noisy_recipe(dev, card)
     launches = path_g_counts()
     missing = [k for k, v in launches.items() if not v]
     tapped = {}
@@ -5819,31 +6354,28 @@ def phase18_resident(dev, card, model_conf, batch, host_ms, recipe_rates):
         raise AssertionError(f"path G: the calls seen by shape {tapped} are "
                              f"not the launches counted {launches} (none of "
                              f"{missing})")
-    traces = path_g_traces(model_conf,
-                           path_g_specs(ftap.shapes, ptap.shapes))
-    copies = traces["resident_copies"]
-    if copies and max(copies) > H2D_LIMIT:
-        raise AssertionError(f"a resident step copied {max(copies)} bytes "
-                             f"from the host (limit {H2D_LIMIT})")
-    busy, wall = traces["resident_busy_ms"], traces["resident_wall_ms"]
-    if not 0 < busy <= wall:
-        raise AssertionError(f"the traced resident step: device time {busy} "
-                             f"ms against its wall clock {wall} ms")
-    figures.update(idle=1 - busy / wall, busy_ms=busy, traced_wall_ms=wall,
-                   untraced_ms=traces["resident_untraced_ms"],
-                   h2d_copies=len(copies), h2d_bytes=sum(copies))
+    with tempfile.TemporaryDirectory() as saved:
+        traces = path_g_traces(model_conf, path_g_specs(
+            ftap.shapes, ptap.shapes, saved))
     witness = traces["host_copies"]
-    print(f"  18c, traced in a fresh process: a resident step's copies from "
-          f"the host (of three traces, the one with the largest) "
-          f"{len(copies)}, {sum(copies)} bytes, the largest "
-          f"{max(copies, default=0)} (limit {H2D_LIMIT}); a host-fed int16 "
-          f"step's {len(witness)}, {sum(witness)} bytes, the largest "
-          f"{max(witness)}; the resident step's device time {busy:.3f} ms "
-          f"in {traces['resident_entries']} device entries, idle "
-          f"{figures['idle']:.1%} of that traced step's {wall:.3f} ms wall "
-          f"clock (untraced, the median of 10 in that process: "
-          f"{figures['untraced_ms']:.3f} ms) [{card}]",
-          flush=True)
+    for tag, key in (("18c resident step", "resident_copies"),
+                     ("18f augmented resident step", "aug_copies")):
+        copies = traces[key]
+        if copies and max(copies) > H2D_LIMIT:
+            raise AssertionError(f"{tag} copied {max(copies)} bytes from "
+                                 f"the host (limit {H2D_LIMIT})")
+        figures[f"{key}_h2d"] = [len(copies), sum(copies)]
+        print(f"  {tag}, traced in a fresh process: copies from the host "
+              f"(of three traces, the one with the largest) {len(copies)}, "
+              f"{sum(copies)} bytes, the largest {max(copies, default=0)} "
+              f"(limit {H2D_LIMIT}); a host-fed int16 step's {len(witness)}, "
+              f"{sum(witness)} bytes, the largest {max(witness)} [{card}]",
+              flush=True)
+    for tag, key in (("18c resident step", "resident"),
+                     ("18f augmented resident step", "aug_resident"),
+                     ("18f augmentation alone", "aug_alone")):
+        figures[key] = dict(traces[key],
+                            **idle_share(tag, traces[key], card))
     device_ms = {tuple(k.split("|")): v
                  for k, v in traces["device_ms"].items()}
     readings = phase17e_kernel_checks(card, ftap.shapes, "18e", "G",

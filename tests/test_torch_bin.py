@@ -194,25 +194,81 @@ def test_resume_from_jax_checkpoint(tmp_path):
     assert info["epoch"] == 12.0 and info["lr"] == want["lr"]
 
 
+def aug_stores(root):
+    """Noise and RIR stores of a few seeded wavs, through the port's
+    ``write_wav`` and ``make_blob``: {conf key: store path}."""
+    from wekws_tpu_torch.data.audio import write_wav
+    from wekws_tpu_torch.tools.make_blob import make_blob
+
+    rng = np.random.default_rng(3)
+    out = {}
+    for corpus, items in (("noise", (("noise_0", 2000), ("music_1", 700))),
+                          ("reverb", (("rir_0", 400),))):
+        scp = []
+        for key, n in items:
+            p = root / f"{key}.wav"
+            write_wav(str(p), (0.05 * rng.standard_normal(n)).astype(
+                np.float32), 16000)
+            scp.append(f"{key} {p}")
+        (root / f"{corpus}.scp").write_text("\n".join(scp) + "\n")
+        make_blob(str(root / f"{corpus}.scp"), str(root / f"{corpus}_store"))
+        out[f"{corpus}_source"] = str(root / f"{corpus}_store")
+    return out
+
+
 @pytest.mark.parametrize("flag,item", [
-    (["--device_resident"], "item 10"),
+    pytest.param(["--device_resident"], "item 10", id="flag0-item 10"),
     (["--coordinator", "localhost:1234"], "item 13"),
     (["--num_processes", "2"], "item 13"),
     (["--process_id", "0"], "item 13"),
 ])
-def test_unported_flags_raise(tmp_path, flag, item):
-    """Data parallelism raises; so does --device_resident for a config
-    with waveform augmentation (speed_perturb), which a staged corpus
-    cannot have until device augmentation is ported."""
+def test_unported_flags_raise(tmp_path, monkeypatch, flag, item):
+    """Data parallelism raises.  ``--device_resident`` with waveform
+    augmentation (item 10, ported since) trains instead: speed_perturb,
+    noise and reverb on a tiny list and tiny stores, one epoch, with a
+    ``DeviceWaveAug`` attached to the train pipeline and run each
+    step."""
     with open(os.path.join(RECIPE, "conf_torch", "mdtc_flagship.yaml")) as f:
         conf = yaml.safe_load(f)
     conf["dataset_conf"]["speed_perturb"] = True
+    args = ["--model_dir", str(tmp_path / "m"), "--device", "cpu"] + flag
+    if item == "item 13":
+        config = tmp_path / "conf.yaml"
+        config.write_text(yaml.safe_dump(conf))
+        with pytest.raises(NotImplementedError, match=item):
+            train.main(["--config", str(config), "--train_data", "t",
+                        "--cv_data", "v"] + args)
+        return
+    from wekws_tpu_torch.data import device_aug
+
+    conf["dataset_conf"].update(aug_stores(tmp_path), noise_prob=0.6,
+                                reverb_prob=0.4)
+    conf["dataset_conf"]["batch_conf"]["batch_size"] = 4
+    conf["model"]["hidden_dim"] = 16
+    conf["model"]["backbone"].update(hidden_dim=16, num_stack=1,
+                                     stack_size=2)
     config = tmp_path / "conf.yaml"
     config.write_text(yaml.safe_dump(conf))
-    args = ["--config", str(config), "--train_data", "t", "--cv_data", "v",
-            "--model_dir", str(tmp_path / "m"), "--device", "cpu"] + flag
-    with pytest.raises(NotImplementedError, match=item):
-        train.main(args)
+    lists = {split: write_list(tmp_path / f"{split}.list", split, 4)
+             for split in ("train", "dev")}
+    applied = []
+    apply = device_aug.DeviceWaveAug.apply
+
+    def counted(self, waves, lengths, draws):
+        applied.append((self, tuple(waves.shape)))
+        return apply(self, waves, lengths, draws)
+
+    monkeypatch.setattr(device_aug.DeviceWaveAug, "apply", counted)
+    train.main(["--config", str(config), "--train_data", lists["train"],
+                "--cv_data", lists["dev"], "--num_epochs", "1",
+                "--min_duration", "20", "--cmvn_file",
+                os.path.join(DATA, "global_cmvn"), "--norm_var"] + args)
+    assert len(applied) == 1  # 4 rows at B=4: one step, none in cv
+    aug, shape = applied[0]
+    assert aug.speed_perturb and aug.n_noise_rows == 16 and aug.n_rirs == 1
+    assert shape[0] == 4
+    with open(tmp_path / "m" / "metrics.jsonl") as f:
+        assert np.isfinite(json.loads(f.readline())["train_loss"])
 
 
 @pytest.mark.parametrize("entry", ["train", "average_model", "score",

@@ -11,10 +11,12 @@ import pytest
 import torch
 
 from wekws_tpu.data import device_pipeline as jdp
+from wekws_tpu.data.device_aug import DeviceWaveAug as JaxWaveAug
 from wekws_tpu.frontend import kaldi as jax_kaldi
 from wekws_tpu.frontend.features import FeatureExtractor as JaxExtractor
 from wekws_tpu.frontend.features import frame_waveform as jax_frame_waveform
 from wekws_tpu_torch.data import device_pipeline as pdp
+from wekws_tpu_torch.data.device_aug import DeviceWaveAug
 from wekws_tpu_torch.frontend import kaldi
 from wekws_tpu_torch.frontend.features import (
     FeatureExtractor,
@@ -170,8 +172,10 @@ def test_splice_and_skip_match_jax(rng, left, right, skip):
 
 def test_pipeline_matches_jax(rng):
     """cv pipeline (no dither, no spec_aug) with splice and skip:
-    features 1e-4 abs + 1e-5 rel, lengths and dims exact; a wave_aug
-    raises."""
+    features 1e-4 abs + 1e-5 rel, lengths and dims exact; a real
+    ``DeviceWaveAug`` (speed 0.9 alone, no draws) on the train pipeline
+    gives JAX's pipeline's lengths with its ``DeviceWaveAug``, and
+    nothing without a generator."""
     conf = {"feats_type": "fbank",
             "fbank_conf": {"num_mel_bins": 23, "dither": 1.0},
             "spec_aug": True, "context_expansion": True,
@@ -191,6 +195,18 @@ def test_pipeline_matches_jax(rng):
     train = pdp.DeviceFeaturePipeline.from_conf(conf, training=True)
     assert train.spec_aug_conf == {} and train.extractor.cfg.dither == 1.0
     assert pp.spec_aug_conf is None and pp.extractor.cfg.dither == 0.0
-    train.wave_aug = object()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        train(torch.from_numpy(waves), torch.from_numpy(lens))
+    train.wave_aug = DeviceWaveAug(speed_perturb=True, speeds=(0.9,))
+    jtrain = jdp.DeviceFeaturePipeline.from_conf(conf, training=True)
+    jtrain.wave_aug = JaxWaveAug(
+        speed_perturb=True, speeds=(0.9,), fft=None, rir_re=None,
+        rir_im=None, n_rirs=0, reverb_prob=0.0, noise_rows=None, snr_lo=None,
+        snr_hi=None, n_noise_rows=0, noise_prob=0.0, power_scale=1.0)
+    feats, lengths = train(torch.from_numpy(waves), torch.from_numpy(lens),
+                           generator=torch.Generator().manual_seed(0))
+    jfeats, jlengths = jtrain(jnp.asarray(waves), jnp.asarray(lens),
+                              jax.random.PRNGKey(0))
+    np.testing.assert_array_equal(lengths.numpy(), np.asarray(jlengths))
+    assert feats.shape == jfeats.shape
+    assert lengths[0] > got_len[0]
+    _, cv_lengths = train(torch.from_numpy(waves), torch.from_numpy(lens))
+    assert torch.equal(cv_lengths, got_len)

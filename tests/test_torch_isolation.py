@@ -32,6 +32,7 @@ names = [m.name for m in pkgutil.walk_packages(
     wekws_tpu_torch.__path__, "wekws_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+assert "wekws_tpu_torch.data.device_aug" in names
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                     "wekws_tpu"))
@@ -66,9 +67,10 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     # every module was imported, the serving daemon's (serving/,
     # bin/serve.py, runtime/device_frontend.py, decode/device_stream.py)
-    # and the resident corpus and host tools (data/resident.py,
-    # tools/{cmvn_stats,make_blob,shuffle_list}.py) among them
-    assert int(proc.stdout.split()[0]) >= 95
+    # the resident corpus and host tools (data/resident.py,
+    # tools/{cmvn_stats,make_blob,shuffle_list}.py) and the device
+    # waveform augmentation (data/device_aug.py) among them
+    assert int(proc.stdout.split()[0]) >= 96
 
 
 @pytest.mark.parametrize("entry", ["forward", "stream", "load", "engine",

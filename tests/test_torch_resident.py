@@ -229,6 +229,11 @@ def test_stage_data_list_equals_jax(data_list, case):
     ("mesh", "item 13"), ("stage_arrays_mesh", "item 13"),
 ])
 def test_unported_staging_raises(data_list, case, item):
+    """Several cards raise (item 13).  A train config with waveform
+    augmentation (item 10, ported since) raises the JAX package's
+    ValueError without ``device_aug=True``, as JAX's does, and with it
+    stages the raw waves as JAX's does; a cv split drops the
+    augmentation instead."""
     conf, kwargs = dict(DATASET_CONF), {}
     if case == "speed_perturb":
         conf["speed_perturb"] = True
@@ -238,15 +243,28 @@ def test_unported_staging_raises(data_list, case, item):
         kwargs["world_size"] = 2
     else:
         kwargs["mesh"] = make_mesh()
-    with pytest.raises(NotImplementedError, match=item):
-        if case == "stage_arrays_mesh":
-            stage_arrays(synth_arrays(8), device="cpu", **kwargs)
-        else:
-            stage_data_list(data_list["class"], conf, split="train",
-                            device="cpu", **kwargs)
-    if item == "item 10":  # a cv split drops augmentation instead
-        assert stage_data_list(data_list["class"], conf, split="cv",
-                               device="cpu").n == 8
+    if item == "item 13":
+        with pytest.raises(NotImplementedError, match=item):
+            if case == "stage_arrays_mesh":
+                stage_arrays(synth_arrays(8), device="cpu", **kwargs)
+            else:
+                stage_data_list(data_list["class"], conf, split="train",
+                                device="cpu", **kwargs)
+        return
+    for stage in (stage_data_list, jax_stage_data_list):
+        with pytest.raises(ValueError, match="device_aug=True"):
+            stage(data_list["class"], conf, split="train")
+    got = stage_data_list(data_list["class"], conf, split="train",
+                          device="cpu", device_aug=True)
+    want = jax_stage_data_list(data_list["class"], conf, split="train",
+                               rank=0, world_size=1, device_aug=True)
+    want.wait_uploaded()
+    assert got.n == want.n == 8 and got.keys == want.keys
+    for key in STAGE_KEYS:
+        np.testing.assert_array_equal(got.arrays[key].numpy(),
+                                      np.asarray(want.arrays[key]))
+    assert stage_data_list(data_list["class"], conf, split="cv",
+                           device="cpu").n == 8
 
 
 def test_resident_step_is_host_step():

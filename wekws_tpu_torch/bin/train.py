@@ -10,8 +10,11 @@ YAML config + flags, per-epoch checkpoints ``<epoch>.pt`` with
 ``DataLoader`` feeds the ``Trainer``, which runs the fused exact-BN
 passes and the fused fbank as the config asks.  ``--device_resident``
 stages both lists on the device once instead (``data/resident.py``,
-before the model is built) and trains every epoch from there; a config
-with waveform augmentation then raises (ROADMAP A, item 10).
+before the model is built) and trains every epoch from there; for a
+config with waveform augmentation (speed_perturb, noise, reverb) the
+train pipeline then gets a ``DeviceWaveAug`` (``data/device_aug.py``)
+with the noise and RIR banks staged on the card, and each step augments
+its rows there.
 ``--checkpoint`` resumes from a port ``.pt`` or a JAX-package
 ``.ckpt``.  ``--dict`` (a CTC model: ``dict.txt``, and ``words.txt``
 where present) tokenizes both data lists and sets the output width to
@@ -64,9 +67,9 @@ def get_args(argv=None):
                         default=False,
                         help="stage the train and cv waves on the device "
                              "once (int16) and gather every batch there: no "
-                             "wave crosses from the host during an epoch "
-                             "(waveform augmentation raises: ROADMAP A, "
-                             "item 10)")
+                             "wave crosses from the host during an epoch; "
+                             "waveform augmentation (speed_perturb, noise, "
+                             "reverb) runs on the device, in the step")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
     return parser.parse_args(argv)
@@ -91,7 +94,7 @@ def main(argv=None):
 
     from wekws_tpu_torch.data import DeviceFeaturePipeline, init_dataset
     from wekws_tpu_torch.data.loader import DataLoader
-    from wekws_tpu_torch.data.resident import stage_data_list
+    from wekws_tpu_torch.data.resident import stage_data_list, wants_wave_aug
     from wekws_tpu_torch.device import resolve_device
     from wekws_tpu_torch.models import init_model
     from wekws_tpu_torch.text import CharTokenizer
@@ -132,11 +135,21 @@ def main(argv=None):
     train_corpus = cv_corpus = None
     if args.device_resident:
         # staged before the model is built, as the JAX CLI does
+        augment = wants_wave_aug(dataset_conf)
         train_corpus = stage_data_list(args.train_data, dataset_conf,
                                        tokenizer, split="train",
-                                       device=device)
+                                       device=device, device_aug=augment)
         cv_corpus = stage_data_list(args.cv_data, dataset_conf, tokenizer,
                                     split="cv", device=device)
+        if augment:
+            # the banks staged on the card once; speed, reverb and noise
+            # run on each step's rows (the cv pipeline gets none)
+            from wekws_tpu_torch.data.device_aug import DeviceWaveAug
+
+            train_pipeline.wave_aug = DeviceWaveAug.from_conf(
+                dataset_conf,
+                max_wave_samples=int(train_corpus.arrays["waves"].shape[1]),
+                device=device)
 
     # resolve the model config (reference train.py)
     model_conf = configs["model"]

@@ -14,7 +14,10 @@ waveforms and this pipeline runs inside the train step:
 * ``frame_skip``: every Nth frame; ``context_expansion_skip`` is the
   two together, evaluated only at the kept frames.
 
-Device waveform augmentation (``wave_aug``) is not ported yet.
+``wave_aug`` (``data/device_aug.DeviceWaveAug``, attached by
+``bin/train --device_resident`` for an augmented config) runs speed
+perturbation, reverb and noise on the waves before the extractor; the
+feature lengths follow the new wave lengths.
 """
 
 import dataclasses
@@ -159,11 +162,13 @@ class DeviceFeaturePipeline:
         generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, S) int16-scaled waves -> (B, T', D'), (B,) lengths.
-        ``generator`` draws the dither, then the spec_aug masks."""
-        if self.wave_aug is not None:
-            raise NotImplementedError(
-                "device waveform augmentation is not ported yet (ROADMAP "
-                "queue A, item 10)")
+        ``generator`` draws the waveform augmentation's draws (only
+        where a ``wave_aug`` is attached), then the dither, then the
+        spec_aug masks.  Without a generator nothing is drawn and the
+        waves are not augmented."""
+        if self.wave_aug is not None and generator is not None:
+            waves, wave_lengths = self.wave_aug(waves, wave_lengths,
+                                                generator)
         feats, _ = self.extractor(waves, None, generator=generator)
         if self.spec_aug_conf is not None and generator is not None:
             sa = self.spec_aug_conf
