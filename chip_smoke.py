@@ -237,7 +237,37 @@ phases; any failure exits non-zero:
     times from the fresh process, on seeded inputs of each shape) and
     bounded.  Path G's launches are added to the records of
     ``fused_fbank`` and the passes (``path_g_launches``, ``path_g``);
-    the step figures are one JSON line (``path_g_figures``).
+    the step figures are one JSON line (``path_g_figures``);
+19. path H, export and static int8 (``export/``): (a) the hi_xiaowen
+    FSMN-CTC (phase 11's checkpoint), the flagship MDTC (phase 4's) and
+    the JAX DS-TCN fixture through ``bin.export_model`` (its numpy and
+    device gates; the fixture's files equal to its committed export/),
+    each artifact through ``TorchGraphRuntime`` on the card against the
+    same runtime on the CPU and against the fused serving kernels on the
+    same weights (``fused_fsmn_kernel``, ``fused_mdtc_kernel``,
+    ``fused_ds_tcn_kernel``: 16 x 2 s offline and 8-frame chunks;
+    TOL); (b) the FSMN-CTC artifact calibrated on seeded waves through
+    the port's ``StreamingFrontend`` and statically quantized, on the
+    card against the numpy runtime (every int8 accumulator equal,
+    outputs within 2e-5), chunks against one call, an int8 contraction
+    of K = 1,032 exact and of 1,033 refused; (c) the committed JAX CTC
+    fixtures (export/, export_int8/) served by ``BatchKeywordSpotter`` at
+    64 streams x 8 frames with the device frontend (``fused_fbank``):
+    the float artifact's posteriors against the fixture checkpoint
+    through ``fused_fsmn_kernel`` (TOL, the same detections), the int8
+    one with device decode; ``bin.serve --checkpoint <artifact dir>``
+    to 16 client threads (the in-process engine's events); the int8
+    decisions of ``bin.stream_score_ctc`` on the 192 test utterances
+    beside the float artifact's; (d) ``bin.static_quantize
+    --calib_data``, ``bin.export_torch`` -> ``bin.import_torch`` (the
+    state back, 0 apart), ``run_torch.sh`` stage 4 on phase 14's
+    averaged model; the hi_xiaowen FSMN-CTC at 64 streams x 8 frames,
+    fused checkpoint, float and int8 artifact: host-clock step, real-time
+    factor, and one traced step's device time and CUDA launches from a
+    fresh process; (e) each kernel against its plain version at every
+    shape path H gave it (``ShapeTap``).  Path H's launches are added to
+    the kernel records (``path_h_launches``, ``path_h``); the figures are
+    one JSON line (``path_h_figures``).
 
 The last lines are the card, the per-kernel JSON record (13 kernels)
 and ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -2296,12 +2326,13 @@ def average_score_det(exp, lists, dev, card, tag=""):
     return model, shapes
 
 
-def phase14_recipe(dev, card):
+def phase14_recipe(dev, card, keep=None):
     """The flagship recipe end to end through the port's CLIs: lists,
     bin.train (2 epochs, fused passes and fused fbank), average, score
     (fused MDTC serving), DET; then the JAX DS-TCN fixture scored
-    through the fused DS-TCN kernel at C=48.  Returns bin.train's
-    audio-s/s per epoch."""
+    through the fused DS-TCN kernel at C=48.  The averaged checkpoint
+    and its config.yaml are copied into ``keep`` (for run_torch.sh's
+    stage 4 in phase 19d).  Returns bin.train's audio-s/s per epoch."""
     import logging
     import tempfile
 
@@ -2436,6 +2467,12 @@ def phase14_recipe(dev, card):
 
         model, shapes = average_score_det(exp, lists, dev, card)
         n_test = dict(RECIPE_SPLITS)["test"]
+        if keep is not None:
+            import shutil
+
+            os.makedirs(keep, exist_ok=True)
+            for f in ("config.yaml", f"avg_{RECIPE_EPOCHS}.pt"):
+                shutil.copy(os.path.join(exp, f), keep)
 
         # the JAX fixture (DS-TCN, C=48), its cmvn path pointed here
         fixture = DS_TCN_FIXTURE
@@ -4732,15 +4769,15 @@ def daemon_figures(tag, server, engine, wall, audio, n, card):
     return fig
 
 
-def served_figures(tag, proc, kernels, wall, audio, card):
+def served_figures(tag, proc, kernels, wall, audio, card, sub="17c"):
     """bin.serve's own reading after SIGTERM: each kernel of the route
     launched once a dispatch, and no other; its real-time factor and
-    the mean step on its engine thread."""
+    the mean step on its engine thread (lines headed ``sub``)."""
     served, eng = proc.served, proc.served["engine"]
     got = {k: v for k, v in served["launches"].items() if v}
     if eng["dispatches"] < 1 or got != {k: eng["dispatches"]
                                         for k in kernels}:
-        raise AssertionError(f"17c {tag}: bin.serve launched {got} for "
+        raise AssertionError(f"{sub} {tag}: bin.serve launched {got} for "
                              f"{eng['dispatches']} dispatches, want each of "
                              f"{kernels} once a dispatch")
     steps = served["server"]["steps"]
@@ -4752,7 +4789,7 @@ def served_figures(tag, proc, kernels, wall, audio, card):
            "rows_per_step": served["server"]["participants"] / max(steps, 1),
            "launches_per_step": {k: v / eng["dispatches"]
                                  for k, v in got.items()}}
-    print(f"  17c {tag}: bin.serve in a subprocess (port open "
+    print(f"  {sub} {tag}: bin.serve in a subprocess (port open "
           f"{proc.start_s:.1f} s after start, warm-up included), "
           f"{audio:.0f} audio-s in {wall:.2f} s ({fig['rtf']:.1f}x real "
           f"time), {steps} shared steps (mean {fig['rows_per_step']:.1f} "
@@ -6396,6 +6433,750 @@ def merge_path_g(record, launches, readings):
             [rows[name]["max_abs_err"]] + [r["max_abs_err"] for r in rs])
 
 
+# ---------------------------------------------------------------------------
+# phase 19, path H: export and static int8 (A.12)
+# ---------------------------------------------------------------------------
+
+# the artifact's float output on the card against the same runtime on the
+# CPU and against the fused serving kernels on the same weights (both fold
+# BN in float64): TOL, the serving kernels' own limit.  The static-int8
+# runtime on the card against the numpy runtime: every int8 accumulator
+# equal and the outputs within 2e-5 (tests/test_jax_runtime.py:40-49's
+# pins); chunks against one call within 1e-5 abs + 1e-5 rel (JAX pins 1e-6
+# on one CPU backend; another row count may pick another cuBLAS kernel for
+# the float products)
+INT8_OUT_TOL, INT8_CHUNK_TOL = 2e-5, 1e-5
+DAEMON_UTTS = 48  # 19c: bin.serve on the first 48 test utterances
+H_CALIB_UTTS = 8
+CTC_EXPORT = os.path.join(CTC_FIXTURE, "export")
+CTC_EXPORT_INT8 = os.path.join(CTC_FIXTURE, "export_int8")
+ARTIFACT_FILES = ("model.txt", "weights.bin")
+
+
+def path_h_wrappers():
+    """The kernels path H launches: path F's and the offline MDTC
+    forward (19a's witness)."""
+    from wekws_tpu_torch.ops.fused_mdtc import fused_mdtc_forward
+
+    return dict(kernel_counts(), fused_mdtc_forward=fused_mdtc_forward)
+
+
+def same_artifact_files(got_dir, want_dir, what):
+    """The model.txt and weights.bin of two artifact directories, byte
+    for byte (model.json's meta names the config's own CMVN path)."""
+    import filecmp
+
+    differ = [f for f in ARTIFACT_FILES if not filecmp.cmp(
+        os.path.join(got_dir, f), os.path.join(want_dir, f), shallow=False)]
+    if differ:
+        raise AssertionError(f"{what}: {differ} differ from {want_dir}")
+
+
+def wide_int8_artifact(path, k):
+    """A one-op static-int8 artifact: a dense of K=``k`` inputs to 3, the
+    weights at the int8 range's end, zero point 0, scale 1."""
+    os.makedirs(path, exist_ok=True)
+    q = np.full((k, 3), -127, np.int8)
+    q[:, 1] = 127
+    q[::2, 2] = 113
+    artifact = {
+        "meta": {"format_version": 1, "output": 1, "output_dim": 3,
+                 "cache_len": 0, "cache_dim": 0, "activation": "identity",
+                 "dataset_conf": {}, "model_conf": {"input_dim": k},
+                 "quantized": True, "static_quant": True},
+        "ops": [{"op": "dense", "inputs": [0], "out": 1,
+                 "attrs": {"act": "none", "in_scale": 1.0, "in_zp": 0},
+                 "W": {"int8": {"offset": 0, "shape": [k, 3]},
+                       "scale": {"offset": 0, "shape": [3]}}}],
+        "caches": []}
+    with open(os.path.join(path, "model.json"), "w") as f:
+        json.dump(artifact, f)
+    np.full(3, 0.5, "<f4").tofile(os.path.join(path, "weights.bin"))
+    q.tofile(os.path.join(path, "weights_int8.bin"))
+    return path
+
+
+def phase19a_export(dev, card, work, tmp):
+    """19a: the hi_xiaowen FSMN-CTC (phase 11's seeded checkpoint), the
+    flagship MDTC (phase 4's, BN statistics perturbed) and the JAX DS-TCN
+    fixture (C=48) through ``bin.export_model`` (its two gates; the
+    fixture's files equal to its committed export/), then each artifact
+    through ``TorchGraphRuntime`` on the card against the same runtime
+    on the CPU, and against the fused serving route on the same weights
+    (``build_fused_forward`` on 16 x 2 s, ``build_fused_stream`` in
+    8-frame chunks), on the features of phase 4's 16 synthetic waves
+    through the artifact's own frontend (``feats_from_waves``),
+    standardized per dimension where the model has no CMVN of its own
+    (phase 11's FSMN-CTC: the recipe's global CMVN; raw log-mels drive
+    its random weights to logits of 1e2, whose fp32 noise alone is 1e-4);
+    a flat output (a saturated sigmoid) would make the comparison
+    vacuous and fails.  Returns {name: artifact dir}."""
+    import torch
+    import yaml
+
+    from wekws_tpu_torch.bin import export_model as export_cli
+    from wekws_tpu_torch.export import TorchGraphRuntime
+    from wekws_tpu_torch.export.calibrate import feats_from_waves
+    from wekws_tpu_torch.ops.serving import (
+        build_fused_forward,
+        build_fused_stream,
+    )
+    from wekws_tpu_torch.runtime.keyword_spotter import load_serving_model
+
+    waves = [w.astype(np.float32)
+             for w in synth_waves(np.random.default_rng(SEED))]
+    tcn_config, _ = fixture_config(DS_TCN_FIXTURE, RECIPE, tmp,
+                                   "ds_tcn_fixture_19.yaml")
+    cases = (
+        ("fsmn_ctc", "hi_xiaowen FSMN-CTC (400 -> 140, 4 x 250/128)",
+         os.path.join(work, "fsmn_ctc.yaml"),
+         os.path.join(work, "fsmn_ctc.pt"), ("fused_fsmn_layers",) * 2),
+        ("flagship", "flagship MDTC (4 x 4 blocks, C=64)",
+         os.path.join(work, "flagship.yaml"),
+         os.path.join(work, "flagship.pt"),
+         ("fused_mdtc_forward", "fused_mdtc_stream")),
+        ("ds_tcn_fixture", "JAX DS-TCN fixture (C=48)", tcn_config,
+         os.path.join(DS_TCN_FIXTURE, "avg_5.ckpt"),
+         ("fused_ds_tcn",) * 2),
+    )
+    wrappers = path_h_wrappers()
+    arts = {}
+    for name, tag, config, ckpt, (off_kern, str_kern) in cases:
+        art = os.path.join(tmp, f"{name}_export")
+        t0 = time.perf_counter()
+        err, dev_err = export_cli.main(["--config", config, "--checkpoint",
+                                        ckpt, "--output_dir", art,
+                                        "--device", dev.type])
+        export_s = time.perf_counter() - t0
+        if name == "ds_tcn_fixture":
+            same_artifact_files(art, os.path.join(DS_TCN_FIXTURE, "export"),
+                                "19a the DS-TCN fixture's export")
+        with open(config) as f:
+            configs = yaml.safe_load(f)
+        in_dim = configs["model"]["input_dim"]
+        model = load_serving_model(configs, ckpt, in_dim, dev)
+        n_params = sum(p.numel() for p in model.parameters())
+        rt, rt_cpu = TorchGraphRuntime(art, dev), TorchGraphRuntime(art, "cpu")
+        feats = feats_from_waves(art, waves)
+        t = min(len(f) for f in feats)
+        x = np.stack([f[:t] for f in feats])
+        if not any(e["op"] == "cmvn" for e in rt.ops):
+            x = (x - x.mean(axis=(0, 1))) / (x.std(axis=(0, 1)) + 1e-6)
+        x = torch.as_tensor(x, dtype=torch.float32)
+        b, xd = len(feats), x.to(dev)
+        got, _ = rt.forward(xd)
+        want, _ = rt_cpu.forward(x)
+        lo, hi = float(got.min()), float(got.max())
+        if not hi - lo > 1e-3:
+            raise AssertionError(f"19a {name}: the artifact's outputs span "
+                                 f"only [{lo}, {hi}]: the checks would be "
+                                 f"vacuous")
+        e_cpu = check_close(f"19a {name}: artifact on the card vs on the CPU",
+                            got.cpu(), want, quiet=True)
+        before = {k: fn.launches for k, fn in wrappers.items()}
+        with torch.inference_mode():
+            ref = build_fused_forward(model, device=dev)(
+                xd, torch.full((b,), t, device=dev))
+        step, init = build_fused_stream(model, device=dev)
+        cache, state, outs, refs = init(b), rt.init_state(b), [], []
+        for s in range(0, t, SERVE_STEP):
+            chunk = xd[:, s:s + SERVE_STEP].contiguous()
+            y, state = rt.forward(chunk, state)
+            outs.append(y)
+            with torch.inference_mode():
+                y, cache = step(chunk, cache)
+            refs.append(y)
+        torch.cuda.synchronize()
+        n = {k: fn.launches - before[k] for k, fn in wrappers.items()}
+        chunks = math.ceil(t / SERVE_STEP)
+        want_n = {off_kern: 1 + (chunks if off_kern == str_kern else 0)}
+        want_n[str_kern] = want_n.get(str_kern, 0) + (
+            0 if off_kern == str_kern else chunks)
+        if {k: v for k, v in n.items() if v} != want_n:
+            raise AssertionError(f"19a {name}: witness launches {n}, want "
+                                 f"{want_n}")
+        e_off = check_close(f"19a {name}: artifact vs {off_kern} offline, "
+                            f"B={b} T={t}", got, ref, quiet=True)
+        e_str = check_close(f"19a {name}: artifact vs {str_kern}, {chunks} "
+                            f"chunks of {SERVE_STEP}", torch.cat(outs, 1),
+                            torch.cat(refs, 1), quiet=True)
+        e_chunk = check_close(f"19a {name}: artifact chunks vs one call",
+                              torch.cat(outs, 1), got, quiet=True)
+        print(f"  19a {tag}: {n_params} parameters, bin.export_model "
+              f"{export_s:.1f} s (numpy gate {err:.2e}, {dev.type} runtime "
+              f"gate {dev_err:.2e}, bound 1e-3); TorchGraphRuntime B={b} "
+              f"T={t} (outputs in [{lo:.3g}, {hi:.3g}]) on the card vs the "
+              f"CPU {e_cpu:.2e}, vs {off_kern} "
+              f"offline {e_off:.2e}, vs {str_kern} in 8-frame chunks "
+              f"{e_str:.2e}, its chunks vs one call {e_chunk:.2e} (bound "
+              f"{TOL} abs + {TOL} rel); witness launches {want_n} "
+              f"[{card}]", flush=True)
+        arts[name] = art
+    return arts
+
+
+def int8_vs_numpy(tag, rt, np_rt, x):
+    """The device int8 runtime against the numpy runtime on ``x`` (B, T,
+    D): every int8 accumulator of every row equal, outputs within
+    INT8_OUT_TOL.  Returns (output error, int8 ops, accumulator
+    elements)."""
+    import torch
+
+    got_acc, want_acc = {}, {}
+    got, _ = rt.forward(torch.as_tensor(x, device=rt.device),
+                        acc_observer=lambda i, k, a: got_acc.__setitem__(
+                            (i, k), a))
+    wants = []
+    for b in range(len(x)):
+        y, _ = np_rt.forward(x[b], acc_observer=lambda i, k, a, b=b:
+                             want_acc.__setitem__((b, i, k), a))
+        wants.append(y)
+    n_el = 0
+    for (b, i, k), acc in want_acc.items():
+        mine = got_acc[i, k][b].cpu().numpy()
+        if mine.dtype != np.int32 or not np.array_equal(mine, acc):
+            raise AssertionError(f"{tag}: op {i} {k} row {b}: int8 "
+                                 f"accumulators differ in "
+                                 f"{int((mine != acc).sum())} of {acc.size}")
+        n_el += acc.size
+    err = check_close(f"{tag}: outputs", got.cpu(),
+                      torch.as_tensor(np.stack(wants)), quiet=True,
+                      atol=INT8_OUT_TOL, rtol=0.0)
+    return err, len(got_acc), n_el
+
+
+def phase19b_int8(dev, card, tmp, fsmn_art):
+    """19b: 19a's hi_xiaowen FSMN-CTC artifact calibrated on features of
+    seeded synthetic waves through the port's ``StreamingFrontend``
+    (``feats_from_waves``) and statically quantized; on the card
+    ``TorchGraphRuntime`` against the port's numpy runtime (every int8
+    accumulator equal, outputs within INT8_OUT_TOL), chunks of 8 against
+    one call, an int8 contraction at K = 1,032 (exact) and K = 1,033
+    (raises).  Returns the int8 artifact's directory."""
+    import torch
+
+    from wekws_tpu_torch.export import (
+        GraphRuntime,
+        TorchGraphRuntime,
+        quantize_artifact,
+    )
+    from wekws_tpu_torch.export.calibrate import feats_from_waves
+    from wekws_tpu_torch.export.torch_runtime import EXACT_K
+
+    waves = synth_waves(np.random.default_rng(SEED + 190))[:H_CALIB_UTTS]
+    t0 = time.perf_counter()
+    feats = feats_from_waves(fsmn_art, [w.astype(np.float32) for w in waves])
+    qdir = os.path.join(tmp, "fsmn_ctc_int8")
+    artifact = quantize_artifact(fsmn_art, qdir, calib_feats=feats)
+    quant_s = time.perf_counter() - t0
+    n_int8 = sum("in_scale" in e.get("attrs", {}) for e in artifact["ops"])
+    t = min(len(f) for f in feats)
+    x = np.stack([f[:t] for f in feats])
+    rt, np_rt = TorchGraphRuntime(qdir, dev), GraphRuntime(qdir)
+    err, n_ops, n_el = int8_vs_numpy("19b FSMN-CTC int8", rt, np_rt, x)
+    full, _ = rt.forward(torch.as_tensor(x, device=dev))
+    state, outs = rt.init_state(len(x)), []
+    for s in range(0, t, SERVE_STEP):
+        y, state = rt.forward(torch.as_tensor(x[:, s:s + SERVE_STEP],
+                                              device=dev), state)
+        outs.append(y)
+    e_chunk = check_close("19b FSMN-CTC int8 chunks of 8 vs one call",
+                          torch.cat(outs, 1), full, quiet=True,
+                          atol=INT8_CHUNK_TOL, rtol=INT8_CHUNK_TOL)
+    wide = wide_int8_artifact(os.path.join(tmp, "wide_k"), EXACT_K)
+    xw = np.full((2, 4, EXACT_K), -300.0, np.float32)
+    xw[1, :, ::3] = 127.0
+    e_wide, _, _ = int8_vs_numpy(f"19b dense K={EXACT_K}",
+                                 TorchGraphRuntime(wide, dev),
+                                 GraphRuntime(wide), xw)
+    try:
+        TorchGraphRuntime(wide_int8_artifact(
+            os.path.join(tmp, "wide_k1"), EXACT_K + 1), dev)
+    except ValueError as e:
+        raised = str(e)
+    else:
+        raise AssertionError(f"19b: an int8 dense of K={EXACT_K + 1} did "
+                             f"not raise")
+    print(f"  19b hi_xiaowen FSMN-CTC static int8: calibrated on "
+          f"{len(feats)} seeded 2 s waves through the port's "
+          f"StreamingFrontend, {n_int8} int8 ops, {quant_s:.1f} s; on the "
+          f"card vs the numpy runtime (B={len(x)}, T={t}): {n_ops} int8 "
+          f"accumulators ({n_el} elements) equal, outputs within "
+          f"{err:.2e} (bound {INT8_OUT_TOL}); chunks of 8 vs one call "
+          f"{e_chunk:.2e} (bound {INT8_CHUNK_TOL} abs + rel); K={EXACT_K} "
+          f"at the int8 range's ends equal (outputs {e_wide:.1e}); "
+          f"K={EXACT_K + 1} raises: {raised!r} [{card}]", flush=True)
+    return qdir
+
+
+def h_engine(ckpt, config, tokens, lexicon, keyword, dev, fe, decode,
+             streams=SERVE_STREAMS, fused=None):
+    from wekws_tpu_torch.runtime import BatchKeywordSpotter
+
+    eng = BatchKeywordSpotter(
+        ckpt, config, tokens, lexicon, SERVE_THRESHOLD_CTC,
+        num_streams=streams, step_frames=SERVE_STEP, min_frames=1,
+        use_fused=fused, device_decode=decode, device_frontend=fe,
+        device=dev)
+    eng.set_keywords(keyword)
+    return eng
+
+
+class ModelTap:
+    """Wraps an engine's artifact model (``ArtifactModelAdapter``): keeps
+    each call's features, input cache, ``softmax`` flag, posteriors and
+    new cache, cloned on the device (no copy to the host in the run)."""
+
+    def __init__(self, engine):
+        self.calls, self._model = [], engine.model
+        engine.model = self
+
+    def __getattr__(self, name):
+        return getattr(self._model, name)
+
+    def __call__(self, feats, cache=None, softmax=False):
+        out, new = self._model(feats, cache, softmax=softmax)
+        self.calls.append((feats.clone(), tuple(c.clone() for c in cache),
+                           softmax, out.clone(),
+                           tuple(c.clone() for c in new)))
+        return out, new
+
+
+def same_as_numpy_runtime(tag, mtap, art):
+    """Every call an engine made of artifact ``art`` (``ModelTap``), row by
+    row through the numpy runtime (export/np_runtime.py, the C++
+    runtime's executable specification) on the CPU, on the same features
+    and input cache: posteriors and new caches within ``INT8_OUT_TOL``.
+    Returns (max abs error, rows checked)."""
+    import torch
+
+    from wekws_tpu_torch.export import GraphRuntime
+
+    rt = GraphRuntime(art)
+    has_softmax = any(e["op"] == "softmax" for e in rt.ops)
+    err, rows = 0.0, 0
+    for feats, cache, softmax, out, new in mtap.calls:
+        feats = feats.cpu().numpy()
+        cache = [c.cpu().numpy() for c in cache]
+        out, new = out.cpu().numpy(), [c.cpu().numpy() for c in new]
+        for i in range(feats.shape[0]):
+            want, state = rt.forward(feats[i], [c[i] for c in cache])
+            if softmax and not has_softmax:
+                want = torch.softmax(torch.from_numpy(want), -1).numpy()
+            err = max([err, float(np.abs(out[i] - want).max())]
+                      + [float(np.abs(n[i] - w).max())
+                         for n, w in zip(new, state)])
+            rows += 1
+    if not rows:
+        raise AssertionError(f"{tag}: the engine never called the model")
+    if not err <= INT8_OUT_TOL:
+        raise AssertionError(f"{tag}: max_abs_err {err:.3e} over {rows} "
+                             f"rows > {INT8_OUT_TOL}")
+    return err, rows
+
+
+def phase19c_serving(dev, card, tmp):
+    """19c: the committed JAX CTC fixtures, export/ (float) and
+    export_int8/, served on the card.  The corpus (gen_data_torch.py,
+    seed 17) first; its dev list feeds 19d.  (i) ``bin.export_model`` of
+    the fixture's avg_5.ckpt equals the committed export/; (ii)
+    ``BatchKeywordSpotter`` at 64 streams x 8 frames on the first 64
+    test utterances with the device frontend (``fused_fbank``): the
+    float artifact's posteriors against the fixture checkpoint served
+    through ``fused_fsmn_kernel``, within TOL, the same detections; the
+    int8 artifact with device decode, each of its model calls held row
+    by row against the numpy runtime on the same features and cache
+    (``INT8_OUT_TOL``); (iii) ``bin.serve --checkpoint export_int8``
+    (device frontend and decode) to 16 client threads over the first
+    ``DAEMON_UTTS`` test utterances: the events equal the in-process
+    engine's;
+    (iv) ``bin.stream_score_ctc`` on the 192 with each artifact: the
+    int8 decisions beside the float ones.
+    Returns (the dev list, the serving figures, bin.serve's launches)."""
+    import torch
+
+    from wekws_tpu_torch.bin import export_model as export_cli
+    from wekws_tpu_torch.bin import serve, stream_score_ctc
+    from wekws_tpu_torch.eval import compare_ctc_score_files
+
+    repo = os.path.abspath(os.path.dirname(__file__) or ".")
+    data = os.path.join(tmp, "data")
+    subprocess.run([sys.executable, os.path.join(
+        repo, CTC_RECIPE, "local", "gen_data_torch.py"), data], cwd=tmp,
+        env=dict(os.environ, PYTHONPATH=repo), check=True,
+        capture_output=True, timeout=300)
+    with open(os.path.join(data, "test.list")) as f:
+        lines = [json.loads(line) for line in f]
+    utts = {x["key"]: pcm_of(x["wav"]) for x in lines}
+    config, _ = fixture_config(CTC_FIXTURE, CTC_RECIPE, tmp,
+                               "fsmn_ctc_fixture_19.yaml")
+    ckpt = os.path.join(CTC_FIXTURE, "avg_5.ckpt")
+    tokens = os.path.join(CTC_RECIPE, "dict", "dict.txt")
+    art = os.path.join(tmp, "fsmn_ctc_fixture_export")
+    export_cli.main(["--config", config, "--checkpoint", ckpt,
+                     "--output_dir", art, "--device", dev.type])
+    same_artifact_files(art, CTC_EXPORT, "19c the CTC fixture's export")
+    pcms = [utts[x["key"]] for x in lines[:SERVE_STREAMS]]
+    figures, runs = {}, {}
+    for tag, src, fused, decode in (
+            ("fixture checkpoint, fused_fsmn_layers", ckpt, True, False),
+            ("float artifact", CTC_EXPORT, None, False),
+            ("int8 artifact, device decode", CTC_EXPORT_INT8, None, True)):
+        eng = h_engine(src, config, tokens, None, CTC_RECIPE_KEYWORD, dev,
+                       True, decode, fused=fused)
+        run_engine(eng, pcms)  # the first launches
+        eng.reset_all()
+        fresh_stats(eng)
+        etap = EngineTap(eng)
+        if src == CTC_EXPORT_INT8:
+            mtap = ModelTap(eng)
+        with PlainOnCuda() as plain, Launches() as n:
+            run = run_engine(eng, pcms)
+            torch.cuda.synchronize()
+        plain.check(f"19c {tag}")
+        steps = run["steps"]
+        want_n = {"fused_fbank": steps}
+        if fused:
+            want_n["fused_fsmn_layers"] = steps
+        if n.nonzero() != want_n:
+            raise AssertionError(f"19c {tag}: launches {n.counts} for "
+                                 f"{steps} steps")
+        runs[tag] = (etap, run)
+        figures[f"19c {tag}"] = engine_figures(
+            f"19c CTC fixture, {tag}, {SERVE_STREAMS} streams x {SERVE_STEP}"
+            f" frames, device frontend", run, n.nonzero(), card)
+    fused_tap, fused_run = runs["fixture checkpoint, fused_fsmn_layers"]
+    float_tap, float_run = runs["float artifact"]
+    err = same_posteriors("19c float artifact vs the fixture checkpoint "
+                          "through fused_fsmn_kernel", float_tap, fused_tap)
+    fires = same_results("19c float artifact vs the fused checkpoint: "
+                         "events", float_run["results"], fused_run["results"])
+    int8_run = runs["int8 artifact, device decode"][1]
+    int8_fires = sum(r.get("state") == 1 for res in int8_run["results"]
+                     for r in res.values())
+    if fires < 1:
+        raise AssertionError("19c: the float artifact never fired")
+    int8_err, int8_rows = same_as_numpy_runtime(
+        "19c int8 artifact in the engine vs the numpy runtime", mtap,
+        CTC_EXPORT_INT8)
+    print(f"  19c float artifact vs the fixture checkpoint served through "
+          f"fused_fsmn_kernel, {SERVE_STREAMS} streams x {SERVE_STEP} "
+          f"frames: posteriors max_abs_err {err:.3e} (bound {TOL} abs + "
+          f"{TOL} rel), the same {fires} detections; the int8 artifact "
+          f"with device decode: {int8_fires} detections, its posteriors "
+          f"and caches vs the numpy runtime on the same features "
+          f"max_abs_err {int8_err:.3e} over {int8_rows} rows (bound "
+          f"{INT8_OUT_TOL}) [{card}]", flush=True)
+    figures["19c int8 artifact vs the numpy runtime"] = {
+        "max_abs_err": int8_err, "rows": int8_rows}
+
+    argv = serve_argv(config, CTC_EXPORT_INT8, DAEMON_CLIENTS,
+                      extra=["--device_decode", "--device_frontend"])
+    engine = serve.build_engine(serve.get_args(argv + ["--device",
+                                                       dev.type]))
+    # the daemon on a subset that fires; stream_score_ctc covers all 192
+    utts = {x["key"]: utts[x["key"]] for x in lines[:DAEMON_UTTS]}
+    with PlainOnCuda() as plain:
+        want = in_process_events(engine, utts)
+        torch.cuda.synchronize()
+    plain.check("19c int8 artifact: in-process engine")
+    with ServeProcess(argv + ["--device", dev.type],
+                      os.path.join(tmp, "serve_19.log")) as proc:
+        got, wall = serve_clients(proc.port, utts)
+    count = same_events("19c bin.serve --checkpoint export_int8 vs the "
+                        "in-process engine", got, want)
+    if count < 1:
+        raise AssertionError("19c bin.serve export_int8: no detections")
+    fig, served = served_figures(
+        f"bin.serve --checkpoint export_int8 (device decode + frontend), "
+        f"{DAEMON_CLIENTS} client threads, {len(utts)} utterances, {count} "
+        f"detections equal to the in-process engine's", proc,
+        ("fused_fbank",), wall, sum(len(p) for p in utts.values()) / 2
+        / RATE, card, "19c")
+    figures["19c bin.serve, int8 artifact"] = dict(fig, detections=count)
+
+    test_list = os.path.join(data, "test.list")
+    scores = {}
+    for tag, src in (("float", CTC_EXPORT), ("int8", CTC_EXPORT_INT8)):
+        scores[tag] = os.path.join(tmp, f"stream_score_{tag}.txt")
+        t0 = time.perf_counter()
+        n_utts = run_cli(stream_score_ctc.main, [
+            "--config", config, "--checkpoint", src, "--test_data",
+            test_list, "--token_file", tokens, "--keywords",
+            CTC_RECIPE_KEYWORD, "--score_file", scores[tag], "--threshold",
+            str(SERVE_THRESHOLD_CTC), "--device", dev.type],
+            f"19c bin.stream_score_ctc {tag}")
+        figures[f"19c stream_score_ctc {tag} s"] = time.perf_counter() - t0
+        if n_utts != len(lines):
+            raise AssertionError(f"19c stream_score_ctc {tag}: {n_utts} "
+                                 f"utterances")
+    flips, score_err = compare_ctc_score_files(scores["int8"],
+                                               scores["float"])
+    with open(scores["float"]) as f:
+        detected = sum(" detected " in line for line in f)
+    figures["19c int8 vs float decisions"] = {
+        "utterances": len(lines), "float_detected": detected,
+        "differ": flips, "score_err": score_err}
+    print(f"  19c bin.stream_score_ctc on the {len(lines)} test utterances: "
+          f"the int8 artifact's decisions against the float artifact's: "
+          f"{len(lines) - len(flips)} equal, {len(flips)} differ "
+          f"{flips}; {detected} detected by the float artifact; scores of "
+          f"the utterances both detect within {score_err:.3f} "
+          f"({figures['19c stream_score_ctc float s']:.1f} s and "
+          f"{figures['19c stream_score_ctc int8 s']:.1f} s) [{card}]",
+          flush=True)
+    return os.path.join(data, "dev.list"), figures, served
+
+
+def phase19d_clis(dev, card, tmp, dev_list, recipe_exp):
+    """19d: ``bin.static_quantize --calib_data`` on the generated dev list;
+    ``bin.export_torch`` then ``bin.import_torch`` on the CTC fixture's
+    checkpoint (the port state back, 0 apart); ``run_torch.sh`` stage 4
+    (``bin.export_model`` on the averaged checkpoint) on phase 14's
+    averaged flagship recipe model, the shell script itself run in a
+    copy of the recipe directory."""
+    import shutil
+
+    import torch
+
+    from wekws_tpu_torch.bin import (
+        export_torch,
+        import_torch,
+        static_quantize,
+    )
+    from wekws_tpu_torch.tools.export_torch import load_port_model
+
+    qdir = os.path.join(tmp, "static_quantize_cli")
+    with PlainOnCuda() as plain:
+        dev_err = static_quantize.main([
+            "--model_dir", CTC_EXPORT, "--output_dir", qdir, "--calib_data",
+            dev_list, "--device", dev.type])
+    plain.check("19d bin.static_quantize")
+    config, conf = fixture_config(CTC_FIXTURE, CTC_RECIPE, tmp,
+                                  "fsmn_ctc_fixture_19d.yaml")
+    ckpt = os.path.join(CTC_FIXTURE, "avg_5.ckpt")
+    ref_pt, back_pt = (os.path.join(tmp, x) for x in ("ref.pt", "back.pt"))
+    export_torch.main(["--checkpoint", ckpt, "--config", config, "--output",
+                       ref_pt, "--device", dev.type])
+    import_torch.main(["--torch_checkpoint", ref_pt, "--config", config,
+                       "--output_checkpoint", back_pt, "--device",
+                       dev.type])
+    want = load_port_model(ckpt, conf["model"], dev).state_dict()
+    back = torch.load(back_pt)
+    if back.keys() != want.keys() or any(
+            not torch.equal(back[k], want[k].cpu()) for k in want):
+        raise AssertionError("19d export_torch -> import_torch: the port "
+                             "state did not come back")
+    recipe = os.path.join(tmp, "recipe")
+    exp = os.path.join(recipe, "exp", "torch_mdtc_flagship")
+    os.makedirs(exp)
+    for f in ("run_torch.sh", "path.sh"):
+        shutil.copy(os.path.join(RECIPE, f), recipe)
+    shutil.copy(os.path.join(recipe_exp, "config.yaml"), exp)
+    shutil.copy(os.path.join(recipe_exp, f"avg_{RECIPE_EPOCHS}.pt"),
+                os.path.join(exp, "avg_5.pt"))
+    repo = os.path.abspath(os.path.dirname(__file__) or ".")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        ["bash", "run_torch.sh", "4", "4", "conf_torch/mdtc_flagship.yaml",
+         dev.type], cwd=recipe, env=dict(os.environ, PYTHONPATH=repo),
+        capture_output=True, text=True, timeout=300)
+    stage_s = time.perf_counter() - t0
+    out = os.path.join(exp, "export")
+    if proc.returncode != 0 or not all(os.path.exists(os.path.join(out, f))
+                                       for f in ("model.json",)
+                                       + ARTIFACT_FILES):
+        raise AssertionError(f"run_torch.sh stage 4 exited "
+                             f"{proc.returncode}:\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-2000:]}")
+    gate = [ln for ln in proc.stdout.splitlines()
+            if ln.startswith("graph artifact")]
+    print(f"  19d bin.static_quantize --calib_data (the generated dev list) "
+          f"on the CTC fixture's export: max posterior deviation "
+          f"{dev_err:.4f} on the card; bin.export_torch -> bin.import_torch: "
+          f"the port state back, {len(want)} tensors 0 apart; run_torch.sh "
+          f"stage 4 on phase 14's averaged recipe model: {gate[-1:]} in "
+          f"{stage_s:.1f} s [{card}]", flush=True)
+    return {"static_quantize_deviation": dev_err, "stage4_s": stage_s}
+
+
+def path_h_engines(work, fsmn_art, fsmn_q, dev):
+    """The hi_xiaowen FSMN-CTC at 64 streams x 8 frames, device frontend
+    and decode: phase 11's checkpoint through ``fused_fsmn_kernel``, its
+    float artifact and its static-int8 artifact."""
+    ckpt, config, tokens, lexicon = (os.path.join(work, x) for x in (
+        "fsmn_ctc.pt", "fsmn_ctc.yaml", "tokens.txt", "lexicon.txt"))
+    return {tag: h_engine(src, config, tokens, lexicon, CTC_KEYWORD, dev,
+                          True, True, fused=fused)
+            for tag, src, fused in (("fused checkpoint", ckpt, True),
+                                    ("float artifact", fsmn_art, None),
+                                    ("int8 artifact", fsmn_q, None))}
+
+
+def path_h_child(work, fsmn_art, fsmn_q, device="cuda"):
+    """In a fresh process: one traced step of each of ``path_h_engines``
+    (64 streams of phase 17's waves queued), its device time and CUDA
+    launches; and the model's step alone at 64 x 8 (seeded features):
+    the fused stream's and each artifact's, traced, and its untraced
+    median of 10 (``timed_steps``).  Prints one line ``PATH_H {...}``."""
+    import torch
+    import yaml
+
+    from wekws_tpu_torch.export import TorchGraphRuntime
+    from wekws_tpu_torch.ops.serving import build_fused_stream
+    from wekws_tpu_torch.runtime.keyword_spotter import load_serving_model
+
+    dev = torch.device(device)
+    pcms = [w.astype("<i2").tobytes() for w in serve_waves()]
+    out = {}
+    for tag, eng in path_h_engines(work, fsmn_art, fsmn_q, dev).items():
+        run_engine(eng, pcms)  # the first launches
+        eng.reset_all()
+        for i, p in enumerate(pcms):
+            eng.accept_wave(i, p)
+        eng.step()
+        busy, entries, _ = profiled_step(eng.step)
+        out[tag] = {"busy_ms": busy, "launches": entries}
+    with open(os.path.join(work, "fsmn_ctc.yaml")) as f:
+        configs = yaml.safe_load(f)
+    d = configs["model"]["input_dim"]
+    x = torch.randn((SERVE_STREAMS, SERVE_STEP, d),
+                    generator=torch.Generator().manual_seed(SEED)).to(dev)
+    step, init = build_fused_stream(load_serving_model(
+        configs, os.path.join(work, "fsmn_ctc.pt"), d, dev), device=dev)
+    steps = {"fused checkpoint": (step, init(SERVE_STREAMS))}
+    for tag, art in (("float artifact", fsmn_art),
+                     ("int8 artifact", fsmn_q)):
+        rt = TorchGraphRuntime(art, dev)
+        steps[tag] = (rt.forward, rt.init_state(SERVE_STREAMS))
+    for tag, (fn, cache) in steps.items():
+        def call(fn=fn, cache=cache):
+            with torch.inference_mode():
+                return fn(x, cache)
+
+        median = timed_steps(call)[0]
+        busy, entries, _ = profiled_step(call)
+        out[tag].update(model_busy_ms=busy, model_launches=entries,
+                        model_median_ms=median)
+    print("PATH_H " + json.dumps(out), flush=True)
+
+
+def phase19_times(dev, card, work, fsmn_art, fsmn_q):
+    """The hi_xiaowen FSMN-CTC at 64 streams x 8 frames (device frontend
+    and decode), the fused checkpoint, the float artifact and the int8
+    artifact: mean and p99 step on the host clock and real-time factor
+    here (``engine_figures``), each step's device time and CUDA launches
+    from one traced step in a fresh process (``path_h_child``)."""
+    import torch
+
+    pcms = [w.astype("<i2").tobytes() for w in serve_waves()]
+    traced = run_child("path_h_child", [work, fsmn_art, fsmn_q], "PATH_H")
+    figures, counted = {}, {}
+    for tag, eng in path_h_engines(work, fsmn_art, fsmn_q, dev).items():
+        run_engine(eng, pcms)
+        eng.reset_all()
+        fresh_stats(eng)
+        with PlainOnCuda() as plain, Launches() as n:
+            run = run_engine(eng, pcms)
+            torch.cuda.synchronize()
+        plain.check(f"19 times {tag}")
+        for k, v in n.counts.items():
+            counted[k] = counted.get(k, 0) + v
+        fig = engine_figures(f"19 hi_xiaowen FSMN-CTC, {tag}, "
+                             f"{SERVE_STREAMS} streams x {SERVE_STEP} "
+                             f"frames, device frontend + decode", run,
+                             n.nonzero(), card)
+        t = traced[tag]
+        fig.update(device_ms=t["busy_ms"],
+                   cuda_launches_per_step=t["launches"],
+                   model_device_ms=t["model_busy_ms"],
+                   model_launches=t["model_launches"],
+                   model_median_ms=t["model_median_ms"])
+        print(f"  19 {tag}: one engine step traced in a fresh process: "
+              f"device time {t['busy_ms']:.3f} ms, {t['launches']} CUDA "
+              f"launches (the featurizer and the decode included); the "
+              f"model's step alone at {SERVE_STREAMS} x {SERVE_STEP}: "
+              f"device time {t['model_busy_ms']:.3f} ms, "
+              f"{t['model_launches']} CUDA launches, untraced median "
+              f"{t['model_median_ms']:.3f} ms (host clock) [{card}]",
+              flush=True)
+        figures[f"19 times {tag}"] = fig
+    return figures, counted
+
+
+def phase19_artifacts(dev, card, work, recipe_exp):
+    """Path H, export and static int8 (A.12): 19a export at full width,
+    19b static int8, 19c serving the committed fixtures, 19d the CLIs,
+    then the times; every call of a path-F wrapper tapped by shape
+    (``ShapeTap``), the launches counted from 0 before each sub-path and
+    read after it; 19e each kernel against its plain version at every
+    shape path H gave it.  Returns ({sub-path: {kernel record:
+    launches}}, {kernel record: [readings]}, the figures)."""
+    import tempfile
+
+    launches, figures = {}, {}
+    wrappers = path_h_wrappers()
+
+    def counted(name, fn, *args):
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        out = fn(*args)
+        launches[name] = {k: w.launches for k, w in wrappers.items()}
+        print(f"  {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp, ShapeTap() as tap:
+        with PlainOnCuda() as plain:
+            arts = counted("19a export", phase19a_export, dev, card, work,
+                           tmp)
+            fsmn_q = counted("19b int8", phase19b_int8, dev, card, tmp,
+                             arts["fsmn_ctc"])
+        plain.check("19a-19b")
+        dev_list, fig, served = counted("19c serving", phase19c_serving,
+                                        dev, card, tmp)
+        figures.update(fig)
+        figures.update(counted("19d CLIs", phase19d_clis, dev, card, tmp,
+                               dev_list, recipe_exp))
+        times, _ = counted("19 times", phase19_times, dev, card, work,
+                           arts["fsmn_ctc"], fsmn_q)
+        figures.update(times)
+    launches["19c bin.serve (its own counts)"] = served
+    in_process = {}
+    for sub, counts in launches.items():
+        if not sub.startswith("19c bin.serve"):
+            for k, v in counts.items():
+                in_process[k] = in_process.get(k, 0) + v
+    missing = [k for k, v in in_process.items() if not v]
+    if missing:
+        raise AssertionError(f"path H launched no {missing}: {launches}")
+    tapped = {}
+    for (name, _), (calls, *_) in tap.shapes.items():
+        tapped[name] = tapped.get(name, 0) + calls
+    untapped = dict(in_process)
+    untapped.pop("fused_mdtc_forward")
+    if tapped != untapped:
+        raise AssertionError(f"path H: the calls seen by shape {tapped} are "
+                             f"not the launches counted {in_process}")
+    readings = phase17e_kernel_checks(card, tap.shapes, "19e", "H")
+    return launches, readings, figures
+
+
+def merge_path_h(record, launches, readings):
+    """Path H's launches (by sub-path) and readings into the kernel
+    records."""
+    rows = {r["name"]: r for r in record}
+    for sub, counts in launches.items():
+        for name, n in counts.items():
+            if n:
+                rows[name]["launches"] += n
+                rows[name].setdefault("path_h_launches", {})[sub] = n
+    for name, rs in readings.items():
+        rows[name]["path_h"] = rs
+        rows[name]["max_abs_err"] = max(
+            [rows[name]["max_abs_err"]] + [r["max_abs_err"] for r in rs])
+
+
 SERVING_KERNELS = {"fused_frontend": 6, "fused_mdtc": 15 + 25 + 3}
 
 
@@ -6708,7 +7489,8 @@ def main() -> int:
                                 step_ms, chunk_ms)
 
     with phase("14 recipe: bin.train, average, score, DET, JAX fixture"):
-        recipe_rates = phase14_recipe(dev, card)
+        recipe_exp = os.path.join(work, "recipe_exp")
+        recipe_rates = phase14_recipe(dev, card, recipe_exp)
 
     with phase("15 path D, CTC: FSMN-CTC training, the CTC recipe, the "
                "JAX fixture"):
@@ -6776,6 +7558,14 @@ def main() -> int:
             g_figures, cli_audio_s_per_s=g_rates,
             host_fed_cli_audio_s_per_s=recipe_rates), "card": card}),
             flush=True)
+
+    with phase("19 path H: export and static int8"):
+        h_launches, h_readings, h_figures = phase19_artifacts(
+            dev, card, work, recipe_exp)
+        merge_path_h(record, h_launches, h_readings)
+        print(f"  launches on path H: {h_launches} [{card}]", flush=True)
+        print(json.dumps({"path_h_figures": h_figures, "card": card}),
+              flush=True)
 
     print(card)
     print(json.dumps({"kernels": record}))

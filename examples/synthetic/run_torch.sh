@@ -1,7 +1,8 @@
 #!/bin/bash
 # The synthetic wake-word recipe on the PyTorch/CUDA port
 # (wekws_tpu_torch), beside run.sh (the JAX package's): lists from the
-# committed wavs -> train -> average -> score -> DET, with no download.
+# committed wavs -> train -> average -> score -> DET (stages 0-2) ->
+# graph artifact (stage 4), with no download.
 # The committed data/global_cmvn is used as it is.
 # Usage: ./run_torch.sh [stage] [stop_stage] [config] [device]
 #   device: cuda (default) or cpu
@@ -66,4 +67,15 @@ if [ ${stage} -le 2 ] && [ ${stop_stage} -ge 2 ]; then
     --stats_file $dir/stats.0.txt \
     --device $device
   echo "DET written to $dir/stats.0.txt"
+fi
+
+if [ ${stage} -le 4 ] && [ ${stop_stage} -ge 4 ]; then
+  # the graph artifact of the averaged model (stage 4, as in run.sh;
+  # stage 2 here covers run.sh's 3): model.json, model.txt, weights.bin,
+  # held against the model by bin.export_model's parity gates
+  python -m wekws_tpu_torch.bin.export_model \
+    --config $dir/config.yaml \
+    --checkpoint $score_checkpoint \
+    --output_dir $dir/export \
+    --device $device
 fi

@@ -9,6 +9,7 @@ import sys
 
 import pytest
 import torch
+import yaml
 
 from wekws_tpu_torch.models import init_model
 from wekws_tpu_torch.ops.serving import build_fused_forward, build_fused_stream
@@ -33,6 +34,12 @@ names = [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 assert "wekws_tpu_torch.data.device_aug" in names
+assert {"wekws_tpu_torch.export." + m for m in (
+    "graph", "np_runtime", "quantize", "calibrate", "torch_runtime")} \
+    <= set(names)
+assert {"wekws_tpu_torch.bin." + m for m in (
+    "export_model", "static_quantize", "export_torch", "import_torch")} \
+    <= set(names)
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                     "wekws_tpu"))
@@ -69,20 +76,37 @@ def test_port_imports_no_jax():
     # bin/serve.py, runtime/device_frontend.py, decode/device_stream.py)
     # the resident corpus and host tools (data/resident.py,
     # tools/{cmvn_stats,make_blob,shuffle_list}.py) and the device
-    # waveform augmentation (data/device_aug.py) among them
-    assert int(proc.stdout.split()[0]) >= 96
+    # waveform augmentation (data/device_aug.py), export/ and its four
+    # CLIs among them
+    assert int(proc.stdout.split()[0]) >= 106
 
 
-@pytest.mark.parametrize("entry", ["forward", "stream", "load", "engine",
-                                   "spotter", "kws_engine", "featurizer"])
+@pytest.mark.parametrize("entry", [
+    "forward", "stream", "load", "engine", "spotter", "kws_engine",
+    "featurizer", "artifact_load", "graph_runtime", "export_model",
+    "static_quantize", "export_torch", "import_torch"])
 def test_entry_points_default_to_cuda(tmp_path, entry):
     """Called without ``device=`` they run on the GPU, or raise where
     there is none; they never fall back to the CPU."""
+    from wekws_tpu_torch.bin import (
+        export_model,
+        export_torch,
+        import_torch,
+        static_quantize,
+    )
+    from wekws_tpu_torch.export import TorchGraphRuntime
+    from wekws_tpu_torch.export import export_model as export_artifact
+
     model = init_model(CONF["model"])
     ckpt = tmp_path / "m.pt"
     torch.save(model.state_dict(), ckpt)
     tokens = tmp_path / "tokens.txt"
     tokens.write_text("<blk> 0\nh 1\n")
+    config = tmp_path / "config.yaml"
+    config.write_text(yaml.dump(CONF))
+    art = str(tmp_path / "artifact")
+    export_artifact(model, CONF, art)
+    out = str(tmp_path / "out")
     calls = {
         "forward": lambda: build_fused_forward(model),
         "stream": lambda: build_fused_stream(model),
@@ -96,6 +120,19 @@ def test_entry_points_default_to_cuda(tmp_path, entry):
                                                   num_streams=2),
         "featurizer": lambda: build_batch_featurizer(
             *load_spotter_config(CONF)[1:], step_frames=8),
+        "artifact_load": lambda: load_serving_model(CONF, art, 23),
+        "graph_runtime": lambda: TorchGraphRuntime(art),
+        "export_model": lambda: export_model.main([
+            "--config", str(config), "--checkpoint", str(ckpt),
+            "--output_dir", out]),
+        "static_quantize": lambda: static_quantize.main([
+            "--model_dir", art, "--output_dir", out]),
+        "export_torch": lambda: export_torch.main([
+            "--checkpoint", str(ckpt), "--config", str(config), "--output",
+            out]),
+        "import_torch": lambda: import_torch.main([
+            "--torch_checkpoint", str(ckpt), "--config", str(config),
+            "--output_checkpoint", out]),
     }
     if torch.cuda.is_available():
         assert calls[entry]() is not None

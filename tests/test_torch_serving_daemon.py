@@ -16,6 +16,7 @@ import yaml
 from wekws_tpu.models import init_model as jax_init_model
 from wekws_tpu.serving import protocol as JP
 from wekws_tpu_torch.bin.serve import build_engine, warmup_engine
+from wekws_tpu_torch.models import init_model
 from wekws_tpu_torch.serving import KwsClient, KwsServer
 from wekws_tpu_torch.serving import protocol as P
 from wekws_tpu_torch.tools.from_jax import model_from_jax
@@ -85,12 +86,27 @@ def models(tmp_path_factory):
     tokens = tmp / "tokens.txt"
     tokens.write_text("<blk> 0\nh 1\ni 2\nx 3\n")
     out["tokens"] = str(tokens)
+    # the CTC model exported by the port and statically quantized on
+    # features of noise through its frontend: an int8 artifact directory
+    from wekws_tpu_torch.export import export_model, quantize_artifact
+    from wekws_tpu_torch.export.calibrate import feats_from_waves
+
+    ckpt, config = out["ctc"]
+    model = init_model(MODELS["ctc"])
+    model.load_state_dict(torch.load(ckpt))
+    art, qart = str(tmp / "ctc_artifact"), str(tmp / "ctc_int8")
+    export_model(model, {"model": MODELS["ctc"],
+                         "dataset_conf": DATASET_CONF}, art)
+    waves = [np.frombuffer(_pcm(10 + i), "<i2").astype(np.float32)
+             for i in range(4)]
+    quantize_artifact(art, qart, calib_feats=feats_from_waves(art, waves))
+    out["ctc_int8_artifact"] = (qart, config)
     return out
 
 
 def _args(models, kind, streams=4, **kw):
     """A ``bin.serve`` Namespace for a CPU engine."""
-    ckpt, config = models["ctc" if kind != "maxpool" else "maxpool"]
+    ckpt, config = models[kind if kind in models else "ctc"]
     ns = dict(maxpool=kind == "maxpool", keywords="hey,ok", config=config,
               checkpoint=ckpt, threshold=0.05, streams=streams,
               step_frames=8, interval_frames=30, mesh_devices=0,
@@ -167,12 +183,14 @@ def _client(port, pcm):
         return c.stream, c.finish()
 
 
-@pytest.mark.parametrize("kind", ["maxpool", "ctc", "ctc_device_decode"])
+@pytest.mark.parametrize("kind", ["maxpool", "ctc", "ctc_device_decode",
+                                  "ctc_int8_artifact"])
 def test_daemon_events_equal_in_process(models, kind):
     """Two clients at once on their own slots, then a third on a freed
     slot: each client's events (EOS drained) equal the in-process
     engine's for its audio; every engine call ran on the engine
-    thread."""
+    thread.  ``ctc_int8_artifact`` serves a static-int8 artifact
+    directory as ``--checkpoint`` (the artifact runtime's own ops)."""
     engine = build_engine(_args(models, kind))
     reference = build_engine(_args(models, kind))
     pcms = [_pcm(1), _pcm(2, 2.0), _pcm(3, 1.0)]

@@ -13,7 +13,8 @@ real-time factor.
 
 Fewer wavs than --streams cycles the list (load test); detections are
 printed per stream with timestamps.  On the card the engine's route
-comes from ``ops.serving.forward_route``; ``--mesh_devices`` raises
+comes from ``ops.serving.forward_route`` (an artifact directory serves
+through the artifact runtime); ``--mesh_devices`` raises
 (ROADMAP A.13).
 """
 
@@ -25,7 +26,11 @@ import time
 def get_args(argv=None):
     parser = argparse.ArgumentParser(description="batched streaming kws")
     parser.add_argument("--config", required=True)
-    parser.add_argument("--checkpoint", required=True)
+    parser.add_argument("--checkpoint", required=True,
+                        help="a port .pt, a JAX-package .ckpt, or an exported "
+                             "artifact directory (model.json + "
+                             "weights[_int8].bin) to serve a float or "
+                             "static-int8 artifact on the device")
     parser.add_argument("--token_file", default=None,
                         help="CTC mode: token table (required unless "
                              "--maxpool)")

@@ -17,7 +17,9 @@ that many network clients share one batched device step.
 Client side: ``wekws_tpu_torch.serving.KwsClient``.  On the card the
 engine's route comes from ``ops.serving.forward_route`` for the loaded
 model: the fused serving kernel for MDTC, DS-TCN and FSMN, the modules
-for GRU and full-conv TCN.  ``--mesh_devices`` raises (ROADMAP A.13);
+for GRU and full-conv TCN; an exported artifact directory (float or
+static int8) as ``--checkpoint`` serves through the artifact runtime
+(export/torch_runtime.py).  ``--mesh_devices`` raises (ROADMAP A.13);
 the JAX CLI's ``--compilation_cache_dir`` (an XLA cache) has no
 counterpart.
 
@@ -38,7 +40,10 @@ def get_args(argv=None):
     parser = argparse.ArgumentParser(description="kws serving daemon")
     parser.add_argument("--config", required=True)
     parser.add_argument("--checkpoint", required=True,
-                        help="a port .pt or a JAX-package .ckpt")
+                        help="a port .pt, a JAX-package .ckpt, or an exported "
+                             "artifact directory (model.json + "
+                             "weights[_int8].bin) to serve a float or "
+                             "static-int8 artifact on the device")
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8990,
                         help="0 picks a free port (logged at start)")

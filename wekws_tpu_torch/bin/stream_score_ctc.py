@@ -4,8 +4,12 @@ Port of wekws_tpu/bin/stream_score_ctc.py (the reference wekws's
 bin/stream_score_ctc.py): each test utterance, in ``--chunk_ms`` PCM
 chunks, through the single-stream engine (``KeyWordSpotter``, state
 reset per utterance), writing detected/rejected lines for
-compute_det_ctc.  On the card the engine steps the fused serving kernel
-(``use_fused``; ``fused_fsmn_kernel`` for FSMN), on the CPU the module.
+compute_det_ctc.  The engine picks its route (``use_fused=None``,
+``runtime.keyword_spotter.use_fused_stream``): on the card the fused
+serving kernel for a model that has one (``fused_fsmn_kernel`` for
+FSMN), else and on the CPU the module; an exported artifact directory
+(float or static int8) steps the artifact runtime on either
+(export/torch_runtime.py).
 """
 
 import argparse
@@ -16,7 +20,11 @@ import logging
 def get_args(argv=None):
     parser = argparse.ArgumentParser(description="streaming ctc scoring")
     parser.add_argument("--config", required=True)
-    parser.add_argument("--checkpoint", required=True)
+    parser.add_argument("--checkpoint", required=True,
+                        help="a port .pt, a JAX-package .ckpt, or an exported "
+                             "artifact directory (model.json + "
+                             "weights[_int8].bin) to serve a float or "
+                             "static-int8 artifact on the device")
     parser.add_argument("--test_data", required=True)
     parser.add_argument("--token_file", required=True)
     parser.add_argument("--lexicon_file", default=None)
@@ -47,8 +55,7 @@ def main(argv=None):
     spotter = KeyWordSpotter(
         args.checkpoint, args.config, args.token_file, args.lexicon_file,
         args.threshold, args.min_frames, args.max_frames,
-        args.interval_frames, use_fused=device.type == "cuda",
-        device=device,
+        args.interval_frames, use_fused=None, device=device,
     )
     spotter.set_keywords(args.keywords)
 

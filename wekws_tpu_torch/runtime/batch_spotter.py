@@ -34,7 +34,10 @@ hidden state for a GRU (which has no fused stream; ``use_fused=True``
 raises for it, as for any model the builder does not cover).
 ``use_fused=None`` takes the route ``ops.serving.forward_route`` gives
 the loaded model: the kernel on the card for MDTC, DS-TCN and FSMN, the
-modules for GRU and full-conv TCN and on the CPU.
+modules for GRU and full-conv TCN and on the CPU.  An exported artifact
+directory (float or static int8) serves through its
+``ArtifactModelAdapter``, rows on axis 0 as the modules' (no fused
+kernel: ``use_fused=True`` raises).
 
 ``device_frontend=True`` keeps only a raw-sample buffer per stream on
 the host (runtime/device_frontend.py) and featurizes every stream in
@@ -73,6 +76,7 @@ from wekws_tpu_torch.runtime.keyword_spotter import (
     build_keyword_tables,
     load_serving_model,
     load_spotter_config,
+    use_fused_stream,
 )
 from wekws_tpu_torch.runtime.streaming_frontend import StreamingFrontend
 from wekws_tpu_torch.text.tokenizer import read_lexicon, read_token
@@ -162,9 +166,7 @@ class _BatchedStreamEngine:
         self.feat_dim = cfg.feat_dim * (left + 1 + right)
         self.model = load_serving_model(configs, ckpt_path, self.feat_dim,
                                         dev)
-        if use_fused is None:
-            use_fused = forward_route(self.model, dev) == "fused"
-        if use_fused:
+        if use_fused_stream(self.model, dev, use_fused, forward_route):
             fused = build_fused_stream(self.model, softmax=softmax,
                                        device=dev)
             if fused is None:
@@ -374,8 +376,9 @@ class BatchKeywordSpotter(_BatchedStreamEngine):
 
     ``config`` is a resolved train config, as a dict or a YAML path;
     ``ckpt_path`` a port ``.pt`` or a JAX-package ``.ckpt`` (a float32
-    model whatever ``model.dtype`` says).  Runs on ``device``, CUDA
-    unless the caller asks for the CPU.  ``set_keywords`` must come
+    model whatever ``model.dtype`` says) or an exported artifact
+    directory.  Runs on ``device``, CUDA unless the caller asks for the
+    CPU.  ``set_keywords`` must come
     before the first step with ``device_decode``."""
 
     def __init__(
@@ -534,8 +537,9 @@ class BatchMaxPoolSpotter(_BatchedStreamEngine):
     for ``interval_frames`` frames (compute_det's window_shift
     suppression).  ``config`` is a resolved train config, as a dict or
     a YAML path; ``ckpt_path`` a port ``.pt`` or a JAX-package ``.ckpt``
-    (a float32 model whatever ``model.dtype`` says).  Runs on ``device``,
-    CUDA unless the caller asks for the CPU."""
+    (a float32 model whatever ``model.dtype`` says) or an exported
+    artifact directory.  Runs on ``device``, CUDA unless the caller asks
+    for the CPU."""
 
     def __init__(
         self,

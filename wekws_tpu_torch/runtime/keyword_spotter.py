@@ -19,10 +19,14 @@ refractory gating, beam reset on activation or stale keyword.
   model's own cache (a GRU's hidden state too); ``use_fused=None`` takes
   the route ``ops.serving.forward_route`` gives the loaded model;
 * the checkpoint is a port ``.pt`` (``torch.save`` of the model's
-  state_dict, with the reference wekws parameter names) or a
-  JAX-package ``.ckpt`` (read by train/checkpoint.load_model_state); the
-  model is float32 whatever ``model.dtype`` says.  The graph-artifact
-  loader is not ported (ROADMAP queue A, item 12).
+  state_dict, with the reference wekws parameter names), a JAX-package
+  ``.ckpt`` (read by train/checkpoint.load_model_state), or an exported
+  artifact directory (``model.json`` + ``weights[_int8].bin``, float or
+  static int8, from either package's exporter), which serves through
+  export/torch_runtime.ArtifactModelAdapter: there is no fused kernel
+  behind an artifact, so ``use_fused=None`` takes the artifact's own
+  ops and ``use_fused=True`` raises.  The model is float32 whatever
+  ``model.dtype`` says.
 """
 
 import dataclasses
@@ -39,6 +43,11 @@ from wekws_tpu_torch.decode.ctc_prefix_beam_search import (
     is_sublist,
 )
 from wekws_tpu_torch.device import resolve_device
+from wekws_tpu_torch.export.graph import is_artifact_dir
+from wekws_tpu_torch.export.torch_runtime import (
+    ArtifactModelAdapter,
+    load_artifact_model,
+)
 from wekws_tpu_torch.frontend.features import frontend_from_dataset_conf
 from wekws_tpu_torch.models.kws_model import (
     inference_model_conf,
@@ -214,8 +223,18 @@ def load_serving_model(configs: dict, ckpt_path: str, feat_dim: int,
                        device="cuda"):
     """Build the float32 model of ``configs['model']``, load a port
     ``.pt`` or a JAX-package ``.ckpt``, and return it in eval mode on
-    ``device``."""
+    ``device``; or, for an exported artifact directory, its
+    ``ArtifactModelAdapter`` on ``device`` (the artifact carries its
+    weights and CMVN, so ``configs['model']`` is not read)."""
     device = resolve_device(device)
+    if is_artifact_dir(ckpt_path):
+        model = load_artifact_model(ckpt_path, device)
+        input_dim = model.rt.meta["model_conf"].get("input_dim", feat_dim)
+        if input_dim != feat_dim:
+            raise ValueError(f"artifact input_dim {input_dim} != frontend "
+                             f"feature dim {feat_dim}")
+        logging.info("serving graph artifact %s", ckpt_path)
+        return model
     model_conf = inference_model_conf(configs["model"])
     if model_conf["input_dim"] != feat_dim:
         raise ValueError(
@@ -228,11 +247,29 @@ def load_serving_model(configs: dict, ckpt_path: str, feat_dim: int,
     return model.to(device).eval()
 
 
+def use_fused_stream(model, device, use_fused: Optional[bool],
+                     route=None) -> bool:
+    """Whether a serving engine steps the fused stream kernel for
+    ``model``: ``use_fused`` as given, or, when None, the route that
+    ``route`` (``forward_route`` by default) gives the model on
+    ``device``.  An artifact has no fused kernel: None means its own
+    ops, and True raises."""
+    if isinstance(model, ArtifactModelAdapter):
+        if use_fused:
+            raise ValueError(
+                "use_fused=True: a graph artifact has no fused serving "
+                "kernel; serve it with use_fused=None or False")
+        return False
+    if use_fused is None:
+        return (route or forward_route)(model, device) == "fused"
+    return use_fused
+
+
 class KeyWordSpotter:
     """Single-stream CTC keyword spotter.  ``config`` is a resolved
-    train config, as a dict or a YAML path; ``ckpt_path`` a port ``.pt``
-    or a JAX-package ``.ckpt``.  Runs on ``device``, CUDA unless the
-    caller asks for the CPU."""
+    train config, as a dict or a YAML path; ``ckpt_path`` a port
+    ``.pt``, a JAX-package ``.ckpt`` or an exported artifact directory.
+    Runs on ``device``, CUDA unless the caller asks for the CPU."""
 
     def __init__(
         self,
@@ -260,9 +297,7 @@ class KeyWordSpotter:
             self.device)
 
         self._fused_init_cache = None
-        if use_fused is None:
-            use_fused = forward_route(self.model, self.device) == "fused"
-        if use_fused:
+        if use_fused_stream(self.model, self.device, use_fused):
             fused = build_fused_stream(self.model, softmax=True,
                                        device=self.device)
             if fused is None:
