@@ -269,9 +269,35 @@ phases; any failure exits non-zero:
     the kernel records (``path_h_launches``, ``path_h``); the figures are
     one JSON line (``path_h_figures``).
 
+20. path I, data parallelism (``parallel/``): (a) two flagship steps
+    (B=512 x 2 s, ``fused_train``, ``fused_frontend``, dither, spec_aug)
+    in a one-rank NCCL group that the phase makes (every collective of
+    the Trainer on NCCL, each a copy) against the same steps with no
+    group, bit for bit; (b) two ranks spawned on the one card (gloo on
+    CUDA tensors: NCCL refuses two ranks on one GPU), B=256 each of the
+    same 512 rows, no dither or spec_aug, three steps against one
+    process at B=512 (step 0's loss 1e-5 rel and its summed gradients
+    1e-4 of their scale, later losses 1e-4 rel, parameters and BN
+    statistics within tests/test_torch_training.py's bounds), the ranks
+    bit for bit alike, the all-reduces a step and their host time, then
+    F1-F4/B1-B4 and ``fused_fbank`` at a rank's shapes against their
+    plain versions (as 18e); (c) ``bin.train --coordinator ...
+    --num_processes 2 --process_id r`` as two processes, host-fed (the
+    bucket schedule) and ``--device_resident``, one epoch of
+    ``examples/synthetic`` each: the same cv line on both ranks, files
+    from rank 0 only, ``bin.score`` of its checkpoint through
+    ``fused_mdtc_kernel``; (d) ``BatchMaxPoolSpotter`` over two row
+    blocks on the card against the one-device engine at 64 x 8
+    (posteriors, events); (e) ``bin.serve --mesh_devices 1`` to four
+    clients.  Path I's launches are added to the kernel records
+    (``path_i_launches``, ``path_i``); the figures are one JSON line
+    (``path_i_figures``).
+
 The last lines are the card, the per-kernel JSON record (13 kernels)
 and ``{"ok": true, "device": {...}}``.  Run from the repository root:
-``python3 chip_smoke.py``.
+``python3 chip_smoke.py``; ``python3 chip_smoke.py --phase 20`` runs
+phases 1-2 and path I alone (phase 4's checkpoint and phase 7's model
+config made from their seeds).
 """
 
 import copy
@@ -1013,6 +1039,30 @@ def train_batch(rng):
             "target_lengths": np.ones((TRAIN_B,), np.int32)}
 
 
+def flagship_train_conf(dev):
+    """The training slice's batch (B=512 x 2 s from SEED), its cv
+    pipeline and features, and the flagship's model config with CMVN
+    from those features and ``fused_train``: (conf, batch, cv pipeline,
+    features, feature lengths)."""
+    import torch
+
+    from wekws_tpu_torch.data import DeviceFeaturePipeline
+
+    cvp = DeviceFeaturePipeline.from_conf(TRAIN_DATASET_CONF, training=False)
+    batch = train_batch(np.random.default_rng(SEED))
+    waves = torch.as_tensor(batch["waves"], device=dev)
+    lengths = torch.as_tensor(batch["wave_lengths"], device=dev)
+    with torch.no_grad():
+        feats, feat_lengths = cvp(waves, lengths)
+    mean = feats.mean(dim=(0, 1)).cpu().numpy()
+    istd = (1.0 / (feats.std(dim=(0, 1)) + 1e-6)).cpu().numpy()
+    conf = dict(FLAGSHIP_MODEL_CONF,
+                cmvn={"mean": mean.tolist(), "istd": istd.tolist(),
+                      "norm_var": True})
+    conf["backbone"] = dict(conf["backbone"], fused_train=True)
+    return conf, batch, cvp, feats, feat_lengths
+
+
 def phase7_train_slice(dev, work, launches):
     """Train -> checkpoint -> serve at B=512 x 2 s; returns what the
     later phases reuse (trainer, state, batch, model config)."""
@@ -1036,18 +1086,7 @@ def phase7_train_slice(dev, work, launches):
     plain_conf = dict(TRAIN_DATASET_CONF, spec_aug=False)
     plain_conf["fbank_conf"] = dict(TRAIN_DATASET_CONF["fbank_conf"],
                                     dither=0.0)
-    cvp = DeviceFeaturePipeline.from_conf(TRAIN_DATASET_CONF, training=False)
-    batch = train_batch(np.random.default_rng(SEED))
-    waves = torch.as_tensor(batch["waves"], device=dev)
-    lengths = torch.as_tensor(batch["wave_lengths"], device=dev)
-    with torch.no_grad():
-        feats, feat_lengths = cvp(waves, lengths)
-    mean = feats.mean(dim=(0, 1)).cpu().numpy()
-    istd = (1.0 / (feats.std(dim=(0, 1)) + 1e-6)).cpu().numpy()
-    conf = dict(FLAGSHIP_MODEL_CONF,
-                cmvn={"mean": mean.tolist(), "istd": istd.tolist(),
-                      "norm_var": True})
-    conf["backbone"] = dict(conf["backbone"], fused_train=True)
+    conf, batch, cvp, feats, feat_lengths = flagship_train_conf(dev)
     unfused_conf = dict(conf, backbone=dict(conf["backbone"],
                                             fused_train=False))
 
@@ -1091,7 +1130,9 @@ def phase7_train_slice(dev, work, launches):
                                      f"{float(want_loss)}")
             # both fp32 routes against float64
             with torch.no_grad():
-                f0, l0 = twin.pipeline(waves, lengths)
+                f0, l0 = twin.pipeline(
+                    torch.as_tensor(batch["waves"], device=dev),
+                    torch.as_tensor(batch["wave_lengths"], device=dev))
             ref = grad_groups(float64_grads(
                 unfused_conf, twin.model.state_dict(), f0, l0, batch))
             share = {route: worst_grad_share(tr.model, ref, route)
@@ -4153,9 +4194,9 @@ def phase17a_featurizer(dev, card):
 
 class EngineTap:
     """Wraps an engine's step function: keeps each step's posteriors
-    (on the device) and the valid frames of each row, and, with
-    ``inject``, plants the keyword in ``INJECT_ROWS`` (out of place, on
-    the device)."""
+    (on the device; a split engine's row blocks joined) and the valid
+    frames of each row, and, with ``inject``, plants the keyword in
+    ``INJECT_ROWS`` (out of place, on the device)."""
 
     def __init__(self, engine, inject=False):
         import torch
@@ -4169,7 +4210,11 @@ class EngineTap:
     def step_fn(self, feats, active, reset, cache):
         torch = self._torch
         probs, cache = self._step_fn(feats, active, reset, cache)
-        self.steps.append((probs.clone(), {}))
+        if isinstance(probs, list):  # row blocks on several devices
+            self.steps.append((torch.cat([p.to(probs[0].device)
+                                          for p in probs]), {}))
+        else:
+            self.steps.append((probs.clone(), {}))
         if self._inject:
             on = np.asarray(torch.as_tensor(active).cpu(), bool)
             self._row_steps[on] += 1
@@ -5684,7 +5729,7 @@ def pass_rel_err(got, want):
     return max(rel)
 
 
-def phase18e_pass_checks(card, shapes, device_ms):
+def phase18e_pass_checks(card, shapes, device_ms, tag="18e", path="G"):
     """Each training pass at every shape path G gave it (``PassTap``),
     on that shape's first inputs: against its plain version on the same
     card tensors (``compare_pass``: (B, T, C) outputs 1e-4 abs + 1e-4
@@ -5706,14 +5751,15 @@ def phase18e_pass_checks(card, shapes, device_ms):
             return PASSES[name].plain(*args)
 
         got, want = kern(), plain()
-        err = compare_pass(f"18e {record} {shape}", got, want)
+        err = compare_pass(f"{tag} {record} {shape}", got, want)
         rel = pass_rel_err(got, want)
         ms, plain_ms = kernel_vs_plain_ms(kern, plain)
         dev_ms = device_ms[(record, shape)]
         k = args[PASS_DW_ARG[name]].shape[0] if name in PASS_DW_ARG else 1
         bound, bound_by = train_pass_bound_ms(name, b, t, c, k)
         dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
-        print(f"  18e {record} {shape}: {calls} calls on path G; vs plain "
+        print(f"  {tag} {record} {shape}: {calls} calls on path {path}; vs "
+              f"plain "
               f"on the first call's inputs max_abs_err {err:.3e} "
               f"({rel:.2e} of its scale); kernel "
               f"{ms:.4f} ms per call (device {dev_txt} with its "
@@ -5777,10 +5823,10 @@ def phase18a_staging(dev, card):
     return corpus, cv_corpus, host
 
 
-def path_g_trainer(dev, model_conf):
+def path_g_trainer(dev, model_conf, dataset_conf=PATH_G_CONF):
     """The flagship (``model_conf``: phase 7's, with ``fused_train``)
-    with ``fused_frontend``, wave dither and spec_aug, its head started
-    small as phase 7's."""
+    with ``fused_frontend``, wave dither and spec_aug (``dataset_conf``),
+    its head started small as phase 7's."""
     import torch
 
     from wekws_tpu_torch.data import DeviceFeaturePipeline
@@ -5790,8 +5836,8 @@ def path_g_trainer(dev, model_conf):
     model = init_model(model_conf, torch.Generator().manual_seed(SEED))
     with torch.no_grad():
         model.classifier.linear.weight.mul_(0.01)
-    return Trainer(model, DeviceFeaturePipeline.from_conf(PATH_G_CONF),
-                   DeviceFeaturePipeline.from_conf(PATH_G_CONF,
+    return Trainer(model, DeviceFeaturePipeline.from_conf(dataset_conf),
+                   DeviceFeaturePipeline.from_conf(dataset_conf,
                                                    training=False),
                    "max_pooling", grad_clip=5.0, min_duration=5, device=dev)
 
@@ -6723,13 +6769,22 @@ def h_engine(ckpt, config, tokens, lexicon, keyword, dev, fe, decode,
 
 
 class ModelTap:
-    """Wraps an engine's artifact model (``ArtifactModelAdapter``): keeps
-    each call's features, input cache, ``softmax`` flag, posteriors and
-    new cache, cloned on the device (no copy to the host in the run)."""
+    """Wraps an engine's artifact model (``ArtifactModelAdapter``), each
+    device's copy: keeps each call's features, input cache, ``softmax``
+    flag, posteriors and new cache, cloned on the device (no copy to the
+    host in the run)."""
 
     def __init__(self, engine):
-        self.calls, self._model = [], engine.model
-        engine.model = self
+        self.calls = []
+        engine.models[:] = [_TappedModel(m, self.calls)
+                            for m in engine.models]
+
+
+class _TappedModel:
+    """One model of a ``ModelTap``: its calls into the shared list."""
+
+    def __init__(self, model, calls):
+        self._model, self.calls = model, calls
 
     def __getattr__(self, name):
         return getattr(self._model, name)
@@ -7177,6 +7232,625 @@ def merge_path_h(record, launches, readings):
             [rows[name]["max_abs_err"]] + [r["max_abs_err"] for r in rs])
 
 
+# ---------------------------------------------------------------------------
+# phase 20, path I: data parallelism (A.13)
+# ---------------------------------------------------------------------------
+
+# 20b: two ranks sharing the card (B=256 each of the same 512 rows)
+# against one process at B=512: step 0's loss 1e-5 rel (the same
+# function, fp32 sums in another order), later losses 1e-4 rel;
+# parameters within 2 * lr * steps + 1e-5 and BN running statistics
+# within 1e-4 after the first step, then the parameters' bound plus
+# 1e-4 (tests/test_torch_training.py:168-194: Adam's first update is
+# about lr * sign(g), and a gradient near zero can take either sign)
+PATH_I_STEPS, PATH_I_LR, PATH_I_RANKS = 3, 1e-3, 2
+PATH_I_LOSS0_RTOL, PATH_I_LOSS_RTOL, PATH_I_STATS_TOL = 1e-5, 1e-4, 1e-4
+# ... and step 0's parameters wherever one process's |grad| exceeds the
+# step-0 gradient bound (1e-4 of its tensor's max(1, max |grad|)), so
+# the two agree on its sign: within 1e-5 (a wrong sign is 2 lr apart)
+PATH_I_HELD_TOL = 1e-5
+PATH_I_TIMEOUT_S = 300
+# 20b's pipeline: the fused frontend without dither or spec_aug (each
+# rank draws its own, so only a step without draws equals one process's)
+PATH_I_CONF = dict(PATH_G_CONF, spec_aug=False, fbank_conf=dict(
+    PATH_G_CONF["fbank_conf"], dither=0.0))
+# 20c: the bucket schedule keeps host-fed ranks in lockstep
+PATH_I_BUCKETS = [24000, 32000]
+PATH_I_SERVE_UTTS, PATH_I_CLIENTS = 8, 4
+
+
+class AllReduceTap:
+    """Within the ``with``, the calls of ``torch.distributed.all_reduce``
+    (the port's collectives go through it) and their host time;
+    ``counts`` of them on host tensors (the fused passes' frame counts,
+    over gloo) among ``calls``."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.calls, self.counts, self.host_s = 0, 0, 0.0
+        self._dist, self._fn = dist, dist.all_reduce
+
+        def timed(tensor, *args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return self._fn(tensor, *args, **kwargs)
+            finally:
+                self.calls += 1
+                self.counts += tensor.device.type == "cpu"
+                self.host_s += time.perf_counter() - t0
+
+        dist.all_reduce = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._dist.all_reduce = self._fn
+        return False
+
+
+def state_arrays(state):
+    return {k: v.detach().cpu().numpy().copy()
+            for k, v in state.model.state_dict().items()}
+
+
+def path_i_steps(trainer, state, rows, steps, step0=None):
+    """``steps`` train steps on ``rows``: (state, per step (loss, acc,
+    grad norm, skipped), per step wall ms, the ``AllReduceTap``); step
+    0's gradients and state into the dict ``step0`` where one is given
+    (keys ``grads``, ``state``)."""
+    import torch
+
+    metrics, walls = [], []
+    with AllReduceTap() as ar:
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = trainer.train_step(state, rows, SEED, PATH_I_LR)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            metrics.append(tuple(float(m[k]) for k in (
+                "loss", "acc", "grad_norm", "skipped")))
+            if i == 0 and step0 is not None:
+                step0["grads"] = {n: p.grad.cpu().numpy().copy() for n, p
+                                  in state.model.named_parameters()}
+                step0["state"] = state_arrays(state)
+    return state, metrics, walls, ar
+
+
+def path_i_rank(rank, model_conf, seed, device_type):
+    """20b, in each spawned rank (gloo on CUDA tensors: the ranks share
+    the card): ``PATH_I_STEPS`` steps on this rank's half of the 512
+    rows made from ``seed``; the launches of the training kernels."""
+    import torch
+
+    from wekws_tpu_torch.ops.fused_frontend import fused_fbank
+    from wekws_tpu_torch.ops.fused_mdtc_train import reset_launches
+    from wekws_tpu_torch.parallel.mesh import (
+        collective_backend,
+        process_count,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device_type)
+    if dev.type == "cuda":  # the card distributed_init picked
+        dev = torch.device("cuda", torch.cuda.current_device())
+    rows = resident_arrays(TRAIN_B, seed)
+    part = TRAIN_B // process_count()
+    local = {k: v[rank * part:(rank + 1) * part] for k, v in rows.items()}
+    trainer = path_g_trainer(dev, model_conf, PATH_I_CONF)
+    state = trainer.init_state()
+    reset_launches()
+    fused_fbank.launches = 0
+    step0 = {}
+    with PlainOnCuda() as plain:
+        state, metrics, walls, ar = path_i_steps(
+            trainer, state, local, PATH_I_STEPS, step0)
+    plain.check(f"20b rank {rank}")
+    return {"metrics": metrics, "walls": walls, "all_reduces": ar.calls,
+            "host_counts": ar.counts, "step0": step0,
+            "all_reduce_ms": ar.host_s * 1e3, "state": state_arrays(state),
+            "launches": path_g_counts(), "backend": collective_backend(),
+            "device": str(dev)}
+
+
+def phase20a_nccl(dev, card, model_conf, rows):
+    """Two flagship steps (B=512 x 2 s, ``fused_train``,
+    ``fused_frontend``, wave dither, spec_aug) in a one-rank group made
+    by ``parallel.mesh.join_group`` (the gloo rendezvous, the layout
+    exchange, an NCCL group for the collectives: every collective a
+    copy), ``init_state``'s broadcast included, against the same steps
+    with no group: losses, accuracies, grad norms, every parameter and
+    BN buffer bit for bit.  Returns (the second step's wall ms,
+    all-reduces a step, the launches)."""
+    import torch
+
+    from wekws_tpu_torch.ops.fused_frontend import fused_fbank
+    from wekws_tpu_torch.ops.fused_mdtc_train import reset_launches
+    from wekws_tpu_torch.ops.fused_tcn import fused_ds_tcn
+    from wekws_tpu_torch.parallel.mesh import (
+        collective_backend,
+        distributed_close,
+        free_port,
+        join_group,
+    )
+
+    trainer = path_g_trainer(dev, model_conf)
+    state, want, walls0, _ = path_i_steps(trainer, trainer.init_state(),
+                                         rows, 2)
+    want_state = state_arrays(state)
+    del trainer, state
+    join_group(f"127.0.0.1:{free_port()}", 1, 0,
+               torch.device("cuda", dev.index or 0))
+    try:
+        backend = collective_backend()
+        trainer = path_g_trainer(dev, model_conf)
+        with AllReduceTap() as init_ar:
+            state = trainer.init_state()
+        reset_launches()
+        fused_fbank.launches = fused_ds_tcn.launches = 0
+        with PlainOnCuda() as plain:
+            state, got, walls, ar = path_i_steps(trainer, state, rows, 2)
+        launches = {k: v for k, v in path_g_counts().items() if v}
+        plain.check("20a")
+        torch.cuda.synchronize()
+    finally:
+        distributed_close()
+    got_state = state_arrays(state)
+    diff = [k for k in want_state
+            if not np.array_equal(want_state[k], got_state[k])]
+    if backend != "nccl" or got != want or diff:
+        raise AssertionError(f"20a one-rank NCCL group ({backend}): metrics "
+                             f"{got} vs {want}; differing tensors {diff[:5]}")
+    print(f"  20a two flagship steps B={TRAIN_B} x {TRAIN_SECONDS} s in a "
+          f"one-rank {backend} group vs no group: losses "
+          f"{[m[0] for m in got]}, accuracies, grad norms and all "
+          f"{len(want_state)} parameters and buffers bit for bit; "
+          f"{ar.calls // 2} all-reduces a step ({ar.counts // 2} of them "
+          f"frame counts on the host; {ar.host_s * 1e3 / 2:.2f} ms host), "
+          f"{init_ar.calls} in init_state (broadcasts only); the second "
+          f"step {walls[1]:.1f} ms wall (no group {walls0[1]:.1f} ms); "
+          f"launches {launches} [{card}]", flush=True)
+    return walls[1], ar.calls // 2, launches
+
+
+def phase20b_two_ranks(dev, card, model_conf, wall_a):
+    """Two ranks spawned on the one card (gloo on CUDA tensors: NCCL
+    refuses two ranks on one GPU), B=256 each of the same 512 rows, no
+    dither or spec_aug, ``PATH_I_STEPS`` steps against one process at
+    B=512; both ranks bit for bit alike.  Then F1-F4/B1-B4 and
+    ``fused_fbank`` at path I's shapes (a B=256 step tapped, as 18e)
+    against their plain versions.  Returns (the ranks' launches summed,
+    the readings)."""
+    import collections
+
+    from wekws_tpu_torch.parallel.launch import run_local
+
+    seed = SEED + 20
+    t0 = time.perf_counter()
+    outs = run_local(path_i_rank, PATH_I_RANKS, (model_conf, seed, dev.type),
+                     device=dev.type, timeout_s=PATH_I_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    rows = resident_arrays(TRAIN_B, seed)
+    trainer = path_g_trainer(dev, model_conf, PATH_I_CONF)
+    want0 = {}
+    state, want, walls, _ = path_i_steps(trainer, trainer.init_state(),
+                                         rows, PATH_I_STEPS, want0)
+    want_state = state_arrays(state)
+    del trainer, state
+    first = outs[0]
+    for r, out in enumerate(outs[1:], 1):
+        diff = [k for k in out["state"]
+                if not np.array_equal(out["state"][k], first["state"][k])]
+        if out["metrics"] != first["metrics"] or diff:
+            raise AssertionError(f"20b rank {r} differs from rank 0: "
+                                 f"{out['metrics']} vs {first['metrics']}; "
+                                 f"{diff[:5]}")
+    backends = [o["backend"] for o in outs]
+    if set(backends) != {"gloo"}:
+        raise AssertionError(f"20b: collectives on {backends}")
+    # step 0's summed gradients against one process's: 1e-4 of each
+    # tensor's max(1, max |grad|) (tests/test_torch_training.py's bound)
+    # step 0's parameters where the sign of the gradient is settled
+    # (one process's |grad| above that bound): Adam moves them by lr
+    # times that sign, so they agree within PATH_I_HELD_TOL, where a
+    # wrong sign is 2 lr apart
+    grad_err, held, held_err = 0.0, 0, 0.0
+    for name, ref in want0["grads"].items():
+        scale = max(float(np.abs(ref).max()), 1.0)
+        err = float(np.abs(first["step0"]["grads"][name] - ref).max()) / scale
+        grad_err = max(grad_err, err)
+        if err > 1e-4:
+            raise AssertionError(f"20b step-0 gradient {name}: {err} of "
+                                 f"its scale")
+        mask = np.abs(ref) > 1e-4 * scale
+        diff = np.abs(first["step0"]["state"][name].astype(np.float64)
+                      - want0["state"][name])[mask]
+        held += int(mask.sum())
+        if diff.size:
+            held_err = max(held_err, float(diff.max()))
+    if held_err > PATH_I_HELD_TOL:
+        raise AssertionError(f"20b step-0 parameters with a settled "
+                             f"gradient sign: {held_err} > "
+                             f"{PATH_I_HELD_TOL}")
+    n_params = sum(v.size for v in want0["grads"].values())
+    # the losses and the final state against one process; a miss is
+    # reported after 20c-20e have run (it fails the phase then)
+    worst, misses = {}, []
+    for i, (got, ref) in enumerate(zip(first["metrics"], want)):
+        rtol = PATH_I_LOSS0_RTOL if i == 0 else PATH_I_LOSS_RTOL
+        rel = abs(got[0] - ref[0]) / abs(ref[0])
+        print(f"  20b step {i}: loss {got[0]:.7f} vs one process "
+              f"{ref[0]:.7f} ({rel:.2e} rel, bound {rtol}); grad norm "
+              f"{got[2]:.5f} vs {ref[2]:.5f}", flush=True)
+        if not rel <= rtol or got[3]:
+            misses.append(f"step {i} loss {got} vs {ref} (rtol {rtol})")
+    last = PATH_I_STEPS - 1
+    for name, ref in want_state.items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        bound = 2 * PATH_I_LR * PATH_I_STEPS + 1e-5
+        if "running" in name:
+            bound += PATH_I_STATS_TOL if last else 0.0
+        err = float(np.abs(first["state"][name].astype(np.float64)
+                           - ref).max())
+        worst[name] = err
+        if err > bound:
+            misses.append(f"{name} {err:.3e} > {bound:.3e} (|ref| max "
+                          f"{float(np.abs(ref).max()):.3e})")
+    for key in ("weight", "running_mean", "running_var"):
+        name = max((k for k in worst if k.endswith(key)), key=worst.get)
+        print(f"  20b the largest error of a {key}: {name} "
+              f"{worst[name]:.3e} (|ref| max "
+              f"{float(np.abs(want_state[name]).max()):.3e})", flush=True)
+    launches = {}
+    for out in outs:
+        for k, v in out["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    want_launches = {f"fused_train_{p}": 17 * PATH_I_STEPS * PATH_I_RANKS
+                     for p in TRAIN_PASSES}
+    want_launches.update(fused_fbank=PATH_I_STEPS * PATH_I_RANKS,
+                         fused_ds_tcn=0)
+    if launches != want_launches:
+        raise AssertionError(f"20b launches {launches}, want "
+                             f"{want_launches}")
+    per_step = first["all_reduces"] / PATH_I_STEPS
+    param_errs = [v for k, v in worst.items() if "running" not in k]
+    stat_errs = [v for k, v in worst.items() if "running" in k]
+    print(f"  20b {PATH_I_RANKS} ranks on {first['device']} (collectives on "
+          f"{first['backend']}, {spawn_s:.1f} s from spawn to join), "
+          f"B={TRAIN_B // PATH_I_RANKS} each of the same {TRAIN_B} rows, "
+          f"{PATH_I_STEPS} steps vs one process at B={TRAIN_B}: losses "
+          f"{[m[0] for m in first['metrics']]} vs {[m[0] for m in want]}; "
+          f"the largest parameter error {max(param_errs):.2e}, BN "
+          f"statistic {max(stat_errs):.2e}; "
+          f"step-0 gradients within {grad_err:.2e} of their scale; step "
+          f"0's parameters at the {held} of {n_params} coordinates whose "
+          f"|grad| is above 1e-4 of its tensor's max(1, max |grad|) within "
+          f"{held_err:.2e} (bound {PATH_I_HELD_TOL}); both "
+          f"ranks bit for bit alike; {per_step:.0f} all-reduces a step "
+          f"({first['host_counts'] / PATH_I_STEPS:.0f} of them frame "
+          f"counts on the host), "
+          f"{first['all_reduce_ms'] / PATH_I_STEPS:.2f} ms of host time in "
+          f"them a step; step wall {np.median(first['walls']):.1f} ms "
+          f"(median of {PATH_I_STEPS}) beside 20a's one-rank NCCL step "
+          f"{wall_a:.1f} ms and one process at B={TRAIN_B} "
+          f"{np.median(walls):.1f} ms; launches {launches} [{card}]",
+          flush=True)
+    # the kernels at path I's shapes (a rank's B=256 step), as 18e
+    trainer = path_g_trainer(dev, model_conf, PATH_I_CONF)
+    half = {k: v[:TRAIN_B // PATH_I_RANKS] for k, v in rows.items()}
+    with ShapeTap(PATH_G_WRAPPERS) as ftap, PassTap() as ptap:
+        trainer.train_step(trainer.init_state(), half, SEED, PATH_I_LR)
+    no_trace = collections.defaultdict(lambda: None)
+    readings = phase17e_kernel_checks(card, ftap.shapes, "20b", "I",
+                                      no_trace)
+    readings.update(phase18e_pass_checks(card, ptap.shapes, no_trace, "20b",
+                                         "I"))
+    return {"20b ranks": launches}, readings, {
+        "misses": misses, "all_reduces_per_step": per_step,
+        "host_counts_per_step": first["host_counts"] / PATH_I_STEPS,
+        "step0_held_coordinates": held, "step0_coordinates": n_params,
+        "step0_held_max_abs_err": held_err,
+        "all_reduce_host_ms_per_step": first["all_reduce_ms"] / PATH_I_STEPS,
+        "rank_step_ms": first["walls"], "one_process_step_ms": walls,
+        "one_rank_nccl_step_ms": wall_a}
+
+
+def phase20c_cli(dev, card, tmp):
+    """``bin.train --coordinator 127.0.0.1:P --num_processes 2
+    --process_id r`` as two processes on the card, host-fed (the bucket
+    schedule) then ``--device_resident``, one epoch of
+    ``examples/synthetic`` each: both exit 0, finite losses, both log
+    the same cv figures, only rank 0 writes; ``bin.score`` of rank 0's
+    checkpoint through ``fused_mdtc_kernel``.  Returns the launches."""
+    import re
+
+    import torch
+    import yaml
+
+    from wekws_tpu_torch.bin import score
+    from wekws_tpu_torch.ops import fused_mdtc
+    from wekws_tpu_torch.parallel.mesh import free_port
+
+    with open(os.path.join(RECIPE, "conf_torch", "mdtc_flagship.yaml")) as f:
+        configs = yaml.safe_load(f)
+    configs["dataset_conf"]["batch_conf"]["bucket_boundaries"] = \
+        PATH_I_BUCKETS
+    config = os.path.join(tmp, "mdtc_flagship_buckets.yaml")
+    with open(config, "w") as f:
+        yaml.safe_dump(configs, f)
+    lists = recipe_lists(tmp)
+    repo = os.path.abspath(os.path.dirname(__file__) or ".")
+    launches = {}
+    for mode, extra in (("host-fed", []),
+                        ("resident", ["--device_resident"])):
+        port = free_port()
+        procs, logs = [], []
+        t0 = time.perf_counter()
+        for rank in range(PATH_I_RANKS):
+            log = open(os.path.join(tmp, f"train_{mode}_{rank}.log"), "w")
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "wekws_tpu_torch.bin.train",
+                 "--config", config, "--train_data", lists["train"],
+                 "--cv_data", lists["dev"], "--model_dir",
+                 os.path.join(tmp, f"exp_{mode}_{rank}"), "--num_epochs",
+                 "1", "--min_duration", "20", "--seed", "666",
+                 "--cmvn_file", os.path.join(RECIPE, "data", "global_cmvn"),
+                 "--norm_var", "--coordinator", f"127.0.0.1:{port}",
+                 "--num_processes", str(PATH_I_RANKS), "--process_id",
+                 str(rank), "--device", dev.type] + extra, cwd=repo,
+                stdout=log,
+                stderr=subprocess.STDOUT,
+                env=dict(os.environ, PYTHONPATH=repo)))
+            logs.append(log)
+        try:
+            for p in procs:
+                p.wait(max(t0 + RECIPE_TIMEOUT_S - time.perf_counter(), 1))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(30)
+            for log in logs:
+                log.close()
+        wall = time.perf_counter() - t0
+        texts = []
+        for rank in range(PATH_I_RANKS):
+            with open(os.path.join(tmp, f"train_{mode}_{rank}.log")) as f:
+                texts.append(f.read())
+        if any(p.returncode != 0 for p in procs):
+            raise AssertionError(f"20c bin.train {mode}: exit codes "
+                                 f"{[p.returncode for p in procs]}:\n"
+                                 + "\n".join(t[-3000:] for t in texts))
+        cv = [[ln.split(" INFO ")[-1] for ln in t.splitlines()
+               if "CV loss" in ln] for t in texts]
+        lead = os.path.join(tmp, f"exp_{mode}_0")
+        with open(os.path.join(lead, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        written = sorted(os.listdir(lead))
+        rest = [os.listdir(os.path.join(tmp, f"exp_{mode}_{r}"))
+                for r in range(1, PATH_I_RANKS)]
+        backends = [m.group(1) for t in texts for m in re.finditer(
+            r"collectives on (\w+)", t)]
+        if (len(cv[0]) != 1 or any(c != cv[0] for c in cv)
+                or not {"config.yaml", "init.pt", "0.pt", "final.pt",
+                        "metrics.jsonl"} <= set(written) or any(rest)
+                or not np.isfinite(records[0]["train_loss"])):
+            raise AssertionError(f"20c bin.train {mode}: cv lines {cv}, rank "
+                                 f"0 wrote {written}, the others {rest}, "
+                                 f"records {records}")
+        fused_mdtc.fused_mdtc_forward.launches = 0
+        with PlainOnCuda() as plain:
+            n_scored = score.main([
+                "--config", os.path.join(lead, "config.yaml"),
+                "--test_data", lists["test"], "--checkpoint",
+                os.path.join(lead, "0.pt"), "--score_file",
+                os.path.join(lead, "score.txt"), "--device", dev.type])
+            torch.cuda.synchronize()
+        plain.check(f"20c bin.score ({mode})")
+        n = fused_mdtc.fused_mdtc_forward.launches
+        if n_scored != dict(RECIPE_SPLITS)["test"] or n < 1:
+            raise AssertionError(f"20c bin.score ({mode}): {n_scored} "
+                                 f"utterances, {n} fused_mdtc launches")
+        launches[f"20c bin.score ({mode})"] = {"fused_mdtc_forward": n}
+        print(f"  20c bin.train {mode}, {PATH_I_RANKS} processes on the card "
+              f"(collectives on {sorted(set(backends))}), one epoch: "
+              f"{wall:.1f} s wall, train loss {records[0]['train_loss']:.4f}, "
+              f"{records[0]['audio_seconds_per_s']:.1f} audio-s/s (global); "
+              f"every rank logged '{cv[0][0]}'; rank 0 wrote {written}, the "
+              f"others nothing; bin.score of rank 0's 0.pt: {n_scored} "
+              f"utterances, {n} fused_mdtc_kernel launch(es) [{card}]",
+              flush=True)
+    return launches
+
+
+def phase20d_split_engine(dev, card, work):
+    """``BatchMaxPoolSpotter`` over ``[cuda:0, cuda:0]`` (two row blocks,
+    each its weights and caches, on the one card) against the one-device
+    engine at 64 streams x 8 frames on phase 4's flagship: every step's
+    posteriors within TOL, the same events.  Returns the launches."""
+    import torch
+
+    from wekws_tpu_torch.runtime import BatchMaxPoolSpotter
+
+    pcms = [w.astype("<i2").tobytes() for w in serve_waves()]
+    ckpt, config = (os.path.join(work, f"flagship.{x}")
+                    for x in ("pt", "yaml"))
+
+    def engine(threshold, devices=None):
+        return BatchMaxPoolSpotter(
+            ckpt, config, threshold, num_streams=SERVE_STREAMS,
+            step_frames=SERVE_STEP, use_fused=True, device=devices or dev)
+
+    one = engine(2.0)
+    tap = EngineTap(one)
+    run_engine(one, pcms)
+    flat = torch.cat([p.flatten() for p, _ in tap.steps])
+    threshold = float(torch.quantile(flat.cpu(), 0.95))
+    one = engine(threshold)
+    one_tap = EngineTap(one)
+    want = run_engine(one, pcms)
+    split = engine(threshold, [dev, dev])
+    split_tap = EngineTap(split)
+    with PlainOnCuda() as plain, Launches() as n:
+        got = run_engine(split, pcms)
+        torch.cuda.synchronize()
+    plain.check("20d")
+    err = same_posteriors("20d split vs one device", split_tap, one_tap)
+    fires = same_results("20d split vs one device", got["results"],
+                         want["results"])
+    steps = got["steps"]
+    if fires < 1 or n.counts["fused_mdtc_stream"] != 2 * steps:
+        raise AssertionError(f"20d: {fires} events, launches {n.counts} for "
+                             f"{steps} steps of two blocks")
+    print(f"  20d BatchMaxPoolSpotter over [{dev}, {dev}] ({SERVE_STREAMS} "
+          f"streams x {SERVE_STEP} frames, two blocks of "
+          f"{SERVE_STREAMS // 2}) vs one device: posteriors max_abs_err "
+          f"{err:.3e} (bound {TOL} abs + {TOL} rel), the same {fires} events "
+          f"at threshold {threshold:.4f}; {steps} steps, "
+          f"{got['wall_s'] / steps * 1e3:.2f} ms a step (one device "
+          f"{want['wall_s'] / want['steps'] * 1e3:.2f}), launches "
+          f"{n.nonzero()} [{card}]", flush=True)
+    return {"20d split engine": n.nonzero()}
+
+
+def phase20e_serve(dev, card, tmp, work):
+    """``bin.serve --mesh_devices 1`` (the flagship, max-pooling) to
+    ``PATH_I_CLIENTS`` client threads: the in-process engine's events,
+    one ``fused_mdtc_stream`` launch a dispatch by bin.serve's own
+    count.  Returns the launches."""
+    from wekws_tpu_torch.runtime import BatchMaxPoolSpotter
+
+    ckpt, config = (os.path.join(work, f"flagship.{x}")
+                    for x in ("pt", "yaml"))
+    waves = serve_waves()[:PATH_I_SERVE_UTTS]
+    utts = {f"s{i:02d}": w.astype("<i2").tobytes()
+            for i, w in enumerate(waves)}
+    argv = serve_argv(config, ckpt, PATH_I_CLIENTS, ctc=False,
+                      extra=["--mesh_devices", "1", "--device", dev.type])
+    engine = BatchMaxPoolSpotter(ckpt, config, 0.5, num_streams=1,
+                                 step_frames=8, keyword_names=[KEYWORD],
+                                 use_fused=True, device=dev)
+    want = in_process_events(engine, utts)
+    with ServeProcess(argv, os.path.join(tmp, "serve_mesh.log")) as proc:
+        got, wall = serve_clients(proc.port, utts, PATH_I_CLIENTS)
+    count = same_events("20e bin.serve --mesh_devices 1 vs the in-process "
+                        "engine", got, want)
+    audio = sum(len(p) for p in utts.values()) / 2 / RATE
+    _, served = served_figures("flagship, --mesh_devices 1", proc,
+                               ["fused_mdtc_stream"], wall, audio, card,
+                               sub="20e")
+    print(f"  20e: {len(utts)} utterances to {PATH_I_CLIENTS} clients, "
+          f"{count} events equal to the in-process engine's [{card}]",
+          flush=True)
+    return {"20e bin.serve (its own counts)": served}
+
+
+def phase20_data_parallel(dev, card, work, model_conf):
+    """Path I, data parallelism (A.13): 20a a one-rank NCCL group, 20b
+    two ranks spawned on the one card, 20c ``bin.train`` over two
+    processes, 20d an engine split over two row blocks, 20e
+    ``bin.serve --mesh_devices 1``.  Returns ({sub-path: {kernel record:
+    launches}}, {kernel record: [readings]}, the figures)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    rows = resident_arrays(TRAIN_B, SEED + 21)
+    wall_a, calls_a, launches_a = phase20a_nccl(dev, card, model_conf, rows)
+    del rows
+    launches = {"20a one-rank NCCL step": launches_a}
+    b_launches, readings, figures = phase20b_two_ranks(dev, card, model_conf,
+                                                       wall_a)
+    launches.update(b_launches)
+    figures["one_rank_nccl_all_reduces_per_step"] = calls_a
+    with tempfile.TemporaryDirectory() as tmp:
+        launches.update(phase20c_cli(dev, card, tmp))
+        launches.update(phase20d_split_engine(dev, card, work))
+        launches.update(phase20e_serve(dev, card, tmp, work))
+    figures["phase_s"] = time.perf_counter() - t0
+    if figures["misses"]:
+        raise AssertionError(f"20b two ranks vs one process: "
+                             f"{figures['misses']}")
+    return launches, readings, figures
+
+
+def path_i_alone(dev, card, kind):
+    """``chip_smoke.py --phase 20``: phase 4's flagship checkpoint (its
+    ``serving_slice``) and phase 7's model config
+    (``flagship_train_conf``), then path I and the last lines."""
+    import torch
+
+    from wekws_tpu_torch.ops import cuda_build
+    from wekws_tpu_torch.ops.fused_mdtc import (
+        fused_mdtc_forward,
+        fused_mdtc_stream,
+    )
+
+    work = os.path.join(cuda_build.BUILD_DIR, "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    with phase("4 (flagship checkpoint only)"):
+        serving_slice("flagship", FLAGSHIP_MODEL_CONF,
+                      torch.Generator().manual_seed(SEED), dev, work,
+                      synth_waves(np.random.default_rng(SEED)),
+                      fused_mdtc_forward, fused_mdtc_stream, {})
+    conf = flagship_train_conf(dev)[0]
+    torch.cuda.empty_cache()
+    record = [{"name": n, "launches": 0, "max_abs_err": 0.0} for n in (
+        [f"fused_train_{p}" for p in TRAIN_PASSES]
+        + ["fused_fbank", "fused_mdtc_forward", "fused_mdtc_stream"])]
+    phase20(dev, card, work, conf, record)
+    return last_lines(card, record, kind)
+
+
+def phase20(dev, card, work, model_conf, record):
+    """Phase 20, its launches and readings merged into ``record``."""
+    with phase("20 path I: data parallelism"):
+        launches, readings, figures = phase20_data_parallel(
+            dev, card, work, model_conf)
+        merge_path_i(record, launches, readings)
+        print(f"  launches on path I: {launches} [{card}]", flush=True)
+        print(json.dumps({"path_i_figures": figures, "card": card}),
+              flush=True)
+
+
+def last_lines(card, record, kind) -> int:
+    """The card's line, the kernels line and the ok line; exit code 0."""
+    import torch
+
+    print(card)
+    print(json.dumps({"kernels": record}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def merge_path_i(record, launches, readings):
+    """Path I's launches (by sub-path) and readings into the kernel
+    records; fails if a path-I kernel never launched."""
+    rows = {r["name"]: r for r in record}
+    totals = {}
+    for sub, counts in launches.items():
+        for name, n in counts.items():
+            if n:
+                totals[name] = totals.get(name, 0) + n
+                rows[name].setdefault("path_i_launches", {})[sub] = n
+    want = {f"fused_train_{p}" for p in TRAIN_PASSES} | {
+        "fused_fbank", "fused_mdtc_forward", "fused_mdtc_stream"}
+    missing = sorted(want - set(totals))
+    if missing:
+        raise AssertionError(f"path I launched no {missing}")
+    for name, n in totals.items():
+        rows[name]["launches"] += n
+    for name, rs in readings.items():
+        rows[name]["path_i"] = rs
+        rows[name]["max_abs_err"] = max(
+            [rows[name]["max_abs_err"]] + [r["max_abs_err"] for r in rs])
+
+
 SERVING_KERNELS = {"fused_frontend": 6, "fused_mdtc": 15 + 25 + 3}
 
 
@@ -7207,9 +7881,14 @@ TRAIN_REPLACES = {
 }
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
 
+    only_20 = argv == ["--phase", "20"]
+    if argv and not only_20:
+        print(f"chip_smoke: unknown arguments {argv}; run it with none, or "
+              f"with --phase 20 for path I alone", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -7294,6 +7973,8 @@ def main() -> int:
                                      f"kernels of {source}, found {found}")
         print(f"  built {len(paths)} librar(ies) in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if only_20:
+        return path_i_alone(dev, card, kind)
 
     gen = torch.Generator().manual_seed(SEED)
     model, _ = seeded_model(FLAGSHIP_MODEL_CONF, gen)
@@ -7567,13 +8248,9 @@ def main() -> int:
         print(json.dumps({"path_h_figures": h_figures, "card": card}),
               flush=True)
 
-    print(card)
-    print(json.dumps({"kernels": record}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
-        "count": torch.cuda.device_count()}}))
-    return 0
+    phase20(dev, card, work, train_conf, record)
+    return last_lines(card, record, kind)
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

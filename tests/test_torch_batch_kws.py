@@ -493,7 +493,9 @@ def test_batch_stream_kws_cli_matches_jax(kws, tmp_path, capsys,
     assert got[:-1] == want[:-1] and len(got) > 1
     assert len(out["detections"]) == len(got) - 1
     assert out["stats"]["dispatches"] > 0
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # --mesh_devices (ported since, A.13) asks for cards; the CPU is one
+    with pytest.raises(ValueError, match="--mesh_devices 2: this machine "
+                                         "has 1 cpu device"):
         batch_stream_kws.main(argv + ["--checkpoint", kws["ckpt"],
                                       "--device", "cpu", "--mesh_devices",
                                       "2"])

@@ -218,26 +218,40 @@ def aug_stores(root):
 
 @pytest.mark.parametrize("flag,item", [
     pytest.param(["--device_resident"], "item 10", id="flag0-item 10"),
-    (["--coordinator", "localhost:1234"], "item 13"),
-    (["--num_processes", "2"], "item 13"),
-    (["--process_id", "0"], "item 13"),
+    pytest.param(["--coordinator", "localhost:1234"], "one process",
+                 id="flag1-item 13"),
+    pytest.param(["--num_processes", "2"], "--coordinator",
+                 id="flag2-item 13"),
+    pytest.param(["--process_id", "0"], "one process", id="flag3-item 13"),
 ])
 def test_unported_flags_raise(tmp_path, monkeypatch, flag, item):
-    """Data parallelism raises.  ``--device_resident`` with waveform
-    augmentation (item 10, ported since) trains instead: speed_perturb,
-    noise and reverb on a tiny list and tiny stores, one epoch, with a
-    ``DeviceWaveAug`` attached to the train pipeline and run each
+    """The data-parallel flags (ported since, A.13): ``--coordinator`` or
+    ``--process_id`` alone trains one process, as the JAX CLI does (no
+    process group; the missing list is what stops this run), and
+    ``--num_processes 2`` without a coordinator raises
+    (tests/test_torch_parallel.py trains two).  ``--device_resident``
+    with waveform augmentation (item 10, ported since) trains: speed_
+    perturb, noise and reverb on a tiny list and tiny stores, one epoch,
+    with a ``DeviceWaveAug`` attached to the train pipeline and run each
     step."""
     with open(os.path.join(RECIPE, "conf_torch", "mdtc_flagship.yaml")) as f:
         conf = yaml.safe_load(f)
     conf["dataset_conf"]["speed_perturb"] = True
     args = ["--model_dir", str(tmp_path / "m"), "--device", "cpu"] + flag
-    if item == "item 13":
+    if item != "item 10":
         config = tmp_path / "conf.yaml"
         config.write_text(yaml.safe_dump(conf))
-        with pytest.raises(NotImplementedError, match=item):
-            train.main(["--config", str(config), "--train_data", "t",
-                        "--cv_data", "v"] + args)
+        argv = ["--config", str(config), "--train_data",
+                str(tmp_path / "t"), "--cv_data", str(tmp_path / "v")]
+        if item == "one process":
+            with pytest.raises(FileNotFoundError, match="t"):
+                train.main(argv + args)
+            assert (tmp_path / "m" / "init.pt").exists()
+        else:
+            with pytest.raises(ValueError, match=item):
+                train.main(argv + args)
+            assert not (tmp_path / "m").exists()
+        assert not torch.distributed.is_initialized()
         return
     from wekws_tpu_torch.data import device_aug
 

@@ -30,6 +30,7 @@ from wekws_tpu_torch.ops.fused_mdtc_train import (
     PASSES,
     SM_SMEM,
     SMEM_LIMIT,
+    _PASS_VALUES,
     _ds0,
     _tiles,
     b4_smem_bytes,
@@ -174,7 +175,9 @@ def test_b3_hands_ds0_to_b4(b, t, c, k, dilation):
     unfused TCNBlock (fp32 on the CPU: dx within 1e-5 of max(1, max
     |dx|); dWd and dbd within 1e-5 of the largest of the two, because
     dbd, the gradient of a bias that a BatchNorm follows, cancels to
-    about zero and carries the rounding of terms as large as dWd's)."""
+    about zero and carries the rounding of terms as large as dWd's).
+    Every pass is handed its own per-channel values and no others, as
+    the kernels, which take tensors only, are replayed with them."""
     rng = np.random.default_rng(1000 * t + c + k)
     p = _params(rng, c, k)
     x = rng.standard_normal((b, t, c)).astype(np.float32)
@@ -183,6 +186,10 @@ def test_b3_hands_ds0_to_b4(b, t, c, k, dilation):
         torch.from_numpy(x), {key: torch.from_numpy(v)
                               for key, v in p.items()},
         torch.from_numpy(cot), dilation)
+    for name, args in calls.items():
+        values = [a for a in args if isinstance(a, dict)]
+        assert len(values) == 1 and set(values[0]) == set(
+            _PASS_VALUES[name]), name
     dw1, db1, sds0, sds0u, ds0 = PASSES["b3"](*calls["b3"])
     assert ds0.shape == x.shape
     assert torch.equal(ds0, _ds0(*calls["b3"])[3])

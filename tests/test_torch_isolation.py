@@ -40,6 +40,8 @@ assert {"wekws_tpu_torch.export." + m for m in (
 assert {"wekws_tpu_torch.bin." + m for m in (
     "export_model", "static_quantize", "export_torch", "import_torch")} \
     <= set(names)
+assert {"wekws_tpu_torch.parallel.mesh", "wekws_tpu_torch.parallel.launch"} \
+    <= set(names)
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                     "wekws_tpu"))

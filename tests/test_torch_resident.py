@@ -42,6 +42,7 @@ from wekws_tpu_torch.models import init_model
 from wekws_tpu_torch.text import CharTokenizer
 from wekws_tpu_torch.tools.from_jax import model_from_jax
 from wekws_tpu_torch.train import Executor, Trainer
+from wekws_tpu_torch.train.executor import rank_columns
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RECIPE = os.path.join(REPO, "examples", "synthetic")
@@ -225,31 +226,63 @@ def test_stage_data_list_equals_jax(data_list, case):
 
 @pytest.mark.parametrize("case,item", [
     ("speed_perturb", "item 10"), ("noise_prob", "item 10"),
-    ("reverb_prob", "item 10"), ("world_size", "item 13"),
-    ("mesh", "item 13"), ("stage_arrays_mesh", "item 13"),
+    ("reverb_prob", "item 10"),
+    pytest.param("world_size", "global", id="world_size-item 13"),
+    pytest.param("mesh", "columns", id="mesh-item 13"),
+    pytest.param("stage_arrays_mesh", "cv columns",
+                 id="stage_arrays_mesh-item 13"),
 ])
 def test_unported_staging_raises(data_list, case, item):
-    """Several cards raise (item 13).  A train config with waveform
+    """Several processes (ported since, A.13): ``world_size=2`` stages
+    the JAX package's global corpus, its ``stage_data_list(rank=r,
+    world_size=2)`` shards concatenated in rank order and padded to the
+    longest row (every rank stages all of it); each rank trains on its
+    columns of an epoch's index rows and takes its columns of cv's
+    batches, which count every row once.  A train config with waveform
     augmentation (item 10, ported since) raises the JAX package's
     ValueError without ``device_aug=True``, as JAX's does, and with it
     stages the raw waves as JAX's does; a cv split drops the
     augmentation instead."""
-    conf, kwargs = dict(DATASET_CONF), {}
+    conf = dict(DATASET_CONF)
     if case == "speed_perturb":
         conf["speed_perturb"] = True
     elif case in ("noise_prob", "reverb_prob"):
         conf[case] = 0.5
-    elif case == "world_size":
-        kwargs["world_size"] = 2
-    else:
-        kwargs["mesh"] = make_mesh()
-    if item == "item 13":
-        with pytest.raises(NotImplementedError, match=item):
-            if case == "stage_arrays_mesh":
-                stage_arrays(synth_arrays(8), device="cpu", **kwargs)
-            else:
-                stage_data_list(data_list["class"], conf, split="train",
-                                device="cpu", **kwargs)
+    if item != "item 10":
+        got = stage_data_list(data_list["class"], conf, split="train",
+                              device="cpu", world_size=2)
+        if item == "global":
+            shards = [jax_stage_data_list(data_list["class"], conf,
+                                          split="train", rank=r,
+                                          world_size=2) for r in (0, 1)]
+            assert got.keys == shards[0].keys + shards[1].keys
+            assert got.n == shards[0].n + shards[1].n == 10
+            smax = max(s.arrays["waves"].shape[1] for s in shards)
+            for key in STAGE_KEYS:
+                want = [np.asarray(s.arrays[key]) for s in shards]
+                if key == "waves":
+                    want = [np.pad(w, ((0, 0), (0, smax - w.shape[1])))
+                            for w in want]
+                np.testing.assert_array_equal(got.arrays[key].numpy(),
+                                              np.concatenate(want))
+            np.testing.assert_array_equal(
+                got.host_wave_lengths,
+                np.concatenate([s.host_wave_lengths for s in shards]))
+        elif item == "columns":
+            rows = got.epoch_index(3, 4)
+            parts = [rank_columns(rows, r, 2) for r in (0, 1)]
+            assert [p.shape for p in parts] == [(2, 2), (2, 2)]
+            np.testing.assert_array_equal(np.concatenate(parts, axis=1),
+                                          rows)
+            with pytest.raises(ValueError, match="does not split"):
+                rank_columns(got.epoch_index(3, 3), 0, 2)
+        else:
+            idx, ok = got.cv_index(4)
+            seen = np.zeros(got.n)
+            for r in (0, 1):
+                np.add.at(seen, rank_columns(idx, r, 2).ravel(),
+                          rank_columns(ok, r, 2).ravel())
+            np.testing.assert_array_equal(seen, np.ones(got.n))
         return
     for stage in (stage_data_list, jax_stage_data_list):
         with pytest.raises(ValueError, match="device_aug=True"):

@@ -243,8 +243,14 @@ def test_daemon_server_full(models):
 
 
 def test_serve_mesh_devices_raises(models):
-    with pytest.raises(NotImplementedError, match="item 13"):
+    """``--mesh_devices`` (ported since, A.13) splits the streams over
+    that many cards; asking for more devices than the machine has (the
+    CPU is one) raises, where the JAX CLI quietly takes fewer."""
+    with pytest.raises(ValueError, match="--mesh_devices 2: this machine "
+                                         "has 1 cpu device"):
         build_engine(_args(models, "maxpool", mesh_devices=2))
+    engine = build_engine(_args(models, "maxpool", mesh_devices=1))
+    assert engine.devices == [torch.device("cpu")]
 
 
 def test_warmup_engine_leaves_clean_slots(models):

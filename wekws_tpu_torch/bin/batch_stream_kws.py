@@ -14,8 +14,9 @@ real-time factor.
 Fewer wavs than --streams cycles the list (load test); detections are
 printed per stream with timestamps.  On the card the engine's route
 comes from ``ops.serving.forward_route`` (an artifact directory serves
-through the artifact runtime); ``--mesh_devices`` raises
-(ROADMAP A.13).
+through the artifact runtime); ``--mesh_devices N`` splits the streams
+over the first N cards, and asking for more cards than the machine has
+raises (ROADMAP C.21).
 """
 
 import argparse
@@ -61,8 +62,9 @@ def get_args(argv=None):
                              "model: threshold + refractory detection "
                              "instead of CTC beams")
     parser.add_argument("--mesh_devices", type=int, default=0,
-                        help="shard the stream axis over N devices (not "
-                             "ported yet)")
+                        help="split the streams over the first N cards "
+                             "(equal row blocks; more than the machine "
+                             "has raises)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
     return parser.parse_args(argv)
@@ -79,15 +81,15 @@ def main(argv=None):
 
     from wekws_tpu_torch.data.audio import read_wav
     from wekws_tpu_torch.device import resolve_device
-    from wekws_tpu_torch.models.kws_model import _not_ported
+    from wekws_tpu_torch.parallel.mesh import mesh_devices
     from wekws_tpu_torch.runtime import (
         BatchKeywordSpotter,
         BatchMaxPoolSpotter,
     )
 
-    if args.mesh_devices:
-        raise _not_ported("--mesh_devices", "item 13, data parallelism")
     device = resolve_device(args.device)
+    if args.mesh_devices:
+        device = mesh_devices(args.mesh_devices, device)
     n = args.streams or len(args.wav_paths)
     if args.maxpool:
         names = args.keywords.split(",") if args.keywords else None

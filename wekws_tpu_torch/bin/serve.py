@@ -19,9 +19,10 @@ engine's route comes from ``ops.serving.forward_route`` for the loaded
 model: the fused serving kernel for MDTC, DS-TCN and FSMN, the modules
 for GRU and full-conv TCN; an exported artifact directory (float or
 static int8) as ``--checkpoint`` serves through the artifact runtime
-(export/torch_runtime.py).  ``--mesh_devices`` raises (ROADMAP A.13);
-the JAX CLI's ``--compilation_cache_dir`` (an XLA cache) has no
-counterpart.
+(export/torch_runtime.py).  ``--mesh_devices N`` splits the streams
+over the first N cards in equal row blocks (more cards than the machine
+has raises: ROADMAP C.21); the JAX CLI's ``--compilation_cache_dir``
+(an XLA cache) has no counterpart.
 
 SIGTERM or SIGINT stops the daemon; its last log line is ``served:``
 and a JSON object: the engine's step stats, the server's, and each
@@ -67,8 +68,9 @@ def get_args(argv=None):
                              "(features + splice + skip); the host only "
                              "buffers raw samples per stream")
     parser.add_argument("--mesh_devices", type=int, default=0,
-                        help="shard the stream axis over N devices (not "
-                             "ported yet)")
+                        help="split the streams over the first N cards "
+                             "(equal row blocks; more than the machine "
+                             "has raises)")
     parser.add_argument("--warmup", action="store_true",
                         help="build the kernels and run one step and one "
                              "flush before the port opens")
@@ -100,15 +102,15 @@ def warmup_engine(engine):
 def build_engine(args):
     """The engine an argparse Namespace of ``get_args`` describes."""
     from wekws_tpu_torch.device import resolve_device
-    from wekws_tpu_torch.models.kws_model import _not_ported
+    from wekws_tpu_torch.parallel.mesh import mesh_devices
     from wekws_tpu_torch.runtime import (
         BatchKeywordSpotter,
         BatchMaxPoolSpotter,
     )
 
-    if args.mesh_devices:
-        raise _not_ported("--mesh_devices", "item 13, data parallelism")
     device = resolve_device(args.device)
+    if args.mesh_devices:
+        device = mesh_devices(args.mesh_devices, device)
     if args.maxpool:
         names = args.keywords.split(",") if args.keywords else None
         return BatchMaxPoolSpotter(

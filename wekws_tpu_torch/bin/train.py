@@ -5,7 +5,7 @@ YAML config + flags, per-epoch checkpoints ``<epoch>.pt`` with
 {epoch, lr, cv_loss} sidecars, the resolved config at
 ``<model_dir>/config.yaml`` (with an absolute cmvn path) for scoring,
 ``init.pt``, ``metrics.jsonl``, TensorBoard epoch scalars under
-``tensorboard/`` and a ``final.pt`` link.  One process on one card
+``tensorboard/`` and a ``final.pt`` link.  One process a card
 (``--device``, CUDA unless ``cpu`` is asked for): the host pipeline's
 ``DataLoader`` feeds the ``Trainer``, which runs the fused exact-BN
 passes and the fused fbank as the config asks.  ``--device_resident``
@@ -18,8 +18,22 @@ its rows there.
 ``--checkpoint`` resumes from a port ``.pt`` or a JAX-package
 ``.ckpt``.  ``--dict`` (a CTC model: ``dict.txt``, and ``words.txt``
 where present) tokenizes both data lists and sets the output width to
-the vocabulary.  The flags of data parallelism raise: ``--coordinator``
-/ ``--num_processes`` / ``--process_id`` (A.13).
+the vocabulary.
+
+Data parallelism: every process runs this script with ``--coordinator
+host:port --num_processes W --process_id r`` (rank 0 listens at the
+coordinator; ``parallel/mesh.distributed_init``).  Rank r trains on
+``cuda:{r % device_count}`` (or the CPU with ``--device cpu``), reads
+its shard of the lists, and the ranks take one step on the global batch
+(``train/steps.py``); its host-fed batch size is per process, its
+resident one global, as in the JAX package.  Host-fed ranks need
+``batch_conf.bucket_boundaries``: the bucket schedule, which every rank
+computes from the whole list, keeps their batch shapes and counts in
+lockstep, and a rank that ran out of batches first would hang its peers
+in a collective (``fixed_samples`` fixes the frames but not the rows or
+the count of batches a shard gives).  Only rank 0 writes the
+config, the checkpoints, TensorBoard and the metrics file, and logs the
+epoch line; every rank logs the same cv figures.
 
 Torch is imported inside ``main``, so the loader's spawned workers,
 which import this module as their main module, start without it.
@@ -56,7 +70,8 @@ def get_args(argv=None):
     parser.add_argument("--num_epochs", type=int, default=None,
                         help="override training_config.max_epoch")
     parser.add_argument("--coordinator", default=None,
-                        help="multi-process training (not ported yet)")
+                        help="host:port of rank 0, for training over "
+                             "--num_processes processes")
     parser.add_argument("--num_processes", type=int, default=None)
     parser.add_argument("--process_id", type=int, default=None)
     parser.add_argument("--profile_dir", default=None,
@@ -75,13 +90,31 @@ def get_args(argv=None):
     return parser.parse_args(argv)
 
 
-def check_ported(args) -> None:
-    from wekws_tpu_torch.models.kws_model import _not_ported
+def rank_device(args):
+    """This process's device: ``cuda:{process_id % device_count}`` for
+    a CUDA rank of several, else ``--device``."""
+    import torch
 
-    if any(v is not None for v in (args.coordinator, args.num_processes,
-                                   args.process_id)):
-        raise _not_ported("--coordinator/--num_processes/--process_id",
-                          "item 13, data parallelism")
+    from wekws_tpu_torch.device import resolve_device
+
+    device = resolve_device(args.device)
+    if (device.type == "cuda" and device.index is None
+            and (args.num_processes or 1) > 1):
+        device = torch.device(
+            "cuda", (args.process_id or 0) % torch.cuda.device_count())
+    return device
+
+
+def check_lockstep(dataset_conf: dict, world: int) -> None:
+    """Host-fed ranks must agree on every batch's shape and on their
+    batch count: the bucket schedule guarantees both."""
+    bc = dataset_conf.get("batch_conf", {})
+    if world > 1 and not bc.get("bucket_boundaries"):
+        raise ValueError(
+            "training over several processes from the host pipeline "
+            "needs batch_conf.bucket_boundaries: every rank must take "
+            "batches of one shape in lockstep (or pass "
+            "--device_resident)")
 
 
 def main(argv=None):
@@ -89,14 +122,30 @@ def main(argv=None):
     logging.basicConfig(
         level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s"
     )
-    check_ported(args)
+    from wekws_tpu_torch.parallel.mesh import (
+        distributed_close,
+        distributed_init,
+        process_count,
+        process_index,
+    )
+
+    device = rank_device(args)
+    distributed_init(args.coordinator, args.num_processes, args.process_id,
+                     device)
+    try:
+        return _train(args, device, process_index(), process_count())
+    finally:
+        distributed_close()
+
+
+def _train(args, device, rank: int, world: int):
     import torch
 
     from wekws_tpu_torch.data import DeviceFeaturePipeline, init_dataset
     from wekws_tpu_torch.data.loader import DataLoader
     from wekws_tpu_torch.data.resident import stage_data_list, wants_wave_aug
-    from wekws_tpu_torch.device import resolve_device
     from wekws_tpu_torch.models import init_model
+    from wekws_tpu_torch.parallel.mesh import fold_rank
     from wekws_tpu_torch.text import CharTokenizer
     from wekws_tpu_torch.train import (
         Executor,
@@ -109,7 +158,6 @@ def main(argv=None):
     from wekws_tpu_torch.train.checkpoint import load_model_state
     from wekws_tpu_torch.train.tensorboard import SummaryWriter
 
-    device = resolve_device(args.device)
     random.seed(args.seed)
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)
@@ -133,6 +181,8 @@ def main(argv=None):
     cv_pipeline = DeviceFeaturePipeline.from_conf(dataset_conf, False)
     batch_size = dataset_conf.get("batch_conf", {}).get("batch_size", 16)
     train_corpus = cv_corpus = None
+    if not args.device_resident:
+        check_lockstep(dataset_conf, world)
     if args.device_resident:
         # staged before the model is built, as the JAX CLI does
         augment = wants_wave_aug(dataset_conf)
@@ -172,11 +222,15 @@ def main(argv=None):
         )
     configs["model"] = model_conf
 
+    lead = rank == 0  # the one rank that writes files
     os.makedirs(args.model_dir, exist_ok=True)
-    with open(os.path.join(args.model_dir, "config.yaml"), "w") as fout:
-        yaml.dump(configs, fout)
+    if lead:
+        with open(os.path.join(args.model_dir, "config.yaml"), "w") as fout:
+            yaml.dump(configs, fout)
 
     model = init_model(model_conf, torch.Generator().manual_seed(args.seed))
+    # dropout draws from the global generator: each rank its own masks
+    torch.manual_seed(fold_rank(args.seed, rank))
     start_epoch = 0
     optim_conf = configs.get("optim_conf", {})
     scheduler = ReduceLROnPlateau(optim_conf.get("lr", 1e-3))
@@ -191,7 +245,7 @@ def main(argv=None):
             scheduler.best = float(info["cv_loss"])
         logging.info("resumed from %s at epoch %d", args.checkpoint,
                      start_epoch)
-    else:
+    elif lead:
         save_checkpoint(os.path.join(args.model_dir, "init.pt"),
                         model.state_dict())
 
@@ -208,7 +262,8 @@ def main(argv=None):
     executor = Executor(
         trainer,
         log_interval=train_conf.get("log_interval", 10),
-        metrics_path=os.path.join(args.model_dir, "metrics.jsonl"),
+        metrics_path=(os.path.join(args.model_dir, "metrics.jsonl")
+                      if lead else None),
         profile_dir=args.profile_dir,
     )
     state = trainer.init_state()
@@ -217,15 +272,17 @@ def main(argv=None):
     if not args.device_resident:
         train_dataset = DataLoader(
             init_dataset(args.train_data, dataset_conf, tokenizer,
-                         split="train"),
+                         split="train", rank=rank, world_size=world),
             num_workers=args.num_workers,
         )
         cv_dataset = DataLoader(
-            init_dataset(args.cv_data, dataset_conf, tokenizer, split="cv"),
+            init_dataset(args.cv_data, dataset_conf, tokenizer, split="cv",
+                         rank=rank, world_size=world),
             num_workers=args.num_workers,
         )
     # TensorBoard epoch scalars (reference train.py), beside metrics.jsonl
-    writer = SummaryWriter(os.path.join(args.model_dir, "tensorboard"))
+    writer = (SummaryWriter(os.path.join(args.model_dir, "tensorboard"))
+              if lead else None)
     final_epoch = None
     try:
         for epoch in range(start_epoch, max_epoch):
@@ -241,34 +298,36 @@ def main(argv=None):
                     state, train_dataset, args.seed + 1, scheduler.lr, epoch
                 )
                 cv = executor.cv(state, cv_dataset, epoch)
-            logging.info(
-                "Epoch %d done: train_loss %.6f cv_loss %.6f cv_acc %.4f "
-                "throughput %.1f audio-s/s",
-                epoch, summary["train_loss"], cv["cv_loss"], cv["cv_acc"],
-                summary["audio_seconds_per_s"],
-            )
-            save_checkpoint(
-                os.path.join(args.model_dir, f"{epoch}.pt"),
-                state.model.state_dict(),
-                {"epoch": epoch, "lr": scheduler.lr,
-                 "cv_loss": cv["cv_loss"]},
-            )
-            writer.add_scalars(
-                {"cv_loss": cv["cv_loss"], "cv_acc": cv["cv_acc"],
-                 "lr": scheduler.lr,
-                 "train_loss": summary["train_loss"]},
-                step=epoch,
-            )
-            writer.flush()
+            if lead:
+                logging.info(
+                    "Epoch %d done: train_loss %.6f cv_loss %.6f cv_acc "
+                    "%.4f throughput %.1f audio-s/s",
+                    epoch, summary["train_loss"], cv["cv_loss"],
+                    cv["cv_acc"], summary["audio_seconds_per_s"],
+                )
+                save_checkpoint(
+                    os.path.join(args.model_dir, f"{epoch}.pt"),
+                    state.model.state_dict(),
+                    {"epoch": epoch, "lr": scheduler.lr,
+                     "cv_loss": cv["cv_loss"]},
+                )
+                writer.add_scalars(
+                    {"cv_loss": cv["cv_loss"], "cv_acc": cv["cv_acc"],
+                     "lr": scheduler.lr,
+                     "train_loss": summary["train_loss"]},
+                    step=epoch,
+                )
+                writer.flush()
             scheduler.step(cv["cv_loss"])
             final_epoch = epoch
     finally:
-        writer.close()
+        if writer is not None:
+            writer.close()
         for loader in (train_dataset, cv_dataset):
             if loader is not None:
                 loader.close()
 
-    if final_epoch is not None:
+    if final_epoch is not None and lead:
         link_final(args.model_dir, final_epoch)
     return state
 

@@ -3,7 +3,9 @@
 Copy of wekws_tpu/data/audio.py: the reference wekws's torchaudio/sox
 stages (wekws/dataset/processor.py) in numpy/scipy: WAV read via
 scipy.io.wavfile, resampling via polyphase filtering, and sox-style
-speed perturbation expressed as resampling.
+speed perturbation expressed as resampling.  scipy is imported where
+it is used: ``scipy.signal`` takes seconds to import, and every loader
+worker and training process imports this module.
 """
 
 import io
@@ -12,20 +14,15 @@ from typing import Tuple, Union
 
 import numpy as np
 
-try:
-    from scipy.io import wavfile as _wavfile
-    from scipy.signal import resample_poly as _resample_poly
-except ImportError:  # pragma: no cover
-    _wavfile = None
-    _resample_poly = None
-
 
 def read_wav(source: Union[str, bytes]) -> Tuple[np.ndarray, int]:
     """Read a WAV file (path or raw bytes) -> (float32 [-1, 1] mono, sr)."""
+    from scipy.io import wavfile
+
     if isinstance(source, (bytes, bytearray)):
-        sr, data = _wavfile.read(io.BytesIO(bytes(source)))
+        sr, data = wavfile.read(io.BytesIO(bytes(source)))
     else:
-        sr, data = _wavfile.read(source)
+        sr, data = wavfile.read(source)
     if data.ndim > 1:
         data = data[:, 0]
     if data.dtype == np.int16:
@@ -41,16 +38,20 @@ def read_wav(source: Union[str, bytes]) -> Tuple[np.ndarray, int]:
 
 def write_wav(path: str, wave: np.ndarray, sample_rate: int) -> None:
     """float32 [-1, 1] -> 16-bit PCM WAV."""
+    from scipy.io import wavfile
+
     pcm = np.clip(wave, -1.0, 1.0)
-    _wavfile.write(path, sample_rate, (pcm * 32767.0).astype(np.int16))
+    wavfile.write(path, sample_rate, (pcm * 32767.0).astype(np.int16))
 
 
 def resample(wave: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     """Polyphase resampling (anti-aliased), like torchaudio Resample."""
     if orig_sr == target_sr:
         return wave
+    from scipy.signal import resample_poly
+
     frac = Fraction(target_sr, orig_sr)
-    return _resample_poly(wave, frac.numerator, frac.denominator).astype(
+    return resample_poly(wave, frac.numerator, frac.denominator).astype(
         np.float32
     )
 
@@ -76,7 +77,9 @@ def speed_perturb(
         n_out = len(wave) * frac.denominator // frac.numerator
         pos = np.arange(n_out, dtype=np.float64) * speed
         return np.interp(pos, np.arange(len(wave)), wave).astype(np.float32)
+    from scipy.signal import resample_poly
+
     frac = Fraction(speed).limit_denominator(100)
-    return _resample_poly(wave, frac.denominator, frac.numerator).astype(
+    return resample_poly(wave, frac.denominator, frac.numerator).astype(
         np.float32
     )

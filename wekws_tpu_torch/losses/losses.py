@@ -113,12 +113,17 @@ def criterion(
     target_lengths: Optional[torch.Tensor] = None,
     min_duration: int = 0,
     valid: Optional[torch.Tensor] = None,
+    valid_total: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dispatch on 'ce' | 'max_pooling' | 'ctc'.  ``valid`` (B,) 0/1
-    leaves filler rows out of the loss mean and the accuracy."""
+    leaves filler rows out of the loss mean and the accuracy.
+    ``valid_total`` replaces ``valid.sum()`` as the denominator: under
+    data parallelism the global batch's count, so that the ranks' losses
+    (and gradients) sum to the global batch's."""
     if valid is not None:
         valid = valid.to(torch.float32)
-        n = torch.clamp(valid.sum(), min=1.0)
+        n = torch.clamp(valid.sum() if valid_total is None else valid_total,
+                        min=1.0)
         if loss_type == "ctc":
             # no greedy decode in the training step: its accuracy is 0
             loss_b = _ctc_per_utt(logits, target, lengths, target_lengths)

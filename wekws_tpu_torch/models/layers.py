@@ -18,6 +18,8 @@ too, so plain autograd gives the same gradients.
 import torch
 from torch import nn
 
+from wekws_tpu_torch.parallel.mesh import all_reduce_sum_grad, is_distributed
+
 
 class DepthwiseConv1d(nn.Module):
     """Causal dilated depthwise conv, VALID after ``left_pad`` zeros.
@@ -120,7 +122,13 @@ class BatchNorm(nn.BatchNorm1d):
     (float64 input stays float64) over every axis but the last, and
     running averages with flax's
     momentum 0.9 (torch ``momentum=0.1``) that take the BIASED batch
-    variance, unlike ``nn.BatchNorm1d``."""
+    variance, unlike ``nn.BatchNorm1d``.
+
+    Under data parallelism (a process group initialised) the batch is
+    the global one, as in the JAX package's mesh: the sums of x and x^2
+    and the count go through one differentiable all-reduce (autograd
+    carries the statistics' gradient to every rank's rows), so the
+    statistics and the running averages are the same on every rank."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -128,8 +136,17 @@ class BatchNorm(nn.BatchNorm1d):
             return (x - self.running_mean) * inv + self.bias
         x32 = x.to(torch.promote_types(x.dtype, torch.float32))
         axes = tuple(range(x.dim() - 1))
-        mean = x32.mean(dim=axes)
-        var = (x32 * x32).mean(dim=axes) - mean * mean
+        if is_distributed():
+            c = x32.shape[-1]
+            count = x32.new_full((1, c), x32.numel() // c)
+            sums = all_reduce_sum_grad(torch.cat([
+                x32.sum(dim=axes)[None], (x32 * x32).sum(dim=axes)[None],
+                count]))
+            mean = sums[0] / sums[2]
+            var = sums[1] / sums[2] - mean * mean
+        else:
+            mean = x32.mean(dim=axes)
+            var = (x32 * x32).mean(dim=axes) - mean * mean
         y = (x32 - mean) * torch.rsqrt(var + self.eps) * self.weight \
             + self.bias
         self.update_running_stats(mean, var)

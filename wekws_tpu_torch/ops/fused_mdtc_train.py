@@ -49,6 +49,19 @@ Gradients are the textbook exact-BN backward per layer composed
 through the block; they equal autograd of the unfused block
 (``models/mdtc.py``), which the tests pin.  ``fused_tcn_block_train``
 is the ``torch.autograd.Function`` around the eight passes.
+
+Under data parallelism (a process group initialised,
+``parallel/mesh.py``) the statistics are the global batch's, as
+``pallas_call`` takes them over the whole sharded operand: each pair of
+sums a pass returns, forward (su, suu), (sv, svv), (sw, sww) and
+backward (sg, sgw), (sds1, sds1v), (sds0, sds0u), is packed into one
+tensor and all-reduced before it becomes a mean or a coefficient, and
+``n`` is the global frame count, the ranks' ``b x t`` summed on the
+host once a block (each rank may hold another number of rows), which
+the backward reuses.  The backward sums are also the BN parameters'
+gradients: those leave the block rank-local, because the trainer
+all-reduces every gradient once.  Without a group nothing is reduced
+and nothing changes.
 """
 
 import contextlib
@@ -59,6 +72,11 @@ import torch
 import torch.nn.functional as F
 
 from wekws_tpu_torch.ops import cuda_build
+from wekws_tpu_torch.parallel.mesh import (
+    all_reduce_count,
+    all_reduce_sum,
+    is_distributed,
+)
 
 KERNEL_CHANNELS = (32, 64, 128)
 MAX_TAPS = 8
@@ -584,6 +602,23 @@ def reset_launches() -> None:
 # ---------------------------------------------------------------------------
 
 
+def _summed(s, ss):
+    """The pair of per-channel sums over every rank's rows: one
+    all-reduce of the two packed; the same tensors without a group."""
+    if not is_distributed():
+        return s, ss
+    both = all_reduce_sum(torch.stack([s, ss]))
+    return both[0], both[1]
+
+
+def _frames(b, t):
+    """The global batch's frame count: this rank's b x t summed over
+    every rank's (a host collective, no wait on the card)."""
+    if not is_distributed():
+        return float(b * t)
+    return float(all_reduce_count(b * t))
+
+
 def _stat(s, ss, n, eps):
     mu = s / n
     var = torch.clamp(ss / n - mu * mu, min=0.0)
@@ -619,56 +654,63 @@ def plain_passes(*names):
 def block_forward(x, p, dilation, eps, run=_run_public):
     """F1..F4.  ``p``: PARAM_KEYS, with dw_kernel as (K, C) and the
     pointwise kernels as (in, out), all contiguous float32.  Returns
-    (y, r, w, v) with v the per-channel values the backward needs.
+    (y, r, w, v) with v the per-channel values the backward needs and
+    ``v["n"]`` the global frame count.
     ``run(name, *args)`` runs one pass (the public pass by default)."""
     b, t, _ = x.shape
-    n = float(b * t)
+    n = _frames(b, t)
     dw_w = p["dw_kernel"]
     v = {"dw_b": p["dw_bias"]}
-    su, suu = run("f1", x, dw_w, v, dilation)
+    su, suu = _summed(*run("f1", x, dw_w, _only(v, "f1"), dilation))
     v["mu0"], v["var0"], v["inv0"] = _stat(su, suu, n, eps)
     v["a0"] = p["bn0_scale"] * v["inv0"]
     v["c0"] = p["bn0_bias"] - p["bn0_scale"] * v["inv0"] * v["mu0"]
     v["b1"] = p["pw1_bias"]
-    sv, svv = run("f2", x, dw_w, p["pw1_kernel"], _only(v, "f2"), dilation)
+    sv, svv = _summed(*run("f2", x, dw_w, p["pw1_kernel"], _only(v, "f2"),
+                           dilation))
     v["mu1"], v["var1"], v["inv1"] = _stat(sv, svv, n, eps)
     v["a1"] = p["bn1_scale"] * v["inv1"]
     v["c1"] = p["bn1_bias"] - p["bn1_scale"] * v["inv1"] * v["mu1"]
     v["b2"] = p["pw2_bias"]
     r, w, sw, sww = run("f3", x, dw_w, p["pw1_kernel"], p["pw2_kernel"],
                         _only(v, "f3"), dilation)
+    sw, sww = _summed(sw, sww)
     v["mu2"], v["var2"], v["inv2"] = _stat(sw, sww, n, eps)
     v["a2"] = p["bn2_scale"] * v["inv2"]
     v["c2"] = p["bn2_bias"] - p["bn2_scale"] * v["inv2"] * v["mu2"]
     y = run("f4", w, x, _only(v, "f4"))
+    v["n"] = n
     return y, r, w, v
 
 
 def block_backward(dy, x, r, w, p, v, dilation, run=_run_public):
     """B1..B4.  Returns (dx, grads by PARAM_KEYS in the layouts of
-    ``block_forward``)."""
-    b, t, _ = x.shape
-    n = float(b * t)
+    ``block_forward``).  The BN-backward sums that B2, B3 and B4 read
+    are the global batch's; the BN parameters' gradients are this
+    rank's (the same sums before the reduction)."""
+    n = v["n"]
     dw_w, w1, w2 = p["dw_kernel"], p["pw1_kernel"], p["pw2_kernel"]
     v = dict(v)
     v["coef2"] = p["bn2_scale"] * v["inv2"]
     v["coef1"] = p["bn1_scale"] * v["inv1"]
     v["coef0"] = p["bn0_scale"] * v["inv0"]
     v["beta1"], v["gamma1"] = p["bn1_bias"], p["bn1_scale"]
-    v["sg"], v["sgw"] = run("b1", dy, w, x, _only(v, "b1"))
-    dw2, db2, v["sds1"], v["sds1v"] = run("b2", dy, w, x, r, w2,
-                                          _only(v, "b2"), n)
-    dw1, db1, v["sds0"], v["sds0u"], ds0 = run(
+    sg, sgw = run("b1", dy, w, x, _only(v, "b1"))
+    v["sg"], v["sgw"] = _summed(sg, sgw)
+    dw2, db2, sds1, sds1v = run("b2", dy, w, x, r, w2, _only(v, "b2"), n)
+    v["sds1"], v["sds1v"] = _summed(sds1, sds1v)
+    dw1, db1, sds0, sds0u, ds0 = run(
         "b3", dy, w, x, r, dw_w, w1, w2, _only(v, "b3"), dilation, n)
+    v["sds0"], v["sds0u"] = _summed(sds0, sds0u)
     dx, dwd, dbd = run("b4", dy, w, x, ds0, dw_w, _only(v, "b4"), dilation,
                        n)
     grads = {
         "dw_kernel": dwd, "dw_bias": dbd,
         "pw1_kernel": dw1, "pw1_bias": db1,
         "pw2_kernel": dw2, "pw2_bias": db2,
-        "bn2_scale": v["sgw"], "bn2_bias": v["sg"],
-        "bn1_scale": v["sds1v"], "bn1_bias": v["sds1"],
-        "bn0_scale": v["sds0u"], "bn0_bias": v["sds0"],
+        "bn2_scale": sgw, "bn2_bias": sg,
+        "bn1_scale": sds1v, "bn1_bias": sds1,
+        "bn0_scale": sds0u, "bn0_bias": sds0,
     }
     return dx, grads
 
@@ -676,6 +718,7 @@ def block_backward(dy, x, r, w, p, v, dilation, run=_run_public):
 # per-channel values each pass reads (the rest of the packed vector is
 # zero); the plain versions read the same names
 _PASS_VALUES = {
+    "f1": ("dw_b",),
     "f2": ("dw_b", "a0", "c0", "b1"),
     "f3": ("dw_b", "a0", "c0", "b1", "a1", "c1", "b2"),
     "f4": ("a2", "c2"),
@@ -713,7 +756,7 @@ class FusedTCNBlockTrain(torch.autograd.Function):
         y, r, w, v = block_forward(x, p, dilation, eps, _block_run)
         keep = ("dw_b", "a0", "c0", "mu0", "inv0", "b1", "mu1", "inv1",
                 "b2", "a2", "c2", "mu2", "inv2")
-        ctx.dilation = dilation
+        ctx.dilation, ctx.n = dilation, v["n"]
         ctx.keep = keep
         ctx.save_for_backward(x, r, w, *[p[k] for k in PARAM_KEYS],
                               *[v[k] for k in keep])
@@ -728,7 +771,7 @@ class FusedTCNBlockTrain(torch.autograd.Function):
         x, r, w = saved[:3]
         nk = len(PARAM_KEYS)
         p = dict(zip(PARAM_KEYS, saved[3:3 + nk]))
-        v = dict(zip(ctx.keep, saved[3 + nk:]))
+        v = dict(zip(ctx.keep, saved[3 + nk:]), n=ctx.n)
         dx, grads = block_backward(dy.contiguous(), x, r, w, p, v,
                                    ctx.dilation, _block_run)
         g = dict(grads)

@@ -50,8 +50,15 @@ Two decode modes for ``BatchKeywordSpotter``:
   in the same step function as the model (decode/device_stream.py),
   and the host reads one packed ``(5, N)`` event tensor a step.
 
-The JAX engines' ``mesh`` (streams sharded over devices, ROADMAP A.13)
-and ``decode_unroll`` (a ``lax.scan`` unroll) have no counterpart.
+A list of devices as ``device`` (the counterpart of the JAX engines'
+``mesh``) splits the streams in equal row blocks over them: each device holds a
+copy of the weights, its rows' caches (and decode state) and its own
+route (the fused kernel, the artifact runtime or the modules), and a
+step enqueues every device's work before it reads any result.  A row's
+results do not depend on the batch (causality, per-row caches), so
+each stream's posteriors and events are the one-device engine's.
+``num_streams`` must divide evenly, as JAX asserts.  JAX's
+``decode_unroll`` (a ``lax.scan`` unroll) has no counterpart.
 """
 
 import time
@@ -87,6 +94,28 @@ def _where_rows(mask: torch.Tensor, new: torch.Tensor, old: torch.Tensor,
     shape = [1] * old.dim()
     shape[axis] = -1
     return torch.where(mask.view(shape), new, old)
+
+
+def _split_rows(step_fns, rows: int):
+    """One step function over several devices' step functions, device j
+    taking rows ``[j rows, (j + 1) rows)``: every device's step is
+    enqueued before the caller reads any result.  The cache is a tuple
+    of the devices' caches, the posteriors a list of their blocks."""
+    def step_fn(feats, active, reset, cache):
+        x, lo = feats
+        outs = [fn((x[a:a + rows], lo[a:a + rows]), active[a:a + rows],
+                   reset[a:a + rows], c)
+                for fn, a, c in zip(step_fns, range(0, len(x), rows), cache)]
+        return [p for p, _ in outs], tuple(c for _, c in outs)
+    return step_fn
+
+
+def _host_rows(probs) -> np.ndarray:
+    """The posteriors of every row on the host: one tensor, or the row
+    blocks of several devices in order."""
+    if isinstance(probs, torch.Tensor):
+        return probs.cpu().numpy()
+    return np.concatenate([p.cpu().numpy() for p in probs])
 
 
 class _FeatureQueue:
@@ -151,10 +180,18 @@ class _BatchedStreamEngine:
         ``x`` the sources' windows: ``(N, T, D)`` features or, with
         ``device_frontend``, ``(N, W)`` waves featurized in the step.
         ``use_fused=None`` takes ``forward_route``'s route for the loaded
-        model.  Returns the configs."""
+        model.  ``device`` is one device or a list of them; over several
+        the step is ``_split_rows`` of one step function a device.
+        Returns the configs."""
         if num_streams < 1 or step_frames < 1:
             raise ValueError("num_streams and step_frames must be >= 1")
-        self.device = dev = resolve_device(device)
+        self.devices = [resolve_device(d) for d in (
+            device if isinstance(device, (list, tuple)) else [device])]
+        if num_streams % len(self.devices):
+            raise ValueError(f"num_streams ({num_streams}) must be a "
+                             f"multiple of the {len(self.devices)} devices")
+        self.device = self.devices[0]
+        self.rows = num_streams // len(self.devices)
         self.device_frontend = device_frontend
         configs, cfg, left, right, downsampling = load_spotter_config(config)
         self.sample_rate = cfg.sample_rate
@@ -164,11 +201,59 @@ class _BatchedStreamEngine:
         self.downsampling = downsampling
         self._frontend_args = (cfg, left, right, downsampling)
         self.feat_dim = cfg.feat_dim * (left + 1 + right)
-        self.model = load_serving_model(configs, ckpt_path, self.feat_dim,
-                                        dev)
-        if use_fused_stream(self.model, dev, use_fused, forward_route):
-            fused = build_fused_stream(self.model, softmax=softmax,
-                                       device=dev)
+        self.models = [load_serving_model(configs, ckpt_path,
+                                          self.feat_dim, dev)
+                       for dev in self.devices]
+        parts = [self._device_step(j, use_fused, softmax, step_frames)
+                 for j in range(len(self.devices))]
+        if len(parts) == 1:
+            self._step_fn, self.cache = parts[0]
+        else:
+            self._step_fn = _split_rows([fn for fn, _ in parts], self.rows)
+            self.cache = tuple(c for _, c in parts)
+        if device_frontend:
+            self._window_shape = (self._featurizer(self.device,
+                                                   step_frames)[1],)
+            self.sources = [
+                WaveStreamBuffer(cfg.frame_shift, cfg.frame_length, left,
+                                 right, downsampling, step_frames)
+                for _ in range(num_streams)
+            ]
+        else:
+            self._window_shape = (step_frames, self.feat_dim)
+            self.sources = [
+                _FeatureQueue(self._frontend_args, self.feat_dim,
+                              step_frames)
+                for _ in range(num_streams)
+            ]
+        self.num_streams = num_streams
+        self.step_frames = step_frames
+        self._reset_mask = np.zeros((num_streams,), bool)
+        # overflow events beyond the one-result-per-step contract
+        self._event_backlog: List[List[Dict]] = [
+            [] for _ in range(num_streams)
+        ]
+        # every _run() counts here, whichever public path invoked it
+        self.stats = {"dispatches": 0, "rows": 0, "frames": 0,
+                      "dispatch_s": 0.0}
+        return configs
+
+    def _featurizer(self, dev, step_frames: int):
+        cfg, left, right, downsampling = self._frontend_args
+        return build_batch_featurizer(cfg, left, right, downsampling,
+                                      step_frames, dev)
+
+    @property
+    def model(self):
+        """The loaded model (the first device's copy)."""
+        return self.models[0]
+
+    def _device_step(self, j: int, use_fused, softmax, step_frames: int):
+        """(step function, cache) of device j's ``self.rows`` streams on
+        its copy of the model, by the route ``use_fused`` picks."""
+        dev, model = self.devices[j], self.models[j]
+        if use_fused_stream(model, dev, use_fused, forward_route):
+            fused = build_fused_stream(model, softmax=softmax, device=dev)
             if fused is None:
                 raise ValueError(
                     "use_fused=True: this model is not supported by the "
@@ -176,29 +261,14 @@ class _BatchedStreamEngine:
                     "preprocessing or an FSMN, and a linear, element or "
                     "identity head)")
             apply, init_cache = fused
-            cache, row_axis = init_cache(num_streams), 1
+            cache, row_axis = init_cache(self.rows), 1
         else:
             def apply(feats, cache):
-                return self.model(feats, cache, softmax=softmax)
+                return self.models[j](feats, cache, softmax=softmax)
 
-            cache, row_axis = self.model.init_cache(num_streams, dev), 0
-        if device_frontend:
-            featurize, window = build_batch_featurizer(
-                cfg, left, right, downsampling, step_frames, dev)
-            self._window_shape = (window,)
-            self.sources = [
-                WaveStreamBuffer(cfg.frame_shift, cfg.frame_length, left,
-                                 right, downsampling, step_frames)
-                for _ in range(num_streams)
-            ]
-        else:
-            featurize = None
-            self._window_shape = (step_frames, self.feat_dim)
-            self.sources = [
-                _FeatureQueue(self._frontend_args, self.feat_dim,
-                              step_frames)
-                for _ in range(num_streams)
-            ]
+            cache, row_axis = model.init_cache(self.rows, dev), 0
+        featurize = (self._featurizer(dev, step_frames)[0]
+                     if self.device_frontend else None)
         zero = torch.zeros((), device=dev)
 
         def step_fn(feats, active, reset, cache):
@@ -224,19 +294,7 @@ class _BatchedStreamEngine:
                     new_cache, cache)
                 return probs, out_cache
 
-        self._step_fn = step_fn
-        self.num_streams = num_streams
-        self.step_frames = step_frames
-        self._reset_mask = np.zeros((num_streams,), bool)
-        self.cache = cache
-        # overflow events beyond the one-result-per-step contract
-        self._event_backlog: List[List[Dict]] = [
-            [] for _ in range(num_streams)
-        ]
-        # every _run() counts here, whichever public path invoked it
-        self.stats = {"dispatches": 0, "rows": 0, "frames": 0,
-                      "dispatch_s": 0.0}
-        return configs
+        return step_fn, cache
 
     # ------------- streaming -------------
 
@@ -378,7 +436,7 @@ class BatchKeywordSpotter(_BatchedStreamEngine):
     ``ckpt_path`` a port ``.pt`` or a JAX-package ``.ckpt`` (a float32
     model whatever ``model.dtype`` says) or an exported artifact
     directory.  Runs on ``device``, CUDA unless the caller asks for the
-    CPU.  ``set_keywords`` must come
+    CPU, or split over a list of devices.  ``set_keywords`` must come
     before the first step with ``device_decode``."""
 
     def __init__(
@@ -413,12 +471,13 @@ class BatchKeywordSpotter(_BatchedStreamEngine):
             score_beam=int(score_beam),
         )
         self._vocab = int(configs["model"]["output_dim"])
-        self._kw_arrays = None
+        self._kw_arrays = None  # one tuple a device
         self._kw_names: List[str] = []
-        self._dstate = None
+        self._dstates = None  # one decode state a device
         if device_decode:
-            self._dstate = init_stream_state(num_streams, path_beam,
-                                             max_prefix, self.device)
+            self._dstates = [init_stream_state(self.rows, path_beam,
+                                               max_prefix, dev)
+                             for dev in self.devices]
 
         self.token_table = read_token(token_path)
         self.lexicon_table = (
@@ -444,12 +503,11 @@ class BatchKeywordSpotter(_BatchedStreamEngine):
         if self.device_decode:
             kw_tok, kw_len, mask, names = make_keyword_arrays(
                 tables[0], self._vocab)
-            dev = self.device
-            self._kw_arrays = (
+            self._kw_arrays = [(
                 torch.as_tensor(kw_tok, dtype=torch.int64, device=dev),
                 torch.as_tensor(kw_len, dtype=torch.int64, device=dev),
                 torch.as_tensor(mask, device=dev),
-            )
+            ) for dev in self.devices]
             self._kw_names = names
 
     # ------------- streaming -------------
@@ -459,7 +517,7 @@ class BatchKeywordSpotter(_BatchedStreamEngine):
         if self.device_decode:
             return self._run_device(ready, feats, active, reset, tvalid)
         probs, self.cache = self._step_fn(feats, active, reset, self.cache)
-        probs = probs.cpu().numpy()  # (N, T, V)
+        probs = _host_rows(probs)  # (N, T, V)
         results: Dict[int, Dict] = {}
         for i in ready:
             k = tvalid[i]
@@ -469,26 +527,31 @@ class BatchKeywordSpotter(_BatchedStreamEngine):
 
     def _combined_fn(self, feats, active, reset, t0, lens):
         """The model step and ``stream_detect_step`` in one function;
-        returns the packed ``(5, N)`` float32 events (fired, keyword,
-        start, end, score; frame indices are below 2**24, exact in
-        float32)."""
-        dev = self.device
-        active = torch.as_tensor(active, device=dev)
-        reset = torch.as_tensor(reset, device=dev)
+        returns the packed ``(5, rows)`` float32 events of each device
+        (fired, keyword, start, end, score; frame indices are below
+        2**24, exact in float32), every device's work enqueued first."""
         probs, self.cache = self._step_fn(feats, active, reset, self.cache)
-        with torch.inference_mode():
-            self._dstate, events = stream_detect_step(
-                self._dstate, probs, active, reset,
-                torch.as_tensor(t0, device=dev),
-                *self._kw_arrays, lengths=torch.as_tensor(lens, device=dev),
-                **self._fsm)
-            return torch.stack([
-                events["fired"].to(torch.float32),
-                events["kw"].to(torch.float32),
-                events["start"].to(torch.float32),
-                events["end"].to(torch.float32),
-                events["score"],
-            ])
+        blocks = [probs] if isinstance(probs, torch.Tensor) else probs
+        out = []
+        for j, (dev, p) in enumerate(zip(self.devices, blocks)):
+            rows = slice(j * self.rows, (j + 1) * self.rows)
+            with torch.inference_mode():
+                self._dstates[j], events = stream_detect_step(
+                    self._dstates[j], p,
+                    torch.as_tensor(active[rows], device=dev),
+                    torch.as_tensor(reset[rows], device=dev),
+                    torch.as_tensor(t0[rows], device=dev),
+                    *self._kw_arrays[j],
+                    lengths=torch.as_tensor(lens[rows], device=dev),
+                    **self._fsm)
+                out.append(torch.stack([
+                    events["fired"].to(torch.float32),
+                    events["kw"].to(torch.float32),
+                    events["start"].to(torch.float32),
+                    events["end"].to(torch.float32),
+                    events["score"],
+                ]))
+        return out
 
     def _run_device(self, ready, feats, active, reset,
                     tvalid) -> Dict[int, Dict]:
@@ -504,7 +567,8 @@ class BatchKeywordSpotter(_BatchedStreamEngine):
         for i in ready:
             t0[i] = self._first_idx(i)
             lens[i] = tvalid[i]
-        ev = self._combined_fn(feats, active, reset, t0, lens).cpu().numpy()
+        ev = np.concatenate([e.cpu().numpy() for e in self._combined_fn(
+            feats, active, reset, t0, lens)], axis=1)
 
         results: Dict[int, Dict] = {}
         res = self.resolution
@@ -539,7 +603,7 @@ class BatchMaxPoolSpotter(_BatchedStreamEngine):
     a YAML path; ``ckpt_path`` a port ``.pt`` or a JAX-package ``.ckpt``
     (a float32 model whatever ``model.dtype`` says) or an exported
     artifact directory.  Runs on ``device``, CUDA unless the caller asks
-    for the CPU."""
+    for the CPU, or split over a list of devices."""
 
     def __init__(
         self,
@@ -571,7 +635,7 @@ class BatchMaxPoolSpotter(_BatchedStreamEngine):
     def _dispatch(self, ready, t, feats, active, reset,
                   tvalid) -> Dict[int, Dict]:
         probs, self.cache = self._step_fn(feats, active, reset, self.cache)
-        probs = probs.cpu().numpy()  # (N, T, K)
+        probs = _host_rows(probs)  # (N, T, K)
 
         results: Dict[int, Dict] = {}
         for i in ready:

@@ -6,18 +6,26 @@ loop with loss/acc accumulation over the host pipeline's batches.  A
 epoch); any other iterable of numpy batch dicts (a ``Dataset``, a list)
 is run ahead of the device by the thread ``Prefetcher``.  cv counts
 exactly: fill rows (``valid`` 0) and non-finite losses are left out.
-One card: no mesh, no padding to a device multiple.
 
 ``train_resident`` and ``cv_resident`` run epochs over a corpus staged
 on the device (``data/resident.py``): one upload of the epoch's
 (steps, B) row indices, then each step gathers its rows on the device.
+
+Under data parallelism (``parallel/mesh.py``) each rank runs these
+loops on its own rows: the host pipeline's batches come from its shard
+of the list (the bucket schedule keeps the ranks' shapes and batch
+counts in lockstep), a resident step takes the rank's slice of each
+global index row, and cv's three sums and the epoch's audio seconds are
+all-reduced once an epoch, so every rank logs the global figures and
+the same cv loss.  As in the JAX package, ``decode_acc`` runs only with
+one process.
 """
 
 import json
 import logging
 import os
 import time
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +34,12 @@ from wekws_tpu_torch.data.loader import DataLoader
 from wekws_tpu_torch.data.prefetch import Prefetcher
 from wekws_tpu_torch.data.resident import gather_rows
 from wekws_tpu_torch.decode.accuracy import acc_utterance
+from wekws_tpu_torch.parallel.mesh import (
+    all_reduce_sum,
+    is_distributed,
+    process_count,
+    process_index,
+)
 
 # the early steps ``profile_dir`` traces: [start, stop)
 PROFILE_STEPS = (3, 9)
@@ -103,6 +117,15 @@ class Executor:
             " SKIPPED(non-finite)" if m["skipped"] else "",
         )
 
+    def _summed(self, *values: float) -> List[float]:
+        """``values`` summed over every rank (as they are without a
+        process group)."""
+        if not is_distributed():
+            return list(values)
+        out = all_reduce_sum(torch.tensor(values, dtype=torch.float64,
+                                          device=self.trainer.device))
+        return out.cpu().tolist()
+
     def _summary(self, epoch: int, lr: float, losses: list, accs: list,
                  n_batches: int, audio_seconds: float,
                  start: float) -> Dict[str, float]:
@@ -129,6 +152,7 @@ class Executor:
             if idx % self.log_interval == 0:
                 self._log_batch(epoch, idx, metrics, lr, losses, accs)
         self._sync()
+        audio_seconds, = self._summed(audio_seconds)
         return state, self._summary(epoch, lr, losses, accs, n_batches,
                                     audio_seconds, start)
 
@@ -140,12 +164,17 @@ class Executor:
         gathers its rows on the device and runs ``Trainer.train_step``.
         The order is ``Random(epoch)``, the host pipeline's
         ``DataList`` order; the tail that fills no batch is dropped.
+        Under data parallelism ``batch_size`` is the global batch, as in
+        the JAX package's resident mode (its host-fed batch size is per
+        process): the index rows run over the global corpus and rank r
+        trains on columns ``[r B / W, (r + 1) B / W)`` of each.
 
         Metrics are read from the device every ``log_interval`` steps
         (when the epoch has that many) and once at its end."""
         epoch_idx = corpus.epoch_index(epoch, batch_size)
         steps = epoch_idx.shape[0]
-        idx_dev = torch.from_numpy(epoch_idx).to(self.trainer.device)
+        idx_dev = torch.from_numpy(rank_columns(epoch_idx)).to(
+            self.trainer.device)
         audio_seconds = float(corpus.host_wave_lengths[epoch_idx].sum()) \
             / corpus.sample_rate
         losses, accs = [], []
@@ -171,6 +200,7 @@ class Executor:
         batches as ``cv_decode_acc``."""
         total_loss, total_correct, total_utts = 0.0, 0.0, 0
         decode_hits = []
+        decode_acc = decode_acc and process_count() == 1
         step = self.trainer.cv_step_full if decode_acc else \
             self.trainer.cv_step
         for batch in self._iterate(dataset):
@@ -190,9 +220,11 @@ class Executor:
         return self._cv_result(epoch, total_loss, total_correct,
                                total_utts, extra)
 
-    @staticmethod
-    def _cv_result(epoch: int, total_loss: float, total_correct: float,
+    def _cv_result(self, epoch: int, total_loss: float, total_correct: float,
                    total_utts: int, extra: Dict) -> Dict[str, float]:
+        total_loss, total_correct, total_utts = self._summed(
+            total_loss, total_correct, total_utts)
+        total_utts = int(total_utts)
         result = {
             "cv_loss": total_loss / max(total_utts, 1),
             "cv_acc": total_correct / max(total_utts, 1),
@@ -208,10 +240,12 @@ class Executor:
         """Validation over a staged corpus in list order, with ``cv``'s
         accumulation: the last batch is padded with row 0 and those
         slots' validity zeroed, so every row counts once.  The batches'
-        sums stay on the device until the last batch."""
+        sums stay on the device until the last batch.  Under data
+        parallelism each rank takes its columns of each batch, as
+        ``train_resident`` does."""
         idx, ok = corpus.cv_index(batch_size)
-        idx_dev = torch.from_numpy(idx).to(self.trainer.device)
-        ok_dev = torch.from_numpy(ok).to(self.trainer.device)
+        idx_dev = torch.from_numpy(rank_columns(idx)).to(self.trainer.device)
+        ok_dev = torch.from_numpy(rank_columns(ok)).to(self.trainer.device)
         outs = [self.trainer.cv_step(state, gather_rows(corpus.arrays, i, o))
                 for i, o in zip(idx_dev, ok_dev)]
         sums = torch.stack([torch.stack([o["loss_sum"], o["correct_sum"],
@@ -228,3 +262,18 @@ class Executor:
              epoch: int = 0) -> Dict[str, float]:
         """Test-set evaluation, the same accumulation as cv."""
         return self.cv(state, dataset, epoch)
+
+
+def rank_columns(rows: np.ndarray, rank: Optional[int] = None,
+                 world: Optional[int] = None) -> np.ndarray:
+    """Rank ``rank``'s columns of a (steps, B) matrix of the global batch
+    (default: this process of its group): ``[r B / W, (r + 1) B / W)``;
+    all of it without a process group."""
+    rank = process_index() if rank is None else rank
+    world = process_count() if world is None else world
+    b = rows.shape[1]
+    if b % world:
+        raise ValueError(f"the global batch of {b} rows does not split "
+                         f"over {world} processes")
+    part = b // world
+    return np.ascontiguousarray(rows[:, rank * part:(rank + 1) * part])

@@ -19,6 +19,18 @@ step instead).  No host synchronisation happens inside a step.
 The per-step randomness (dither, spec_aug) comes from a generator on
 the device seeded from ``(seed, step)``, the counterpart of
 ``fold_in(rng, step)``.
+
+Under data parallelism (a process group initialised,
+``parallel/mesh.py``) every rank runs this step on its rows of one
+global batch and the ranks compute the JAX package's step on the whole
+of it: ``init_state`` broadcasts rank 0's parameters and buffers, the
+BatchNorm statistics are all-reduced where they are taken, the loss of
+each rank divides its rows' sum by the global ``valid`` count (a batch
+without ``valid`` counts every row), and ``train_step`` all-reduces the
+gradients, the loss and the accuracy as one flat buffer before
+``ClipAdam.step``: every rank then sees the same norm, skip and update.
+The step generator folds the rank in (rank 0 draws what one process
+draws), so the ranks' rows get their own dither and spec_aug.
 """
 
 from dataclasses import dataclass
@@ -29,6 +41,13 @@ import torch
 from wekws_tpu_torch.data.device_pipeline import DeviceFeaturePipeline
 from wekws_tpu_torch.device import resolve_device
 from wekws_tpu_torch.losses import criterion, criterion_per_utt
+from wekws_tpu_torch.parallel.mesh import (
+    all_reduce_sum,
+    broadcast_,
+    fold_rank,
+    is_distributed,
+    process_index,
+)
 
 
 class ClipAdam:
@@ -96,6 +115,26 @@ def make_optimizer(params, grad_clip: float = 5.0,
     return ClipAdam(params, grad_clip, weight_decay)
 
 
+def sum_grads(params: List[torch.Tensor],
+              *metrics: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """All-reduce every ``p.grad`` (None counts as zero) and the 0-dim
+    ``metrics`` as one flat buffer; the gradients are written back in
+    place and the summed metrics returned."""
+    flat = torch.cat([
+        (p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+        for p in params] + [m.reshape(1) for m in metrics])
+    flat = all_reduce_sum(flat)
+    at = 0
+    for p in params:
+        g = flat[at:at + p.numel()].view_as(p)
+        if p.grad is None:
+            p.grad = g.clone()
+        else:
+            p.grad.copy_(g)
+        at += p.numel()
+    return tuple(flat[at:])
+
+
 @dataclass
 class TrainState:
     """The model (parameters and BN buffers, on the device), the
@@ -106,10 +145,13 @@ class TrainState:
     optimizer: ClipAdam
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
-    """Generator for one step's dither and spec_aug draws."""
+def step_generator(seed: int, step: int, device,
+                   rank: int = 0) -> torch.Generator:
+    """Generator for one step's dither and spec_aug draws on ``rank``
+    (rank 0's is the one-process generator)."""
     gen = torch.Generator(device=device)
-    gen.manual_seed((int(seed) * 1000003 + int(step)) % (2 ** 63))
+    gen.manual_seed(fold_rank((int(seed) * 1000003 + int(step)) % (2 ** 63),
+                              rank))
     return gen
 
 
@@ -139,6 +181,13 @@ class Trainer:
         self.min_duration = min_duration
 
     def init_state(self) -> TrainState:
+        """Fresh optimizer state; under data parallelism every rank
+        takes rank 0's parameters and buffers first."""
+        if is_distributed():
+            with torch.no_grad():
+                for t in list(self.model.parameters()) + list(
+                        self.model.buffers()):
+                    broadcast_(t.data)
         params = [p for p in self.model.parameters() if p.requires_grad]
         return TrainState(step=0, model=self.model,
                           optimizer=make_optimizer(params, self.grad_clip,
@@ -165,17 +214,25 @@ class Trainer:
 
     def loss_and_grads(self, state: TrainState, batch: Dict, seed: int):
         """Forward in training mode and backward: fills ``p.grad`` and
-        updates the BN running statistics.  Returns (loss, acc)."""
+        updates the BN running statistics.  Returns (loss, acc).  Under
+        data parallelism the gradients, loss and accuracy are this
+        rank's parts of the global batch's (``train_step`` sums them)."""
         model = state.model
         model.train()
         b = self._tensors(batch)
-        gen = step_generator(seed, state.step, self.device)
+        valid, total = b["valid"], None
+        if is_distributed():
+            if valid is None:
+                valid = torch.ones(b["waves"].shape[0], device=self.device)
+            total = all_reduce_sum(valid.sum())
+        gen = step_generator(seed, state.step, self.device, process_index())
         feats, feat_lengths = self.pipeline(b["waves"], b["wave_lengths"],
                                             generator=gen)
         logits, _ = model(feats, lengths=feat_lengths)
         loss, acc = criterion(self.criterion_type, logits, b["target"],
                               feat_lengths, b["target_lengths"],
-                              self.min_duration, valid=b["valid"])
+                              self.min_duration, valid=valid,
+                              valid_total=total)
         model.zero_grad(set_to_none=True)
         loss.backward()
         return loss.detach(), acc.detach()
@@ -187,6 +244,8 @@ class Trainer:
         waves, wave_lengths, target, optional target_lengths/valid).
         Metrics are 0-dim tensors on the device."""
         loss, acc = self.loss_and_grads(state, batch, seed)
+        if is_distributed():
+            loss, acc = sum_grads(state.optimizer.params, loss, acc)
         grad_norm, skipped = state.optimizer.step(learning_rate)
         state.step += 1
         return state, {"loss": loss, "acc": acc, "grad_norm": grad_norm,
