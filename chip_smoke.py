@@ -293,11 +293,42 @@ phases; any failure exits non-zero:
     (``path_i_launches``, ``path_i``); the figures are one JSON line
     (``path_i_figures``).
 
-The last lines are the card, the per-kernel JSON record (13 kernels)
-and ``{"ok": true, "device": {...}}``.  Run from the repository root:
-``python3 chip_smoke.py``; ``python3 chip_smoke.py --phase 20`` runs
-phases 1-2 and path I alone (phase 4's checkpoint and phase 7's model
-config made from their seeds).
+21. path J, the training knobs (ROADMAP A.15), in a fresh process:
+    (a) the bf16-operand variants of F2, F3, B2 and B3 (``f2_bf16_kernel``
+    .. ``b3_bf16_kernel``) against their bf16 plain versions
+    (``compare_pass`` at bf16), launched twice (bitwise equal), at B=512 x
+    T=198 x C=64, dilations 1, 2, 4, 8, and at C = 32 and 128 (B=64), each
+    beside its control (the plain version with float32 operands, which must
+    fail that check); at the main shape each one's time, device time, plain
+    time, the float32 kernel's time and the bound; (b) the flagship B=512 x
+    2 s at bench.py's default (``dtype: bfloat16``, ``bn_dtype: bfloat16``)
+    by the module route and with ``fused_train``, beside the float32 fused
+    step, three steps each from one seeded state (losses finite, parameters
+    and gradients float32, no plain version on a CUDA tensor; the bf16 fused
+    route launches the four variants and F1, F4, B1, B4 17 times a step and
+    no float32 F2, F3, B2, B3; the module route nothing), step-0 gradients
+    against float64 and the routes against each other (two planted faults
+    must fail that check), each route's step time, thread CPU time, idle
+    bounds and peak memory; (c) ``remat: true`` against ``remat:
+    false`` on both routes (loss, gradients, running statistics,
+    ``num_batches_tracked``; the fused forward passes twice; peak
+    memory); (d) ``ghost_bn: 4`` (no F/B pass launched; the running
+    statistics against the ghost-BN formula in float64); (e) the
+    FSMN-CTC at bench.py's CTC width at bf16, B=256 x 2 s, three steps
+    and the step figures beside float32, ``bin.train`` one epoch of
+    ``examples/synthetic_ctc`` with its own bf16 ``conf/fsmn_ctc.yaml``
+    and ``bin.score_ctc`` of that checkpoint through
+    ``fused_fsmn_kernel``.  The four variants join the kernel record;
+    path J's other launches are added to their kernels' records
+    (``path_j_launches``); the figures are one JSON line
+    (``path_j_figures``).
+
+The last lines are the card, the per-kernel JSON record (17 kernels:
+the 13 and the four bf16 variants) and ``{"ok": true, "device":
+{...}}``.  Run from the repository root: ``python3 chip_smoke.py``;
+``python3 chip_smoke.py --phase 20`` runs phases 1-2 and path I alone
+(phase 4's checkpoint and phase 7's model config made from their
+seeds), ``--phase 21`` phases 1-2 and path J alone.
 """
 
 import copy
@@ -350,6 +381,10 @@ TRAIN_STEPS_PLAIN, TRAIN_STEPS_AUG = 5, 2
 # block's largest |grad| here (1.1e-2 on the CPU at B=8); a wrong
 # kernel is off by the order of the gradient itself
 GRAD64_TOL = 2e-2
+# a parameter's gradient whose reference reaches this share of its
+# group's largest |grad| is settled (``group_share``'s cosine); the
+# cancelling biases read 1e-3 of it or less, the least of the rest 0.09
+SETTLED_SHARE = 1e-2
 # |pre-activation| of the block's residual ReLU below which fp32 rounding
 # may put an element on the kink's other side in the fused route than in
 # the unfused one (phase 6: the upstream gradient is zero there)
@@ -360,7 +395,8 @@ TRAIN_PASSES = ("f1", "f2", "f3", "f4", "b1", "b2", "b3", "b4")
 # registers and spills by name
 REDESIGNED_KERNELS = ("f1_tile_kernel", "f2_kernel", "f3_kernel",
                       "b1_stream_kernel", "b2_kernel", "b3_kernel",
-                      "b4_kernel")
+                      "b4_kernel", "f2_bf16_kernel", "f3_bf16_kernel",
+                      "b2_bf16_kernel", "b3_bf16_kernel")
 KEYWORD = "HI"
 DS_TCN_MODEL_CONF = {  # examples/hey_snips/conf/ds_tcn.yaml
     "input_dim": 40, "output_dim": 1, "hidden_dim": CHANNELS,
@@ -994,35 +1030,58 @@ def grad_groups(model):
     return groups
 
 
-def worst_grad_share(model, ref, route):
-    """Each group's gradients against float64 (``ref``: the groups of
-    ``float64_grads``), within GRAD64_TOL x the group's own largest
-    |grad| (a small absolute floor for a group near zero), so that a
-    wrong block cannot hide under the head's gradients.  Returns the
-    worst (share of that scale, group, parameter) and the mean of the
-    groups' worst shares, which moves less with where rounding lands."""
+def group_share(model, got, want, tol, what):
+    """Gradient dicts ({parameter name of ``model``: tensor}): ``got``
+    against ``want``, each group of ``grad_groups`` (a TCNBlock, or
+    another tensor) within ``tol`` x the group's own largest |grad| (a
+    small absolute floor for a group near zero), so that a wrong block
+    cannot hide under the head's gradients.  Returns the worst (share of
+    that scale, group, parameter), the mean of the groups' worst shares,
+    which moves less with where rounding lands, and the least (cosine,
+    group, parameter) of a settled parameter's gradient with its
+    reference: one whose reference reaches SETTLED_SHARE of its group's
+    scale (the biases that a BatchNorm follows are sums that cancel to
+    rounding, and are left out).  A dropped or swapped gradient reads
+    a cosine near 0."""
     from wekws_tpu_torch.ops.fused_mdtc_train import compare_sums
 
-    worst, shares = (0.0, "", ""), []
-    for gname, got in grad_groups(model).items():
-        wants = {k: p.grad.float() for k, p in ref[gname].items()}
-        compare_sums(f"step-0 grads {route} {gname} vs float64",
-                     [p.grad for p in got.values()], list(wants.values()),
-                     floor=1e-6, tol=GRAD64_TOL)
-        scale = max([float(w.abs().max()) for w in wants.values()] + [1e-6])
+    names = {id(p): n for n, p in model.named_parameters()}
+    worst, shares, cos = (0.0, "", ""), [], (1.0, "", "")
+    for gname, members in grad_groups(model).items():
+        keys = {local: names[id(p)] for local, p in members.items()}
+        gots = [got[key].float() for key in keys.values()]
+        wants = [want[key].float() for key in keys.values()]
+        compare_sums(f"step-0 grads {what} {gname}", gots, wants,
+                     floor=1e-6, tol=tol)
+        scale = max([float(w.abs().max()) for w in wants] + [1e-6])
         shares.append(0.0)
-        for pname, prm in got.items():
-            share = float((prm.grad - wants[pname]).abs().max()) / scale
+        for local, g, w in zip(keys, gots, wants):
+            share = float((g - w).abs().max()) / scale
             shares[-1] = max(shares[-1], share)
             if share > worst[0]:
-                worst = (share, gname, pname)
-    return worst, sum(shares) / len(shares)
+                worst = (share, gname, local)
+            if float(w.abs().max()) >= SETTLED_SHARE * scale:
+                c = float((g * w).sum()) / max(
+                    float(g.norm() * w.norm()), 1e-30)
+                if c < cos[0]:
+                    cos = (c, gname, local)
+    return worst, sum(shares) / len(shares), cos
+
+
+def worst_grad_share(model, ref, route):
+    """``group_share`` of ``model``'s gradients against float64 (``ref``:
+    the groups of ``float64_grads``) within GRAD64_TOL."""
+    got = {n: p.grad for n, p in model.named_parameters()}
+    want = {f"{g}.{local}" if local else g: p.grad
+            for g, members in ref.items() for local, p in members.items()}
+    return group_share(model, got, want, GRAD64_TOL, f"{route} vs float64")
 
 
 def share_text(found):
-    (share, group, param), mean = found
+    (share, group, param), mean, (cos, cgroup, cparam) = found
     return (f"{share:.2e} ({group}{'.' + param if param else ''}; mean "
-            f"{mean:.2e})")
+            f"{mean:.2e}; least cosine {cos:.4f} at "
+            f"{cgroup}{'.' + cparam if cparam else ''})")
 
 
 def train_batch(rng):
@@ -5534,25 +5593,41 @@ def path_g_child(model_conf, specs, device="cuda"):
         "aug_alone": aug_alone, "device_ms": device_ms}), flush=True)
 
 
-def run_child(call, args, tag):
-    """``chip_smoke.<call>(*args)`` in a fresh process; returns the JSON
-    of its last line that starts with ``tag``.  Late in this process the
-    profiler's trace loses records (a probe after each phase found some
-    copies from the host missing after phase 13, all of them after phase
-    15, and kernels too), so the traces read after phase 13 are taken
-    where nothing ran before."""
+def run_child(call, args, tag, timeout_s=600):
+    """``chip_smoke.<call>(*args)`` in a fresh process, its output passed
+    on line by line; returns the JSON of its last line that starts with
+    ``tag``.  Late in this process the profiler's trace loses records (a
+    probe after each phase found some copies from the host missing after
+    phase 13, all of them after phase 15, and kernels too), so the
+    traces read after phase 13 are taken where nothing ran before."""
+    import tempfile
+
     here = os.path.dirname(os.path.abspath(__file__))
-    proc = subprocess.run(
-        [sys.executable, "-c", "import json, sys, chip_smoke; "
-         f"chip_smoke.{call}(*json.loads(sys.argv[1]))",
-         json.dumps(args)], cwd=here, capture_output=True, text=True,
-        timeout=600)
-    lines = [ln for ln in proc.stdout.splitlines()
-             if ln.startswith(f"{tag} ")]
-    if proc.returncode != 0 or not lines:
-        raise AssertionError(f"{call}'s trace process failed "
-                             f"({proc.returncode}): {proc.stderr[-3000:]}")
-    return json.loads(lines[-1][len(tag) + 1:])
+    found = None
+    # the child's stderr (its logging) goes to a file, so that no line of
+    # it can land inside a stdout line
+    with tempfile.TemporaryFile("w+") as err, TimeLimit(timeout_s, call):
+        proc = subprocess.Popen(
+            [sys.executable, "-c", "import json, sys, chip_smoke; "
+             f"chip_smoke.{call}(*json.loads(sys.argv[1]))",
+             json.dumps(args)], cwd=here, stdout=subprocess.PIPE,
+            stderr=err, text=True)
+        try:
+            for line in proc.stdout:
+                if line.startswith(f"{tag} "):
+                    found = json.loads(line[len(tag) + 1:])
+                else:
+                    print(line, end="", flush=True)
+            code = proc.wait()
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if code != 0 or found is None:
+            err.seek(0)
+            raise AssertionError(f"{call} failed in its process ({code}): "
+                                 f"{err.read()[-3000:]}")
+    return found
 
 
 def traced_idle(step):
@@ -5672,6 +5747,8 @@ def path_g_traces(model_conf, specs):
 
 def pass_shape(name, args):
     b, t, c = args[0].shape
+    if isinstance(args[-1], str):  # a bf16 call's trailing precision
+        args = args[:-1]
     d = args[PASS_DILATION_ARG[name]] if name in PASS_DILATION_ARG else 1
     return f"B={b} T={t} C={c} d={int(d)}"
 
@@ -5718,7 +5795,7 @@ def pass_rel_err(got, want):
     want = want if isinstance(want, tuple) else (want,)
     rel, sums = [], []
     for a, b in zip(got, want):
-        err = float((a - b).abs().max())
+        err = float((a.float() - b.float()).abs().max())
         if b.dim() == 3:
             rel.append(err / max(float(b.abs().max()), 1e-30))
         else:
@@ -7851,6 +7928,749 @@ def merge_path_i(record, launches, readings):
             [rows[name]["max_abs_err"]] + [r["max_abs_err"] for r in rs])
 
 
+# ---------------------------------------------------------------------------
+# phase 21, path J: the training knobs (ROADMAP A.15)
+# ---------------------------------------------------------------------------
+
+PEAK_BF16_FLOPS = 989e12  # tensor cores, dense
+# 21a: the main path's shape at each of the flagship's dilations, and
+# C = 32 and 128 at a smaller batch
+PATH_J_CASES = ([(TRAIN_B, 198, 64, d) for d in (1, 2, 4, 8)]
+                + [(64, 198, 32, 8), (64, 198, 128, 8)])
+PATH_J_STEPS = 3
+PATH_J_DATASET = dict(TRAIN_DATASET_CONF, spec_aug=False, fbank_conf=dict(
+    TRAIN_DATASET_CONF["fbank_conf"], dither=0.0))
+# Step-0 gradients of the flagship at bf16, each group's worst share of
+# its own largest |grad| (``group_share``), the mean over the groups of
+# that share, and the least cosine of a settled parameter's gradient
+# with its reference: the two bf16 routes against each other, each
+# against the float32 fused step and against float64.  A gradient that
+# BN follows is a sum whose terms cancel, and rounding its terms to bf16
+# leaves noise of the sum's own size (the depthwise kernels' worst).
+# On the H100 at B=512 the sound routes read worst shares up to 0.41 and
+# means up to 0.23, so the bounds are about twice that; the cosine bound
+# sits at twice the sound routes' 1 - cosine (least 0.879).  A dropped
+# or swapped gradient reads a cosine near 0 (21b plants both).
+BF16_ROUTES_TOL = BF16_VS_F32_TOL = BF16_GRAD64_TOL = 0.8
+BF16_MEAN_TOL = 0.45
+BF16_COS_TOL = 0.75
+# remat against no remat: the same operations recomputed, float32
+# round-off at most (each group's share, the losses relative)
+REMAT_TOL = 1e-5
+GHOST_GROUPS = 4
+# 21d: the ghost-BN running statistics against the formula in float64
+# on the same BN inputs (the mean against the largest standard
+# deviation, the variance against its largest)
+GHOST_STAT_TOL = 1e-5
+
+
+def bf16_pass_bound_ms(name, b, t, c, k):
+    """Least time on an H100 for one bf16 variant (F2, F3, B2 or B3):
+    ``train_pass_bound_ms``'s count with r moved as bf16 (F3 writes it,
+    B2 and B3 read it: half the bytes) and the C x C products at the
+    bf16 tensor-core peak, the elementwise work at the fp32 peak.  At
+    the main shape all four are bound by bytes."""
+    n = b * t
+    act = 4 * n * c
+    w = 4 * c * c
+    elementwise = {"f2": c * (2 * k + 2) + 4 * c,
+                   "f3": c * (2 * k + 2) + 11 * c,
+                   "b2": 20 * c, "b3": c * (2 * k + 30)}[name]
+    products = {"f2": 2, "f3": 4, "b2": 4, "b3": 8}[name] * c * c
+    nbytes = {"f2": act + w, "f3": 2.5 * act + 2 * w,
+              "b2": 3.5 * act + 2 * w, "b3": 4.5 * act + 3 * w}[name]
+    t_ops = (n * elementwise / PEAK_FP32_FLOPS
+             + n * products / PEAK_BF16_FLOPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def bf16_readings(got, want):
+    """(the sums' largest error over their group's largest |value|, at
+    least 1, as ``compare_sums`` scales it; the largest ``off_share`` of
+    a (B, T, C) output) of a pass's outputs against its plain
+    version's."""
+    from wekws_tpu_torch.ops.fused_mdtc_train import off_share
+
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    sums = [(float((a.float() - b.float()).abs().max()), float(b.abs().max()))
+            for a, b in zip(got, want) if b.dim() != 3]
+    sum_share = (max(e for e, _ in sums) / max([m for _, m in sums] + [1.0])
+                 if sums else 0.0)
+    return sum_share, max([off_share(a, b) for a, b in zip(got, want)
+                           if b.dim() == 3] + [0.0])
+
+
+def phase21a_variants(dev, card, gen):
+    """21a: the bf16 variants of F2, F3, B2 and B3 against their bf16
+    plain versions on identical inputs (``compare_pass`` at bf16), each
+    launched twice (bitwise equal), at PATH_J_CASES, with the control
+    that shows the check can fail: the plain version with float32
+    operands on the same inputs must fail ``compare_pass`` at bf16 (F2
+    and B2 by their sums, F3 and B3 by their off share too).  At the main
+    shape (dilation 8) each variant's time per call (CUDA events, median
+    of 30), its device time with its reduction (profiler), the plain
+    version's, the float32 kernel's on the float32 inputs of the same
+    block, and the bound.  Returns {pass: reading}."""
+    import torch
+
+    from wekws_tpu_torch.ops.fused_mdtc_train import (
+        BF16_PASSES,
+        BF16_SUM_TOL,
+        PASS_IDS,
+        PASSES,
+        compare_pass,
+        kernel_name,
+        seeded_block_inputs,
+        trace_pass_inputs,
+    )
+
+    errs = dict.fromkeys(BF16_PASSES, 0.0)
+    shares = dict.fromkeys(BF16_PASSES, 0.0)
+    # the variants' largest (sum share, off share), the controls' least
+    seen = {n: [0.0, 0.0] for n in BF16_PASSES}
+    control = {n: [np.inf, np.inf] for n in BF16_PASSES}
+    k, main = 5, None
+    for b, t, c, d in PATH_J_CASES:
+        p, x, dy = seeded_block_inputs(gen, b, t, c, k, dev)
+        calls = trace_pass_inputs(x, p, dy, d, precision="bfloat16")
+        for name in BF16_PASSES:
+            args = calls[name]
+            got = PASSES[name](*args)
+            again = PASSES[name](*args)
+            torch.cuda.synchronize()
+            want = PASSES[name].plain(*args)
+            tag = f"21a {name} bf16 B={b} T={t} C={c} d={d}"
+            errs[name] = max(errs[name], compare_pass(
+                tag, got, want, "bfloat16", BF16_SUM_TOL[name]))
+            shares[name] = max(shares[name], pass_rel_err(got, want))
+            seen[name] = [max(u, v) for u, v in
+                          zip(seen[name], bf16_readings(got, want))]
+            unrounded = PASSES[name].plain(*args[:-1], "float32")
+            unrounded = tuple(
+                u.to(w.dtype) for u, w in zip(
+                    unrounded if isinstance(unrounded, tuple)
+                    else (unrounded,),
+                    want if isinstance(want, tuple) else (want,)))
+            control[name] = [min(u, v) for u, v in zip(
+                control[name], bf16_readings(unrounded, want))]
+            try:
+                compare_pass(f"{tag} control", unrounded, want, "bfloat16",
+                             BF16_SUM_TOL[name])
+            except AssertionError:
+                pass
+            else:
+                raise AssertionError(f"{tag}: the plain version with float32 "
+                                     f"operands passes the bf16 check")
+            got = got if isinstance(got, tuple) else (got,)
+            again = again if isinstance(again, tuple) else (again,)
+            if not all(torch.equal(u, v) for u, v in zip(got, again)):
+                raise AssertionError(f"21a {name} bf16: two launches differ")
+        if (b, c, d) == (TRAIN_B, 64, 8):
+            main = calls, trace_pass_inputs(x, p, dy, d)
+        print(f"  bf16 variants B={b} T={t} C={c} d={d}: "
+              + ", ".join(f"{n} {errs[n]:.2e} ({shares[n]:.1e} of its "
+                          f"scale; sums {seen[n][0]:.1e}, off share "
+                          f"{seen[n][1]:.1e})" for n in BF16_PASSES)
+              + " (running max; bitwise reproducible); the float32-operand "
+              "control, running min: "
+              + ", ".join(f"{n} sums {control[n][0]:.1e}, off share "
+                          f"{control[n][1]:.1e}" for n in BF16_PASSES)
+              + " (each fails the check)", flush=True)
+
+    calls, f32_calls = main
+    b, t, c = TRAIN_B, 198, 64
+    readings = {}
+    for name in BF16_PASSES:
+        def kern(args=calls[name], fn=PASSES[name]):
+            return fn(*args)
+
+        def plain(args=calls[name], fn=PASSES[name].plain):
+            return fn(*args)
+
+        ms, plain_ms = kernel_vs_plain_ms(kern, plain)
+        f32_ms = cuda_time_ms(lambda a=f32_calls[name], fn=PASSES[name]:
+                              fn(*a))
+        kname = kernel_name(name, c, "bfloat16")
+        red = f"reduce_kernel<{PASS_IDS[name]}>"
+        _, _, found = profiled_step(lambda: [kern() for _ in range(20)],
+                                    (kname, red))
+        device_ms = (None if found[kname] is None or found[red] is None
+                     else found[kname] + found[red])
+        bound, bound_by = bf16_pass_bound_ms(name, b, t, c, k)
+        dev_txt = ("not measured" if device_ms is None
+                   else f"{device_ms:.4f} ms with its reduction")
+        print(f"  fused_train_{name}_bf16 ({kname}) B={b} T={t} d=8: kernel "
+              f"{ms:.4f} ms per call (device {dev_txt}), plain "
+              f"{plain_ms:.4f} ms, the float32 kernel {f32_ms:.4f} ms on the "
+              f"same block's float32 inputs, bound {bound:.5f} ms "
+              f"({bound_by}); library: none [{card}]", flush=True)
+        readings[name] = {"ms": ms, "plain_ms": plain_ms,
+                          "device_ms": device_ms, "f32_ms": f32_ms,
+                          "bound_ms": bound, "bound_by": bound_by,
+                          "max_abs_err": errs[name],
+                          "max_rel_err": shares[name],
+                          "sum_share": seen[name][0],
+                          "off_share": seen[name][1],
+                          "control_sum_share": control[name][0],
+                          "control_off_share": control[name][1]}
+    return readings
+
+
+def path_j_counts():
+    """{record name: launches} of the training passes (float32 kernels
+    and bf16 variants apart), ``fused_fbank`` and ``fused_fsmn_layers``."""
+    from wekws_tpu_torch.ops.fused_frontend import fused_fbank
+    from wekws_tpu_torch.ops.fused_fsmn import fused_fsmn_layers
+    from wekws_tpu_torch.ops.fused_mdtc_train import BF16_PASSES, PASSES
+
+    counts = {f"fused_train_{n}": PASSES[n].launches for n in TRAIN_PASSES}
+    counts.update({f"fused_train_{n}_bf16": PASSES[n].bf16_launches
+                   for n in BF16_PASSES})
+    counts["fused_fbank"] = fused_fbank.launches
+    counts["fused_fsmn_layers"] = fused_fsmn_layers.launches
+    return counts
+
+
+def zero_path_j_counts():
+    from wekws_tpu_torch.ops.fused_frontend import fused_fbank
+    from wekws_tpu_torch.ops.fused_fsmn import fused_fsmn_layers
+    from wekws_tpu_torch.ops.fused_mdtc_train import reset_launches
+
+    reset_launches()
+    fused_fbank.launches = 0
+    fused_fsmn_layers.launches = 0
+
+
+def grads_of(model):
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def path_j_trainer(conf, state_dict, cvp, dev, dataset_conf=PATH_J_DATASET,
+                   criterion="max_pooling"):
+    """The port's Trainer for ``conf`` holding ``state_dict``."""
+    from wekws_tpu_torch.data import DeviceFeaturePipeline
+    from wekws_tpu_torch.models import init_model
+    from wekws_tpu_torch.train import Trainer
+
+    model = init_model(conf)
+    model.load_state_dict(state_dict)
+    return Trainer(model, DeviceFeaturePipeline.from_conf(dataset_conf), cvp,
+                   criterion, grad_clip=5.0,
+                   min_duration=5 if criterion == "max_pooling" else 0,
+                   device=dev)
+
+
+def step_figures(tag, trainer, state, batch, card, where):
+    """A route's step: host-clock median of 10 (``timed_steps``), this
+    thread's CPU time a step (``host_cpu_ms``), the two idle bounds of
+    one traced step (``traced_idle``, ``idle_share``) and the peak of
+    device memory over one step."""
+    import torch
+
+    def step():
+        trainer.train_step(state, batch, SEED, 1e-3)
+
+    reading = traced_idle(step)
+    cpu_ms = host_cpu_ms(step)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    idle = idle_share(tag, reading, card, where)
+    audio = batch["waves"].shape[0] * batch["waves"].shape[1] / RATE
+    print(f"  {tag}: step {reading['untraced_ms']:.3f} ms (median of 10), "
+          f"{audio / reading['untraced_ms'] * 1e3:.1f} audio-s/s, this "
+          f"thread's CPU {cpu_ms:.3f} ms a step, peak device memory "
+          f"{peak:.1f} MiB [{card}]", flush=True)
+    return dict(reading, thread_cpu_ms=cpu_ms, peak_mib=peak, **idle)
+
+
+def phase21b_flagship(dev, card, where):
+    """21b: the flagship B=512 x 2 s at bench.py's JAX default (``dtype:
+    bfloat16``, ``bn_dtype: bfloat16``) by the module route and with
+    ``fused_train``, beside the float32 fused step, from one seeded
+    state: three steps each (losses finite, parameters and gradients
+    float32, no plain version on a CUDA tensor); the launches of the
+    bf16 fused route's three steps (17 of each pass a step, the bf16
+    variants for F2, F3, B2, B3 and none of their float32 kernels; the
+    module route none); step-0 gradients against float64 and the routes
+    against each other, and two planted faults that must fail that
+    check; each route's step figures.  Returns (its
+    launches, figures, what 21c and 21d reuse)."""
+    import torch
+
+    from wekws_tpu_torch.models import init_model
+    from wekws_tpu_torch.ops.fused_mdtc_train import BF16_PASSES
+
+    conf, batch, cvp, _, _ = flagship_train_conf(dev)
+    f32_unfused = dict(conf, backbone=dict(conf["backbone"],
+                                           fused_train=False))
+    bf16 = dict(conf, dtype="bfloat16", backbone=dict(
+        conf["backbone"], bn_dtype="bfloat16"))
+    routes = {"float32 fused": conf,
+              "bf16 module": dict(bf16, backbone=dict(bf16["backbone"],
+                                                      fused_train=False)),
+              "bf16 fused": bf16}
+    model = init_model(conf, torch.Generator().manual_seed(SEED))
+    with torch.no_grad():  # phase 7's start: a head off the sigmoid's tails
+        model.classifier.linear.weight.mul_(0.01)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    n_blocks = 1 + 4 * 4
+    trainers, states, grads0, losses, launches = {}, {}, {}, {}, {}
+    for route, rconf in routes.items():
+        trainer = path_j_trainer(rconf, start, cvp, dev)
+        state = trainer.init_state()
+        zero_path_j_counts()
+        with PlainOnCuda() as plain:
+            losses[route] = []
+            for step in range(PATH_J_STEPS):
+                state, metrics = trainer.train_step(state, batch, SEED, 1e-3)
+                losses[route].append(float(metrics["loss"]))
+                if step == 0:
+                    grads0[route] = grads_of(state.model)
+            torch.cuda.synchronize()
+        plain.check(f"21b {route}")
+        counts = path_j_counts()
+        launches[route] = {k: v for k, v in counts.items() if v}
+        want = {}
+        if route != "bf16 module":
+            bf = route == "bf16 fused"
+            for name in TRAIN_PASSES:
+                key = (f"fused_train_{name}_bf16" if bf and name in BF16_PASSES
+                       else f"fused_train_{name}")
+                want[key] = n_blocks * PATH_J_STEPS
+        if launches[route] != want:
+            raise AssertionError(f"21b {route}: launches {launches[route]}, "
+                                 f"expected {want}")
+        if not np.isfinite(losses[route]).all():
+            raise AssertionError(f"21b {route}: losses {losses[route]}")
+        if not all(p.dtype == torch.float32 and g.dtype == torch.float32
+                   for p, g in zip(state.model.parameters(),
+                                   grads0[route].values())):
+            raise AssertionError(f"21b {route}: a parameter or gradient is "
+                                 f"not float32")
+        trainers[route], states[route] = trainer, state
+    print(f"  flagship B={TRAIN_B} x {TRAIN_SECONDS} s, {PATH_J_STEPS} "
+          f"steps each from one seeded state: losses "
+          + "; ".join(f"{r} {[round(v, 5) for v in ls]}"
+                      for r, ls in losses.items())
+          + f"; launches of the bf16 fused route {launches['bf16 fused']}, "
+          f"of the bf16 module route none; no plain version on a CUDA "
+          f"tensor [{card}]", flush=True)
+
+    # step 0 against float64 (the float32 unfused model on the same
+    # features) and the routes against each other
+    with torch.no_grad():
+        f0, l0 = trainers["float32 fused"].pipeline(
+            torch.as_tensor(batch["waves"], device=dev),
+            torch.as_tensor(batch["wave_lengths"], device=dev))
+    ref = float64_grads(f32_unfused, start, f0, l0, batch)
+    ref64 = {n: p.grad for n, p in ref.named_parameters()}
+    probe = trainers["bf16 fused"].model
+
+    def held(key, got, want, tol):
+        found = group_share(probe, got, want, tol, key)
+        if "bf16" in key and not (found[1] <= BF16_MEAN_TOL
+                                  and found[2][0] >= BF16_COS_TOL):
+            raise AssertionError(
+                f"21b step-0 gradients {key}: mean share {found[1]:.3f} "
+                f"(bound {BF16_MEAN_TOL}), least cosine {found[2][0]:.4f} "
+                f"at {found[2][1]}.{found[2][2]} (bound {BF16_COS_TOL})")
+        return found
+
+    shares = {}
+    for route in routes:
+        tol = GRAD64_TOL if route.startswith("float32") else BF16_GRAD64_TOL
+        shares[f"{route} vs float64"] = held(
+            f"{route} vs float64", grads0[route], ref64, tol)
+    shares["bf16 module vs bf16 fused"] = held(
+        "bf16 module vs bf16 fused", grads0["bf16 module"],
+        grads0["bf16 fused"], BF16_ROUTES_TOL)
+    for route in ("bf16 module", "bf16 fused"):
+        shares[f"{route} vs float32 fused"] = held(
+            f"{route} vs float32 fused", grads0[route],
+            grads0["float32 fused"], BF16_VS_F32_TOL)
+    print("  step-0 gradients, each group's worst share of its own largest "
+          "|grad| (bounds: float32 vs float64 "
+          f"{GRAD64_TOL}, bf16 vs float64 {BF16_GRAD64_TOL}, bf16 routes "
+          f"{BF16_ROUTES_TOL}, bf16 vs float32 {BF16_VS_F32_TOL}; the bf16 "
+          f"means {BF16_MEAN_TOL}, their least cosines {BF16_COS_TOL}): "
+          + "; ".join(f"{k} {share_text(v)}" for k, v in shares.items())
+          + f"; step-0 losses {[losses[r][0] for r in routes]} [{card}]",
+          flush=True)
+    # the check's control: the bf16 fused route's gradients with one
+    # block's depthwise kernel gradient dropped, and with its two
+    # pointwise weights' gradients swapped, must fail against float64
+    block = [g for g, m in grad_groups(probe).items() if len(m) > 1][8]
+    planted = {}
+    for fault, (a, b) in (("dropped", ("conv1.conv.weight", None)),
+                          ("swapped", ("conv1.pointwise.weight",
+                                       "conv2.weight"))):
+        bad = dict(grads0["bf16 fused"])
+        a = f"{block}.{a}"
+        if b is None:
+            bad[a] = torch.zeros_like(bad[a])
+        else:
+            b = f"{block}.{b}"
+            bad[a], bad[b] = bad[b], bad[a]
+        try:
+            held(f"bf16 fused vs float64, {fault} {a}", bad, ref64,
+                 BF16_GRAD64_TOL)
+        except AssertionError as err:
+            planted[fault] = str(err)
+        else:
+            raise AssertionError(f"21b: the bf16 fused gradients with "
+                                 f"{a} {fault} pass the check")
+    print("  step-0 gradients, planted faults, each failing the check: "
+          + "; ".join(f"{k}: {v}" for k, v in planted.items()) + f" [{card}]",
+          flush=True)
+    del ref, ref64
+    figures = {"losses": losses, "launches": launches,
+               "grad_shares": {k: v[0][0] for k, v in shares.items()},
+               "grad_mean_shares": {k: v[1] for k, v in shares.items()},
+               "grad_least_cosines": {k: v[2][0] for k, v in shares.items()},
+               "planted_faults": planted}
+    for route in routes:
+        figures[route] = step_figures(f"21b {route} step", trainers[route],
+                                      states[route], batch, card, where)
+    del trainers, states
+    torch.cuda.empty_cache()
+    return launches["bf16 fused"], figures, (routes, start, batch, cvp)
+
+
+def phase21c_remat(dev, card, routes, start, batch, cvp):
+    """21c: ``remat: true`` against ``remat: false`` at the bf16 config
+    by both routes, one step each from the same state: the loss and
+    every gradient within REMAT_TOL (each group's share), the running
+    statistics within REMAT_TOL of their scale and
+    ``num_batches_tracked`` equal (1: no double update); under remat the
+    fused route runs its forward passes twice (the recomputation), its
+    backward passes once; the peak device memory of each."""
+    import torch
+
+    from wekws_tpu_torch.ops.fused_mdtc_train import BF16_PASSES
+
+    out = {}
+    for route in ("bf16 module", "bf16 fused"):
+        models, peaks, losses, grads, counts = {}, {}, {}, {}, {}
+        for remat in (False, True):
+            rconf = routes[route]
+            rconf = dict(rconf, backbone=dict(rconf["backbone"], remat=remat))
+            trainer = path_j_trainer(rconf, start, cvp, dev)
+            state = trainer.init_state()
+            zero_path_j_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            state, metrics = trainer.train_step(state, batch, SEED, 1e-3)
+            torch.cuda.synchronize()
+            peaks[remat] = torch.cuda.max_memory_allocated() / 2 ** 20
+            losses[remat] = float(metrics["loss"])
+            grads[remat] = grads_of(state.model)
+            counts[remat] = {k: v for k, v in path_j_counts().items() if v}
+            models[remat] = state.model
+        share = group_share(models[False], grads[True], grads[False],
+                            REMAT_TOL, f"21c {route} remat vs not")
+        bitwise = all(torch.equal(grads[True][n], grads[False][n])
+                      for n in grads[False])
+        if abs(losses[True] - losses[False]) > REMAT_TOL * abs(losses[False]):
+            raise AssertionError(f"21c {route}: losses {losses}")
+        for (name, a), b in zip(models[False].named_buffers(),
+                                models[True].buffers()):
+            if name.endswith("num_batches_tracked"):
+                if int(a) != 1 or int(b) != 1:
+                    raise AssertionError(f"21c {route} {name}: {int(a)}, "
+                                         f"{int(b)}")
+            elif float((a - b).abs().max()) > REMAT_TOL * max(
+                    float(a.abs().max()), 1.0):
+                raise AssertionError(f"21c {route} {name} differs")
+        if route == "bf16 fused":
+            twice = {f"fused_train_{n}{'_bf16' if n in BF16_PASSES else ''}":
+                     17 * (2 if n.startswith("f") else 1)
+                     for n in TRAIN_PASSES}
+            if counts[True] != twice:
+                raise AssertionError(f"21c remat launches {counts[True]}, "
+                                     f"expected {twice}")
+        elif counts[True] or counts[False]:
+            raise AssertionError(f"21c {route} launched {counts}")
+        print(f"  21c {route}: remat vs not, one step: losses "
+              f"{losses[False]:.6f} and {losses[True]:.6f}, gradients worst "
+              f"{share_text(share)} of a group's scale "
+              f"({'bitwise equal' if bitwise else 'not bitwise'}), running "
+              f"statistics equal within {REMAT_TOL}, num_batches_tracked 1; "
+              f"peak device memory {peaks[False]:.1f} MiB without remat, "
+              f"{peaks[True]:.1f} MiB with; launches under remat "
+              f"{counts[True] or 'none'} [{card}]", flush=True)
+        out[route] = {"peak_mib": peaks[False], "remat_peak_mib": peaks[True],
+                      "grad_share": share[0][0], "bitwise": bitwise}
+        del models, grads
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase21d_ghost(dev, card, routes, start, batch, cvp):
+    """21d: ``ghost_bn: 4`` on the flagship at the bf16 config with
+    ``fused_train`` (which ghost BN bypasses): one step, no F/B pass
+    launched; every BatchNorm's running statistics against the ghost-BN
+    formula in float64 on its own input in that step (groups of 128 rows:
+    the group-averaged mean and two-pass variance, momentum 0.9), within
+    GHOST_STAT_TOL."""
+    import torch
+
+    from wekws_tpu_torch.models.layers import GhostBatchNorm
+
+    conf = routes["bf16 fused"]
+    conf = dict(conf, backbone=dict(conf["backbone"], ghost_bn=GHOST_GROUPS))
+    trainer = path_j_trainer(conf, start, cvp, dev)
+    state = trainer.init_state()
+    bns = [m for m in state.model.modules() if isinstance(m, GhostBatchNorm)]
+    if len(bns) != 3 * 17:
+        raise AssertionError(f"21d: {len(bns)} GhostBatchNorms")
+    before = {id(m): (m.running_mean.clone(), m.running_var.clone())
+              for m in bns}
+    inputs = {}
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: inputs.setdefault(id(mod), args[0].detach()))
+        for m in bns]
+    zero_path_j_counts()
+    state, metrics = trainer.train_step(state, batch, SEED, 1e-3)
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    counts = {k: v for k, v in path_j_counts().items() if v}
+    if counts:
+        raise AssertionError(f"21d ghost_bn launched {counts}")
+    worst = 0.0
+    for m in bns:
+        x = inputs[id(m)]
+        x = (x.to(m.out_dtype) if m.out_dtype is not None else x).double()
+        xg = x.reshape(GHOST_GROUPS, -1, x.shape[-1])
+        gm = xg.mean(dim=1)
+        gv = ((xg - gm[:, None]) ** 2).mean(dim=1)
+        mean0, var0 = before[id(m)]
+        want_mean = 0.9 * mean0.double() + 0.1 * gm.mean(dim=0)
+        want_var = 0.9 * var0.double() + 0.1 * gv.mean(dim=0)
+        std = float(want_var.sqrt().max())
+        err = max(float((m.running_mean.double() - want_mean).abs().max())
+                  / std,
+                  float((m.running_var.double() - want_var).abs().max())
+                  / float(want_var.abs().max()))
+        if not err <= GHOST_STAT_TOL:
+            raise AssertionError(f"21d: running statistics {err:.2e} off "
+                                 f"the ghost-BN formula")
+        worst = max(worst, err)
+    loss = float(metrics["loss"])
+    if not np.isfinite(loss):
+        raise AssertionError(f"21d loss {loss}")
+    print(f"  21d ghost_bn {GHOST_GROUPS} (fused_train set, bypassed): one "
+          f"step, loss {loss:.6f}, no F/B pass or other kernel launched; "
+          f"{len(bns)} GhostBatchNorms' running statistics within "
+          f"{worst:.1e} of the formula in float64 on their inputs (bound "
+          f"{GHOST_STAT_TOL}) [{card}]", flush=True)
+    return {"loss": loss, "stat_share": worst}
+
+
+def phase21e_fsmn_ctc(dev, card, tmp, where):
+    """21e: the FSMN-CTC at bench.py's CTC width (400 in, 140, 4 x
+    250/128, 2599 tokens) at ``dtype: bfloat16``, B=256 x 2 s: three
+    steps (finite, parameters and gradients float32), figures as 21b's
+    beside the float32 step's; then ``bin.train`` one epoch of
+    examples/synthetic_ctc with its own conf/fsmn_ctc.yaml (bf16), and
+    ``bin.score_ctc`` of that checkpoint through ``fused_fsmn_kernel``
+    (one launch a batch).  Returns (launches, figures)."""
+    import torch
+
+    from wekws_tpu_torch.bin import score_ctc, train
+    from wekws_tpu_torch.bin.common import load_test_setup
+    from wekws_tpu_torch.data import init_dataset
+    from wekws_tpu_torch.models import init_model
+    from wekws_tpu_torch.ops.fused_fsmn import fused_fsmn_layers
+    from wekws_tpu_torch.text import CharTokenizer
+
+    batch, cvp, _, _, conf = ctc_setup(dev)
+    dconf = dict(CTC_DATASET_CONF, spec_aug=False, fbank_conf=dict(
+        CTC_DATASET_CONF["fbank_conf"], dither=0.0))
+    start = init_model(conf, torch.Generator().manual_seed(SEED)).state_dict()
+    figures = {}
+    for route, rconf in (("float32", conf),
+                         ("bf16", dict(conf, dtype="bfloat16"))):
+        trainer = path_j_trainer(rconf, start, cvp, dev, dconf, "ctc")
+        state = trainer.init_state()
+        losses = []
+        with PlainOnCuda() as plain:
+            for _ in range(PATH_J_STEPS):
+                state, metrics = trainer.train_step(state, batch, SEED, 1e-3)
+                losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+        plain.check(f"21e FSMN-CTC {route}")
+        if not np.isfinite(losses).all() or not all(
+                p.dtype == p.grad.dtype == torch.float32
+                for p in state.model.parameters()):
+            raise AssertionError(f"21e {route}: losses {losses}")
+        print(f"  21e FSMN-CTC {route}, B={CTC_TRAIN_B} x {CTC_SECONDS} s: "
+              f"losses {[round(v, 4) for v in losses]}, parameters and "
+              f"gradients float32 [{card}]", flush=True)
+        figures[route] = dict(step_figures(
+            f"21e FSMN-CTC {route} step", trainer, state, batch, card,
+            where), losses=losses)
+        del trainer, state
+
+    repo = os.path.abspath(os.path.dirname(__file__) or ".")
+    data = os.path.join(tmp, "data")
+    subprocess.run([sys.executable, os.path.join(
+        repo, CTC_RECIPE, "local", "gen_data_torch.py"), data], cwd=tmp,
+        env=dict(os.environ, PYTHONPATH=repo), check=True,
+        capture_output=True, timeout=300)
+    exp = os.path.join(tmp, "exp")
+    config = os.path.join(CTC_RECIPE, "conf", "fsmn_ctc.yaml")
+    t0 = time.perf_counter()
+    with TimeLimit(RECIPE_TIMEOUT_S, "21e bin.train"):
+        run_cli(train.main, [
+            "--config", config, "--train_data",
+            os.path.join(data, "train.list"), "--cv_data",
+            os.path.join(data, "dev.list"), "--model_dir", exp, "--dict",
+            os.path.join(CTC_RECIPE, "dict"), "--seed", "888",
+            "--cmvn_file", os.path.join(CTC_RECIPE, "data", "global_cmvn"),
+            "--norm_var", "--num_epochs", "1", "--num_workers",
+            str(RECIPE_WORKERS), "--device", dev.type], "21e bin.train")
+    train_s = time.perf_counter() - t0
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        record = json.loads(f.readline())
+    import yaml
+
+    with open(os.path.join(exp, "config.yaml")) as f:
+        if yaml.safe_load(f)["model"].get("dtype") != "bfloat16":
+            raise AssertionError("21e: bin.train did not train at bf16")
+    if not np.isfinite(record["train_loss"]):
+        raise AssertionError(f"21e bin.train: {record}")
+    ckpt = os.path.join(exp, "0.pt")
+    test_list = os.path.join(data, "test.list")
+    dict_dir = os.path.join(CTC_RECIPE, "dict")
+    tokenizer = CharTokenizer(os.path.join(dict_dir, "dict.txt"),
+                              unk="<filler>", split_with_space=True)
+    _, _, _, test_conf = load_test_setup(os.path.join(exp, "config.yaml"),
+                                         ckpt, 256, dev)
+    n_batches = len(list(init_dataset(test_list, test_conf, tokenizer,
+                                      split="test")))
+    fused_fsmn_layers.launches = 0
+    n = run_cli(score_ctc.main, [
+        "--config", os.path.join(exp, "config.yaml"), "--test_data",
+        test_list, "--checkpoint", ckpt, "--dict", dict_dir, "--keywords",
+        CTC_RECIPE_KEYWORD, "--device", dev.type, "--score_file",
+        os.path.join(exp, "score.txt")], "21e bin.score_ctc")
+    launches = fused_fsmn_layers.launches
+    if launches != n_batches:
+        raise AssertionError(f"21e bin.score_ctc launched fused_fsmn_layers "
+                             f"{launches} times for {n_batches} batches")
+    print(f"  21e examples/synthetic_ctc, conf/fsmn_ctc.yaml (bf16): "
+          f"bin.train 1 epoch of {record['batches']} steps, train loss "
+          f"{record['train_loss']:.4f}, {train_s:.1f} s wall, "
+          f"{record['audio_seconds_per_s']:.1f} audio-s/s; bin.score_ctc "
+          f"of 0.pt: {n} utterances, fused_fsmn_layers launched {launches} "
+          f"times (one a batch) [{card}]", flush=True)
+    figures["recipe"] = {"train_loss": record["train_loss"],
+                         "train_s": train_s,
+                         "audio_s_per_s": record["audio_seconds_per_s"],
+                         "score_launches": launches}
+    return {"fused_fsmn_layers": launches}, figures
+
+
+def path_j(dev, card, where="in this process"):
+    """Phase 21, path J: 21a-21e.  Returns the four variants' kernel
+    records, the launches by sub-path and the figures."""
+    import tempfile
+
+    import torch
+
+    from wekws_tpu_torch.ops.fused_mdtc_train import BF16_PASSES
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 21)
+    readings = phase21a_variants(dev, card, gen)
+    torch.cuda.empty_cache()
+    b_launches, figures, reuse = phase21b_flagship(dev, card, where)
+    figures["remat"] = phase21c_remat(dev, card, *reuse)
+    figures["ghost_bn"] = phase21d_ghost(dev, card, *reuse)
+    del reuse
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        e_launches, figures["fsmn_ctc"] = phase21e_fsmn_ctc(dev, card, tmp,
+                                                           where)
+    figures["phase_s"] = time.perf_counter() - t0
+    record = [dict({
+        "name": f"fused_train_{n}_bf16", "route": "cuda",
+        "source": "wekws_tpu_torch/csrc/fused_mdtc_train.cu",
+        "replaces": TRAIN_REPLACES[n],
+        "launches": b_launches[f"fused_train_{n}_bf16"],
+        "library_ms": None}, **readings[n]) for n in BF16_PASSES]
+    launches = {"21b flagship bf16 fused, 3 steps": b_launches,
+                "21e bin.score_ctc": e_launches}
+    return record, launches, figures
+
+
+def path_j_child(device="cuda"):
+    """``path_j`` in a fresh process (the full run's phase 21: late in
+    the long process the profiler loses records); its progress lines,
+    then one line ``PATH_J {...}``."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    record, launches, figures = path_j(dev, card_line(),
+                                       "in a fresh process")
+    print("PATH_J " + json.dumps({"record": record, "launches": launches,
+                                  "figures": figures}), flush=True)
+
+
+def merge_path_j(record, path_j_record, launches):
+    """Path J's four variant records into the kernel records, and its
+    launches of the other kernels (by sub-path) into theirs."""
+    rows = {r["name"]: r for r in record}
+    for sub, counts in launches.items():
+        for name, n in counts.items():
+            if n and name in rows:
+                rows[name]["launches"] += n
+                rows[name].setdefault("path_j_launches", {})[sub] = n
+    record.extend(path_j_record)
+
+
+def phase21(dev, card, record):
+    """Phase 21 in a fresh process, merged into ``record``."""
+    import torch
+
+    with phase("21 path J: the training knobs (bf16, bn_dtype, remat, "
+               "ghost BN)"):
+        torch.cuda.empty_cache()
+        found = run_child("path_j_child", [], "PATH_J", 900)
+        merge_path_j(record, found["record"], found["launches"])
+        print(f"  launches on path J: {found['launches']} [{card}]",
+              flush=True)
+        print(json.dumps({"path_j_figures": found["figures"], "card": card}),
+              flush=True)
+
+
+def path_j_alone(dev, card, kind):
+    """``chip_smoke.py --phase 21``: path J in this process, then the
+    last lines (the four variants' records, and the launches path J gave
+    the float32 passes' and the FSMN kernel's)."""
+    with phase("21 path J: the training knobs (bf16, bn_dtype, remat, "
+               "ghost BN)"):
+        path_j_record, launches, figures = path_j(dev, card)
+        record = [{"name": n, "launches": 0, "max_abs_err": 0.0} for n in (
+            [f"fused_train_{p}" for p in TRAIN_PASSES]
+            + ["fused_fsmn_layers"])]
+        merge_path_j(record, path_j_record, launches)
+        print(f"  launches on path J: {launches} [{card}]", flush=True)
+        print(json.dumps({"path_j_figures": figures, "card": card}),
+              flush=True)
+    return last_lines(card, record, kind)
+
+
+
 SERVING_KERNELS = {"fused_frontend": 6, "fused_mdtc": 15 + 25 + 3}
 
 
@@ -7884,10 +8704,11 @@ TRAIN_REPLACES = {
 def main(argv) -> int:
     import torch
 
-    only_20 = argv == ["--phase", "20"]
-    if argv and not only_20:
+    only = argv[1] if len(argv) == 2 and argv[0] == "--phase" else None
+    if argv and only not in ("20", "21"):
         print(f"chip_smoke: unknown arguments {argv}; run it with none, or "
-              f"with --phase 20 for path I alone", file=sys.stderr)
+              f"with --phase 20 for path I alone, --phase 21 for path J "
+              f"alone", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -7973,8 +8794,10 @@ def main(argv) -> int:
                                      f"kernels of {source}, found {found}")
         print(f"  built {len(paths)} librar(ies) in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
-    if only_20:
+    if only == "20":
         return path_i_alone(dev, card, kind)
+    if only == "21":
+        return path_j_alone(dev, card, kind)
 
     gen = torch.Generator().manual_seed(SEED)
     model, _ = seeded_model(FLAGSHIP_MODEL_CONF, gen)
@@ -8249,6 +9072,7 @@ def main(argv) -> int:
               flush=True)
 
     phase20(dev, card, work, train_conf, record)
+    phase21(dev, card, record)
     return last_lines(card, record, kind)
 
 

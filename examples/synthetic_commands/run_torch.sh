@@ -3,8 +3,9 @@
 # (wekws_tpu_torch), beside run.sh (the JAX package's): generate ->
 # CMVN -> CE train -> average -> accuracy, no download.
 # Usage: ./run_torch.sh [stage] [stop_stage] [config] [device]
-#   config: conf_torch/mdtc_ce.yaml (default; MDTC in float32) or
-#           conf/gru_ce.yaml (GRU)
+#   config: conf/mdtc_ce.yaml (default; MDTC with bf16 compute, as
+#           run.sh trains), conf_torch/mdtc_ce.yaml (its float32
+#           variant) or conf/gru_ce.yaml (GRU)
 #   device: cuda (default) or cpu
 set -eo pipefail
 
@@ -12,7 +13,7 @@ set -eo pipefail
 
 stage=${1:-0}
 stop_stage=${2:-3}
-config=${3:-conf_torch/mdtc_ce.yaml}
+config=${3:-conf/mdtc_ce.yaml}
 device=${4:-cuda}
 data=data
 dir=exp/torch_$(basename "$config" .yaml)

@@ -10,7 +10,7 @@ set -eo pipefail
 
 stage=${1:-0}
 stop_stage=${2:-4}
-config=${3:-conf_torch/fsmn_ctc.yaml}
+config=${3:-conf/fsmn_ctc.yaml}  # bf16, as run.sh trains; conf_torch/: float32
 device=${4:-cuda}
 data=data
 dir=exp/torch_$(basename "$config" .yaml)

@@ -284,8 +284,9 @@ def test_keyword_spotter_reads_jax_checkpoint(corpus, caplog):
 
 def test_serving_loaders_drop_dtype_and_log(tmp_path, caplog):
     """BatchMaxPoolSpotter (through load_serving_model) builds the
-    float32 model of a bfloat16 config and logs the drop;
-    init_model, which training calls, still raises for the dtype."""
+    float32 model of a bfloat16 config and logs the drop; init_model,
+    which training calls, builds the bf16-compute model (float32
+    parameters, a float32 output)."""
     conf = {
         "dataset_conf": {"feats_type": "fbank", "fbank_conf": {
             "num_mel_bins": 23, "frame_shift": 10, "frame_length": 25}},
@@ -297,8 +298,11 @@ def test_serving_loaders_drop_dtype_and_log(tmp_path, caplog):
                          "causal": True},
         },
     }
-    with pytest.raises(NotImplementedError, match="item 15"):
-        init_model(conf["model"])
+    trained = init_model(conf["model"])
+    assert all(p.dtype == torch.float32 for p in trained.parameters())
+    out, _ = trained(torch.zeros((1, 9, 23)))
+    assert out.dtype == torch.float32
+    assert trained.backbone.preprocessor.conv1.conv.dtype == torch.bfloat16
     f32 = dict(conf["model"])
     del f32["dtype"]
     ckpt = tmp_path / "m.pt"

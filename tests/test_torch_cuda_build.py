@@ -53,6 +53,28 @@ def test_kernel_name_is_in_the_source(name):
     assert f"{kern}(Args a" in source
 
 
+@pytest.mark.parametrize("name", ["f1", "f2", "f3", "f4", "b1", "b2", "b3",
+                                  "b4"])
+def test_bf16_kernel_name_is_in_the_source(name):
+    """At bf16 F2, F3, B2 and B3 name their own kernel
+    (``<pass>_bf16_kernel``), which ``csrc/fused_mdtc_train.cu`` defines,
+    so that a profile and the launch counts keep the variants apart;
+    F1, F4, B1 and B4 have no variant and keep their kernel's name."""
+    from wekws_tpu_torch.ops.fused_mdtc_train import (
+        BF16_PASSES,
+        kernel_name,
+    )
+
+    with open(os.path.join(cuda_build.CSRC_DIR, "fused_mdtc_train.cu")) as f:
+        source = f.read()
+    kern = kernel_name(name, 64, "bfloat16").partition("<")[0]
+    assert f"{kern}(Args a" in source
+    if name in BF16_PASSES:
+        assert kern == f"{name}_bf16_kernel"
+    else:
+        assert kernel_name(name, 64, "bfloat16") == kernel_name(name, 64)
+
+
 def test_one_channel_f2_and_b1_are_gone():
     """F2 and B1 run only their flattened, four-channels-a-thread
     kernels: the one-channel ``fwd_kernel<C, 2>`` and ``b1_kernel`` are

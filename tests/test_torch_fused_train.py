@@ -263,30 +263,35 @@ def test_tiles_of_each_pass(name, b, t, c, want):
     assert _tiles(name, b, t, c, 64) == want
 
 
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
 @pytest.mark.parametrize("c,halo,staged", [
     (64, 32, True), (64, 56, True), (128, 32, True), (32, 700, True),
     (32, 1000, False), (64, 400, False), (128, 180, False)])
-def test_f1_stages_two_windows_where_they_fit(c, halo, staged):
+def test_f1_stages_two_windows_where_they_fit(c, halo, staged, precision):
     """F1 has no weights and one tile (its reduction's), so it keeps two
     windows of x (the tile's rows and the halo before them) while they
-    fit in a block's shared memory, and streams its taps otherwise."""
-    base = tile_smem_bytes("f1", c, 10 ** 6)  # no window fits
+    fit in a block's shared memory, and streams its taps otherwise.  It
+    has no bf16 variant: at bf16 the same kernel and bytes."""
+    base = tile_smem_bytes("f1", c, 10 ** 6, precision)  # no window fits
     assert base == 4 * ((26 + 8) * c + flat_tile_rows(c) * (c + 4))
     assert f1_tile_rows(c) == 2 * flat_tile_rows(c)
     window = 4 * c * (f1_tile_rows(c) + halo)
-    assert tile_smem_bytes("f1", c, halo) == (
+    assert tile_smem_bytes("f1", c, halo, precision) == (
         base + 2 * window if staged else base)
-    assert tile_smem_bytes("f1", c, halo) <= SMEM_LIMIT
+    assert tile_smem_bytes("f1", c, halo, precision) <= SMEM_LIMIT
 
 
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
 @pytest.mark.parametrize("c", [32, 64, 128])
 @pytest.mark.parametrize("name", FLAT_PASSES)
-def test_tile_smem_fits_a_block(name, c):
+def test_tile_smem_fits_a_block(name, c, precision):
     """F2's, F3's, B2's and B3's shared memory fits one block's 227 KB,
     and two blocks share an SM at C <= 64, as their launch bounds plan
     (F2 and F3 with their window of x at the flagship's largest halo,
-    4 x 8)."""
-    smem = tile_smem_bytes(name, c, 32)
+    4 x 8).  At bf16 F2, F3 and B2 keep their float32 tiles (the same
+    bytes); B3 holds W1, W2 and its two operand tiles as bf16 at row
+    stride C + 8 beside three float32 tiles."""
+    smem = tile_smem_bytes(name, c, 32, precision)
     assert smem <= SMEM_LIMIT
     assert blocks_per_sm(smem, c) == (2 if c <= 64 else 1)
     assert blocks_per_sm(smem, c) * (smem + 1024) <= SM_SMEM
@@ -294,21 +299,30 @@ def test_tile_smem_fits_a_block(name, c):
         assert smem == 78336 + 4 * 64 * (64 + 32)  # then 96 rows of x
     if (name, c) == ("f2", 64):  # (26 + 8) x 64 + two 64 x 68 floats
         assert smem == 43520 + 4 * 64 * (64 + 32)
+    if precision == "bfloat16" and name != "b3":
+        assert smem == tile_smem_bytes(name, c, 32)
+    if (name, c, precision) == ("b3", 64, "bfloat16"):
+        # (26 + 8) x 64 + three 64 x 68 floats, then two 64 x 72 and two
+        # 64 x 72 bf16 (W2, W1; dwg/dv, s0)
+        assert smem == 4 * (2176 + 3 * 64 * 68) + 2 * 4 * 64 * 72 == 97792
+        assert smem < tile_smem_bytes("b3", 64, 32)
 
 
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
 @pytest.mark.parametrize("c,halo,staged", [
     (64, 32, True), (64, 538, True), (64, 539, False),
     (128, 56, True), (128, 58, True), (128, 59, False)])
-def test_f3_stages_its_window_where_it_fits(c, halo, staged):
+def test_f3_stages_its_window_where_it_fits(c, halo, staged, precision):
     """F3 stages a tile's rows of x and the halo before them in shared
     memory where they fit beside its weights and tiles, and otherwise
     reads its taps from device memory: any dilation runs.  F2 stages
-    its window where F3 does (one rule for both)."""
+    its window where F3 does (one rule for both); their bf16 variants
+    keep the float32 tiles, so the rule and its limits are the same."""
     for name in ("f3", "f2"):
-        base = tile_smem_bytes(name, c, 10 ** 6)  # no window fits
-        assert tile_smem_bytes(name, c, halo) == (
+        base = tile_smem_bytes(name, c, 10 ** 6, precision)
+        assert tile_smem_bytes(name, c, halo, precision) == (
             base + f3_window_bytes(c, halo) if staged else base)
-        assert tile_smem_bytes(name, c, halo) <= SMEM_LIMIT
+        assert tile_smem_bytes(name, c, halo, precision) <= SMEM_LIMIT
 
 
 def test_b4_tile_rows_rejects_a_halo_over_shared_memory():
@@ -317,11 +331,17 @@ def test_b4_tile_rows_rejects_a_halo_over_shared_memory():
 
 
 def test_fused_block_rejects_bf16_and_wrong_taps():
+    """``precision="bfloat16"``, once refused, runs (y float32 and
+    finite, the statistics float32); a precision the passes do not have
+    and the wrong number of taps raise."""
     rng = np.random.default_rng(0)
     p = {k: torch.from_numpy(v) for k, v in _params(rng).items()}
-    x = torch.zeros((2, 5, C))
-    with pytest.raises(NotImplementedError, match="training knobs"):
-        fused_tcn_block_train(x, p, K, 1, precision="bfloat16")
+    x = torch.from_numpy(rng.standard_normal((2, 5, C)).astype(np.float32))
+    y, stats = fused_tcn_block_train(x, p, K, 1, precision="bfloat16")
+    assert y.dtype == torch.float32 and bool(y.isfinite().all())
+    assert all(v.dtype == torch.float32 for v in stats.values())
+    with pytest.raises(ValueError, match="precision"):
+        fused_tcn_block_train(x, p, K, 1, precision="float16")
     with pytest.raises(ValueError, match="taps"):
         fused_tcn_block_train(x, p, K + 2, 1)
 
@@ -442,13 +462,32 @@ def test_model_train_forward_matches_jax():
 
 
 def test_model_training_knobs_raise():
-    for patch in ({"dtype": "bfloat16"},
-                  {"backbone": dict(MODEL_CONF["backbone"],
-                                    bn_dtype="bfloat16")},
-                  {"backbone": dict(MODEL_CONF["backbone"], remat=True)},
-                  {"backbone": dict(MODEL_CONF["backbone"], ghost_bn=4)}):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            init_model(dict(MODEL_CONF, **patch))
+    """The knobs that raised build on the fused model: at ``dtype:
+    bfloat16`` every block keeps ``fused_train`` and runs the passes at
+    bf16 precision; ``bn_dtype`` leaves the precision float32 (the fused
+    block ignores it, as JAX's does); ``remat`` marks every block;
+    ``ghost_bn: 4`` keeps the flag but takes the module route with
+    GhostBatchNorm.  ``dtype: float32`` keeps the fused float32 route."""
+    from wekws_tpu_torch.models.layers import GhostBatchNorm
+
+    def blocks(patch):
+        model = init_model(dict(MODEL_CONF, **patch)).train()
+        out = [blk for blk in model.backbone.modules()
+               if isinstance(blk, TCNBlock)]
+        assert len(out) == 5 and all(blk.fused_train for blk in out)
+        return out
+
+    assert all(blk.precision == "bfloat16"
+               for blk in blocks({"dtype": "bfloat16"}))
+    assert all(blk.precision == "float32" and blk._fused(None)
+               for blk in blocks({"backbone": dict(
+                   MODEL_CONF["backbone"], bn_dtype="bfloat16")}))
+    assert all(blk.remat for blk in blocks({"backbone": dict(
+        MODEL_CONF["backbone"], remat=True)}))
+    for blk in blocks({"backbone": dict(MODEL_CONF["backbone"], ghost_bn=4)}):
+        assert not blk._fused(None)
+        assert isinstance(blk.bn1, GhostBatchNorm)
     model = init_model(dict(MODEL_CONF, dtype="float32"))
-    assert all(blk.fused_train for blk in model.backbone.modules()
+    assert all(blk.fused_train and blk.precision == "float32"
+               for blk in model.backbone.modules()
                if isinstance(blk, TCNBlock))

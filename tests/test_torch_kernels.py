@@ -199,6 +199,179 @@ def test_compare_pass_holds_each_output_to_its_bound():
         compare_pass("f3", (r, w, s + 2e-3 * scale, ss), (r, w, s, ss))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [8, 70, 198])
+@pytest.mark.parametrize("dilation", [1, 8])
+def test_fused_train_bf16_variants_match_plain(t, dilation):
+    """The bf16-operand variants of F2, F3, B2 and B3 on identical
+    inputs (B=3; at T=70 C = 32, 64 and 128) against their bf16 plain
+    versions (``compare_pass`` at bf16: (B, T, C) outputs within
+    BF16_OUT_TOL of their scale with at most BF16_OFF_SHARE of them
+    beyond 1e-4, the sums BF16_SUM_TOL of their group's largest); F3's r is
+    bf16; each launch counts in ``.bf16_launches``, not ``.launches``;
+    bitwise equal when launched twice."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from wekws_tpu_torch.ops.fused_mdtc_train import (
+        BF16_PASSES,
+        BF16_SUM_TOL,
+        PASSES,
+        compare_pass,
+        seeded_block_inputs,
+        trace_pass_inputs,
+    )
+
+    g = torch.Generator().manual_seed(200 * t + dilation)
+    widths = (32, 64, 128) if t == 70 else (64,)
+    for c in widths:
+        p, x, dy = seeded_block_inputs(g, 3, t, c, 5, "cuda")
+        calls = trace_pass_inputs(x, p, dy, dilation,
+                                  precision="bfloat16")
+        assert calls["f3"][-1] == "bfloat16"
+        for name in BF16_PASSES:
+            args = calls[name]
+            before = (PASSES[name].launches, PASSES[name].bf16_launches)
+            got = PASSES[name](*args)
+            again = PASSES[name](*args)
+            assert (PASSES[name].launches,
+                    PASSES[name].bf16_launches) == (before[0], before[1] + 2)
+            torch.cuda.synchronize()
+            compare_pass(name, got, PASSES[name].plain(*args), "bfloat16",
+                         BF16_SUM_TOL[name])
+            got = got if isinstance(got, tuple) else (got,)
+            again = again if isinstance(again, tuple) else (again,)
+            if name == "f3":
+                assert got[0].dtype == torch.bfloat16
+            for a, b in zip(got, again):
+                assert torch.equal(a, b), f"{name} is not reproducible"
+
+
+@pytest.mark.cuda
+def test_fused_train_bf16_block_matches_plain_passes():
+    """The fused block at ``precision="bfloat16"`` through its kernels
+    against the same block through the plain passes, both on the card:
+    y within 4e-3 of its scale (bf16 ties, as
+    tests/test_torch_mixed_precision.py holds it against JAX), the
+    statistics 5e-4 of theirs, dx 4e-3 of its scale (dy zero near the
+    residual ReLU's kink, as phase 6 of chip_smoke.py); the forward
+    launches F2's and F3's bf16 variants once, the backward B2's and
+    B3's, and no float32 kernel of the four runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from wekws_tpu_torch.ops.fused_mdtc_train import (
+        BF16_PASSES,
+        PASSES,
+        PASS_IDS,
+        _kernel_layout,
+        block_forward,
+        fused_tcn_block_train,
+        plain_passes,
+        seeded_block_inputs,
+    )
+
+    g = torch.Generator().manual_seed(9)
+    p, x, dy = seeded_block_inputs(g, 8, 130, 64, 5, "cuda")
+    # dy zero where the residual ReLU's input lies within 1e-2 of its
+    # kink: a bf16 tie there would flip the gate and move dx by dy
+    _, _, w, v = block_forward(x, _kernel_layout(p), 2, 1e-5,
+                               lambda n, *a: PASSES[n].plain(*a),
+                               "bfloat16")
+    dy = dy.masked_fill((w * v["a2"] + v["c2"] + x).abs() < 1e-2, 0.0)
+
+    def block():
+        xi = x.clone().requires_grad_()
+        y, st = fused_tcn_block_train(xi, p, 5, 2, precision="bfloat16")
+        (y * dy).sum().backward()
+        return y.detach(), st, xi.grad
+
+    before = {n: (PASSES[n].launches, PASSES[n].bf16_launches)
+              for n in BF16_PASSES}
+    y, st, dx = block()
+    assert all((PASSES[n].launches, PASSES[n].bf16_launches)
+               == (before[n][0], before[n][1] + 1) for n in BF16_PASSES)
+    with plain_passes(*PASS_IDS):
+        y0, st0, dx0 = block()
+    torch.cuda.synchronize()
+    for got, want in ((y, y0), (dx, dx0)):
+        assert float((got - want).abs().max()) <= 4e-3 * float(
+            want.abs().max())
+    for key in st0:
+        err = float((st[key] - st0[key]).abs().max())
+        assert err <= 5e-4 * float(st0[key].abs().max()), key
+
+
+def test_compare_pass_holds_bf16_outputs_to_their_bound():
+    """The comparator at bf16: a pass against itself is exact; a few
+    elements one bf16 step off (ties) pass; an output whose rounding is
+    missing (every element off), or one element off by more than
+    BF16_OUT_TOL of the scale, or a dtype that differs, fails."""
+    from wekws_tpu_torch.ops.fused_mdtc_train import (
+        BF16_OUT_TOL,
+        PASSES,
+        compare_pass,
+        seeded_block_inputs,
+        trace_pass_inputs,
+    )
+
+    g = torch.Generator().manual_seed(5)
+    p, x, dy = seeded_block_inputs(g, 2, 40, 8, 3, "cpu")
+    calls = trace_pass_inputs(x, p, dy, 2, precision="bfloat16")
+    r, w, s, ss = PASSES["f3"].plain(*calls["f3"])
+    assert r.dtype == torch.bfloat16
+    assert compare_pass("f3", (r, w, s, ss), (r, w, s, ss), "bfloat16") == 0.0
+    tie = w.clone()
+    tie[0, 0, :2] *= 1 + 2.0 ** -8
+    compare_pass("f3", (r, tie, s, ss), (r, w, s, ss), "bfloat16")
+    unrounded = PASSES["f3"].plain(*calls["f3"][:-1])  # float32 operands
+    with pytest.raises(AssertionError, match="f3"):
+        compare_pass("f3", (r, unrounded[1], s, ss), (r, w, s, ss),
+                     "bfloat16")
+    far = w.clone()
+    far[1, 3, 0] += 2 * BF16_OUT_TOL * float(w.abs().max())
+    with pytest.raises(AssertionError, match="f3"):
+        compare_pass("f3", (r, far, s, ss), (r, w, s, ss), "bfloat16")
+    with pytest.raises(AssertionError, match="dtype"):
+        compare_pass("f3", (r.float(), w, s, ss), (r, w, s, ss), "bfloat16")
+
+
+@pytest.mark.parametrize("name", ["f2", "f3", "b2", "b3"])
+def test_compare_pass_rejects_unrounded_bf16_operands(name):
+    """The control of the bf16 check: the plain version with float32
+    operands on the same bf16 inputs fails ``compare_pass`` at bf16
+    (F2 and B2 return only sums, so their sums' bound must catch it);
+    the bf16 plain version against itself passes, and so does a sum off
+    by half of the pass's BF16_SUM_TOL of its group's largest, where one
+    off by twice that fails."""
+    from wekws_tpu_torch.ops.fused_mdtc_train import (
+        BF16_SUM_TOL,
+        PASSES,
+        compare_pass,
+        seeded_block_inputs,
+        trace_pass_inputs,
+    )
+
+    g = torch.Generator().manual_seed(5)
+    p, x, dy = seeded_block_inputs(g, 2, 40, 8, 3, "cpu")
+    args = trace_pass_inputs(x, p, dy, 2, precision="bfloat16")[name]
+    want = PASSES[name].plain(*args)
+    tol = BF16_SUM_TOL[name]
+    assert compare_pass(name, want, want, "bfloat16", tol) == 0.0
+    unrounded = [u.to(w.dtype) for u, w in zip(
+        PASSES[name].plain(*args[:-1], "float32"), want)]
+    with pytest.raises(AssertionError, match=name):
+        compare_pass(name, tuple(unrounded), want, "bfloat16", tol)
+    i = next(i for i, w in enumerate(want) if w.dim() != 3)
+    scale = max([float(w.abs().max()) for w in want if w.dim() != 3] + [1.0])
+    for factor, fails in ((0.5, False), (2.0, True)):
+        moved = list(want)
+        moved[i] = want[i] + factor * tol * scale
+        if fails:
+            with pytest.raises(AssertionError, match=name):
+                compare_pass(name, tuple(moved), want, "bfloat16", tol)
+        else:
+            compare_pass(name, tuple(moved), want, "bfloat16", tol)
+
+
 def _ds_tcn_weights(g, n_layers, k, c):
     return [(torch.randn(shape, generator=g) * scale).cuda()
             for shape, scale in (((n_layers, k, c), 0.3), ((n_layers, c), 0.1),

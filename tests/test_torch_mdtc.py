@@ -114,20 +114,44 @@ def test_extract_mdtc_weights_equals_jax(rng):
 
 
 def test_unported_configs_raise(rng):
-    """The training knobs of ROADMAP A.15 still raise for MDTC; the GRU
-    backbone, ``cnn1d_s1`` preprocessing (A.7) and the CE heads build
-    (a GRU config's bf16 ``dtype`` trains in float32, as in JAX)."""
+    """The training knobs of ROADMAP A.15, once refused, now build MDTC
+    with each knob where the JAX package puts it (the compute dtype on
+    the convolutions, ``bn_dtype`` on the BatchNorms, ``remat`` on the
+    blocks, ``ghost_bn`` as GhostBatchNorm), float32 parameters; an
+    unknown dtype name raises.  The GRU backbone, ``cnn1d_s1``
+    preprocessing (A.7) and the CE heads build (a GRU config's bf16
+    ``dtype`` trains in float32, as in JAX)."""
     from wekws_tpu_torch.models import GRU, init_model
+    from wekws_tpu_torch.models.layers import (
+        BatchNorm,
+        DepthwiseConv1d,
+        GhostBatchNorm,
+        PointwiseConv1d,
+    )
+    from wekws_tpu_torch.models.mdtc import TCNBlock
+
     from wekws_tpu_torch.models.subsampling import Conv1dSubsampling1
 
-    for extra, bextra in (({"dtype": "bfloat16"}, {}),
-                          ({}, {"remat": True}),
-                          ({}, {"bn_dtype": "bfloat16"}),
-                          ({}, {"ghost_bn": 2})):
+    def built(extra, bextra):
         conf = dict(_model_conf(rng), **extra)
         conf["backbone"] = dict(conf["backbone"], **bextra)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            init_model(conf)
+        model = init_model(conf)
+        assert all(p.dtype == torch.float32 for p in model.parameters())
+        return list(model.backbone.modules())
+
+    mods = built({"dtype": "bfloat16"}, {})
+    assert all(m.dtype == torch.bfloat16 for m in mods
+               if isinstance(m, (DepthwiseConv1d, PointwiseConv1d)))
+    assert all(m.out_dtype is None for m in mods if isinstance(m, BatchNorm))
+    assert all(m.remat for m in built({}, {"remat": True})
+               if isinstance(m, TCNBlock))
+    assert all(m.out_dtype == torch.bfloat16
+               for m in built({}, {"bn_dtype": "bfloat16"})
+               if isinstance(m, BatchNorm))
+    assert all(type(m) is GhostBatchNorm and m.num_groups == 2
+               for m in built({}, {"ghost_bn": 2}) if isinstance(m, BatchNorm))
+    with pytest.raises(ValueError, match="dtype"):
+        built({"dtype": "bfloat17"}, {})
     conf = dict(_model_conf(rng), dtype="bfloat16")
     conf["backbone"] = {"type": "gru", "num_layers": 1}
     assert isinstance(init_model(conf).backbone, GRU)

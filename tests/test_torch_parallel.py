@@ -160,10 +160,35 @@ def _resident_arrays(n=16, s=6000):
 
 
 ROUTES = ("fused", "unfused")
+GHOST_GROUPS = 2  # of 4 rows: the 5/3 shards split the second group
 
 
 @pytest.fixture(scope="module")
-def two_ranks(jax_run):
+def jax_ghost():
+    """JAX's Trainer with ``ghost_bn: GHOST_GROUPS`` (and
+    ``fused_train``, which ghost BN bypasses) on ``make_mesh(2)``: one
+    step on the whole batch, sharded (loss, params and BN statistics),
+    and its initial state for the port."""
+    batch = _batch()
+    conf = _model_conf(batch, True)
+    conf["backbone"] = dict(conf["backbone"], ghost_bn=GHOST_GROUPS)
+    model = jax_init_model(conf)
+    trainer = JaxTrainer(model, JaxPipeline.from_conf(DATASET_CONF, True),
+                         JaxPipeline.from_conf(DATASET_CONF, False),
+                         "max_pooling", learning_rate=LR, grad_clip=5.0,
+                         min_duration=5)
+    mesh = make_mesh(2)
+    state = trainer.init_state(jax.random.PRNGKey(0), batch, mesh)
+    init = jax.device_get((state.params, state.batch_stats))
+    state, metrics = trainer.train_step(state, shard_batch(batch, mesh),
+                                        jax.random.PRNGKey(1), LR)
+    return {"conf": conf, "state": _numpy_state(model_from_jax(*init, conf)),
+            "loss": float(metrics["loss"]),
+            "after": jax.device_get((state.params, state.batch_stats))}
+
+
+@pytest.fixture(scope="module")
+def two_ranks(jax_run, jax_ghost):
     """One spawn of two gloo ranks that run every rank-side check
     (tests/torch_parallel_ranks.all_checks) for both routes; the inputs
     beside the ranks' results."""
@@ -173,7 +198,8 @@ def two_ranks(jax_run):
     cv_batches = [ranks.local_rows(arrays, i, 4) for i in range(4)]
     outs = run_local(ranks.all_checks, 2, (
         confs, jax_run["state"], DATASET_CONF, batch, AUG_CONFS, arrays, 8,
-        cv_batches), timeout_s=RUN_TIMEOUT_S)
+        cv_batches, (jax_ghost["conf"], jax_ghost["state"])),
+        timeout_s=RUN_TIMEOUT_S)
     return {"confs": confs, "arrays": arrays, "cv_batches": cv_batches,
             "outs": outs}
 
@@ -332,6 +358,32 @@ def test_ragged_shards_take_the_global_step(jax_run, two_ranks, one_process,
     for want, floor in ((jax0, HELD_FLOOR_JAX), (one_state, GRAD_TOL)):
         held, err = _held_errs(s0, want, grads, floor)
         assert err <= HELD_TOL, (floor, held, err)
+
+
+def test_ghost_bn_groups_span_the_ranks(jax_ghost, two_ranks):
+    """``ghost_bn: 2`` over shards of 5 and 3 rows (the second group,
+    rows 4-7, has one row on rank 0 and three on rank 1) takes the global
+    batch's groups: the ranks bit for bit alike; the loss 1e-5 rel and
+    the BN running statistics 1e-6 from one process on all 8 rows;
+    against JAX's step on a 2-device mesh (its sharded batch) within
+    test_three_steps_match_jax's bounds.  Without the group-sum
+    all-reduce, rank 0's row 4 would be normalized alone."""
+    (l0, s0), (l1, s1) = (o["ghost"] for o in two_ranks["outs"])
+    assert l0 == l1
+    for name in s0:
+        np.testing.assert_array_equal(s0[name], s1[name], name)
+    loss, one_state, _ = _one_process_step(jax_ghost["conf"],
+                                           jax_ghost["state"],
+                                           _batch())
+    np.testing.assert_allclose(l0, loss, rtol=1e-5)
+    for name, err in _state_errs(s0, one_state).items():
+        if "running" in name:
+            assert err <= 1e-6, (name, err)
+    np.testing.assert_allclose(l0, jax_ghost["loss"], rtol=1e-4)
+    want = _numpy_state(model_from_jax(*jax_ghost["after"],
+                                       jax_ghost["conf"]))
+    for name, err in _state_errs(s0, want).items():
+        assert err <= _bound(name, 0), (name, err)
 
 
 def test_draws_fold_the_rank(jax_run, two_ranks):

@@ -133,12 +133,13 @@ def resident_checks(conf, state, dataset_conf, arrays, batch_size,
 
 
 def all_checks(rank, confs, state, dataset_conf, batch, aug_confs, arrays,
-               batch_size, cv_batches):
+               batch_size, cv_batches, ghost=None):
     """In the two-rank group: for each conf three steps on this rank's
     half of ``batch``, and one step on shards of 5 and 3 rows; the draws
     of each augmentation conf; the resident and cv checks (the first
-    conf); then, rank 0 alone, a step in a one-rank group for each
-    conf."""
+    conf); ``ghost`` (a ghost-BN conf and its state), one step on the
+    shards of 5 and 3 rows; then, rank 0 alone, a step in a one-rank
+    group for each conf."""
     torch.set_num_threads(1)
     out = {name: dict(zip(("steps", "grads0"),
                           three_steps(conf, state, dataset_conf, batch)))
@@ -146,6 +147,8 @@ def all_checks(rank, confs, state, dataset_conf, batch, aug_confs, arrays,
     for name, conf in confs.items():
         out[name]["ragged"] = ragged_step(conf, state, dataset_conf, batch,
                                           RAGGED_SPLIT)
+    if ghost is not None:
+        out["ghost"] = ragged_step(*ghost, dataset_conf, batch, RAGGED_SPLIT)
     out["draws"] = draws(aug_confs, batch)
     out["resident"] = resident_checks(next(iter(confs.values())), state,
                                       dataset_conf, arrays, batch_size,

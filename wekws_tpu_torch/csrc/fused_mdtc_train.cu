@@ -1,5 +1,5 @@
 // Fused TCNBlock training step with exact BatchNorm, for Hopper
-// (sm_90a), fp32.
+// (sm_90a), fp32, with bf16-operand variants of F2, F3, B2 and B3.
 //
 // Replaces the eight Pallas TPU kernels of
 // wekws_tpu/ops/fused_mdtc_train.py: `_f1_kernel` .. `_f4_kernel`
@@ -30,6 +30,26 @@
 // an SM a pass with one channel a thread is bound by the instructions
 // it issues before either, so every pass but F4 gives a thread four
 // neighbouring channels (float4 loads, stores and shared traffic).
+//
+// bf16 (the JAX package's `precision="bfloat16"`, `mdt = bf16`).  F2,
+// F3, B2 and B3 have a second kernel each, `f2_bf16_kernel` ..
+// `b3_bf16_kernel`, that computes what the TPU kernels compute at
+// mdt = bf16: every C x C product takes operands rounded to bf16 (round
+// to nearest even, __float2bfloat16_rn) and sums in fp32; F3 writes r
+// as bf16 and B2 and B3 read it back; x, w, dy, ds0, every sum and
+// every per-channel constant stay fp32.  F1, F4, B1 and B4 read no r
+// and no product operand and have no variant.  F2, F3 and B2 keep
+// their fp32 register FMAs and fp32 tiles, on operands rounded where
+// they are written to shared memory (s0, r, dwg, W1, W2): a product of
+// two bf16 values is exact in fp32, so the results are those of a bf16
+// product with fp32 accumulation up to the order of the sums, and the
+// kernels' shared memory and inner loops stay as they are.  B3's four
+// products move from three TF32 passes to one bf16 pass on the tensor
+// cores (`wmma` m16n16k16 bf16 fragments, fp32 accumulators) on bf16
+// tiles and weights in shared memory at a row stride of C + 8 (wmma
+// wants a multiple of 8 bf16 values; C + 4 will not do).  At bf16 the
+// operations of all four are far under the bf16 peak, so their bound is
+// bytes, and r moves half of them.
 //
 // Design.  The TPU kernels walk the batch in order on one core and
 // carry their sums in VMEM scratch.  Here a persistent grid of at most
@@ -136,6 +156,7 @@
 // neighbouring channels of a strided set of rows.  The second block of
 // an SM loads while the first computes.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 
@@ -172,18 +193,58 @@ struct Args {
   float* partials;   // (gridDim.x, width)
   int B, T, K, d;
   float n;           // B * T
+  // the bf16 variants' r (the same slots as r and out_r)
+  const __nv_bfloat16* r16;
+  __nv_bfloat16* out_r16;
 };
 
 __device__ __forceinline__ float vc(const Args& a, int row, int C, int c) {
   return __ldg(a.vec + row * C + c);
 }
 
-// (C, C) row-major -> shared, row stride LD
-template <int C, int LD>
+// v rounded to bf16 (nearest even) and widened back: exact in fp32
+__device__ __forceinline__ float bf16r(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ float4 bf16r4(float4 v) {
+  return make_float4(bf16r(v.x), bf16r(v.y), bf16r(v.z), bf16r(v.w));
+}
+
+// four neighbouring bf16 values (8 bytes) <-> a float4
+__device__ __forceinline__ void st_bf16x4(__nv_bfloat16* p, float4 v) {
+  __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(p);
+  p2[0] = __floats2bfloat162_rn(v.x, v.y);
+  p2[1] = __floats2bfloat162_rn(v.z, v.w);
+}
+
+// a bf16 value is the top half of its fp32 value: widening is a shift
+__device__ __forceinline__ float4 widen_bf16x4(uint2 raw) {
+  return make_float4(__uint_as_float(raw.x << 16),
+                     __uint_as_float(raw.x & 0xffff0000u),
+                     __uint_as_float(raw.y << 16),
+                     __uint_as_float(raw.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ float4 ld_bf16x4(const __nv_bfloat16* p) {
+  return widen_bf16x4(__ldg(reinterpret_cast<const uint2*>(p)));
+}
+
+// (C, C) row-major -> shared, row stride LD; rounded to bf16 (BF)
+template <int C, int LD, bool BF = false>
 __device__ __forceinline__ void load_padded(const float* __restrict__ g,
                                             float* s) {
   for (int i = threadIdx.x; i < C * C; i += kThreads) {
-    s[(i / C) * LD + i % C] = g[i];
+    s[(i / C) * LD + i % C] = BF ? bf16r(g[i]) : g[i];
+  }
+}
+
+// (C, C) row-major -> shared as bf16, row stride LH
+template <int C, int LH>
+__device__ __forceinline__ void load_padded_bf16(
+    const float* __restrict__ g, __nv_bfloat16* s) {
+  for (int i = threadIdx.x; i < C * C; i += kThreads) {
+    s[(i / C) * LH + i % C] = __float2bfloat16_rn(__ldg(g + i));
   }
 }
 
@@ -582,6 +643,240 @@ b3_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
+// B3 on bf16 operands: one bf16 pass on the tensor cores a product
+// ---------------------------------------------------------------------------
+
+using FragAccH = wm::fragment<wm::accumulator, 16, 16, 16, float>;
+template <typename Layout>
+using FragAH =
+    wm::fragment<wm::matrix_a, 16, 16, 16, __nv_bfloat16, Layout>;
+template <typename Layout>
+using FragBH =
+    wm::fragment<wm::matrix_b, 16, 16, 16, __nv_bfloat16, Layout>;
+
+// out (ROWS x C, fp32, row stride C + 4) = in · W (TRANS = false) or
+// · Wᵀ (TRANS = true), in and W bf16 at row stride C + 8, W as
+// [in][out]; the fragments dealt out as in tile_product
+template <int C, int ROWS, bool TRANS>
+__device__ __forceinline__ void tile_product_bf16(const __nv_bfloat16* in,
+                                                  const __nv_bfloat16* w,
+                                                  float* out, int warp) {
+  constexpr int LH = C + 8;
+  constexpr int LD = C + 4;
+  constexpr int NF = C / 16;
+  constexpr int PER = (ROWS / 16) * NF / kWarps;
+  constexpr int M_STEP = (kWarps / NF) * 16;
+  static_assert((ROWS / 16) * NF % kWarps == 0 && kWarps % NF == 0,
+                "the output fragments do not deal out evenly");
+  using LB = typename std::conditional<TRANS, wm::col_major,
+                                       wm::row_major>::type;
+  const int n0 = (warp % NF) * 16;
+  const __nv_bfloat16* a = in + (warp / NF) * 16 * LH;
+  const __nv_bfloat16* b = TRANS ? w + n0 * LH : w + n0;
+  FragAccH acc[PER];
+#pragma unroll
+  for (int j = 0; j < PER; ++j) wm::fill_fragment(acc[j], 0.f);
+#pragma unroll 2
+  for (int k = 0; k < C; k += 16) {
+    FragBH<LB> bf;
+    wm::load_matrix_sync(bf, b + (TRANS ? k : k * LH), LH);
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      FragAH<wm::row_major> af;
+      wm::load_matrix_sync(af, a + j * M_STEP * LH + k, LH);
+      wm::mma_sync(acc[j], af, bf, acc[j]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    wm::store_matrix_sync(out + ((warp / NF) * 16 + j * M_STEP) * LD + n0,
+                          acc[j], LD, wm::mem_row_major);
+  }
+}
+
+// the per-channel vector and the taps, three fp32 tiles (v; dr, then
+// ds0; û: the block's reduction reuses the first two), then bf16 W2
+// and W1 and two bf16 tiles (dwg, then dv; s0) at row stride C + 8
+template <int C>
+constexpr size_t b3_bf16_smem_bytes() {
+  using S = TileShape<C>;
+  return sizeof(float) * ((kNumVec + kMaxTaps) * C + 3 * S::kRows * S::kLd) +
+         sizeof(__nv_bfloat16) * (2 * C + 2 * S::kRows) * (C + 8);
+}
+
+// B3 as b3_kernel, with dwg, s0 and dv rounded to bf16 into their tiles
+// (Σdv sums dv before) and W1, W2 as bf16: dr = dwg W2ᵀ, v = s0 W1,
+// dW1 += s0ᵀ dv and ds0 = dv W1ᵀ in one bf16 pass each, fp32
+// accumulators; r read as bf16.
+template <int C>
+__global__ void __launch_bounds__(kThreads, C == 128 ? 1 : 2)
+b3_bf16_kernel(Args a) {
+  using S = TileShape<C>;
+  constexpr int ROWS = S::kRows;
+  constexpr int LD = S::kLd;
+  constexpr int LQ = LD / 4;
+  constexpr int LH = C + 8;  // bf16 row stride: a multiple of 8 for wmma
+  constexpr int Q = S::kQuads;
+  constexpr int G = S::kGroups;
+  constexpr int R = ROWS / G;
+  constexpr int NF = C / 16;
+  static_assert(ROWS % G == 0 && LD % 4 == 0 && ROWS % 16 == 0,
+                "float4 rows, 16-row fragments");
+  extern __shared__ __align__(128) float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* cv = sm;                             // kNumVec x C, then the taps
+  float* tv = cv + (kNumVec + kMaxTaps) * C;  // ROWS x LD: v
+  float* td = tv + ROWS * LD;                 // ROWS x LD: dr, then ds0
+  float* tu = td + ROWS * LD;                 // ROWS x LD: û
+  __nv_bfloat16* w2h = reinterpret_cast<__nv_bfloat16*>(tu + ROWS * LD);
+  __nv_bfloat16* w1h = w2h + C * LH;          // C x LH each
+  __nv_bfloat16* ta = w1h + C * LH;           // ROWS x LH: dwg, then dv
+  __nv_bfloat16* tb = ta + ROWS * LH;         // ROWS x LH: s0
+  float4* tv4 = reinterpret_cast<float4*>(tv);
+  float4* td4 = reinterpret_cast<float4*>(td);
+  float4* tu4 = reinterpret_cast<float4*>(tu);
+
+  const int q = threadIdx.x % Q;
+  const int g = threadIdx.x / Q;
+  const int warp = threadIdx.x / 32;
+  const float n = a.n;
+  load_consts<C, true>(a, cv);
+  load_padded_bf16<C, LH>(a.pw2, w2h);
+  load_padded_bf16<C, LH>(a.pw1, w1h);
+  const float4* cv4 = reinterpret_cast<const float4*>(cv) + q;
+#define VEC4(row) cv4[(row) * Q]
+  const float4* x4 = reinterpret_cast<const float4*>(a.x);
+  const float4* dy4 = reinterpret_cast<const float4*>(a.dy);
+  const float4* w4 = reinterpret_cast<const float4*>(a.w);
+  float4* ds04 = reinterpret_cast<float4*>(a.ds0);
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  float4 sums[3] = {zero4, zero4, zero4};  // Σdv, Σds0, Σds0·û
+  FragAccH accw[S::kOwn];                  // this warp's fragments of dW1
+#pragma unroll
+  for (int j = 0; j < S::kOwn; ++j) wm::fill_fragment(accw[j], 0.f);
+
+  const int n_rows = a.B * a.T;
+  const int n_tiles = (n_rows + ROWS - 1) / ROWS;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row0 = tile * ROWS;
+    __syncthreads();  // the previous tile's shared reads are done (and,
+                      // the first time, the constants are in place)
+    float4 rv[R];  // r, for the ReLU mask after two products
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int lr = g + j * G;
+      const int row = row0 + lr;
+      float4 dwg = zero4, s0 = zero4, uhat = zero4;
+      rv[j] = zero4;
+      if (row < n_rows) {
+        const size_t at = static_cast<size_t>(row) * Q + q;
+        const float4 wv = __ldg(w4 + at);
+        const float4 xv = __ldg(x4 + at);
+        const float4 dyv = __ldg(dy4 + at);
+        rv[j] = ld_bf16x4(a.r16 + 4 * at);
+        const int t = row % a.T;  // the conv alone cares where t = 0 is
+        float4 xt[kMaxTaps];
+#pragma unroll
+        for (int tap = 0; tap < kMaxTaps; ++tap) {
+          const int back = (a.K - 1 - tap) * a.d;
+          xt[tap] = tap < a.K && back <= t
+              ? __ldg(x4 + at - static_cast<size_t>(back) * Q) : zero4;
+        }
+        const float4 pre = fma4(wv, VEC4(V_A2), VEC4(V_C2));
+        const float4 g2 = gate4(make_float4(pre.x + xv.x, pre.y + xv.y,
+                                            pre.z + xv.z, pre.w + xv.w), dyv);
+        dwg = bn_back4(VEC4(V_COEF2), n, g2, VEC4(V_SG),
+                       hat4(wv, VEC4(V_MU2), VEC4(V_INV2)), VEC4(V_SGW));
+        float4 u = VEC4(V_DWB);
+#pragma unroll
+        for (int tap = 0; tap < kMaxTaps; ++tap) {
+          if (tap < a.K) u = fma4(xt[tap], VEC4(kNumVec + tap), u);
+        }
+        s0 = fma4(u, VEC4(V_A0), VEC4(V_C0));
+        uhat = hat4(u, VEC4(V_MU0), VEC4(V_INV0));
+      }
+      st_bf16x4(ta + lr * LH + 4 * q, dwg);
+      st_bf16x4(tb + lr * LH + 4 * q, s0);
+      tu4[lr * LQ + q] = uhat;
+    }
+    __syncthreads();
+    tile_product_bf16<C, ROWS, true>(ta, w2h, td, warp);   // dr = dwg W2ᵀ
+    tile_product_bf16<C, ROWS, false>(tb, w1h, tv, warp);  // v = s0 W1
+    __syncthreads();  // every read of dwg is done
+    {
+      const float4 b1 = VEC4(V_B1), mu1 = VEC4(V_MU1), inv1 = VEC4(V_INV1);
+      const float4 k1 = VEC4(V_COEF1), sds1 = VEC4(V_SDS1);
+      const float4 sds1v = VEC4(V_SDS1V);
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int lr = g + j * G;
+        float4 dv = zero4;
+        if (row0 + lr < n_rows) {
+          const float4 ds1 = gate4(rv[j], td4[lr * LQ + q]);
+          const float4 v = tv4[lr * LQ + q];
+          const float4 vhat = hat4(make_float4(v.x + b1.x, v.y + b1.y,
+                                               v.z + b1.z, v.w + b1.w),
+                                   mu1, inv1);
+          dv = bn_back4(k1, n, ds1, sds1, vhat, sds1v);
+          sums[0].x += dv.x;
+          sums[0].y += dv.y;
+          sums[0].z += dv.z;
+          sums[0].w += dv.w;
+        }
+        st_bf16x4(ta + lr * LH + 4 * q, dv);
+      }
+    }
+    __syncthreads();
+    if (warp < S::kFrags) {  // dW1 += s0ᵀ·dv
+      // this warp's fragments share the column block warp % NF of dv;
+      // s0ᵀ: element (m, k) is s0[k][m], a col-major fragment of s0
+      for (int k = 0; k < ROWS; k += 16) {
+        FragBH<wm::row_major> bf;
+        wm::load_matrix_sync(bf, ta + k * LH + (warp % NF) * 16, LH);
+#pragma unroll
+        for (int j = 0; j < S::kOwn; ++j) {
+          FragAH<wm::col_major> af;
+          wm::load_matrix_sync(
+              af, tb + k * LH + ((warp + j * kWarps) / NF) * 16, LH);
+          wm::mma_sync(accw[j], af, bf, accw[j]);
+        }
+      }
+    }
+    tile_product_bf16<C, ROWS, true>(ta, w1h, td, warp);   // ds0 = dv W1ᵀ
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int lr = g + j * G;
+      const int row = row0 + lr;
+      if (row < n_rows) {
+        const float4 ds0 = td4[lr * LQ + q];
+        sums[1].x += ds0.x;
+        sums[1].y += ds0.y;
+        sums[1].z += ds0.z;
+        sums[1].w += ds0.w;
+        sums[2] = fma4(ds0, tu4[lr * LQ + q], sums[2]);
+        ds04[static_cast<size_t>(row) * Q + q] = ds0;
+      }
+    }
+  }
+#undef VEC4
+
+  float* out = a.partials + static_cast<size_t>(blockIdx.x) * (C * C + 3 * C);
+#pragma unroll
+  for (int j = 0; j < S::kOwn; ++j) {
+    const int f = warp + j * kWarps;
+    if (f < S::kFrags) {
+      wm::store_matrix_sync(out + (f / NF) * 16 * C + (f % NF) * 16, accw[j],
+                            C, wm::mem_row_major);
+    }
+  }
+  // the three channel sums, through the first two fp32 tiles
+  static_assert(G * 3 * C <= 2 * ROWS * LD, "the reduction fits two tiles");
+  block_sums4<C, 3>(tv, sums, out + C * C, g, q);
+}
+
+// ---------------------------------------------------------------------------
 // F3 and B2 with fp32 register-blocked products
 // ---------------------------------------------------------------------------
 
@@ -742,8 +1037,9 @@ __device__ __forceinline__ int next_frame(int t, int G, int T) {
 // run(): one rule for both), else the taps are read from device memory.
 // F1 has no product to hide a copy behind, so it keeps two windows and
 // copies the tile after next while it works on this one (where they
-// fit and kF1Staged).
-template <int C, int P>
+// fit and kF1Staged).  BF (F2 and F3): s0, r, W1 and W2 rounded to bf16
+// where they are written to shared memory, r written as bf16.
+template <int C, int P, bool BF = false>
 __device__ __forceinline__ void tile_forward(const Args& a, bool staged) {
   using S = TileShape<C>;
   constexpr bool kFull = P == kF3;
@@ -771,8 +1067,8 @@ __device__ __forceinline__ void tile_forward(const Args& a, bool staged) {
   const int q = threadIdx.x % Q;
   const int g = threadIdx.x / Q;
   load_consts<C, true>(a, cv);
-  if (P != kF1) load_padded<C, LD>(a.pw1, w1);
-  if (kFull) load_padded<C, LD>(a.pw2, w2);
+  if (P != kF1) load_padded<C, LD, BF>(a.pw1, w1);
+  if (kFull) load_padded<C, LD, BF>(a.pw2, w2);
   const float4* cv4 = reinterpret_cast<const float4*>(cv) + q;
 #define VEC4(row) cv4[(row) * Q]
   const float4* x4 = reinterpret_cast<const float4*>(a.x);
@@ -855,6 +1151,7 @@ __device__ __forceinline__ void tile_forward(const Args& a, bool staged) {
                    : conv4<C, false>(a, cv4, x4 + static_cast<size_t>(row) * Q
                                                  + q, t, H);
         s0 = fma4(u, VEC4(V_A0), VEC4(V_C0));
+        if constexpr (BF) s0 = bf16r4(s0);
       }
       ta4[lr * LQ + q] = s0;
       t = next_frame(t, G, a.T);
@@ -882,9 +1179,16 @@ __device__ __forceinline__ void tile_forward(const Args& a, bool staged) {
         for (int j = 0; j < R; ++j) {
           const int lr = g + j * G;
           const int row = row0 + lr;
-          const float4 r = relu4(fma4(add4(acc[j], b1), a1, c1));
+          float4 r = relu4(fma4(add4(acc[j], b1), a1, c1));
+          if constexpr (BF) r = bf16r4(r);
           tb4[lr * LQ + q] = r;
-          if (row < n_rows) r4[static_cast<size_t>(row) * Q + q] = r;
+          if (row < n_rows) {
+            if constexpr (BF) {
+              st_bf16x4(a.out_r16 + static_cast<size_t>(row) * C + 4 * q, r);
+            } else {
+              r4[static_cast<size_t>(row) * Q + q] = r;
+            }
+          }
         }
       }
       __syncthreads();
@@ -926,9 +1230,23 @@ f3_kernel(Args a, bool staged) {
   tile_forward<C, kF3>(a, staged);
 }
 
+// F2 and F3 on bf16 operands (see the head of this file)
 template <int C>
 __global__ void __launch_bounds__(kThreads, C == 128 ? 1 : 2)
-b2_kernel(Args a) {
+f2_bf16_kernel(Args a, bool staged) {
+  tile_forward<C, kF2, true>(a, staged);
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads, C == 128 ? 1 : 2)
+f3_bf16_kernel(Args a, bool staged) {
+  tile_forward<C, kF3, true>(a, staged);
+}
+
+// B2's body; BF: W2ᵀ and dwg rounded to bf16 where they are written to
+// shared memory (db2 sums dwg before), r read as bf16
+template <int C, bool BF>
+__device__ __forceinline__ void b2_body(const Args& a) {
   using S = TileShape<C>;
   constexpr int ROWS = S::kRows;
   constexpr int LD = S::kLd;
@@ -954,7 +1272,8 @@ b2_kernel(Args a) {
   const float n = a.n;
   load_consts<C, false>(a, cv);
   for (int i = threadIdx.x; i < C * C; i += kThreads) {
-    w2t[(i % C) * LD + i / C] = __ldg(a.pw2 + i);
+    const float v = __ldg(a.pw2 + i);
+    w2t[(i % C) * LD + i / C] = BF ? bf16r(v) : v;
   }
   const float4* cv4 = reinterpret_cast<const float4*>(cv) + q;
 #define VEC4(row) cv4[(row) * Q]
@@ -991,7 +1310,7 @@ b2_kernel(Args a) {
       rv[j] = zero4;
       if (row < n_rows) {
         const size_t at = static_cast<size_t>(row) * Q + q;
-        rv[j] = __ldg(r4 + at);
+        rv[j] = BF ? ld_bf16x4(a.r16 + 4 * at) : __ldg(r4 + at);
         const float4 wv = sw4[lr * Q + q];
         const float4 xv = sx4[lr * Q + q];
         const float4 dyv = sdy4[lr * Q + q];
@@ -1000,6 +1319,7 @@ b2_kernel(Args a) {
         dwg = bn_back4(VEC4(V_COEF2), n, g2, VEC4(V_SG),
                        hat4(wv, VEC4(V_MU2), VEC4(V_INV2)), VEC4(V_SGW));
         sums[0] = add4(sums[0], dwg);
+        if constexpr (BF) dwg = bf16r4(dwg);
       }
       ta4[lr * LQ + q] = dwg;
       tr4[lr * LQ + q] = rv[j];
@@ -1035,6 +1355,18 @@ b2_kernel(Args a) {
   }
   static_assert(G * 3 * C <= 2 * ROWS * LD, "the reduction fits two tiles");
   block_sums4<C, 3>(ta, sums, out + C * C, g, q);
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads, C == 128 ? 1 : 2)
+b2_kernel(Args a) {
+  b2_body<C, false>(a);
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads, C == 128 ? 1 : 2)
+b2_bf16_kernel(Args a) {
+  b2_body<C, true>(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -1299,11 +1631,14 @@ int elementwise_blocks(size_t total) {
 }
 
 template <int C>
-int run(int pass, const Args& a, int n_blocks, int b4_rows, float* reduced,
-        cudaStream_t s) {
+int run(int pass, const Args& a, int n_blocks, int b4_rows, bool bf,
+        float* reduced, cudaStream_t s) {
   const size_t total = static_cast<size_t>(a.B) * a.T * C;
   int width = 2 * C;
   int err = 0;
+  if (bf && pass != kF2 && pass != kF3 && pass != kB2 && pass != kB3) {
+    return static_cast<int>(cudaErrorInvalidValue);  // no bf16 variant
+  }
   switch (pass) {
     case kF1: {  // two windows where they fit
       const size_t windows =
@@ -1321,11 +1656,14 @@ int run(int pass, const Args& a, int n_blocks, int b4_rows, float* reduced,
       const size_t window = f3_window_bytes<C>((a.K - 1) * a.d);
       const bool staged = fwd_smem_bytes<C, kF3>() + window <= kSmemLimit;
       const size_t extra = staged ? window : 0;
+      // the bf16 variants keep the fp32 tiles: the same shared memory
       err = pass == kF2
-          ? launch_tiles(f2_kernel<C>, a, fwd_smem_bytes<C, kF2>() + extra,
-                         n_blocks, s, staged)
-          : launch_tiles(f3_kernel<C>, a, fwd_smem_bytes<C, kF3>() + extra,
-                         n_blocks, s, staged);
+          ? launch_tiles(bf ? &f2_bf16_kernel<C> : &f2_kernel<C>, a,
+                         fwd_smem_bytes<C, kF2>() + extra, n_blocks, s,
+                         staged)
+          : launch_tiles(bf ? &f3_bf16_kernel<C> : &f3_kernel<C>, a,
+                         fwd_smem_bytes<C, kF3>() + extra, n_blocks, s,
+                         staged);
       break;
     }
     case kF4:
@@ -1336,11 +1674,15 @@ int run(int pass, const Args& a, int n_blocks, int b4_rows, float* reduced,
                          s);
       break;
     case kB2:
-      err = launch_tiles(b2_kernel<C>, a, b2_smem_bytes<C>(), n_blocks, s);
+      err = launch_tiles(bf ? &b2_bf16_kernel<C> : &b2_kernel<C>, a,
+                         b2_smem_bytes<C>(), n_blocks, s);
       width = C * C + 3 * C;
       break;
     case kB3:
-      err = launch_tiles(b3_kernel<C>, a, b3_smem_bytes<C>(), n_blocks, s);
+      err = bf ? launch_tiles(b3_bf16_kernel<C>, a, b3_bf16_smem_bytes<C>(),
+                              n_blocks, s)
+               : launch_tiles(b3_kernel<C>, a, b3_smem_bytes<C>(), n_blocks,
+                              s);
       width = C * C + 3 * C;
       break;
     case kB4: {
@@ -1376,7 +1718,9 @@ extern "C" {
 // w, r, dw (K, C), pw1, pw2, vec (kNumVec, C), out_r, out_w, out_y, dx,
 // ds0 (B, T, C: B3's output, B4's input), partials (n_blocks, width),
 // reduced (width); unused slots are null.  `dims` = {C, B, T, K,
-// dilation, n_blocks, rows of a B4 tile}.
+// dilation, n_blocks, rows of a B4 tile, bf16}: with bf16 = 1 (F2, F3,
+// B2 and B3 only) the bf16-operand variant runs, and r and out_r point
+// at bf16 tensors.
 // Returns a cudaError_t code (0 on success).
 int fused_train_launch(int pass, void* const* ptrs, const int* dims,
                        float n, void* stream) {
@@ -1386,11 +1730,13 @@ int fused_train_launch(int pass, void* const* ptrs, const int* dims,
   a.dy = static_cast<const float*>(ptrs[1]);
   a.w = static_cast<const float*>(ptrs[2]);
   a.r = static_cast<const float*>(ptrs[3]);
+  a.r16 = static_cast<const __nv_bfloat16*>(ptrs[3]);
   a.dw = static_cast<const float*>(ptrs[4]);
   a.pw1 = static_cast<const float*>(ptrs[5]);
   a.pw2 = static_cast<const float*>(ptrs[6]);
   a.vec = static_cast<const float*>(ptrs[7]);
   a.out_r = static_cast<float*>(ptrs[8]);
+  a.out_r16 = static_cast<__nv_bfloat16*>(ptrs[8]);
   a.out_w = static_cast<float*>(ptrs[9]);
   a.out_y = static_cast<float*>(ptrs[10]);
   a.dx = static_cast<float*>(ptrs[11]);
@@ -1404,15 +1750,16 @@ int fused_train_launch(int pass, void* const* ptrs, const int* dims,
   a.n = n;
   const int n_blocks = dims[5];
   const int b4_rows = dims[6];
+  const bool bf = dims[7] != 0;
   if (a.B < 1 || a.T < 1 || a.K < 1 || a.K > kMaxTaps || a.d < 1 ||
       n_blocks < 1 || pass < kF1 || pass > kB4) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto s = static_cast<cudaStream_t>(stream);
   switch (C) {
-    case 32: return run<32>(pass, a, n_blocks, b4_rows, reduced, s);
-    case 64: return run<64>(pass, a, n_blocks, b4_rows, reduced, s);
-    case 128: return run<128>(pass, a, n_blocks, b4_rows, reduced, s);
+    case 32: return run<32>(pass, a, n_blocks, b4_rows, bf, reduced, s);
+    case 64: return run<64>(pass, a, n_blocks, b4_rows, bf, reduced, s);
+    case 128: return run<128>(pass, a, n_blocks, b4_rows, bf, reduced, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

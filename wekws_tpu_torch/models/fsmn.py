@@ -19,45 +19,54 @@ Cache: per layer ``(B, P, proj_dim)`` with
 a tuple.  The taps are shifted multiply-adds over the ``[cache, x]``
 window (``layers.MemoryTaps``), not a grouped ``conv1d``, which cuDNN
 would run in TF32.
+
+``dtype`` (the JAX package's compute dtype) reaches every dense layer
+and the memory taps (``layers.linear``, ``layers.MemoryTaps``); the
+identity path adds the block's input in the taps' dtype, and ``FSMN``
+returns float32.
 """
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
-from wekws_tpu_torch.models.layers import MemoryTaps
+from wekws_tpu_torch.models.layers import MemoryTaps, float_out, linear
 
 
 class LinearTransform(nn.Module):
-    def __init__(self, input_dim: int, output_dim: int):
+    def __init__(self, input_dim: int, output_dim: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.linear = nn.Linear(input_dim, output_dim, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.linear(x)
+        return linear(x, self.linear.weight, None, self.dtype)
 
 
 class AffineTransform(nn.Module):
-    def __init__(self, input_dim: int, output_dim: int):
+    def __init__(self, input_dim: int, output_dim: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.linear = nn.Linear(input_dim, output_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.linear(x)
+        return linear(x, self.linear.weight, self.linear.bias, self.dtype)
 
 
 class FSMNBlock(nn.Module):
     def __init__(self, dim: int, lorder: int, rorder: int, lstride: int = 1,
-                 rstride: int = 1):
+                 rstride: int = 1, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dim = dim
         self.lorder = lorder
         self.rorder = rorder
         self.lstride = lstride
         self.rstride = rstride
-        self.conv_left = MemoryTaps(dim, lorder, lstride)
-        self.conv_right = (MemoryTaps(dim, rorder, rstride)
+        self.conv_left = MemoryTaps(dim, lorder, lstride, dtype)
+        self.conv_right = (MemoryTaps(dim, rorder, rstride, dtype)
                            if rorder > 0 else None)
 
     @property
@@ -67,13 +76,16 @@ class FSMNBlock(nn.Module):
     def forward(self, x: torch.Tensor,
                 cache: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         t = x.shape[1]
-        y = torch.cat([cache, x], dim=1)  # (B, P + T, D)
+        # (B, P + T, D), in the wider of the two dtypes, as JAX's
+        # concatenate promotes
+        wide = torch.promote_types(cache.dtype, x.dtype)
+        y = torch.cat([cache.to(wide), x.to(wide)], dim=1)
         new_cache = y[:, y.shape[1] - self.padding:, :]
         rspan = self.rorder * self.rstride
         # identity path: input frames aligned with the delayed output
         start = (self.lorder - 1) * self.lstride
-        out = y[:, start:start + t, :] + self.conv_left(
-            y[:, :y.shape[1] - rspan, :])
+        left = self.conv_left(y[:, :y.shape[1] - rspan, :])
+        out = y[:, start:start + t, :].to(left.dtype) + left
         if self.conv_right is not None:
             # look-ahead taps start one rstride past the current frame
             out = out + self.conv_right(y[:, start + self.rstride:, :])
@@ -84,7 +96,8 @@ class FSMN(nn.Module):
     def __init__(self, input_dim: int, input_affine_dim: int,
                  fsmn_layers: int, linear_dim: int, proj_dim: int,
                  lorder: int, rorder: int, lstride: int, rstride: int,
-                 output_affine_dim: int, output_dim: int):
+                 output_affine_dim: int, output_dim: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.fsmn_layers = fsmn_layers
         self.linear_dim = linear_dim
@@ -93,17 +106,19 @@ class FSMN(nn.Module):
         self.rorder = rorder
         self.lstride = lstride
         self.rstride = rstride
-        self.in_linear1 = AffineTransform(input_dim, input_affine_dim)
-        self.in_linear2 = AffineTransform(input_affine_dim, linear_dim)
+        self.in_linear1 = AffineTransform(input_dim, input_affine_dim, dtype)
+        self.in_linear2 = AffineTransform(input_affine_dim, linear_dim, dtype)
         self.fsmn = nn.ModuleList(
             nn.Sequential(
-                LinearTransform(linear_dim, proj_dim),
-                FSMNBlock(proj_dim, lorder, rorder, lstride, rstride),
-                AffineTransform(proj_dim, linear_dim),
+                LinearTransform(linear_dim, proj_dim, dtype),
+                FSMNBlock(proj_dim, lorder, rorder, lstride, rstride, dtype),
+                AffineTransform(proj_dim, linear_dim, dtype),
                 nn.ReLU())
             for _ in range(fsmn_layers))
-        self.out_linear1 = AffineTransform(linear_dim, output_affine_dim)
-        self.out_linear2 = AffineTransform(output_affine_dim, output_dim)
+        self.out_linear1 = AffineTransform(linear_dim, output_affine_dim,
+                                           dtype)
+        self.out_linear2 = AffineTransform(output_affine_dim, output_dim,
+                                           dtype)
 
     @property
     def layer_padding(self) -> int:
@@ -129,4 +144,5 @@ class FSMN(nn.Module):
             x, c = block(proj(x), c)
             new_caches.append(c)
             x = relu(affine(x))
-        return self.out_linear2(self.out_linear1(x)), tuple(new_caches)
+        return (float_out(self.out_linear2(self.out_linear1(x))),
+                tuple(new_caches))

@@ -7,15 +7,19 @@ Features past ``lengths`` are zero-masked before and after CMVN.
 
 The port builds the MDTC, TCN / DS-TCN, FSMN and GRU backbones with
 ``linear``, ``cnn1d_s1`` or ``none`` preprocessing and the linear,
-element, global, last and identity heads, in float32, with MDTC's
+element, global, last and identity heads, with MDTC's
 ``backbone.fused_train`` routing whole-utterance training forwards
-through the fused exact-BN kernels.  A GRU config that names another
-``dtype`` trains in float32 with the JAX package's warning; for the
-other backbones the training knobs ``dtype: bfloat16``, ``bn_dtype``,
-``remat`` and ``ghost_bn > 1`` raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.  The inference loaders build a config's
-model through ``inference_model_conf``, which drops ``dtype``: in the
-JAX package it is the backbone's compute dtype only (parameters and
+through the fused exact-BN kernels.  The JAX package's training knobs:
+``dtype`` (e.g. ``bfloat16``) is the backbone's compute dtype for its
+convolutions and dense layers, with float32 parameters, BN statistics,
+loss and outputs (``models/layers.py``); ``backbone.bn_dtype`` narrows
+the BatchNorms' output; ``backbone.ghost_bn: G`` gives them per-group
+statistics; ``backbone.remat`` (MDTC only, as in JAX) recomputes each
+block in the backward.  The preprocessing and the heads stay float32.
+A GRU config that names another ``dtype`` trains in float32 with the
+JAX package's warning.  The inference loaders build a config's model
+through ``inference_model_conf``, which drops ``dtype``: in the JAX
+package it is the backbone's compute dtype only (parameters and
 checkpoints are float32), and its fused serving has no dtype at all.
 """
 
@@ -117,6 +121,17 @@ def _not_ported(what: str, item: str):
     )
 
 
+def _dtype(name: Optional[str]) -> Optional[torch.dtype]:
+    """A config's dtype name (``bfloat16``, ``float32``, ...) as a torch
+    dtype; None for none."""
+    if not name:
+        return None
+    dtype = getattr(torch, str(name), None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"unknown floating dtype {name!r}")
+    return dtype
+
+
 # standard deviation of N(0, 1) truncated to [-2, 2]: flax's
 # variance_scaling divides by it so that the draw keeps variance 1/fan_in
 _TRUNC_STD = 0.87962566103423978
@@ -204,20 +219,17 @@ def init_model(configs: dict,
 
     bconf = configs["backbone"]
     btype = bconf["type"]
+    # the compute dtype: float32 casts nothing (the parameters are)
     dtype = configs.get("dtype")
-    if dtype and dtype != "float32":
-        if btype != "gru":
-            raise _not_ported(f"model dtype {dtype!r}",
-                              "item 15, training knobs")
+    compute_dtype = None if dtype in (None, "float32") else _dtype(dtype)
+    knobs = dict(dtype=compute_dtype,
+                 ghost_bn=int(bconf.get("ghost_bn", 0) or 0),
+                 bn_dtype=_dtype(bconf.get("bn_dtype")))
+    if btype == "gru" and compute_dtype is not None:
         logging.warning(
             "model.dtype=%s is not supported for the gru backbone "
             "(sequential cell, f32 recurrence kept); training in "
             "float32", dtype)
-    for knob in ("bn_dtype", "remat"):
-        if bconf.get(knob):
-            raise _not_ported(f"backbone.{knob}", "item 15, training knobs")
-    if int(bconf.get("ghost_bn", 0) or 0) > 1:
-        raise _not_ported("backbone.ghost_bn > 1", "item 15, training knobs")
     if btype == "mdtc":
         hidden_dim = bconf["hidden_dim"]
         backbone = MDTC(
@@ -228,6 +240,8 @@ def init_model(configs: dict,
             kernel_size=bconf["kernel_size"],
             causal=bconf["causal"],
             fused_train=bool(bconf.get("fused_train", False)),
+            remat=bool(bconf.get("remat", False)),
+            **knobs,
         )
     elif btype == "tcn":
         backbone = TCN(
@@ -236,6 +250,7 @@ def init_model(configs: dict,
             kernel_size=bconf.get("kernel_size", 8),
             dropout=bconf.get("dropout", 0.1),
             ds=bconf.get("ds", False),
+            **knobs,
         )
     elif btype == "fsmn":
         backbone = FSMN(
@@ -250,6 +265,7 @@ def init_model(configs: dict,
             rstride=bconf["right_stride"],
             output_affine_dim=bconf["output_affine_dim"],
             output_dim=output_dim,
+            dtype=compute_dtype,
         )
     elif btype == "gru":
         backbone = GRU(input_dim if prep_type == "none" else hidden_dim,

@@ -16,6 +16,11 @@ stack with residual connections, feature-last ``(B, T, C)``.
 The full ``(C, C, K)`` convolution of ``CnnBlock`` is K shifted float32
 matmuls (``layers.Conv1d``), not ``F.conv1d``: cuDNN would run a
 float32 convolution in TF32 by default.
+
+The JAX package's knobs: ``dtype`` (the convolutions' compute dtype),
+``bn_dtype`` and ``ghost_bn`` (``layers.batch_norm``); the residual adds
+``x`` in the block output's dtype and ``TCN`` returns float32.  JAX's
+TCN has no ``remat``.
 """
 
 from typing import Optional, Sequence, Tuple
@@ -24,10 +29,11 @@ import torch
 from torch import nn
 
 from wekws_tpu_torch.models.layers import (
-    BatchNorm,
     Conv1d,
     DepthwiseConv1d,
     PointwiseConv1d,
+    batch_norm,
+    float_out,
 )
 
 
@@ -57,16 +63,19 @@ class _Block(nn.Module):
             y = torch.cat([cache, x], dim=1)
             new_cache = y[:, y.shape[1] - self.padding:, :]
             left_pad = 0
-        return self._body(y, left_pad) + x, new_cache
+        y = self._body(y, left_pad)
+        return y + x.to(y.dtype), new_cache
 
 
 class CnnBlock(_Block):
     def __init__(self, channel: int, kernel_size: int, dilation: int,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, dtype: Optional[torch.dtype] = None,
+                 ghost_bn: int = 0, bn_dtype: Optional[torch.dtype] = None):
         super().__init__(channel, kernel_size, dilation)
         self.cnn = nn.Sequential(
-            Conv1d(channel, channel, kernel_size, dilation),
-            BatchNorm(channel), nn.ReLU(), nn.Dropout(dropout))
+            Conv1d(channel, channel, kernel_size, dilation, dtype=dtype),
+            batch_norm(channel, ghost_bn, bn_dtype), nn.ReLU(),
+            nn.Dropout(dropout))
 
     def _body(self, y, left_pad):
         conv, bn, relu, drop = self.cnn
@@ -77,13 +86,15 @@ class DsCnnBlock(_Block):
     """Depthwise-separable variant."""
 
     def __init__(self, channel: int, kernel_size: int, dilation: int,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, dtype: Optional[torch.dtype] = None,
+                 ghost_bn: int = 0, bn_dtype: Optional[torch.dtype] = None):
         super().__init__(channel, kernel_size, dilation)
         self.cnn = nn.Sequential(
-            DepthwiseConv1d(channel, kernel_size, dilation),
-            BatchNorm(channel), nn.ReLU(),
-            PointwiseConv1d(channel, channel),
-            BatchNorm(channel), nn.ReLU(), nn.Dropout(dropout))
+            DepthwiseConv1d(channel, kernel_size, dilation, dtype=dtype),
+            batch_norm(channel, ghost_bn, bn_dtype), nn.ReLU(),
+            PointwiseConv1d(channel, channel, dtype=dtype),
+            batch_norm(channel, ghost_bn, bn_dtype), nn.ReLU(),
+            nn.Dropout(dropout))
 
     def _body(self, y, left_pad):
         dw, dw_bn, relu, pw, pw_bn, relu2, drop = self.cnn
@@ -93,7 +104,9 @@ class DsCnnBlock(_Block):
 
 class TCN(nn.Module):
     def __init__(self, num_layers: int, channel: int, kernel_size: int,
-                 dropout: float = 0.1, ds: bool = False):
+                 dropout: float = 0.1, ds: bool = False,
+                 dtype: Optional[torch.dtype] = None, ghost_bn: int = 0,
+                 bn_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.num_layers = num_layers
         self.channel = channel
@@ -101,7 +114,8 @@ class TCN(nn.Module):
         self.ds = ds
         block_cls = DsCnnBlock if ds else CnnBlock
         self.network = nn.ModuleList(
-            block_cls(channel, kernel_size, 2 ** i, dropout)
+            block_cls(channel, kernel_size, 2 ** i, dropout, dtype, ghost_bn,
+                      bn_dtype)
             for i in range(num_layers))
 
     @property
@@ -127,4 +141,4 @@ class TCN(nn.Module):
         for block, c in zip(self.network, cache):
             x, c = block(x, c)
             new_caches.append(c)
-        return x, tuple(new_caches)
+        return float_out(x), tuple(new_caches)

@@ -62,6 +62,19 @@ the backward reuses.  The backward sums are also the BN parameters'
 gradients: those leave the block rank-local, because the trainer
 all-reduces every gradient once.  Without a group nothing is reduced
 and nothing changes.
+
+``precision="bfloat16"`` (the JAX package's ``mdt = bf16``, chosen there
+when the block's ``dtype`` is bfloat16) runs the bf16-operand variants
+of F2, F3, B2 and B3 (``BF16_PASSES``): every C x C product takes
+operands rounded to bf16 and sums in float32, as ``jnp.dot(a.astype(
+bf16), b.astype(bf16), preferred_element_type=float32)``, and F3's ``r``
+is stored as bf16, which B2 and B3 read back (so B2's v-hat comes from
+the bf16 ``r``).  x, w, dy, ds0, y, dx, every sum and every per-channel
+value stay float32; F1, F4, B1 and B4 are the same kernels at both
+precisions.  The plain versions round the same operands with
+``Tensor.to(torch.bfloat16)`` before a float32 ``matmul``, which is
+exact in its products.  A variant counts its launches apart
+(``.bf16_launches``) and has its own kernel name (``kernel_name``).
 """
 
 import contextlib
@@ -94,15 +107,34 @@ VEC_KEYS = (
 )
 PASS_IDS = {"f1": 1, "f2": 2, "f3": 3, "f4": 4,
             "b1": 5, "b2": 6, "b3": 7, "b4": 8}
+PRECISIONS = ("float32", "bfloat16")
+# the passes with a bf16-operand variant: those with a C x C product
+BF16_PASSES = ("f2", "f3", "b2", "b3")
 
 
-def kernel_name(name: str, c: int) -> str:
-    """The CUDA kernel of pass ``name`` at C channels, as a profiler
-    names it (its block reduction is ``reduce_kernel<PASS_IDS[name]>``)."""
+def kernel_name(name: str, c: int, precision: str = "float32") -> str:
+    """The CUDA kernel of pass ``name`` at C channels and ``precision``,
+    as a profiler names it (its block reduction is
+    ``reduce_kernel<PASS_IDS[name]>`` at both precisions)."""
+    if precision == "bfloat16" and name in BF16_PASSES:
+        return f"{name}_bf16_kernel<{c}>"
     return {"f1": f"f1_tile_kernel<{c}>", "f2": f"f2_kernel<{c}>",
             "f3": f"f3_kernel<{c}>", "f4": f"f4_kernel<{c}>",
             "b1": f"b1_stream_kernel<{c}>", "b2": f"b2_kernel<{c}>",
             "b3": f"b3_kernel<{c}>", "b4": f"b4_kernel<{c}>"}[name]
+
+
+def _bf(z, precision):
+    """An operand of a product at ``precision``: rounded to bf16 (and
+    kept as float32, where the product of two is exact)."""
+    if precision == "bfloat16":
+        return z.to(torch.bfloat16).to(z.dtype)
+    return z
+
+
+def _mm(a, b, precision):
+    """a @ b with operands at ``precision``, float32 sums."""
+    return torch.matmul(_bf(a, precision), _bf(b, precision))
 
 
 # ---------------------------------------------------------------------------
@@ -132,20 +164,22 @@ def _f1_plain(x, dw_w, v, dilation):
     return _sums(_dw(x, dw_w, v["dw_b"], dilation))
 
 
-def _pw1(x, dw_w, w1, v, dilation):
+def _pw1(x, dw_w, w1, v, dilation, precision="float32"):
     u = _dw(x, dw_w, v["dw_b"], dilation)
     s0 = u * v["a0"] + v["c0"]
-    return u, s0, torch.matmul(s0, w1) + v["b1"]
+    return u, s0, _mm(s0, w1, precision) + v["b1"]
 
 
-def _f2_plain(x, dw_w, w1, v, dilation):
-    return _sums(_pw1(x, dw_w, w1, v, dilation)[2])
+def _f2_plain(x, dw_w, w1, v, dilation, precision="float32"):
+    return _sums(_pw1(x, dw_w, w1, v, dilation, precision)[2])
 
 
-def _f3_plain(x, dw_w, w1, w2, v, dilation):
-    vv = _pw1(x, dw_w, w1, v, dilation)[2]
-    r = torch.relu(vv * v["a1"] + v["c1"])
-    w = torch.matmul(r, w2) + v["b2"]
+def _f3_plain(x, dw_w, w1, w2, v, dilation, precision="float32"):
+    vv = _pw1(x, dw_w, w1, v, dilation, precision)[2]
+    r = _bf(torch.relu(vv * v["a1"] + v["c1"]), precision)
+    w = _mm(r, w2, precision) + v["b2"]
+    if precision == "bfloat16":  # stored as bf16 (exact: r is rounded)
+        r = r.to(torch.bfloat16)
     return (r, w) + _sums(w)
 
 
@@ -173,10 +207,10 @@ def _bn_back(coef, g, sg, sgh, hat, n):
     return coef / n * (n * g - sg - hat * sgh)
 
 
-def _ds1(dy, w, x, r, w2, v, n):
+def _ds1(dy, w, x, r, w2, v, n, precision="float32"):
     g2, what = _g2_what(dy, w, x, v)
     dwg = _bn_back(v["coef2"], g2, v["sg"], v["sgw"], what, n)
-    dr = torch.matmul(dwg, w2.t())
+    dr = _mm(dwg, w2.t(), precision)
     return dwg, dr * (r > 0.0)
 
 
@@ -184,27 +218,30 @@ def _rows(z):
     return z.reshape(-1, z.shape[-1])
 
 
-def _b2_plain(dy, w, x, r, w2, v, n):
-    dwg, ds1 = _ds1(dy, w, x, r, w2, v, n)
-    dw2 = torch.matmul(_rows(r).t(), _rows(dwg))
+def _b2_plain(dy, w, x, r, w2, v, n, precision="float32"):
+    r = r.float()  # a bf16 r is widened, exactly
+    dwg, ds1 = _ds1(dy, w, x, r, w2, v, n, precision)
+    dw2 = _mm(_rows(r).t(), _rows(dwg), precision)
     # v-hat where ds1 != 0: there r = s1 = gamma1 * vhat + beta1
     vhat = (r - v["beta1"]) / v["gamma1"]
     return (dw2, dwg.sum(dim=(0, 1)), ds1.sum(dim=(0, 1)),
             (ds1 * vhat).sum(dim=(0, 1)))
 
 
-def _ds0(dy, w, x, r, dw_w, w1, w2, v, dilation, n):
-    _, ds1 = _ds1(dy, w, x, r, w2, v, n)
-    u, s0, vv = _pw1(x, dw_w, w1, v, dilation)
+def _ds0(dy, w, x, r, dw_w, w1, w2, v, dilation, n, precision="float32"):
+    _, ds1 = _ds1(dy, w, x, r.float(), w2, v, n, precision)
+    u, s0, vv = _pw1(x, dw_w, w1, v, dilation, precision)
     uhat = (u - v["mu0"]) * v["inv0"]
     vhat = (vv - v["mu1"]) * v["inv1"]
     dv = _bn_back(v["coef1"], ds1, v["sds1"], v["sds1v"], vhat, n)
-    return s0, uhat, dv, torch.matmul(dv, w1.t())
+    return s0, uhat, dv, _mm(dv, w1.t(), precision)
 
 
-def _b3_plain(dy, w, x, r, dw_w, w1, w2, v, dilation, n):
-    s0, uhat, dv, ds0 = _ds0(dy, w, x, r, dw_w, w1, w2, v, dilation, n)
-    dw1 = torch.matmul(_rows(s0).t(), _rows(dv))
+def _b3_plain(dy, w, x, r, dw_w, w1, w2, v, dilation, n,
+              precision="float32"):
+    s0, uhat, dv, ds0 = _ds0(dy, w, x, r, dw_w, w1, w2, v, dilation, n,
+                             precision)
+    dw1 = _mm(_rows(s0).t(), _rows(dv), precision)
     return (dw1, dv.sum(dim=(0, 1)), ds0.sum(dim=(0, 1)),
             (ds0 * uhat).sum(dim=(0, 1)), ds0)
 
@@ -316,16 +353,25 @@ def f3_window_bytes(c: int, halo: int) -> int:
     return 4 * c * (flat_tile_rows(c) + halo)
 
 
-def tile_smem_bytes(name: str, c: int, halo: int = 0) -> int:
+def tile_smem_bytes(name: str, c: int, halo: int = 0,
+                    precision: str = "float32") -> int:
     """Shared memory of one F1, F2, F3, B2 or B3 block
     (csrc/fused_mdtc_train.cu ``fwd_smem_bytes``, ``b2_smem_bytes``,
-    ``b3_smem_bytes``): the packed per-channel vector (with the taps,
-    but in B2), the C x C weight matrices and the tiles, at row stride
-    C + 4 (F1: no matrix, one tile for its reduction); B2 adds the next
-    tile's w, x and dy rows, staged; F2 and F3 their window of x
-    (``f3_window_bytes``) where F3's fits a block (``run`` there
-    decides the same), else they read the taps from device memory; F1
-    two windows where they fit beside its own (``F1_STAGED``)."""
+    ``b3_smem_bytes``, ``b3_bf16_smem_bytes``): the packed per-channel
+    vector (with the taps, but in B2), the C x C weight matrices and the
+    tiles, at row stride C + 4 (F1: no matrix, one tile for its
+    reduction); B2 adds the next tile's w, x and dy rows, staged; F2 and
+    F3 their window of x (``f3_window_bytes``) where F3's fits a block
+    (``run`` there decides the same), else they read the taps from
+    device memory; F1 two windows where they fit beside its own
+    (``F1_STAGED``).  At bf16, F2, F3 and B2 keep their fp32 tiles (the
+    same bytes); B3 keeps three fp32 tiles and holds W1, W2 and its two
+    product-operand tiles as bf16 at row stride C + 8."""
+    if precision == "bfloat16" and name == "b3":
+        rows = flat_tile_rows(c)
+        return (4 * ((len(VEC_KEYS) + MAX_TAPS) * c + 3 * rows * (c + 4))
+                + 2 * (2 * c + 2 * rows) * (c + 8))
+
     def unstaged(name):
         vec, mats, tiles = {
             "f1": (len(VEC_KEYS) + MAX_TAPS, 0, 1),
@@ -396,25 +442,27 @@ def _pack(v: Dict[str, torch.Tensor], c: int, device) -> torch.Tensor:
     return torch.stack([v.get(key, zero).reshape(c) for key in VEC_KEYS])
 
 
-def _launch(name, x, tensors, v, dilation, n, k):
+def _launch(name, x, tensors, v, dilation, n, k, precision="float32"):
     """One pass on x's device and current stream.  ``tensors`` holds the
     (B, T, C) inputs and weights by slot name; returns the outputs."""
     lib, fn = _kernel_fn()
     b, t, c = x.shape
     dev = x.device
+    bf16 = precision == "bfloat16"
     width = _partial_width(name, c, k)
     rows = (b4_tile_rows(t, c, (k - 1) * int(dilation)) if name == "b4"
             else TILE_ROWS)
     per_sm = 2
     if name in FLAT_PASSES:
-        smem = tile_smem_bytes(name, c, (k - 1) * int(dilation))
+        smem = tile_smem_bytes(name, c, (k - 1) * int(dilation), precision)
         per_sm = blocks_per_sm(smem, c)
     nblocks = _grid_blocks(dev, _tiles(name, b, t, c, rows), per_sm)
     ptrs = dict(tensors)
     ptrs["vec"] = _pack(v, c, dev)
     out = {}
     if name == "f3":
-        out["out_r"] = torch.empty_like(x)
+        out["out_r"] = torch.empty_like(
+            x, dtype=torch.bfloat16 if bf16 else torch.float32)
         out["out_w"] = torch.empty_like(x)
     elif name == "f4":
         out["out_y"] = torch.empty_like(x)
@@ -430,7 +478,8 @@ def _launch(name, x, tensors, v, dilation, n, k):
     ptrs.update(out)
     arr = (ctypes.c_void_p * len(_SLOTS))(
         *[ptrs[s].data_ptr() if s in ptrs else None for s in _SLOTS])
-    dims = (ctypes.c_int * 7)(c, b, t, k, int(dilation), nblocks, rows)
+    dims = (ctypes.c_int * 8)(c, b, t, k, int(dilation), nblocks, rows,
+                              int(bf16))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(PASS_IDS[name], arr, dims, float(n), stream)
@@ -438,27 +487,36 @@ def _launch(name, x, tensors, v, dilation, n, k):
         msg = lib.fused_train_error_string(err).decode()
         raise RuntimeError(f"fused_mdtc_train {name} kernel launch failed: "
                            f"{msg} ({err})")
-    PASSES[name].launches += 1
+    if bf16:
+        PASSES[name].bf16_launches += 1
+    else:
+        PASSES[name].launches += 1
     return out
 
 
-def _check(x, mats, v, k):
-    """Inputs of one pass: float32, contiguous, on x's device."""
+def _check(x, mats, v, k, precision="float32"):
+    """Inputs of one pass: float32 (``r`` bf16 at bf16), contiguous, on
+    x's device, at a precision the pass has."""
     if x.dim() != 3:
         raise ValueError(f"activations must be (B, T, C), got "
                          f"{tuple(x.shape)}")
     b, t, c = x.shape
     if b < 1 or t < 1:
         raise ValueError("empty batch or utterance")
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision {precision!r} is not one of "
+                         f"{PRECISIONS}")
     for name, ten in list(mats.items()) + list(v.items()):
         if not isinstance(ten, torch.Tensor):
             raise TypeError(f"{name}: expected a torch.Tensor")
         if ten.device != x.device:
             raise ValueError(f"{name} is on {ten.device}, expected "
                              f"{x.device}")
-        if ten.dtype != torch.float32:
+        want = (torch.bfloat16 if name == "r" and precision == "bfloat16"
+                else torch.float32)
+        if ten.dtype != want:
             raise TypeError(f"{name} has dtype {ten.dtype}, expected "
-                            "float32")
+                            f"{want} at precision {precision}")
         if not ten.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     for name, ten in mats.items():
@@ -500,26 +558,27 @@ def pass_f1(x, dw_w, v, dilation):
     return tuple(_split(out["reduced"], c, c))
 
 
-def pass_f2(x, dw_w, w1, v, dilation):
+def pass_f2(x, dw_w, w1, v, dilation, precision="float32"):
     """F2: bn1 sums of v = bn0(u) @ W1 + b1.  v: dw_b, a0, c0, b1."""
-    _check(x, {"x": x, "dw": dw_w, "pw1": w1}, v, dw_w.shape[0])
+    _check(x, {"x": x, "dw": dw_w, "pw1": w1}, v, dw_w.shape[0], precision)
     if x.device.type == "cpu":
-        return _f2_plain(x, dw_w, w1, v, dilation)
+        return _f2_plain(x, dw_w, w1, v, dilation, precision)
     c = x.shape[2]
     out = _launch("f2", x, {"x": x, "dw": dw_w, "pw1": w1}, v, dilation,
-                  0.0, dw_w.shape[0])
+                  0.0, dw_w.shape[0], precision)
     return tuple(_split(out["reduced"], c, c))
 
 
-def pass_f3(x, dw_w, w1, w2, v, dilation):
-    """F3: r = relu(bn1(v)), w = r @ W2 + b2, and bn2 sums of w.
-    v: dw_b, a0, c0, b1, a1, c1, b2."""
-    _check(x, {"x": x, "dw": dw_w, "pw1": w1, "pw2": w2}, v, dw_w.shape[0])
+def pass_f3(x, dw_w, w1, w2, v, dilation, precision="float32"):
+    """F3: r = relu(bn1(v)), w = r @ W2 + b2, and bn2 sums of w (r bf16
+    at bf16).  v: dw_b, a0, c0, b1, a1, c1, b2."""
+    _check(x, {"x": x, "dw": dw_w, "pw1": w1, "pw2": w2}, v, dw_w.shape[0],
+           precision)
     if x.device.type == "cpu":
-        return _f3_plain(x, dw_w, w1, w2, v, dilation)
+        return _f3_plain(x, dw_w, w1, w2, v, dilation, precision)
     c = x.shape[2]
     out = _launch("f3", x, {"x": x, "dw": dw_w, "pw1": w1, "pw2": w2}, v,
-                  dilation, 0.0, dw_w.shape[0])
+                  dilation, 0.0, dw_w.shape[0], precision)
     return (out["out_r"], out["out_w"]) + tuple(_split(out["reduced"], c, c))
 
 
@@ -541,30 +600,31 @@ def pass_b1(dy, w, x, v):
     return tuple(_split(out["reduced"], c, c))
 
 
-def pass_b2(dy, w, x, r, w2, v, n):
+def pass_b2(dy, w, x, r, w2, v, n, precision="float32"):
     """B2: dW2, db2 and the bn1 gradient sums (Σds1, Σds1·v̂).
     v: a2, c2, mu2, inv2, coef2, sg, sgw, beta1, gamma1."""
     mats = {"x": x, "dy": dy, "w": w, "r": r, "pw2": w2}
-    _check(x, mats, v, 1)
+    _check(x, mats, v, 1, precision)
     if x.device.type == "cpu":
-        return _b2_plain(dy, w, x, r, w2, v, n)
+        return _b2_plain(dy, w, x, r, w2, v, n, precision)
     c = x.shape[2]
-    red = _launch("b2", x, mats, v, 1, n, 1)["reduced"]
+    red = _launch("b2", x, mats, v, 1, n, 1, precision)["reduced"]
     dw2, db2, sds1, sds1v = _split(red, c * c, c, c, c)
     return dw2.view(c, c), db2, sds1, sds1v
 
 
-def pass_b3(dy, w, x, r, dw_w, w1, w2, v, dilation, n):
+def pass_b3(dy, w, x, r, dw_w, w1, w2, v, dilation, n, precision="float32"):
     """B3: dW1, db1, the bn0 gradient sums (Σds0, Σds0·û) and ds0
     (B, T, C) itself, which B4 reads.  v: B2's plus dw_b, a0, c0, mu0,
     inv0, b1, mu1, inv1, coef1, sds1, sds1v."""
     mats = {"x": x, "dy": dy, "w": w, "r": r, "dw": dw_w, "pw1": w1,
             "pw2": w2}
-    _check(x, mats, v, dw_w.shape[0])
+    _check(x, mats, v, dw_w.shape[0], precision)
     if x.device.type == "cpu":
-        return _b3_plain(dy, w, x, r, dw_w, w1, w2, v, dilation, n)
+        return _b3_plain(dy, w, x, r, dw_w, w1, w2, v, dilation, n,
+                         precision)
     c = x.shape[2]
-    out = _launch("b3", x, mats, v, dilation, n, dw_w.shape[0])
+    out = _launch("b3", x, mats, v, dilation, n, dw_w.shape[0], precision)
     dw1, db1, sds0, sds0u = _split(out["reduced"], c * c, c, c, c)
     return dw1.view(c, c), db1, sds0, sds0u, out["ds0"]
 
@@ -590,11 +650,13 @@ for _fn, _plain in zip(PASSES.values(), (
         _b3_plain, _b4_plain)):
     _fn.plain = _plain
     _fn.launches = 0
+    _fn.bf16_launches = 0
 
 
 def reset_launches() -> None:
     for fn in PASSES.values():
         fn.launches = 0
+        fn.bf16_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -651,11 +713,18 @@ def plain_passes(*names):
         _block_run = before
 
 
-def block_forward(x, p, dilation, eps, run=_run_public):
+def _at(precision):
+    """The trailing precision argument of a pass call: none at float32,
+    so that a float32 call's arguments are what they always were."""
+    return () if precision == "float32" else (precision,)
+
+
+def block_forward(x, p, dilation, eps, run=_run_public,
+                  precision="float32"):
     """F1..F4.  ``p``: PARAM_KEYS, with dw_kernel as (K, C) and the
     pointwise kernels as (in, out), all contiguous float32.  Returns
     (y, r, w, v) with v the per-channel values the backward needs and
-    ``v["n"]`` the global frame count.
+    ``v["n"]`` the global frame count (r bf16 at bf16).
     ``run(name, *args)`` runs one pass (the public pass by default)."""
     b, t, _ = x.shape
     n = _frames(b, t)
@@ -667,13 +736,13 @@ def block_forward(x, p, dilation, eps, run=_run_public):
     v["c0"] = p["bn0_bias"] - p["bn0_scale"] * v["inv0"] * v["mu0"]
     v["b1"] = p["pw1_bias"]
     sv, svv = _summed(*run("f2", x, dw_w, p["pw1_kernel"], _only(v, "f2"),
-                           dilation))
+                           dilation, *_at(precision)))
     v["mu1"], v["var1"], v["inv1"] = _stat(sv, svv, n, eps)
     v["a1"] = p["bn1_scale"] * v["inv1"]
     v["c1"] = p["bn1_bias"] - p["bn1_scale"] * v["inv1"] * v["mu1"]
     v["b2"] = p["pw2_bias"]
     r, w, sw, sww = run("f3", x, dw_w, p["pw1_kernel"], p["pw2_kernel"],
-                        _only(v, "f3"), dilation)
+                        _only(v, "f3"), dilation, *_at(precision))
     sw, sww = _summed(sw, sww)
     v["mu2"], v["var2"], v["inv2"] = _stat(sw, sww, n, eps)
     v["a2"] = p["bn2_scale"] * v["inv2"]
@@ -683,7 +752,8 @@ def block_forward(x, p, dilation, eps, run=_run_public):
     return y, r, w, v
 
 
-def block_backward(dy, x, r, w, p, v, dilation, run=_run_public):
+def block_backward(dy, x, r, w, p, v, dilation, run=_run_public,
+                   precision="float32"):
     """B1..B4.  Returns (dx, grads by PARAM_KEYS in the layouts of
     ``block_forward``).  The BN-backward sums that B2, B3 and B4 read
     are the global batch's; the BN parameters' gradients are this
@@ -697,10 +767,12 @@ def block_backward(dy, x, r, w, p, v, dilation, run=_run_public):
     v["beta1"], v["gamma1"] = p["bn1_bias"], p["bn1_scale"]
     sg, sgw = run("b1", dy, w, x, _only(v, "b1"))
     v["sg"], v["sgw"] = _summed(sg, sgw)
-    dw2, db2, sds1, sds1v = run("b2", dy, w, x, r, w2, _only(v, "b2"), n)
+    dw2, db2, sds1, sds1v = run("b2", dy, w, x, r, w2, _only(v, "b2"), n,
+                                *_at(precision))
     v["sds1"], v["sds1v"] = _summed(sds1, sds1v)
     dw1, db1, sds0, sds0u, ds0 = run(
-        "b3", dy, w, x, r, dw_w, w1, w2, _only(v, "b3"), dilation, n)
+        "b3", dy, w, x, r, dw_w, w1, w2, _only(v, "b3"), dilation, n,
+        *_at(precision))
     v["sds0"], v["sds0u"] = _summed(sds0, sds0u)
     dx, dwd, dbd = run("b4", dy, w, x, ds0, dw_w, _only(v, "b4"), dilation,
                        n)
@@ -746,18 +818,20 @@ def _kernel_layout(params):
 
 class FusedTCNBlockTrain(torch.autograd.Function):
     """y, mu0, var0, mu1, var1, mu2, var2 = apply(x, dilation, eps,
-    *params in PARAM_KEYS order, JAX layouts).  The statistics carry no
-    gradient (running-average updates are stop-gradient, as in flax)."""
+    precision, *params in PARAM_KEYS order, JAX layouts).  The
+    statistics carry no gradient (running-average updates are
+    stop-gradient, as in flax)."""
 
     @staticmethod
-    def forward(ctx, x, dilation, eps, *params):
+    def forward(ctx, x, dilation, eps, precision, *params):
         p = _kernel_layout(dict(zip(PARAM_KEYS, params)))
         x = x.contiguous()
-        y, r, w, v = block_forward(x, p, dilation, eps, _block_run)
+        y, r, w, v = block_forward(x, p, dilation, eps, _block_run,
+                                   precision)
         keep = ("dw_b", "a0", "c0", "mu0", "inv0", "b1", "mu1", "inv1",
                 "b2", "a2", "c2", "mu2", "inv2")
         ctx.dilation, ctx.n = dilation, v["n"]
-        ctx.keep = keep
+        ctx.keep, ctx.precision = keep, precision
         ctx.save_for_backward(x, r, w, *[p[k] for k in PARAM_KEYS],
                               *[v[k] for k in keep])
         stats = (v["mu0"], v["var0"], v["mu1"], v["var1"], v["mu2"],
@@ -773,10 +847,10 @@ class FusedTCNBlockTrain(torch.autograd.Function):
         p = dict(zip(PARAM_KEYS, saved[3:3 + nk]))
         v = dict(zip(ctx.keep, saved[3 + nk:]), n=ctx.n)
         dx, grads = block_backward(dy.contiguous(), x, r, w, p, v,
-                                   ctx.dilation, _block_run)
+                                   ctx.dilation, _block_run, ctx.precision)
         g = dict(grads)
         g["dw_kernel"] = g["dw_kernel"][:, None, :]
-        return (dx, None, None) + tuple(g[k] for k in PARAM_KEYS)
+        return (dx, None, None, None) + tuple(g[k] for k in PARAM_KEYS)
 
 
 def fused_tcn_block_train(
@@ -795,22 +869,24 @@ def fused_tcn_block_train(
     stats)`` with stats {mu0, var0, mu1, var1, mu2, var2} (C,) for the
     caller's running-average updates.  The residual needs
     in_channels == res_channels.  Gradients flow to ``x`` and every
-    parameter through autograd."""
-    if precision != "float32":
-        raise NotImplementedError(
-            f"precision={precision!r}: only float32 is ported (ROADMAP "
-            "queue A, item 15, training knobs)")
+    parameter through autograd.  ``precision="bfloat16"`` runs the
+    bf16-operand variants of F2, F3, B2 and B3 (the module docstring);
+    y and every gradient stay float32."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision {precision!r} is not one of "
+                         f"{PRECISIONS}")
     if tuple(params["dw_kernel"].shape)[0] != kernel_size:
         raise ValueError(f"dw_kernel has {params['dw_kernel'].shape[0]} "
                          f"taps, kernel_size is {kernel_size}")
-    out = FusedTCNBlockTrain.apply(x, int(dilation), float(eps),
+    out = FusedTCNBlockTrain.apply(x, int(dilation), float(eps), precision,
                                    *[params[k] for k in PARAM_KEYS])
     y, stats = out[0], out[1:]
     return y, dict(zip(("mu0", "var0", "mu1", "var1", "mu2", "var2"),
                        stats))
 
 
-def trace_pass_inputs(x, params, dy, dilation, eps=1e-5):
+def trace_pass_inputs(x, params, dy, dilation, eps=1e-5,
+                      precision="float32"):
     """Run one block forward and backward through the PLAIN passes and
     return {pass name: its argument tuple}, so that each kernel can be
     held against its plain version on identical inputs.  ``params`` in
@@ -823,8 +899,8 @@ def trace_pass_inputs(x, params, dy, dilation, eps=1e-5):
 
     p = _kernel_layout(params)
     x = x.contiguous()
-    _, r, w, v = block_forward(x, p, dilation, eps, run)
-    block_backward(dy.contiguous(), x, r, w, p, v, dilation, run)
+    _, r, w, v = block_forward(x, p, dilation, eps, run, precision)
+    block_backward(dy.contiguous(), x, r, w, p, v, dilation, run, precision)
     return calls
 
 
@@ -834,6 +910,24 @@ def trace_pass_inputs(x, params, dy, dilation, eps=1e-5):
 
 OUT_TOL = 1e-4  # (B, T, C) outputs, abs and rel: fp32 in another order
 SUM_TOL = 1e-3  # sums over frames, relative to the largest of their group
+# The bf16 variants round the same operands as their plain versions, but
+# where the two sides' float32 values (summed in another order) straddle
+# a bf16 rounding point, an operand differs by one bf16 step (2^-8 of
+# it), and so does each product that reads it: a whole row of C
+# outputs.  Such ties hit some 1e-4 of the operands at most; so a (B, T,
+# C) output of a bf16 variant may differ beyond OUT_TOL at BF16_OFF_SHARE
+# of its elements, and nowhere by more than BF16_OUT_TOL of its largest
+# |value|.  Without the rounding (fp32 operands), nearly every element
+# would be off.  Its sums over frames move only by summation order and
+# by the ties in a rounded operand, most in B2's and B3's, whose BN
+# backward cancels before it rounds.  On the H100 the variants' sums
+# read up to 1.3e-5 (F2, F3) and 3.2e-4 (B2, B3, at B=3) of their
+# group's largest, the float32-operand plain versions on the same
+# inputs 6.8e-4 (F3) and 1.7e-3 (B2) at least, so each pass's
+# BF16_SUM_TOL lies between.
+BF16_OUT_TOL = 2.0 ** -7
+BF16_OFF_SHARE = 2e-2
+BF16_SUM_TOL = {"f2": 1e-4, "f3": 1e-4, "b2": 8e-4, "b3": 8e-4}
 
 
 def seeded_block_inputs(gen, b, t, c, k, device):
@@ -870,10 +964,20 @@ def compare_sums(name, gots, wants, floor=1.0, tol=SUM_TOL):
     return worst
 
 
-def compare_pass(name, got, want):
+def off_share(got, want):
+    """Share of the elements of a (B, T, C) output outside OUT_TOL abs
+    + OUT_TOL rel of the plain version's."""
+    return float((~torch.isclose(got.float(), want.float(), atol=OUT_TOL,
+                                 rtol=OUT_TOL)).float().mean())
+
+
+def compare_pass(name, got, want, precision="float32", sum_tol=SUM_TOL):
     """Largest abs error of one pass's outputs against its plain
-    version's: (B, T, C) outputs within OUT_TOL abs + OUT_TOL rel,
-    the pass's sums as one group of ``compare_sums``."""
+    version's: (B, T, C) outputs within OUT_TOL abs + OUT_TOL rel (at
+    bf16: BF16_OFF_SHARE of them may lie outside, none beyond
+    BF16_OUT_TOL of the output's largest |value|), the pass's sums as
+    one group of ``compare_sums`` within ``sum_tol`` (a bf16 variant's
+    caller passes its BF16_SUM_TOL)."""
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     worst = 0.0
@@ -882,12 +986,26 @@ def compare_pass(name, got, want):
         if b.dim() != 3:
             sums.append((a, b))
             continue
+        if a.dtype != b.dtype:
+            raise AssertionError(f"{name}[{i}]: dtype {a.dtype}, the plain "
+                                 f"version's {b.dtype}")
+        a, b = a.float(), b.float()
         err = float((a - b).abs().max())
-        if not (torch.allclose(a, b, atol=OUT_TOL, rtol=OUT_TOL)
-                and bool(a.isfinite().all())):
+        if not bool(a.isfinite().all()):
+            raise AssertionError(f"{name}[{i}]: not finite")
+        if precision == "bfloat16":
+            scale = max(float(b.abs().max()), 1e-30)
+            share = off_share(a, b)
+            if err > BF16_OUT_TOL * scale or share > BF16_OFF_SHARE:
+                raise AssertionError(
+                    f"{name}[{i}]: max abs err {err:.3e} ({err / scale:.2e} "
+                    f"of its largest |value|, bound {BF16_OUT_TOL}), "
+                    f"{share:.2e} of the elements outside {OUT_TOL} abs + "
+                    f"{OUT_TOL} rel (bound {BF16_OFF_SHARE})")
+        elif not torch.allclose(a, b, atol=OUT_TOL, rtol=OUT_TOL):
             raise AssertionError(f"{name}[{i}]: max abs err {err:.3e} over "
                                  f"{OUT_TOL} abs + {OUT_TOL} rel")
         worst = max(worst, err)
     if sums:
-        worst = max(worst, compare_sums(name, *zip(*sums)))
+        worst = max(worst, compare_sums(name, *zip(*sums), tol=sum_tol))
     return worst

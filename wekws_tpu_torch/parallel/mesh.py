@@ -147,6 +147,16 @@ def all_reduce_count(n: int) -> int:
     return int(out.item())
 
 
+def gather_counts(n: int) -> List[int]:
+    """Every rank's host integer ``n``, in rank order, by one sum over
+    the default gloo group of a vector that holds each rank's own entry
+    (ghost BN's row offsets)."""
+    out = torch.zeros((process_count(),), dtype=torch.int64)
+    out[process_index()] = int(n)
+    dist.all_reduce(out)
+    return [int(v) for v in out.tolist()]
+
+
 class _AllReduceSum(torch.autograd.Function):
     """Sum over ranks whose backward is the sum over ranks of the
     gradient: every rank's loss reads the summed statistic, so each

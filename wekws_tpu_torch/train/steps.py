@@ -172,6 +172,11 @@ class Trainer:
         device="cuda",
     ):
         self.device = resolve_device(device)
+        # cuBLAS may otherwise sum a bf16 product's split-K parts in
+        # bf16, where XLA (and the port's other routes) sum in float32;
+        # float32 products already run in float32 (allow_tf32 False)
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+            = False
         self.model = model.to(self.device)
         self.pipeline = pipeline
         self.cv_pipeline = cv_pipeline
