@@ -189,7 +189,9 @@ phases; any failure exits non-zero:
     dispatch share, real-time factor, launches per step; (c) the JAX
     CTC fixture (host decode; device decode with the device frontend)
     and the JAX DS-TCN fixture served by ``bin.serve`` in a subprocess
-    to 16 client threads (192 utterances each, 300 ms chunks): events
+    to 16 client threads (192 utterances each, 300 ms chunks; device
+    decode the first 48), every daemon started before the in-process
+    engines run and timed once all are up: events
     equal to the in-process engine's and, for CTC, ``KeyWordSpotter``'s,
     and bin.serve's own launch counts (logged when SIGTERM stops it) one
     a dispatch for each kernel of its route; an in-process
@@ -207,7 +209,7 @@ phases; any failure exits non-zero:
     (``path_f_launches``, bin.serve's own counts among them;
     ``path_f``: shape, calls, error, times, bound); the serving figures
     are one JSON line (``path_f_figures``);
-18. path G, device-resident epochs (``data/resident.py``): (a) 16,384
+18. path G, device-resident epochs (``data/resident.py``): (a) 8,192
     train and 2,048 cv rows of 2 s made from a seed as int16 (phase
     7's signal) and staged with ``stage_arrays`` (bytes, seconds, GB/s,
     memory; rows read back equal); (b) the flagship with
@@ -215,7 +217,7 @@ phases; any failure exits non-zero:
     resident step at B=512 against ``Trainer.train_step`` on the same
     rows copied to the host and back, from the same state, seed and
     step (loss, accuracy, every parameter and BN statistic: equal), one
-    resident cv step against ``Trainer.cv_step``; (c) 32 steps through
+    resident cv step against ``Trainer.cv_step``; (c) 16 steps through
     ``Executor.train_resident`` (wall clock and CUDA events) and one
     ``cv_resident`` pass, the resident step beside the host-fed step
     (float32 waves and int16 rows) in turns, its device idle share, and
@@ -283,13 +285,13 @@ phases; any failure exits non-zero:
     F1-F4/B1-B4 and ``fused_fbank`` at a rank's shapes against their
     plain versions (as 18e); (c) ``bin.train --coordinator ...
     --num_processes 2 --process_id r`` as two processes, host-fed (the
-    bucket schedule) and ``--device_resident``, one epoch of
+    bucket schedule) and ``--device_resident`` side by side, one epoch of
     ``examples/synthetic`` each: the same cv line on both ranks, files
     from rank 0 only, ``bin.score`` of its checkpoint through
     ``fused_mdtc_kernel``; (d) ``BatchMaxPoolSpotter`` over two row
     blocks on the card against the one-device engine at 64 x 8
-    (posteriors, events); (e) ``bin.serve --mesh_devices 1`` to four
-    clients.  Path I's launches are added to the kernel records
+    (posteriors, events); (e) ``bin.serve --mesh_devices 1`` (started
+    during (c)) to four clients.  Path I's launches are added to the kernel records
     (``path_i_launches``, ``path_i``); the figures are one JSON line
     (``path_i_figures``).
 
@@ -323,18 +325,63 @@ phases; any failure exits non-zero:
     (``path_j_launches``); the figures are one JSON line
     (``path_j_figures``).
 
+22. path K, the last entry points, in a fresh process: (a) the flagship
+    (phase 4's checkpoint), the JAX CTC fixture and the JAX DS-TCN
+    fixture through ``bin.export_model --format stablehlo --chunk_frames
+    32`` on the card (``model.pt2``, a ``torch.export`` program of the
+    module route's cached step: ROADMAP C.28); each program loaded in a
+    fresh process and stepped over phase 4's waves through the model's
+    frontend in 32-frame chunks from the initial cache, its outputs and
+    final caches against the module route on the CPU and against the
+    fused stream on the card (``fused_mdtc_kernel``,
+    ``fused_fsmn_kernel``, ``fused_ds_tcn_kernel``; outputs and the
+    packed cache's layers; TOL), a flat output failing; its aten op
+    counts (nothing but aten operators); one step at B=1 x 32 of the
+    program and of the fused stream: host clock, device time, launches;
+    (b) ``examples/synthetic_scale``: ``run_torch.sh`` and
+    ``run_ctc_torch.sh``, stages 0-5: stages 0-1 (the corpus and CMVN,
+    the CPU alone) started before phase 2's build, beside it
+    (``PathKHead``), stages 2-5 here side by side, with (a) in this
+    process beside them (its timings after them), the corpora cut and 2
+    epochs
+    (each cut printed), every Python process they start tapped (a
+    sitecustomize on PYTHONPATH enters ``ShapeTap``, ``PassTap`` and
+    ``PlainOnCuda`` for the process: ``recipe_tap``): stages 0-4 (0-3)
+    ended, ``bin.train`` through ``fused_fbank``, F1/F4/B1/B4 and the
+    bf16 variants of F2/F3/B2/B3, ``bin.score`` through
+    ``fused_mdtc_kernel``, ``bin.score_ctc`` through
+    ``fused_fsmn_kernel``, no plain version on a CUDA tensor, the
+    recipe's ``model.pt2`` loaded back and held against the averaged
+    model's step over eight of its test utterances; stage 5 (the DET
+    plot): the PNG where the machine has matplotlib, else an ImportError
+    naming the ``plot`` extra; (c) each kernel path K launched against its plain version at
+    every shape path K gave it (22a's inputs; 22b's weights with seeded
+    stand-ins for its larger tensors; the passes on seeded block inputs
+    of their shapes), with times, device times and bounds.  Path K's
+    launches are added to the kernel records (``path_k_launches``,
+    ``path_k``); the figures are one JSON line (``path_k_figures``).
+
 The last lines are the card, the per-kernel JSON record (17 kernels:
 the 13 and the four bf16 variants) and ``{"ok": true, "device":
 {...}}``.  Run from the repository root: ``python3 chip_smoke.py``;
 ``python3 chip_smoke.py --phase 20`` runs phases 1-2 and path I alone
 (phase 4's checkpoint and phase 7's model config made from their
-seeds), ``--phase 21`` phases 1-2 and path J alone.
+seeds), ``--phase 21`` phases 1-2 and path J alone, ``--phase 22``
+phases 1-2, phase 4's checkpoint and path K alone.
+
+The run keeps inside its time limit by doing on the CPU's idle cores
+what needs no card while the kernels build (the corpora that phases 15,
+16, 17, 19 and 21 read: ``CORPORA``; path K's stages 0-1), by starting
+each ``bin.serve`` before the untimed work that precedes its timed
+session, and by the cut depths named where they are set; each part of
+phases 15-22 prints its wall time (``[part] name (s)``).
 """
 
 import copy
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -477,6 +524,28 @@ def phase(name):
             return False
 
     return _Phase()
+
+
+# the parts of the later phases, each of which prints its own wall time
+# ("[part] name (s)") where it returns: the readings by which a phase's
+# depth is cut to keep the run inside its time limit
+TIMED_PARTS = r"phase(1[4-9]|2[0-2])[a-g]\w*|path_[g-k]_\w*child" \
+    r"|path_g_traces|phase19_times"
+
+
+def timed_part(fn):
+    import functools
+
+    @functools.wraps(fn)
+    def part(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            print(f"[part] {fn.__name__} ({time.perf_counter() - t0:.1f} s)",
+                  flush=True)
+
+    return part
 
 
 def card_line():
@@ -3152,14 +3221,10 @@ def phase15b_ctc_recipe(dev, card, tmp):
     )
     from wekws_tpu_torch.text import CharTokenizer
 
-    repo = os.path.abspath(os.path.dirname(__file__) or ".")
-    data = os.path.join(tmp, "data")
-    env = dict(os.environ, PYTHONPATH=repo)
-    subprocess.run([sys.executable, os.path.join(
-        repo, CTC_RECIPE, "local", "gen_data_torch.py"), data], cwd=tmp,
-        env=env, check=True, capture_output=True, timeout=300)
-    with open(os.path.join(tmp, "dict", "dict.txt")) as f, open(
-            os.path.join(CTC_RECIPE, "dict", "dict.txt")) as g:
+    data = corpus("ctc")
+    made = os.path.join(os.path.dirname(data), "dict", "dict.txt")
+    with open(made) as f, open(os.path.join(CTC_RECIPE, "dict",
+                                            "dict.txt")) as g:
         if f.read() != g.read():
             raise AssertionError("gen_data_torch.py's dict differs from the "
                                  "committed dict/dict.txt")
@@ -3353,6 +3418,73 @@ TCN_CONF = os.path.join("examples", "hi_xiaowen", "conf", "tcn.yaml")
 GRU_TRAIN_B, GRU_SECONDS, GRU_STEPS = 256, 2, 3
 GRU_LOSS64_RTOL, GRU_GRAD64_TOL = 1e-5, 1e-3
 KWS_KEYWORDS = 2  # hi_xiaowen: "hi xiaowen", "nihao wenwen"
+
+
+# the generated corpora that several phases read (15b, 17c, 19c, 21e the
+# CTC one; 16b the commands one), each made once, beside the kernel
+# build: {name: (its generator, the generator's options)}
+CORPORA = {
+    "ctc": (os.path.join(CTC_RECIPE, "local", "gen_data_torch.py"), ()),
+    "commands": (os.path.join(COMMANDS_RECIPE, "local", "gen_data_torch.py"),
+                 ("--classes", str(COMMANDS_CLASSES))),
+}
+_corpus_jobs = {}
+
+
+def corpus_root(name):
+    from wekws_tpu_torch.ops import cuda_build
+
+    return os.path.join(cuda_build.BUILD_DIR, "chip_smoke", "corpora", name)
+
+
+def start_corpus(name):
+    """CORPORA[name]'s generator into ``corpus_root(name)``/data, started
+    (the CPU alone; its dict/ lands beside data/, as in a recipe)."""
+    import shutil
+
+    root = corpus_root(name)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    repo = os.path.abspath(os.path.dirname(__file__) or ".")
+    gen, options = CORPORA[name]
+    with open(os.path.join(root, "gen.log"), "w") as log:
+        _corpus_jobs[name] = subprocess.Popen(
+            [sys.executable, os.path.join(repo, gen), "data", *options],
+            cwd=root, env=dict(os.environ, PYTHONPATH=repo), stdout=log,
+            stderr=subprocess.STDOUT)
+
+
+def stop_corpora():
+    for proc in _corpus_jobs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    _corpus_jobs.clear()
+
+
+def corpus(name):
+    """The data directory of CORPORA[name]: its generator, started beside
+    the build, waited for; or run now where none was started and none
+    finished before (a fresh process finds the one that the first
+    reader marked done)."""
+    root = corpus_root(name)
+    done = os.path.join(root, "done")
+    if name not in _corpus_jobs and not os.path.exists(done):
+        start_corpus(name)
+    proc = _corpus_jobs.pop(name, None)
+    if proc is not None:
+        try:
+            code = proc.wait(300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if code != 0:
+            with open(os.path.join(root, "gen.log")) as f:
+                raise AssertionError(f"{CORPORA[name][0]} exited {code}:\n"
+                                     f"{f.read()[-3000:]}")
+        open(done, "w").close()
+    return os.path.join(root, "data")
 
 
 def recipe_yaml(path):
@@ -3769,13 +3901,7 @@ def phase16b_commands_recipe(dev, card, tmp):
     from wekws_tpu_torch.ops.fused_mdtc import fused_mdtc_forward
     from wekws_tpu_torch.ops.fused_mdtc_train import PASSES, reset_launches
 
-    repo = os.path.abspath(os.path.dirname(__file__) or ".")
-    data = os.path.join(tmp, "data")
-    env = dict(os.environ, PYTHONPATH=repo)
-    subprocess.run([sys.executable, os.path.join(
-        repo, COMMANDS_RECIPE, "local", "gen_data_torch.py"), data,
-        "--classes", str(COMMANDS_CLASSES)], env=env, check=True,
-        capture_output=True, timeout=300)
+    data = corpus("commands")
     lists = {s: os.path.join(data, f"{s}.list")
              for s in ("train", "dev", "test")}
     cmvn = os.path.join(COMMANDS_RECIPE, "data", "global_cmvn")
@@ -4133,8 +4259,9 @@ def phase16_classification(dev, card, work, waves):
     """Path E: 16a the speechcommand_v1 MDTC trained at full width and
     served with the global head, 16b the synthetic commands recipe
     through the CLIs, 16c the JAX fixture, 16d the GRU and full-conv TCN,
-    16e the idle shares of 15a's, 16a's and 16d's steps.  Returns path
-    E's launches per kernel record and the readings at its shapes."""
+    (16e, the idle shares of 15a's, 16a's and 16d's steps, come from
+    path G's fresh process: ``idle_shares``).  Returns path E's launches
+    per kernel record and the readings at its shapes."""
     import tempfile
 
     out = phase16a_speech_commands(dev, card)
@@ -4146,7 +4273,6 @@ def phase16_classification(dev, card, work, waves):
     launches["fused_mdtc_forward"] += recipe_launches + fixture_launches
     readings["fused_mdtc_forward_c32"] = fixture_reading
     phase16d_other_backbones(dev, card, work, waves)
-    idle_shares(card)
     return launches, readings
 
 
@@ -4166,6 +4292,10 @@ INJECT_ROWS = tuple(range(0, SERVE_STREAMS, 4))
 INJECT_STEPS = dict(zip((3, 4, 5), CTC_KEYWORD_TOKENS))
 DAEMON_CLIENTS = 16
 DAEMON_TIMEOUT_S = 240
+# the CTC daemons with device decode (17c, 19c) serve the first 48 test
+# utterances (every host-decode daemon serves all 192): the decode's
+# steps are the run's slowest, and 48 hold both keywords and fillers
+DAEMON_UTTS = 48
 SERVE_THRESHOLD_CTC = 0.1  # bin.stream_score_ctc's in phase 15
 
 
@@ -4677,16 +4807,21 @@ class ServerThread:
 
 class ServeProcess:
     """``python -m wekws_tpu_torch.bin.serve ... --port 0 --warmup`` in a
-    subprocess; the port is read from its log.  Sent SIGTERM on exit;
-    then ``served`` holds its last log line's stats: the engine's
-    dispatches, the server's steps and each kernel's launches after the
-    warm-up."""
+    subprocess; the port is read from its log by a watching thread, and
+    ``start_s`` is the time from the start to the port.  ``start()`` may
+    come early, so that the daemon loads and warms up while the caller
+    does untimed work; ``with`` starts it where that has not happened
+    and waits for the port.  Sent SIGTERM on exit; then ``served`` holds
+    its last log line's stats: the engine's dispatches, the server's
+    steps and each kernel's launches after the warm-up.  ``close()``
+    stops a daemon that was started and never entered."""
 
     def __init__(self, args, log_path):
         self.args, self.log_path = args, log_path
+        self.proc, self.port = None, None
 
-    def __enter__(self):
-        import re
+    def start(self):
+        import threading
 
         repo = os.path.abspath(os.path.dirname(__file__) or ".")
         self._log = open(self.log_path, "w")
@@ -4696,20 +4831,45 @@ class ServeProcess:
             env=dict(os.environ, PYTHONPATH=repo, PYTHONFAULTHANDLER="1"),
             stdout=self._log, stderr=subprocess.STDOUT)
         t0 = time.perf_counter()
-        while time.perf_counter() - t0 < DAEMON_TIMEOUT_S:
+
+        def watch():
+            while time.perf_counter() - t0 < DAEMON_TIMEOUT_S:
+                with open(self.log_path) as f:
+                    m = re.search(r"kws server on 127\.0\.0\.1:(\d+)",
+                                  f.read())
+                if m:
+                    self.start_s = time.perf_counter() - t0
+                    self.port = int(m.group(1))
+                    return
+                if self.proc.poll() is not None:
+                    return
+                time.sleep(0.2)
+
+        self._watch = threading.Thread(target=watch, daemon=True)
+        self._watch.start()
+        return self
+
+    def ready(self):
+        """Waits for the port; stops the daemon and fails without it."""
+        self._watch.join()
+        if self.port is None:
+            self.__exit__()
             with open(self.log_path) as f:
-                m = re.search(r"kws server on 127\.0\.0\.1:(\d+)", f.read())
-            if m:
-                self.port = int(m.group(1))
-                self.start_s = time.perf_counter() - t0
-                return self
-            if self.proc.poll() is not None:
-                break
-            time.sleep(0.2)
-        self.__exit__()
-        with open(self.log_path) as f:
-            raise AssertionError(f"bin.serve did not open its port:\n"
-                                 f"{f.read()[-3000:]}")
+                raise AssertionError(f"bin.serve did not open its port:\n"
+                                     f"{f.read()[-3000:]}")
+
+    def __enter__(self):
+        if self.proc is None:
+            self.start()
+        self.ready()
+        return self
+
+    def close(self):
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(30)
+        if self.proc is not None:
+            self._log.close()
 
     def __exit__(self, *exc):
         import re
@@ -4910,7 +5070,8 @@ def phase17c_daemons(dev, card, tmp, work):
     corpus of gen_data_torch.py seed 17; host decode, and device decode
     with the device frontend) and the JAX DS-TCN fixture (C=48, the
     committed test wavs), each served by ``bin.serve`` in a subprocess
-    to 16 client threads (192 utterances, 300 ms chunks): the events
+    to 16 client threads (192 utterances, 300 ms chunks; with device
+    decode the first ``DAEMON_UTTS``): the events
     equal the in-process engine's (the same ``build_engine``) and, for
     CTC, ``KeyWordSpotter``'s, and bin.serve's own launch counts show
     each kernel of the route once a dispatch.  Then in process, a
@@ -4920,60 +5081,89 @@ def phase17c_daemons(dev, card, tmp, work):
     ``bin.serve`` to the same clients (the same events).  Returns the
     figures, the CTC fixture's files and events, and bin.serve's
     launches."""
-    import torch
-
-    from wekws_tpu_torch.bin import serve
-    from wekws_tpu_torch.runtime import KeyWordSpotter
-
-    repo = os.path.abspath(os.path.dirname(__file__) or ".")
-    data = os.path.join(tmp, "data")
-    subprocess.run([sys.executable, os.path.join(
-        repo, CTC_RECIPE, "local", "gen_data_torch.py"), data], cwd=tmp,
-        env=dict(os.environ, PYTHONPATH=repo), check=True,
-        capture_output=True, timeout=300)
-    with open(os.path.join(data, "test.list")) as f:
-        lines = [json.loads(line) for line in f]
-    ctc_utts = {x["key"]: pcm_of(x["wav"]) for x in lines}
     ctc_config, _ = fixture_config(CTC_FIXTURE, CTC_RECIPE, tmp,
                                    "fsmn_ctc_fixture.yaml")
     ctc_ckpt = os.path.join(CTC_FIXTURE, "avg_5.ckpt")
     tcn_config, _ = fixture_config(DS_TCN_FIXTURE, RECIPE, tmp,
                                    "ds_tcn_fixture.yaml")
-    tcn_dir = os.path.join(RECIPE, "data", "test")
-    tcn_utts = {f"test_{i}": pcm_of(os.path.join(tcn_dir, f"test_{i}.wav"))
-                for i in range(RECIPE_SPLITS[2][1])}
-    figures, wants, served = {}, {}, {}
     device_ctc = ["--device_decode", "--device_frontend"]
+    flagship_argv = serve_argv(os.path.join(work, "flagship.yaml"),
+                               os.path.join(work, "flagship.pt"),
+                               SERVE_STREAMS, ctc=False,
+                               extra=["--device_frontend"])
+    cases = (
+        ("JAX CTC fixture (FSMN 3 x 64/32), host decode",
+         ("fused_fsmn_layers",), "all",
+         serve_argv(ctc_config, ctc_ckpt, DAEMON_CLIENTS)),
+        ("JAX CTC fixture, device decode + device frontend",
+         ("fused_fsmn_layers", "fused_fbank"), "head",
+         serve_argv(ctc_config, ctc_ckpt, DAEMON_CLIENTS, extra=device_ctc)),
+        ("JAX DS-TCN fixture (C=48), max-pooling", ("fused_ds_tcn",), "tcn",
+         serve_argv(tcn_config, os.path.join(DS_TCN_FIXTURE, "avg_5.ckpt"),
+                    DAEMON_CLIENTS, ctc=False)))
+    # every daemon loads and warms up while this process makes the corpus
+    # and runs the in-process engines (untimed); each is timed only once
+    # all of them are up and idle
+    daemons = [ServeProcess(argv + ["--device", dev.type],
+                            os.path.join(tmp, f"serve_{i}.log"))
+               for i, (*_, argv) in enumerate(cases)]
+    daemons.append(ServeProcess(flagship_argv + ["--device", dev.type],
+                                os.path.join(tmp, "serve_flagship.log")))
+    try:
+        for d in daemons:
+            d.start()
+        return daemons_17c(dev, card, tmp, cases, daemons, ctc_config,
+                           ctc_ckpt, flagship_argv)
+    finally:
+        for d in daemons:
+            d.close()
+
+
+def daemons_17c(dev, card, tmp, cases, daemons, ctc_config, ctc_ckpt,
+                flagship_argv):
+    """17c's body, its daemons started (``phase17c_daemons``)."""
+    import torch
+
+    from wekws_tpu_torch.bin import serve
+    from wekws_tpu_torch.runtime import KeyWordSpotter
+
+    data = corpus("ctc")
+    with open(os.path.join(data, "test.list")) as f:
+        lines = [json.loads(line) for line in f]
+    ctc_utts = {x["key"]: pcm_of(x["wav"]) for x in lines}
+    tcn_dir = os.path.join(RECIPE, "data", "test")
+    sets = {"all": ctc_utts,
+            "head": {x["key"]: ctc_utts[x["key"]]
+                     for x in lines[:DAEMON_UTTS]},
+            "tcn": {f"test_{i}": pcm_of(os.path.join(tcn_dir,
+                                                     f"test_{i}.wav"))
+                    for i in range(RECIPE_SPLITS[2][1])}}
+    ctc_head = sets["head"]
+    figures, wants, served = {}, {}, {}
 
     def build(argv):
         return serve.build_engine(serve.get_args(argv + ["--device",
                                                          dev.type]))
 
-    for tag, kernels, utts, argv in (
-            ("JAX CTC fixture (FSMN 3 x 64/32), host decode",
-             ("fused_fsmn_layers",), ctc_utts,
-             serve_argv(ctc_config, ctc_ckpt, DAEMON_CLIENTS)),
-            ("JAX CTC fixture, device decode + device frontend",
-             ("fused_fsmn_layers", "fused_fbank"), ctc_utts,
-             serve_argv(ctc_config, ctc_ckpt, DAEMON_CLIENTS,
-                        extra=device_ctc)),
-            ("JAX DS-TCN fixture (C=48), max-pooling", ("fused_ds_tcn",),
-             tcn_utts, serve_argv(tcn_config, os.path.join(
-                 DS_TCN_FIXTURE, "avg_5.ckpt"), DAEMON_CLIENTS, ctc=False))):
+    for tag, kernels, which, argv in cases:
+        utts = sets[which]
         engine = build(argv)
         with PlainOnCuda() as plain, Launches() as n:
-            want = wants[tag] = in_process_events(engine, utts)
+            wants[tag] = in_process_events(engine, utts)
             torch.cuda.synchronize()
         plain.check(f"17c {tag}: in-process engine")
         steps = engine.stats["dispatches"]
         if n.nonzero() != {k: steps for k in kernels} or steps < len(utts):
             raise AssertionError(f"17c {tag}: {n.counts} launches for "
                                  f"{steps} steps")
-        with ServeProcess(argv + ["--device", dev.type], os.path.join(
-                tmp, f"serve_{len(figures)}.log")) as proc:
+    for d in daemons:
+        d.ready()
+    for (tag, kernels, which, argv), daemon in zip(cases, daemons):
+        utts = sets[which]
+        with daemon as proc:
             got, wall = serve_clients(proc.port, utts)
         count = same_events(f"17c {tag}: daemon vs in-process engine", got,
-                            want)
+                            wants[tag])
         if count < 1:
             raise AssertionError(f"17c {tag}: no detections")
         if tag.endswith("host decode"):
@@ -4995,14 +5185,14 @@ def phase17c_daemons(dev, card, tmp, work):
             served[k] = served.get(k, 0) + v
 
     # in process: the CTC fixture with device decode and device frontend
-    argv = serve_argv(ctc_config, ctc_ckpt, DAEMON_CLIENTS, extra=device_ctc)
-    want = wants["JAX CTC fixture, device decode + device frontend"]
+    tag, _, _, argv = cases[1]
+    want = wants[tag]
     engine = build(argv)
     serve.warmup_engine(engine)
     with PlainOnCuda() as plain, Launches() as n:
         st = ServerThread(engine)
         try:
-            got, wall = serve_clients(st.port, ctc_utts)
+            got, wall = serve_clients(st.port, ctc_head)
         finally:
             st.stop(dev)
         torch.cuda.synchronize()
@@ -5017,13 +5207,10 @@ def phase17c_daemons(dev, card, tmp, work):
     figures[tag] = daemon_figures(
         f"{tag}: {DAEMON_CLIENTS} clients, {count} detections equal to the "
         f"in-process engine's", st.server, engine, wall,
-        sum(len(p) for p in ctc_utts.values()) / 2 / RATE, n, card)
+        sum(len(p) for p in ctc_head.values()) / 2 / RATE, n, card)
 
     # the flagship MDTC to 64 clients, device frontend
-    engine = build(serve_argv(os.path.join(work, "flagship.yaml"),
-                              os.path.join(work, "flagship.pt"),
-                              SERVE_STREAMS, ctc=False,
-                              extra=["--device_frontend"]))
+    engine = build(flagship_argv)
     serve.warmup_engine(engine)
     utts = {f"s{i:02d}": w.astype("<i2").tobytes()
             for i, w in enumerate(serve_waves())}
@@ -5047,11 +5234,7 @@ def phase17c_daemons(dev, card, tmp, work):
         wall, audio, n, card)
     # the same daemon in its own process: the 64 client threads no
     # longer share its interpreter
-    with ServeProcess(serve_argv(
-            os.path.join(work, "flagship.yaml"),
-            os.path.join(work, "flagship.pt"), SERVE_STREAMS, ctc=False,
-            extra=["--device_frontend", "--device", dev.type]),
-            os.path.join(tmp, "serve_flagship.log")) as proc:
+    with daemons[-1] as proc:
         got, wall = serve_clients(proc.port, utts, SERVE_STREAMS)
     count = same_events("17c flagship: bin.serve vs the in-process daemon",
                         got, want)
@@ -5354,9 +5537,10 @@ def phase17_serving(dev, card, work):
 
 
 # path G (phase 18): device-resident epochs.  The flagship corpus at its
-# training shape (bench.py's B=512 x 2 s): 16,384 train rows, 32 steps
-# of B=512 an epoch (1.05 GB of int16 on the card), and 2,048 cv rows
-RESIDENT_ROWS, RESIDENT_CV_ROWS = 16384, 2048
+# training shape (bench.py's B=512 x 2 s), its depth cut to keep the run
+# inside its time limit: 8,192 train rows, 16 steps of B=512 an epoch
+# (0.52 GB of int16 on the card; bench.py's 16,384), and 2,048 cv rows
+RESIDENT_ROWS, RESIDENT_CV_ROWS = 8192, 2048
 # the largest copy from the host a resident step may make: the step's
 # scalars and ctypes arguments, never a wave (a B=512 x 2 s batch is
 # 32.8 MB of int16)
@@ -5364,7 +5548,8 @@ H2D_LIMIT = 64 << 10
 # the resident step against the host-fed step on the same rows, state,
 # seed and step: the passes are bitwise reproducible (phase 6), so equal
 RESIDENT_STEP_TOL = 0.0
-STEP_ROUNDS = 4
+# the timed steps' rounds in turns (18c, 18f), forward then back
+STEP_ROUNDS = 2
 PATH_G_CONF = dict(TRAIN_DATASET_CONF, fused_frontend=True)
 # fused_fbank (18a-18f) and the DS-TCN serving kernel (18g's scoring)
 PATH_G_WRAPPERS = tuple(w for w in PATH_F_WRAPPERS
@@ -5488,8 +5673,9 @@ def path_g_child(model_conf, specs, device="cuda"):
     the augmented resident step and of the augmentation alone; (3) the
     device time per call of each kernel at each path-G shape of
     ``specs``, on seeded inputs of that shape (a pass with its block
-    reduction).  Prints one line ``PATH_G {...}``.  ``device`` is the
-    card (the CPU in a rehearsal)."""
+    reduction); (4) 16e's ``traced_idle`` of each of ``IDLE_STEPS``.
+    Prints one line ``PATH_G {...}``.  ``device`` is the card (the CPU
+    in a rehearsal)."""
     import torch
 
     from wekws_tpu_torch.data.resident import gather_rows, stage_arrays
@@ -5587,10 +5773,13 @@ def path_g_child(model_conf, specs, device="cuda"):
                 ("fused_fbank_kernel",))
             ms = found["fused_fbank_kernel"]
         device_ms[f"{spec['record']}|{spec['shape']}"] = ms
+    # 16e: the train steps of 15a, 16a and 16d, re-created from their seeds
+    idle = {tag: traced_idle(idle_step(tag, dev)) for tag in IDLE_STEPS}
     print("PATH_G " + json.dumps({
         "resident_copies": copies, "host_copies": witness,
         "aug_copies": aug_copies, "resident": step, "aug_resident": aug_step,
-        "aug_alone": aug_alone, "device_ms": device_ms}), flush=True)
+        "aug_alone": aug_alone, "device_ms": device_ms, "idle": idle}),
+        flush=True)
 
 
 def run_child(call, args, tag, timeout_s=600):
@@ -5716,20 +5905,10 @@ def idle_step(tag, dev):
     return lambda: trainer.train_step(state, batch, SEED, 1e-3)
 
 
-def idle_child(device="cuda"):
-    """In a fresh process (``idle_shares``): one traced step of each of
-    ``IDLE_STEPS`` (``traced_idle``).  Prints one line ``IDLE {...}``."""
-    import torch
-
-    dev = torch.device(device)
-    print("IDLE " + json.dumps({tag: traced_idle(idle_step(tag, dev))
-                                for tag in IDLE_STEPS}), flush=True)
-
-
-def idle_shares(card):
+def idle_shares(card, found):
     """16e: the idle shares of 15a's, 16a's and 16d's train steps, each
-    from one step traced with its own wall clock in one fresh process."""
-    found = run_child("idle_child", [], "IDLE")
+    from one step traced with its own wall clock (``traced_idle``) in
+    path G's fresh process (``path_g_child``'s "idle")."""
     return {tag: idle_share(tag, found[tag], card) for tag in IDLE_STEPS}
 
 
@@ -5966,7 +6145,7 @@ def phase18b_same_step(dev, trainer, corpus, cv_corpus):
 
 def phase18c_epoch(dev, card, trainer, state, corpus, cv_corpus, host,
                    batch, host_ms):
-    """32 steps through ``Executor.train_resident`` and one
+    """An epoch through ``Executor.train_resident`` and one
     ``cv_resident`` pass, timed; the resident step beside the host-fed
     step (float32 waves, as phase 8's batch, and int16 rows), in turns
     over STEP_ROUNDS rounds, by wall clock and by the thread's CPU time.
@@ -6536,6 +6715,7 @@ def phase18_resident(dev, card, model_conf, batch, host_ms, recipe_rates):
                      ("18f augmentation alone", "aug_alone")):
         figures[key] = dict(traces[key],
                             **idle_share(tag, traces[key], card))
+    idle_shares(card, traces["idle"])
     device_ms = {tuple(k.split("|")): v
                  for k, v in traces["device_ms"].items()}
     readings = phase17e_kernel_checks(card, ftap.shapes, "18e", "G",
@@ -6569,7 +6749,6 @@ def merge_path_g(record, launches, readings):
 # on one CPU backend; another row count may pick another cuBLAS kernel for
 # the float products)
 INT8_OUT_TOL, INT8_CHUNK_TOL = 2e-5, 1e-5
-DAEMON_UTTS = 48  # 19c: bin.serve on the first 48 test utterances
 H_CALIB_UTTS = 8
 CTC_EXPORT = os.path.join(CTC_FIXTURE, "export")
 CTC_EXPORT_INT8 = os.path.join(CTC_FIXTURE, "export_int8")
@@ -6925,29 +7104,40 @@ def phase19c_serving(dev, card, tmp):
     (iv) ``bin.stream_score_ctc`` on the 192 with each artifact: the
     int8 decisions beside the float ones.
     Returns (the dev list, the serving figures, bin.serve's launches)."""
+    config, _ = fixture_config(CTC_FIXTURE, CTC_RECIPE, tmp,
+                               "fsmn_ctc_fixture_19.yaml")
+    argv = serve_argv(config, CTC_EXPORT_INT8, DAEMON_CLIENTS,
+                      extra=["--device_decode", "--device_frontend"])
+    # the daemon loads and warms up while the corpus is made and the
+    # fixture exported; it is up before the engines are timed
+    daemon = ServeProcess(argv + ["--device", dev.type],
+                          os.path.join(tmp, "serve_19.log"))
+    try:
+        daemon.start()
+        return serving_19c(dev, card, tmp, config, argv, daemon)
+    finally:
+        daemon.close()
+
+
+def serving_19c(dev, card, tmp, config, argv, daemon):
+    """19c's body, its daemon started (``phase19c_serving``)."""
     import torch
 
     from wekws_tpu_torch.bin import export_model as export_cli
     from wekws_tpu_torch.bin import serve, stream_score_ctc
     from wekws_tpu_torch.eval import compare_ctc_score_files
 
-    repo = os.path.abspath(os.path.dirname(__file__) or ".")
-    data = os.path.join(tmp, "data")
-    subprocess.run([sys.executable, os.path.join(
-        repo, CTC_RECIPE, "local", "gen_data_torch.py"), data], cwd=tmp,
-        env=dict(os.environ, PYTHONPATH=repo), check=True,
-        capture_output=True, timeout=300)
+    data = corpus("ctc")
     with open(os.path.join(data, "test.list")) as f:
         lines = [json.loads(line) for line in f]
     utts = {x["key"]: pcm_of(x["wav"]) for x in lines}
-    config, _ = fixture_config(CTC_FIXTURE, CTC_RECIPE, tmp,
-                               "fsmn_ctc_fixture_19.yaml")
     ckpt = os.path.join(CTC_FIXTURE, "avg_5.ckpt")
     tokens = os.path.join(CTC_RECIPE, "dict", "dict.txt")
     art = os.path.join(tmp, "fsmn_ctc_fixture_export")
     export_cli.main(["--config", config, "--checkpoint", ckpt,
                      "--output_dir", art, "--device", dev.type])
     same_artifact_files(art, CTC_EXPORT, "19c the CTC fixture's export")
+    daemon.ready()
     pcms = [utts[x["key"]] for x in lines[:SERVE_STREAMS]]
     figures, runs = {}, {}
     for tag, src, fused, decode in (
@@ -7002,8 +7192,6 @@ def phase19c_serving(dev, card, tmp):
     figures["19c int8 artifact vs the numpy runtime"] = {
         "max_abs_err": int8_err, "rows": int8_rows}
 
-    argv = serve_argv(config, CTC_EXPORT_INT8, DAEMON_CLIENTS,
-                      extra=["--device_decode", "--device_frontend"])
     engine = serve.build_engine(serve.get_args(argv + ["--device",
                                                        dev.type]))
     # the daemon on a subset that fires; stream_score_ctc covers all 192
@@ -7012,8 +7200,7 @@ def phase19c_serving(dev, card, tmp):
         want = in_process_events(engine, utts)
         torch.cuda.synchronize()
     plain.check("19c int8 artifact: in-process engine")
-    with ServeProcess(argv + ["--device", dev.type],
-                      os.path.join(tmp, "serve_19.log")) as proc:
+    with daemon as proc:
         got, wall = serve_clients(proc.port, utts)
     count = same_events("19c bin.serve --checkpoint export_int8 vs the "
                         "in-process engine", got, want)
@@ -7637,7 +7824,7 @@ def phase20b_two_ranks(dev, card, model_conf, wall_a):
 def phase20c_cli(dev, card, tmp):
     """``bin.train --coordinator 127.0.0.1:P --num_processes 2
     --process_id r`` as two processes on the card, host-fed (the bucket
-    schedule) then ``--device_resident``, one epoch of
+    schedule) and ``--device_resident`` side by side, one epoch of
     ``examples/synthetic`` each: both exit 0, finite losses, both log
     the same cv figures, only rank 0 writes; ``bin.score`` of rank 0's
     checkpoint through ``fused_mdtc_kernel``.  Returns the launches."""
@@ -7660,14 +7847,19 @@ def phase20c_cli(dev, card, tmp):
     lists = recipe_lists(tmp)
     repo = os.path.abspath(os.path.dirname(__file__) or ".")
     launches = {}
-    for mode, extra in (("host-fed", []),
-                        ("resident", ["--device_resident"])):
+    modes = (("host-fed", []), ("resident", ["--device_resident"]))
+    # both modes' groups at once, side by side on the card
+    procs, logs, ports = {}, [], set()
+    t0 = time.perf_counter()
+    for mode, extra in modes:
         port = free_port()
-        procs, logs = [], []
-        t0 = time.perf_counter()
+        while port in ports:
+            port = free_port()
+        ports.add(port)
+        procs[mode] = []
         for rank in range(PATH_I_RANKS):
             log = open(os.path.join(tmp, f"train_{mode}_{rank}.log"), "w")
-            procs.append(subprocess.Popen(
+            procs[mode].append(subprocess.Popen(
                 [sys.executable, "-m", "wekws_tpu_torch.bin.train",
                  "--config", config, "--train_data", lists["train"],
                  "--cv_data", lists["dev"], "--model_dir",
@@ -7681,26 +7873,30 @@ def phase20c_cli(dev, card, tmp):
                 stderr=subprocess.STDOUT,
                 env=dict(os.environ, PYTHONPATH=repo)))
             logs.append(log)
-        try:
-            for p in procs:
+    walls = {}
+    try:
+        for mode, group in procs.items():
+            for p in group:
                 p.wait(max(t0 + RECIPE_TIMEOUT_S - time.perf_counter(), 1))
-        except subprocess.TimeoutExpired:
-            pass
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait(30)
-            for log in logs:
-                log.close()
-        wall = time.perf_counter() - t0
+            walls[mode] = time.perf_counter() - t0
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in sum(procs.values(), []):
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+        for log in logs:
+            log.close()
+    for mode, _ in modes:
+        group, wall = procs[mode], walls.get(mode, float("nan"))
         texts = []
         for rank in range(PATH_I_RANKS):
             with open(os.path.join(tmp, f"train_{mode}_{rank}.log")) as f:
                 texts.append(f.read())
-        if any(p.returncode != 0 for p in procs):
+        if any(p.returncode != 0 for p in group):
             raise AssertionError(f"20c bin.train {mode}: exit codes "
-                                 f"{[p.returncode for p in procs]}:\n"
+                                 f"{[p.returncode for p in group]}:\n"
                                  + "\n".join(t[-3000:] for t in texts))
         cv = [[ln.split(" INFO ")[-1] for ln in t.splitlines()
                if "CV loss" in ln] for t in texts]
@@ -7735,7 +7931,7 @@ def phase20c_cli(dev, card, tmp):
         launches[f"20c bin.score ({mode})"] = {"fused_mdtc_forward": n}
         print(f"  20c bin.train {mode}, {PATH_I_RANKS} processes on the card "
               f"(collectives on {sorted(set(backends))}), one epoch: "
-              f"{wall:.1f} s wall, train loss {records[0]['train_loss']:.4f}, "
+              f"{wall:.1f} s wall (both modes side by side), train loss {records[0]['train_loss']:.4f}, "
               f"{records[0]['audio_seconds_per_s']:.1f} audio-s/s (global); "
               f"every rank logged '{cv[0][0]}'; rank 0 wrote {written}, the "
               f"others nothing; bin.score of rank 0's 0.pt: {n_scored} "
@@ -7794,8 +7990,19 @@ def phase20d_split_engine(dev, card, work):
     return {"20d split engine": n.nonzero()}
 
 
-def phase20e_serve(dev, card, tmp, work):
-    """``bin.serve --mesh_devices 1`` (the flagship, max-pooling) to
+def path_i_daemon(dev, tmp, work):
+    """20e's ``bin.serve --mesh_devices 1`` of the flagship (max-pooling),
+    not yet started."""
+    return ServeProcess(
+        serve_argv(os.path.join(work, "flagship.yaml"),
+                   os.path.join(work, "flagship.pt"), PATH_I_CLIENTS,
+                   ctc=False, extra=["--mesh_devices", "1", "--device",
+                                     dev.type]),
+        os.path.join(tmp, "serve_mesh.log"))
+
+
+def phase20e_serve(dev, card, daemon, work):
+    """``daemon`` (``path_i_daemon``, started during 20c) to
     ``PATH_I_CLIENTS`` client threads: the in-process engine's events,
     one ``fused_mdtc_stream`` launch a dispatch by bin.serve's own
     count.  Returns the launches."""
@@ -7806,13 +8013,11 @@ def phase20e_serve(dev, card, tmp, work):
     waves = serve_waves()[:PATH_I_SERVE_UTTS]
     utts = {f"s{i:02d}": w.astype("<i2").tobytes()
             for i, w in enumerate(waves)}
-    argv = serve_argv(config, ckpt, PATH_I_CLIENTS, ctc=False,
-                      extra=["--mesh_devices", "1", "--device", dev.type])
     engine = BatchMaxPoolSpotter(ckpt, config, 0.5, num_streams=1,
                                  step_frames=8, keyword_names=[KEYWORD],
                                  use_fused=True, device=dev)
     want = in_process_events(engine, utts)
-    with ServeProcess(argv, os.path.join(tmp, "serve_mesh.log")) as proc:
+    with daemon as proc:
         got, wall = serve_clients(proc.port, utts, PATH_I_CLIENTS)
     count = same_events("20e bin.serve --mesh_devices 1 vs the in-process "
                         "engine", got, want)
@@ -7844,9 +8049,15 @@ def phase20_data_parallel(dev, card, work, model_conf):
     launches.update(b_launches)
     figures["one_rank_nccl_all_reduces_per_step"] = calls_a
     with tempfile.TemporaryDirectory() as tmp:
-        launches.update(phase20c_cli(dev, card, tmp))
-        launches.update(phase20d_split_engine(dev, card, work))
-        launches.update(phase20e_serve(dev, card, tmp, work))
+        # 20e's daemon loads and warms up while 20c's processes train
+        daemon = path_i_daemon(dev, tmp, work)
+        try:
+            daemon.start()
+            launches.update(phase20c_cli(dev, card, tmp))
+            launches.update(phase20d_split_engine(dev, card, work))
+            launches.update(phase20e_serve(dev, card, daemon, work))
+        finally:
+            daemon.close()
     figures["phase_s"] = time.perf_counter() - t0
     if figures["misses"]:
         raise AssertionError(f"20b two ranks vs one process: "
@@ -8518,12 +8729,7 @@ def phase21e_fsmn_ctc(dev, card, tmp, where):
             where), losses=losses)
         del trainer, state
 
-    repo = os.path.abspath(os.path.dirname(__file__) or ".")
-    data = os.path.join(tmp, "data")
-    subprocess.run([sys.executable, os.path.join(
-        repo, CTC_RECIPE, "local", "gen_data_torch.py"), data], cwd=tmp,
-        env=dict(os.environ, PYTHONPATH=repo), check=True,
-        capture_output=True, timeout=300)
+    data = corpus("ctc")
     exp = os.path.join(tmp, "exp")
     config = os.path.join(CTC_RECIPE, "conf", "fsmn_ctc.yaml")
     t0 = time.perf_counter()
@@ -8671,6 +8877,1018 @@ def path_j_alone(dev, card, kind):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 22, path K: the last entry points (ROADMAP A.18's exported step,
+# A.6's DET plots, examples/synthetic_scale through the port)
+# ---------------------------------------------------------------------------
+
+PATH_K_CHUNK = 32  # bin.export_model's --chunk_frames, the JAX CLI's default
+SCALE_RECIPE = os.path.join("examples", "synthetic_scale")
+# 22b's cuts of the scale corpora (6 s utterances; full: 20,000 train,
+# 2,000 dev, 8,000 test): 512 train rows, one B=512 step an epoch, 64
+# dev and 256 test (one bin.score batch); the CTC corpus (full: 20,000,
+# 2,000, 33,000) 512 / 128 / 512, two B=256 steps an epoch and two
+# bin.score_ctc batches; 2 epochs each (full: 30 and 80)
+SCALE_CUT = ("--train_kw", "128", "--train_filler", "384", "--dev_kw", "16",
+             "--dev_filler", "48", "--test_kw", "64", "--test_filler", "192")
+SCALE_CTC_CUT = ("--train", "512", "--dev", "128", "--test", "512")
+SCALE_EPOCHS = 2
+SCALE_TIMEOUT_S = 600
+# 22b's two recipes: (script, config, generator cut, experiment, last
+# stage before the plot)
+SCALE_RUNS = (
+    ("run_torch.sh", "conf_torch/mdtc_cut.yaml", SCALE_CUT,
+     "exp/torch_mdtc_cut", 4),
+    ("run_ctc_torch.sh", "conf/fsmn_ctc_cut.yaml", SCALE_CTC_CUT,
+     "exp/torch_fsmn_ctc_cut", 3),
+)
+# stages 0-1 (the corpus and CMVN: the CPU alone) run beside the kernel
+# build (``PathKHead``), the rest in path K
+SCALE_HEAD_STAGES = 1
+
+
+class PathKHead:
+    """22b's stages 0 to SCALE_HEAD_STAGES of both scale recipes, started
+    before the kernel build so that they run on the cores nvcc leaves
+    idle, each with its tap.  The recipe copy and the taps sit in
+    ``work``/path_k, where path K (a fresh process) finds them;
+    ``finish()`` waits for the stages and returns that state as JSON;
+    ``close()`` stops what still runs."""
+
+    def __init__(self, work):
+        import shutil
+
+        root = os.path.join(work, "path_k")
+        shutil.rmtree(root, ignore_errors=True)
+        os.makedirs(root)
+        repo = os.path.abspath(os.path.dirname(__file__) or ".")
+        self.recipe, self.notes = scale_recipe_copy(root)
+        self.jobs = []
+        for script, conf, cut, _, _ in SCALE_RUNS:
+            tap = path_k_tap_dir(os.path.join(root, f"tap_{script}"))
+            out = open(os.path.join(tap, "head_stdout.txt"), "w+")
+            err = open(os.path.join(tap, "head_stderr.txt"), "w+")
+            env = dict(os.environ, PYTHONPATH=os.pathsep.join([tap, repo]),
+                       PATH_K_TAP_DIR=tap)
+            proc = subprocess.Popen(
+                ["bash", script, "0", str(SCALE_HEAD_STAGES), conf, "cuda",
+                 *cut], cwd=self.recipe, env=env, stdout=out, stderr=err,
+                text=True, start_new_session=True)
+            self.jobs.append((script, tap, proc, out, err))
+
+    def finish(self):
+        state = {"recipe": self.recipe, "notes": self.notes, "runs": {}}
+        for script, tap, proc, out, err in self.jobs:
+            try:
+                proc.wait(SCALE_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                raise TimeoutError(f"22b {script} stages 0-"
+                                   f"{SCALE_HEAD_STAGES}: over "
+                                   f"{SCALE_TIMEOUT_S} s")
+            out.seek(0)
+            err.seek(0)
+            state["runs"][script] = {"tap": tap, "code": proc.returncode,
+                                     "stdout": out.read(),
+                                     "stderr": err.read()}
+        self.close()
+        return state
+
+    def close(self):
+        import signal
+
+        for _, _, proc, out, err in self.jobs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+            out.close()
+            err.close()
+        self.jobs = []
+# the wrappers whose calls 22b's recipe processes record: path F's and
+# the offline MDTC kernel that bin.score launches
+PATH_K_WRAPPERS = PATH_F_WRAPPERS + (
+    ("fused_mdtc_forward", "wekws_tpu_torch.ops.serving",
+     "wekws_tpu_torch.ops.fused_mdtc", "fused_mdtc_kernel", (TOL, TOL)),)
+# 22b's sitecustomize.py, in a directory first on PYTHONPATH (the repo
+# second), so that every Python process of a recipe run is tapped
+RECIPE_SITE = ("import os\n\nimport chip_smoke\n\n"
+               "chip_smoke.recipe_tap(os.environ['PATH_K_TAP_DIR'])\n")
+
+
+def kept_leaf(v):
+    """A tapped argument for ``torch.save``: a tensor on the host, or one
+    over 1 MB as its shape, dtype, mean and standard deviation (drawn
+    again by ``standin_args``)."""
+    import torch
+
+    if not isinstance(v, torch.Tensor):
+        return v
+    if v.numel() * v.element_size() > (1 << 20):
+        f = v.detach().float()
+        return {"standin": list(v.shape), "dtype": str(v.dtype),
+                "mean": float(f.mean()), "std": float(f.std())}
+    return v.detach().cpu()
+
+
+def recipe_tap(path):
+    """22b's tap, entered by RECIPE_SITE for the whole of a recipe's
+    Python process: ShapeTap (PATH_K_WRAPPERS), PassTap and PlainOnCuda.
+    At exit it writes ``path``/<pid>.json: the process's argv, its
+    kernels' launches, its plain versions' calls on CUDA tensors, each
+    training pass's calls by shape and precision, and each wrapper's
+    calls by shape with the first call's arguments saved beside it
+    (``kept_leaf``)."""
+    import atexit
+
+    import torch
+
+    from wekws_tpu_torch.ops.fused_mdtc import fused_mdtc_forward
+
+    tap, ptap, plain = (ShapeTap(PATH_K_WRAPPERS).__enter__(),
+                        PassTap().__enter__(), PlainOnCuda().__enter__())
+
+    def dump():
+        calls = []
+        for i, ((name, shape), (n, *args)) in enumerate(tap.shapes.items()):
+            saved = os.path.join(path, f"{os.getpid()}_{i}.pt")
+            torch.save(_tree_map(kept_leaf, args), saved)
+            calls.append([name, shape, n, saved])
+        passes = [[name, shape, n, args[-1] if isinstance(args[-1], str)
+                   else "float32"]
+                  for (_, shape), (n, name, args) in ptap.shapes.items()]
+        launches = dict(path_j_counts(), **read_counts(),
+                        fused_mdtc_forward=fused_mdtc_forward.launches)
+        with open(os.path.join(path, f"{os.getpid()}.json"), "w") as f:
+            json.dump({"argv": sys.argv, "launches": launches,
+                       "plain_on_cuda": plain.counts, "calls": calls,
+                       "passes": passes}, f)
+
+    atexit.register(dump)
+
+
+def path_k_tap_dir(path):
+    """A directory holding RECIPE_SITE as sitecustomize.py."""
+    os.makedirs(path)
+    with open(os.path.join(path, "sitecustomize.py"), "w") as f:
+        f.write(RECIPE_SITE)
+    return path
+
+
+def tap_processes(path):
+    """The per-process records that ``recipe_tap`` wrote into ``path``."""
+    out = []
+    for name in sorted(os.listdir(path)):
+        if name.endswith(".json"):
+            with open(os.path.join(path, name)) as f:
+                out.append(json.load(f))
+    return out
+
+
+def standin_args(saved, gen, dev):
+    """A tapped call's arguments on ``dev``: kept tensors moved there, a
+    stand-in drawn from ``gen`` (normal, the original's mean and
+    standard deviation) for each larger one."""
+    import torch
+
+    def back(v):
+        if isinstance(v, dict) and "standin" in v:
+            dtype = getattr(torch, v["dtype"].split(".")[-1])
+            x = torch.randn(v["standin"], generator=gen) * v["std"] + v["mean"]
+            return x.to(dtype).to(dev)
+        if isinstance(v, torch.Tensor):
+            return v.to(dev)
+        if isinstance(v, (list, tuple)):
+            return type(v)(back(x) for x in v)
+        if isinstance(v, dict):
+            return {k: back(x) for k, x in v.items()}
+        return v
+
+    return back(torch.load(saved, weights_only=False))
+
+
+def process_name(record):
+    """``bin.train``, ``bin.score``, ... or ``python -c`` for a tapped
+    process."""
+    argv0 = record["argv"][0] if record["argv"] else ""
+    if argv0 in ("-c", ""):
+        return "python -c"
+    parts = os.path.normpath(argv0).split(os.sep)
+    if "bin" in parts[-2:-1]:
+        return "bin." + os.path.splitext(parts[-1])[0]
+    return os.path.basename(argv0)
+
+
+def path_k_models(work, tmp):
+    """22a's models: (name, what, config, checkpoint, fused wrapper)."""
+    ctc_config, _ = fixture_config(CTC_FIXTURE, CTC_RECIPE, tmp,
+                                   "fsmn_ctc_fixture_22.yaml")
+    tcn_config, _ = fixture_config(DS_TCN_FIXTURE, RECIPE, tmp,
+                                   "ds_tcn_fixture_22.yaml")
+    return (
+        ("flagship", "flagship MDTC (4 x 4 blocks, C=64)",
+         os.path.join(work, "flagship.yaml"),
+         os.path.join(work, "flagship.pt"), "fused_mdtc_stream"),
+        ("fsmn_ctc_fixture", "JAX CTC fixture (FSMN 3 x 64/32, 6 tokens)",
+         ctc_config, os.path.join(CTC_FIXTURE, "avg_5.ckpt"),
+         "fused_fsmn_layers"),
+        ("ds_tcn_fixture", "JAX DS-TCN fixture (C=48)", tcn_config,
+         os.path.join(DS_TCN_FIXTURE, "avg_5.ckpt"), "fused_ds_tcn"),
+    )
+
+
+def path_k_feats(config, waves):
+    """``waves`` through the model's own frontend (its config's fbank,
+    context and frame skip, no dither), cut to whole PATH_K_CHUNK-frame
+    chunks: (B, T, D) float32."""
+    from wekws_tpu_torch.runtime.keyword_spotter import load_spotter_config
+    from wekws_tpu_torch.runtime.streaming_frontend import StreamingFrontend
+
+    _, cfg, left, right, skip = load_spotter_config(config)
+    feats = []
+    for w in waves:
+        fe = StreamingFrontend(cfg, left_context=left, right_context=right,
+                               frame_skip=skip)
+        f, _ = fe.accept_waveform(np.asarray(w, np.float32))
+        feats.append(f)
+    t = min(len(f) for f in feats) // PATH_K_CHUNK * PATH_K_CHUNK
+    return np.stack([f[:t] for f in feats]).astype(np.float32)
+
+
+def path_k_load_child(cases, device="cuda"):
+    """22a in a fresh process: each ``model.pt2`` of ``cases`` ([name,
+    program, features .npy, config, checkpoint]) loaded by
+    ``load_cached_step``, its aten op counts, and the program stepped
+    over the features one utterance at a time in PATH_K_CHUNK-frame
+    chunks from the initial cache (outputs and final caches into an .npz
+    beside the program).  Prints one line ``PATH_K_LOAD {...}``."""
+    import torch
+    import yaml
+
+    from wekws_tpu_torch.export.cached_step import (
+        aten_op_counts,
+        flat_tensors,
+        load_cached_step,
+    )
+    from wekws_tpu_torch.runtime.keyword_spotter import load_serving_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    out = {}
+    for name, path, feats_path, config, ckpt in cases:
+        ops = aten_op_counts(torch.export.load(path))
+        step = load_cached_step(path, dev)
+        with open(config) as f:
+            configs = yaml.safe_load(f)
+        feats = np.load(feats_path)
+        model = load_serving_model(configs, ckpt, feats.shape[2], dev)
+        outs, caches = [], []
+        with torch.no_grad():
+            for row in feats:
+                x = torch.from_numpy(row[None]).to(dev)
+                cache, ys = model.init_cache(1, dev), []
+                for s in range(0, x.shape[1], PATH_K_CHUNK):
+                    y, cache = step(x[:, s:s + PATH_K_CHUNK], cache)
+                    ys.append(y)
+                outs.append(torch.cat(ys, 1)[0].cpu().numpy())
+                caches.append([c[0].cpu().numpy()
+                               for c in flat_tensors(cache)])
+        npz = path + ".npz"
+        np.savez(npz, out=np.stack(outs), **{
+            f"cache{i}": np.stack([c[i] for c in caches])
+            for i in range(len(caches[0]))})
+        out[name] = {"ops": ops, "npz": npz}
+    print("PATH_K_LOAD " + json.dumps(out), flush=True)
+
+
+def phase22a_step_times(dev, card, cases, figures):
+    """22a's timings, taken when nothing else runs on the card: one step
+    at B=1 x 32 of each exported program (``load_cached_step``) and of
+    its model's fused stream (``build_fused_stream``), the untraced
+    median of 10 on the host clock (``timed_steps``) and one traced
+    call's device time and CUDA launches (``profiled_step``); into each
+    model's ``figures``."""
+    import torch
+    import yaml
+
+    from wekws_tpu_torch.export.cached_step import load_cached_step
+    from wekws_tpu_torch.ops.serving import build_fused_stream
+    from wekws_tpu_torch.runtime.keyword_spotter import load_serving_model
+
+    for name, path, feats_path, config, ckpt in cases:
+        with open(config) as f:
+            configs = yaml.safe_load(f)
+        feats = np.load(feats_path)
+        model = load_serving_model(configs, ckpt, feats.shape[2], dev)
+        x = torch.from_numpy(feats[:1, :PATH_K_CHUNK]).to(dev)
+        fstep, finit = build_fused_stream(model, device=dev)
+        timing = {}
+        for tag, fn, c0 in (("exported", load_cached_step(path, dev),
+                             model.init_cache(1, dev)),
+                            ("fused", fstep, finit(1))):
+            def call(fn=fn, c0=c0):
+                with torch.inference_mode():
+                    return fn(x, c0)
+
+            median = timed_steps(call)[0]
+            busy, launches, _ = profiled_step(call)
+            timing[tag] = {"median_ms": median, "device_ms": busy,
+                           "cuda_launches": launches}
+        ex, fu = timing["exported"], timing["fused"]
+        print(f"  22a {name} one step at B=1 x {PATH_K_CHUNK}: exported "
+              f"{ex['median_ms']:.3f} ms host clock (untraced median of 10), "
+              f"device {ex['device_ms']:.3f} ms in {ex['cuda_launches']} "
+              f"CUDA launches; fused stream {fu['median_ms']:.3f} ms, device "
+              f"{fu['device_ms']:.3f} ms in {fu['cuda_launches']} launches "
+              f"[{card}]", flush=True)
+        figures[name]["step"] = timing
+
+
+def packed_cache_rows(packed, caches):
+    """The fused stream's packed (L, B, pad_max, C) cache as the module
+    route's per-layer (B, pad_l, C_l) caches: each layer's last pad_l
+    rows (its context, right-aligned)."""
+    return [packed[i, :, packed.shape[2] - c.shape[1]:, :c.shape[2]]
+            for i, c in enumerate(caches)]
+
+
+def phase22a_exported_step(dev, card, work, tmp):
+    """22a: the flagship (phase 4's checkpoint), the JAX CTC fixture and
+    the JAX DS-TCN fixture through ``bin.export_model --format stablehlo
+    --chunk_frames 32`` on the card; each ``model.pt2`` loaded in a fresh
+    process (``path_k_load_child``) and stepped over phase 4's waves
+    through the model's frontend; its outputs and final caches held
+    against the module route's cached step on the CPU, and against the
+    fused stream on the card (outputs, and the packed cache's layers),
+    TOL abs + TOL rel; a flat output fails.  Returns ({model: {kernel
+    record: launches}}, figures, the cases of ``path_k_load_child``)."""
+    import torch
+    import yaml
+
+    from wekws_tpu_torch.bin import export_model as export_cli
+    from wekws_tpu_torch.export.cached_step import flat_tensors
+    from wekws_tpu_torch.ops.serving import build_fused_stream
+    from wekws_tpu_torch.runtime.keyword_spotter import load_serving_model
+
+    waves = synth_waves(np.random.default_rng(SEED))
+    cases, export_s, gates = [], {}, {}
+    models = path_k_models(work, tmp)
+    for name, _, config, ckpt, _ in models:
+        out_dir = os.path.join(tmp, f"{name}_step")
+        t0 = time.perf_counter()
+        gates[name] = export_cli.main([
+            "--config", config, "--checkpoint", ckpt, "--output_dir",
+            out_dir, "--format", "stablehlo", "--chunk_frames",
+            str(PATH_K_CHUNK), "--device", dev.type])
+        export_s[name] = time.perf_counter() - t0
+        feats_path = os.path.join(tmp, f"{name}_feats.npy")
+        np.save(feats_path, path_k_feats(config, waves))
+        cases.append([name, os.path.join(out_dir, "model.pt2"), feats_path,
+                      config, ckpt])
+    loaded = run_child("path_k_load_child", [cases, dev.type], "PATH_K_LOAD")
+    wrappers = kernel_counts()
+    launches, figures = {}, {}
+    for (name, what, config, ckpt, kern), case in zip(models, cases):
+        found = loaded[name]
+        data = np.load(found["npz"])
+        got = torch.from_numpy(data["out"])
+        got_caches = [torch.from_numpy(data[f"cache{i}"])
+                      for i in range(len(data.files) - 1)]
+        lo, hi = float(got.min()), float(got.max())
+        if not hi - lo > 1e-3:
+            raise AssertionError(f"22a {name}: the exported step's outputs "
+                                 f"span only [{lo}, {hi}]: the checks "
+                                 f"would be vacuous")
+        feats = torch.from_numpy(np.load(case[2]))
+        b, t, d = feats.shape
+        with open(config) as f:
+            configs = yaml.safe_load(f)
+        cpu_model = load_serving_model(configs, ckpt, d, "cpu")
+        card_model = load_serving_model(configs, ckpt, d, dev)
+        step, init = build_fused_stream(card_model, device=dev)
+        cache, packed, outs, fused = cpu_model.init_cache(b), init(b), [], []
+        for w in wrappers.values():
+            w.launches = 0
+        with torch.inference_mode():
+            for s in range(0, t, PATH_K_CHUNK):
+                chunk = feats[:, s:s + PATH_K_CHUNK]
+                y, cache = cpu_model(chunk, cache)
+                outs.append(y)
+                y, packed = step(chunk.to(dev).contiguous(), packed)
+                fused.append(y)
+        torch.cuda.synchronize()
+        launches[name] = {k: w.launches for k, w in wrappers.items()
+                          if w.launches}
+        chunks = t // PATH_K_CHUNK
+        if launches[name] != {kern: chunks}:
+            raise AssertionError(f"22a {name}: the fused stream's launches "
+                                 f"{launches[name]}, want {{{kern!r}: "
+                                 f"{chunks}}}")
+        want_caches = flat_tensors(cache)
+        errs = [check_close(f"22a {name}: exported step vs the module route "
+                            f"on the CPU", got, torch.cat(outs, 1),
+                            quiet=True),
+                check_close(f"22a {name}: exported step vs {kern}", got,
+                            torch.cat(fused, 1).cpu(), quiet=True)]
+        for i, (g, w, p) in enumerate(zip(got_caches, want_caches,
+                                          packed_cache_rows(
+                                              packed.cpu(), want_caches))):
+            errs.append(check_close(f"22a {name}: cache {i} vs the module "
+                                    f"route", g, w, quiet=True))
+            errs.append(check_close(f"22a {name}: cache {i} vs {kern}'s "
+                                    f"packed cache", g, p, quiet=True))
+        if len(got_caches) != len(want_caches):
+            raise AssertionError(f"22a {name}: {len(got_caches)} cache "
+                                 f"tensors, the module route has "
+                                 f"{len(want_caches)}")
+        ops = found["ops"]
+        top = sorted(ops.items(), key=lambda kv: -kv[1])[:6]
+        print(f"  22a {what}: bin.export_model --format stablehlo "
+              f"{export_s[name]:.1f} s beside 22b's recipes (its gate {gates[name]:.2e}); "
+              f"model.pt2 loaded in a fresh process, {b} utterances x "
+              f"{chunks} chunks of {PATH_K_CHUNK} (outputs in [{lo:.3g}, "
+              f"{hi:.3g}]): vs the module route on the CPU and vs {kern} "
+              f"(outputs and {len(got_caches)} cache tensors) max_abs_err "
+              f"{max(errs):.2e} (bound {TOL} abs + {TOL} rel); "
+              f"{sum(ops.values())} aten ops of {len(ops)} kinds, nothing "
+              f"else ({', '.join(f'{k} {v}' for k, v in top)}, ...) "
+              f"[{card}]", flush=True)
+        figures[name] = {"aten_ops": sum(ops.values()),
+                         "aten_op_kinds": len(ops), "gate": gates[name],
+                         "max_abs_err": max(errs), "export_s": export_s[name]}
+    return launches, figures, cases
+
+
+def scale_recipe_copy(tmp):
+    """examples/synthetic_scale, and the synthetic_ctc generator that its
+    CTC recipe calls, copied into ``tmp`` without corpora or
+    experiments; each recipe config copied with max_epoch SCALE_EPOCHS.
+    Returns the recipe directory and a line for each cut."""
+    import shutil
+
+    import yaml
+
+    root = os.path.join(tmp, "examples")
+    skip = shutil.ignore_patterns("train", "dev", "test", "*.list", "exp",
+                                  "__pycache__")
+    recipe, notes = os.path.join(root, "synthetic_scale"), []
+    shutil.copytree(SCALE_RECIPE, recipe, ignore=skip)
+    shutil.copytree(os.path.join(CTC_RECIPE, "local"),
+                    os.path.join(root, "synthetic_ctc", "local"), ignore=skip)
+    for conf in ("conf_torch/mdtc.yaml", "conf/fsmn_ctc.yaml"):
+        with open(os.path.join(recipe, conf)) as f:
+            configs = yaml.safe_load(f)
+        notes.append(f"  22b cut: {conf} max_epoch "
+                     f"{configs['training_config']['max_epoch']} -> "
+                     f"{SCALE_EPOCHS}")
+        configs["training_config"]["max_epoch"] = SCALE_EPOCHS
+        with open(os.path.join(recipe, conf.replace(".yaml", "_cut.yaml")),
+                  "w") as f:
+            yaml.safe_dump(configs, f)
+    return recipe, notes
+
+
+def run_recipes(recipe, jobs, meanwhile):
+    """Each job's (argv, tap) ``bash argv`` in ``recipe``, all at once
+    (one card and eight cores take them side by side), each with its tap
+    first on PYTHONPATH and its output in files beside the tap; then
+    ``meanwhile()`` in this process while they run.  Stops every job
+    still running when it fails.  Returns ([(the completed process, its
+    seconds, the tapped processes' records)] in the jobs' order,
+    ``meanwhile()``'s result)."""
+    repo = os.path.abspath(os.path.dirname(__file__) or ".")
+    started, results = [], []
+    try:
+        for argv, tap in jobs:
+            out = open(os.path.join(tap, "stdout.txt"), "w+")
+            err = open(os.path.join(tap, "stderr.txt"), "w+")
+            env = dict(os.environ, PYTHONPATH=os.pathsep.join([tap, repo]),
+                       PATH_K_TAP_DIR=tap)
+            started.append((subprocess.Popen(
+                ["bash", *argv], cwd=recipe, env=env, stdout=out,
+                stderr=err, text=True), out, err, time.perf_counter()))
+        side = meanwhile()
+        ended = {}
+        while len(ended) < len(started):
+            for i, (proc, _, _, t0) in enumerate(started):
+                if i not in ended and proc.poll() is not None:
+                    ended[i] = time.perf_counter() - t0
+                elif time.perf_counter() - t0 > SCALE_TIMEOUT_S:
+                    raise TimeoutError(f"22b {' '.join(jobs[i][0][:3])}: "
+                                       f"over {SCALE_TIMEOUT_S} s")
+            time.sleep(0.2)
+        for (argv, tap), (proc, out, err, _), seconds in zip(
+                jobs, started, (ended[i] for i in range(len(jobs)))):
+            out.seek(0)
+            err.seek(0)
+            done = subprocess.CompletedProcess(argv, proc.returncode,
+                                               out.read(), err.read())
+            results.append((done, seconds, tap_processes(tap)))
+    finally:
+        for proc, out, err, _ in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+            err.close()
+    return results, side
+
+
+def tapped_launches(records, what):
+    """{process: {kernel record: launches}} of a recipe run; fails where a
+    plain version ran on a CUDA tensor."""
+    plain = {process_name(r): r["plain_on_cuda"] for r in records
+             if r["plain_on_cuda"]}
+    if plain:
+        raise AssertionError(f"22b {what}: plain versions ran on CUDA "
+                             f"tensors: {plain}")
+    out = {}
+    for r in records:
+        counts = {k: v for k, v in r["launches"].items() if v}
+        if counts:
+            name = process_name(r)
+            for k, v in counts.items():
+                out.setdefault(name, {})[k] = out.get(name, {}).get(k, 0) + v
+    return out
+
+
+def plot_said(done, figure, what):
+    """Stage 5 (the DET plot): the PNG where the machine has matplotlib,
+    else an ImportError naming the ``plot`` extra."""
+    import importlib.util
+
+    if importlib.util.find_spec("matplotlib") is not None:
+        if done.returncode != 0 or not os.path.getsize(figure) > 1000:
+            raise AssertionError(f"22b {what}: exit {done.returncode}, no "
+                                 f"figure at {figure}: "
+                                 f"{done.stderr[-2000:]}")
+        return f"matplotlib present: {os.path.getsize(figure)} bytes PNG"
+    if done.returncode == 0 or "'plot' extra" not in done.stderr:
+        raise AssertionError(f"22b {what} without matplotlib: exit "
+                             f"{done.returncode}, {done.stderr[-2000:]}")
+    return "no matplotlib here: ImportError naming the 'plot' extra"
+
+
+def recipe_run(done, last, what):
+    """Stages 0 to ``last`` of a recipe ran to their end (their
+    ``stage N done`` lines): [each stage's wall time]."""
+    stages = [line.split(" done in ")[1] for line in done.stdout.splitlines()
+              if line.startswith("stage ")]
+    if f"stage {last} done" not in done.stdout:
+        raise AssertionError(f"22b {what} exited {done.returncode} before "
+                             f"stage {last} ended:\n{done.stdout[-3000:]}\n"
+                             f"{done.stderr[-3000:]}")
+    return stages
+
+
+def exported_vs_eager(program, model, feats, what):
+    """``program`` (a loaded ``model.pt2``) and ``model``'s eager cached
+    step over ``feats`` (B, T, D), one utterance at a time in
+    PATH_K_CHUNK-frame chunks from the initial cache: outputs and caches
+    within TOL abs + TOL rel; a flat output fails.  Returns the max abs
+    error."""
+    import torch
+
+    from wekws_tpu_torch.export.cached_step import flat_tensors
+
+    errs, lo, hi = [], float("inf"), -float("inf")
+    with torch.no_grad():
+        for row in feats:
+            cache = want = model.init_cache(1, feats.device)
+            for s in range(0, feats.shape[1], PATH_K_CHUNK):
+                chunk = row[None, s:s + PATH_K_CHUNK]
+                y, cache = program(chunk, cache)
+                y_want, want = model(chunk, want, softmax=False)
+                lo, hi = min(lo, float(y.min())), max(hi, float(y.max()))
+                errs += [check_close(f"{what}, chunk {s // PATH_K_CHUNK}",
+                                     g, w, quiet=True) for g, w in zip(
+                    flat_tensors((y, cache)), flat_tensors((y_want, want)))]
+    if not hi - lo > 1e-3:
+        raise AssertionError(f"{what}: outputs span only [{lo}, {hi}]: the "
+                             f"check would be vacuous")
+    return max(errs), (lo, hi)
+
+
+def phase22b_scale_recipes(dev, card, gen, meanwhile, head):
+    """22b: examples/synthetic_scale's ``run_torch.sh`` and
+    ``run_ctc_torch.sh``, stages 0-5, on the card: stages 0-1 beside the
+    kernel build (``head``, ``PathKHead.finish()``'s state), 2-5 here,
+    side by side and beside ``meanwhile()`` (22a) in this process, the
+    corpora cut (SCALE_CUT,
+    SCALE_CTC_CUT) and max_epoch SCALE_EPOCHS, every Python process
+    tapped (``recipe_tap``): stages 0-4 (0-3) ended, no plain version on
+    a CUDA tensor, bin.train through fused_fbank, F1/F4/B1/B4 and the
+    bf16 variants of F2/F3/B2/B3 (17 a step each, none of the float32
+    F2/F3/B2/B3), bin.score through fused_mdtc_kernel and bin.score_ctc
+    through fused_fsmn_kernel (one launch a batch), ``model.pt2`` loaded
+    back and stepped over eight of the recipe's test utterances against
+    the averaged model; stage 5 (the plot) as ``plot_said``.  Returns
+    ({sub-path: {kernel record: launches}}, {(kernel record, shape):
+    [calls, args, kwargs]} of the wrappers, {(pass record, (b, t, c, d,
+    precision)): calls}, figures, ``meanwhile()``'s result)."""
+    import torch
+    from scipy.io import wavfile
+
+    from wekws_tpu_torch.export.cached_step import load_cached_step
+    from wekws_tpu_torch.runtime.keyword_spotter import load_serving_model
+    from wekws_tpu_torch.tools.cmvn_stats import wav_paths_from_data_list
+
+    recipe = head["recipe"]
+    for note in head["notes"]:
+        print(note, flush=True)
+    print(f"  22b cut: the corpus {' '.join(SCALE_CUT)} (full: 5,000 + "
+          f"15,000 train, 500 + 1,500 dev, 2,000 + 6,000 test); the CTC "
+          f"corpus {' '.join(SCALE_CTC_CUT)} (full: 20,000, 2,000, 33,000)",
+          flush=True)
+    launches, shapes, passes, figures = {}, {}, {}, {}
+    runs = [(script, [script, str(SCALE_HEAD_STAGES + 1), "5", conf,
+                      dev.type, *cut], exp, last)
+            for script, conf, cut, exp, last in SCALE_RUNS]
+    jobs = [(argv, head["runs"][what]["tap"]) for what, argv, _, _ in runs]
+    results, side = run_recipes(recipe, jobs, meanwhile)
+    for (what, argv, exp, last), (done, seconds, records) in zip(runs,
+                                                                  results):
+        early = head["runs"][what]
+        if early["code"] != 0 or f"stage {SCALE_HEAD_STAGES} done" not in \
+                early["stdout"]:
+            raise AssertionError(
+                f"22b {what} 0 {SCALE_HEAD_STAGES} exited {early['code']}:\n"
+                f"{early['stdout'][-3000:]}\n{early['stderr'][-3000:]}")
+        done = subprocess.CompletedProcess(
+            done.args, done.returncode, early["stdout"] + done.stdout,
+            early["stderr"] + done.stderr)
+        stages = recipe_run(done, last, " ".join(argv[:3]))
+        counts = tapped_launches(records, what)
+        with open(os.path.join(recipe, exp, "metrics.jsonl")) as f:
+            epochs = [json.loads(line) for line in f]
+        losses = [e["train_loss"] for e in epochs]
+        if len(epochs) != SCALE_EPOCHS or not np.isfinite(losses).all():
+            raise AssertionError(f"22b {what}: epochs {epochs}")
+        batch = recipe_yaml(os.path.join(recipe, argv[3]))[
+            "dataset_conf"]["batch_conf"]["batch_size"]
+        steps = epochs[0]["batches"]
+        train = counts.get("bin.train", {})
+        if what == "run_torch.sh":
+            want = {f"fused_train_{p}": 17 * steps * SCALE_EPOCHS
+                    for p in ("f1", "f4", "b1", "b4")}
+            want.update({f"fused_train_{p}_bf16": 17 * steps * SCALE_EPOCHS
+                         for p in ("f2", "f3", "b2", "b3")})
+            fbank = train.pop("fused_fbank", 0)
+            n_test = int(SCALE_CUT[-3]) + int(SCALE_CUT[-1])
+            # the test features through fused_fbank, the model through
+            # fused_mdtc_kernel: one launch each a batch of 256
+            score_want = dict.fromkeys(("fused_fbank", "fused_mdtc_forward"),
+                                       math.ceil(n_test / 256))
+            score = counts.get("bin.score", {})
+            if train != want or fbank < steps * SCALE_EPOCHS:
+                raise AssertionError(f"22b bin.train launched {train} and "
+                                     f"fused_fbank {fbank}; want {want} and "
+                                     f"fused_fbank >= {steps * SCALE_EPOCHS}")
+            train["fused_fbank"] = fbank
+            # the recipe's model.pt2 loaded back, over eight of its test
+            # utterances (spread over the list: keywords and fillers)
+            config = os.path.join(recipe, exp, "config.yaml")
+            paths = list(wav_paths_from_data_list(
+                os.path.join(recipe, "data", "test.list")))
+            waves = [wavfile.read(os.path.join(recipe, p))[1]
+                     for p in paths[::len(paths) // 8][:8]]
+            feats = path_k_feats(config, waves)
+            model = load_serving_model(recipe_yaml(config), os.path.join(
+                recipe, exp, "avg_5.pt"), feats.shape[2], dev)
+            program = load_cached_step(os.path.join(
+                recipe, exp, "export", "model.pt2"), dev)
+            err, span = exported_vs_eager(
+                program, model, torch.from_numpy(feats).to(dev),
+                "22b model.pt2 vs the averaged model's step")
+            figures["model_pt2_err"] = err
+            print(f"  22b {exp}/export/model.pt2 loaded back: 8 test "
+                  f"utterances x {feats.shape[1] // PATH_K_CHUNK} chunks "
+                  f"(outputs in [{span[0]:.3g}, {span[1]:.3g}]) vs the "
+                  f"averaged model's eager step max_abs_err {err:.2e} "
+                  f"(bound {TOL} abs + {TOL} rel)", flush=True)
+        else:
+            n_test = int(SCALE_CTC_CUT[-1])
+            score_want = {"fused_fsmn_layers": math.ceil(n_test / 256)}
+            score = counts.get("bin.score_ctc", {})
+        if score != score_want:
+            raise AssertionError(f"22b {what}: scoring launched {score}, "
+                                 f"want {score_want}")
+        for r in records:
+            for name, shape, calls, prec in r["passes"]:
+                b, t, c, d = (int(v.split("=")[1]) for v in shape.split())
+                pkey = (name, (b, t, c, d, prec))
+                passes[pkey] = passes.get(pkey, 0) + calls
+            for name, shape, calls, saved in r["calls"]:
+                if (name, shape) in shapes:
+                    shapes[name, shape][0] += calls
+                else:
+                    shapes[name, shape] = [calls, *standin_args(saved, gen,
+                                                                dev)]
+        stats = os.path.join(recipe, exp, "stats.0.txt" if what ==
+                             "run_torch.sh" else "stats.1_2_3.txt")
+        if not os.path.getsize(stats):
+            raise AssertionError(f"22b {what}: no {stats}")
+        # bin.train logs each epoch's cv accuracy ("Epoch N done: ...")
+        cv_acc = [float(line.split(" cv_acc ")[1].split()[0])
+                  for line in done.stderr.splitlines() if " done: " in line]
+        total = launches[f"22b {what}"] = {}
+        for c in counts.values():
+            for k, v in c.items():
+                total[k] = total.get(k, 0) + v
+        plot = plot_said(done, os.path.join(recipe, exp, "det.png"), what)
+        print(f"  22b {what} {' '.join(argv[3:5])} (B={batch}, {steps} "
+              f"step(s) an epoch): stages 0-{last} ended (0-"
+              f"{SCALE_HEAD_STAGES} beside the kernel build, the rest here); "
+              f"stages {', '.join(stages)}; wall of stages "
+              f"{SCALE_HEAD_STAGES + 1}-5 {seconds:.1f} s (shared: both "
+              f"recipes and 22a ran side by side on the card); bin.train "
+              f"losses {losses}, cv_acc "
+              f"{cv_acc}; launches by process {counts}; no plain version on "
+              f"a CUDA tensor; stage 5 (the DET plot): {plot} [{card}]",
+              flush=True)
+        figures[what] = {"shared_card_wall_s": seconds,
+                         "shared_card_stages": stages,
+                         "train_losses": losses, "cv_acc": cv_acc,
+                         "launches": counts, "plot": plot}
+    return launches, shapes, passes, figures, side
+
+
+def pass_checks(card, passes, gen, dev):
+    """Each training pass at every (B, T, C, dilation, precision) path K
+    gave it, on seeded block inputs of that shape (``trace_pass_inputs``
+    at its precision; dy zero within KINK of the residual ReLU's kink):
+    against its plain version on the same card tensors
+    (``compare_pass``; a bf16 variant at bf16 with its BF16_SUM_TOL, as
+    21a); at each pass's largest dilation also its time per call (CUDA
+    events), its device time with its block reduction (profiler), the
+    plain version's time and the bound.  Returns {kernel record:
+    [readings]}."""
+    import torch
+
+    from wekws_tpu_torch.ops.fused_mdtc_train import (
+        BF16_PASSES,
+        BF16_SUM_TOL,
+        PASS_IDS,
+        PASSES,
+        compare_pass,
+        kernel_name,
+        seeded_block_inputs,
+        trace_pass_inputs,
+    )
+
+    groups = {}
+    for (name, shape), calls in passes.items():
+        groups.setdefault(shape, []).append((name, calls))
+    timed = {}
+    for (name, (b, t, c, d, prec)) in passes:
+        timed[name] = max(timed.get(name, (0,) * 5), (b, t, c, d, prec))
+    out = {}
+    for (b, t, c, d, prec), names in sorted(groups.items()):
+        p, x, dy = seeded_block_inputs(gen, b, t, c, 5, dev)
+        # B1-B4 gate dy by the residual ReLU, recomputed from w, x and
+        # bn2's affine terms in each pass and in its plain version; where
+        # that input lies within rounding of zero the two can take opposite
+        # sides and move dx or a sum by a whole |dy| (a first run on the
+        # card read 1.29 at B=512 x T=598).  So dy is zero within KINK of
+        # the kink, as phase 6's block check does
+        w, xx, v = trace_pass_inputs(x, p, dy, d,
+                                     precision=prec)["f4"][:3]
+        kink = (w * v["a2"] + v["c2"] + xx).abs() < KINK
+        dy = torch.where(kink, torch.zeros_like(dy), dy)
+        calls_of = trace_pass_inputs(x, p, dy, d, precision=prec)
+        print(f"  22c B={b} T={t} C={c} d={d} {prec}: dy zero at "
+              f"{int(kink.sum())} elements within {KINK} of the residual "
+              f"ReLU's kink", flush=True)
+        for name, calls in sorted(names):
+            args = calls_of[name]
+            bf16 = prec == "bfloat16" and name in BF16_PASSES
+            record = f"fused_train_{name}" + ("_bf16" if bf16 else "")
+            what = f"B={b} T={t} C={c} d={d}" + (" bf16" if bf16 else "")
+
+            def kern(fn=PASSES[name], args=args):
+                return fn(*args)
+
+            def plain(fn=PASSES[name].plain, args=args):
+                return fn(*args)
+
+            got, want = kern(), plain()
+            err = (compare_pass(f"22c {record} {what}", got, want,
+                                "bfloat16", BF16_SUM_TOL[name]) if bf16
+                   else compare_pass(f"22c {record} {what}", got, want))
+            reading = {"shape": what, "calls": calls, "max_abs_err": err,
+                       "max_rel_err": pass_rel_err(got, want)}
+            if timed[name] == (b, t, c, d, prec):
+                ms, plain_ms = kernel_vs_plain_ms(kern, plain)
+                kname = kernel_name(name, c, prec)
+                names_ = (kname,) if name == "f4" else (
+                    kname, f"reduce_kernel<{PASS_IDS[name]}>")
+                _, _, found = profiled_step(
+                    lambda: [kern() for _ in range(20)], names_)
+                device_ms = (None if any(found[n] is None for n in names_)
+                             else sum(found[n] for n in names_))
+                k = args[PASS_DW_ARG[name]].shape[0] \
+                    if name in PASS_DW_ARG else 1
+                bound, bound_by = (bf16_pass_bound_ms if bf16 else
+                                   train_pass_bound_ms)(name, b, t, c, k)
+                reading.update(ms=ms, plain_ms=plain_ms, device_ms=device_ms,
+                               bound_ms=bound, bound_by=bound_by)
+                dev_txt = ("not measured" if device_ms is None
+                           else f"{device_ms:.4f} ms with its reduction")
+                print(f"  22c {record} {what}: {calls} calls on path K; vs "
+                      f"plain max_abs_err {err:.3e} "
+                      f"({reading['max_rel_err']:.2e} of its scale); kernel "
+                      f"{ms:.4f} ms per call (device {dev_txt}), plain "
+                      f"{plain_ms:.4f} ms, bound {bound:.5f} ms ({bound_by}) "
+                      f"[{card}]", flush=True)
+            else:
+                print(f"  22c {record} {what}: {calls} calls on path K; vs "
+                      f"plain max_abs_err {err:.3e} "
+                      f"({reading['max_rel_err']:.2e} of its scale) [{card}]",
+                      flush=True)
+            out.setdefault(record, []).append(reading)
+    return out
+
+
+def mdtc_forward_checks(card, entries):
+    """``fused_mdtc_forward`` at every shape path K gave it (bin.score),
+    on the first call's weights and a seeded stand-in of its features:
+    against its plain version (TOL), times, device time and bound.
+    Returns [readings]."""
+    from wekws_tpu_torch.ops.fused_mdtc import (
+        fused_mdtc_forward,
+        fused_mdtc_forward_plain,
+    )
+
+    out = []
+    for calls, args, kwargs in entries:
+        b, t, c = args[0].shape
+        dil, k, stack = args[-3], args[-2], args[-1]
+
+        def kern():
+            return fused_mdtc_forward(*args, **kwargs)
+
+        def plain():
+            return fused_mdtc_forward_plain(*args, **kwargs)
+
+        what = f"B={b} T={t} C={c}"
+        err = check_close(f"22c fused_mdtc_forward {what}", kern(), plain(),
+                          quiet=True)
+        ms, plain_ms = kernel_vs_plain_ms(kern, plain)
+        dev_ms = profiled_device_ms(kern, "fused_mdtc_kernel")
+        bound, bound_by = mdtc_bound_ms(b, t, c, len(dil), k,
+                                        len(dil) // stack,
+                                        (k - 1) * max(dil), False)
+        dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+        print(f"  22c fused_mdtc_forward {what}: {calls} calls on path K; "
+              f"vs plain max_abs_err {err:.3e} (bound {TOL} abs + {TOL} "
+              f"rel); kernel {ms:.4f} ms per call (device {dev_txt}), plain "
+              f"{plain_ms:.4f} ms, bound {bound:.5f} ms ({bound_by}) "
+              f"[{card}]", flush=True)
+        out.append({"shape": what, "calls": calls, "max_abs_err": err,
+                    "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                    "bound_ms": bound, "bound_by": bound_by})
+    return out
+
+
+PATH_K_KERNELS = (
+    "fused_mdtc_stream", "fused_fsmn_layers", "fused_ds_tcn", "fused_fbank",
+    "fused_mdtc_forward", "fused_train_f1", "fused_train_f4",
+    "fused_train_b1", "fused_train_b4", "fused_train_f2_bf16",
+    "fused_train_f3_bf16", "fused_train_b2_bf16", "fused_train_b3_bf16")
+
+
+def path_k(dev, card, work, head):
+    """Phase 22, path K: 22b the scale recipes, with 22a the exported
+    step in this process while they run, then 22a's timings on the card
+    alone; 22c each kernel path K launched against its plain version at
+    every shape path K gave it.  Returns ({sub-path: {kernel record:
+    launches}}, {kernel record: [readings]}, figures)."""
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 22)
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        with ShapeTap() as tap:
+            def phase22a():
+                with PlainOnCuda() as plain:
+                    found = phase22a_exported_step(dev, card, work, tmp)
+                plain.check("22a the fused streams")
+                return found
+
+            b_launches, b_shapes, passes, b_figures, (
+                a_launches, a_figures, cases) = phase22b_scale_recipes(
+                    dev, card, gen, phase22a, head)
+        t_recipes = time.perf_counter() - t0
+        phase22a_step_times(dev, card, cases, a_figures)
+    for name, counts in a_launches.items():
+        launches[f"22a {name}'s fused stream"] = counts
+    launches.update(b_launches)
+    t_times = time.perf_counter() - t0 - t_recipes
+    shapes, mdtc_entries = dict(tap.shapes), []
+    for (name, shape), entry in sorted(b_shapes.items(), key=lambda kv: kv[0]):
+        if name == "fused_mdtc_forward":
+            mdtc_entries.append(entry)
+        elif (name, shape) in shapes:
+            shapes[name, shape][0] += entry[0]
+        else:
+            shapes[name, shape] = entry
+    readings = phase17e_kernel_checks(card, shapes, "22c", "K")
+    readings["fused_mdtc_forward"] = mdtc_forward_checks(card, mdtc_entries)
+    readings.update(pass_checks(card, passes, gen, dev))
+    seconds = {"22a and 22b side by side": t_recipes,
+               "22a step times": t_times,
+               "22c": time.perf_counter() - t0 - t_recipes - t_times}
+    print(f"  path K's seconds: {seconds}", flush=True)
+    figures = {"22a": a_figures, "22b": b_figures, "seconds": seconds,
+               "phase_s": time.perf_counter() - t0}
+    return launches, readings, figures
+
+
+def merge_path_k(record, launches, readings):
+    """Path K's launches (by sub-path) and readings into the kernel
+    records; fails if a path-K kernel never launched."""
+    rows = {r["name"]: r for r in record}
+    totals = {}
+    for sub, counts in launches.items():
+        for name, n in counts.items():
+            if n:
+                totals[name] = totals.get(name, 0) + n
+                rows[name].setdefault("path_k_launches", {})[sub] = n
+    missing = [k for k in PATH_K_KERNELS if not totals.get(k)]
+    if missing:
+        raise AssertionError(f"path K launched no {missing}: {launches}")
+    for name, n in totals.items():
+        rows[name]["launches"] += n
+    for name, rs in readings.items():
+        rows[name]["path_k"] = rs
+        rows[name]["max_abs_err"] = max(
+            [rows[name]["max_abs_err"]] + [r["max_abs_err"] for r in rs])
+
+
+def path_k_child(work, head, device="cuda"):
+    """``path_k`` in a fresh process (the full run's phase 22: late in the
+    long process the profiler loses records); its progress lines, then
+    one line ``PATH_K {...}``."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    launches, readings, figures = path_k(torch.device(device), card_line(),
+                                         work, head)
+    print("PATH_K " + json.dumps({"launches": launches, "readings": readings,
+                                  "figures": figures}), flush=True)
+
+
+def phase22(card, work, record, head):
+    """Phase 22 in a fresh process, merged into ``record``; ``head`` the
+    ``PathKHead`` started before the build."""
+    import torch
+
+    with phase("22 path K: the exported step, the scale recipes, the DET "
+               "plots"):
+        torch.cuda.empty_cache()
+        found = run_child("path_k_child", [work, head.finish()], "PATH_K",
+                          900)
+        merge_path_k(record, found["launches"], found["readings"])
+        print(f"  launches on path K: {found['launches']} [{card}]",
+              flush=True)
+        print(json.dumps({"path_k_figures": found["figures"], "card": card}),
+              flush=True)
+
+
+def path_k_alone(dev, card, kind, head):
+    """``chip_smoke.py --phase 22``: phase 4's flagship checkpoint (its
+    ``serving_slice``), path K in this process, then the last lines
+    (path K's kernels' records)."""
+    import torch
+
+    from wekws_tpu_torch.ops import cuda_build
+    from wekws_tpu_torch.ops.fused_mdtc import (
+        fused_mdtc_forward,
+        fused_mdtc_stream,
+    )
+
+    work = os.path.join(cuda_build.BUILD_DIR, "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    with phase("4 (flagship checkpoint only)"):
+        serving_slice("flagship", FLAGSHIP_MODEL_CONF,
+                      torch.Generator().manual_seed(SEED), dev, work,
+                      synth_waves(np.random.default_rng(SEED)),
+                      fused_mdtc_forward, fused_mdtc_stream, {})
+    record = [{"name": n, "launches": 0, "max_abs_err": 0.0}
+              for n in PATH_K_KERNELS]
+    with phase("22 path K: the exported step, the scale recipes, the DET "
+               "plots"):
+        launches, readings, figures = path_k(dev, card, work, head.finish())
+        merge_path_k(record, launches, readings)
+        print(f"  launches on path K: {launches} [{card}]", flush=True)
+        print(json.dumps({"path_k_figures": figures, "card": card}),
+              flush=True)
+    return last_lines(card, record, kind)
+
+
 SERVING_KERNELS = {"fused_frontend": 6, "fused_mdtc": 15 + 25 + 3}
 
 
@@ -8705,15 +9923,38 @@ def main(argv) -> int:
     import torch
 
     only = argv[1] if len(argv) == 2 and argv[0] == "--phase" else None
-    if argv and only not in ("20", "21"):
+    if argv and only not in ("20", "21", "22"):
         print(f"chip_smoke: unknown arguments {argv}; run it with none, or "
               f"with --phase 20 for path I alone, --phase 21 for path J "
-              f"alone", file=sys.stderr)
+              f"alone, --phase 22 for path K alone", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
+
+    from wekws_tpu_torch.ops import cuda_build
+
+    head = None
+    if only is None:
+        # the shared corpora and path K's CPU stages on the cores that
+        # the build leaves idle
+        for name in CORPORA:
+            start_corpus(name)
+    if only in (None, "22"):
+        head = PathKHead(os.path.join(cuda_build.BUILD_DIR, "chip_smoke"))
+    try:
+        return smoke(only, head)
+    finally:
+        stop_corpora()
+        if head is not None:
+            head.close()
+
+
+def smoke(only, head):
+    """``main`` after its checks: the phases (``only``: 20, 21, 22 or
+    None for all), ``head`` path K's ``PathKHead`` (None for 20, 21)."""
+    import torch
 
     from wekws_tpu_torch.ops import cuda_build
     from wekws_tpu_torch.ops.fused_mdtc import (
@@ -8798,6 +10039,8 @@ def main(argv) -> int:
         return path_i_alone(dev, card, kind)
     if only == "21":
         return path_j_alone(dev, card, kind)
+    if only == "22":
+        return path_k_alone(dev, card, kind, head)
 
     gen = torch.Generator().manual_seed(SEED)
     model, _ = seeded_model(FLAGSHIP_MODEL_CONF, gen)
@@ -9073,8 +10316,12 @@ def main(argv) -> int:
 
     phase20(dev, card, work, train_conf, record)
     phase21(dev, card, record)
+    phase22(card, work, record, head)
     return last_lines(card, record, kind)
 
+
+for _name in [n for n in globals() if re.fullmatch(TIMED_PARTS, n)]:
+    globals()[_name] = timed_part(globals()[_name])
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv[1:]))

@@ -27,6 +27,7 @@ from wekws_tpu_torch.bin import (
     compute_accuracy,
     compute_det,
     compute_det_ctc,
+    export_model,
     score,
     score_ctc,
     stream_score_ctc,
@@ -288,7 +289,8 @@ def test_unported_flags_raise(tmp_path, monkeypatch, flag, item):
 @pytest.mark.parametrize("entry", ["train", "average_model", "score",
                                    "compute_det", "score_ctc",
                                    "compute_det_ctc", "stream_score_ctc",
-                                   "compute_accuracy"])
+                                   "compute_accuracy",
+                                   "export_model_stablehlo"])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     """Without ``--device`` each runs on the GPU, or raises where there
     is none, before reading its inputs."""
@@ -316,6 +318,9 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
             "--token_file", x, "--keywords", "123", "--score_file", x]),
         "compute_accuracy": (compute_accuracy, [
             "--config", x, "--test_data", x, "--checkpoint", x]),
+        "export_model_stablehlo": (export_model, [
+            "--config", x, "--checkpoint", x, "--output_dir", x, "--format",
+            "stablehlo"]),
     }
     mod, args = argv[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):

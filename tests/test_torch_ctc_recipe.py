@@ -351,10 +351,3 @@ def test_bin_train_dict_tokenizes_and_trains(corpus, tmp_path):
             np.testing.assert_array_equal(np.asarray(g[key]),
                                           np.asarray(w[key]))
     assert (np.asarray(got[0]["target"])[:, 0] >= 2).all()
-
-
-def test_compute_det_ctc_figure_file_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="plot_det_curve"):
-        compute_det_ctc.main(["--test_data", "t", "--keywords", KEYWORD,
-                              "--score_file", "s", "--figure_file",
-                              str(tmp_path / "det.png"), "--device", "cpu"])

@@ -40,6 +40,7 @@ from wekws_tpu_torch.export import (
     export_model,
     quantize_artifact,
 )
+from wekws_tpu_torch.export.cached_step import load_cached_step
 from wekws_tpu_torch.export.calibrate import (
     calibrate_activation_ranges,
     feats_from_waves,
@@ -156,7 +157,9 @@ def test_fixture_export_equals_committed(name, tmp_path):
 def test_export_model_cli(tmp_path):
     """``bin.export_model`` on the DS-TCN fixture's .ckpt and on a port
     .pt of the same weights: the committed weights.bin and model.txt,
-    both gates passed; ``--format stablehlo`` raises (ROADMAP A.18)."""
+    both gates passed; ``--format stablehlo`` writes a ``model.pt2``
+    that loads and steps (tests/test_torch_exported_step.py holds it
+    against JAX's)."""
     fx, recipe = (os.path.join(REPO, p) for p in FIXTURES["ds_tcn"])
     configs, conf, model = fixture_model("ds_tcn")
     configs["model"]["cmvn"] = conf["cmvn"]
@@ -172,10 +175,15 @@ def test_export_model_cli(tmp_path):
         assert err < 1e-3 and dev_err < 1e-3
         same_files(str(tmp_path / out), os.path.join(fx, "export"),
                    ("model.txt", "weights.bin"))
-    with pytest.raises(NotImplementedError, match="item 18"):
-        export_cli.main(["--config", str(config), "--checkpoint", str(pt),
-                         "--output_dir", str(tmp_path / "x"), "--format",
-                         "stablehlo", "--device", "cpu"])
+    err = export_cli.main(["--config", str(config), "--checkpoint", str(pt),
+                           "--output_dir", str(tmp_path / "x"), "--format",
+                           "stablehlo", "--device", "cpu"])
+    assert err < 1e-5
+    step = load_cached_step(str(tmp_path / "x" / "model.pt2"), "cpu")
+    cache = model.init_cache(1)
+    y, new_cache = step(torch.zeros((1, 32, conf["input_dim"])), cache)
+    assert y.shape == (1, 32, 1) and torch.isfinite(y).all()
+    assert [c.shape for c in new_cache] == [c.shape for c in cache]
 
 
 # ------------------------------------------------------- quantize, calibrate

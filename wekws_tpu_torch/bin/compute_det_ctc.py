@@ -1,10 +1,12 @@
 """DET curve CLI (CTC path).
 
 Port of wekws_tpu/bin/compute_det_ctc.py (the reference wekws's
-bin/compute_det_ctc.py): one ``stats.<keyword>.txt`` per keyword.  The
-sweep is host work; ``--device`` is checked as for every entry point of
-the port.  ``--figure_file`` raises: the DET plot needs matplotlib and
-waits with bin/plot_det_curve.py (ROADMAP queue A, A.6's last piece).
+bin/compute_det_ctc.py): one ``stats.<keyword>.txt`` per keyword, then
+with ``--figure_file`` the overlaid DET plot of the stats directory
+(``eval/det_ctc.plot_det_curves``; matplotlib, the optional ``plot``
+extra, is imported only then, after the stats files are written:
+ROADMAP C.29).  The sweep is host work; ``--device`` is checked as for
+every entry point of the port.
 """
 
 import argparse
@@ -20,7 +22,9 @@ def main(argv=None):
     parser.add_argument("--step", type=float, default=0.001)
     parser.add_argument("--stats_dir", default=None)
     parser.add_argument("--figure_file", default=None,
-                        help="DET plot (not ported yet)")
+                        help="write an overlaid DET plot (legend labels "
+                             "romanized via pypinyin when installed; needs "
+                             "matplotlib)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
@@ -32,11 +36,7 @@ def main(argv=None):
         space_mixed_label,
         write_stats_file,
     )
-    from wekws_tpu_torch.models.kws_model import _not_ported
 
-    if args.figure_file:
-        raise _not_ported("--figure_file (the DET plot)",
-                          "item 6's last piece, bin/plot_det_curve.py")
     resolve_device(args.device)
     keywords = [k for k in args.keywords.strip().replace(" ", "").split(",")
                 if k]
@@ -56,6 +56,11 @@ def main(argv=None):
         stats_files.append(os.path.join(
             stats_dir, "stats." + norm_kw.replace(" ", "_") + ".txt"))
         write_stats_file(results, stats_files[-1])
+
+    if args.figure_file:
+        from wekws_tpu_torch.eval.det_ctc import plot_det_curves
+
+        plot_det_curves(stats_dir, args.figure_file)
     return stats_files
 
 

@@ -13,15 +13,25 @@ streaming runtime (runtime/) and the serving engines read, from a port
   by default) against the numpy runtime on the same features, within
   the same 1e-3.
 
-``--format stablehlo`` is an XLA serialization of the jitted cached
-step; its PyTorch counterpart (a ``torch.export`` of the module
-route's cached step) is not ported (ROADMAP A.18) and raises.
+``--format stablehlo`` keeps the JAX CLI's name, so the recipes call
+the same command, but writes ``<output_dir>/model.pt2``: a
+``torch.export`` program of the module route's cached step,
+``model(feats, cache, softmax=False)`` at a static ``(1, --chunk_frames,
+input_dim)`` chunk (``export/cached_step.py``; ROADMAP C.28: StableHLO
+is XLA's format).  It is traced on ``--device`` and loaded back there,
+and the loaded program is held against the eager cached step over three
+chunks carried from the initial cache, on ``default_rng(0)`` features,
+within 1e-5 abs + 1e-5 rel.
 
     python -m wekws_tpu_torch.bin.export_model --config exp/config.yaml \\
         --checkpoint exp/avg_5.pt --output_dir exp/export
+    python -m wekws_tpu_torch.bin.export_model --config exp/config.yaml \\
+        --checkpoint exp/avg_5.pt --output_dir exp/export \\
+        --format stablehlo --chunk_frames 32
 """
 
 import argparse
+import os
 
 import numpy as np
 import yaml
@@ -37,28 +47,23 @@ def get_args(argv=None):
     parser.add_argument("--output_dir", required=True)
     parser.add_argument("--format", default="graph",
                         choices=["graph", "stablehlo"],
-                        help="stablehlo: not ported (ROADMAP A.18)")
+                        help="graph: the artifact of export/graph.py; "
+                             "stablehlo: model.pt2, a torch.export "
+                             "program of the module route's cached step "
+                             "(the fused kernels are not traced)")
+    parser.add_argument("--chunk_frames", type=int, default=32,
+                        help="stablehlo: static frames per step")
     parser.add_argument("--device", default="cuda",
-                        help="where the device runtime's gate runs: cuda "
-                             "(default) or cpu")
+                        help="cuda (default) or cpu: where the device "
+                             "runtime's gate runs (graph), where the step "
+                             "is traced and checked (stablehlo)")
     return parser.parse_args(argv)
-
-
-def export_model_conf(model_conf: dict) -> dict:
-    """The model config the artifact is exported from: float32, so a
-    training-time ``dtype`` and the backbone's ``bn_dtype`` are dropped
-    (the artifact holds float32 weights, and the gate compares against
-    exact float32 semantics)."""
-    conf = {k: v for k, v in model_conf.items() if k != "dtype"}
-    if isinstance(conf.get("backbone"), dict):
-        conf["backbone"] = {k: v for k, v in conf["backbone"].items()
-                            if k != "bn_dtype"}
-    return conf
 
 
 def main(argv=None):
     """Returns the two gates' max abs errors (numpy runtime vs model,
-    device runtime vs numpy runtime)."""
+    device runtime vs numpy runtime); for ``--format stablehlo`` the
+    program's against the eager step."""
     args = get_args(argv)
     import torch
 
@@ -69,19 +74,18 @@ def main(argv=None):
         export_model,
     )
     from wekws_tpu_torch.models import init_model
-    from wekws_tpu_torch.models.kws_model import _not_ported
+    from wekws_tpu_torch.models.kws_model import inference_model_conf
     from wekws_tpu_torch.train.checkpoint import load_model_state
 
-    if args.format == "stablehlo":
-        raise _not_ported("--format stablehlo (a torch.export of the cached "
-                          "step)", "item 18, export formats")
     device = resolve_device(args.device)
     with open(args.config) as f:
         configs = yaml.safe_load(f)
-    model_conf = export_model_conf(configs["model"])
+    model_conf = inference_model_conf(configs["model"])
     model = init_model(model_conf)
     model.load_state_dict(load_model_state(args.checkpoint, model_conf,
                                            model))
+    if args.format == "stablehlo":
+        return export_step(model, args.chunk_frames, args.output_dir, device)
     export_model(model, configs, args.output_dir)
 
     rng = np.random.default_rng(0)
@@ -110,6 +114,33 @@ def main(argv=None):
           f"cache_dim={rt.meta['cache_dim']}, parity max err {err:.2e}, "
           f"{device.type} runtime {dev_err:.2e})")
     return err, dev_err
+
+
+def export_step(model, chunk_frames, output_dir, device):
+    """``--format stablehlo``: the cached step exported on ``device``,
+    saved as ``output_dir/model.pt2``, loaded back and held against the
+    eager step.  Returns the gate's max abs error."""
+    import torch
+
+    from wekws_tpu_torch.export.cached_step import (
+        GATE_CHUNKS,
+        aten_op_counts,
+        check_cached_step,
+        export_cached_step,
+        load_cached_step,
+    )
+
+    program = export_cached_step(model, chunk_frames, device)
+    n_ops = sum(aten_op_counts(program).values())
+    os.makedirs(output_dir, exist_ok=True)
+    out = os.path.join(output_dir, "model.pt2")
+    torch.export.save(program, out)
+    err = check_cached_step(load_cached_step(out, device), model,
+                            chunk_frames, device)
+    print(f"cached step (torch.export, {n_ops} aten ops, chunk "
+          f"{chunk_frames} frames) -> {out} (program vs the eager step "
+          f"over {GATE_CHUNKS} chunks on {device.type}: max err {err:.2e})")
+    return err
 
 
 if __name__ == "__main__":

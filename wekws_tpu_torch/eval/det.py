@@ -8,6 +8,9 @@ reference wekws bin/compute_det.py:
   frame score < threshold; FA/h = count of triggered frames in filler
   utterances with a ``window_shift``-frame refractory skip, divided by
   filler hours.
+
+``import_pyplot`` is the one place the port imports matplotlib (the
+DET plots of ``bin/plot_det_curve.py`` and ``eval/det_ctc.py``).
 """
 
 import json
@@ -98,3 +101,20 @@ def frr_at_fa_per_hour(
     if not eligible:
         return 1.0
     return min(r[2] for r in eligible)
+
+
+def import_pyplot():
+    """``matplotlib.pyplot`` on the Agg backend, imported here and only
+    here for the DET plots (ROADMAP C.29: matplotlib and pypinyin are
+    optional and imported inside the plotting functions).  Raises
+    ``ImportError`` naming the ``plot`` extra where matplotlib is
+    missing."""
+    try:
+        import matplotlib
+    except ImportError as e:
+        raise ImportError("the DET plot needs matplotlib, the optional "
+                          "'plot' extra: pip install 'wekws_tpu[plot]'") from e
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    return plt

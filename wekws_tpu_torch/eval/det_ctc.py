@@ -4,14 +4,14 @@ Port of wekws_tpu/eval/det_ctc.py (the reference wekws's
 bin/compute_det_ctc.py): keyword or filler membership by a
 space-normalised substring match of the transcript, the detection
 confidence from the score file, FRR and FA/h swept at ``step`` (default
-0.001).  The DET plot (``romanize``, ``plot_det_curves``) needs
-matplotlib and waits with bin/plot_det_curve.py (ROADMAP queue A,
-A.6's last piece).
+0.001), and the overlaid DET plot (``plot_det_curves``; matplotlib and
+pypinyin are optional and imported inside the functions, ROADMAP C.29).
 """
 
 import json
 from typing import Dict, List, Sequence, Tuple
 
+from wekws_tpu_torch.eval.det import import_pyplot
 from wekws_tpu_torch.text.tokenizer import split_mixed_label
 
 
@@ -104,3 +104,57 @@ def compute_det_ctc(
         results.append((threshold, fa_per_hour, frr))
         threshold += step
     return results
+
+
+def romanize(label: str) -> str:
+    """Legend label for DET plots: romanize CJK via pypinyin when the
+    package is available (reference compute_det_ctc.py:147), else keep
+    the raw label (matplotlib CJK font support varies)."""
+    try:
+        import pypinyin
+
+        return "".join(pypinyin.lazy_pinyin(label))
+    except ImportError:
+        return label
+
+
+def plot_det_curves(
+    stats_dir: str,
+    figure_file: str,
+    xlim: float = 5,
+    x_step: float = 1,
+    ylim: float = 35,
+    y_step: float = 5,
+) -> None:
+    """Overlay every ``stats.<keyword>.txt`` in ``stats_dir`` on one
+    DET figure (reference compute_det_ctc.py:138-160 semantics).  Raises
+    ``ImportError`` naming the ``plot`` extra without matplotlib."""
+    import glob
+    import os
+
+    import numpy as np
+
+    plt = import_pyplot()
+    plt.figure(dpi=200)
+    plt.rcParams["xtick.direction"] = "in"
+    plt.rcParams["ytick.direction"] = "in"
+    plt.rcParams["font.size"] = 12
+    for path in sorted(glob.glob(os.path.join(stats_dir, "*stats*.txt"))):
+        label = romanize(os.path.basename(path).split(".")[1])
+        rows = []
+        with open(path, encoding="utf8") as f:
+            for line in f:
+                _thr, fa, frr = line.split()
+                rows.append((float(fa), float(frr) * 100.0))
+        values = np.asarray(list(reversed(rows)))
+        plt.plot(values[:, 0], values[:, 1], label=label)
+    plt.xlim([0, xlim])
+    plt.ylim([0, ylim])
+    plt.xticks(np.arange(0, xlim + x_step, x_step))
+    plt.yticks(np.arange(0, ylim + y_step, y_step))
+    plt.xlabel("False Alarm Per Hour")
+    plt.ylabel("False Rejection Rate (%)")
+    plt.grid(linestyle="--")
+    plt.legend(loc="best", fontsize=6)
+    plt.savefig(figure_file)
+    plt.close()

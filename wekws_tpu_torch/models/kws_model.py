@@ -18,9 +18,10 @@ statistics; ``backbone.remat`` (MDTC only, as in JAX) recomputes each
 block in the backward.  The preprocessing and the heads stay float32.
 A GRU config that names another ``dtype`` trains in float32 with the
 JAX package's warning.  The inference loaders build a config's model
-through ``inference_model_conf``, which drops ``dtype``: in the JAX
-package it is the backbone's compute dtype only (parameters and
-checkpoints are float32), and its fused serving has no dtype at all.
+through ``inference_model_conf``, which drops ``dtype`` and the
+backbone's ``bn_dtype``: in the JAX package they are the backbone's
+compute dtypes only (parameters and checkpoints are float32), and its
+fused serving has no dtype at all.
 """
 
 import logging
@@ -102,23 +103,26 @@ class KWSModel(nn.Module):
 
 
 def inference_model_conf(configs: dict) -> dict:
-    """A copy of the ``model`` config for scoring and serving, without
-    ``dtype``: the model runs float32, as the JAX package's fused
-    serving does.  Logs the drop where the config named another
-    dtype."""
+    """A copy of the ``model`` config for scoring, serving and export,
+    without ``dtype`` and the backbone's ``bn_dtype`` (the JAX export
+    CLI drops both: ``bn_dtype`` rides with the training dtype): the
+    model runs float32, as the JAX package's fused serving does, so its
+    module route and the fused kernels compute the same function.  Logs
+    each drop where the config named another dtype."""
     conf = dict(configs)
     dtype = conf.pop("dtype", None)
     if dtype and dtype != "float32":
         logging.warning("model.dtype %r dropped for inference: the model "
                         "runs float32 (its parameters are float32)", dtype)
+    if isinstance(conf.get("backbone"), dict) and "bn_dtype" in conf[
+            "backbone"]:
+        conf["backbone"] = dict(conf["backbone"])
+        bn_dtype = conf["backbone"].pop("bn_dtype")
+        if bn_dtype and bn_dtype != "float32":
+            logging.warning("model.backbone.bn_dtype %r dropped for "
+                            "inference: the BatchNorms run float32",
+                            bn_dtype)
     return conf
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to wekws_tpu_torch yet (ROADMAP queue A, "
-        f"{item})"
-    )
 
 
 def _dtype(name: Optional[str]) -> Optional[torch.dtype]:
