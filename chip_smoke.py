@@ -227,8 +227,8 @@ phases; any failure exits non-zero:
     (late in this one it loses records); (d) ``bin.train --device_resident`` on
     ``examples/synthetic`` (``conf_torch/mdtc_flagship.yaml``, 2
     epochs), averaged, scored through ``fused_mdtc_kernel`` and DET as
-    phase 14, each epoch's audio-s/s beside phase 14's host-fed run; a
-    ``speed_perturb`` config raises (ROADMAP A, item 10); (e)
+    phase 14, each epoch's audio-s/s beside phase 14's host-fed run (a
+    ``speed_perturb`` config trains resident in 18g); (e)
     ``fused_fbank`` and the eight passes at every shape 18a-18d gave
     them (``ShapeTap``, ``PassTap``), against their plain versions on
     the same card tensors (fbank phase 9's limit; a dithered call

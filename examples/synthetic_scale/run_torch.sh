@@ -9,7 +9,8 @@
 # Usage: ./run_torch.sh [stage] [stop_stage] [config] [device] [generator options]
 #   device: cuda (default) or cpu; options after the fourth argument go
 #   to local/gen_data_torch.py (e.g. --train_kw 64 --train_filler 192
-#   for a cut corpus)
+#   for a cut corpus).  TRAIN_SEED=N in the environment trains with seed N
+#   (default 666) into exp/torch_<config>_seedN.
 set -eo pipefail
 
 . ./path.sh
@@ -25,7 +26,8 @@ stage_done() {  # each stage's wall time, for the recipe's record
   stage_start=$SECONDS
 }
 data=data
-dir=exp/torch_$(basename "$config" .yaml)
+seed=${TRAIN_SEED:-666}
+dir=exp/torch_$(basename "$config" .yaml)${TRAIN_SEED:+_seed$TRAIN_SEED}
 num_average=5
 score_checkpoint=$dir/avg_${num_average}.pt
 
@@ -55,7 +57,7 @@ if [ ${stage} -le 2 ] && [ ${stop_stage} -ge 2 ]; then
     --model_dir $dir \
     --num_keywords 1 \
     --min_duration 20 \
-    --seed 666 \
+    --seed $seed \
     --cmvn_file $data/global_cmvn \
     --norm_var \
     --device_resident \

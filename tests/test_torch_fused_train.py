@@ -35,7 +35,9 @@ from wekws_tpu_torch.ops.fused_mdtc_train import (
     _tiles,
     b4_smem_bytes,
     b4_tile_rows,
+    bf16_tile_rows,
     blocks_per_sm,
+    f3_bf16_staged,
     f3_window_bytes,
     f1_tile_rows,
     flat_tile_rows,
@@ -263,6 +265,24 @@ def test_tiles_of_each_pass(name, b, t, c, want):
     assert _tiles(name, b, t, c, 64) == want
 
 
+@pytest.mark.parametrize("name,b,t,c,want", [
+    ("f3", 512, 198, 64, 792),    # 128-row tiles: 16 rows a warp
+    ("f3", 512, 598, 64, 2392), ("f3", 512, 198, 128, 792),
+    ("f3", 3, 70, 32, 2),         # 210 frames: a ragged second tile
+    ("b2", 512, 198, 64, 1584),   # 64-row tiles at every width
+    ("b2", 512, 198, 128, 1584), ("b2", 5, 77, 64, 7),
+    ("f2", 512, 198, 128, 3168),  # F2 and B3 keep their float32 tiles
+    ("b3", 512, 198, 128, 3168),
+])
+def test_bf16_tiles_of_each_pass(name, b, t, c, want):
+    """At bf16 F3's kernel cuts the flattened frames into 128-row tiles
+    and B2's into 64-row tiles at every width (``BF16_TILE_ROWS``); F2's
+    and B3's bf16 kernels keep the float32 tiles."""
+    assert _tiles(name, b, t, c, 64, "bfloat16") == want
+    assert bf16_tile_rows(name, c, "bfloat16") * want >= b * t
+    assert bf16_tile_rows(name, c) == flat_tile_rows(c)
+
+
 @pytest.mark.parametrize("precision", ["float32", "bfloat16"])
 @pytest.mark.parametrize("c,halo,staged", [
     (64, 32, True), (64, 56, True), (128, 32, True), (32, 700, True),
@@ -288,19 +308,31 @@ def test_tile_smem_fits_a_block(name, c, precision):
     """F2's, F3's, B2's and B3's shared memory fits one block's 227 KB,
     and two blocks share an SM at C <= 64, as their launch bounds plan
     (F2 and F3 with their window of x at the flagship's largest halo,
-    4 x 8).  At bf16 F2, F3 and B2 keep their float32 tiles (the same
-    bytes); B3 holds W1, W2 and its two operand tiles as bf16 at row
-    stride C + 8 beside three float32 tiles."""
+    4 x 8).  At bf16 F2 keeps its float32 tiles (the same bytes); F3
+    holds W1 and W2 as bf16 at row stride C + 8 and the window of its
+    128-row tile; B2 its staged w, x and dy rows in float32, then W2,
+    the dwg tile and two r tiles as bf16 at row stride C + 8; B3 holds
+    W1, W2 and its two operand tiles as bf16 at row stride C + 8 beside
+    three float32 tiles."""
     smem = tile_smem_bytes(name, c, 32, precision)
     assert smem <= SMEM_LIMIT
     assert blocks_per_sm(smem, c) == (2 if c <= 64 else 1)
     assert blocks_per_sm(smem, c) * (smem + 1024) <= SM_SMEM
-    if (name, c) == ("f3", 64):  # (26 + 8) x 64 + four 64 x 68 floats,
-        assert smem == 78336 + 4 * 64 * (64 + 32)  # then 96 rows of x
+    if (name, c, precision) == ("f3", 64, "float32"):
+        # (26 + 8) x 64 + four 64 x 68 floats, then 96 rows of x
+        assert smem == 78336 + 4 * 64 * (64 + 32)
     if (name, c) == ("f2", 64):  # (26 + 8) x 64 + two 64 x 68 floats
         assert smem == 43520 + 4 * 64 * (64 + 32)
-    if precision == "bfloat16" and name != "b3":
+    if precision == "bfloat16" and name in ("f1", "f2"):
         assert smem == tile_smem_bytes(name, c, 32)
+    if (name, c, precision) == ("f3", 64, "bfloat16"):
+        # (26 + 8) x 64 floats and two 64 x 72 bf16 (W1, W2), then a
+        # window of 128 + 32 rows x 64 floats
+        assert smem == 4 * 2176 + 2 * 2 * 64 * 72 + 4 * 64 * 160 == 68096
+    if (name, c, precision) == ("b2", 64, "bfloat16"):
+        # 26 x 64 floats and three 64 x 64 float tiles (w, x, dy staged),
+        # then (64 + 3 x 64) x 72 bf16 (W2; dwg; two r tiles)
+        assert smem == 4 * (1664 + 3 * 64 * 64) + 2 * 256 * 72 == 92672
     if (name, c, precision) == ("b3", 64, "bfloat16"):
         # (26 + 8) x 64 + three 64 x 68 floats, then two 64 x 72 and two
         # 64 x 72 bf16 (W2, W1; dwg/dv, s0)
@@ -316,13 +348,26 @@ def test_f3_stages_its_window_where_it_fits(c, halo, staged, precision):
     """F3 stages a tile's rows of x and the halo before them in shared
     memory where they fit beside its weights and tiles, and otherwise
     reads its taps from device memory: any dilation runs.  F2 stages
-    its window where F3 does (one rule for both); their bf16 variants
-    keep the float32 tiles, so the rule and its limits are the same."""
-    for name in ("f3", "f2"):
+    its window where float32 F3 does (one rule for both), at bf16 too:
+    F2's bf16 variant keeps the float32 tiles, so its rule and limits
+    are the same.  F3's bf16 kernel stages the window of its own 128-row
+    tile where it fits beside its constants and bf16 weights (C = 64: up
+    to a halo of 674 frames; C = 128: up to 156)."""
+    for name in ("f3", "f2") if precision == "float32" else ("f2",):
         base = tile_smem_bytes(name, c, 10 ** 6, precision)
         assert tile_smem_bytes(name, c, halo, precision) == (
             base + f3_window_bytes(c, halo) if staged else base)
         assert tile_smem_bytes(name, c, halo, precision) <= SMEM_LIMIT
+    if precision == "bfloat16":
+        base = tile_smem_bytes("f3", c, 10 ** 6, precision)
+        assert base == 4 * (26 + 8) * c + 2 * 2 * c * (c + 8)
+        last = {64: 674, 128: 156}[c]
+        assert f3_bf16_staged(c, halo) == (halo <= last)
+        assert tile_smem_bytes("f3", c, halo, precision) == (
+            base + 4 * c * (128 + halo) if halo <= last else base)
+        assert tile_smem_bytes("f3", c, halo, precision) <= SMEM_LIMIT
+        assert f3_bf16_staged(c, last) and not f3_bf16_staged(c, last + 1)
+        assert base + 4 * c * (128 + last) <= SMEM_LIMIT
 
 
 def test_b4_tile_rows_rejects_a_halo_over_shared_memory():

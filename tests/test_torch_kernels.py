@@ -200,11 +200,21 @@ def test_compare_pass_holds_each_output_to_its_bound():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("t", [8, 70, 198])
-@pytest.mark.parametrize("dilation", [1, 8])
-def test_fused_train_bf16_variants_match_plain(t, dilation):
+@pytest.mark.parametrize("b,t,widths,dilation", [
+    (3, 8, (64,), 1), (3, 8, (64,), 8),
+    (3, 70, (32, 64, 128), 1), (3, 70, (32, 64, 128), 8),
+    (3, 198, (64,), 1), (3, 198, (64,), 8),
+    # a ragged last tile: 385 rows, no multiple of F3's 128 or B2's 64
+    (5, 77, (64,), 4),
+    # C = 32 and C = 128 alone
+    (2, 150, (32,), 2), (2, 150, (128,), 2),
+    # F3's window does not fit: it reads its taps from device memory
+    # (C = 128, H = 4 x 40 = 160; C = 64, H = 4 x 169 = 676)
+    (3, 200, (128,), 40), (2, 700, (64,), 169),
+])
+def test_fused_train_bf16_variants_match_plain(b, t, widths, dilation):
     """The bf16-operand variants of F2, F3, B2 and B3 on identical
-    inputs (B=3; at T=70 C = 32, 64 and 128) against their bf16 plain
+    inputs (B x T at each width in ``widths``) against their bf16 plain
     versions (``compare_pass`` at bf16: (B, T, C) outputs within
     BF16_OUT_TOL of their scale with at most BF16_OFF_SHARE of them
     beyond 1e-4, the sums BF16_SUM_TOL of their group's largest); F3's r is
@@ -217,14 +227,18 @@ def test_fused_train_bf16_variants_match_plain(t, dilation):
         BF16_SUM_TOL,
         PASSES,
         compare_pass,
+        f3_bf16_staged,
         seeded_block_inputs,
         trace_pass_inputs,
     )
 
-    g = torch.Generator().manual_seed(200 * t + dilation)
-    widths = (32, 64, 128) if t == 70 else (64,)
+    if (t, dilation) == (200, 40):
+        assert not f3_bf16_staged(128, 160)
+    if (t, dilation) == (700, 169):
+        assert not f3_bf16_staged(64, 676)
+    g = torch.Generator().manual_seed(200 * t + dilation + 1000 * (b != 3))
     for c in widths:
-        p, x, dy = seeded_block_inputs(g, 3, t, c, 5, "cuda")
+        p, x, dy = seeded_block_inputs(g, b, t, c, 5, "cuda")
         calls = trace_pass_inputs(x, p, dy, dilation,
                                   precision="bfloat16")
         assert calls["f3"][-1] == "bfloat16"
@@ -242,8 +256,8 @@ def test_fused_train_bf16_variants_match_plain(t, dilation):
             again = again if isinstance(again, tuple) else (again,)
             if name == "f3":
                 assert got[0].dtype == torch.bfloat16
-            for a, b in zip(got, again):
-                assert torch.equal(a, b), f"{name} is not reproducible"
+            for one, two in zip(got, again):
+                assert torch.equal(one, two), f"{name} is not reproducible"
 
 
 @pytest.mark.cuda

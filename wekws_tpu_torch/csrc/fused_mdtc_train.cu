@@ -38,18 +38,19 @@
 // to nearest even, __float2bfloat16_rn) and sums in fp32; F3 writes r
 // as bf16 and B2 and B3 read it back; x, w, dy, ds0, every sum and
 // every per-channel constant stay fp32.  F1, F4, B1 and B4 read no r
-// and no product operand and have no variant.  F2, F3 and B2 keep
-// their fp32 register FMAs and fp32 tiles, on operands rounded where
-// they are written to shared memory (s0, r, dwg, W1, W2): a product of
-// two bf16 values is exact in fp32, so the results are those of a bf16
-// product with fp32 accumulation up to the order of the sums, and the
-// kernels' shared memory and inner loops stay as they are.  B3's four
-// products move from three TF32 passes to one bf16 pass on the tensor
-// cores (`wmma` m16n16k16 bf16 fragments, fp32 accumulators) on bf16
-// tiles and weights in shared memory at a row stride of C + 8 (wmma
-// wants a multiple of 8 bf16 values; C + 4 will not do).  At bf16 the
-// operations of all four are far under the bf16 peak, so their bound is
-// bytes, and r moves half of them.
+// and no product operand and have no variant.  At bf16 the operations
+// of all four are far under the bf16 peak, so their bound is bytes, and
+// r moves half of them.  F3 and B2 run their products on the tensor
+// cores with `mma.sync` m16n8k16 and `ldmatrix` (their section below
+// says how they near their bytes bound).  F2 keeps its fp32 register
+// FMAs and fp32 tiles, on s0 and W1 rounded where they are written to
+// shared memory: a product of two bf16 values is exact in fp32, so its
+// sums are those of a bf16 product with fp32 accumulation up to their
+// order.  B3's four products move from three TF32 passes to one bf16
+// pass on the tensor cores (`wmma` m16n16k16 bf16 fragments, fp32
+// accumulators) on bf16 tiles and weights in shared memory at a row
+// stride of C + 8 (wmma wants a multiple of 8 bf16 values; C + 4 will
+// not do).
 //
 // Design.  The TPU kernels walk the batch in order on one core and
 // carry their sums in VMEM scratch.  Here a persistent grid of at most
@@ -71,10 +72,11 @@
 // on an H100, PERF.md §6).  From frame (K-1) d of an utterance on
 // the conv's loads go unpredicated.
 //
-// F2, F3 and B2 take B3's tiles (below) over the flattened frames and
-// its float4 elementwise steps, with fp32 products: a thread forms the
-// four channels of its own R rows of a product in registers (float4
-// loads of a row of the input tile and of four rows of W, 64 FMAs per
+// F2, F3 and B2 (fp32; F2 at bf16 too) take B3's tiles (below) over
+// the flattened frames and its float4 elementwise steps, with fp32
+// products: a thread forms the four channels of its own R rows of a
+// product in registers (float4 loads of a row of the input tile and of
+// four rows of W, 64 FMAs per
 // eight 16-byte shared loads at C = 64), so the product's output never
 // goes through shared memory and the elementwise step that follows
 // reads it where it is.  F2 and F3 are one body (tile_forward): conv
@@ -1037,12 +1039,13 @@ __device__ __forceinline__ int next_frame(int t, int G, int T) {
 // run(): one rule for both), else the taps are read from device memory.
 // F1 has no product to hide a copy behind, so it keeps two windows and
 // copies the tile after next while it works on this one (where they
-// fit and kF1Staged).  BF (F2 and F3): s0, r, W1 and W2 rounded to bf16
-// where they are written to shared memory, r written as bf16.
+// fit and kF1Staged).  BF (F2 alone: F3 at bf16 is f3_bf16_kernel): s0
+// and W1 rounded to bf16 where they are written to shared memory.
 template <int C, int P, bool BF = false>
 __device__ __forceinline__ void tile_forward(const Args& a, bool staged) {
   using S = TileShape<C>;
   constexpr bool kFull = P == kF3;
+  static_assert(!(BF && kFull), "F3 at bf16 is f3_bf16_kernel");
   constexpr int ROWS = S::kRows * (P == kF1 ? kF1RowScale : 1);
   constexpr int LD = S::kLd;
   constexpr int LQ = LD / 4;
@@ -1068,7 +1071,7 @@ __device__ __forceinline__ void tile_forward(const Args& a, bool staged) {
   const int g = threadIdx.x / Q;
   load_consts<C, true>(a, cv);
   if (P != kF1) load_padded<C, LD, BF>(a.pw1, w1);
-  if (kFull) load_padded<C, LD, BF>(a.pw2, w2);
+  if (kFull) load_padded<C, LD>(a.pw2, w2);
   const float4* cv4 = reinterpret_cast<const float4*>(cv) + q;
 #define VEC4(row) cv4[(row) * Q]
   const float4* x4 = reinterpret_cast<const float4*>(a.x);
@@ -1179,16 +1182,9 @@ __device__ __forceinline__ void tile_forward(const Args& a, bool staged) {
         for (int j = 0; j < R; ++j) {
           const int lr = g + j * G;
           const int row = row0 + lr;
-          float4 r = relu4(fma4(add4(acc[j], b1), a1, c1));
-          if constexpr (BF) r = bf16r4(r);
+          const float4 r = relu4(fma4(add4(acc[j], b1), a1, c1));
           tb4[lr * LQ + q] = r;
-          if (row < n_rows) {
-            if constexpr (BF) {
-              st_bf16x4(a.out_r16 + static_cast<size_t>(row) * C + 4 * q, r);
-            } else {
-              r4[static_cast<size_t>(row) * Q + q] = r;
-            }
-          }
+          if (row < n_rows) r4[static_cast<size_t>(row) * Q + q] = r;
         }
       }
       __syncthreads();
@@ -1230,23 +1226,17 @@ f3_kernel(Args a, bool staged) {
   tile_forward<C, kF3>(a, staged);
 }
 
-// F2 and F3 on bf16 operands (see the head of this file)
+// F2 on bf16 operands (see the head of this file)
 template <int C>
 __global__ void __launch_bounds__(kThreads, C == 128 ? 1 : 2)
 f2_bf16_kernel(Args a, bool staged) {
   tile_forward<C, kF2, true>(a, staged);
 }
 
+// B2 with fp32 products in registers (see the head of this file)
 template <int C>
 __global__ void __launch_bounds__(kThreads, C == 128 ? 1 : 2)
-f3_bf16_kernel(Args a, bool staged) {
-  tile_forward<C, kF3, true>(a, staged);
-}
-
-// B2's body; BF: W2ᵀ and dwg rounded to bf16 where they are written to
-// shared memory (db2 sums dwg before), r read as bf16
-template <int C, bool BF>
-__device__ __forceinline__ void b2_body(const Args& a) {
+b2_kernel(Args a) {
   using S = TileShape<C>;
   constexpr int ROWS = S::kRows;
   constexpr int LD = S::kLd;
@@ -1272,8 +1262,7 @@ __device__ __forceinline__ void b2_body(const Args& a) {
   const float n = a.n;
   load_consts<C, false>(a, cv);
   for (int i = threadIdx.x; i < C * C; i += kThreads) {
-    const float v = __ldg(a.pw2 + i);
-    w2t[(i % C) * LD + i / C] = BF ? bf16r(v) : v;
+    w2t[(i % C) * LD + i / C] = __ldg(a.pw2 + i);
   }
   const float4* cv4 = reinterpret_cast<const float4*>(cv) + q;
 #define VEC4(row) cv4[(row) * Q]
@@ -1310,7 +1299,7 @@ __device__ __forceinline__ void b2_body(const Args& a) {
       rv[j] = zero4;
       if (row < n_rows) {
         const size_t at = static_cast<size_t>(row) * Q + q;
-        rv[j] = BF ? ld_bf16x4(a.r16 + 4 * at) : __ldg(r4 + at);
+        rv[j] = __ldg(r4 + at);
         const float4 wv = sw4[lr * Q + q];
         const float4 xv = sx4[lr * Q + q];
         const float4 dyv = sdy4[lr * Q + q];
@@ -1319,7 +1308,6 @@ __device__ __forceinline__ void b2_body(const Args& a) {
         dwg = bn_back4(VEC4(V_COEF2), n, g2, VEC4(V_SG),
                        hat4(wv, VEC4(V_MU2), VEC4(V_INV2)), VEC4(V_SGW));
         sums[0] = add4(sums[0], dwg);
-        if constexpr (BF) dwg = bf16r4(dwg);
       }
       ta4[lr * LQ + q] = dwg;
       tr4[lr * LQ + q] = rv[j];
@@ -1357,16 +1345,678 @@ __device__ __forceinline__ void b2_body(const Args& a) {
   block_sums4<C, 3>(ta, sums, out + C * C, g, q);
 }
 
+// ---------------------------------------------------------------------------
+// F3 and B2 at bf16: mma.sync m16n8k16 on the tensor cores
+// ---------------------------------------------------------------------------
+//
+// Bound: at bf16 F3's and B2's C x C products are far under the tensor
+// cores' peak (1.66 GFLOP a pass at the main shape, some 0.002 ms at
+// 989 TFLOP/s), so both are bound by the bytes they move: F3 reads x
+// and writes r (bf16) and w, 64.9 MB at B=512 x T=198 x C=64, 0.0194
+// ms at 3.35 TB/s; B2 reads dy, w, x and r (bf16), 90.8 MB, 0.0271 ms.
+// Their first bf16 versions ran the products as fp32 FMAs on the CUDA
+// cores, on operands rounded into fp32 tiles, in the fp32 kernels' time.
+//
+// Design.  Every product is `mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32`
+// with its operands from `ldmatrix` (`.trans` where the operand is
+// needed transposed) or formed in registers; W1 and W2 sit in shared
+// memory as bf16 at row stride C + 8 (16-byte rows, the eight rows of an
+// `ldmatrix` matrix on 32 different banks).  Within each 16-channel
+// slice a product's k and n run in fragment order: position p holds
+// channel perm16(p), so the four positions a thread owns of an A
+// fragment's row (2t, 2t+1, 2t+8, 2t+9) and of a pair of n8 accumulator
+// tiles are the four neighbouring channels 4t .. 4t+3.  The weights are
+// stored in that order (`load_frag_weights`); in exchange every
+// elementwise step works on float4 channel quads, constants are float4
+// loads, and a quad of lanes writes a row's 32 bytes of r or 64 of w:
+// whole sectors.
+//
+// F3 (`f3_bf16_kernel`): a warp owns 16 rows of a 128-row tile over the
+// flattened frames and keeps the chain in registers.  The conv and bn0
+// are formed in fp32 straight into s0's A fragments from the window of
+// x; v = s0 W1 goes to accumulators, takes b1, bn1 and the ReLU there
+// and is rounded to bf16, and since two neighbouring n8 accumulator
+// tiles are one k16 A fragment, r feeds w = r W2 without passing through
+// shared memory; r (bf16) and w (fp32) go to device memory from the
+// fragments.  The window of x (the tile's rows and the causal halo
+// (K-1) d before them) comes by 16-byte `cp.async`, the next tile's
+// copied while this tile's products run, where it fits beside the
+// weights; otherwise the taps are read from device memory.  A ring of
+// two windows tied one (0.0416 against 0.0419 ms at B=512 x T=198 x
+// C=64, 0.1019 against 0.1016 at T=598, PERF.md §6): the time goes to
+// the products and the conv's shared-memory loads issued by 16 warps an
+// SM, not to the copies, so one window it is.  A window row's 16-byte
+// chunks swap halves in odd rows, so the float4 loads of two
+// neighbouring rows at one channel quad fall on different banks at any
+// dilation.
+//
+// B2 (`b2_bf16_kernel`): 64-row tiles; the next tile's rows of w, x and
+// dy (fp32) and r (bf16, a ring of two tiles) are copied by `cp.async`
+// while this tile's products run.  g2, ŵ and dwg are formed in fp32 with
+// a thread on a channel quad (as b2_kernel), db2 summed before dwg is
+// rounded into a bf16 tile; dr = dwg W2ᵀ reads that tile (`ldmatrix`)
+// and W2 in place (`ldmatrix` on W2's rows is Wᵀ's B fragment), two
+// warps to a 16-row block; ds1 and its sums on the accumulators with r
+// from its tile; dW2 += rᵀ dwg contracts over the tile's rows with both
+// operands from the bf16 tiles by `ldmatrix.trans`, each warp's share of
+// the C x C fp32 accumulators in registers across the block's tiles (16
+// floats a thread at C = 64, 64 at C = 128).  Rows past the end are zero
+// in both tiles and left out of every sum.
+//
+// The sums keep the scheme above: lane partials, a shuffle over the
+// fragment's row groups, the warps in a fixed order through shared
+// memory, one partial a block, reduce_kernel in block order.
+
+constexpr int kFragRows = 16;                 // rows of an A fragment
+constexpr int kF3bRows = kFragRows * kWarps;  // rows of an F3 tile at bf16
+constexpr int kB2bRows = 64;                  // rows of a B2 tile at bf16
+
+// two fp32 values rounded to bf16 (nearest even), the first in the low
+// half: one 32-bit register of a fragment
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// four 8 x 8 bf16 matrices, lanes 8i .. 8i+7 giving the rows of matrix
+// i; register i of lane l holds matrix i's row l / 4, columns 2 (l % 4)
+// and 2 (l % 4) + 1 (.trans: its column l / 4, rows 2 (l % 4) and
+// 2 (l % 4) + 1)
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(unsigned (&r)[2],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_u32(p)));
+}
+
+// d (16 x 8 fp32) += a (16 x 16 bf16, row) · b (16 x 8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the channel at fragment position p of a 16-channel slice: positions
+// 2t, 2t+1, 2t+8, 2t+9 hold channels 4t .. 4t+3
+__device__ __forceinline__ int perm16(int p) {
+  return 4 * ((p & 7) >> 1) + 2 * (p >> 3) + (p & 1);
+}
+
+__device__ __forceinline__ int frag_channel(int c) {
+  return (c & ~15) | perm16(c & 15);
+}
+
+// (C, C) fp32 [in][out] -> shared bf16 at row stride LH, its rows (PR)
+// and columns (PC) in fragment order; every load of a thread is issued
+// before the first store
+template <int C, int LH, bool PR, bool PC>
+__device__ __forceinline__ void load_frag_weights(const float* __restrict__ g,
+                                                  __nv_bfloat16* s) {
+  constexpr int N = C * C / kThreads;
+  static_assert(C * C % kThreads == 0, "whole rounds of the block");
+  float v[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int i = threadIdx.x + k * kThreads;
+    const int p = i / C, q = i % C;
+    v[k] = __ldg(g + (PR ? frag_channel(p) : p) * C +
+                 (PC ? frag_channel(q) : q));
+  }
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int i = threadIdx.x + k * kThreads;
+    s[(i / C) * LH + i % C] = __float2bfloat16_rn(v[k]);
+  }
+}
+
+// one step of sum_scatter_rows: lanes `bit` apart add their values, the
+// lane with the bit set keeping the upper half
+template <int HALF>
+__device__ __forceinline__ void scatter_step(float* v, int lane, int bit) {
+  const bool hi = (lane & bit) != 0;
+#pragma unroll
+  for (int k = 0; k < HALF; ++k) {
+    const float send = hi ? v[k] : v[HALF + k];
+    const float keep = hi ? v[HALF + k] : v[k];
+    v[k] = keep + __shfl_xor_sync(0xffffffffu, send, bit);
+  }
+}
+
+// N values of each lane summed over a fragment's eight row groups (lanes
+// 4, 8 and 16 apart) and dealt out: lane l ends with the sums of values
+// [g N/8, (g + 1) N/8), g = l / 4, in v[0 .. N/8)
+template <int N>
+__device__ __forceinline__ void sum_scatter_rows(float (&v)[N], int lane) {
+  static_assert(N % 8 == 0, "eight row groups");
+  scatter_step<N / 2>(v, lane, 16);
+  scatter_step<N / 4>(v, lane, 8);
+  scatter_step<N / 8>(v, lane, 4);
+}
+
+// acc (16 x C in n8 tiles) += A (16 x C: C / 16 k16 fragments) · W, W
+// bf16 [k][n] in shared memory at row stride LH, both in fragment order;
+// B fragments by `ldmatrix.trans`, a pair of n8 tiles a load
+template <int C, int LH>
+__device__ __forceinline__ void frag_product(const unsigned (&af)[C / 16][4],
+                                             const __nv_bfloat16* w,
+                                             float (&acc)[C / 8][4],
+                                             int lane) {
+  constexpr int NS = C / 16;
+  // lane l: row (l & 8) + (l & 7) of the k slice, column 8 (l >> 4) of
+  // the n pair: matrices (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n
+  // 8-15), (k 8-15, n 8-15) are b0, b1 of the pair's first tile and b0,
+  // b1 of its second
+  const __nv_bfloat16* base =
+      w + ((lane & 7) + (lane & 8)) * LH + (lane >> 4) * 8;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+#pragma unroll
+    for (int m = 0; m < NS; ++m) {
+      unsigned b[4];
+      ldsm_x4_trans(b, base + 16 * s * LH + 16 * m);
+      mma_bf16(acc[2 * m], af[s], b[0], b[1]);
+      mma_bf16(acc[2 * m + 1], af[s], b[2], b[3]);
+    }
+  }
+}
+
+// the channel quad of row half h (fragment row g, or g + 8) held by a
+// pair of n8 accumulator tiles
+__device__ __forceinline__ float4 acc_quad(const float (&lo)[4],
+                                           const float (&hi)[4], int h) {
+  return make_float4(lo[2 * h], lo[2 * h + 1], hi[2 * h], hi[2 * h + 1]);
+}
+
+// F3's shared memory at bf16 without its windows: the per-channel vector
+// and the taps, W1 and W2 as bf16 at row stride C + 8 (the block's
+// reduction reuses the weights' space)
+template <int C>
+constexpr size_t f3_bf16_base_bytes() {
+  return sizeof(float) * (kNumVec + kMaxTaps) * C +
+         2 * sizeof(__nv_bfloat16) * C * (C + 8);
+}
+
+// the window of x: a tile's rows and the halo before them
+template <int C>
+size_t f3_bf16_window_bytes(int halo) {
+  return sizeof(float) * C * static_cast<size_t>(kF3bRows + halo);
+}
+
+// the window is staged where it fits a block, else the taps are read
+// from device memory
+template <int C>
+bool f3_bf16_staged(int halo) {
+  return f3_bf16_base_bytes<C>() + f3_bf16_window_bytes<C>(halo) <=
+         kSmemLimit;
+}
+
+// rows [first, first + count) of a (n_rows, Q) float4 tensor into a
+// window, as stage_rows, with the 16-byte chunk c of an odd row at c ^ 4
+template <int Q>
+__device__ __forceinline__ void stage_window(float4* dst, const float4* src,
+                                             int first, int count,
+                                             int n_rows) {
+  for (int i = threadIdx.x; i < count * Q; i += kThreads) {
+    const int lr = i / Q, c = i % Q;
+    const int row = first + lr;
+    const bool ok = row >= 0 && row < n_rows;
+    cp_async16(dst + lr * Q + (c ^ ((lr & 1) << 2)),
+               src + (ok ? static_cast<size_t>(row) * Q + c : 0), ok);
+  }
+  cp_async_commit();
+}
+
 template <int C>
 __global__ void __launch_bounds__(kThreads, C == 128 ? 1 : 2)
-b2_kernel(Args a) {
-  b2_body<C, false>(a);
+f3_bf16_kernel(Args a, bool staged) {
+  constexpr int Q = C / 4;
+  constexpr int NS = C / 16;  // k16 slices; pairs of n8 tiles
+  constexpr int LH = C + 8;
+  static_assert(NS % 2 == 0 && Q >= 8, "a window row has two halves");
+  static_assert(kWarps * 2 * C * sizeof(float) <=
+                    2 * sizeof(__nv_bfloat16) * C * LH,
+                "the reduction fits the weights' space");
+  extern __shared__ __align__(128) float4 smem4[];
+  float* cv = reinterpret_cast<float*>(smem4);  // kNumVec x C, the taps
+  __nv_bfloat16* w1h =
+      reinterpret_cast<__nv_bfloat16*>(cv + (kNumVec + kMaxTaps) * C);
+  __nv_bfloat16* w2h = w1h + C * LH;
+  float4* win = reinterpret_cast<float4*>(w2h + C * LH);  // the window
+
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int g = lane / 4, tq = lane % 4;
+  const float4* x4 = reinterpret_cast<const float4*>(a.x);
+  float4* w4 = reinterpret_cast<float4*>(a.out_w);
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int n_rows = a.B * a.T;
+  const int n_tiles = (n_rows + kF3bRows - 1) / kF3bRows;
+  const int H = (a.K - 1) * a.d;
+  // the block's first window in flight while the constants load
+  if (staged && blockIdx.x < n_tiles) {
+    stage_window<Q>(win, x4, blockIdx.x * kF3bRows - H, kF3bRows + H, n_rows);
+  }
+  load_consts<C, true>(a, cv);
+  load_frag_weights<C, LH, true, true>(a.pw1, w1h);
+  load_frag_weights<C, LH, true, true>(a.pw2, w2h);
+  // row `row` of the per-channel vector at this thread's quad of slice s
+  const float4* cv4 = reinterpret_cast<const float4*>(cv) + tq;
+#define VQ(row, s) cv4[(row) * Q + 4 * (s)]
+
+  // Σw then Σw² at the channel quads 16 m + 4 tq .. +3 (float4 m, then
+  // NS + m) of this warp's rows, summed over its row groups each tile
+  // and dealt out: this lane keeps values [g NS, (g + 1) NS)
+  float sums[NS];
+#pragma unroll
+  for (int k = 0; k < NS; ++k) sums[k] = 0.f;
+  const int lr = warp * kFragRows + g;  // the tile row of fragment row g
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    if (staged) cp_async_wait<0>();  // this tile's window has landed
+    __syncthreads();  // (every thread's; the first time, the constants
+                      // and the weights are in place)
+    int rows[2], tt[2];  // rows g and g + 8, their frames (-1 past the end)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      rows[h] = tile * kF3bRows + lr + 8 * h;
+      tt[h] = rows[h] < n_rows ? rows[h] % a.T : -1;
+    }
+    // s0 = a0 u + c0 (u the causal depthwise conv of x plus dw_b),
+    // straight into A fragments; a tap before the utterance's first frame
+    // is zero
+    unsigned af[NS][4];
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      float4 u[2] = {VQ(V_DWB, s), VQ(V_DWB, s)};
+#pragma unroll
+      for (int tap = 0; tap < kMaxTaps; ++tap) {
+        if (tap < a.K) {
+          const int back = (a.K - 1 - tap) * a.d;
+          const float4 wt = VQ(kNumVec + tap, s);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if (back <= tt[h]) {
+              float4 xv;
+              if (staged) {
+                const int wr = lr + 8 * h + H - back;  // its window row
+                xv = win[wr * Q + 4 * (s ^ (wr & 1)) + tq];
+              } else {
+                xv = __ldg(x4 + static_cast<size_t>(rows[h] - back) * Q +
+                           4 * s + tq);
+              }
+              u[h] = fma4(xv, wt, u[h]);
+            }
+          }
+        }
+      }
+      float4 s0[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        s0[h] = tt[h] >= 0 ? fma4(u[h], VQ(V_A0, s), VQ(V_C0, s)) : zero4;
+      }
+      af[s][0] = pack_bf16x2(s0[0].x, s0[0].y);
+      af[s][1] = pack_bf16x2(s0[1].x, s0[1].y);
+      af[s][2] = pack_bf16x2(s0[0].z, s0[0].w);
+      af[s][3] = pack_bf16x2(s0[1].z, s0[1].w);
+    }
+    if (staged) {
+      __syncthreads();  // every read of this window is done
+      const int next = tile + gridDim.x;
+      if (next < n_tiles) {  // it lands while the products run
+        stage_window<Q>(win, x4, next * kF3bRows - H, kF3bRows + H, n_rows);
+      }
+    }
+    float acc[2 * NS][4];
+#pragma unroll
+    for (int j = 0; j < 2 * NS; ++j) {
+      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    }
+    frag_product<C, LH>(af, w1h, acc, lane);  // v - b1 = s0 W1
+    // r = relu(a1 (v + b1) + c1) in bf16: written, and w's A fragments
+#pragma unroll
+    for (int m = 0; m < NS; ++m) {
+      const float4 b1 = VQ(V_B1, m), a1 = VQ(V_A1, m), c1 = VQ(V_C1, m);
+      float4 r[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        r[h] = relu4(fma4(add4(acc_quad(acc[2 * m], acc[2 * m + 1], h), b1),
+                          a1, c1));
+      }
+      af[m][0] = pack_bf16x2(r[0].x, r[0].y);
+      af[m][1] = pack_bf16x2(r[1].x, r[1].y);
+      af[m][2] = pack_bf16x2(r[0].z, r[0].w);
+      af[m][3] = pack_bf16x2(r[1].z, r[1].w);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (tt[h] >= 0) {
+          *reinterpret_cast<uint2*>(a.out_r16 +
+                                    static_cast<size_t>(rows[h]) * C +
+                                    16 * m + 4 * tq) =
+              make_uint2(af[m][h], af[m][2 + h]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 2 * NS; ++j) {
+      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    }
+    frag_product<C, LH>(af, w2h, acc, lane);  // w - b2 = r W2
+    float part[8 * NS];  // this tile's Σw, Σw² of rows g and g + 8
+#pragma unroll
+    for (int m = 0; m < NS; ++m) {
+      const float4 b2 = VQ(V_B2, m);
+      float4 sw = zero4, sww = zero4;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (tt[h] >= 0) {
+          const float4 w = add4(acc_quad(acc[2 * m], acc[2 * m + 1], h), b2);
+          w4[static_cast<size_t>(rows[h]) * Q + 4 * m + tq] = w;
+          sw = add4(sw, w);
+          sww = fma4(w, w, sww);
+        }
+      }
+      *reinterpret_cast<float4*>(part + 4 * m) = sw;
+      *reinterpret_cast<float4*>(part + 4 * (NS + m)) = sww;
+    }
+    sum_scatter_rows(part, lane);
+#pragma unroll
+    for (int k = 0; k < NS; ++k) sums[k] += part[k];
+  }
+#undef VQ
+
+  // the warps' sums in order, through the weights' space
+  __syncthreads();  // every read of the weights is done
+  float* red = reinterpret_cast<float*>(w1h);  // kWarps x 2 x C
+#pragma unroll
+  for (int k = 0; k < NS; ++k) {
+    const int f = g * NS + k;  // value f: float4 f / 4, its lane f % 4
+    const int j = f / 4;
+    red[(warp * 2 + j / NS) * C + 16 * (j % NS) + 4 * tq + f % 4] = sums[k];
+  }
+  __syncthreads();
+  float* out = a.partials + static_cast<size_t>(blockIdx.x) * 2 * C;
+  for (int o = threadIdx.x; o < 2 * C; o += kThreads) {
+    float acc = 0.f;
+    for (int w = 0; w < kWarps; ++w) acc += red[w * 2 * C + o];
+    out[o] = acc;
+  }
+}
+
+// B2's shared memory at bf16: the per-channel vector, the staged w, x
+// and dy rows (fp32; the block's reductions reuse them), then bf16 at
+// row stride C + 8: W2 (rows in fragment order), the dwg tile and a ring
+// of two r tiles
+template <int C>
+constexpr size_t b2_bf16_smem_bytes() {
+  return sizeof(float) * (kNumVec * C + 3 * kB2bRows * C) +
+         sizeof(__nv_bfloat16) * (C + 3 * kB2bRows) * (C + 8);
+}
+
+// rows [first, first + count) of a (n_rows, C) bf16 tensor into shared
+// memory at row stride LH by 16-byte `cp.async` copies, zeros past the
+// end
+template <int C, int LH>
+__device__ __forceinline__ void stage_rows_bf16(__nv_bfloat16* dst,
+                                                const __nv_bfloat16* src,
+                                                int first, int count,
+                                                int n_rows) {
+  constexpr int P = C / 8;  // 16-byte chunks of a row
+  for (int i = threadIdx.x; i < count * P; i += kThreads) {
+    const int lr = i / P, c = i % P;
+    const int row = first + lr;
+    const bool ok = row < n_rows;
+    cp_async16(reinterpret_cast<float4*>(dst + lr * LH + 8 * c),
+               reinterpret_cast<const float4*>(
+                   src + (ok ? static_cast<size_t>(row) * C + 8 * c : 0)),
+               ok);
+  }
+  cp_async_commit();
 }
 
 template <int C>
 __global__ void __launch_bounds__(kThreads, C == 128 ? 1 : 2)
 b2_bf16_kernel(Args a) {
-  b2_body<C, true>(a);
+  constexpr int ROWS = kB2bRows;
+  constexpr int Q = C / 4;
+  constexpr int G = kThreads / Q;  // row groups of the elementwise step
+  constexpr int R = ROWS / G;      // its rows a thread
+  constexpr int LH = C + 8;
+  constexpr int NS = C / 16;
+  // dr: four 16-row blocks, WPM warps to a block, NP pairs of n8 tiles a
+  // warp
+  constexpr int WPM = kWarps / (ROWS / kFragRows);
+  constexpr int NP = NS / WPM;
+  // dW2: C / 16 row blocks of n8 tiles, OWPM warps to a block, ONT n8
+  // tiles a warp
+  constexpr int OWPM = kWarps / NS;
+  constexpr int ONT = (C / 8) / OWPM;
+  static_assert(ROWS % G == 0 && NP >= 1 && OWPM >= 1 &&
+                    (ONT == 1 || ONT % 2 == 0),
+                "the tiles deal out evenly");
+  extern __shared__ __align__(128) float4 smem4[];
+  float* cv = reinterpret_cast<float*>(smem4);  // kNumVec x C
+  float4* sw4 = reinterpret_cast<float4*>(cv + kNumVec * C);  // ROWS x Q
+  float4* sx4 = sw4 + ROWS * Q;                               // each
+  float4* sdy4 = sx4 + ROWS * Q;
+  __nv_bfloat16* w2h = reinterpret_cast<__nv_bfloat16*>(sdy4 + ROWS * Q);
+  __nv_bfloat16* tg = w2h + C * LH;    // ROWS x LH: dwg
+  __nv_bfloat16* tr = tg + ROWS * LH;  // 2 x ROWS x LH: r
+
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int q = threadIdx.x % Q, ge = threadIdx.x / Q;  // elementwise
+  const float n = a.n;
+  const float4* cv4 = reinterpret_cast<const float4*>(cv);
+  const float4* x4 = reinterpret_cast<const float4*>(a.x);
+  const float4* dy4 = reinterpret_cast<const float4*>(a.dy);
+  const float4* w4 = reinterpret_cast<const float4*>(a.w);
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  const int mb = warp / WPM;             // dr's row block
+  const int p0 = (warp % WPM) * NP;      // its first n pair
+  const int om = warp / OWPM;            // dW2's row block
+  const int nt0 = (warp % OWPM) * ONT;   // its first n8 tile
+  float4 db2 = zero4;                    // Σdwg at channels 4q .. 4q+3
+  float4 sds[2][NP];                     // Σds1, Σds1·v̂ at 16 (p0+j) + 4tq
+  float accw[ONT][4];                    // this warp's tiles of dW2
+#pragma unroll
+  for (int j = 0; j < NP; ++j) sds[0][j] = sds[1][j] = zero4;
+#pragma unroll
+  for (int j = 0; j < ONT; ++j) {
+    accw[j][0] = accw[j][1] = accw[j][2] = accw[j][3] = 0.f;
+  }
+
+  const int n_rows = a.B * a.T;
+  const int n_tiles = (n_rows + ROWS - 1) / ROWS;
+  auto stage = [&](int tile, __nv_bfloat16* rbuf) {
+    stage_rows<Q>(sw4, w4, tile * ROWS, ROWS, n_rows);
+    stage_rows<Q>(sx4, x4, tile * ROWS, ROWS, n_rows);
+    stage_rows<Q>(sdy4, dy4, tile * ROWS, ROWS, n_rows);
+    stage_rows_bf16<C, LH>(rbuf, a.r16, tile * ROWS, ROWS, n_rows);
+  };
+  // the first tile's rows are in flight while the constants load
+  if (blockIdx.x < n_tiles) stage(blockIdx.x, tr);
+  load_consts<C, false>(a, cv);
+  // dr's B[o][i] = W2[i][o]: `ldmatrix` on W2's rows, i in fragment
+  // order (the accumulators' channel quads)
+  load_frag_weights<C, LH, true, false>(a.pw2, w2h);
+  for (int tile = blockIdx.x, it = 0; tile < n_tiles;
+       tile += gridDim.x, ++it) {
+    const int row0 = tile * ROWS;
+    cp_async_wait<0>();
+    __syncthreads();  // every thread's copies have landed, and the last
+                      // tile's reads of the tiles are done (the first
+                      // time: the constants and W2 are in place)
+    // g2, ŵ and dwg in fp32; db2 sums dwg before it is rounded into its
+    // tile (zero past the end)
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int lr = ge + j * G;
+      float4 dwg = zero4;
+      if (row0 + lr < n_rows) {
+        const float4 wv = sw4[lr * Q + q];
+        const float4 xv = sx4[lr * Q + q];
+        const float4 dyv = sdy4[lr * Q + q];
+        const float4 g2 = gate4(
+            add4(fma4(wv, cv4[V_A2 * Q + q], cv4[V_C2 * Q + q]), xv), dyv);
+        dwg = bn_back4(cv4[V_COEF2 * Q + q], n, g2, cv4[V_SG * Q + q],
+                       hat4(wv, cv4[V_MU2 * Q + q], cv4[V_INV2 * Q + q]),
+                       cv4[V_SGW * Q + q]);
+        db2 = add4(db2, dwg);
+      }
+      st_bf16x4(tg + lr * LH + 4 * q, dwg);
+    }
+    __syncthreads();  // the dwg tile is in place and the staged rows read
+    if (tile + gridDim.x < n_tiles) {  // they land while the products run
+      stage(tile + gridDim.x, tr + ((it + 1) & 1) * ROWS * LH);
+    }
+    const __nv_bfloat16* rt = tr + (it & 1) * ROWS * LH;
+    {  // dr = dwg W2ᵀ -> ds1 = dr·[r > 0], Σds1, Σds1·v̂
+      float acc[2 * NP][4];
+#pragma unroll
+      for (int j = 0; j < 2 * NP; ++j) {
+        acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+      }
+      // A: matrices (rows 0-7, k 0-7), (rows 8-15, k 0-7), (rows 0-7,
+      // k 8-15), (rows 8-15, k 8-15) of the block's dwg rows; B: W2's
+      // rows i (n) 0-7 and 8-15 of the pair by its columns o (k) 0-7 and
+      // 8-15
+      const __nv_bfloat16* pa =
+          tg + (mb * kFragRows + (lane & 7) + (lane & 8)) * LH +
+          (lane >> 4) * 8;
+      const __nv_bfloat16* pb =
+          w2h + (16 * p0 + (lane & 7) + (lane >> 4) * 8) * LH + (lane & 8);
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        unsigned af[4];
+        ldsm_x4(af, pa + 16 * s);
+#pragma unroll
+        for (int j = 0; j < NP; ++j) {
+          unsigned b[4];
+          ldsm_x4(b, pb + 16 * j * LH + 16 * s);
+          mma_bf16(acc[2 * j], af, b[0], b[1]);
+          mma_bf16(acc[2 * j + 1], af, b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NP; ++j) {
+        const int cq = 4 * (p0 + j) + tq;  // the channel quad
+        const float4 beta1 = cv4[V_BETA1 * Q + cq];
+        const float4 rgamma1 = cv4[V_GAMMA1 * Q + cq];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int lr = mb * kFragRows + g + 8 * h;
+          if (row0 + lr < n_rows) {
+            const float4 rv = widen_bf16x4(
+                *reinterpret_cast<const uint2*>(rt + lr * LH + 4 * cq));
+            const float4 ds1 =
+                gate4(rv, acc_quad(acc[2 * j], acc[2 * j + 1], h));
+            sds[0][j] = add4(sds[0][j], ds1);
+            sds[1][j] = fma4(ds1, hat4(rv, beta1, rgamma1), sds[1][j]);
+          }
+        }
+      }
+    }
+    // dW2 += rᵀ dwg over the tile's rows.  A (i x rows) = rᵀ: matrices
+    // (rows 0-7, i 0-7), (rows 0-7, i 8-15), (rows 8-15, i 0-7), (rows
+    // 8-15, i 8-15) of the r tile, transposed; B (rows x o) = dwg: (rows
+    // 0-7, o 0-7), (rows 8-15, o 0-7), then o 8-15, transposed
+    const __nv_bfloat16* pa =
+        rt + ((lane & 7) + (lane >> 4) * 8) * LH + om * 16 + (lane & 8);
+    const __nv_bfloat16* pb =
+        tg + ((lane & 7) + (lane & 8)) * LH + 8 * nt0 + (lane >> 4) * 8;
+#pragma unroll
+    for (int s = 0; s < ROWS / 16; ++s) {
+      unsigned af[4];
+      ldsm_x4_trans(af, pa + 16 * s * LH);
+      if constexpr (ONT == 1) {
+        unsigned b[2];
+        ldsm_x2_trans(b, pb + 16 * s * LH);
+        mma_bf16(accw[0], af, b[0], b[1]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < ONT / 2; ++j) {
+          unsigned b[4];
+          ldsm_x4_trans(b, pb + 16 * s * LH + 16 * j);
+          mma_bf16(accw[2 * j], af, b[0], b[1]);
+          mma_bf16(accw[2 * j + 1], af, b[2], b[3]);
+        }
+      }
+    }
+  }
+
+  // dW2's tiles straight into the block's partial: rows (i) 16 om + g
+  // and + 8, columns (o) 8 (nt0 + j) + 2 tq and + 1
+  float* out =
+      a.partials + static_cast<size_t>(blockIdx.x) * (C * C + 3 * C);
+#pragma unroll
+  for (int j = 0; j < ONT; ++j) {
+    const int i0 = om * 16 + g, o0 = 8 * (nt0 + j) + 2 * tq;
+    *reinterpret_cast<float2*>(out + i0 * C + o0) =
+        make_float2(accw[j][0], accw[j][1]);
+    *reinterpret_cast<float2*>(out + (i0 + 8) * C + o0) =
+        make_float2(accw[j][2], accw[j][3]);
+  }
+  // Σds1, Σds1·v̂ over the fragment's row groups, then (below) over the
+  // row blocks in order; db2 over the elementwise step's row groups
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+#pragma unroll
+      for (int off = 4; off < 32; off *= 2) {
+        sds[i][j].x += __shfl_xor_sync(0xffffffffu, sds[i][j].x, off);
+        sds[i][j].y += __shfl_xor_sync(0xffffffffu, sds[i][j].y, off);
+        sds[i][j].z += __shfl_xor_sync(0xffffffffu, sds[i][j].z, off);
+        sds[i][j].w += __shfl_xor_sync(0xffffffffu, sds[i][j].w, off);
+      }
+    }
+  }
+  cp_async_wait<0>();  // (the last tile staged nothing)
+  float* red = reinterpret_cast<float*>(sw4);  // the staged rows are free
+  block_sums4<C, 1>(red, &db2, out + C * C, ge, q);
+  float4* red4 = reinterpret_cast<float4*>(red + G * C);  // blocks x 2 x Q
+  if (g == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int j = 0; j < NP; ++j) {
+        red4[(mb * 2 + i) * Q + 4 * (p0 + j) + tq] = sds[i][j];
+      }
+    }
+  }
+  __syncthreads();
+  const float* red2 = red + G * C;
+  for (int o = threadIdx.x; o < 2 * C; o += kThreads) {
+    float acc = 0.f;
+    for (int b = 0; b < ROWS / kFragRows; ++b) acc += red2[b * 2 * C + o];
+    out[C * C + C + o] = acc;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1653,17 +2303,25 @@ int run(int pass, const Args& a, int n_blocks, int b4_rows, bool bf,
     }
     case kF2:
     case kF3: {
-      const size_t window = f3_window_bytes<C>((a.K - 1) * a.d);
+      const int halo = (a.K - 1) * a.d;
+      if (pass == kF3 && bf) {  // its own tiles and window
+        const bool staged = f3_bf16_staged<C>(halo);
+        err = launch_tiles(f3_bf16_kernel<C>, a,
+                           f3_bf16_base_bytes<C>() +
+                               (staged ? f3_bf16_window_bytes<C>(halo) : 0),
+                           n_blocks, s, staged);
+        break;
+      }
+      const size_t window = f3_window_bytes<C>(halo);
       const bool staged = fwd_smem_bytes<C, kF3>() + window <= kSmemLimit;
       const size_t extra = staged ? window : 0;
-      // the bf16 variants keep the fp32 tiles: the same shared memory
+      // F2's bf16 variant keeps the fp32 tiles: the same shared memory
       err = pass == kF2
           ? launch_tiles(bf ? &f2_bf16_kernel<C> : &f2_kernel<C>, a,
                          fwd_smem_bytes<C, kF2>() + extra, n_blocks, s,
                          staged)
-          : launch_tiles(bf ? &f3_bf16_kernel<C> : &f3_kernel<C>, a,
-                         fwd_smem_bytes<C, kF3>() + extra, n_blocks, s,
-                         staged);
+          : launch_tiles(f3_kernel<C>, a, fwd_smem_bytes<C, kF3>() + extra,
+                         n_blocks, s, staged);
       break;
     }
     case kF4:
@@ -1674,8 +2332,10 @@ int run(int pass, const Args& a, int n_blocks, int b4_rows, bool bf,
                          s);
       break;
     case kB2:
-      err = launch_tiles(bf ? &b2_bf16_kernel<C> : &b2_kernel<C>, a,
-                         b2_smem_bytes<C>(), n_blocks, s);
+      err = bf ? launch_tiles(b2_bf16_kernel<C>, a, b2_bf16_smem_bytes<C>(),
+                              n_blocks, s)
+               : launch_tiles(b2_kernel<C>, a, b2_smem_bytes<C>(), n_blocks,
+                              s);
       width = C * C + 3 * C;
       break;
     case kB3:

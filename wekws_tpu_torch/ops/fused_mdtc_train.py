@@ -75,6 +75,10 @@ precisions.  The plain versions round the same operands with
 ``Tensor.to(torch.bfloat16)`` before a float32 ``matmul``, which is
 exact in its products.  A variant counts its launches apart
 (``.bf16_launches``) and has its own kernel name (``kernel_name``).
+F3's and B2's bf16 kernels run their products on the tensor cores and
+cut their own tiles (``BF16_TILE_ROWS``, ``f3_bf16_staged``,
+``tile_smem_bytes`` mirror them); F2's keeps F2's tiles and its rule
+for staging its window of x.
 """
 
 import contextlib
@@ -298,6 +302,9 @@ FLAT_PASSES = ("f1", "f2", "f3", "b2", "b3")
 F1_STAGED = True
 F1_ROW_SCALE = 2
 B1_ROWS_IN_FLIGHT = 4  # rows of w, x and dy a B1 thread loads at once
+# rows of F3's and B2's tiles at bf16 (``kF3bRows``: 16 rows a warp,
+# eight warps; ``kB2bRows``)
+BF16_TILE_ROWS = {"f3": 128, "b2": 64}
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -335,6 +342,15 @@ def flat_tile_rows(c: int) -> int:
     return 32 if c == 128 else TILE_ROWS
 
 
+def bf16_tile_rows(name: str, c: int, precision: str = "float32") -> int:
+    """Rows of a pass's tile over the flattened frames at ``precision``:
+    F3's and B2's bf16 kernels have their own (``BF16_TILE_ROWS``), the
+    others ``flat_tile_rows``."""
+    if precision == "bfloat16" and name in BF16_TILE_ROWS:
+        return BF16_TILE_ROWS[name]
+    return flat_tile_rows(c)
+
+
 def f1_tile_rows(c: int) -> int:
     """Rows of an F1 tile: F1_ROW_SCALE times ``flat_tile_rows``."""
     return F1_ROW_SCALE * flat_tile_rows(c)
@@ -353,24 +369,44 @@ def f3_window_bytes(c: int, halo: int) -> int:
     return 4 * c * (flat_tile_rows(c) + halo)
 
 
+def f3_bf16_staged(c: int, halo: int) -> bool:
+    """Whether F3's bf16 kernel stages its window of x
+    (``f3_bf16_staged``): where it fits a block beside the constants and
+    the bf16 weights; else it reads the taps from device memory."""
+    base = 4 * (len(VEC_KEYS) + MAX_TAPS) * c + 2 * 2 * c * (c + 8)
+    return base + 4 * c * (BF16_TILE_ROWS["f3"] + halo) <= SMEM_LIMIT
+
+
 def tile_smem_bytes(name: str, c: int, halo: int = 0,
                     precision: str = "float32") -> int:
     """Shared memory of one F1, F2, F3, B2 or B3 block
     (csrc/fused_mdtc_train.cu ``fwd_smem_bytes``, ``b2_smem_bytes``,
-    ``b3_smem_bytes``, ``b3_bf16_smem_bytes``): the packed per-channel
-    vector (with the taps, but in B2), the C x C weight matrices and the
-    tiles, at row stride C + 4 (F1: no matrix, one tile for its
-    reduction); B2 adds the next tile's w, x and dy rows, staged; F2 and
-    F3 their window of x (``f3_window_bytes``) where F3's fits a block
-    (``run`` there decides the same), else they read the taps from
+    ``b3_smem_bytes``, and at bf16 ``f3_bf16_base_bytes`` with its
+    windows, ``b2_bf16_smem_bytes``, ``b3_bf16_smem_bytes``): the packed
+    per-channel vector (with the taps, but in B2), the C x C weight
+    matrices and the tiles, at row stride C + 4 (F1: no matrix, one tile
+    for its reduction); B2 adds the next tile's w, x and dy rows, staged;
+    F2 and F3 their window of x (``f3_window_bytes``) where F3's fits a
+    block (``run`` there decides the same), else they read the taps from
     device memory; F1 two windows where they fit beside its own
-    (``F1_STAGED``).  At bf16, F2, F3 and B2 keep their fp32 tiles (the
-    same bytes); B3 keeps three fp32 tiles and holds W1, W2 and its two
-    product-operand tiles as bf16 at row stride C + 8."""
+    (``F1_STAGED``).  At bf16 F2 keeps its fp32 tiles and its window
+    rule (the same bytes); F3 holds W1 and W2 as bf16 at row stride
+    C + 8 and the window of its 128-row tile (``f3_bf16_staged``); B2 its
+    staged w, x and dy rows (fp32), then W2, the dwg tile and two r
+    tiles as bf16 at row stride C + 8; B3 keeps three fp32 tiles and
+    holds W1, W2 and its two product-operand tiles as bf16 at row
+    stride C + 8."""
     if precision == "bfloat16" and name == "b3":
         rows = flat_tile_rows(c)
         return (4 * ((len(VEC_KEYS) + MAX_TAPS) * c + 3 * rows * (c + 4))
                 + 2 * (2 * c + 2 * rows) * (c + 8))
+    if precision == "bfloat16" and name == "f3":
+        window = 4 * c * (BF16_TILE_ROWS["f3"] + halo)
+        return (4 * (len(VEC_KEYS) + MAX_TAPS) * c + 2 * 2 * c * (c + 8)
+                + (window if f3_bf16_staged(c, halo) else 0))
+    if precision == "bfloat16" and name == "b2":
+        rows = BF16_TILE_ROWS["b2"]
+        return 4 * (len(VEC_KEYS) + 3 * rows) * c + 2 * (c + 3 * rows) * (c + 8)
 
     def unstaged(name):
         vec, mats, tiles = {
@@ -405,15 +441,16 @@ def blocks_per_sm(smem: int, c: int) -> int:
     return min(1 if c == 128 else 2, SM_SMEM // (smem + 1024))
 
 
-def _tiles(name: str, b: int, t: int, c: int, rows: int) -> int:
+def _tiles(name: str, b: int, t: int, c: int, rows: int,
+           precision: str = "float32") -> int:
     """Work units of one pass: F1, F2, F3, B2 and B3 tile the
-    flattened B x T frames (``flat_tile_rows``) and B1 streams them
-    (``b1_block_rows`` at a time), B4 cuts each utterance into
-    ``rows``-frame tiles; F4 is elementwise (no tiles)."""
+    flattened B x T frames (``bf16_tile_rows`` at ``precision``) and B1
+    streams them (``b1_block_rows`` at a time), B4 cuts each utterance
+    into ``rows``-frame tiles; F4 is elementwise (no tiles)."""
     if name == "f1":
         return _cdiv(b * t, f1_tile_rows(c))
     if name in FLAT_PASSES:
-        return _cdiv(b * t, flat_tile_rows(c))
+        return _cdiv(b * t, bf16_tile_rows(name, c, precision))
     if name == "b1":
         return _cdiv(b * t, b1_block_rows(c))
     if name == "b4":
@@ -456,7 +493,8 @@ def _launch(name, x, tensors, v, dilation, n, k, precision="float32"):
     if name in FLAT_PASSES:
         smem = tile_smem_bytes(name, c, (k - 1) * int(dilation), precision)
         per_sm = blocks_per_sm(smem, c)
-    nblocks = _grid_blocks(dev, _tiles(name, b, t, c, rows), per_sm)
+    nblocks = _grid_blocks(dev, _tiles(name, b, t, c, rows, precision),
+                           per_sm)
     ptrs = dict(tensors)
     ptrs["vec"] = _pack(v, c, dev)
     out = {}
