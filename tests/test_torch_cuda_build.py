@@ -6,6 +6,7 @@ import os
 import pytest
 
 from wekws_tpu_torch.ops import cuda_build
+from wekws_tpu_torch.tools import time_train_passes
 
 PTXAS_LOG = """\
 fused_mdtc_train.cu(293): warning #128-D: loop is not reachable
@@ -129,3 +130,106 @@ def test_wrappers_call_entries_of_the_source(module):
     assert called
     for name in called:
         assert re.search(rf"^(int|const char\*) {name}\(", source, re.M), name
+
+
+@pytest.mark.parametrize("name", sorted(time_train_passes.VARIANTS))
+def test_time_train_passes_variant_applies_to_the_source(name):
+    """Each variant of ``tools/time_train_passes.py`` edits
+    csrc/fused_mdtc_train.cu as ``build_variants`` will on the card:
+    every old text occurs exactly once, and the edited source differs.
+    A kernel rewrite that breaks a variant fails here."""
+    with open(os.path.join(cuda_build.CSRC_DIR, "fused_mdtc_train.cu")) as f:
+        source = f.read()
+    tool = time_train_passes
+    for old, _ in tool.VARIANTS[name]:
+        assert source.count(old) == 1, old
+    assert tool.variant_text(source, name) != source
+    assert set(tool.TIMING_ONLY) | set(tool.KNOBS) <= set(tool.VARIANTS)
+
+
+def test_bf16_forward_and_b3_bodies():
+    """F2's and F3's bf16 kernels share one body (``bf16_forward``, a
+    template over the pass); B3's bf16 kernel runs its products by
+    ``mma.sync`` with ``ldmatrix`` operands: no ``wmma`` at bf16, and
+    the float32 forward body has no bf16 switch."""
+    with open(os.path.join(cuda_build.CSRC_DIR, "fused_mdtc_train.cu")) as f:
+        source = f.read()
+    for p in ("kF2", "kF3"):
+        kern = "f2" if p == "kF2" else "f3"
+        assert (f"{kern}_bf16_kernel(Args a, bool staged) {{\n"
+                f"  bf16_forward<C, {p}>(a, staged);") in source
+    body = source.partition("b3_bf16_kernel(Args a, bool staged) {")[2]
+    body = body.partition("\n}\n")[0]
+    assert "wm::" not in body and "ldsm_x4" in body and "mma_bf16" in body
+    assert "__nv_bfloat16, Layout" not in source
+    assert "bool BF" not in source and "bf16r" not in source
+
+
+def _c_int_expr(text):
+    """A C integer expression over ``tt[h]``, ``H``, ``a.K``, ``a.d`` and
+    ``tap`` as a Python function of (t, tap, K, d, H): ``?:`` chains and
+    ``/`` truncating toward zero, as C's ``int`` division does."""
+    import re
+
+    text = (text.replace("tt[h]", "t").replace("a.K", "K")
+            .replace("a.d", "d"))
+    text = re.sub(r"(\w+) / (\w+)", r"_cdiv(\1, \2)", text)
+
+    def ternary(expr):
+        if "?" not in expr:
+            return expr
+        cond, _, rest = expr.partition("?")
+        then, _, other = rest.partition(":")
+        return f"(({then}) if ({cond}) else ({ternary(other)}))"
+
+    code = ternary(text)
+    scope = {"_cdiv": lambda p, q: abs(p) // abs(q) * (1 if p * q >= 0
+                                                        else -1)}
+    return eval(f"lambda t, tap, K, d, H: {code}", scope)
+
+
+def _conv_reads(kernel, source):
+    """{kernel: reads(t, tap, K, d, H)}: whether the conv of F2b and F3b
+    (``bf16_forward``: taps from ``first[h]`` on) or of B3b (a tap while
+    ``back <= tt[h]``) reads tap ``tap`` of a row at frame t (-1 past the
+    end), by the rule as the source states it."""
+    import re
+
+    if kernel == "bf16_forward":
+        body = source.partition("__device__ __forceinline__ void "
+                                "bf16_forward(")[2]
+        found = re.findall(r"first\[h\] = (.*);", body.partition("\n}\n")[0])
+        assert len(found) == 1
+        first = _c_int_expr(found[0])
+        return lambda t, tap, K, d, H: tap >= first(t, tap, K, d, H)
+    body = source.partition("b3_bf16_kernel(Args a, bool staged) {")[2]
+    body = body.partition("\n}\n")[0]
+    assert body.count("const int back = (a.K - 1 - tap) * a.d;") == 1
+    found = re.findall(r"if \((back <= tt\[h\])\)", body)
+    assert len(found) == 1
+    return lambda t, tap, K, d, H: (K - 1 - tap) * d <= t
+
+
+@pytest.mark.parametrize("kernel", ["bf16_forward", "b3_bf16_kernel"])
+def test_bf16_conv_reads_no_row_past_the_end(kernel):
+    """The conv of the bf16 F2, F3 and B3 kernels, where it reads its taps
+    from device memory (a window too long for shared memory), reads row
+    (row - H + tap d) of x for tap ``tap`` of a row: a model of each
+    kernel's tap rule, evaluated as C evaluates the source's expression,
+    over the rows of every tile (a ragged last one past the end), reads
+    no row before the utterance or past the end of x, and every tap
+    within the utterance."""
+    with open(os.path.join(cuda_build.CSRC_DIR, "fused_mdtc_train.cu")) as f:
+        reads = _conv_reads(kernel, f.read())
+    for b, t_len, k, d, rows in [(3, 200, 5, 40, 128), (2, 700, 5, 169, 128),
+                                 (5, 77, 5, 4, 128), (3, 70, 3, 8, 32),
+                                 (2, 150, 8, 2, 64), (1, 9, 1, 3, 32)]:
+        h_len = (k - 1) * d
+        n_rows = b * t_len
+        for row in range(-(-n_rows // rows) * rows):
+            t = row % t_len if row < n_rows else -1
+            for tap in range(k):
+                read = row - h_len + tap * d
+                wanted = t >= 0 and read >= row - t
+                assert reads(t, tap, k, d, h_len) == wanted, (
+                    b, t_len, k, d, row, tap)

@@ -33,6 +33,8 @@ from wekws_tpu_torch.ops.fused_mdtc_train import (
     _PASS_VALUES,
     _ds0,
     _tiles,
+    b3_bf16_rows,
+    b3_bf16_staged,
     b4_smem_bytes,
     b4_tile_rows,
     bf16_tile_rows,
@@ -271,16 +273,22 @@ def test_tiles_of_each_pass(name, b, t, c, want):
     ("f3", 3, 70, 32, 2),         # 210 frames: a ragged second tile
     ("b2", 512, 198, 64, 1584),   # 64-row tiles at every width
     ("b2", 512, 198, 128, 1584), ("b2", 5, 77, 64, 7),
-    ("f2", 512, 198, 128, 3168),  # F2 and B3 keep their float32 tiles
-    ("b3", 512, 198, 128, 3168),
+    ("f2", 512, 198, 128, 792),   # F3's body: its 128-row tiles
+    ("b3", 512, 198, 128, 3168),  # B3: 32-row tiles
+    ("b3", 512, 198, 64, 3168),
+    ("b3", 3, 70, 32, 4),         # and 64 rows at C=32
 ])
 def test_bf16_tiles_of_each_pass(name, b, t, c, want):
-    """At bf16 F3's kernel cuts the flattened frames into 128-row tiles
-    and B2's into 64-row tiles at every width (``BF16_TILE_ROWS``); F2's
-    and B3's bf16 kernels keep the float32 tiles."""
+    """At bf16 F2's and F3's kernels (one body) cut the flattened frames
+    into 128-row tiles and B2's into 64-row tiles at every width
+    (``BF16_TILE_ROWS``), B3's into 32-row tiles (64 at C=32,
+    ``b3_bf16_rows``)."""
     assert _tiles(name, b, t, c, 64, "bfloat16") == want
     assert bf16_tile_rows(name, c, "bfloat16") * want >= b * t
     assert bf16_tile_rows(name, c) == flat_tile_rows(c)
+    if name == "b3":
+        assert bf16_tile_rows(name, c, "bfloat16") == b3_bf16_rows(c) == (
+            64 if c == 32 else 32)
 
 
 @pytest.mark.parametrize("precision", ["float32", "bfloat16"])
@@ -308,12 +316,12 @@ def test_tile_smem_fits_a_block(name, c, precision):
     """F2's, F3's, B2's and B3's shared memory fits one block's 227 KB,
     and two blocks share an SM at C <= 64, as their launch bounds plan
     (F2 and F3 with their window of x at the flagship's largest halo,
-    4 x 8).  At bf16 F2 keeps its float32 tiles (the same bytes); F3
-    holds W1 and W2 as bf16 at row stride C + 8 and the window of its
-    128-row tile; B2 its staged w, x and dy rows in float32, then W2,
-    the dwg tile and two r tiles as bf16 at row stride C + 8; B3 holds
-    W1, W2 and its two operand tiles as bf16 at row stride C + 8 beside
-    three float32 tiles."""
+    4 x 8).  At bf16 F2 holds W1 and F3 W1 and W2 as bf16 at row stride
+    C + 8, both with the window of their 128-row tile; B2 its staged w,
+    x and dy rows in float32, then W2, the dwg tile and two r tiles as
+    bf16 at row stride C + 8; B3 its staged w and dy rows in float32,
+    then W1, W2 and its dwg (then dv), s0 and r tiles as bf16 at row
+    stride C + 8, and its window of x."""
     smem = tile_smem_bytes(name, c, 32, precision)
     assert smem <= SMEM_LIMIT
     assert blocks_per_sm(smem, c) == (2 if c <= 64 else 1)
@@ -321,10 +329,15 @@ def test_tile_smem_fits_a_block(name, c, precision):
     if (name, c, precision) == ("f3", 64, "float32"):
         # (26 + 8) x 64 + four 64 x 68 floats, then 96 rows of x
         assert smem == 78336 + 4 * 64 * (64 + 32)
-    if (name, c) == ("f2", 64):  # (26 + 8) x 64 + two 64 x 68 floats
+    if (name, c, precision) == ("f2", 64, "float32"):
+        # (26 + 8) x 64 + two 64 x 68 floats
         assert smem == 43520 + 4 * 64 * (64 + 32)
-    if precision == "bfloat16" and name in ("f1", "f2"):
+    if precision == "bfloat16" and name == "f1":
         assert smem == tile_smem_bytes(name, c, 32)
+    if (name, c, precision) == ("f2", 64, "bfloat16"):
+        # (26 + 8) x 64 floats and one 64 x 72 bf16 (W1), then a window
+        # of 128 + 32 rows x 64 floats
+        assert smem == 4 * 2176 + 2 * 64 * 72 + 4 * 64 * 160 == 58880
     if (name, c, precision) == ("f3", 64, "bfloat16"):
         # (26 + 8) x 64 floats and two 64 x 72 bf16 (W1, W2), then a
         # window of 128 + 32 rows x 64 floats
@@ -334,9 +347,11 @@ def test_tile_smem_fits_a_block(name, c, precision):
         # then (64 + 3 x 64) x 72 bf16 (W2; dwg; two r tiles)
         assert smem == 4 * (1664 + 3 * 64 * 64) + 2 * 256 * 72 == 92672
     if (name, c, precision) == ("b3", 64, "bfloat16"):
-        # (26 + 8) x 64 + three 64 x 68 floats, then two 64 x 72 and two
-        # 64 x 72 bf16 (W2, W1; dwg/dv, s0)
-        assert smem == 4 * (2176 + 3 * 64 * 68) + 2 * 4 * 64 * 72 == 97792
+        # (26 + 8) x 64 floats and 32 x 64 floats each of w and dy,
+        # (2 x 64 + 3 x 32) x 72 bf16 (W1, W2; dwg/dv, s0, r), then a
+        # window of 32 + 32 rows x 64 floats
+        assert smem == (4 * (2176 + 2 * 32 * 64) + 2 * 224 * 72
+                        + 4 * 64 * 64) == 73728
         assert smem < tile_smem_bytes("b3", 64, 32)
 
 
@@ -348,26 +363,56 @@ def test_f3_stages_its_window_where_it_fits(c, halo, staged, precision):
     """F3 stages a tile's rows of x and the halo before them in shared
     memory where they fit beside its weights and tiles, and otherwise
     reads its taps from device memory: any dilation runs.  F2 stages
-    its window where float32 F3 does (one rule for both), at bf16 too:
-    F2's bf16 variant keeps the float32 tiles, so its rule and limits
-    are the same.  F3's bf16 kernel stages the window of its own 128-row
-    tile where it fits beside its constants and bf16 weights (C = 64: up
-    to a halo of 674 frames; C = 128: up to 156)."""
-    for name in ("f3", "f2") if precision == "float32" else ("f2",):
+    its window where float32 F3 does (one rule for both).  At bf16 F2
+    and F3 are one body, and both stage the window of their 128-row
+    tile where F3's fits beside its constants and bf16 weights (C = 64:
+    up to a halo of 674 frames; C = 128: up to 156), F2 with one weight
+    matrix less."""
+    if precision == "float32":
+        for name in ("f3", "f2"):
+            base = tile_smem_bytes(name, c, 10 ** 6, precision)
+            assert tile_smem_bytes(name, c, halo, precision) == (
+                base + f3_window_bytes(c, halo) if staged else base)
+            assert tile_smem_bytes(name, c, halo, precision) <= SMEM_LIMIT
+        return
+    last = {64: 674, 128: 156}[c]
+    assert f3_bf16_staged(c, halo) == (halo <= last)
+    assert f3_bf16_staged(c, last) and not f3_bf16_staged(c, last + 1)
+    for name, mats in (("f3", 2), ("f2", 1)):
         base = tile_smem_bytes(name, c, 10 ** 6, precision)
+        assert base == 4 * (26 + 8) * c + mats * 2 * c * (c + 8)
         assert tile_smem_bytes(name, c, halo, precision) == (
-            base + f3_window_bytes(c, halo) if staged else base)
-        assert tile_smem_bytes(name, c, halo, precision) <= SMEM_LIMIT
-    if precision == "bfloat16":
-        base = tile_smem_bytes("f3", c, 10 ** 6, precision)
-        assert base == 4 * (26 + 8) * c + 2 * 2 * c * (c + 8)
-        last = {64: 674, 128: 156}[c]
-        assert f3_bf16_staged(c, halo) == (halo <= last)
-        assert tile_smem_bytes("f3", c, halo, precision) == (
             base + 4 * c * (128 + halo) if halo <= last else base)
-        assert tile_smem_bytes("f3", c, halo, precision) <= SMEM_LIMIT
-        assert f3_bf16_staged(c, last) and not f3_bf16_staged(c, last + 1)
+        assert tile_smem_bytes(name, c, halo, precision) <= SMEM_LIMIT
         assert base + 4 * c * (128 + last) <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("c,halo", [
+    (64, 32), (64, 196), (64, 197), (64, 652), (64, 653),
+    (32, 518), (32, 519), (32, 1430), (32, 1431), (128, 137), (128, 138)])
+def test_b3_bf16_stages_its_window_where_it_fits(c, halo):
+    """B3's bf16 kernel keeps one stage of a tile's w and dy rows and
+    its r tile, and stages its window of x (the tile's rows and the halo
+    before them) where it fits a block beside its constants and its bf16
+    weights and tiles, else it reads x and its taps from device memory;
+    two blocks share an SM at C <= 64 while the halo stays within 196
+    frames at C = 64 (the flagship's is at most 32), 518 at C = 32, and
+    at C = 128 the window is staged up to a halo of 137 (K = 5 at
+    dilation 34)."""
+    rows = b3_bf16_rows(c)
+    base = (4 * ((26 + 8) * c + 2 * rows * c)
+            + 2 * (2 * c + 3 * rows) * (c + 8))
+    last = {32: 1430, 64: 652, 128: 137}[c]
+    assert b3_bf16_staged(c, halo) == (halo <= last)
+    smem = tile_smem_bytes("b3", c, halo, "bfloat16")
+    window = 4 * c * (rows + halo) if halo <= last else 0
+    assert smem == base + window
+    assert smem <= SMEM_LIMIT
+    if c == 128:
+        assert blocks_per_sm(smem, c) == 1
+    else:
+        two = {32: 518, 64: 196}[c]
+        assert blocks_per_sm(smem, c) == (1 if two < halo <= last else 2)
 
 
 def test_b4_tile_rows_rejects_a_halo_over_shared_memory():

@@ -211,6 +211,9 @@ def test_compare_pass_holds_each_output_to_its_bound():
     # F3's window does not fit: it reads its taps from device memory
     # (C = 128, H = 4 x 40 = 160; C = 64, H = 4 x 169 = 676)
     (3, 200, (128,), 40), (2, 700, (64,), 169),
+    # B3's window fits one block an SM, not two (C = 64, H = 4 x 60 =
+    # 240)
+    (2, 300, (64,), 60),
 ])
 def test_fused_train_bf16_variants_match_plain(b, t, widths, dilation):
     """The bf16-operand variants of F2, F3, B2 and B3 on identical
@@ -226,16 +229,25 @@ def test_fused_train_bf16_variants_match_plain(b, t, widths, dilation):
         BF16_PASSES,
         BF16_SUM_TOL,
         PASSES,
+        b3_bf16_staged,
+        blocks_per_sm,
         compare_pass,
         f3_bf16_staged,
         seeded_block_inputs,
+        tile_smem_bytes,
         trace_pass_inputs,
     )
 
     if (t, dilation) == (200, 40):
         assert not f3_bf16_staged(128, 160)
+        assert not b3_bf16_staged(128, 160)
     if (t, dilation) == (700, 169):
         assert not f3_bf16_staged(64, 676)
+        assert not b3_bf16_staged(64, 676)
+    if (t, dilation) == (300, 60):
+        assert b3_bf16_staged(64, 240)
+        assert blocks_per_sm(tile_smem_bytes("b3", 64, 240, "bfloat16"),
+                             64) == 1
     g = torch.Generator().manual_seed(200 * t + dilation + 1000 * (b != 3))
     for c in widths:
         p, x, dy = seeded_block_inputs(g, b, t, c, 5, "cuda")

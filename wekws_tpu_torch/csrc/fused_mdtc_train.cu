@@ -40,17 +40,11 @@
 // every per-channel constant stay fp32.  F1, F4, B1 and B4 read no r
 // and no product operand and have no variant.  At bf16 the operations
 // of all four are far under the bf16 peak, so their bound is bytes, and
-// r moves half of them.  F3 and B2 run their products on the tensor
+// r moves half of them.  All four run their products on the tensor
 // cores with `mma.sync` m16n8k16 and `ldmatrix` (their section below
-// says how they near their bytes bound).  F2 keeps its fp32 register
-// FMAs and fp32 tiles, on s0 and W1 rounded where they are written to
-// shared memory: a product of two bf16 values is exact in fp32, so its
-// sums are those of a bf16 product with fp32 accumulation up to their
-// order.  B3's four products move from three TF32 passes to one bf16
-// pass on the tensor cores (`wmma` m16n16k16 bf16 fragments, fp32
-// accumulators) on bf16 tiles and weights in shared memory at a row
-// stride of C + 8 (wmma wants a multiple of 8 bf16 values; C + 4 will
-// not do).
+// says how they near their bytes bound): F2 and F3 are one body
+// (bf16_forward), F2 ending at v's sums; B3 runs B2's dr beside three
+// more products, each result in registers.
 //
 // Design.  The TPU kernels walk the batch in order on one core and
 // carry their sums in VMEM scratch.  Here a persistent grid of at most
@@ -72,7 +66,7 @@
 // on an H100, PERF.md §6).  From frame (K-1) d of an utterance on
 // the conv's loads go unpredicated.
 //
-// F2, F3 and B2 (fp32; F2 at bf16 too) take B3's tiles (below) over
+// F2, F3 and B2 (fp32) take B3's tiles (below) over
 // the flattened frames and its float4 elementwise steps, with fp32
 // products: a thread forms the four channels of its own R rows of a
 // product in registers (float4 loads of a row of the input tile and of
@@ -204,15 +198,6 @@ __device__ __forceinline__ float vc(const Args& a, int row, int C, int c) {
   return __ldg(a.vec + row * C + c);
 }
 
-// v rounded to bf16 (nearest even) and widened back: exact in fp32
-__device__ __forceinline__ float bf16r(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ float4 bf16r4(float4 v) {
-  return make_float4(bf16r(v.x), bf16r(v.y), bf16r(v.z), bf16r(v.w));
-}
-
 // four neighbouring bf16 values (8 bytes) <-> a float4
 __device__ __forceinline__ void st_bf16x4(__nv_bfloat16* p, float4 v) {
   __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(p);
@@ -232,21 +217,12 @@ __device__ __forceinline__ float4 ld_bf16x4(const __nv_bfloat16* p) {
   return widen_bf16x4(__ldg(reinterpret_cast<const uint2*>(p)));
 }
 
-// (C, C) row-major -> shared, row stride LD; rounded to bf16 (BF)
-template <int C, int LD, bool BF = false>
+// (C, C) row-major -> shared, row stride LD
+template <int C, int LD>
 __device__ __forceinline__ void load_padded(const float* __restrict__ g,
                                             float* s) {
   for (int i = threadIdx.x; i < C * C; i += kThreads) {
-    s[(i / C) * LD + i % C] = BF ? bf16r(g[i]) : g[i];
-  }
-}
-
-// (C, C) row-major -> shared as bf16, row stride LH
-template <int C, int LH>
-__device__ __forceinline__ void load_padded_bf16(
-    const float* __restrict__ g, __nv_bfloat16* s) {
-  for (int i = threadIdx.x; i < C * C; i += kThreads) {
-    s[(i / C) * LH + i % C] = __float2bfloat16_rn(__ldg(g + i));
+    s[(i / C) * LD + i % C] = g[i];
   }
 }
 
@@ -645,240 +621,6 @@ b3_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// B3 on bf16 operands: one bf16 pass on the tensor cores a product
-// ---------------------------------------------------------------------------
-
-using FragAccH = wm::fragment<wm::accumulator, 16, 16, 16, float>;
-template <typename Layout>
-using FragAH =
-    wm::fragment<wm::matrix_a, 16, 16, 16, __nv_bfloat16, Layout>;
-template <typename Layout>
-using FragBH =
-    wm::fragment<wm::matrix_b, 16, 16, 16, __nv_bfloat16, Layout>;
-
-// out (ROWS x C, fp32, row stride C + 4) = in · W (TRANS = false) or
-// · Wᵀ (TRANS = true), in and W bf16 at row stride C + 8, W as
-// [in][out]; the fragments dealt out as in tile_product
-template <int C, int ROWS, bool TRANS>
-__device__ __forceinline__ void tile_product_bf16(const __nv_bfloat16* in,
-                                                  const __nv_bfloat16* w,
-                                                  float* out, int warp) {
-  constexpr int LH = C + 8;
-  constexpr int LD = C + 4;
-  constexpr int NF = C / 16;
-  constexpr int PER = (ROWS / 16) * NF / kWarps;
-  constexpr int M_STEP = (kWarps / NF) * 16;
-  static_assert((ROWS / 16) * NF % kWarps == 0 && kWarps % NF == 0,
-                "the output fragments do not deal out evenly");
-  using LB = typename std::conditional<TRANS, wm::col_major,
-                                       wm::row_major>::type;
-  const int n0 = (warp % NF) * 16;
-  const __nv_bfloat16* a = in + (warp / NF) * 16 * LH;
-  const __nv_bfloat16* b = TRANS ? w + n0 * LH : w + n0;
-  FragAccH acc[PER];
-#pragma unroll
-  for (int j = 0; j < PER; ++j) wm::fill_fragment(acc[j], 0.f);
-#pragma unroll 2
-  for (int k = 0; k < C; k += 16) {
-    FragBH<LB> bf;
-    wm::load_matrix_sync(bf, b + (TRANS ? k : k * LH), LH);
-#pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      FragAH<wm::row_major> af;
-      wm::load_matrix_sync(af, a + j * M_STEP * LH + k, LH);
-      wm::mma_sync(acc[j], af, bf, acc[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    wm::store_matrix_sync(out + ((warp / NF) * 16 + j * M_STEP) * LD + n0,
-                          acc[j], LD, wm::mem_row_major);
-  }
-}
-
-// the per-channel vector and the taps, three fp32 tiles (v; dr, then
-// ds0; û: the block's reduction reuses the first two), then bf16 W2
-// and W1 and two bf16 tiles (dwg, then dv; s0) at row stride C + 8
-template <int C>
-constexpr size_t b3_bf16_smem_bytes() {
-  using S = TileShape<C>;
-  return sizeof(float) * ((kNumVec + kMaxTaps) * C + 3 * S::kRows * S::kLd) +
-         sizeof(__nv_bfloat16) * (2 * C + 2 * S::kRows) * (C + 8);
-}
-
-// B3 as b3_kernel, with dwg, s0 and dv rounded to bf16 into their tiles
-// (Σdv sums dv before) and W1, W2 as bf16: dr = dwg W2ᵀ, v = s0 W1,
-// dW1 += s0ᵀ dv and ds0 = dv W1ᵀ in one bf16 pass each, fp32
-// accumulators; r read as bf16.
-template <int C>
-__global__ void __launch_bounds__(kThreads, C == 128 ? 1 : 2)
-b3_bf16_kernel(Args a) {
-  using S = TileShape<C>;
-  constexpr int ROWS = S::kRows;
-  constexpr int LD = S::kLd;
-  constexpr int LQ = LD / 4;
-  constexpr int LH = C + 8;  // bf16 row stride: a multiple of 8 for wmma
-  constexpr int Q = S::kQuads;
-  constexpr int G = S::kGroups;
-  constexpr int R = ROWS / G;
-  constexpr int NF = C / 16;
-  static_assert(ROWS % G == 0 && LD % 4 == 0 && ROWS % 16 == 0,
-                "float4 rows, 16-row fragments");
-  extern __shared__ __align__(128) float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
-  float* cv = sm;                             // kNumVec x C, then the taps
-  float* tv = cv + (kNumVec + kMaxTaps) * C;  // ROWS x LD: v
-  float* td = tv + ROWS * LD;                 // ROWS x LD: dr, then ds0
-  float* tu = td + ROWS * LD;                 // ROWS x LD: û
-  __nv_bfloat16* w2h = reinterpret_cast<__nv_bfloat16*>(tu + ROWS * LD);
-  __nv_bfloat16* w1h = w2h + C * LH;          // C x LH each
-  __nv_bfloat16* ta = w1h + C * LH;           // ROWS x LH: dwg, then dv
-  __nv_bfloat16* tb = ta + ROWS * LH;         // ROWS x LH: s0
-  float4* tv4 = reinterpret_cast<float4*>(tv);
-  float4* td4 = reinterpret_cast<float4*>(td);
-  float4* tu4 = reinterpret_cast<float4*>(tu);
-
-  const int q = threadIdx.x % Q;
-  const int g = threadIdx.x / Q;
-  const int warp = threadIdx.x / 32;
-  const float n = a.n;
-  load_consts<C, true>(a, cv);
-  load_padded_bf16<C, LH>(a.pw2, w2h);
-  load_padded_bf16<C, LH>(a.pw1, w1h);
-  const float4* cv4 = reinterpret_cast<const float4*>(cv) + q;
-#define VEC4(row) cv4[(row) * Q]
-  const float4* x4 = reinterpret_cast<const float4*>(a.x);
-  const float4* dy4 = reinterpret_cast<const float4*>(a.dy);
-  const float4* w4 = reinterpret_cast<const float4*>(a.w);
-  float4* ds04 = reinterpret_cast<float4*>(a.ds0);
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  float4 sums[3] = {zero4, zero4, zero4};  // Σdv, Σds0, Σds0·û
-  FragAccH accw[S::kOwn];                  // this warp's fragments of dW1
-#pragma unroll
-  for (int j = 0; j < S::kOwn; ++j) wm::fill_fragment(accw[j], 0.f);
-
-  const int n_rows = a.B * a.T;
-  const int n_tiles = (n_rows + ROWS - 1) / ROWS;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int row0 = tile * ROWS;
-    __syncthreads();  // the previous tile's shared reads are done (and,
-                      // the first time, the constants are in place)
-    float4 rv[R];  // r, for the ReLU mask after two products
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const int lr = g + j * G;
-      const int row = row0 + lr;
-      float4 dwg = zero4, s0 = zero4, uhat = zero4;
-      rv[j] = zero4;
-      if (row < n_rows) {
-        const size_t at = static_cast<size_t>(row) * Q + q;
-        const float4 wv = __ldg(w4 + at);
-        const float4 xv = __ldg(x4 + at);
-        const float4 dyv = __ldg(dy4 + at);
-        rv[j] = ld_bf16x4(a.r16 + 4 * at);
-        const int t = row % a.T;  // the conv alone cares where t = 0 is
-        float4 xt[kMaxTaps];
-#pragma unroll
-        for (int tap = 0; tap < kMaxTaps; ++tap) {
-          const int back = (a.K - 1 - tap) * a.d;
-          xt[tap] = tap < a.K && back <= t
-              ? __ldg(x4 + at - static_cast<size_t>(back) * Q) : zero4;
-        }
-        const float4 pre = fma4(wv, VEC4(V_A2), VEC4(V_C2));
-        const float4 g2 = gate4(make_float4(pre.x + xv.x, pre.y + xv.y,
-                                            pre.z + xv.z, pre.w + xv.w), dyv);
-        dwg = bn_back4(VEC4(V_COEF2), n, g2, VEC4(V_SG),
-                       hat4(wv, VEC4(V_MU2), VEC4(V_INV2)), VEC4(V_SGW));
-        float4 u = VEC4(V_DWB);
-#pragma unroll
-        for (int tap = 0; tap < kMaxTaps; ++tap) {
-          if (tap < a.K) u = fma4(xt[tap], VEC4(kNumVec + tap), u);
-        }
-        s0 = fma4(u, VEC4(V_A0), VEC4(V_C0));
-        uhat = hat4(u, VEC4(V_MU0), VEC4(V_INV0));
-      }
-      st_bf16x4(ta + lr * LH + 4 * q, dwg);
-      st_bf16x4(tb + lr * LH + 4 * q, s0);
-      tu4[lr * LQ + q] = uhat;
-    }
-    __syncthreads();
-    tile_product_bf16<C, ROWS, true>(ta, w2h, td, warp);   // dr = dwg W2ᵀ
-    tile_product_bf16<C, ROWS, false>(tb, w1h, tv, warp);  // v = s0 W1
-    __syncthreads();  // every read of dwg is done
-    {
-      const float4 b1 = VEC4(V_B1), mu1 = VEC4(V_MU1), inv1 = VEC4(V_INV1);
-      const float4 k1 = VEC4(V_COEF1), sds1 = VEC4(V_SDS1);
-      const float4 sds1v = VEC4(V_SDS1V);
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int lr = g + j * G;
-        float4 dv = zero4;
-        if (row0 + lr < n_rows) {
-          const float4 ds1 = gate4(rv[j], td4[lr * LQ + q]);
-          const float4 v = tv4[lr * LQ + q];
-          const float4 vhat = hat4(make_float4(v.x + b1.x, v.y + b1.y,
-                                               v.z + b1.z, v.w + b1.w),
-                                   mu1, inv1);
-          dv = bn_back4(k1, n, ds1, sds1, vhat, sds1v);
-          sums[0].x += dv.x;
-          sums[0].y += dv.y;
-          sums[0].z += dv.z;
-          sums[0].w += dv.w;
-        }
-        st_bf16x4(ta + lr * LH + 4 * q, dv);
-      }
-    }
-    __syncthreads();
-    if (warp < S::kFrags) {  // dW1 += s0ᵀ·dv
-      // this warp's fragments share the column block warp % NF of dv;
-      // s0ᵀ: element (m, k) is s0[k][m], a col-major fragment of s0
-      for (int k = 0; k < ROWS; k += 16) {
-        FragBH<wm::row_major> bf;
-        wm::load_matrix_sync(bf, ta + k * LH + (warp % NF) * 16, LH);
-#pragma unroll
-        for (int j = 0; j < S::kOwn; ++j) {
-          FragAH<wm::col_major> af;
-          wm::load_matrix_sync(
-              af, tb + k * LH + ((warp + j * kWarps) / NF) * 16, LH);
-          wm::mma_sync(accw[j], af, bf, accw[j]);
-        }
-      }
-    }
-    tile_product_bf16<C, ROWS, true>(ta, w1h, td, warp);   // ds0 = dv W1ᵀ
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const int lr = g + j * G;
-      const int row = row0 + lr;
-      if (row < n_rows) {
-        const float4 ds0 = td4[lr * LQ + q];
-        sums[1].x += ds0.x;
-        sums[1].y += ds0.y;
-        sums[1].z += ds0.z;
-        sums[1].w += ds0.w;
-        sums[2] = fma4(ds0, tu4[lr * LQ + q], sums[2]);
-        ds04[static_cast<size_t>(row) * Q + q] = ds0;
-      }
-    }
-  }
-#undef VEC4
-
-  float* out = a.partials + static_cast<size_t>(blockIdx.x) * (C * C + 3 * C);
-#pragma unroll
-  for (int j = 0; j < S::kOwn; ++j) {
-    const int f = warp + j * kWarps;
-    if (f < S::kFrags) {
-      wm::store_matrix_sync(out + (f / NF) * 16 * C + (f % NF) * 16, accw[j],
-                            C, wm::mem_row_major);
-    }
-  }
-  // the three channel sums, through the first two fp32 tiles
-  static_assert(G * 3 * C <= 2 * ROWS * LD, "the reduction fits two tiles");
-  block_sums4<C, 3>(tv, sums, out + C * C, g, q);
-}
-
-// ---------------------------------------------------------------------------
 // F3 and B2 with fp32 register-blocked products
 // ---------------------------------------------------------------------------
 
@@ -1039,13 +781,11 @@ __device__ __forceinline__ int next_frame(int t, int G, int T) {
 // run(): one rule for both), else the taps are read from device memory.
 // F1 has no product to hide a copy behind, so it keeps two windows and
 // copies the tile after next while it works on this one (where they
-// fit and kF1Staged).  BF (F2 alone: F3 at bf16 is f3_bf16_kernel): s0
-// and W1 rounded to bf16 where they are written to shared memory.
-template <int C, int P, bool BF = false>
+// fit and kF1Staged).  At bf16 F2 and F3 are bf16_forward (below).
+template <int C, int P>
 __device__ __forceinline__ void tile_forward(const Args& a, bool staged) {
   using S = TileShape<C>;
   constexpr bool kFull = P == kF3;
-  static_assert(!(BF && kFull), "F3 at bf16 is f3_bf16_kernel");
   constexpr int ROWS = S::kRows * (P == kF1 ? kF1RowScale : 1);
   constexpr int LD = S::kLd;
   constexpr int LQ = LD / 4;
@@ -1070,7 +810,7 @@ __device__ __forceinline__ void tile_forward(const Args& a, bool staged) {
   const int q = threadIdx.x % Q;
   const int g = threadIdx.x / Q;
   load_consts<C, true>(a, cv);
-  if (P != kF1) load_padded<C, LD, BF>(a.pw1, w1);
+  if (P != kF1) load_padded<C, LD>(a.pw1, w1);
   if (kFull) load_padded<C, LD>(a.pw2, w2);
   const float4* cv4 = reinterpret_cast<const float4*>(cv) + q;
 #define VEC4(row) cv4[(row) * Q]
@@ -1154,7 +894,6 @@ __device__ __forceinline__ void tile_forward(const Args& a, bool staged) {
                    : conv4<C, false>(a, cv4, x4 + static_cast<size_t>(row) * Q
                                                  + q, t, H);
         s0 = fma4(u, VEC4(V_A0), VEC4(V_C0));
-        if constexpr (BF) s0 = bf16r4(s0);
       }
       ta4[lr * LQ + q] = s0;
       t = next_frame(t, G, a.T);
@@ -1224,13 +963,6 @@ template <int C>
 __global__ void __launch_bounds__(kThreads, C == 128 ? 1 : 2)
 f3_kernel(Args a, bool staged) {
   tile_forward<C, kF3>(a, staged);
-}
-
-// F2 on bf16 operands (see the head of this file)
-template <int C>
-__global__ void __launch_bounds__(kThreads, C == 128 ? 1 : 2)
-f2_bf16_kernel(Args a, bool staged) {
-  tile_forward<C, kF2, true>(a, staged);
 }
 
 // B2 with fp32 products in registers (see the head of this file)
@@ -1346,16 +1078,18 @@ b2_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// F3 and B2 at bf16: mma.sync m16n8k16 on the tensor cores
+// F2, F3, B2 and B3 at bf16: mma.sync m16n8k16 on the tensor cores
 // ---------------------------------------------------------------------------
 //
-// Bound: at bf16 F3's and B2's C x C products are far under the tensor
-// cores' peak (1.66 GFLOP a pass at the main shape, some 0.002 ms at
-// 989 TFLOP/s), so both are bound by the bytes they move: F3 reads x
-// and writes r (bf16) and w, 64.9 MB at B=512 x T=198 x C=64, 0.0194
-// ms at 3.35 TB/s; B2 reads dy, w, x and r (bf16), 90.8 MB, 0.0271 ms.
-// Their first bf16 versions ran the products as fp32 FMAs on the CUDA
-// cores, on operands rounded into fp32 tiles, in the fp32 kernels' time.
+// Bound: at bf16 the C x C products are far under the tensor cores'
+// peak (1.66 GFLOP a product at the main shape, some 0.002 ms at 989
+// TFLOP/s), so all four are bound by the bytes they move, at B=512 x
+// T=198 x C=64 and 3.35 TB/s: F2 reads x, 26.0 MB, 0.0078 ms; F3 reads x
+// and writes r (bf16) and w, 64.9 MB, 0.0194 ms; B2 reads dy, w, x and
+// r (bf16), 90.8 MB, 0.0271 ms; B3 reads dy, w, x and r and writes ds0,
+// 116.8 MB, 0.0349 ms.  Their first bf16 versions ran the products as
+// fp32 FMAs on the CUDA cores on operands rounded into fp32 tiles (F2,
+// F3, B2) or as `wmma` passes through fp32 result tiles (B3).
 //
 // Design.  Every product is `mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32`
 // with its operands from `ldmatrix` (`.trans` where the operand is
@@ -1371,10 +1105,14 @@ b2_kernel(Args a) {
 // loads, and a quad of lanes writes a row's 32 bytes of r or 64 of w:
 // whole sectors.
 //
-// F3 (`f3_bf16_kernel`): a warp owns 16 rows of a 128-row tile over the
+// F2 and F3 (`f2_bf16_kernel`, `f3_bf16_kernel`, one body:
+// bf16_forward): a warp owns 16 rows of a 128-row tile over the
 // flattened frames and keeps the chain in registers.  The conv and bn0
 // are formed in fp32 straight into s0's A fragments from the window of
-// x; v = s0 W1 goes to accumulators, takes b1, bn1 and the ReLU there
+// x, taps outside and slices inside (one window row's address serves
+// every slice); v = s0 W1 goes to accumulators.  F2 ends there with Σv
+// and Σv² of v + b1 (the same v, in the same order, that F3 goes on to
+// normalise); F3's v takes b1, bn1 and the ReLU there
 // and is rounded to bf16, and since two neighbouring n8 accumulator
 // tiles are one k16 A fragment, r feeds w = r W2 without passing through
 // shared memory; r (bf16) and w (fp32) go to device memory from the
@@ -1388,7 +1126,7 @@ b2_kernel(Args a) {
 // SM, not to the copies, so one window it is.  A window row's 16-byte
 // chunks swap halves in odd rows, so the float4 loads of two
 // neighbouring rows at one channel quad fall on different banks at any
-// dilation.
+// dilation.  F2 stages its window by F3's rule.
 //
 // B2 (`b2_bf16_kernel`): 64-row tiles; the next tile's rows of w, x and
 // dy (fp32) and r (bf16, a ring of two tiles) are copied by `cp.async`
@@ -1402,6 +1140,25 @@ b2_kernel(Args a) {
 // the C x C fp32 accumulators in registers across the block's tiles (16
 // floats a thread at C = 64, 64 at C = 128).  Rows past the end are zero
 // in both tiles and left out of every sum.
+//
+// B3 (`b3_bf16_kernel`): four products, dr = dwg W2ᵀ and v = s0 W1 on
+// the tile, dW1 += s0ᵀ dv over its rows and ds0 = dv W1ᵀ, each result in
+// registers.  One copy each of W1 and W2, rows and columns in fragment
+// order, serves both of its products (`ldmatrix` on rows for Wᵀ,
+// `.trans` for W); the dwg (then dv) and s0 tiles are bf16 in fragment
+// order too, so the elementwise steps run at the accumulators' own rows
+// and channel quads: g2, dwg, the conv, s0 and û in fp32 there (û kept
+// in registers for Σds0·û at the end), ds1, v̂ and dv on the dr and v
+// accumulators (Σdv before dv is rounded), ds0 to device memory from its
+// accumulators.  dW1 is B2b's rᵀ dwg scheme, written back to natural
+// order in the partial.  32-row tiles (64 at C = 32): at 64 rows and
+// C = 64 a thread's two slices and dW1's share spilled 76 B.  One stage:
+// the next tile's w, dy (fp32, odd rows' chunks swapped) and window of x
+// are copied by `cp.async` once the elementwise step has read this
+// tile's, its r (bf16) once ds1 has; they land while the products run.
+// A second stage, in flight from the top of the tile, left no room for
+// the window at C = 128 beyond a halo of 12 and was no faster at
+// C = 64 (PERF.md §6, row 12b).
 //
 // The sums keep the scheme above: lane partials, a shuffle over the
 // fragment's row groups, the warps in a fixed order through shared
@@ -1552,13 +1309,13 @@ __device__ __forceinline__ float4 acc_quad(const float (&lo)[4],
   return make_float4(lo[2 * h], lo[2 * h + 1], hi[2 * h], hi[2 * h + 1]);
 }
 
-// F3's shared memory at bf16 without its windows: the per-channel vector
-// and the taps, W1 and W2 as bf16 at row stride C + 8 (the block's
-// reduction reuses the weights' space)
-template <int C>
-constexpr size_t f3_bf16_base_bytes() {
+// F2's and F3's shared memory at bf16 without their window: the
+// per-channel vector and the taps, then W1 (F3: and W2) as bf16 at row
+// stride C + 8 (the block's reduction reuses the weights' space)
+template <int C, int P>
+constexpr size_t fwd_bf16_base_bytes() {
   return sizeof(float) * (kNumVec + kMaxTaps) * C +
-         2 * sizeof(__nv_bfloat16) * C * (C + 8);
+         (P == kF3 ? 2 : 1) * sizeof(__nv_bfloat16) * C * (C + 8);
 }
 
 // the window of x: a tile's rows and the halo before them
@@ -1567,11 +1324,11 @@ size_t f3_bf16_window_bytes(int halo) {
   return sizeof(float) * C * static_cast<size_t>(kF3bRows + halo);
 }
 
-// the window is staged where it fits a block, else the taps are read
-// from device memory
+// the window is staged where it fits a block beside F3's weights, else
+// the taps are read from device memory: one rule for F2 and F3
 template <int C>
 bool f3_bf16_staged(int halo) {
-  return f3_bf16_base_bytes<C>() + f3_bf16_window_bytes<C>(halo) <=
+  return fwd_bf16_base_bytes<C, kF3>() + f3_bf16_window_bytes<C>(halo) <=
          kSmemLimit;
 }
 
@@ -1591,22 +1348,35 @@ __device__ __forceinline__ void stage_window(float4* dst, const float4* src,
   cp_async_commit();
 }
 
-template <int C>
-__global__ void __launch_bounds__(kThreads, C == 128 ? 1 : 2)
-f3_bf16_kernel(Args a, bool staged) {
+// the float4 at channel quad cq of row lr of a window (or of rows staged
+// by stage_window)
+template <int Q>
+__device__ __forceinline__ float4 window_quad(const float4* win, int lr,
+                                              int cq) {
+  return win[lr * Q + (cq ^ ((lr & 1) << 2))];
+}
+
+// F2 (P = kF2) and F3 (P = kF3) at bf16, one body: the conv and bn0
+// straight into s0's A fragments, v = s0 W1 in accumulators.  F2 ends
+// there with Σv and Σv² of v + b1, F3 goes on to r, w and Σw, Σw².  Both
+// form v in the same order, so the v whose sums F2 returns is, bit for
+// bit, the v that F3 normalises.  F2 loads no W2, writes no r and no w.
+template <int C, int P>
+__device__ __forceinline__ void bf16_forward(const Args& a, bool staged) {
+  constexpr bool kFull = P == kF3;
   constexpr int Q = C / 4;
   constexpr int NS = C / 16;  // k16 slices; pairs of n8 tiles
   constexpr int LH = C + 8;
   static_assert(NS % 2 == 0 && Q >= 8, "a window row has two halves");
   static_assert(kWarps * 2 * C * sizeof(float) <=
-                    2 * sizeof(__nv_bfloat16) * C * LH,
+                    (kFull ? 2 : 1) * sizeof(__nv_bfloat16) * C * LH,
                 "the reduction fits the weights' space");
   extern __shared__ __align__(128) float4 smem4[];
   float* cv = reinterpret_cast<float*>(smem4);  // kNumVec x C, the taps
   __nv_bfloat16* w1h =
       reinterpret_cast<__nv_bfloat16*>(cv + (kNumVec + kMaxTaps) * C);
-  __nv_bfloat16* w2h = w1h + C * LH;
-  float4* win = reinterpret_cast<float4*>(w2h + C * LH);  // the window
+  __nv_bfloat16* w2h = w1h + C * LH;  // (F3)
+  float4* win = reinterpret_cast<float4*>(w1h + (kFull ? 2 : 1) * C * LH);
 
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
@@ -1623,14 +1393,15 @@ f3_bf16_kernel(Args a, bool staged) {
   }
   load_consts<C, true>(a, cv);
   load_frag_weights<C, LH, true, true>(a.pw1, w1h);
-  load_frag_weights<C, LH, true, true>(a.pw2, w2h);
+  if (kFull) load_frag_weights<C, LH, true, true>(a.pw2, w2h);
   // row `row` of the per-channel vector at this thread's quad of slice s
   const float4* cv4 = reinterpret_cast<const float4*>(cv) + tq;
 #define VQ(row, s) cv4[(row) * Q + 4 * (s)]
 
-  // Σw then Σw² at the channel quads 16 m + 4 tq .. +3 (float4 m, then
-  // NS + m) of this warp's rows, summed over its row groups each tile
-  // and dealt out: this lane keeps values [g NS, (g + 1) NS)
+  // F2: Σv then Σv², F3: Σw then Σw², at the channel quads 16 m + 4 tq
+  // .. +3 (float4 m, then NS + m) of this warp's rows, summed over its
+  // row groups each tile and dealt out: this lane keeps values [g NS,
+  // (g + 1) NS)
   float sums[NS];
 #pragma unroll
   for (int k = 0; k < NS; ++k) sums[k] = 0.f;
@@ -1647,41 +1418,53 @@ f3_bf16_kernel(Args a, bool staged) {
     }
     // s0 = a0 u + c0 (u the causal depthwise conv of x plus dw_b),
     // straight into A fragments; a tap before the utterance's first frame
-    // is zero
+    // is zero.  Taps outside, slices inside: one window row's address
+    // serves the NS slices.
     unsigned af[NS][4];
+    {
+      float4 u[NS][2];
 #pragma unroll
-    for (int s = 0; s < NS; ++s) {
-      float4 u[2] = {VQ(V_DWB, s), VQ(V_DWB, s)};
+      for (int s = 0; s < NS; ++s) u[s][0] = u[s][1] = VQ(V_DWB, s);
+      // tap `tap` of row lr + 8 h reads window row lr + 8 h + tap d; it is
+      // zero while (K - 1 - tap) d > t, and a row past the end (t = -1)
+      // reads none
+      int first[2];
 #pragma unroll
-      for (int tap = 0; tap < kMaxTaps; ++tap) {
-        if (tap < a.K) {
-          const int back = (a.K - 1 - tap) * a.d;
-          const float4 wt = VQ(kNumVec + tap, s);
+      for (int h = 0; h < 2; ++h) {
+        first[h] = tt[h] < 0 ? a.K : tt[h] >= H ? 0 : a.K - 1 - tt[h] / a.d;
+      }
+#pragma unroll 1
+      for (int tap = first[0] < first[1] ? first[0] : first[1]; tap < a.K;
+           ++tap) {
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            if (back <= tt[h]) {
-              float4 xv;
-              if (staged) {
-                const int wr = lr + 8 * h + H - back;  // its window row
-                xv = win[wr * Q + 4 * (s ^ (wr & 1)) + tq];
-              } else {
-                xv = __ldg(x4 + static_cast<size_t>(rows[h] - back) * Q +
-                           4 * s + tq);
-              }
-              u[h] = fma4(xv, wt, u[h]);
+        for (int h = 0; h < 2; ++h) {
+          if (tap >= first[h]) {
+            const int wr = lr + 8 * h + tap * a.d;
+            const float4* xr = staged ? win + wr * Q + tq
+                                      : x4 + static_cast<size_t>(
+                                                 rows[h] - H + tap * a.d) *
+                                                 Q + tq;
+            const int odd = staged ? wr & 1 : 0;
+#pragma unroll
+            for (int s = 0; s < NS; ++s) {
+              const float4 xv = staged ? xr[4 * (s ^ odd)] : __ldg(xr + 4 * s);
+              u[s][h] = fma4(xv, VQ(kNumVec + tap, s), u[s][h]);
             }
           }
         }
       }
-      float4 s0[2];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        s0[h] = tt[h] >= 0 ? fma4(u[h], VQ(V_A0, s), VQ(V_C0, s)) : zero4;
+      for (int s = 0; s < NS; ++s) {
+        float4 s0[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          s0[h] = tt[h] >= 0 ? fma4(u[s][h], VQ(V_A0, s), VQ(V_C0, s)) : zero4;
+        }
+        af[s][0] = pack_bf16x2(s0[0].x, s0[0].y);
+        af[s][1] = pack_bf16x2(s0[1].x, s0[1].y);
+        af[s][2] = pack_bf16x2(s0[0].z, s0[0].w);
+        af[s][3] = pack_bf16x2(s0[1].z, s0[1].w);
       }
-      af[s][0] = pack_bf16x2(s0[0].x, s0[0].y);
-      af[s][1] = pack_bf16x2(s0[1].x, s0[1].y);
-      af[s][2] = pack_bf16x2(s0[0].z, s0[0].w);
-      af[s][3] = pack_bf16x2(s0[1].z, s0[1].w);
     }
     if (staged) {
       __syncthreads();  // every read of this window is done
@@ -1696,51 +1479,69 @@ f3_bf16_kernel(Args a, bool staged) {
       acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
     }
     frag_product<C, LH>(af, w1h, acc, lane);  // v - b1 = s0 W1
-    // r = relu(a1 (v + b1) + c1) in bf16: written, and w's A fragments
+    float part[8 * NS];  // this tile's two sums of rows g and g + 8
+    if constexpr (!kFull) {  // F2: Σv, Σv² of v = s0 W1 + b1
 #pragma unroll
-    for (int m = 0; m < NS; ++m) {
-      const float4 b1 = VQ(V_B1, m), a1 = VQ(V_A1, m), c1 = VQ(V_C1, m);
-      float4 r[2];
+      for (int m = 0; m < NS; ++m) {
+        const float4 b1 = VQ(V_B1, m);
+        float4 sv = zero4, svv = zero4;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        r[h] = relu4(fma4(add4(acc_quad(acc[2 * m], acc[2 * m + 1], h), b1),
-                          a1, c1));
+        for (int h = 0; h < 2; ++h) {
+          if (tt[h] >= 0) {
+            const float4 v = add4(acc_quad(acc[2 * m], acc[2 * m + 1], h), b1);
+            sv = add4(sv, v);
+            svv = fma4(v, v, svv);
+          }
+        }
+        *reinterpret_cast<float4*>(part + 4 * m) = sv;
+        *reinterpret_cast<float4*>(part + 4 * (NS + m)) = svv;
       }
-      af[m][0] = pack_bf16x2(r[0].x, r[0].y);
-      af[m][1] = pack_bf16x2(r[1].x, r[1].y);
-      af[m][2] = pack_bf16x2(r[0].z, r[0].w);
-      af[m][3] = pack_bf16x2(r[1].z, r[1].w);
+    } else {
+      // r = relu(a1 (v + b1) + c1) in bf16: written, and w's A fragments
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        if (tt[h] >= 0) {
-          *reinterpret_cast<uint2*>(a.out_r16 +
-                                    static_cast<size_t>(rows[h]) * C +
-                                    16 * m + 4 * tq) =
-              make_uint2(af[m][h], af[m][2 + h]);
+      for (int m = 0; m < NS; ++m) {
+        const float4 b1 = VQ(V_B1, m), a1 = VQ(V_A1, m), c1 = VQ(V_C1, m);
+        float4 r[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          r[h] = relu4(fma4(add4(acc_quad(acc[2 * m], acc[2 * m + 1], h), b1),
+                            a1, c1));
+        }
+        af[m][0] = pack_bf16x2(r[0].x, r[0].y);
+        af[m][1] = pack_bf16x2(r[1].x, r[1].y);
+        af[m][2] = pack_bf16x2(r[0].z, r[0].w);
+        af[m][3] = pack_bf16x2(r[1].z, r[1].w);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (tt[h] >= 0) {
+            *reinterpret_cast<uint2*>(a.out_r16 +
+                                      static_cast<size_t>(rows[h]) * C +
+                                      16 * m + 4 * tq) =
+                make_uint2(af[m][h], af[m][2 + h]);
+          }
         }
       }
-    }
 #pragma unroll
-    for (int j = 0; j < 2 * NS; ++j) {
-      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-    }
-    frag_product<C, LH>(af, w2h, acc, lane);  // w - b2 = r W2
-    float part[8 * NS];  // this tile's Σw, Σw² of rows g and g + 8
-#pragma unroll
-    for (int m = 0; m < NS; ++m) {
-      const float4 b2 = VQ(V_B2, m);
-      float4 sw = zero4, sww = zero4;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        if (tt[h] >= 0) {
-          const float4 w = add4(acc_quad(acc[2 * m], acc[2 * m + 1], h), b2);
-          w4[static_cast<size_t>(rows[h]) * Q + 4 * m + tq] = w;
-          sw = add4(sw, w);
-          sww = fma4(w, w, sww);
-        }
+      for (int j = 0; j < 2 * NS; ++j) {
+        acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
       }
-      *reinterpret_cast<float4*>(part + 4 * m) = sw;
-      *reinterpret_cast<float4*>(part + 4 * (NS + m)) = sww;
+      frag_product<C, LH>(af, w2h, acc, lane);  // w - b2 = r W2
+#pragma unroll
+      for (int m = 0; m < NS; ++m) {
+        const float4 b2 = VQ(V_B2, m);
+        float4 sw = zero4, sww = zero4;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (tt[h] >= 0) {
+            const float4 w = add4(acc_quad(acc[2 * m], acc[2 * m + 1], h), b2);
+            w4[static_cast<size_t>(rows[h]) * Q + 4 * m + tq] = w;
+            sw = add4(sw, w);
+            sww = fma4(w, w, sww);
+          }
+        }
+        *reinterpret_cast<float4*>(part + 4 * m) = sw;
+        *reinterpret_cast<float4*>(part + 4 * (NS + m)) = sww;
+      }
     }
     sum_scatter_rows(part, lane);
 #pragma unroll
@@ -1764,6 +1565,18 @@ f3_bf16_kernel(Args a, bool staged) {
     for (int w = 0; w < kWarps; ++w) acc += red[w * 2 * C + o];
     out[o] = acc;
   }
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads, C == 128 ? 1 : 2)
+f2_bf16_kernel(Args a, bool staged) {
+  bf16_forward<C, kF2>(a, staged);
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads, C == 128 ? 1 : 2)
+f3_bf16_kernel(Args a, bool staged) {
+  bf16_forward<C, kF3>(a, staged);
 }
 
 // B2's shared memory at bf16: the per-channel vector, the staged w, x
@@ -2016,6 +1829,374 @@ b2_bf16_kernel(Args a) {
     float acc = 0.f;
     for (int b = 0; b < ROWS / kFragRows; ++b) acc += red2[b * 2 * C + o];
     out[C * C + C + o] = acc;
+  }
+}
+
+// rows of a B3 tile at bf16: 32 (64 at C = 32, where 32 rows leave a
+// warp no whole slice), so that a thread's registers hold its share of
+// dW1 beside two rows' chain without spilling
+template <int C>
+__host__ __device__ constexpr int b3_bf16_rows() {
+  return C == 32 ? 64 : 32;
+}
+
+// B3's shared memory at bf16 without its window: the per-channel vector
+// and the taps, the staged w and dy rows (fp32, stage_window's chunk
+// order; the block's reduction reuses them), then bf16 at row stride
+// C + 8: W1 and W2 (rows and columns in fragment order), the dwg tile
+// (then dv), the s0 tile and the r tile
+template <int C>
+constexpr size_t b3_bf16_base_bytes() {
+  constexpr int ROWS = b3_bf16_rows<C>();
+  return sizeof(float) * ((kNumVec + kMaxTaps) * C + 2 * ROWS * C) +
+         sizeof(__nv_bfloat16) * (2 * C + 3 * ROWS) * (C + 8);
+}
+
+// B3's window of x: a tile's rows and the halo before them
+template <int C>
+size_t b3_bf16_window_bytes(int halo) {
+  return sizeof(float) * C * static_cast<size_t>(b3_bf16_rows<C>() + halo);
+}
+
+// B3 stages its window of x where it fits a block, else it reads x and
+// its taps from device memory
+template <int C>
+bool b3_bf16_staged(int halo) {
+  return b3_bf16_base_bytes<C>() + b3_bf16_window_bytes<C>(halo) <=
+         kSmemLimit;
+}
+
+// a float4 channel quad (channels 4t .. 4t+3 of a slice) into a bf16
+// tile in fragment order: positions 2t, 2t+1 and 2t+8, 2t+9
+__device__ __forceinline__ void st_frag_quad(__nv_bfloat16* p, float4 v) {
+  *reinterpret_cast<unsigned*>(p) = pack_bf16x2(v.x, v.y);
+  *reinterpret_cast<unsigned*>(p + 8) = pack_bf16x2(v.z, v.w);
+}
+
+// B3 at bf16 (see the head of this file): every product on the tensor
+// cores, operands by `ldmatrix`, results in registers.
+template <int C>
+__global__ void __launch_bounds__(kThreads, C == 128 ? 1 : 2)
+b3_bf16_kernel(Args a, bool staged) {
+  constexpr int ROWS = b3_bf16_rows<C>();
+  constexpr int Q = C / 4;
+  constexpr int LH = C + 8;
+  constexpr int NS = C / 16;
+  // dr, v and ds0: ROWS / 16 row blocks, WPM warps to a block, NP
+  // slices (pairs of n8 tiles) a warp; the elementwise steps and the
+  // sums at the same rows and channels
+  constexpr int WPM = kWarps / (ROWS / kFragRows);
+  constexpr int NP = NS / WPM;
+  // dW1: NS row blocks of n8 tiles, OWPM warps to a block, ONT n8 tiles
+  // a warp
+  constexpr int OWPM = kWarps / NS;
+  constexpr int ONT = (C / 8) / OWPM;
+  // a lane's values of Σdv, Σds0 and Σds0·û a tile (12 NP), padded to
+  // whole row groups
+  constexpr int NV = 12 * NP;
+  constexpr int NPART = (NV + 7) / 8 * 8;
+  static_assert(NP >= 1 && NP * WPM == NS && OWPM >= 1 &&
+                    (ONT == 1 || ONT % 2 == 0) && Q >= 8,
+                "the tiles deal out evenly");
+  static_assert((ROWS / kFragRows) * 3 * C <= 2 * ROWS * C,
+                "the reduction fits the staged rows");
+  extern __shared__ __align__(128) float4 smem4[];
+  float* cv = reinterpret_cast<float*>(smem4);  // kNumVec x C, the taps
+  float4* sw4 = reinterpret_cast<float4*>(cv + (kNumVec + kMaxTaps) * C);
+  float4* sdy4 = sw4 + ROWS * Q;  // ROWS x Q each: w, dy
+  __nv_bfloat16* w1h = reinterpret_cast<__nv_bfloat16*>(sdy4 + ROWS * Q);
+  __nv_bfloat16* w2h = w1h + C * LH;   // C x LH each
+  __nv_bfloat16* tg = w2h + C * LH;    // ROWS x LH: dwg, then dv
+  __nv_bfloat16* ts = tg + ROWS * LH;  // ROWS x LH: s0
+  __nv_bfloat16* tr = ts + ROWS * LH;  // ROWS x LH: r
+  float4* win = reinterpret_cast<float4*>(tr + ROWS * LH);  // x, staged
+
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int g = lane / 4, tq = lane % 4;
+  const float n = a.n;
+  const int mb = warp / WPM;          // the row block of dr, v and ds0
+  const int p0 = (warp % WPM) * NP;   // its first slice
+  const int om = warp / OWPM;         // dW1's row block
+  const int nt0 = (warp % OWPM) * ONT;  // its first n8 tile
+  const float4* x4 = reinterpret_cast<const float4*>(a.x);
+  const float4* dy4 = reinterpret_cast<const float4*>(a.dy);
+  const float4* w4 = reinterpret_cast<const float4*>(a.w);
+  float4* ds04 = reinterpret_cast<float4*>(a.ds0);
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  const int n_rows = a.B * a.T;
+  const int n_tiles = (n_rows + ROWS - 1) / ROWS;
+  const int H = (a.K - 1) * a.d;
+  auto stage = [&](int tile) {  // a tile's w and dy rows, its window of x
+    stage_window<Q>(sw4, w4, tile * ROWS, ROWS, n_rows);
+    stage_window<Q>(sdy4, dy4, tile * ROWS, ROWS, n_rows);
+    if (staged) stage_window<Q>(win, x4, tile * ROWS - H, ROWS + H, n_rows);
+  };
+  // the first tile's rows are in flight while the constants load
+  if (blockIdx.x < n_tiles) {
+    stage(blockIdx.x);
+    stage_rows_bf16<C, LH>(tr, a.r16, blockIdx.x * ROWS, ROWS, n_rows);
+  }
+  load_consts<C, true>(a, cv);
+  // one copy of each weight serves both of its products
+  load_frag_weights<C, LH, true, true>(a.pw1, w1h);
+  load_frag_weights<C, LH, true, true>(a.pw2, w2h);
+  const float4* cv4 = reinterpret_cast<const float4*>(cv) + tq;
+#define VQ(row, s) cv4[(row) * Q + 4 * (s)]
+
+  float sums[NPART / 8];  // this lane's share of the three sums
+  float accw[ONT][4];     // this warp's tiles of dW1 (fragment order)
+#pragma unroll
+  for (int k = 0; k < NPART / 8; ++k) sums[k] = 0.f;
+#pragma unroll
+  for (int j = 0; j < ONT; ++j) {
+    accw[j][0] = accw[j][1] = accw[j][2] = accw[j][3] = 0.f;
+  }
+  // ldmatrix addresses: the A operands (dwg, s0, dv) of this warp's row
+  // block; W2's and W1's rows (B of dr and ds0: Wᵀ); W1's columns (B of
+  // v, .trans)
+  const int arow =
+      (mb * kFragRows + (lane & 7) + (lane & 8)) * LH + (lane >> 4) * 8;
+  const int brow = (16 * p0 + (lane & 7) + (lane >> 4) * 8) * LH + (lane & 8);
+  const int bcol = ((lane & 7) + (lane & 8)) * LH + 16 * p0 + (lane >> 4) * 8;
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row0 = tile * ROWS;
+    cp_async_wait<0>();
+    __syncthreads();  // every thread's copies have landed, and the last
+                      // tile's reads of the tiles are done (the first
+                      // time: the constants and weights are in place)
+    int lrs[2], rows[2], tt[2];  // rows g and g + 8 of the row block, their
+                                 // frames (-1 past the end)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      lrs[h] = mb * kFragRows + g + 8 * h;
+      rows[h] = row0 + lrs[h];
+      tt[h] = rows[h] < n_rows ? rows[h] % a.T : -1;
+    }
+    // g2, dwg, u, s0 and û in fp32 at this thread's rows and channel
+    // quads 4 (p0 + j) + tq; dwg and s0 rounded into their tiles (zero
+    // past the end), û kept for the end of the tile
+    float4 uhat[2][NP];
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+      const int s = p0 + j;
+      const int cq = 4 * s + tq;
+      float4 u[2] = {VQ(V_DWB, s), VQ(V_DWB, s)};
+#pragma unroll
+      for (int tap = 0; tap < kMaxTaps; ++tap) {
+        if (tap < a.K) {
+          const int back = (a.K - 1 - tap) * a.d;
+          const float4 wk = VQ(kNumVec + tap, s);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if (back <= tt[h]) {
+              u[h] = fma4(staged ? window_quad<Q>(win, lrs[h] + H - back, cq)
+                                 : __ldg(x4 + static_cast<size_t>(
+                                                  rows[h] - back) * Q + cq),
+                          wk, u[h]);
+            }
+          }
+        }
+      }
+      float4 dwg[2], s0[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        dwg[h] = s0[h] = uhat[h][j] = zero4;
+        if (tt[h] >= 0) {
+          const float4 wv = window_quad<Q>(sw4, lrs[h], cq);
+          const float4 dyv = window_quad<Q>(sdy4, lrs[h], cq);
+          const float4 xv =
+              staged ? window_quad<Q>(win, lrs[h] + H, cq)
+                     : __ldg(x4 + static_cast<size_t>(rows[h]) * Q + cq);
+          const float4 g2 =
+              gate4(add4(fma4(wv, VQ(V_A2, s), VQ(V_C2, s)), xv), dyv);
+          dwg[h] = bn_back4(VQ(V_COEF2, s), n, g2, VQ(V_SG, s),
+                            hat4(wv, VQ(V_MU2, s), VQ(V_INV2, s)),
+                            VQ(V_SGW, s));
+          s0[h] = fma4(u[h], VQ(V_A0, s), VQ(V_C0, s));
+          uhat[h][j] = hat4(u[h], VQ(V_MU0, s), VQ(V_INV0, s));
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        st_frag_quad(tg + lrs[h] * LH + 16 * s + 2 * tq, dwg[h]);
+        st_frag_quad(ts + lrs[h] * LH + 16 * s + 2 * tq, s0[h]);
+      }
+    }
+    __syncthreads();  // the dwg and s0 tiles are in place, the staged rows
+                      // read
+    const int next = tile + gridDim.x;
+    if (next < n_tiles) stage(next);  // they land while the products run
+
+    // dr = dwg W2ᵀ and v = s0 W1 - b1, both in registers
+    float dr[2 * NP][4], v[2 * NP][4];
+#pragma unroll
+    for (int j = 0; j < 2 * NP; ++j) {
+      dr[j][0] = dr[j][1] = dr[j][2] = dr[j][3] = 0.f;
+      v[j][0] = v[j][1] = v[j][2] = v[j][3] = 0.f;
+    }
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      unsigned ag[4], as[4];
+      ldsm_x4(ag, tg + arow + 16 * s);
+      ldsm_x4(as, ts + arow + 16 * s);
+#pragma unroll
+      for (int j = 0; j < NP; ++j) {
+        unsigned b[4];
+        ldsm_x4(b, w2h + brow + 16 * j * LH + 16 * s);
+        mma_bf16(dr[2 * j], ag, b[0], b[1]);
+        mma_bf16(dr[2 * j + 1], ag, b[2], b[3]);
+        ldsm_x4_trans(b, w1h + bcol + 16 * s * LH + 16 * j);
+        mma_bf16(v[2 * j], as, b[0], b[1]);
+        mma_bf16(v[2 * j + 1], as, b[2], b[3]);
+      }
+    }
+    // ds1 = dr·[r > 0], v̂, dv = k1 (n ds1 - Σds1 - v̂ Σds1v); db1 sums
+    // dv before it is rounded
+    float part[NPART];  // this tile's Σdv, Σds0, Σds0·û: float4 t NP + j
+#pragma unroll
+    for (int k = 0; k < NPART; ++k) part[k] = 0.f;
+    unsigned dvh[2][NP][2];  // dv in bf16, fragment order
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+      const int s = p0 + j;
+      const float4 b1 = VQ(V_B1, s), mu1 = VQ(V_MU1, s);
+      const float4 inv1 = VQ(V_INV1, s), k1 = VQ(V_COEF1, s);
+      const float4 sds1 = VQ(V_SDS1, s), sds1v = VQ(V_SDS1V, s);
+      float4 sdv = zero4;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float4 dv = zero4;
+        if (tt[h] >= 0) {
+          const float4 rv = widen_bf16x4(*reinterpret_cast<const uint2*>(
+              tr + lrs[h] * LH + 4 * (4 * s + tq)));
+          const float4 ds1 =
+              gate4(rv, acc_quad(dr[2 * j], dr[2 * j + 1], h));
+          const float4 vhat =
+              hat4(add4(acc_quad(v[2 * j], v[2 * j + 1], h), b1), mu1, inv1);
+          dv = bn_back4(k1, n, ds1, sds1, vhat, sds1v);
+          sdv = add4(sdv, dv);
+        }
+        dvh[h][j][0] = pack_bf16x2(dv.x, dv.y);
+        dvh[h][j][1] = pack_bf16x2(dv.z, dv.w);
+      }
+      *reinterpret_cast<float4*>(part + 4 * j) = sdv;
+    }
+    __syncthreads();  // every read of dwg and of r is done
+    if (next < n_tiles) {  // it lands while dW1 and ds0 run
+      stage_rows_bf16<C, LH>(tr, a.r16, next * ROWS, ROWS, n_rows);
+    }
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        __nv_bfloat16* p = tg + lrs[h] * LH + 16 * (p0 + j) + 2 * tq;
+        *reinterpret_cast<unsigned*>(p) = dvh[h][j][0];
+        *reinterpret_cast<unsigned*>(p + 8) = dvh[h][j][1];
+      }
+    }
+    __syncthreads();  // the dv tile is in place
+    {  // dW1 += s0ᵀ dv over the tile's rows, both by `ldmatrix.trans`
+      // (B2b's rᵀ dwg): A (i x rows) = s0ᵀ, B (rows x o) = dv
+      const __nv_bfloat16* pa =
+          ts + ((lane & 7) + (lane >> 4) * 8) * LH + om * 16 + (lane & 8);
+      const __nv_bfloat16* pb =
+          tg + ((lane & 7) + (lane & 8)) * LH + 8 * nt0 + (lane >> 4) * 8;
+#pragma unroll
+      for (int s = 0; s < ROWS / 16; ++s) {
+        unsigned af[4];
+        ldsm_x4_trans(af, pa + 16 * s * LH);
+        if constexpr (ONT == 1) {
+          unsigned b[2];
+          ldsm_x2_trans(b, pb + 16 * s * LH);
+          mma_bf16(accw[0], af, b[0], b[1]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < ONT / 2; ++j) {
+            unsigned b[4];
+            ldsm_x4_trans(b, pb + 16 * s * LH + 16 * j);
+            mma_bf16(accw[2 * j], af, b[0], b[1]);
+            mma_bf16(accw[2 * j + 1], af, b[2], b[3]);
+          }
+        }
+      }
+    }
+    // ds0 = dv W1ᵀ
+    float d0[2 * NP][4];
+#pragma unroll
+    for (int j = 0; j < 2 * NP; ++j) {
+      d0[j][0] = d0[j][1] = d0[j][2] = d0[j][3] = 0.f;
+    }
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      unsigned ad[4];
+      ldsm_x4(ad, tg + arow + 16 * s);
+#pragma unroll
+      for (int j = 0; j < NP; ++j) {
+        unsigned b[4];
+        ldsm_x4(b, w1h + brow + 16 * j * LH + 16 * s);
+        mma_bf16(d0[2 * j], ad, b[0], b[1]);
+        mma_bf16(d0[2 * j + 1], ad, b[2], b[3]);
+      }
+    }
+    // ds0 to device memory as channel quads; Σds0 and Σds0·û
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+      float4 sd = zero4, sdu = zero4;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (tt[h] >= 0) {
+          const float4 ds0 = acc_quad(d0[2 * j], d0[2 * j + 1], h);
+          ds04[static_cast<size_t>(rows[h]) * Q + 4 * (p0 + j) + tq] = ds0;
+          sd = add4(sd, ds0);
+          sdu = fma4(ds0, uhat[h][j], sdu);
+        }
+      }
+      *reinterpret_cast<float4*>(part + 4 * (NP + j)) = sd;
+      *reinterpret_cast<float4*>(part + 4 * (2 * NP + j)) = sdu;
+    }
+    sum_scatter_rows(part, lane);
+#pragma unroll
+    for (int k = 0; k < NPART / 8; ++k) sums[k] += part[k];
+  }
+#undef VQ
+
+  // dW1's tiles into the block's partial in natural order: position
+  // 16 om + g (+ 8) is channel i = 16 om + perm16(g (+ 8)), positions
+  // 8 nt + 2 tq, + 1 are channels o, o + 1
+  float* out =
+      a.partials + static_cast<size_t>(blockIdx.x) * (C * C + 3 * C);
+#pragma unroll
+  for (int j = 0; j < ONT; ++j) {
+    const int nt = nt0 + j;
+    const int o = 16 * (nt / 2) + 4 * tq + 2 * (nt & 1);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = 16 * om + perm16(g + 8 * h);
+      *reinterpret_cast<float2*>(out + i * C + o) =
+          make_float2(accw[j][2 * h], accw[j][2 * h + 1]);
+    }
+  }
+  // the three sums: over the row blocks in order, through the staged rows
+  cp_async_wait<0>();  // (the last tile staged nothing)
+  __syncthreads();     // every read of the staged rows is done
+  float* red = reinterpret_cast<float*>(sw4);  // row blocks x 3 x C
+#pragma unroll
+  for (int k = 0; k < NPART / 8; ++k) {
+    const int f = g * (NPART / 8) + k;  // value f: float4 f / 4 (sum f /
+                                        // 4 / NP, slice p0 + f / 4 % NP)
+    if (f < NV) {
+      const int t = f / 4 / NP, j = f / 4 % NP;
+      red[(mb * 3 + t) * C + 16 * (p0 + j) + 4 * tq + f % 4] = sums[k];
+    }
+  }
+  __syncthreads();
+  for (int o = threadIdx.x; o < 3 * C; o += kThreads) {
+    float acc = 0.f;
+    for (int b = 0; b < ROWS / kFragRows; ++b) acc += red[b * 3 * C + o];
+    out[C * C + o] = acc;
   }
 }
 
@@ -2304,22 +2485,24 @@ int run(int pass, const Args& a, int n_blocks, int b4_rows, bool bf,
     case kF2:
     case kF3: {
       const int halo = (a.K - 1) * a.d;
-      if (pass == kF3 && bf) {  // its own tiles and window
+      if (bf) {  // their own tiles and window
         const bool staged = f3_bf16_staged<C>(halo);
-        err = launch_tiles(f3_bf16_kernel<C>, a,
-                           f3_bf16_base_bytes<C>() +
-                               (staged ? f3_bf16_window_bytes<C>(halo) : 0),
-                           n_blocks, s, staged);
+        const size_t window = staged ? f3_bf16_window_bytes<C>(halo) : 0;
+        err = pass == kF2
+            ? launch_tiles(f2_bf16_kernel<C>, a,
+                           fwd_bf16_base_bytes<C, kF2>() + window, n_blocks,
+                           s, staged)
+            : launch_tiles(f3_bf16_kernel<C>, a,
+                           fwd_bf16_base_bytes<C, kF3>() + window, n_blocks,
+                           s, staged);
         break;
       }
       const size_t window = f3_window_bytes<C>(halo);
       const bool staged = fwd_smem_bytes<C, kF3>() + window <= kSmemLimit;
       const size_t extra = staged ? window : 0;
-      // F2's bf16 variant keeps the fp32 tiles: the same shared memory
       err = pass == kF2
-          ? launch_tiles(bf ? &f2_bf16_kernel<C> : &f2_kernel<C>, a,
-                         fwd_smem_bytes<C, kF2>() + extra, n_blocks, s,
-                         staged)
+          ? launch_tiles(f2_kernel<C>, a, fwd_smem_bytes<C, kF2>() + extra,
+                         n_blocks, s, staged)
           : launch_tiles(f3_kernel<C>, a, fwd_smem_bytes<C, kF3>() + extra,
                          n_blocks, s, staged);
       break;
@@ -2339,10 +2522,16 @@ int run(int pass, const Args& a, int n_blocks, int b4_rows, bool bf,
       width = C * C + 3 * C;
       break;
     case kB3:
-      err = bf ? launch_tiles(b3_bf16_kernel<C>, a, b3_bf16_smem_bytes<C>(),
-                              n_blocks, s)
-               : launch_tiles(b3_kernel<C>, a, b3_smem_bytes<C>(), n_blocks,
-                              s);
+      if (bf) {
+        const int halo = (a.K - 1) * a.d;
+        const bool staged = b3_bf16_staged<C>(halo);
+        err = launch_tiles(b3_bf16_kernel<C>, a,
+                           b3_bf16_base_bytes<C>() +
+                               (staged ? b3_bf16_window_bytes<C>(halo) : 0),
+                           n_blocks, s, staged);
+      } else {
+        err = launch_tiles(b3_kernel<C>, a, b3_smem_bytes<C>(), n_blocks, s);
+      }
       width = C * C + 3 * C;
       break;
     case kB4: {

@@ -75,10 +75,14 @@ precisions.  The plain versions round the same operands with
 ``Tensor.to(torch.bfloat16)`` before a float32 ``matmul``, which is
 exact in its products.  A variant counts its launches apart
 (``.bf16_launches``) and has its own kernel name (``kernel_name``).
-F3's and B2's bf16 kernels run their products on the tensor cores and
-cut their own tiles (``BF16_TILE_ROWS``, ``f3_bf16_staged``,
-``tile_smem_bytes`` mirror them); F2's keeps F2's tiles and its rule
-for staging its window of x.
+All four bf16 kernels run their products on the tensor cores.  F2's and
+F3's are one body on 128-row tiles with one rule for staging their
+window of x (``f3_bf16_staged``); B2's cuts 64-row tiles; B3's 32-row
+tiles (64 at C=32) with the next tile's rows copied while its
+products run, its window of x staged where it fits
+(``b3_bf16_staged``).
+``bf16_tile_rows`` and ``tile_smem_bytes`` mirror the kernels' launch
+plans.
 """
 
 import contextlib
@@ -302,9 +306,9 @@ FLAT_PASSES = ("f1", "f2", "f3", "b2", "b3")
 F1_STAGED = True
 F1_ROW_SCALE = 2
 B1_ROWS_IN_FLIGHT = 4  # rows of w, x and dy a B1 thread loads at once
-# rows of F3's and B2's tiles at bf16 (``kF3bRows``: 16 rows a warp,
-# eight warps; ``kB2bRows``)
-BF16_TILE_ROWS = {"f3": 128, "b2": 64}
+# rows of F2's, F3's and B2's tiles at bf16 (``kF3bRows``: 16 rows a
+# warp, eight warps; ``kB2bRows``); B3's are ``b3_bf16_rows``
+BF16_TILE_ROWS = {"f2": 128, "f3": 128, "b2": 64}
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -344,11 +348,18 @@ def flat_tile_rows(c: int) -> int:
 
 def bf16_tile_rows(name: str, c: int, precision: str = "float32") -> int:
     """Rows of a pass's tile over the flattened frames at ``precision``:
-    F3's and B2's bf16 kernels have their own (``BF16_TILE_ROWS``), the
-    others ``flat_tile_rows``."""
+    F2's, F3's and B2's bf16 kernels have their own (``BF16_TILE_ROWS``),
+    B3's ``b3_bf16_rows``, the others ``flat_tile_rows``."""
     if precision == "bfloat16" and name in BF16_TILE_ROWS:
         return BF16_TILE_ROWS[name]
+    if precision == "bfloat16" and name == "b3":
+        return b3_bf16_rows(c)
     return flat_tile_rows(c)
+
+
+def b3_bf16_rows(c: int) -> int:
+    """Rows of B3's bf16 tile (``b3_bf16_rows``): 32, or 64 at C=32."""
+    return 64 if c == 32 else 32
 
 
 def f1_tile_rows(c: int) -> int:
@@ -369,40 +380,72 @@ def f3_window_bytes(c: int, halo: int) -> int:
     return 4 * c * (flat_tile_rows(c) + halo)
 
 
+def _fwd_bf16_base(name: str, c: int) -> int:
+    """F2's or F3's bf16 shared memory without the window
+    (``fwd_bf16_base_bytes``): the constants and the taps, then W1 (F3:
+    and W2) as bf16 at row stride C + 8."""
+    mats = 2 if name == "f3" else 1
+    return 4 * (len(VEC_KEYS) + MAX_TAPS) * c + mats * 2 * c * (c + 8)
+
+
 def f3_bf16_staged(c: int, halo: int) -> bool:
-    """Whether F3's bf16 kernel stages its window of x
-    (``f3_bf16_staged``): where it fits a block beside the constants and
-    the bf16 weights; else it reads the taps from device memory."""
-    base = 4 * (len(VEC_KEYS) + MAX_TAPS) * c + 2 * 2 * c * (c + 8)
-    return base + 4 * c * (BF16_TILE_ROWS["f3"] + halo) <= SMEM_LIMIT
+    """Whether F2's and F3's bf16 kernels stage their window of x
+    (``f3_bf16_staged``, one rule for both): where F3's fits a block
+    beside its constants and bf16 weights; else they read the taps from
+    device memory."""
+    return (_fwd_bf16_base("f3", c)
+            + 4 * c * (BF16_TILE_ROWS["f3"] + halo) <= SMEM_LIMIT)
+
+
+def _b3_bf16_base(c: int) -> int:
+    """B3's bf16 shared memory without its window
+    (``b3_bf16_base_bytes``): the constants and the taps, a tile's staged
+    w and dy rows (float32), then W1, W2, the dwg (then dv), s0 and r
+    tiles as bf16 at row stride C + 8."""
+    rows = b3_bf16_rows(c)
+    return (4 * ((len(VEC_KEYS) + MAX_TAPS) * c + 2 * rows * c)
+            + 2 * (2 * c + 3 * rows) * (c + 8))
+
+
+def _b3_bf16_window(c: int, halo: int) -> int:
+    """B3's bf16 window of x (``b3_bf16_window_bytes``): a tile's rows
+    and the causal halo before them."""
+    return 4 * c * (b3_bf16_rows(c) + halo)
+
+
+def b3_bf16_staged(c: int, halo: int) -> bool:
+    """Whether B3's bf16 kernel stages its window of x
+    (``b3_bf16_staged``): where it fits a block beside the rest; else it
+    reads x and its taps from device memory."""
+    return _b3_bf16_base(c) + _b3_bf16_window(c, halo) <= SMEM_LIMIT
 
 
 def tile_smem_bytes(name: str, c: int, halo: int = 0,
                     precision: str = "float32") -> int:
     """Shared memory of one F1, F2, F3, B2 or B3 block
     (csrc/fused_mdtc_train.cu ``fwd_smem_bytes``, ``b2_smem_bytes``,
-    ``b3_smem_bytes``, and at bf16 ``f3_bf16_base_bytes`` with its
-    windows, ``b2_bf16_smem_bytes``, ``b3_bf16_smem_bytes``): the packed
+    ``b3_smem_bytes``, and at bf16 ``fwd_bf16_base_bytes`` with its
+    window, ``b2_bf16_smem_bytes``, ``b3_bf16_base_bytes`` with its
+    window): the packed
     per-channel vector (with the taps, but in B2), the C x C weight
     matrices and the tiles, at row stride C + 4 (F1: no matrix, one tile
     for its reduction); B2 adds the next tile's w, x and dy rows, staged;
     F2 and F3 their window of x (``f3_window_bytes``) where F3's fits a
     block (``run`` there decides the same), else they read the taps from
     device memory; F1 two windows where they fit beside its own
-    (``F1_STAGED``).  At bf16 F2 keeps its fp32 tiles and its window
-    rule (the same bytes); F3 holds W1 and W2 as bf16 at row stride
-    C + 8 and the window of its 128-row tile (``f3_bf16_staged``); B2 its
-    staged w, x and dy rows (fp32), then W2, the dwg tile and two r
-    tiles as bf16 at row stride C + 8; B3 keeps three fp32 tiles and
-    holds W1, W2 and its two product-operand tiles as bf16 at row
-    stride C + 8."""
+    (``F1_STAGED``).  At bf16 F2 holds W1 and F3 W1 and W2 as bf16 at
+    row stride C + 8, both the window of their 128-row tile where F3's
+    fits (``f3_bf16_staged``); B2 its staged w, x and dy rows (fp32),
+    then W2, the dwg tile and two r tiles as bf16 at row stride C + 8;
+    B3 its staged w and dy rows (fp32), then W1, W2 and its dwg (then
+    dv), s0 and r tiles as bf16 at row stride C + 8, and its window of x
+    where it fits (``b3_bf16_staged``)."""
     if precision == "bfloat16" and name == "b3":
-        rows = flat_tile_rows(c)
-        return (4 * ((len(VEC_KEYS) + MAX_TAPS) * c + 3 * rows * (c + 4))
-                + 2 * (2 * c + 2 * rows) * (c + 8))
-    if precision == "bfloat16" and name == "f3":
+        return _b3_bf16_base(c) + (
+            _b3_bf16_window(c, halo) if b3_bf16_staged(c, halo) else 0)
+    if precision == "bfloat16" and name in ("f2", "f3"):
         window = 4 * c * (BF16_TILE_ROWS["f3"] + halo)
-        return (4 * (len(VEC_KEYS) + MAX_TAPS) * c + 2 * 2 * c * (c + 8)
+        return (_fwd_bf16_base(name, c)
                 + (window if f3_bf16_staged(c, halo) else 0))
     if precision == "bfloat16" and name == "b2":
         rows = BF16_TILE_ROWS["b2"]
