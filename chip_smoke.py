@@ -209,15 +209,15 @@ phases; any failure exits non-zero:
     (``path_f_launches``, bin.serve's own counts among them;
     ``path_f``: shape, calls, error, times, bound); the serving figures
     are one JSON line (``path_f_figures``);
-18. path G, device-resident epochs (``data/resident.py``): (a) 8,192
-    train and 2,048 cv rows of 2 s made from a seed as int16 (phase
+18. path G, device-resident epochs (``data/resident.py``): (a) 4,096
+    train and 1,024 cv rows of 2 s made from a seed as int16 (phase
     7's signal) and staged with ``stage_arrays`` (bytes, seconds, GB/s,
     memory; rows read back equal); (b) the flagship with
     ``fused_train`` and ``fused_frontend`` (wave dither, spec_aug): one
     resident step at B=512 against ``Trainer.train_step`` on the same
     rows copied to the host and back, from the same state, seed and
     step (loss, accuracy, every parameter and BN statistic: equal), one
-    resident cv step against ``Trainer.cv_step``; (c) 16 steps through
+    resident cv step against ``Trainer.cv_step``; (c) 8 steps through
     ``Executor.train_resident`` (wall clock and CUDA events) and one
     ``cv_resident`` pass, the resident step beside the host-fed step
     (float32 waves and int16 rows) in turns, its device idle share, and
@@ -227,8 +227,14 @@ phases; any failure exits non-zero:
     (late in this one it loses records); (d) ``bin.train --device_resident`` on
     ``examples/synthetic`` (``conf_torch/mdtc_flagship.yaml``, 2
     epochs), averaged, scored through ``fused_mdtc_kernel`` and DET as
-    phase 14, each epoch's audio-s/s beside phase 14's host-fed run (a
-    ``speed_perturb`` config trains resident in 18g); (e)
+    phase 14, each epoch's audio-s/s beside phase 14's host-fed run;
+    (g) ``examples/synthetic_noisy`` as its ``run_torch.sh`` with no
+    config: the DS-TCN trained resident with the augmentation on the
+    card (``conf/ds_tcn_aug.yaml``) and without
+    (``conf/ds_tcn_clean.yaml``), 2 epochs each, both scored on test and
+    test_noisy through the DS-TCN kernel, and
+    ``local/report_torch.py``'s table of their FRR at 2 FA/h (a finding,
+    no bound); (e)
     ``fused_fbank`` and the eight passes at every shape 18a-18d gave
     them (``ShapeTap``, ``PassTap``), against their plain versions on
     the same card tensors (fbank phase 9's limit; a dithered call
@@ -342,11 +348,11 @@ phases; any failure exits non-zero:
     ``run_ctc_torch.sh``, stages 0-5: stages 0-1 (the corpus and CMVN,
     the CPU alone) started before phase 2's build, beside it
     (``PathKHead``), stages 2-5 here side by side, with (a) in this
-    process beside them (its timings after them), the corpora cut and 2
-    epochs
-    (each cut printed), every Python process they start tapped (a
+    process beside them (its timings after them), the corpora cut and 1
+    epoch (each cut printed), every port CLI they start tapped (a
     sitecustomize on PYTHONPATH enters ``ShapeTap``, ``PassTap`` and
-    ``PlainOnCuda`` for the process: ``recipe_tap``): stages 0-4 (0-3)
+    ``PlainOnCuda`` for a ``python -m wekws_tpu_torch.bin.*`` process:
+    ``recipe_tap``): stages 0-4 (0-3)
     ended, ``bin.train`` through ``fused_fbank``, F1/F4/B1/B4 and the
     bf16 variants of F2/F3/B2/B3, ``bin.score`` through
     ``fused_mdtc_kernel``, ``bin.score_ctc`` through
@@ -359,7 +365,28 @@ phases; any failure exits non-zero:
     stand-ins for its larger tensors; the passes on seeded block inputs
     of their shapes), with times, device times and bounds.  Path K's
     launches are added to the kernel records (``path_k_launches``,
-    ``path_k``); the figures are one JSON line (``path_k_figures``).
+    ``path_k``); the figures are one JSON line (``path_k_figures``);
+23. path L, the public recipes (ROADMAP A.20), in a fresh process, on
+    miniature corpora written in the datasets' own layouts
+    (``wekws_tpu_torch.tools.public_layouts``): (a) in examples/
+    hi_xiaowen ``run_ctc_torch.sh --config conf_torch/ds_tcn_ctc.yaml
+    --trainbase true`` (the DS-TCN CTC at C=256, B=256, fine-tuned from
+    a base pretrained at B=200 on an ASR-layout corpus; then
+    ``score_ctc``, ``stream_score_ctc``, DET, export and int8) and in
+    examples/speechcommand_v1 ``run_torch.sh`` (the MDTC, MFCC 80 of 80,
+    the global head, B=100; ``compute_accuracy``), 1 epoch a training
+    stage: the layouts and stages 0-1 beside the kernel build
+    (``PathLHead``), the rest in two rounds of jobs side by side
+    (``PATH_L_ROUNDS``), every port CLI tapped as in 22b: every stage
+    ended, the fine-tune's first epoch one past the base's last with its
+    lr and best cv loss, 17 launches a ``bin.train`` step of each float32
+    pass (no bf16 variant), ``fused_fbank`` at least once a step, one
+    ``fused_ds_tcn_kernel`` launch a ``bin.score_ctc`` batch and one
+    ``fused_mdtc_kernel`` a ``bin.compute_accuracy`` batch, no plain
+    version on a CUDA tensor; (b) each kernel path L launched against
+    its plain version at every shape path L gave it, with times, device
+    times and bounds (``path_l_launches``, ``path_l``,
+    ``path_l_figures``).
 
 The last lines are the card, the per-kernel JSON record (17 kernels:
 the 13 and the four bf16 variants) and ``{"ok": true, "device":
@@ -367,14 +394,15 @@ the 13 and the four bf16 variants) and ``{"ok": true, "device":
 ``python3 chip_smoke.py --phase 20`` runs phases 1-2 and path I alone
 (phase 4's checkpoint and phase 7's model config made from their
 seeds), ``--phase 21`` phases 1-2 and path J alone, ``--phase 22``
-phases 1-2, phase 4's checkpoint and path K alone.
+phases 1-2, phase 4's checkpoint and path K alone, ``--phase 23``
+phases 1-2 and path L alone.
 
 The run keeps inside its time limit by doing on the CPU's idle cores
 what needs no card while the kernels build (the corpora that phases 15,
-16, 17, 19 and 21 read: ``CORPORA``; path K's stages 0-1), by starting
-each ``bin.serve`` before the untimed work that precedes its timed
-session, and by the cut depths named where they are set; each part of
-phases 15-22 prints its wall time (``[part] name (s)``).
+16, 17, 19 and 21 read: ``CORPORA``; paths K's and L's stages 0-1), by
+starting each ``bin.serve`` before the untimed work that precedes its
+timed session, and by the cut depths named where they are set; each
+part of phases 15-23 prints its wall time (``[part] name (s)``).
 """
 
 import copy
@@ -529,7 +557,7 @@ def phase(name):
 # the parts of the later phases, each of which prints its own wall time
 # ("[part] name (s)") where it returns: the readings by which a phase's
 # depth is cut to keep the run inside its time limit
-TIMED_PARTS = r"phase(1[4-9]|2[0-2])[a-g]\w*|path_[g-k]_\w*child" \
+TIMED_PARTS = r"phase(1[4-9]|2[0-3])[a-g]\w*|path_[g-l]_\w*child" \
     r"|path_g_traces|phase19_times"
 
 
@@ -5392,14 +5420,15 @@ class ShapeTap:
 
 
 def phase17e_kernel_checks(card, shapes, tag="17e", path="F",
-                           device_ms=None):
+                           device_ms=None, timed=None):
     """Each path-F kernel at every shape path F gave it (``ShapeTap``;
     path G's ``fused_fbank`` too, ``tag`` and ``path`` naming it in the
     lines), on that shape's first inputs: the kernel against its plain
     version on the same card tensors (TOL, or phase 9's fbank limit),
     then both timed (CUDA events, median of 30), the kernel's device time
     (profiler; from ``device_ms`` by (name, shape) where given) and its
-    bound from the call's own arguments.  Returns {record name:
+    bound from the call's own arguments; where ``timed`` is given, only
+    its (name, shape) keys are timed.  Returns {record name:
     [readings]}."""
     import importlib
 
@@ -5451,6 +5480,14 @@ def phase17e_kernel_checks(card, shapes, tag="17e", path="F",
         err = max(check_close(f"{tag} {name} {shape}{' cache' if i else ''}",
                               g, w, quiet=True, atol=atol, rtol=rtol)
                   for i, (g, w) in enumerate(pairs))
+        if timed is not None and (name, shape) not in timed:
+            print(f"  {tag} {name} {shape}: {calls} calls on path {path}; "
+                  f"vs plain on the first call's inputs max_abs_err "
+                  f"{err:.3e} (bound {atol} abs + {rtol} rel) [{card}]",
+                  flush=True)
+            out.setdefault(name, []).append({
+                "shape": shape, "calls": calls, "max_abs_err": err})
+            continue
         ms, plain_ms = kernel_vs_plain_ms(kern, plain)
         dev_ms = (device_ms[(name, shape)] if device_ms is not None
                   and (name, shape) in device_ms
@@ -5538,9 +5575,10 @@ def phase17_serving(dev, card, work):
 
 # path G (phase 18): device-resident epochs.  The flagship corpus at its
 # training shape (bench.py's B=512 x 2 s), its depth cut to keep the run
-# inside its time limit: 8,192 train rows, 16 steps of B=512 an epoch
-# (0.52 GB of int16 on the card; bench.py's 16,384), and 2,048 cv rows
-RESIDENT_ROWS, RESIDENT_CV_ROWS = 8192, 2048
+# inside its time limit: 4,096 train rows, 8 steps of B=512 an epoch
+# (0.26 GB of int16 on the card; bench.py's 16,384), and 1,024 cv rows
+# (8,192 and 2,048 before path L was added; cut for its time)
+RESIDENT_ROWS, RESIDENT_CV_ROWS = 4096, 1024
 # the largest copy from the host a resident step may make: the step's
 # scalars and ctypes arguments, never a wave (a B=512 x 2 s batch is
 # 32.8 MB of int16)
@@ -5639,18 +5677,23 @@ def host_cpu_ms(step, reps=10):
 
 def path_g_specs(fbank_shapes, pass_shapes, saved_dir):
     """What the fresh process re-creates of each path-G shape: the
-    pass, B, T, C, dilation and K of a pass; B, S and whether the call
-    dithered of an fbank call; a DS-TCN call's own inputs, saved under
-    ``saved_dir``."""
+    pass, B, T, C, dilation and K of a pass (each pass at each B x T x C
+    at its largest dilation only: the others read "not measured", cut
+    for path L's time); B, S and whether the call dithered of an
+    fbank call; a DS-TCN call's own inputs, saved under ``saved_dir``."""
     import torch
 
-    specs = []
+    specs, widest = [], {}
     for (record, shape), (_, name, args) in pass_shapes.items():
         b, t, c = args[0].shape
         d = args[PASS_DILATION_ARG[name]] if name in PASS_DILATION_ARG else 1
         k = args[PASS_DW_ARG[name]].shape[0] if name in PASS_DW_ARG else 5
-        specs.append({"record": record, "shape": shape, "pass": name,
-                      "b": b, "t": t, "c": c, "d": int(d), "k": k})
+        spec = {"record": record, "shape": shape, "pass": name,
+                "b": b, "t": t, "c": c, "d": int(d), "k": k}
+        key = (record, b, t, c)
+        if key not in widest or widest[key]["d"] < spec["d"]:
+            widest[key] = spec
+    specs += widest.values()
     for (record, shape), (_, args, kwargs) in fbank_shapes.items():
         if record != "fused_fbank":
             path = os.path.join(saved_dir, f"{len(specs)}.pt")
@@ -5993,7 +6036,8 @@ def phase18e_pass_checks(card, shapes, device_ms, tag="18e", path="G"):
     6), both timed (CUDA events, median of 30), the pass's device time
     (its kernel and its block reduction: ``device_ms`` by (record,
     shape), from ``path_g_traces``) and its bound from its own
-    arguments.  Returns {record name: [readings]}."""
+    arguments (where traced: ``path_g_specs``).  Returns {record name:
+    [readings]}."""
     from wekws_tpu_torch.ops.fused_mdtc_train import PASSES, compare_pass
 
     out = {}
@@ -6010,7 +6054,7 @@ def phase18e_pass_checks(card, shapes, device_ms, tag="18e", path="G"):
         err = compare_pass(f"{tag} {record} {shape}", got, want)
         rel = pass_rel_err(got, want)
         ms, plain_ms = kernel_vs_plain_ms(kern, plain)
-        dev_ms = device_ms[(record, shape)]
+        dev_ms = device_ms.get((record, shape))
         k = args[PASS_DW_ARG[name]].shape[0] if name in PASS_DW_ARG else 1
         bound, bound_by = train_pass_bound_ms(name, b, t, c, k)
         dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
@@ -6525,30 +6569,136 @@ def phase18f_augmented(dev, card, model_conf, corpus):
             "plain_step_ms": rounds["plain resident"]}
 
 
-def phase18g_noisy_recipe(dev, card):
-    """examples/synthetic_noisy through the port, as run_torch.sh's
-    stages, in a temporary directory: local/gen_data_torch.py (the
-    corpus and the noise and RIR stores), CMVN, ``bin.train
-    --device_resident`` with conf/ds_tcn_aug.yaml for NOISY_EPOCHS
-    epochs (its store paths made absolute: nothing else changed), the
-    recipe's augmentation run once a step, average, ``bin.score`` of
-    test and test_noisy through the DS-TCN kernel (C=48), DET of both.
-    Returns the epochs' audio-s/s and the DS-TCN launches."""
-    import itertools
-    import tempfile
-
+def noisy_model(dev, tmp, data, cmvn, name):
+    """One of 18g's two models: ``bin.train --device_resident`` with
+    ``conf/<name>.yaml`` (its store paths made absolute) for NOISY_EPOCHS
+    epochs, the augmentation counted where the config has one, average,
+    ``bin.score`` of test and test_noisy through the DS-TCN kernel, DET
+    of both, into ``tmp``/exp/``name``.  Returns (the epochs' records,
+    the augmented waves' shapes, {split: fused_ds_tcn launches}, {split:
+    DET rows}, train wall s)."""
     import torch
     import yaml
 
     from wekws_tpu_torch.bin import average_model, compute_det, score, train
     from wekws_tpu_torch.data import device_aug
     from wekws_tpu_torch.ops.fused_tcn import fused_ds_tcn
+
+    configs = recipe_yaml(os.path.join(NOISY_RECIPE, "conf", f"{name}.yaml"))
+    dconf = configs["dataset_conf"]
+    for key in ("noise_source", "reverb_source"):
+        if key in dconf:
+            dconf[key] = os.path.join(tmp, dconf[key])
+    config = os.path.join(tmp, f"{name}.yaml")
+    with open(config, "w") as f:
+        yaml.safe_dump(configs, f)
+    exp = os.path.join(tmp, "exp", name)
+    applied = []
+    apply = device_aug.DeviceWaveAug.apply
+
+    def counted(self, waves, lengths, draws):
+        applied.append(tuple(waves.shape))
+        return apply(self, waves, lengths, draws)
+
+    device_aug.DeviceWaveAug.apply = counted
+    t0 = time.perf_counter()
+    try:
+        with PlainOnCuda() as plain, TimeLimit(
+                RECIPE_TIMEOUT_S, f"bin.train noisy recipe {name}"):
+            train.main([
+                "--config", config, "--train_data",
+                os.path.join(data, "train.list"), "--cv_data",
+                os.path.join(data, "dev.list"), "--model_dir", exp,
+                "--num_keywords", "1", "--min_duration", "20",
+                "--seed", "666", "--cmvn_file", cmvn, "--norm_var",
+                "--device_resident", "--num_epochs", str(NOISY_EPOCHS),
+                "--device", dev.type])
+            torch.cuda.synchronize()
+    finally:
+        device_aug.DeviceWaveAug.apply = apply
+    plain.check(f"bin.train noisy recipe {name}")
+    train_s = time.perf_counter() - t0
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    steps = 480 // dconf["batch_conf"]["batch_size"]
+    losses = [r["train_loss"] for r in records]
+    want = steps * NOISY_EPOCHS if "noise_source" in dconf else 0
+    if len(records) != NOISY_EPOCHS or not np.isfinite(losses).all() \
+            or len(applied) != want:
+        raise AssertionError(f"noisy recipe {name}: records {records}, "
+                             f"augmentation applied {len(applied)} "
+                             f"times (want {want})")
+    avg = os.path.join(exp, f"avg_{NOISY_EPOCHS}.pt")
+    average_model.main(["--dst_model", avg, "--src_path", exp, "--num",
+                        str(NOISY_EPOCHS), "--val_best", "--device",
+                        dev.type])
+    launches, dets = {}, {}
+    for split in ("test", "test_noisy"):
+        lst = os.path.join(data, f"{split}.list")
+        scores = os.path.join(exp, f"score_{split}.txt")
+        before = fused_ds_tcn.launches
+        with PlainOnCuda() as plain:
+            n = score.main(["--config", os.path.join(exp, "config.yaml"),
+                            "--test_data", lst, "--checkpoint", avg,
+                            "--score_file", scores, "--device",
+                            dev.type])
+            torch.cuda.synchronize()
+        plain.check(f"bin.score {name} {split}")
+        launches[split] = fused_ds_tcn.launches - before
+        stats = os.path.join(exp, f"stats_{split}.txt")
+        compute_det.main(["--keyword", "0", "--test_data", lst,
+                          "--score_file", scores, "--stats_file", stats,
+                          "--device", dev.type])
+        with open(stats) as f:
+            rows = [tuple(map(float, line.split())) for line in f]
+        if n != 192 or launches[split] < 1 or len(rows) < 100:
+            raise AssertionError(f"noisy recipe {name} {split}: {n} scored, "
+                                 f"{launches[split]} fused_ds_tcn "
+                                 f"launches, {len(rows)} DET rows")
+        dets[split] = rows
+    return records, applied, launches, dets, train_s
+
+
+def run_report(path, dirs):
+    """The script at ``path`` (``local/report_torch.py``) run as
+    ``__main__`` in this process on ``dirs``: what it printed."""
+    import contextlib
+    import io
+    import runpy
+
+    out, argv = io.StringIO(), sys.argv
+    sys.argv = [path, *dirs]
+    try:
+        with contextlib.redirect_stdout(out):
+            runpy.run_path(path, run_name="__main__")
+    finally:
+        sys.argv = argv
+    return out.getvalue()
+
+
+def phase18g_noisy_recipe(dev, card):
+    """examples/synthetic_noisy through the port, as run_torch.sh's
+    stages with no config (both of run.sh's), in a temporary directory:
+    local/gen_data_torch.py (the corpus and the noise and RIR stores),
+    CMVN, then for conf/ds_tcn_aug.yaml (speed perturbation, noise and
+    reverb on the card, once a step) and conf/ds_tcn_clean.yaml in turn
+    ``noisy_model``: NOISY_EPOCHS epochs, average, ``bin.score`` of test
+    and test_noisy through the DS-TCN kernel (C=48), DET of both; then
+    local/report_torch.py's aug-vs-clean table, and each model's FRR at
+    2 FA/h on both splits (a finding: NOISY_EPOCHS epochs are not the
+    recipe's, so no bound).  Returns the augmented model's epochs'
+    audio-s/s, the DS-TCN launches by model and split, and the FRRs."""
+    import itertools
+    import tempfile
+
+    from wekws_tpu_torch.eval import frr_at_fa_per_hour
     from wekws_tpu_torch.tools.cmvn_stats import (
         compute_cmvn_stats,
         wav_paths_from_data_list,
     )
 
     here = os.path.dirname(os.path.abspath(__file__))
+    models = ("ds_tcn_aug", "ds_tcn_clean")
     with tempfile.TemporaryDirectory() as tmp:
         data = os.path.join(tmp, "data")
         t0 = time.perf_counter()
@@ -6557,94 +6707,52 @@ def phase18g_noisy_recipe(dev, card):
                                           "gen_data_torch.py"), data],
             check=True, capture_output=True, timeout=300,
             env=dict(os.environ, PYTHONPATH=here))
-        configs = recipe_yaml(os.path.join(NOISY_RECIPE, "conf",
-                                           "ds_tcn_aug.yaml"))
-        dconf = configs["dataset_conf"]
-        for key in ("noise_source", "reverb_source"):
-            dconf[key] = os.path.join(tmp, dconf[key])
-        config = os.path.join(tmp, "ds_tcn_aug.yaml")
-        with open(config, "w") as f:
-            yaml.safe_dump(configs, f)
         cmvn = os.path.join(data, "global_cmvn")
         compute_cmvn_stats(itertools.islice(wav_paths_from_data_list(
-            os.path.join(data, "train.list")), 200), dconf, cmvn)
+            os.path.join(data, "train.list")), 200), recipe_yaml(
+                os.path.join(NOISY_RECIPE, "conf", "ds_tcn_aug.yaml"))[
+                    "dataset_conf"], cmvn)
         made_s = time.perf_counter() - t0
-        exp = os.path.join(tmp, "exp")
-        applied = []
-        apply = device_aug.DeviceWaveAug.apply
-
-        def counted(self, waves, lengths, draws):
-            applied.append(tuple(waves.shape))
-            return apply(self, waves, lengths, draws)
-
-        device_aug.DeviceWaveAug.apply = counted
-        t0 = time.perf_counter()
-        try:
-            with PlainOnCuda() as plain, TimeLimit(
-                    RECIPE_TIMEOUT_S, "bin.train noisy recipe"):
-                train.main([
-                    "--config", config, "--train_data",
-                    os.path.join(data, "train.list"), "--cv_data",
-                    os.path.join(data, "dev.list"), "--model_dir", exp,
-                    "--num_keywords", "1", "--min_duration", "20",
-                    "--seed", "666", "--cmvn_file", cmvn, "--norm_var",
-                    "--device_resident", "--num_epochs", str(NOISY_EPOCHS),
-                    "--device", dev.type])
-                torch.cuda.synchronize()
-        finally:
-            device_aug.DeviceWaveAug.apply = apply
-        plain.check("bin.train noisy recipe")
-        train_s = time.perf_counter() - t0
-        with open(os.path.join(exp, "metrics.jsonl")) as f:
-            records = [json.loads(line) for line in f]
-        steps = 480 // dconf["batch_conf"]["batch_size"]
+        runs = {name: noisy_model(dev, tmp, data, cmvn, name)
+                for name in models}
+        report = run_report(os.path.join(here, NOISY_RECIPE, "local",
+                                         "report_torch.py"),
+                            [os.path.join(tmp, "exp", name)
+                             for name in models])
+    frr = {name: {split: frr_at_fa_per_hour(runs[name][3][split], 2.0)
+                  for split in ("test", "test_noisy")} for name in models}
+    table = report.splitlines()
+    if len(table) != 3 or [line.split()[0] for line in table[1:]] != \
+            list(models) or [float(x) for x in table[1].split()[1:]] != [
+                round(frr[models[0]][s], 4) for s in ("test", "test_noisy")]:
+        raise AssertionError(f"noisy recipe: report_torch.py printed "
+                             f"{report!r}; FRR at 2 FA/h {frr}")
+    for line in table:
+        print(f"  18g {line}", flush=True)
+    launches = {}
+    for name in models:
+        records, applied, split_launches, dets, train_s = runs[name]
+        launches[name] = split_launches
         losses = [r["train_loss"] for r in records]
-        if len(records) != NOISY_EPOCHS or not np.isfinite(losses).all() \
-                or len(applied) != steps * NOISY_EPOCHS:
-            raise AssertionError(f"noisy recipe: records {records}, "
-                                 f"augmentation applied {len(applied)} "
-                                 f"times (want {steps * NOISY_EPOCHS})")
-        avg = os.path.join(exp, f"avg_{NOISY_EPOCHS}.pt")
-        average_model.main(["--dst_model", avg, "--src_path", exp, "--num",
-                            str(NOISY_EPOCHS), "--val_best", "--device",
-                            dev.type])
-        launches, dets = {}, {}
-        for split in ("test", "test_noisy"):
-            lst = os.path.join(data, f"{split}.list")
-            scores = os.path.join(exp, f"score_{split}.txt")
-            before = fused_ds_tcn.launches
-            with PlainOnCuda() as plain:
-                n = score.main(["--config", os.path.join(exp, "config.yaml"),
-                                "--test_data", lst, "--checkpoint", avg,
-                                "--score_file", scores, "--device",
-                                dev.type])
-                torch.cuda.synchronize()
-            plain.check(f"bin.score {split}")
-            launches[split] = fused_ds_tcn.launches - before
-            stats = os.path.join(exp, f"stats_{split}.txt")
-            compute_det.main(["--keyword", "0", "--test_data", lst,
-                              "--score_file", scores, "--stats_file", stats,
-                              "--device", dev.type])
-            with open(stats) as f:
-                rows = [tuple(map(float, line.split())) for line in f]
-            if n != 192 or launches[split] < 1 or len(rows) < 100:
-                raise AssertionError(f"noisy recipe {split}: {n} scored, "
-                                     f"{launches[split]} fused_ds_tcn "
-                                     f"launches, {len(rows)} DET rows")
-            dets[split] = rows[50]
-    rates = [r["audio_seconds_per_s"] for r in records]
-    print(f"  noisy recipe (conf/ds_tcn_aug.yaml: speed_perturb, noise 0.6, "
-          f"reverb 0.4, spec_aug): corpus and stores made in {made_s:.1f} s; "
-          f"bin.train --device_resident {NOISY_EPOCHS} epochs of {steps} "
-          f"steps, {train_s:.1f} s wall, augmentation on the card in every "
-          f"step ({applied[0]} waves), train losses "
-          f"{[round(x, 4) for x in losses]}, audio-s/s per epoch "
-          f"{', '.join(f'{x:.1f}' for x in rates)}; bin.score "
-          f"fused_ds_tcn launches {launches}, no plain version on a CUDA "
-          f"tensor; DET at 0.5 (FA/h, FRR): " + ", ".join(
-              f"{k} ({v[1]:.2f}, {v[2]:.4f})" for k, v in dets.items())
-          + f" [{card}]", flush=True)
-    return rates, launches
+        rates = [r["audio_seconds_per_s"] for r in records]
+        aug = (f"augmentation on the card in every step ({applied[0]} "
+               f"waves)" if applied else "no augmentation")
+        print(f"  18g {name}: bin.train --device_resident {NOISY_EPOCHS} "
+              f"epochs, {train_s:.1f} s wall, {aug}, train losses "
+              f"{[round(x, 4) for x in losses]}, audio-s/s per epoch "
+              f"{', '.join(f'{x:.1f}' for x in rates)}; bin.score "
+              f"fused_ds_tcn launches {split_launches}, no plain version on "
+              f"a CUDA tensor; DET at 0.5 (FA/h, FRR): " + ", ".join(
+                  f"{k} ({v[50][1]:.2f}, {v[50][2]:.4f})"
+                  for k, v in dets.items()) + f" [{card}]", flush=True)
+    print(f"  18g FRR at 2 FA/h on test_noisy after {NOISY_EPOCHS} epochs "
+          f"(a finding, no bound; the README's TPU run, 18 epochs: 0.3333 "
+          f"with augmentation, 0.7812 without): "
+          f"{frr['ds_tcn_aug']['test_noisy']:.4f} with augmentation, "
+          f"{frr['ds_tcn_clean']['test_noisy']:.4f} without; corpus and "
+          f"stores made in {made_s:.1f} s [{card}]", flush=True)
+    rates = [r["audio_seconds_per_s"] for r in runs["ds_tcn_aug"][0]]
+    return rates, launches, frr
 
 
 def phase18_resident(dev, card, model_conf, batch, host_ms, recipe_rates):
@@ -6681,8 +6789,8 @@ def phase18_resident(dev, card, model_conf, batch, host_ms, recipe_rates):
         print("18d: bin.train --device_resident", flush=True)
         rates = phase18d_cli(dev, card, recipe_rates)
         print("18g: the noisy recipe", flush=True)
-        figures["noisy_rates"], figures["noisy_ds_tcn_launches"] = \
-            phase18g_noisy_recipe(dev, card)
+        (figures["noisy_rates"], figures["noisy_ds_tcn_launches"],
+         figures["noisy_frr_at_2_fa_h"]) = phase18g_noisy_recipe(dev, card)
     launches = path_g_counts()
     missing = [k for k, v in launches.items() if not v]
     tapped = {}
@@ -8888,11 +8996,12 @@ SCALE_RECIPE = os.path.join("examples", "synthetic_scale")
 # 2,000 dev, 8,000 test): 512 train rows, one B=512 step an epoch, 64
 # dev and 256 test (one bin.score batch); the CTC corpus (full: 20,000,
 # 2,000, 33,000) 512 / 128 / 512, two B=256 steps an epoch and two
-# bin.score_ctc batches; 2 epochs each (full: 30 and 80)
+# bin.score_ctc batches; 1 epoch each (full: 30 and 80; 2 before path L
+# was added, cut for its time)
 SCALE_CUT = ("--train_kw", "128", "--train_filler", "384", "--dev_kw", "16",
              "--dev_filler", "48", "--test_kw", "64", "--test_filler", "192")
 SCALE_CTC_CUT = ("--train", "512", "--dev", "128", "--test", "512")
-SCALE_EPOCHS = 2
+SCALE_EPOCHS = 1
 SCALE_TIMEOUT_S = 600
 # 22b's two recipes: (script, config, generator cut, experiment, last
 # stage before the plot)
@@ -8907,13 +9016,63 @@ SCALE_RUNS = (
 SCALE_HEAD_STAGES = 1
 
 
-class PathKHead:
-    """22b's stages 0 to SCALE_HEAD_STAGES of both scale recipes, started
-    before the kernel build so that they run on the cores nvcc leaves
-    idle, each with its tap.  The recipe copy and the taps sit in
-    ``work``/path_k, where path K (a fresh process) finds them;
-    ``finish()`` waits for the stages and returns that state as JSON;
-    ``close()`` stops what still runs."""
+class RecipeHead:
+    """Recipe stages started before the kernel build, so that they run on
+    the cores nvcc leaves idle, each job with its tap (``start``);
+    ``finish()`` waits for them and returns their state as JSON
+    (``state()``, and under "runs" each job's cwd, tap, exit code and
+    output); ``close()`` stops what still runs."""
+
+    tag, timeout_s = "", SCALE_TIMEOUT_S
+
+    def start(self, key, argv, cwd, tap):
+        repo = os.path.abspath(os.path.dirname(__file__) or ".")
+        out = open(os.path.join(tap, "head_stdout.txt"), "w+")
+        err = open(os.path.join(tap, "head_stderr.txt"), "w+")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join([tap, repo]),
+                   PATH_K_TAP_DIR=tap)
+        proc = subprocess.Popen(argv, cwd=cwd, env=env, stdout=out,
+                                stderr=err, text=True,
+                                start_new_session=True)
+        self.jobs.append((key, cwd, tap, proc, out, err))
+
+    def state(self):
+        return {}
+
+    def finish(self):
+        state = dict(self.state(), runs={})
+        for key, cwd, tap, proc, out, err in self.jobs:
+            try:
+                proc.wait(self.timeout_s)
+            except subprocess.TimeoutExpired:
+                raise TimeoutError(f"{self.tag} {key}'s first stages: over "
+                                   f"{self.timeout_s} s")
+            out.seek(0)
+            err.seek(0)
+            state["runs"][key] = {"cwd": cwd, "tap": tap,
+                                  "code": proc.returncode,
+                                  "stdout": out.read(), "stderr": err.read()}
+        self.close()
+        return state
+
+    def close(self):
+        import signal
+
+        for *_, proc, out, err in self.jobs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+            out.close()
+            err.close()
+        self.jobs = []
+
+
+class PathKHead(RecipeHead):
+    """22b's stages 0 to SCALE_HEAD_STAGES of both scale recipes.  The
+    recipe copy and the taps sit in ``work``/path_k, where path K (a
+    fresh process) finds them."""
+
+    tag = "22b"
 
     def __init__(self, work):
         import shutil
@@ -8921,57 +9080,36 @@ class PathKHead:
         root = os.path.join(work, "path_k")
         shutil.rmtree(root, ignore_errors=True)
         os.makedirs(root)
-        repo = os.path.abspath(os.path.dirname(__file__) or ".")
         self.recipe, self.notes = scale_recipe_copy(root)
         self.jobs = []
         for script, conf, cut, _, _ in SCALE_RUNS:
-            tap = path_k_tap_dir(os.path.join(root, f"tap_{script}"))
-            out = open(os.path.join(tap, "head_stdout.txt"), "w+")
-            err = open(os.path.join(tap, "head_stderr.txt"), "w+")
-            env = dict(os.environ, PYTHONPATH=os.pathsep.join([tap, repo]),
-                       PATH_K_TAP_DIR=tap)
-            proc = subprocess.Popen(
-                ["bash", script, "0", str(SCALE_HEAD_STAGES), conf, "cuda",
-                 *cut], cwd=self.recipe, env=env, stdout=out, stderr=err,
-                text=True, start_new_session=True)
-            self.jobs.append((script, tap, proc, out, err))
+            self.start(script, ["bash", script, "0", str(SCALE_HEAD_STAGES),
+                                conf, "cuda", *cut], self.recipe,
+                       path_k_tap_dir(os.path.join(root, f"tap_{script}")))
 
-    def finish(self):
-        state = {"recipe": self.recipe, "notes": self.notes, "runs": {}}
-        for script, tap, proc, out, err in self.jobs:
-            try:
-                proc.wait(SCALE_TIMEOUT_S)
-            except subprocess.TimeoutExpired:
-                raise TimeoutError(f"22b {script} stages 0-"
-                                   f"{SCALE_HEAD_STAGES}: over "
-                                   f"{SCALE_TIMEOUT_S} s")
-            out.seek(0)
-            err.seek(0)
-            state["runs"][script] = {"tap": tap, "code": proc.returncode,
-                                     "stdout": out.read(),
-                                     "stderr": err.read()}
-        self.close()
-        return state
+    def state(self):
+        return {"recipe": self.recipe, "notes": self.notes}
 
-    def close(self):
-        import signal
 
-        for _, _, proc, out, err in self.jobs:
-            if proc.poll() is None:
-                os.killpg(proc.pid, signal.SIGKILL)
-                proc.wait()
-            out.close()
-            err.close()
-        self.jobs = []
 # the wrappers whose calls 22b's recipe processes record: path F's and
 # the offline MDTC kernel that bin.score launches
 PATH_K_WRAPPERS = PATH_F_WRAPPERS + (
     ("fused_mdtc_forward", "wekws_tpu_torch.ops.serving",
      "wekws_tpu_torch.ops.fused_mdtc", "fused_mdtc_kernel", (TOL, TOL)),)
-# 22b's sitecustomize.py, in a directory first on PYTHONPATH (the repo
-# second), so that every Python process of a recipe run is tapped
-RECIPE_SITE = ("import os\n\nimport chip_smoke\n\n"
-               "chip_smoke.recipe_tap(os.environ['PATH_K_TAP_DIR'])\n")
+# 22b's (and 23a's) sitecustomize.py, in a directory first on PYTHONPATH
+# (the repo second), so that every port CLI a recipe runs (``python -m
+# wekws_tpu_torch.bin.<cli>``) is tapped.  The recipes' other Python
+# processes are host tools (the layout and corpus generators,
+# local/prepare_*.py, the ``python -c`` lists and CMVN on the numpy
+# frontend) and start without the tap's imports of torch and the
+# wrappers: a tapped start-up took some 10 s on an H100 machine's host
+# (23a, NVIDIA H100 80GB HBM3, 700 W)
+RECIPE_SITE = ("import os\nimport sys\n\n"
+               "argv = sys.orig_argv\n"
+               "if '-m' in argv[:-1] and argv[argv.index('-m') + 1].startswith(\n"
+               "        'wekws_tpu_torch.bin.'):\n"
+               "    import chip_smoke\n\n"
+               "    chip_smoke.recipe_tap(os.environ['PATH_K_TAP_DIR'])\n")
 
 
 def kept_leaf(v):
@@ -8990,8 +9128,8 @@ def kept_leaf(v):
 
 
 def recipe_tap(path):
-    """22b's tap, entered by RECIPE_SITE for the whole of a recipe's
-    Python process: ShapeTap (PATH_K_WRAPPERS), PassTap and PlainOnCuda.
+    """22b's and 23a's tap, entered by RECIPE_SITE for the whole of a
+    port CLI's process: ShapeTap (PATH_K_WRAPPERS), PassTap and PlainOnCuda.
     At exit it writes ``path``/<pid>.json: the process's argv, its
     kernels' launches, its plain versions' calls on CUDA tensors, each
     training pass's calls by shape and precision, and each wrapper's
@@ -9347,36 +9485,38 @@ def scale_recipe_copy(tmp):
     return recipe, notes
 
 
-def run_recipes(recipe, jobs, meanwhile):
-    """Each job's (argv, tap) ``bash argv`` in ``recipe``, all at once
-    (one card and eight cores take them side by side), each with its tap
-    first on PYTHONPATH and its output in files beside the tap; then
-    ``meanwhile()`` in this process while they run.  Stops every job
-    still running when it fails.  Returns ([(the completed process, its
-    seconds, the tapped processes' records)] in the jobs' order,
-    ``meanwhile()``'s result)."""
+def run_recipes(recipe, jobs, meanwhile, timeout_s=SCALE_TIMEOUT_S,
+                tag="22b"):
+    """Each job's (argv, tap[, cwd]) ``bash argv`` in its cwd (else
+    ``recipe``), all at once (one card and eight cores take them side by
+    side), each with its tap first on PYTHONPATH and its output in files
+    beside the tap; then ``meanwhile()`` in this process while they run.
+    Stops every job still running when it fails or passes ``timeout_s``.
+    Returns ([(the completed process, its seconds, the tapped processes'
+    records)] in the jobs' order, ``meanwhile()``'s result)."""
     repo = os.path.abspath(os.path.dirname(__file__) or ".")
     started, results = [], []
     try:
-        for argv, tap in jobs:
+        for argv, tap, *cwd in jobs:
             out = open(os.path.join(tap, "stdout.txt"), "w+")
             err = open(os.path.join(tap, "stderr.txt"), "w+")
             env = dict(os.environ, PYTHONPATH=os.pathsep.join([tap, repo]),
                        PATH_K_TAP_DIR=tap)
             started.append((subprocess.Popen(
-                ["bash", *argv], cwd=recipe, env=env, stdout=out,
-                stderr=err, text=True), out, err, time.perf_counter()))
+                ["bash", *argv], cwd=cwd[0] if cwd else recipe, env=env,
+                stdout=out, stderr=err, text=True), out, err,
+                time.perf_counter()))
         side = meanwhile()
         ended = {}
         while len(ended) < len(started):
             for i, (proc, _, _, t0) in enumerate(started):
                 if i not in ended and proc.poll() is not None:
                     ended[i] = time.perf_counter() - t0
-                elif time.perf_counter() - t0 > SCALE_TIMEOUT_S:
-                    raise TimeoutError(f"22b {' '.join(jobs[i][0][:3])}: "
-                                       f"over {SCALE_TIMEOUT_S} s")
+                elif time.perf_counter() - t0 > timeout_s:
+                    raise TimeoutError(f"{tag} {' '.join(jobs[i][0][:3])}: "
+                                       f"over {timeout_s} s")
             time.sleep(0.2)
-        for (argv, tap), (proc, out, err, _), seconds in zip(
+        for (argv, tap, *_), (proc, out, err, _), seconds in zip(
                 jobs, started, (ended[i] for i in range(len(jobs)))):
             out.seek(0)
             err.seek(0)
@@ -9393,19 +9533,19 @@ def run_recipes(recipe, jobs, meanwhile):
     return results, side
 
 
-def tapped_launches(records, what):
-    """{process: {kernel record: launches}} of a recipe run; fails where a
-    plain version ran on a CUDA tensor."""
-    plain = {process_name(r): r["plain_on_cuda"] for r in records
+def tapped_launches(records, what, tag="22b", name_of=process_name):
+    """{process (``name_of``): {kernel record: launches}} of a recipe run;
+    fails where a plain version ran on a CUDA tensor."""
+    plain = {name_of(r): r["plain_on_cuda"] for r in records
              if r["plain_on_cuda"]}
     if plain:
-        raise AssertionError(f"22b {what}: plain versions ran on CUDA "
+        raise AssertionError(f"{tag} {what}: plain versions ran on CUDA "
                              f"tensors: {plain}")
     out = {}
     for r in records:
         counts = {k: v for k, v in r["launches"].items() if v}
         if counts:
-            name = process_name(r)
+            name = name_of(r)
             for k, v in counts.items():
                 out.setdefault(name, {})[k] = out.get(name, {}).get(k, 0) + v
     return out
@@ -9612,7 +9752,7 @@ def phase22b_scale_recipes(dev, card, gen, meanwhile, head):
     return launches, shapes, passes, figures, side
 
 
-def pass_checks(card, passes, gen, dev):
+def pass_checks(card, passes, gen, dev, tag="22c", path="K"):
     """Each training pass at every (B, T, C, dilation, precision) path K
     gave it, on seeded block inputs of that shape (``trace_pass_inputs``
     at its precision; dy zero within KINK of the residual ReLU's kink):
@@ -9655,7 +9795,7 @@ def pass_checks(card, passes, gen, dev):
         kink = (w * v["a2"] + v["c2"] + xx).abs() < KINK
         dy = torch.where(kink, torch.zeros_like(dy), dy)
         calls_of = trace_pass_inputs(x, p, dy, d, precision=prec)
-        print(f"  22c B={b} T={t} C={c} d={d} {prec}: dy zero at "
+        print(f"  {tag} B={b} T={t} C={c} d={d} {prec}: dy zero at "
               f"{int(kink.sum())} elements within {KINK} of the residual "
               f"ReLU's kink", flush=True)
         for name, calls in sorted(names):
@@ -9671,9 +9811,9 @@ def pass_checks(card, passes, gen, dev):
                 return fn(*args)
 
             got, want = kern(), plain()
-            err = (compare_pass(f"22c {record} {what}", got, want,
+            err = (compare_pass(f"{tag} {record} {what}", got, want,
                                 "bfloat16", BF16_SUM_TOL[name]) if bf16
-                   else compare_pass(f"22c {record} {what}", got, want))
+                   else compare_pass(f"{tag} {record} {what}", got, want))
             reading = {"shape": what, "calls": calls, "max_abs_err": err,
                        "max_rel_err": pass_rel_err(got, want)}
             if timed[name] == (b, t, c, d, prec):
@@ -9693,14 +9833,14 @@ def pass_checks(card, passes, gen, dev):
                                bound_ms=bound, bound_by=bound_by)
                 dev_txt = ("not measured" if device_ms is None
                            else f"{device_ms:.4f} ms with its reduction")
-                print(f"  22c {record} {what}: {calls} calls on path K; vs "
+                print(f"  {tag} {record} {what}: {calls} calls on path {path}; vs "
                       f"plain max_abs_err {err:.3e} "
                       f"({reading['max_rel_err']:.2e} of its scale); kernel "
                       f"{ms:.4f} ms per call (device {dev_txt}), plain "
                       f"{plain_ms:.4f} ms, bound {bound:.5f} ms ({bound_by}) "
                       f"[{card}]", flush=True)
             else:
-                print(f"  22c {record} {what}: {calls} calls on path K; vs "
+                print(f"  {tag} {record} {what}: {calls} calls on path {path}; vs "
                       f"plain max_abs_err {err:.3e} "
                       f"({reading['max_rel_err']:.2e} of its scale) [{card}]",
                       flush=True)
@@ -9708,7 +9848,7 @@ def pass_checks(card, passes, gen, dev):
     return out
 
 
-def mdtc_forward_checks(card, entries):
+def mdtc_forward_checks(card, entries, tag="22c", path="K"):
     """``fused_mdtc_forward`` at every shape path K gave it (bin.score),
     on the first call's weights and a seeded stand-in of its features:
     against its plain version (TOL), times, device time and bound.
@@ -9730,7 +9870,7 @@ def mdtc_forward_checks(card, entries):
             return fused_mdtc_forward_plain(*args, **kwargs)
 
         what = f"B={b} T={t} C={c}"
-        err = check_close(f"22c fused_mdtc_forward {what}", kern(), plain(),
+        err = check_close(f"{tag} fused_mdtc_forward {what}", kern(), plain(),
                           quiet=True)
         ms, plain_ms = kernel_vs_plain_ms(kern, plain)
         dev_ms = profiled_device_ms(kern, "fused_mdtc_kernel")
@@ -9738,7 +9878,7 @@ def mdtc_forward_checks(card, entries):
                                         len(dil) // stack,
                                         (k - 1) * max(dil), False)
         dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
-        print(f"  22c fused_mdtc_forward {what}: {calls} calls on path K; "
+        print(f"  {tag} fused_mdtc_forward {what}: {calls} calls on path {path}; "
               f"vs plain max_abs_err {err:.3e} (bound {TOL} abs + {TOL} "
               f"rel); kernel {ms:.4f} ms per call (device {dev_txt}), plain "
               f"{plain_ms:.4f} ms, bound {bound:.5f} ms ({bound_by}) "
@@ -9889,6 +10029,392 @@ def path_k_alone(dev, card, kind, head):
     return last_lines(card, record, kind)
 
 
+# ---------------------------------------------------------------------------
+# phase 23, path L: the public recipes through the port (examples/
+# hi_xiaowen's run_ctc_torch.sh with its base pretraining and
+# examples/speechcommand_v1's run_torch.sh) on miniature corpora written
+# in the datasets' own layouts
+# ---------------------------------------------------------------------------
+
+PATH_L_EPOCHS = 1
+PATH_L_TIMEOUT_S = 600
+PATH_L_SEED = SEED + 23
+# the corpora (wekws_tpu_torch.tools.public_layouts; the real Mobvoi
+# hotword set has 144k train utterances, Speech Commands v1 about 2,400 a
+# word): one full batch of each config an epoch, B=256 (ds_tcn_ctc.yaml)
+# of 256 keyword-corpus utterances and B=200 (ds_tcn_ctc_base.yaml) of
+# 200 ASR-base ones; 8 files a word of 13 words and 2 noise files for
+# B=100 (mdtc.yaml), one scoring batch of each test split
+PATH_L_RUNS = (
+    # (recipe, script, layout, its options, the script's flags, the flags
+    # of path L's part alone, its last stage, experiment, test utterances)
+    ("hi_xiaowen", "run_ctc_torch.sh", "mobvoi",
+     ("--train", "256", "--dev", "64", "--test", "64", "--ctc_data", "data",
+      "--asr_base", "data/asr_base", "--base_train", "200", "--base_dev",
+      "40"),
+     ("--config", "conf_torch/ds_tcn_ctc.yaml"), ("--trainbase", "true"),
+     5, "exp/torch_ds_tcn_ctc", 64),
+    ("speechcommand_v1", "run_torch.sh", "speech_commands",
+     ("--train", "8", "--dev", "2", "--test", "2"), (), (), 3,
+     "exp/torch_mdtc", 26),
+)
+# 23a's rounds, the jobs of a round side by side: (recipe, first stage,
+# last stage).  run_ctc_torch.sh's stages 4 (streaming score) and 5
+# (export) each read stage 3's averaged model alone, so they run side by
+# side; its stage 1 runs again in path L because 1b, the base
+# pretraining, is a part of stage 1 (gated by --trainbase)
+PATH_L_ROUNDS = ((("hi_xiaowen", 1, 3), ("speechcommand_v1", 2, 3)),
+                 (("hi_xiaowen", 4, 4), ("hi_xiaowen", 5, 5)))
+PATH_L_BASE_EXP = "exp/torch_ctc_base"  # run_ctc_torch.sh's trainbase_exp
+PATH_L_KERNELS = ("fused_fbank", "fused_ds_tcn", "fused_mdtc_forward") + \
+    tuple(f"fused_train_{p}" for p in TRAIN_PASSES)
+
+
+class PathLHead(RecipeHead):
+    """Path L's layouts and stages 0-1 (the dict or the lists, CMVN: the
+    CPU alone), each recipe copied into ``work``/path_l with its tap.
+    (run_ctc_torch.sh's base pretraining, 1b, is a part of its stage 1
+    gated by --trainbase, so path L runs that script from stage 1 again
+    with it.)"""
+
+    tag, timeout_s = "23a", PATH_L_TIMEOUT_S
+
+    def __init__(self, work):
+        import shutil
+
+        root = os.path.join(work, "path_l")
+        shutil.rmtree(root, ignore_errors=True)
+        os.makedirs(os.path.join(root, "tools"))
+        repo = os.path.abspath(os.path.dirname(__file__) or ".")
+        shutil.copy(os.path.join(repo, "tools", "parse_options.sh"),
+                    os.path.join(root, "tools"))
+        self.root, self.jobs = root, []
+        skip = shutil.ignore_patterns("data", "exp", "dict", "__pycache__")
+        for recipe, script, layout, opts, flags, *_ in PATH_L_RUNS:
+            cwd = os.path.join(root, "examples", recipe)
+            shutil.copytree(os.path.join(repo, "examples", recipe), cwd,
+                            ignore=skip)
+            line = " ".join([
+                sys.executable, "-m", "wekws_tpu_torch.tools.public_layouts",
+                layout, "data/local", "--seed", str(PATH_L_SEED), *opts,
+                "&&", "bash", script, *flags, "0", "1", "cuda"])
+            self.start(recipe, ["bash", "-c", line], cwd,
+                       path_k_tap_dir(os.path.join(root, f"tap_{recipe}")))
+
+    def state(self):
+        return {"root": self.root}
+
+
+def path_l_process(record):
+    """A tapped process of path L by name, ``bin.train`` by its model
+    directory (run_ctc_torch.sh trains twice)."""
+    name = process_name(record)
+    argv = record["argv"]
+    if name == "bin.train" and "--model_dir" in argv:
+        return f"bin.train {argv[argv.index('--model_dir') + 1]}"
+    return name
+
+
+def epochs_of(exp):
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        epochs = [json.loads(line) for line in f]
+    losses = [e["train_loss"] for e in epochs]
+    if not epochs or not np.isfinite(losses).all():
+        raise AssertionError(f"23a {exp}: epochs {epochs}")
+    return epochs
+
+
+def ctc_recipe_checks(cwd, exp, done, counts, n_test):
+    """run_ctc_torch.sh --trainbase true: the base pretraining's and the
+    fine-tune's epochs, the fine-tune resumed one epoch past the base's
+    last with its lr and best cv loss (its log line and its first
+    checkpoint), bin.train through fused_fbank at least once a step,
+    bin.score_ctc through fused_ds_tcn_kernel once a batch of 256, both
+    DET stats of both scorings, the export and its int8 copy.  Returns
+    figures."""
+    import re
+
+    from wekws_tpu_torch.train.checkpoint import load_checkpoint_info
+
+    base = epochs_of(os.path.join(cwd, PATH_L_BASE_EXP))
+    tune = epochs_of(os.path.join(cwd, exp))
+    # the base's last checkpoint, the one final.pt links
+    info = load_checkpoint_info(os.path.realpath(os.path.join(
+        cwd, PATH_L_BASE_EXP, "final.pt")))
+    start = int(info["epoch"]) + 1
+    resumed = re.findall(r"resumed from (\S+) at epoch (\d+), lr (\S+), "
+                         r"best cv loss (\S+)", done.stderr)
+    want = [(f"{PATH_L_BASE_EXP}/final.pt", str(start),
+             repr(float(info["lr"])), repr(float(info["cv_loss"])))]
+    first = load_checkpoint_info(os.path.join(cwd, exp, f"{start}.pt"))
+    if [e["epoch"] for e in base] != list(range(PATH_L_EPOCHS)) or \
+            [e["epoch"] for e in tune] != list(
+                range(start, start + PATH_L_EPOCHS)) or resumed != want \
+            or first["lr"] != info["lr"]:
+        raise AssertionError(f"23a run_ctc_torch.sh: base epochs {base}, "
+                             f"fine-tune epochs {tune}, resumed {resumed} "
+                             f"(want {want}), the fine-tune's first "
+                             f"checkpoint {first}")
+    for key, epochs in ((f"bin.train {PATH_L_BASE_EXP}", base),
+                        (f"bin.train {exp}", tune)):
+        steps = sum(e["batches"] for e in epochs)
+        fbank = counts.get(key, {}).get("fused_fbank", 0)
+        if steps < 1 or fbank < steps:
+            raise AssertionError(f"23a {key}: {steps} steps, fused_fbank "
+                                 f"launched {fbank} times: {counts}")
+    score = counts.get("bin.score_ctc", {}).get("fused_ds_tcn")
+    if score != math.ceil(n_test / 256):
+        raise AssertionError(f"23a bin.score_ctc launched fused_ds_tcn "
+                             f"{score} times for {n_test} utterances: "
+                             f"{counts}")
+    for sub in ("test_avg_30.pt", "stream_avg_30.pt"):
+        for kw in ("嗨_小_问", "你_好_问_问"):
+            with open(os.path.join(cwd, exp, sub, f"stats.{kw}.txt")) as f:
+                if len(f.readlines()) < 100:
+                    raise AssertionError(f"23a {sub} stats.{kw}.txt")
+        with open(os.path.join(cwd, exp, sub, "score.txt")) as f:
+            if len(f.readlines()) != n_test:
+                raise AssertionError(f"23a {sub}/score.txt")
+    for sub in ("export", "export_int8"):
+        if not os.path.getsize(os.path.join(cwd, exp, sub, "weights.bin")):
+            raise AssertionError(f"23a {exp}/{sub}")
+    return {"base_epochs": base, "fine_tune_epochs": tune,
+            "resumed_at": start, "lr": info["lr"],
+            "best_cv_loss": info["cv_loss"]}
+
+
+def commands_recipe_checks(cwd, exp, done, counts, n_test):
+    """speechcommand_v1's run_torch.sh: bin.train's MDTC (4 x 4 blocks)
+    through F1-F4/B1-B4 in float32, 17 launches a step each and no bf16
+    variant, fused_fbank (MFCC 80 of 80) at least once a step;
+    bin.compute_accuracy's line over every test utterance through
+    fused_mdtc_kernel (the global head) once a batch of 256.  Returns
+    figures."""
+    import re
+
+    epochs = epochs_of(os.path.join(cwd, exp))
+    steps = sum(e["batches"] for e in epochs)
+    train = dict(counts.get(f"bin.train {exp}", {}))
+    fbank = train.pop("fused_fbank", 0)
+    want = {f"fused_train_{p}": 17 * steps for p in TRAIN_PASSES}
+    if steps < 1 or train != want or fbank < steps:
+        raise AssertionError(f"23a bin.train {exp} ({steps} steps) launched "
+                             f"{train} and fused_fbank {fbank}; want {want} "
+                             f"and fused_fbank >= {steps}")
+    acc = counts.get("bin.compute_accuracy", {}).get("fused_mdtc_forward")
+    found = re.findall(r"^Accuracy: ([0-9.]+) \((\d+)/(\d+)\)$", done.stdout,
+                       re.MULTILINE)
+    if acc != math.ceil(n_test / 256) or len(found) != 1 or \
+            int(found[0][2]) != n_test:
+        raise AssertionError(f"23a bin.compute_accuracy: fused_mdtc_forward "
+                             f"{acc} launches, {found} ({n_test} test "
+                             f"utterances)")
+    return {"epochs": epochs, "accuracy": float(found[0][0])}
+
+
+def phase23a_public_recipes(dev, card, head):
+    """23a: ``run_ctc_torch.sh --config conf_torch/ds_tcn_ctc.yaml
+    --trainbase true`` in examples/hi_xiaowen (stages 1-5: the base CTC
+    pretraining, the fine-tune from its final.pt, average, score_ctc and
+    DET, stream_score_ctc and DET, export and int8) and examples/
+    speechcommand_v1's ``run_torch.sh`` (stages 2-3: train, average,
+    compute_accuracy) on the card in PATH_L_ROUNDS, after their stages
+    0-1 beside the kernel build (``head``, ``PathLHead.finish()``'s
+    state), PATH_L_EPOCHS epochs a training stage, every port CLI tapped
+    (``recipe_tap``), each job with its own tap: every stage ended, the checks of
+    ``ctc_recipe_checks`` and ``commands_recipe_checks``, no plain
+    version on a CUDA tensor.  Returns ({sub-path: {kernel record:
+    launches}}, {(kernel, shape): [calls, args, kwargs]},
+    {(pass record, shape): calls}, figures)."""
+    import torch
+
+    for what, early in head["runs"].items():
+        if early["code"] != 0 or "stage 1 done" not in early["stdout"]:
+            raise AssertionError(f"23a {what} stages 0-1 exited "
+                                 f"{early['code']}:\n{early['stdout'][-3000:]}"
+                                 f"\n{early['stderr'][-3000:]}")
+    print(f"  23a the corpora (wekws_tpu_torch.tools.public_layouts, seed "
+          f"{PATH_L_SEED}): " + "; ".join(
+              f"{recipe} {layout} {' '.join(opts)}"
+              for recipe, _, layout, opts, *_ in PATH_L_RUNS), flush=True)
+    runs = {r[0]: r for r in PATH_L_RUNS}
+    ran = {}  # recipe: [(argv, the completed process, seconds, records)]
+    for jobs_of_round in PATH_L_ROUNDS:
+        jobs = []
+        for recipe, first, last in jobs_of_round:
+            _, script, _, _, flags, late, *_ = runs[recipe]
+            tap = path_k_tap_dir(os.path.join(head["root"],
+                                              f"tap_{recipe}_{first}"))
+            jobs.append(([script, *flags, *late, str(first), str(last),
+                          dev.type, str(PATH_L_EPOCHS)], tap,
+                         head["runs"][recipe]["cwd"]))
+        results, _ = run_recipes(None, jobs, lambda: None, PATH_L_TIMEOUT_S,
+                                 "23a")
+        for (recipe, *_), (argv, *_), (done, seconds, records) in zip(
+                jobs_of_round, jobs, results):
+            if done.returncode != 0:
+                raise AssertionError(f"23a {recipe}: {' '.join(argv)} exited "
+                                     f"{done.returncode}:\n"
+                                     f"{done.stdout[-3000:]}\n"
+                                     f"{done.stderr[-3000:]}")
+            ran.setdefault(recipe, []).append((argv, done, seconds, records))
+    launches, shapes, passes, figures = {}, {}, {}, {}
+    gen = torch.Generator().manual_seed(PATH_L_SEED)
+    for recipe, script, _, _, _, _, last, exp, n_test in PATH_L_RUNS:
+        early = head["runs"][recipe]
+        cwd = early["cwd"]
+        records = [r for *_, rs in ran[recipe] for r in rs]
+        done = subprocess.CompletedProcess(
+            script, 0, early["stdout"] + "".join(
+                d.stdout for _, d, _, _ in ran[recipe]),
+            early["stderr"] + "".join(d.stderr for _, d, _, _ in ran[recipe]))
+        what = f"{recipe}/{script}"
+        recipe_run(done, last, what)
+        stages = [line[6:].replace(" done in ", ": ")
+                  for line in done.stdout.splitlines()
+                  if line.startswith("stage ") and " done in " in line]
+        counts = tapped_launches(records, what, "23a", path_l_process)
+        check = (ctc_recipe_checks if recipe == "hi_xiaowen"
+                 else commands_recipe_checks)
+        found = check(cwd, exp, done, counts, n_test)
+        walls = {" ".join(argv[-4:-2]): seconds
+                 for argv, _, seconds, _ in ran[recipe]}
+        figures[what] = dict(found, stages=stages,
+                             shared_card_wall_s=walls, launches=counts)
+        for r in records:
+            for name, shape, calls, prec in r["passes"]:
+                b, t, c, d = (int(v.split("=")[1]) for v in shape.split())
+                key = (name, (b, t, c, d, prec))
+                passes[key] = passes.get(key, 0) + calls
+            for name, shape, calls, saved in r["calls"]:
+                if (name, shape) in shapes:
+                    shapes[name, shape][0] += calls
+                else:
+                    shapes[name, shape] = [calls, *standin_args(saved, gen,
+                                                                dev)]
+        total = launches[f"23a {recipe}"] = {}
+        for c in counts.values():
+            for k, v in c.items():
+                total[k] = total.get(k, 0) + v
+        if recipe == "hi_xiaowen":
+            result = (
+                f"base pretraining losses "
+                f"{[e['train_loss'] for e in found['base_epochs']]}; the "
+                f"fine-tune resumed from {PATH_L_BASE_EXP}/final.pt at epoch "
+                f"{found['resumed_at']} with lr {found['lr']} and best cv "
+                f"loss {found['best_cv_loss']:.4f}, losses "
+                f"{[e['train_loss'] for e in found['fine_tune_epochs']]}")
+        else:
+            result = (f"losses {[e['train_loss'] for e in found['epochs']]}, "
+                      f"accuracy {found['accuracy']} on {n_test} utterances")
+        print(f"  23a {recipe}: " + "; ".join(
+            " ".join(argv) for argv, *_ in ran[recipe])
+            + f" (stages 0-1 beside the kernel build): stages "
+            f"{', '.join(stages)}; wall of each run (stages: s) "
+            f"{', '.join(f'{k}: {v:.1f}' for k, v in walls.items())} "
+            f"(shared: the jobs of a round ran side by side on the card); "
+            f"{result}; launches by process {counts}; no plain version on "
+            f"a CUDA tensor [{card}]", flush=True)
+    return launches, shapes, passes, figures
+
+
+def path_l(dev, card, head):
+    """Phase 23, path L: 23a the public recipes, then 23b each kernel
+    path L launched against its plain version at every shape path L gave
+    it (phases 6, 9 and 17e's bounds), timed.  Returns ({sub-path:
+    {kernel record: launches}}, {kernel record: [readings]}, figures)."""
+    import torch
+
+    t0 = time.perf_counter()
+    launches, shapes, passes, figures = phase23a_public_recipes(
+        dev, card, head)
+    t_recipes = time.perf_counter() - t0
+    gen = torch.Generator().manual_seed(PATH_L_SEED + 1)
+    mdtc = [entry for (name, _), entry in sorted(shapes.items(),
+                                                 key=lambda kv: kv[0])
+            if name == "fused_mdtc_forward"]
+    others = {k: v for k, v in shapes.items() if k[0] != "fused_mdtc_forward"}
+    # each kernel timed at the shape it was launched at most (the
+    # streaming score's chunks give the DS-TCN kernel some 30 shapes)
+    timed = {max((k for k in others if k[0] == name),
+                 key=lambda k: others[k][0])
+             for name in {k[0] for k in others}}
+    readings = phase17e_kernel_checks(card, others, "23b", "L", timed=timed)
+    readings["fused_mdtc_forward"] = mdtc_forward_checks(card, mdtc, "23b",
+                                                         "L")
+    readings.update(pass_checks(card, passes, gen, dev, "23b", "L"))
+    seconds = {"23a": t_recipes, "23b": time.perf_counter() - t0 - t_recipes}
+    print(f"  path L's seconds: {seconds}", flush=True)
+    figures = {"23a": figures, "seconds": seconds}
+    return launches, readings, figures
+
+
+def merge_path_l(record, launches, readings):
+    """Path L's launches (by sub-path) and readings into the kernel
+    records; fails if a path-L kernel never launched."""
+    rows = {r["name"]: r for r in record}
+    totals = {}
+    for sub, counts in launches.items():
+        for name, n in counts.items():
+            if n:
+                totals[name] = totals.get(name, 0) + n
+                rows[name].setdefault("path_l_launches", {})[sub] = n
+    missing = [k for k in PATH_L_KERNELS if not totals.get(k)]
+    if missing:
+        raise AssertionError(f"path L launched no {missing}: {launches}")
+    for name, n in totals.items():
+        rows[name]["launches"] += n
+    for name, rs in readings.items():
+        rows[name]["path_l"] = rs
+        rows[name]["max_abs_err"] = max(
+            [rows[name]["max_abs_err"]] + [r["max_abs_err"] for r in rs])
+
+
+def path_l_child(head, device="cuda"):
+    """``path_l`` in a fresh process (late in the long process the
+    profiler loses records); its progress lines, then one line
+    ``PATH_L {...}``."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    launches, readings, figures = path_l(torch.device(device), card_line(),
+                                         head)
+    print("PATH_L " + json.dumps({"launches": launches, "readings": readings,
+                                  "figures": figures}), flush=True)
+
+
+def phase23(card, record, head):
+    """Phase 23 in a fresh process, merged into ``record``; ``head`` the
+    ``PathLHead`` started before the build."""
+    import torch
+
+    with phase("23 path L: the public recipes (hi_xiaowen CTC with base "
+               "pretraining, speechcommand_v1)"):
+        torch.cuda.empty_cache()
+        found = run_child("path_l_child", [head.finish()], "PATH_L", 900)
+        merge_path_l(record, found["launches"], found["readings"])
+        print(f"  launches on path L: {found['launches']} [{card}]",
+              flush=True)
+        print(json.dumps({"path_l_figures": found["figures"], "card": card},
+                         ensure_ascii=False), flush=True)
+
+
+def path_l_alone(dev, card, kind, head):
+    """``chip_smoke.py --phase 23``: path L in this process, then the last
+    lines (path L's kernels' records)."""
+    record = [{"name": n, "launches": 0, "max_abs_err": 0.0}
+              for n in PATH_L_KERNELS]
+    with phase("23 path L: the public recipes (hi_xiaowen CTC with base "
+               "pretraining, speechcommand_v1)"):
+        launches, readings, figures = path_l(dev, card, head.finish())
+        merge_path_l(record, launches, readings)
+        print(f"  launches on path L: {launches} [{card}]", flush=True)
+        print(json.dumps({"path_l_figures": figures, "card": card},
+                         ensure_ascii=False), flush=True)
+    return last_lines(card, record, kind)
+
+
 SERVING_KERNELS = {"fused_frontend": 6, "fused_mdtc": 15 + 25 + 3}
 
 
@@ -9923,10 +10449,11 @@ def main(argv) -> int:
     import torch
 
     only = argv[1] if len(argv) == 2 and argv[0] == "--phase" else None
-    if argv and only not in ("20", "21", "22"):
+    if argv and only not in ("20", "21", "22", "23"):
         print(f"chip_smoke: unknown arguments {argv}; run it with none, or "
               f"with --phase 20 for path I alone, --phase 21 for path J "
-              f"alone, --phase 22 for path K alone", file=sys.stderr)
+              f"alone, --phase 22 for path K alone, --phase 23 for path L "
+              f"alone", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -9935,25 +10462,30 @@ def main(argv) -> int:
 
     from wekws_tpu_torch.ops import cuda_build
 
-    head = None
+    head = head_l = None
+    work = os.path.join(cuda_build.BUILD_DIR, "chip_smoke")
     if only is None:
-        # the shared corpora and path K's CPU stages on the cores that
-        # the build leaves idle
+        # the shared corpora and paths K's and L's CPU stages on the cores
+        # that the build leaves idle
         for name in CORPORA:
             start_corpus(name)
-    if only in (None, "22"):
-        head = PathKHead(os.path.join(cuda_build.BUILD_DIR, "chip_smoke"))
     try:
-        return smoke(only, head)
+        if only in (None, "22"):
+            head = PathKHead(work)
+        if only in (None, "23"):
+            head_l = PathLHead(work)
+        return smoke(only, head, head_l)
     finally:
         stop_corpora()
-        if head is not None:
-            head.close()
+        for h in (head, head_l):
+            if h is not None:
+                h.close()
 
 
-def smoke(only, head):
-    """``main`` after its checks: the phases (``only``: 20, 21, 22 or
-    None for all), ``head`` path K's ``PathKHead`` (None for 20, 21)."""
+def smoke(only, head, head_l):
+    """``main`` after its checks: the phases (``only``: 20, 21, 22, 23 or
+    None for all), ``head`` path K's ``PathKHead`` (None but for 22 and
+    all), ``head_l`` path L's ``PathLHead`` (None but for 23 and all)."""
     import torch
 
     from wekws_tpu_torch.ops import cuda_build
@@ -10041,6 +10573,8 @@ def smoke(only, head):
         return path_j_alone(dev, card, kind)
     if only == "22":
         return path_k_alone(dev, card, kind, head)
+    if only == "23":
+        return path_l_alone(dev, card, kind, head_l)
 
     gen = torch.Generator().manual_seed(SEED)
     model, _ = seeded_model(FLAGSHIP_MODEL_CONF, gen)
@@ -10317,6 +10851,7 @@ def smoke(only, head):
     phase20(dev, card, work, train_conf, record)
     phase21(dev, card, record)
     phase22(card, work, record, head)
+    phase23(card, record, head_l)
     return last_lines(card, record, kind)
 
 

@@ -4,6 +4,7 @@ and its entry points default to the GPU."""
 import ast
 import glob
 import os
+import re
 import subprocess
 import sys
 
@@ -165,3 +166,23 @@ def test_port_scripts_import_no_jax(script):
     assert names
     bad = sorted(n for n in names if n.split(".")[0] in JAX_ROOTS)
     assert not bad, bad
+
+
+RUN_SCRIPTS = sorted(
+    os.path.relpath(p, REPO) for p in
+    glob.glob(os.path.join(REPO, "examples", "*", "run*_torch.sh")))
+
+
+@pytest.mark.parametrize("script", RUN_SCRIPTS)
+def test_port_run_scripts_call_no_jax(script):
+    """The recipes' port scripts (``run*_torch.sh``) call the port's
+    modules and scripts only: no ``wekws_tpu.`` module (``-m`` or an
+    import in a ``python -c``), no JAX, no JAX-package recipe script
+    (``local/report.py``, ``local/gen_data.py``)."""
+    with open(os.path.join(REPO, script), encoding="utf-8") as f:
+        text = f.read()
+    assert "wekws_tpu_torch" in text
+    assert not re.search(r"wekws_tpu(?!_torch)\b", text), script
+    assert not re.search(r"\b(import|from) (jax|flax|optax)\b", text)
+    for name in re.findall(r"python3?\s+\S*local/(\w+)\.py", text):
+        assert name.endswith("_torch") or name.startswith("prepare_"), name

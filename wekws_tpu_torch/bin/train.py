@@ -243,8 +243,9 @@ def _train(args, device, rank: int, world: int):
             scheduler.lr = float(info["lr"])
         if "cv_loss" in info:
             scheduler.best = float(info["cv_loss"])
-        logging.info("resumed from %s at epoch %d", args.checkpoint,
-                     start_epoch)
+        logging.info("resumed from %s at epoch %d, lr %r, best cv loss %r",
+                     args.checkpoint, start_epoch, scheduler.lr,
+                     scheduler.best)
     elif lead:
         save_checkpoint(os.path.join(args.model_dir, "init.pt"),
                         model.state_dict())

@@ -41,7 +41,10 @@ def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
 
 
 def load_checkpoint_info(path: str) -> Dict:
-    side = os.path.splitext(path)[0] + ".yaml"
+    """The sidecar of ``path``, or of the checkpoint that ``path`` links
+    (``final.pt`` -> ``<epoch>.pt``: its ``<epoch>.yaml``); {} where
+    there is none."""
+    side = os.path.splitext(os.path.realpath(path))[0] + ".yaml"
     if os.path.exists(side):
         with open(side) as f:
             return yaml.safe_load(f) or {}
