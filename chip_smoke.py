@@ -352,7 +352,9 @@ phases; any failure exits non-zero:
     epoch (each cut printed), every port CLI they start tapped (a
     sitecustomize on PYTHONPATH enters ``ShapeTap``, ``PassTap`` and
     ``PlainOnCuda`` for a ``python -m wekws_tpu_torch.bin.*`` process:
-    ``recipe_tap``): stages 0-4 (0-3)
+    ``recipe_tap``; and ``python -m wekws_tpu_torch.tools.
+    bench_serving_slo``, the CTC recipe's stage 4, whose process path M
+    reads): stages 0-4 of both
     ended, ``bin.train`` through ``fused_fbank``, F1/F4/B1/B4 and the
     bf16 variants of F2/F3/B2/B3, ``bin.score`` through
     ``fused_mdtc_kernel``, ``bin.score_ctc`` through
@@ -386,7 +388,26 @@ phases; any failure exits non-zero:
     version on a CUDA tensor; (b) each kernel path L launched against
     its plain version at every shape path L gave it, with times, device
     times and bounds (``path_l_launches``, ``path_l``,
-    ``path_l_figures``).
+    ``path_l_figures``);
+24. path M, the serving SLOs and the decode drift (ROADMAP A.14, A.21),
+    in a fresh process: (a) the scale CTC recipe's stage 4 (run in 22b,
+    its process tapped): its ``slo.json`` read back (JAX's keys in every
+    line, step-bearing chunks at 1, 16 and 64 streams), one
+    ``fused_fsmn_kernel`` launch an engine step and no plain version on
+    a CUDA tensor; then ``wekws_tpu_torch.tools.bench_serving_slo`` in
+    this process on the recipe's model at 64 streams with
+    ``--device_decode --device_frontend --iters 50``: one
+    ``fused_fsmn_kernel`` and one ``fused_fbank`` launch a step; the
+    p50/p95/p99 and real-time factors printed, with no limit; (b) its
+    detection mode on the JAX CTC fixture (keyword 123, 50 utterances in
+    100 ms chunks), fused on the card and by the module route on the CPU
+    in this process: the same misses and the same activation frame for
+    every utterance; (c) ``wekws_tpu_torch.tools.drift_sweep`` on the
+    fixture over the synthetic CTC corpus's first 64 test utterances at
+    thresholds 0.1 and 0.5 on the card: no event-set divergence, the
+    largest score gap within 2e-3 (C.4); (d) each kernel path M launched
+    against its plain version at every shape path M gave it
+    (``path_m_launches``, ``path_m``, ``path_m_figures``).
 
 The last lines are the card, the per-kernel JSON record (17 kernels:
 the 13 and the four bf16 variants) and ``{"ok": true, "device":
@@ -395,7 +416,8 @@ the 13 and the four bf16 variants) and ``{"ok": true, "device":
 (phase 4's checkpoint and phase 7's model config made from their
 seeds), ``--phase 21`` phases 1-2 and path J alone, ``--phase 22``
 phases 1-2, phase 4's checkpoint and path K alone, ``--phase 23``
-phases 1-2 and path L alone.
+phases 1-2 and path L alone, ``--phase 24`` phases 1-2, 22b's CTC recipe
+alone (its stages 0-1 beside the build) and path M.
 
 The run keeps inside its time limit by doing on the CPU's idle cores
 what needs no card while the kernels build (the corpora that phases 15,
@@ -557,7 +579,7 @@ def phase(name):
 # the parts of the later phases, each of which prints its own wall time
 # ("[part] name (s)") where it returns: the readings by which a phase's
 # depth is cut to keep the run inside its time limit
-TIMED_PARTS = r"phase(1[4-9]|2[0-3])[a-g]\w*|path_[g-l]_\w*child" \
+TIMED_PARTS = r"phase(1[4-9]|2[0-4])[a-g]\w*|path_[g-m]_\w*child" \
     r"|path_g_traces|phase19_times"
 
 
@@ -9004,12 +9026,13 @@ SCALE_CTC_CUT = ("--train", "512", "--dev", "128", "--test", "512")
 SCALE_EPOCHS = 1
 SCALE_TIMEOUT_S = 600
 # 22b's two recipes: (script, config, generator cut, experiment, last
-# stage before the plot)
+# stage before the plot).  The CTC recipe's stage 4 is the serving SLOs
+# (bench_serving_slo at its defaults), which path M reads
 SCALE_RUNS = (
     ("run_torch.sh", "conf_torch/mdtc_cut.yaml", SCALE_CUT,
      "exp/torch_mdtc_cut", 4),
     ("run_ctc_torch.sh", "conf/fsmn_ctc_cut.yaml", SCALE_CTC_CUT,
-     "exp/torch_fsmn_ctc_cut", 3),
+     "exp/torch_fsmn_ctc_cut", 4),
 )
 # stages 0-1 (the corpus and CMVN: the CPU alone) run beside the kernel
 # build (``PathKHead``), the rest in path K
@@ -9068,13 +9091,14 @@ class RecipeHead:
 
 
 class PathKHead(RecipeHead):
-    """22b's stages 0 to SCALE_HEAD_STAGES of both scale recipes.  The
-    recipe copy and the taps sit in ``work``/path_k, where path K (a
-    fresh process) finds them."""
+    """22b's stages 0 to SCALE_HEAD_STAGES of the scale recipes ``runs``
+    (both, or the CTC one alone for ``--phase 24``).  The recipe copy and
+    the taps sit in ``work``/path_k, where paths K and M (fresh
+    processes) find them."""
 
     tag = "22b"
 
-    def __init__(self, work):
+    def __init__(self, work, runs=SCALE_RUNS):
         import shutil
 
         root = os.path.join(work, "path_k")
@@ -9082,7 +9106,7 @@ class PathKHead(RecipeHead):
         os.makedirs(root)
         self.recipe, self.notes = scale_recipe_copy(root)
         self.jobs = []
-        for script, conf, cut, _, _ in SCALE_RUNS:
+        for script, conf, cut, _, _ in runs:
             self.start(script, ["bash", script, "0", str(SCALE_HEAD_STAGES),
                                 conf, "cuda", *cut], self.recipe,
                        path_k_tap_dir(os.path.join(root, f"tap_{script}")))
@@ -9098,16 +9122,18 @@ PATH_K_WRAPPERS = PATH_F_WRAPPERS + (
      "wekws_tpu_torch.ops.fused_mdtc", "fused_mdtc_kernel", (TOL, TOL)),)
 # 22b's (and 23a's) sitecustomize.py, in a directory first on PYTHONPATH
 # (the repo second), so that every port CLI a recipe runs (``python -m
-# wekws_tpu_torch.bin.<cli>``) is tapped.  The recipes' other Python
-# processes are host tools (the layout and corpus generators,
-# local/prepare_*.py, the ``python -c`` lists and CMVN on the numpy
-# frontend) and start without the tap's imports of torch and the
+# wekws_tpu_torch.bin.<cli>``, and the scale CTC recipe's stage 4,
+# ``python -m wekws_tpu_torch.tools.bench_serving_slo``) is tapped.  The
+# recipes' other Python processes are host tools (the layout and corpus
+# generators, local/prepare_*.py, the ``python -c`` lists and CMVN on the
+# numpy frontend) and start without the tap's imports of torch and the
 # wrappers: a tapped start-up took some 10 s on an H100 machine's host
 # (23a, NVIDIA H100 80GB HBM3, 700 W)
 RECIPE_SITE = ("import os\nimport sys\n\n"
                "argv = sys.orig_argv\n"
                "if '-m' in argv[:-1] and argv[argv.index('-m') + 1].startswith(\n"
-               "        'wekws_tpu_torch.bin.'):\n"
+               "        ('wekws_tpu_torch.bin.',\n"
+               "         'wekws_tpu_torch.tools.bench_serving_slo')):\n"
                "    import chip_smoke\n\n"
                "    chip_smoke.recipe_tap(os.environ['PATH_K_TAP_DIR'])\n")
 
@@ -9129,20 +9155,21 @@ def kept_leaf(v):
 
 def recipe_tap(path):
     """22b's and 23a's tap, entered by RECIPE_SITE for the whole of a
-    port CLI's process: ShapeTap (PATH_K_WRAPPERS), PassTap and PlainOnCuda.
-    At exit it writes ``path``/<pid>.json: the process's argv, its
-    kernels' launches, its plain versions' calls on CUDA tensors, each
-    training pass's calls by shape and precision, and each wrapper's
-    calls by shape with the first call's arguments saved beside it
-    (``kept_leaf``)."""
+    port CLI's process: ShapeTap (PATH_K_WRAPPERS), PassTap, PlainOnCuda
+    and EngineSteps.  At exit it writes ``path``/<pid>.json: the
+    process's argv, its kernels' launches, its plain versions' calls on
+    CUDA tensors, each training pass's calls by shape and precision, its
+    CTC engines' model steps, and each wrapper's calls by shape with the
+    first call's arguments saved beside it (``kept_leaf``)."""
     import atexit
 
     import torch
 
     from wekws_tpu_torch.ops.fused_mdtc import fused_mdtc_forward
 
-    tap, ptap, plain = (ShapeTap(PATH_K_WRAPPERS).__enter__(),
-                        PassTap().__enter__(), PlainOnCuda().__enter__())
+    tap, ptap, plain, steps = (
+        ShapeTap(PATH_K_WRAPPERS).__enter__(), PassTap().__enter__(),
+        PlainOnCuda().__enter__(), EngineSteps().__enter__())
 
     def dump():
         calls = []
@@ -9158,7 +9185,7 @@ def recipe_tap(path):
         with open(os.path.join(path, f"{os.getpid()}.json"), "w") as f:
             json.dump({"argv": sys.argv, "launches": launches,
                        "plain_on_cuda": plain.counts, "calls": calls,
-                       "passes": passes}, f)
+                       "passes": passes, "engine_steps": steps.counts}, f)
 
     atexit.register(dump)
 
@@ -9204,14 +9231,14 @@ def standin_args(saved, gen, dev):
 
 
 def process_name(record):
-    """``bin.train``, ``bin.score``, ... or ``python -c`` for a tapped
-    process."""
+    """``bin.train``, ``bin.score``, ..., ``tools.bench_serving_slo`` or
+    ``python -c`` for a tapped process."""
     argv0 = record["argv"][0] if record["argv"] else ""
     if argv0 in ("-c", ""):
         return "python -c"
     parts = os.path.normpath(argv0).split(os.sep)
-    if "bin" in parts[-2:-1]:
-        return "bin." + os.path.splitext(parts[-1])[0]
+    if parts[-2:-1] in (["bin"], ["tools"]):
+        return f"{parts[-2]}.{os.path.splitext(parts[-1])[0]}"
     return os.path.basename(argv0)
 
 
@@ -9608,14 +9635,16 @@ def exported_vs_eager(program, model, feats, what):
     return max(errs), (lo, hi)
 
 
-def phase22b_scale_recipes(dev, card, gen, meanwhile, head):
+def phase22b_scale_recipes(dev, card, gen, meanwhile, head,
+                           runs=SCALE_RUNS):
     """22b: examples/synthetic_scale's ``run_torch.sh`` and
-    ``run_ctc_torch.sh``, stages 0-5, on the card: stages 0-1 beside the
+    ``run_ctc_torch.sh`` (``runs``: both, or the CTC one for
+    ``--phase 24``), stages 0-5, on the card: stages 0-1 beside the
     kernel build (``head``, ``PathKHead.finish()``'s state), 2-5 here,
     side by side and beside ``meanwhile()`` (22a) in this process, the
     corpora cut (SCALE_CUT,
-    SCALE_CTC_CUT) and max_epoch SCALE_EPOCHS, every Python process
-    tapped (``recipe_tap``): stages 0-4 (0-3) ended, no plain version on
+    SCALE_CTC_CUT) and max_epoch SCALE_EPOCHS, every port CLI tapped
+    (``recipe_tap``): stages 0-4 ended, no plain version on
     a CUDA tensor, bin.train through fused_fbank, F1/F4/B1/B4 and the
     bf16 variants of F2/F3/B2/B3 (17 a step each, none of the float32
     F2/F3/B2/B3), bin.score through fused_mdtc_kernel and bin.score_ctc
@@ -9642,11 +9671,13 @@ def phase22b_scale_recipes(dev, card, gen, meanwhile, head):
     launches, shapes, passes, figures = {}, {}, {}, {}
     runs = [(script, [script, str(SCALE_HEAD_STAGES + 1), "5", conf,
                       dev.type, *cut], exp, last)
-            for script, conf, cut, exp, last in SCALE_RUNS]
+            for script, conf, cut, exp, last in runs]
     jobs = [(argv, head["runs"][what]["tap"]) for what, argv, _, _ in runs]
     results, side = run_recipes(recipe, jobs, meanwhile)
     for (what, argv, exp, last), (done, seconds, records) in zip(runs,
                                                                   results):
+        # the CTC recipe's stage 4 (the serving SLOs) is path M's
+        records = [r for r in records if process_name(r) != SLO_TOOL]
         early = head["runs"][what]
         if early["code"] != 0 or f"stage {SCALE_HEAD_STAGES} done" not in \
                 early["stdout"]:
@@ -10415,6 +10446,401 @@ def path_l_alone(dev, card, kind, head):
     return last_lines(card, record, kind)
 
 
+# ---------------------------------------------------------------------------
+# phase 24, path M: the serving SLOs and the decode drift (the scale CTC
+# recipe's stage 4, ROADMAP A.14; wekws_tpu_torch/tools/bench_serving_slo.py
+# and drift_sweep.py, A.21)
+# ---------------------------------------------------------------------------
+
+PATH_M_KERNELS = ("fused_fsmn_layers", "fused_fbank")
+# the process of the scale CTC recipe's stage 4: 22b runs it, tapped, and
+# leaves its record and slo.json to path M
+SLO_TOOL = "tools.bench_serving_slo"
+SLO_STREAMS = [1, 16, 64]  # the tool's default --streams
+# JAX's keys of a latency line that has step-bearing chunks
+# (tools/bench_serving_slo.py:104-121; then buffer_p50_ms where a chunk
+# only buffered), of a detection line, and of one that detected
+SLO_LATENCY_KEYS = ["bench", "streams", "chunk_frames", "device_decode",
+                    "device_frontend", "chunks", "step_chunks",
+                    "realtime_factor", "step_p50_ms", "step_p95_ms",
+                    "step_p99_ms"]
+SLO_DETECTION_KEYS = ["bench", "keyword", "utts", "missed", "chunk_ms"]
+SLO_DETECTED_KEYS = ["p50_ms", "p95_ms", "p99_ms", "min_ms", "max_ms",
+                     "resolution_ms"]
+# 24a's run in this process: 64 streams, the device decode and frontend
+PATH_M_SLO_ARGS = ["--mode", "latency", "--streams", "64",
+                   "--device_decode", "--device_frontend", "--iters", "50"]
+PATH_M_UTTS = 50  # 24b: the tool's default --utts
+# 24c: the synthetic CTC corpus's first 64 test utterances at two
+# thresholds, against path F's limits (C.4): no utterance that only one
+# decoder detects, scores within CTC_SCORE_TOL
+PATH_M_DRIFT_ARGS = ["--limit", "64", "--thresholds", "0.1", "0.5"]
+DRIFT_LINE = re.compile(r"thr (\S+): divergent (\d+)/(\d+) \((\S+)%\), "
+                        r"both-detected (\d+), max score gap (\S+)$")
+
+
+class EngineSteps:
+    """Within the ``with``, the model steps of the CTC engines: each
+    batched step of a ``BatchKeywordSpotter`` (``_run``: one model call
+    for all its streams) and each model call of a ``KeyWordSpotter``
+    built within it (``_device_apply``), as counts "batch" and
+    "single"."""
+
+    def __enter__(self):
+        from wekws_tpu_torch.runtime.batch_spotter import BatchKeywordSpotter
+        from wekws_tpu_torch.runtime.keyword_spotter import KeyWordSpotter
+
+        self.counts, self._saved = {"batch": 0, "single": 0}, []
+        for cls, name, key in ((BatchKeywordSpotter, "_run", "batch"),
+                               (KeyWordSpotter, "_device_apply", "single")):
+            fn = getattr(cls, name)
+
+            def counted(*args, _fn=fn, _key=key, **kwargs):
+                self.counts[_key] += 1
+                return _fn(*args, **kwargs)
+
+            self._saved.append((cls, name, cls.__dict__.get(name)))
+            setattr(cls, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, own in self._saved:
+            if own is None:  # inherited: the base class's again
+                delattr(cls, name)
+            else:
+                setattr(cls, name, own)
+        return False
+
+
+def tool_lines(main, argv):
+    """A port tool's ``main(argv)`` in this process: its printed lines."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    return buf.getvalue().splitlines()
+
+
+def slo_lines(lines, what, streams=SLO_STREAMS, detection=True):
+    """``bench_serving_slo``'s JSON lines: a latency line for each stream
+    count of ``streams``, with JAX's keys and step-bearing chunks, then
+    (``detection``) one detection line with JAX's keys, and nothing else.
+    Returns (the latency lines, the detection lines)."""
+    rows = [json.loads(line) for line in lines]
+    latency = [r for r in rows if r.get("bench") == "per_chunk_latency"]
+    found = [r for r in rows if r.get("bench") == "detection_latency"]
+    if ([r["streams"] for r in latency] != list(streams)
+            or len(found) != int(detection)
+            or len(rows) != len(latency) + len(found)):
+        raise AssertionError(f"24 {what}: lines {rows}")
+    for r in latency:
+        keys = list(r)
+        if (keys[:len(SLO_LATENCY_KEYS)] != SLO_LATENCY_KEYS
+                or keys[len(SLO_LATENCY_KEYS):] not in ([], ["buffer_p50_ms"])
+                or not r["step_chunks"] > 0):
+            raise AssertionError(f"24 {what}: not JAX's latency line, or no "
+                                 f"step-bearing chunk: {r}")
+    for r in found:
+        keys = list(r)
+        want = SLO_DETECTION_KEYS + (
+            [] if r["missed"] == r["utts"] else SLO_DETECTED_KEYS)
+        if keys != want:
+            raise AssertionError(f"24 {what}: not JAX's detection line: {r}")
+    return latency, found
+
+
+def phase24a_slo(dev, card, work, gen):
+    """24a: the scale CTC recipe's stage 4 (22b ran it at the tool's
+    defaults, its process tapped): its ``slo.json`` read back
+    (``slo_lines``), one ``fused_fsmn_kernel`` launch an engine step and
+    nothing else launched, no plain version on a CUDA tensor; then the
+    tool in this process on the recipe's model at 64 streams with the
+    device decode and frontend (``PATH_M_SLO_ARGS``): one
+    ``fused_fsmn_kernel`` and one ``fused_fbank`` launch a step.  Returns
+    ({sub-path: {kernel record: launches}}, the stage's wrapper calls
+    {(kernel record, shape): [calls, args, kwargs]}, figures)."""
+    from wekws_tpu_torch.tools import bench_serving_slo
+
+    script, _, _, exp, _ = SCALE_RUNS[1]
+    recipe = os.path.join(work, "path_k", "examples", "synthetic_scale")
+    exp = os.path.join(recipe, exp)
+    records = [r for r in tap_processes(os.path.join(
+        work, "path_k", f"tap_{script}")) if process_name(r) == SLO_TOOL]
+    if len(records) != 1:
+        raise AssertionError(f"24a: {len(records)} tapped processes of the "
+                             f"recipe's stage 4 ({SLO_TOOL}), want 1")
+    rec = records[0]
+    if rec["plain_on_cuda"]:
+        raise AssertionError(f"24a the recipe's stage 4: plain versions ran "
+                             f"on CUDA tensors: {rec['plain_on_cuda']}")
+    with open(os.path.join(exp, "slo.json")) as f:
+        stage = f.read().splitlines()
+    latency, found = slo_lines(stage, "the recipe's stage 4 (slo.json)")
+    steps = rec["engine_steps"]
+    stage_counts = {k: v for k, v in rec["launches"].items() if v}
+    if stage_counts != {"fused_fsmn_layers": sum(steps.values())}:
+        raise AssertionError(f"24a the recipe's stage 4: launches "
+                             f"{stage_counts} for the engines' steps {steps}; "
+                             f"want one fused_fsmn_kernel launch a step and "
+                             f"nothing else")
+    for line in stage:
+        print(f"  24a {os.path.relpath(exp, recipe)}/slo.json: {line} "
+              f"[{card}]", flush=True)
+    print(f"  24a the recipe's stage 4 ({SLO_TOOL} at its defaults, tapped): "
+          f"{stage_counts['fused_fsmn_layers']} fused_fsmn_kernel launches "
+          f"for as many engine steps ({steps['batch']} batched: "
+          f"{sum(r['step_chunks'] for r in latency)} timed step-bearing "
+          f"chunks and the warm-up's; {steps['single']} KeyWordSpotter "
+          f"model calls); no plain version on a CUDA tensor", flush=True)
+    shapes = {}
+    for name, shape, calls, saved in rec["calls"]:
+        shapes[name, shape] = [calls, *standin_args(saved, gen, dev)]
+
+    argv = ["--config", os.path.join(exp, "config.yaml"), "--checkpoint",
+            os.path.join(exp, "avg_5.pt"), "--tokens",
+            os.path.join(recipe, "dict", "dict.txt"), "--keyword", "123",
+            "--threshold", "0.1", *PATH_M_SLO_ARGS, "--device", dev.type]
+    with EngineSteps() as counted:
+        zero_counts()
+        lines = tool_lines(bench_serving_slo.main, argv)
+        here = {k: v for k, v in read_counts().items() if v}
+    (line,), _ = slo_lines(lines, "64 streams, device decode and frontend",
+                           streams=[64], detection=False)
+    n = counted.counts["batch"]
+    if here != {"fused_fsmn_layers": n, "fused_fbank": n}:
+        raise AssertionError(f"24a 64 streams, device decode and frontend: "
+                             f"launches {here} for {n} engine steps; want "
+                             f"one fused_fsmn_kernel and one fused_fbank "
+                             f"launch a step")
+    print(f"  24a {' '.join(PATH_M_SLO_ARGS)} on the recipe's model: {line}; "
+          f"{n} engine steps, one fused_fsmn_kernel and one fused_fbank "
+          f"launch each [{card}]", flush=True)
+    launches = {f"24a the recipe's stage 4 ({SLO_TOOL})": stage_counts,
+                "24a 64 streams, device decode and frontend": here}
+    figures = {"stage_4": [json.loads(x) for x in stage],
+               "stage_4_engine_steps": steps, "device_decode_frontend": line,
+               "device_decode_frontend_steps": n}
+    return launches, shapes, figures
+
+
+def phase24b_detection(dev, card, tmp):
+    """24b: ``bench_serving_slo``'s detection mode on the JAX CTC fixture
+    (keyword 123, PATH_M_UTTS utterances in 100 ms chunks, every
+    utterance's tail line): fused on the card, then by the module route on
+    the CPU in this process: the same misses and the same activation
+    frame for every utterance; one ``fused_fsmn_kernel`` launch a model
+    call on the card.  Returns ({sub-path: launches}, figures)."""
+    from wekws_tpu_torch.tools import bench_serving_slo
+
+    config, _ = fixture_config(CTC_FIXTURE, CTC_RECIPE, tmp,
+                               "fsmn_ctc_fixture_24.yaml")
+    argv = ["--config", config, "--checkpoint",
+            os.path.join(CTC_FIXTURE, "avg_5.ckpt"), "--tokens",
+            os.path.join(CTC_RECIPE, "dict", "dict.txt"), "--keyword",
+            CTC_RECIPE_KEYWORD, "--mode", "detection", "--utts",
+            str(PATH_M_UTTS), "--dump_tail", str(PATH_M_UTTS)]
+    with EngineSteps() as counted:
+        zero_counts()
+        card_lines = tool_lines(bench_serving_slo.main,
+                                argv + ["--device", dev.type])
+        here = {k: v for k, v in read_counts().items() if v}
+    cpu_lines = tool_lines(bench_serving_slo.main, argv + ["--device", "cpu"])
+    (got,), (want,) = (slo_lines(lines[:1], f"24b on the {where}",
+                                 streams=[])[1]
+                       for lines, where in ((card_lines, "card"),
+                                            (cpu_lines, "CPU")))
+    tails = [[json.loads(x)["tail"] for x in lines[1:]]
+             for lines in (card_lines, cpu_lines)]
+    frames = [{t["utt"]: t["act_frame"] for t in ts} for ts in tails]
+    if (got["missed"] != want["missed"] or frames[0] != frames[1]
+            or len(frames[0]) != PATH_M_UTTS - got["missed"]):
+        raise AssertionError(f"24b: the card's detections {got}, {frames[0]} "
+                             f"differ from the CPU's {want}, {frames[1]}")
+    if got["missed"] == PATH_M_UTTS:
+        raise AssertionError("24b: no detection: the check is vacuous")
+    n = counted.counts["single"]
+    if here != {"fused_fsmn_layers": n}:
+        raise AssertionError(f"24b: launches {here} for {n} model calls; "
+                             f"want one fused_fsmn_kernel launch a call")
+    gap = max(abs(a["hit_score"] - b["hit_score"])
+              for a, b in zip(sorted(tails[0], key=lambda t: t["utt"]),
+                              sorted(tails[1], key=lambda t: t["utt"])))
+    print(f"  24b the JAX CTC fixture, {PATH_M_UTTS} utterances in 100 ms "
+          f"chunks, fused on the card: {card_lines[0]} [{card}]", flush=True)
+    for line in card_lines[1:4]:
+        print(f"  24b tail (card): {line}", flush=True)
+    print(f"  24b the module route on the CPU: the same {got['missed']} "
+          f"misses and activation frames for all {len(frames[0])} "
+          f"detections (largest printed hit-score gap {gap:.4f}); {n} model "
+          f"calls, one fused_fsmn_kernel launch each", flush=True)
+    return ({"24b the fixture's detections on the card": here},
+            {"card": got, "cpu": want, "tails": tails[0][:3],
+             "hit_score_gap": gap})
+
+
+def phase24c_drift(dev, card, tmp):
+    """24c: ``drift_sweep`` on the JAX CTC fixture over the synthetic CTC
+    corpus's test list (``PATH_M_DRIFT_ARGS``) on the card: no event-set
+    divergence and the largest score gap within CTC_SCORE_TOL at each
+    threshold (C.4), a threshold with detections by both; one
+    ``fused_fsmn_kernel`` launch an engine step.  Returns ({sub-path:
+    launches}, figures)."""
+    from wekws_tpu_torch.tools import drift_sweep
+
+    config, _ = fixture_config(CTC_FIXTURE, CTC_RECIPE, tmp,
+                               "fsmn_ctc_fixture_24.yaml")
+    argv = ["--config", config, "--checkpoint",
+            os.path.join(CTC_FIXTURE, "avg_5.ckpt"), "--token_file",
+            os.path.join(CTC_RECIPE, "dict", "dict.txt"), "--keywords",
+            CTC_RECIPE_KEYWORD, "--test_data",
+            os.path.join(corpus("ctc"), "test.list"), *PATH_M_DRIFT_ARGS,
+            "--device", dev.type]
+    with EngineSteps() as counted:
+        zero_counts()
+        lines = tool_lines(drift_sweep.main, argv)
+        here = {k: v for k, v in read_counts().items() if v}
+    rows = [DRIFT_LINE.match(line) for line in lines[1:-1]]
+    if (len(rows) != 2 or not all(rows)
+            or not lines[-1].startswith("SUMMARY: ")):
+        raise AssertionError(f"24c: {lines}")
+    for line in lines:
+        print(f"  24c {line} [{card}]", flush=True)
+    if any(int(m[2]) or float(m[6]) > CTC_SCORE_TOL for m in rows) or \
+            not any(int(m[5]) for m in rows):
+        raise AssertionError(f"24c: divergence or a score gap over "
+                             f"{CTC_SCORE_TOL}, or no utterance that both "
+                             f"decoders detect: {lines}")
+    n = counted.counts["batch"]
+    if here != {"fused_fsmn_layers": n}:
+        raise AssertionError(f"24c: launches {here} for {n} engine steps; "
+                             f"want one fused_fsmn_kernel launch a step")
+    print(f"  24c no divergence, score gaps within {CTC_SCORE_TOL} (C.4); "
+          f"{n} engine steps, one fused_fsmn_kernel launch each", flush=True)
+    return ({"24c the drift sweep": here},
+            {"lines": lines, "engine_steps": n})
+
+
+def path_m(dev, card, work):
+    """Phase 24, path M: 24a the serving SLOs (the recipe's stage 4 from
+    22b, then the tool here), 24b the fixture's detections card against
+    CPU, 24c the drift sweep; 24d each kernel path M launched against its
+    plain version at every shape path M gave it, timed at its
+    most-launched shape.  Returns ({sub-path: {kernel record:
+    launches}}, {kernel record: [readings]}, figures)."""
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 24)
+    launches, figures = {}, {}
+    with tempfile.TemporaryDirectory() as tmp, ShapeTap() as tap, \
+            PlainOnCuda() as plain:
+        found, stage_shapes, figures["24a"] = phase24a_slo(dev, card, work,
+                                                           gen)
+        launches.update(found)
+        found, figures["24b"] = phase24b_detection(dev, card, tmp)
+        launches.update(found)
+        found, figures["24c"] = phase24c_drift(dev, card, tmp)
+        launches.update(found)
+    plain.check("path M")
+    t_runs = time.perf_counter() - t0
+    shapes = dict(tap.shapes)
+    for key, entry in stage_shapes.items():
+        if key in shapes:
+            shapes[key][0] += entry[0]
+        else:
+            shapes[key] = entry
+    timed = {max((k for k in shapes if k[0] == name),
+                 key=lambda k: shapes[k][0])
+             for name in {k[0] for k in shapes}}
+    readings = phase17e_kernel_checks(card, shapes, "24d", "M", timed=timed)
+    seconds = {"24a-24c": t_runs, "24d": time.perf_counter() - t0 - t_runs}
+    print(f"  path M's seconds: {seconds}", flush=True)
+    figures["seconds"] = seconds
+    return launches, readings, figures
+
+
+def merge_path_m(record, launches, readings):
+    """Path M's launches (by sub-path) and readings into the kernel
+    records; fails if a path-M kernel never launched."""
+    rows = {r["name"]: r for r in record}
+    totals = {}
+    for sub, counts in launches.items():
+        for name, n in counts.items():
+            if n:
+                totals[name] = totals.get(name, 0) + n
+                rows[name].setdefault("path_m_launches", {})[sub] = n
+    missing = [k for k in PATH_M_KERNELS if not totals.get(k)]
+    if missing:
+        raise AssertionError(f"path M launched no {missing}: {launches}")
+    for name, n in totals.items():
+        rows[name]["launches"] += n
+    for name, rs in readings.items():
+        rows[name]["path_m"] = rs
+        rows[name]["max_abs_err"] = max(
+            [rows[name]["max_abs_err"]] + [r["max_abs_err"] for r in rs])
+
+
+def path_m_child(work, device="cuda"):
+    """``path_m`` in a fresh process (late in the long process the
+    profiler loses records); its progress lines, then one line
+    ``PATH_M {...}``."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    launches, readings, figures = path_m(torch.device(device), card_line(),
+                                         work)
+    print("PATH_M " + json.dumps({"launches": launches, "readings": readings,
+                                  "figures": figures}), flush=True)
+
+
+def phase24(card, work, record):
+    """Phase 24 in a fresh process, after path K (whose CTC recipe ran
+    the stage 4 that path M reads), merged into ``record``."""
+    import torch
+
+    with phase("24 path M: the serving SLOs, the fixture's detections, the "
+               "decode drift"):
+        torch.cuda.empty_cache()
+        found = run_child("path_m_child", [work], "PATH_M", 600)
+        merge_path_m(record, found["launches"], found["readings"])
+        print(f"  launches on path M: {found['launches']} [{card}]",
+              flush=True)
+        print(json.dumps({"path_m_figures": found["figures"], "card": card}),
+              flush=True)
+
+
+def path_m_alone(dev, card, kind, head):
+    """``chip_smoke.py --phase 24``: 22b's CTC recipe alone (stages 0-1
+    beside the build in ``head``, 2-5 here, tapped), path M in this
+    process, then the last lines (path M's kernels' records)."""
+    import torch
+
+    from wekws_tpu_torch.ops import cuda_build
+
+    work = os.path.join(cuda_build.BUILD_DIR, "chip_smoke")
+    with phase("22b the scale CTC recipe alone"):
+        k_launches = phase22b_scale_recipes(
+            dev, card, torch.Generator().manual_seed(SEED + 22),
+            lambda: None, head.finish(), SCALE_RUNS[1:])[0]
+        print(f"  launches on 22b's CTC recipe: {k_launches} [{card}]",
+              flush=True)
+    record = [{"name": n, "launches": 0, "max_abs_err": 0.0}
+              for n in PATH_M_KERNELS]
+    with phase("24 path M: the serving SLOs, the fixture's detections, the "
+               "decode drift"):
+        launches, readings, figures = path_m(dev, card, work)
+        merge_path_m(record, launches, readings)
+        print(f"  launches on path M: {launches} [{card}]", flush=True)
+        print(json.dumps({"path_m_figures": figures, "card": card}),
+              flush=True)
+    return last_lines(card, record, kind)
+
+
 SERVING_KERNELS = {"fused_frontend": 6, "fused_mdtc": 15 + 25 + 3}
 
 
@@ -10449,11 +10875,11 @@ def main(argv) -> int:
     import torch
 
     only = argv[1] if len(argv) == 2 and argv[0] == "--phase" else None
-    if argv and only not in ("20", "21", "22", "23"):
+    if argv and only not in ("20", "21", "22", "23", "24"):
         print(f"chip_smoke: unknown arguments {argv}; run it with none, or "
               f"with --phase 20 for path I alone, --phase 21 for path J "
               f"alone, --phase 22 for path K alone, --phase 23 for path L "
-              f"alone", file=sys.stderr)
+              f"alone, --phase 24 for path M alone", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -10464,14 +10890,16 @@ def main(argv) -> int:
 
     head = head_l = None
     work = os.path.join(cuda_build.BUILD_DIR, "chip_smoke")
-    if only is None:
+    if only in (None, "24"):
         # the shared corpora and paths K's and L's CPU stages on the cores
         # that the build leaves idle
-        for name in CORPORA:
+        for name in CORPORA if only is None else ["ctc"]:
             start_corpus(name)
     try:
         if only in (None, "22"):
             head = PathKHead(work)
+        if only == "24":  # path M reads the scale CTC recipe's stage 4
+            head = PathKHead(work, SCALE_RUNS[1:])
         if only in (None, "23"):
             head_l = PathLHead(work)
         return smoke(only, head, head_l)
@@ -10483,9 +10911,10 @@ def main(argv) -> int:
 
 
 def smoke(only, head, head_l):
-    """``main`` after its checks: the phases (``only``: 20, 21, 22, 23 or
-    None for all), ``head`` path K's ``PathKHead`` (None but for 22 and
-    all), ``head_l`` path L's ``PathLHead`` (None but for 23 and all)."""
+    """``main`` after its checks: the phases (``only``: 20, 21, 22, 23, 24
+    or None for all), ``head`` path K's ``PathKHead`` (None but for 22,
+    24 (the CTC recipe alone) and all), ``head_l`` path L's ``PathLHead``
+    (None but for 23 and all)."""
     import torch
 
     from wekws_tpu_torch.ops import cuda_build
@@ -10575,6 +11004,8 @@ def smoke(only, head, head_l):
         return path_k_alone(dev, card, kind, head)
     if only == "23":
         return path_l_alone(dev, card, kind, head_l)
+    if only == "24":
+        return path_m_alone(dev, card, kind, head)
 
     gen = torch.Generator().manual_seed(SEED)
     model, _ = seeded_model(FLAGSHIP_MODEL_CONF, gen)
@@ -10852,6 +11283,7 @@ def smoke(only, head, head_l):
     phase21(dev, card, record)
     phase22(card, work, record, head)
     phase23(card, record, head_l)
+    phase24(card, work, record)
     return last_lines(card, record, kind)
 
 

@@ -4,10 +4,10 @@
 # hi_xiaowen FSMN-CTC dimensions on the synthetic_ctc generator at scale
 # (20k train utterances, ~11 test filler hours), trained with the
 # device-resident epochs -> average, score_ctc through the fused FSMN
-# kernel, DET.  The DET plot is stage 5, apart (it needs matplotlib, the
-# 'plot' extra).  run_ctc.sh's stage 4 (tools/bench_serving_slo.py) is
-# the serving benchmark (ROADMAP A.14), not ported here: it waits for
-# the benchmark of the port.
+# kernel, DET -> the serving SLOs of the trained model (stage 4:
+# wekws_tpu_torch/tools/bench_serving_slo.py, per-chunk latency at 1, 16
+# and 64 streams and keyword-detection delay, into $dir/slo.json).  The
+# DET plot is stage 5, apart (it needs matplotlib, the 'plot' extra).
 # Usage: ./run_ctc_torch.sh [stage] [stop_stage] [config] [device] [generator options]
 #   device: cuda (default) or cpu; options after the fourth argument go
 #   to ../synthetic_ctc/local/gen_data_torch.py after this recipe's own
@@ -17,7 +17,7 @@ set -eo pipefail
 . ./path.sh
 
 stage=${1:-0}
-stop_stage=${2:-3}
+stop_stage=${2:-4}
 config=${3:-conf/fsmn_ctc.yaml}
 device=${4:-cuda}
 shift $(( $# < 4 ? $# : 4 ))
@@ -87,6 +87,18 @@ if [ ${stage} -le 3 ] && [ ${stop_stage} -ge 3 ]; then
     --stats_dir $dir \
     --device $device
   stage_done 3
+fi
+
+if [ ${stage} -le 4 ] && [ ${stop_stage} -ge 4 ]; then
+  # serving SLOs on the trained model
+  python -m wekws_tpu_torch.tools.bench_serving_slo \
+    --config $dir/config.yaml \
+    --checkpoint $score_checkpoint \
+    --tokens dict/dict.txt \
+    --keyword $keyword \
+    --threshold 0.1 \
+    --device $device | tee $dir/slo.json
+  stage_done 4
 fi
 
 if [ ${stage} -le 5 ] && [ ${stop_stage} -ge 5 ]; then

@@ -3,15 +3,18 @@ and its entry points default to the GPU."""
 
 import ast
 import glob
+import json
 import os
 import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 import yaml
 
+from wekws_tpu_torch.data.audio import write_wav
 from wekws_tpu_torch.models import init_model
 from wekws_tpu_torch.ops.serving import build_fused_forward, build_fused_stream
 from wekws_tpu_torch.runtime import (
@@ -45,6 +48,8 @@ assert {"wekws_tpu_torch.parallel.mesh", "wekws_tpu_torch.parallel.launch"} \
     <= set(names)
 assert {"wekws_tpu_torch.export.cached_step",
         "wekws_tpu_torch.bin.plot_det_curve"} <= set(names)
+assert {"wekws_tpu_torch.tools." + m for m in (
+    "bench_serving_slo", "drift_sweep", "gate_knobs")} <= set(names)
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                     "wekws_tpu"))
@@ -93,8 +98,9 @@ def test_port_imports_no_jax():
 @pytest.mark.parametrize("entry", [
     "forward", "stream", "load", "engine", "spotter", "kws_engine",
     "featurizer", "artifact_load", "graph_runtime", "export_model",
-    "static_quantize", "export_torch", "import_torch"])
-def test_entry_points_default_to_cuda(tmp_path, entry):
+    "static_quantize", "export_torch", "import_torch", "bench_serving_slo",
+    "drift_sweep", "gate_knobs"])
+def test_entry_points_default_to_cuda(tmp_path, monkeypatch, entry):
     """Called without ``device=`` they run on the GPU, or raise where
     there is none; they never fall back to the CPU."""
     from wekws_tpu_torch.bin import (
@@ -105,6 +111,8 @@ def test_entry_points_default_to_cuda(tmp_path, entry):
     )
     from wekws_tpu_torch.export import TorchGraphRuntime
     from wekws_tpu_torch.export import export_model as export_artifact
+    from wekws_tpu_torch.tools import bench_serving_slo, drift_sweep
+    from wekws_tpu_torch.tools import gate_knobs
 
     model = init_model(CONF["model"])
     ckpt = tmp_path / "m.pt"
@@ -116,6 +124,26 @@ def test_entry_points_default_to_cuda(tmp_path, entry):
     art = str(tmp_path / "artifact")
     export_artifact(model, CONF, art)
     out = str(tmp_path / "out")
+    # the tools' engines and training runs, stubbed: each records the
+    # device that the tool resolved by default
+    seen = []
+    monkeypatch.setattr(bench_serving_slo, "bench_detection",
+                        lambda args: seen.append(args.device))
+    monkeypatch.setattr(drift_sweep, "run_engine",
+                        lambda args, wavs, *_: seen.append(args.device)
+                        or {i: [] for i in range(len(wavs))})
+    monkeypatch.setattr(gate_knobs, "run_variant",
+                        lambda name, out_root, device: seen.append(device)
+                        or [1.0])
+    wav = tmp_path / "a.wav"
+    write_wav(str(wav), np.zeros(1600, np.float32), 16000)
+    test_list = tmp_path / "test.list"
+    test_list.write_text(json.dumps({"key": "a", "wav": str(wav)}) + "\n")
+
+    def tool(main, argv):
+        main(argv)
+        return seen.pop().type == "cuda" or None
+
     calls = {
         "forward": lambda: build_fused_forward(model),
         "stream": lambda: build_fused_stream(model),
@@ -142,6 +170,14 @@ def test_entry_points_default_to_cuda(tmp_path, entry):
         "import_torch": lambda: import_torch.main([
             "--torch_checkpoint", str(ckpt), "--config", str(config),
             "--output_checkpoint", out]),
+        "bench_serving_slo": lambda: tool(bench_serving_slo.main, [
+            "--config", str(config), "--checkpoint", str(ckpt), "--tokens",
+            str(tokens), "--keyword", "h", "--mode", "detection"]),
+        "drift_sweep": lambda: tool(drift_sweep.main, [
+            "--config", str(config), "--checkpoint", str(ckpt),
+            "--token_file", str(tokens), "--keywords", "h", "--test_data",
+            str(test_list)]),
+        "gate_knobs": lambda: tool(gate_knobs.main, ["baseline"]),
     }
     if torch.cuda.is_available():
         assert calls[entry]() is not None

@@ -3,12 +3,16 @@ writes ``local/gen_data.py``'s corpus byte for byte (at a cut count),
 and ``conf_torch/mdtc.yaml`` is ``conf/mdtc.yaml`` with the port's two
 knobs (the fused frontend and the fused training passes) and nothing
 else changed; its model (bf16 with ``bn_dtype``) is served float32 by
-both routes."""
+both routes.  ``run_ctc_torch.sh``'s stage 4 is ``run_ctc.sh``'s (the
+serving SLOs through the port's tool, plus ``--device``), runs by
+default and writes JAX's lines into ``slo.json``."""
 
 import copy
 import filecmp
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 
@@ -118,3 +122,69 @@ def test_bn_dtype_model_is_served_float32(tmp_path, caplog):
     assert hi - lo > 1e-2, (lo, hi)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4,
                                rtol=1e-4)
+
+
+def stage_4_argv(script):
+    """The arguments of the tool call in ``script``'s stage 4, up to its
+    pipe: (tool, [arguments]), line continuations joined."""
+    with open(os.path.join(RECIPE, script)) as f:
+        text = f.read().replace("\\\n", " ")
+    block = text.split("[ ${stage} -le 4 ] && [ ${stop_stage} -ge 4 ]")[1]
+    call = next(line for line in block.splitlines()
+                if line.strip().startswith("python"))
+    words = call.split("|")[0].split()
+    tool = words[2] if words[1] == "-m" else words[1]
+    return tool, words[3:] if words[1] == "-m" else words[2:], call
+
+
+def test_stage_4_is_run_ctc_stage_4():
+    """The same tool arguments as run_ctc.sh's stage 4 plus ``--device
+    $device``, teed into ``$dir/slo.json``; both scripts stop after
+    stage 4 by default."""
+    want_tool, want, want_call = stage_4_argv("run_ctc.sh")
+    got_tool, got, got_call = stage_4_argv("run_ctc_torch.sh")
+    assert want_tool == "../../tools/bench_serving_slo.py"
+    assert got_tool == "wekws_tpu_torch.tools.bench_serving_slo"
+    assert got == want + ["--device", "$device"]
+    for call in (want_call, got_call):
+        assert call.split("|")[1].split() == ["tee", "$dir/slo.json"]
+    for script in ("run_ctc.sh", "run_ctc_torch.sh"):
+        with open(os.path.join(RECIPE, script)) as f:
+            assert re.search(r"^stop_stage=\$\{2:-4\}$", f.read(), re.M)
+
+
+def test_stage_4_writes_slo_json(tmp_path):
+    """Stage 4 of a copy of the recipe, the default stop stage, on the
+    CPU at the tool's defaults, on a seeded checkpoint of the recipe's
+    model (the hi_xiaowen FSMN-CTC widths) written where stage 3 leaves
+    its average: JAX's lines, step-bearing chunks at 1, 16 and 64
+    streams (frame skip 3: a step every third 8-frame chunk)."""
+    recipe = tmp_path / "synthetic_scale"
+    shutil.copytree(RECIPE, recipe, ignore=shutil.ignore_patterns(
+        "data", "data_ctc", "exp", "__pycache__"))
+    configs = load("conf/fsmn_ctc.yaml")
+    configs["model"].update(input_dim=200, output_dim=6)
+    exp = recipe / "exp" / "torch_fsmn_ctc"
+    os.makedirs(exp)
+    (exp / "config.yaml").write_text(yaml.safe_dump(configs))
+    model = init_model(configs["model"], torch.Generator().manual_seed(0))
+    torch.save(model.state_dict(), exp / "avg_5.pt")
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
+               MKL_NUM_THREADS="1")
+    proc = subprocess.run(["bash", "run_ctc_torch.sh", "4", "",
+                           "conf/fsmn_ctc.yaml", "cpu"], cwd=recipe, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert re.search(r"^stage 4 done in \d+ s$", proc.stdout, re.M)
+    with open(exp / "slo.json") as f:
+        lines = [json.loads(line) for line in f]
+    latency = ["bench", "streams", "chunk_frames", "device_decode",
+               "device_frontend", "chunks", "step_chunks", "realtime_factor",
+               "step_p50_ms", "step_p95_ms", "step_p99_ms", "buffer_p50_ms"]
+    assert [list(x) for x in lines[:3]] == [latency] * 3
+    assert [(x["streams"], x["chunks"], x["step_chunks"])
+            for x in lines[:3]] == [(s, 200, 67) for s in (1, 16, 64)]
+    assert list(lines[3])[:5] == ["bench", "keyword", "utts", "missed",
+                                  "chunk_ms"]
+    assert (lines[3]["bench"], lines[3]["utts"]) == ("detection_latency", 50)
+    assert len(lines) == 4
